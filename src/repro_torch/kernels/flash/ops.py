@@ -1,0 +1,70 @@
+"""Public wrappers of the paged chunked-prefill kernel (the port of
+``repro/kernels/flash/ops.py``'s fused paged forms): fold the head axes
+and view the flat pools as pages; no copy is made."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash.prefill import (
+    paged_prefill_fwd,
+    paged_prefill_fwd_plain,
+)
+
+
+def _run(q, kn, vn, ksn, vsn, k_pool, v_pool, ks_pool, vs_pool, block_tables,
+         lengths, n_valid, *, page_size, scale, variant, window, plain):
+    B, H, C, D = q.shape
+    pool_tokens, Hkv, _ = k_pool.shape
+    Dv = v_pool.shape[-1]
+    if pool_tokens % page_size:
+        raise ValueError(f"pool of {pool_tokens} rows is not a whole number "
+                         f"of {page_size}-token pages")
+    nblk = pool_tokens // page_size
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+    def pages(t, *tail):
+        return None if t is None else t.reshape((nblk, page_size, Hkv) + tail)
+
+    def fold(t):  # (B, Hkv, C, ...) -> (B*Hkv, C, ...)
+        return None if t is None else t.reshape((B * Hkv,) + t.shape[2:])
+
+    fn = paged_prefill_fwd_plain if plain else paged_prefill_fwd
+    o3 = fn(block_tables.to(torch.int32), lengths.to(torch.int32),
+            n_valid.to(torch.int32), q.reshape(B * H, C, D),
+            pages(k_pool, D), pages(v_pool, Dv), fold(kn), fold(vn),
+            pages(ks_pool), pages(vs_pool), fold(ksn), fold(vsn),
+            scale=scale, variant=variant, window=window, page_size=page_size,
+            num_q_heads=H, num_kv_heads=Hkv)
+    return o3.reshape(B, H, C, Dv)
+
+
+def fused_paged_prefill_attention(q, k_chunk, v_chunk, k_pool, v_pool,
+                                  block_tables, lengths, n_valid, *,
+                                  page_size, scale=None, variant="exact",
+                                  window=None, plain=False):
+    """q (B, H, C, D) and the chunk's KV (B, Hkv, C, D) against value pools
+    (pool_tokens, Hkv, D). ``plain`` runs the plain version on any
+    device."""
+    return _run(q, k_chunk, v_chunk, None, None, k_pool, v_pool, None, None,
+                block_tables, lengths, n_valid, page_size=page_size,
+                scale=scale, variant=variant, window=window, plain=plain)
+
+
+def quant_fused_paged_prefill_attention(q, kn_codes, vn_codes, kn_scale,
+                                        vn_scale, k_code_pool, v_code_pool,
+                                        k_scale_pool, v_scale_pool,
+                                        block_tables, lengths, n_valid, *,
+                                        page_size, scale=None,
+                                        variant="exact", window=None,
+                                        plain=False):
+    """As ``fused_paged_prefill_attention`` with the chunk already
+    quantized (codes (B, Hkv, C, D), scales (B, Hkv, C)) and int8/fp8 code
+    pools with float32 scale pools (pool_tokens, Hkv)."""
+    f32 = torch.float32
+    return _run(q, kn_codes, vn_codes, kn_scale.to(f32), vn_scale.to(f32),
+                k_code_pool, v_code_pool, k_scale_pool.to(f32),
+                v_scale_pool.to(f32), block_tables, lengths, n_valid,
+                page_size=page_size, scale=scale, variant=variant,
+                window=window, plain=plain)

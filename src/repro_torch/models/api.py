@@ -1,0 +1,108 @@
+"""Model assembly for paged serving: init, paged state, chunked prefill and
+single-token decode (the paged half of ``repro/models/api.py``).
+
+Parameters are a dict of tensors with ``repro``'s layouts
+(``wq (d, H, hd)``, ``wo (H, hd, d)``, ...), one entry of ``"layers"`` per
+layer; the layer loop is a Python loop. The paged state is one dict of
+pools per layer and is updated in place: ``prefill_paged`` and
+``decode_step_paged`` return it for symmetry with ``repro``.
+
+Entry points take ``device="cuda"`` by default and raise without a card
+unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged import scatter_plan, token_rows
+from repro_torch.layers.attention_layer import attn_init_paged_cache
+from repro_torch.layers.common import rmsnorm, rmsnorm_init
+from repro_torch.layers.embedding import embed_apply, embed_init, logits_apply
+from repro_torch.models.blocks import (
+    block_init,
+    block_paged_decode_step,
+    block_paged_prefill,
+)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the kernels' plain "
+            "PyTorch versions")
+    return device
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def init_model(cfg, generator: torch.Generator | None = None, *,
+               device="cuda"):
+    """Random parameters drawn from ``generator`` (a fresh generator seeded
+    with 0 on ``device`` when None), in ``cfg.param_dtype``."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    pd = _dtype(cfg.param_dtype)
+    return {
+        "embed": embed_init(cfg, pd, generator, device),
+        "final_norm": rmsnorm_init(cfg.d_model, pd, device),
+        "layers": [block_init(cfg, pd, generator, device)
+                   for _ in range(cfg.num_layers)],
+    }
+
+
+def init_paged_state(cfg, slots, pool_blocks, page_size, *, device="cuda"):
+    """Paged KV state: per layer, flat pools of ``pool_blocks * page_size``
+    rows shared by all ``slots`` sequences through their block tables."""
+    del slots  # attention-only: no per-slot state
+    device = resolve_device(device)
+    dt = _dtype(cfg.dtype)
+    return {"caches": [attn_init_paged_cache(cfg, pool_blocks * page_size,
+                                             dt, device)
+                       for _ in range(cfg.num_layers)]}
+
+
+def _pool_rows(state) -> int:
+    return state["caches"][0]["k"].shape[0]
+
+
+def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
+                  *, page_size):
+    """Chunked prefill against the paged pools.
+
+    tokens (B, C); lengths (B,) tokens already resident; n_valid (B,) valid
+    chunk tokens (0 = idle slot, a no-op); block_tables (B, max_blocks).
+    Returns (logits (B, V) of each row's last valid token, state).
+    """
+    B, C = tokens.shape
+    x = embed_apply(params["embed"], tokens).to(_dtype(cfg.dtype))
+    idx = torch.arange(C, device=tokens.device)[None, :]
+    chunk_rows = token_rows(block_tables, lengths[:, None] + idx, page_size)
+    plan = scatter_plan(chunk_rows.reshape(-1), _pool_rows(state),
+                        (idx < n_valid[:, None]).reshape(-1))
+    for p, cache in zip(params["layers"], state["caches"]):
+        _, x = block_paged_prefill(p, cache, x, cfg, lengths, n_valid,
+                                   chunk_rows, plan, block_tables, page_size)
+    x = rmsnorm(params["final_norm"], x)
+    last = torch.clamp(n_valid.to(torch.int64) - 1, 0, C - 1)
+    x_last = x[torch.arange(B, device=x.device), last]
+    return logits_apply(params["embed"], x_last), state
+
+
+def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
+                      page_size):
+    """One decode tick: tokens1 (B,) at positions ``lengths`` ->
+    (logits (B, V), state)."""
+    x = embed_apply(params["embed"], tokens1).to(_dtype(cfg.dtype))
+    write_row = token_rows(block_tables, lengths, page_size)
+    plan = scatter_plan(write_row, _pool_rows(state))
+    for p, cache in zip(params["layers"], state["caches"]):
+        _, x = block_paged_decode_step(p, cache, x, cfg, lengths, write_row,
+                                       plan, block_tables, page_size)
+    x = rmsnorm(params["final_norm"], x)
+    return logits_apply(params["embed"], x), state

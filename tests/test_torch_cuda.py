@@ -1,0 +1,112 @@
+"""The CUDA kernels of ``repro_torch`` against their plain versions, on the
+card (``cuda`` marker; every test skips without one). This file imports no
+JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Dyadic inputs make every score exact (``kernels/checks.py``), so both
+variants are held at 1e-5 of the output's magnitude, or at one bf16 ulp
+for the exact variant's bfloat16 output (``kernel_tol``); unallocated
+pool pages hold NaN, so a kernel that reads one fails.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.checks import (  # noqa: E402
+    kernel_tol,
+    paged_case,
+    rel_err,
+    run_decode,
+    run_prefill,
+)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+SHAPES = {16: dict(H=4, Hkv=2), 64: dict(H=14, Hkv=2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_paged_decode_kernel_matches_plain(cuda, D, kv, variant, q_dtype):
+    rng = np.random.default_rng(D)
+    case = paged_case(rng, B=4, D=D, page_size=16, max_blocks=16,
+                      lengths=[37, 0, 200, 16], kv=kv, q_dtype=q_dtype,
+                      device=cuda, **SHAPES[D])
+    before = build.COUNTS["paged_decode"]
+    got = run_decode(case, variant)
+    ref = run_decode(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert build.COUNTS["paged_decode"] == before + 1
+    assert got.dtype == q_dtype
+    assert rel_err(got, ref) <= kernel_tol(variant, q_dtype)
+    assert float(got[1].abs().max()) == 0.0            # the idle row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_paged_prefill_kernel_matches_plain(cuda, D, kv, variant, q_dtype):
+    rng = np.random.default_rng(D + 1)
+    case = paged_case(rng, B=4, D=D, page_size=16, max_blocks=24,
+                      lengths=[40, 0, 0, 129], n_valid=[70, 0, 33, 64],
+                      chunk=70, kv=kv, q_dtype=q_dtype, device=cuda,
+                      **SHAPES[D])
+    before = build.COUNTS["paged_prefill"]
+    got = run_prefill(case, variant)
+    ref = run_prefill(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert build.COUNTS["paged_prefill"] == before + 1
+    assert got.dtype == q_dtype
+    assert rel_err(got, ref) <= kernel_tol(variant, q_dtype)
+    assert float(got[1].abs().max()) == 0.0            # the idle row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_paged_kernels_stop_at_table_width(cuda, variant):
+    """Lengths past the table's span: both walks stop at its width."""
+    rng = np.random.default_rng(8)
+    kw = dict(B=2, D=16, page_size=16, max_blocks=4, kv="int8",
+              device=cuda, **SHAPES[16])
+    case = paged_case(rng, lengths=[64, 5], **kw)
+    case["lengths"][0] = 64 + 40
+    assert rel_err(run_decode(case, variant),
+                   run_decode(case, variant, plain=True)) <= 1e-5
+    case = paged_case(rng, lengths=[48, 5], n_valid=[16, 3], chunk=16, **kw)
+    case["lengths"][0] = 64 + 7
+    assert rel_err(run_prefill(case, variant),
+                   run_prefill(case, variant, plain=True)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_paged_kernels_windowed_match_plain(cuda, variant):
+    """A local window: decode masks cols below length - window and skips
+    whole pages under it; prefill masks per row and skips per block."""
+    rng = np.random.default_rng(7)
+    kw = dict(B=4, D=16, page_size=16, window=21, kv="int8", device=cuda,
+              **SHAPES[16])
+    case = paged_case(rng, max_blocks=16, lengths=[37, 0, 200, 16], **kw)
+    assert rel_err(run_decode(case, variant),
+                   run_decode(case, variant, plain=True)) <= 1e-5
+    case = paged_case(rng, max_blocks=24, lengths=[40, 0, 0, 129],
+                      n_valid=[70, 0, 33, 64], chunk=70, **kw)
+    assert rel_err(run_prefill(case, variant),
+                   run_prefill(case, variant, plain=True)) <= 1e-5
+
