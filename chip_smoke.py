@@ -5,31 +5,40 @@
 
 from the repository root, on a machine with an NVIDIA Hopper card, PyTorch
 built for CUDA and the CUDA toolkit. It imports nothing of JAX or of the
-JAX package. Phases (a failing check raises, and the script exits
-non-zero):
+JAX package. It drives both KV layouts: the paged pool and the per-slot
+contiguous caches with rolling windows. Phases (a failing check raises,
+and the script exits non-zero):
 
 1. print the card's name and power limit; build the kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
 2. hold each CUDA kernel against its plain PyTorch version on the card:
-   {exact, expmul} x {bf16 pool, int8 codes} x {float32, bfloat16 q} x
-   head dims {16, 64}, on shuffled, fragmented block tables with NaN in
-   every unreferenced page, ragged lengths and an idle row, with dyadic
-   inputs (exact scores) and random N(0,1) inputs. Both walk the same
+   {exact, expmul} x {bf16 values, int8 codes} x {float32, bfloat16 q} x
+   head dims {16, 64}, with dyadic inputs (exact scores) and random
+   N(0,1) inputs. Paged: shuffled, fragmented block tables with NaN in
+   every unreferenced page, ragged lengths and an idle row. Contiguous:
+   ragged lengths, an idle row, a length of exactly S and large finite
+   stale rows past each length; prefill on fresh caches and on rolling
+   buffers (wrapped, shorter than the span, a chunk longer than the span,
+   a window narrower than the span, n_valid = 0). Both walk the same
    tiles, so each is held at ``checks.kernel_tol``: 1e-5 of the output's
    magnitude, or one bf16 ulp for the exact variant's bfloat16 output;
-3. one prefill tick, a second prefill tick over that history and one
-   decode tick of qwen2-0.5b at full width in float32 (TF32 off), through
-   the kernels and through the plain versions: logits within 1e-3 of
-   their magnitude for exact, the gap printed for ExpMul;
-4. serving at full width: ``ServeEngine`` with a paged int8 pool, ExpMul,
-   8 slots, 16 requests of 128-1024 prompt tokens and 32 new tokens each,
-   temperature 0. The kernel launch counts are set to 0 just before the
-   run and read just after: both kernels must have launched and the plain
-   versions must not have run;
-5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8 sequences
-   of 1024 tokens, 256-token chunks, bf16 q): the median of 25 runs timed
-   with CUDA events after warm-up, L2 flushed before each, beside the
-   plain version's time and the least time the card could take;
+3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
+   through the plain versions: on each layout one prefill tick, a second
+   prefill tick over that history and one decode tick; then a windowed
+   pair of prefill ticks (window 256, two 256-token chunks, so the
+   contiguous rolling buffer wraps). Logits within 1e-3 of their
+   magnitude for exact, the gap printed for ExpMul;
+4. serving at full width: ``ServeEngine`` with 8 slots, 16 requests of
+   128-1024 prompt tokens and 32 new tokens each, ExpMul, temperature 0,
+   three times: a paged int8 pool, then contiguous caches at kv_dtype
+   fp32 (the CLI's default) and int8. The kernel launch counts are set to
+   0 just before each run and read just after: the run's two kernels must
+   have launched, and no other kernel or plain version;
+5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
+   sequences of 1024 tokens, 256-token chunks, bf16 q): the median of 25
+   runs timed with CUDA events after warm-up, L2 flushed before each,
+   beside the plain version's time and the least time the card could
+   take;
 6. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -54,7 +63,12 @@ KERNELS = {
                      "src/repro/kernels/decode/decode.py:285"),
     "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                       "src/repro/kernels/flash/prefill.py:433"),
+    "decode": ("src/repro_torch/csrc/decode.cu",
+               "src/repro/kernels/decode/decode.py:144"),
+    "prefill": ("src/repro_torch/csrc/prefill.cu",
+                "src/repro/kernels/flash/prefill.py:245"),
 }
+PAGED, CONTIGUOUS = ("paged_decode", "paged_prefill"), ("decode", "prefill")
 B, H, HKV, D, PS, MAX_LEN, CHUNK, CTX = 8, 14, 2, 64, 16, 2048, 256, 1024
 
 
@@ -107,6 +121,25 @@ def phase_build(build):
             f"{min(regs)}-{max(regs)}, spilling instantiations {len(spills)}")
 
 
+def _hold(torch, checks, name, run, case, variant, q_dtype, idle, label,
+          worst):
+    """The kernel against its plain version on one case: within
+    ``checks.kernel_tol``, and exactly 0 on the ``idle`` rows."""
+    got = run(case, variant)
+    ref = run(case, variant, plain=True)
+    torch.cuda.synchronize()
+    err = checks.rel_err(got, ref)
+    tol = checks.kernel_tol(variant, q_dtype)
+    idle_max = max([float(got[i].abs().max()) for i in idle], default=0.0)
+    qn = str(q_dtype).split(".")[-1]
+    log(f"[check] {name} {label} q {qn} {variant}: rel err {err:.3e} "
+        f"(tol {tol:g}), idle rows max {idle_max}")
+    if not err <= tol or idle_max != 0.0:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    key = f"{name} {label.split()[-1]} q {qn} {variant}"
+    worst[key] = max(worst.get(key, 0.0), err)
+
+
 def phase_kernel_checks(torch, checks):
     shapes = [
         dict(D=16, H=4, Hkv=2, B=4, max_blocks=24, lengths=[37, 0, 200, 16],
@@ -135,29 +168,103 @@ def phase_kernel_checks(torch, checks):
                                             n_valid=sh["n_valid"],
                                             chunk=sh["chunk"], kv=kv,
                                             dyadic=dyadic, **common)
+                    kind = "dyadic" if dyadic else "random"
+                    label = (f"D={sh['D']} {kv} window={sh.get('window')} "
+                             f"{kind}")
                     for variant in ("exact", "expmul"):
                         for name, run, case in (
                                 ("paged_decode", checks.run_decode, dec),
                                 ("paged_prefill", checks.run_prefill, pre)):
-                            got = run(case, variant)
-                            ref = run(case, variant, plain=True)
-                            torch.cuda.synchronize()
-                            err = checks.rel_err(got, ref)
-                            tol = checks.kernel_tol(variant, q_dtype)
-                            idle = float(got[1].abs().max())
-                            qn = str(q_dtype).split(".")[-1]
-                            kind = "dyadic" if dyadic else "random"
-                            log(f"[check] {name} D={sh['D']} {kv} q {qn} "
-                                f"{variant} window={sh.get('window')} "
-                                f"{kind}: rel err {err:.3e} (tol {tol:g}), "
-                                f"idle row max {idle}")
-                            if not err <= tol or idle != 0.0:
-                                raise AssertionError(
-                                    f"{name} disagrees with its plain "
-                                    f"version")
-                            key = f"{name} {kind} q {qn} {variant}"
-                            worst[key] = max(worst.get(key, 0.0), err)
+                            _hold(torch, checks, name, run, case, variant,
+                                  q_dtype, [1], label, worst)
+    # contiguous caches: decode over S slots, then prefill on a fresh cache
+    # and on rolling buffers (one wrapped, one shorter than its span, one
+    # full, chunks longer than the span, a window narrower than the span,
+    # and n_valid = 0); a fresh cache with a window skips whole tiles
+    contiguous = [
+        dict(D=16, H=4, Hkv=2, B=4, S=400, lengths=[37, 0, 400, 300],
+             prefill=[
+                 dict(S=600, lengths=[530, 0, 17, 600],
+                      n_valid=[70, 0, 33, 64], chunk=70),
+                 dict(S=600, lengths=[530, 0, 17, 200],
+                      n_valid=[70, 0, 33, 64], chunk=70, window=21),
+                 dict(S=64, lengths=[200, 0, 30, 64], n_valid=[70, 0, 7, 70],
+                      chunk=70, window=64, rolling=True),
+                 dict(S=64, lengths=[200, 0, 30, 64], n_valid=[70, 0, 7, 70],
+                      chunk=70, window=21, rolling=True)]),
+        dict(D=64, H=H, Hkv=HKV, B=B, S=MAX_LEN,
+             lengths=[1024, 0, 517, 1, 800, 96, MAX_LEN, 333],
+             prefill=[
+                 dict(S=MAX_LEN, lengths=[768, 0, 0, 1000, 17, 512, 64, 1792],
+                      n_valid=[256, 0, 100, 256, 17, 256, 1, 200],
+                      chunk=CHUNK),
+                 dict(S=256, lengths=[1000, 0, 100, 256, 255, 3, 700, 512],
+                      n_valid=[300, 0, 256, 300, 1, 100, 300, 0], chunk=300,
+                      window=256, rolling=True),
+                 dict(S=256, lengths=[1000, 0, 100, 256, 255, 3, 700, 512],
+                      n_valid=[300, 0, 256, 300, 1, 100, 300, 0], chunk=300,
+                      window=100, rolling=True)]),
+    ]
+    for sh in contiguous:
+        for q_dtype in (torch.float32, torch.bfloat16):
+            common = dict(B=sh["B"], H=sh["H"], Hkv=sh["Hkv"], D=sh["D"],
+                          q_dtype=q_dtype, device="cuda")
+            for kv in ("bf16", "int8"):
+                for dyadic in (True, False):
+                    kind = "dyadic" if dyadic else "random"
+                    dec = checks.contiguous_case(
+                        rng, S=sh["S"], lengths=sh["lengths"], kv=kv,
+                        dyadic=dyadic, **common)
+                    cases = [("decode", checks.run_contiguous_decode, dec,
+                              f"D={sh['D']} S={sh['S']} {kv} {kind}",
+                              [i for i, n in enumerate(sh["lengths"])
+                               if n == 0])]
+                    for pf in sh["prefill"]:
+                        cases.append((
+                            "prefill", checks.run_contiguous_prefill,
+                            checks.contiguous_case(
+                                rng, dyadic=dyadic, kv=kv, **pf, **common),
+                            f"D={sh['D']} S={pf['S']} rolling="
+                            f"{pf.get('rolling', False)} window="
+                            f"{pf.get('window')} {kv} {kind}",
+                            [i for i, (n, m) in enumerate(
+                                zip(pf["lengths"], pf["n_valid"]))
+                             if n == 0 and m == 0]))
+                    for variant in ("exact", "expmul"):
+                        for name, run, case, label, idle in cases:
+                            _hold(torch, checks, name, run, case, variant,
+                                  q_dtype, idle, label, worst)
     log(f"[check] worst rel err: {json.dumps(worst)}")
+
+
+def _ticks(torch, api, params, cfg, layout, bt, toks, chunks, tok1):
+    """Logits of prefill ticks over ``chunks`` (then one decode tick when
+    ``tok1`` is given) on a fresh state of ``layout``, with the rows each
+    tick's logits are defined for."""
+    if layout == "paged":
+        state = api.init_paged_state(cfg, B, bt.numel(), PS, device="cuda")
+    else:
+        state = api.init_decode_state(cfg, B, MAX_LEN, device="cuda")
+    lens = torch.zeros(B, dtype=torch.int32, device="cuda")
+    out = []
+    for tk, nv in zip(toks, chunks):
+        nv = torch.tensor(nv, dtype=torch.int32, device="cuda")
+        if layout == "paged":
+            lg, state = api.prefill_paged(params, state, tk, lens, nv, bt,
+                                          cfg, page_size=PS)
+        else:
+            lg, state = api.prefill(params, state, tk, lens, nv, cfg)
+        out.append((lg, nv > 0))
+        lens = lens + nv
+    if tok1 is not None:
+        if layout == "paged":
+            lg, state = api.decode_step_paged(params, state, tok1, lens, bt,
+                                              cfg, page_size=PS)
+        else:
+            lg, state = api.decode_step(params, state, tok1, lens, cfg)
+        out.append((lg, torch.ones(B, dtype=torch.bool, device="cuda")))
+    torch.cuda.synchronize()
+    return out
 
 
 def phase_model_ticks(torch, cfg_mod, api):
@@ -177,53 +284,46 @@ def phase_model_ticks(torch, cfg_mod, api):
                              .astype(np.int32)).cuda() for _ in chunks]
     tok1 = torch.from_numpy(rng.integers(1, base.vocab_size, B)
                             .astype(np.int32)).cuda()
-    for variant in ("exact", "expmul"):
-        logits = {}
-        for impl in ("kernel", "plain"):
-            cfg = base.replace(attention_variant=variant, attention_impl=impl)
-            state = api.init_paged_state(cfg, B, B * mb, PS, device="cuda")
-            lens = torch.zeros(B, dtype=torch.int32, device="cuda")
-            out = []
-            t0 = time.perf_counter()
-            for tk, nv in zip(toks, chunks):
-                nv = torch.tensor(nv, dtype=torch.int32, device="cuda")
-                lg, state = api.prefill_paged(params, state, tk, lens, nv, bt,
-                                              cfg, page_size=PS)
-                out.append((lg, nv > 0))
-                lens = lens + nv
-            lg, state = api.decode_step_paged(params, state, tok1, lens, bt,
-                                              cfg, page_size=PS)
-            out.append((lg, torch.ones(B, dtype=torch.bool, device="cuda")))
-            torch.cuda.synchronize()
-            logits[impl] = out
-            log(f"[model] {variant} {impl}: 3 ticks in "
-                f"{time.perf_counter() - t0:.2f} s")
-        for i, ((a, rows), (b, _)) in enumerate(zip(logits["kernel"],
-                                                    logits["plain"])):
-            a, b = a[rows].double(), b[rows].double()
-            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-                raise AssertionError("non-finite logits")
-            gap = float((a - b).abs().max() / b.abs().max())
-            tick = ["prefill", "prefill over history", "decode"][i]
-            log(f"[model] {variant} {tick}: max|dlogits| / max|logits| = "
-                f"{gap:.3e} (max|logits| {float(b.abs().max()):.3f})")
-            if variant == "exact" and not gap <= 1e-3:
-                raise AssertionError("kernel logits disagree with plain")
+    # the windowed pair: a 256-slot rolling buffer that the second chunk
+    # wraps (rows of 356-512 tokens)
+    runs = [("paged", None, chunks, tok1), ("contiguous", None, chunks, tok1),
+            ("contiguous", 256, [chunks[0], [256, 0, 256, 256, 256, 10, 0,
+                                             256]], None)]
+    for layout, window, chs, t1 in runs:
+        for variant in ("exact", "expmul"):
+            logits = {}
+            for impl in ("kernel", "plain"):
+                cfg = base.replace(attention_variant=variant,
+                                   attention_impl=impl, window=window)
+                t0 = time.perf_counter()
+                logits[impl] = _ticks(torch, api, params, cfg, layout, bt,
+                                      toks, chs, t1)
+                log(f"[model] {layout} window={window} {variant} {impl}: "
+                    f"{len(logits[impl])} ticks in "
+                    f"{time.perf_counter() - t0:.2f} s")
+            for i, ((a, rows), (b, _)) in enumerate(zip(logits["kernel"],
+                                                        logits["plain"])):
+                a, b = a[rows].double(), b[rows].double()
+                if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                    raise AssertionError("non-finite logits")
+                gap = float((a - b).abs().max() / b.abs().max())
+                tick = ["prefill", "prefill over history", "decode"][i]
+                log(f"[model] {layout} window={window} {variant} {tick}: "
+                    f"max|dlogits| / max|logits| = {gap:.3e} "
+                    f"(max|logits| {float(b.abs().max()):.3f})")
+                if variant == "exact" and not gap <= 1e-3:
+                    raise AssertionError("kernel logits disagree with plain")
     del params
     torch.cuda.empty_cache()
 
 
-def phase_serve(torch, cfg_mod, api, build, ServeEngine):
-    cfg = cfg_mod.get_config("qwen2-0.5b")          # bf16, ExpMul
-    assert cfg.attention_variant == "expmul" and cfg.dtype == "bfloat16"
-    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
-                            device="cuda")
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
-               for n in rng.integers(128, 1025, size=16)]
-    kw = dict(kv_layout="paged", page_size=PS, kv_dtype="int8", slots=B,
-              max_len=MAX_LEN, chunk_size=CHUNK, temperature=0.0,
-              attention_impl="kernel", device="cuda")
+def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair):
+    """Serve ``prompts`` (32 new tokens each) on a fresh engine with the
+    launch counts set to 0 just before and read just after: the ``pair``
+    of kernels of the layout must have launched, and nothing else (no
+    other kernel, no plain version). Returns (counts, per-step launches,
+    the streams)."""
+    label = f"{kw['kv_layout']}/{kw['kv_dtype']}"
     warm = ServeEngine(params, cfg, **kw)              # cuBLAS, allocator
     for p in prompts[:2]:
         warm.submit(p[:300], 2)
@@ -251,41 +351,84 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     peak = torch.cuda.max_memory_allocated()
     if not all(r.done and r.finish_reason == "length" and len(r.out) == 32
                for r in reqs):
-        raise AssertionError("a request did not finish with 'length'")
+        raise AssertionError(f"{label}: a request did not finish with "
+                             f"'length'")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.out):
-        raise AssertionError("a sampled token is out of the vocabulary")
-    if not (counts.get("paged_decode", 0) > 0
-            and counts.get("paged_prefill", 0) > 0):
-        raise AssertionError(f"the serving run missed a kernel: {counts}")
-    if counts.get("paged_decode_plain", 0) or counts.get(
-            "paged_prefill_plain", 0):
-        raise AssertionError(f"a plain version ran while serving: {counts}")
+        raise AssertionError(f"{label}: a sampled token is out of the "
+                             f"vocabulary")
+    if not all(counts.get(name, 0) > 0 for name in pair):
+        raise AssertionError(f"{label}: the serving run missed a kernel: "
+                             f"{counts}")
+    if any(n for name, n in counts.items() if name not in pair):
+        raise AssertionError(f"{label}: another kernel or a plain version "
+                             f"ran while serving: {counts}")
     ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in reqs]
     gen = eng.tokens_generated
-    log(f"[serve] 16 requests, prompts {min(map(len, prompts))}-"
+    log(f"[serve] {label}: 16 requests, prompts {min(map(len, prompts))}-"
         f"{max(map(len, prompts))} tokens ({eng.prompt_tokens} in all), "
         f"32 new each: {eng.ticks} steps ({eng.prefill_steps} prefill, "
         f"{eng.decode_steps} decode), {gen} tokens generated in {wall:.3f} s "
         f"= {gen / wall:.1f} tokens/s; TTFT from submit p50 "
         f"{statistics.median(ttft):.1f} ms, max {max(ttft):.1f} ms; peak "
         f"memory {peak / 2**30:.2f} GiB; preemptions {eng.preemptions}")
-    log(f"[serve] launches {json.dumps(counts)}")
-    log(f"[serve] tick wall time, ms: prefill p50 "
+    log(f"[serve] {label}: launches {json.dumps(counts)}")
+    log(f"[serve] {label}: tick wall time, ms: prefill p50 "
         f"{statistics.median(tick_ms['prefill']):.2f} (sum "
         f"{sum(tick_ms['prefill']):.1f}), decode p50 "
         f"{statistics.median(tick_ms['decode']):.2f} (sum "
         f"{sum(tick_ms['decode']):.1f})")
-    per_step = {"paged_decode": counts["paged_decode"] / eng.decode_steps,
-                "paged_prefill": counts["paged_prefill"] / eng.prefill_steps}
+    dec, pre = pair
+    per_step = {dec: counts[dec] / eng.decode_steps,
+                pre: counts[pre] / eng.prefill_steps}
+    return counts, per_step, [r.out for r in reqs]
+
+
+def phase_serve(torch, cfg_mod, api, build, ServeEngine):
+    cfg = cfg_mod.get_config("qwen2-0.5b")          # bf16, ExpMul
+    assert cfg.attention_variant == "expmul" and cfg.dtype == "bfloat16"
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
+                            device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(128, 1025, size=16)]
+    kw = dict(kv_layout="paged", page_size=PS, kv_dtype="int8", slots=B,
+              max_len=MAX_LEN, chunk_size=CHUNK, temperature=0.0,
+              attention_impl="kernel", device="cuda")
+    counts, per_step, paged = _serve_run(torch, build, ServeEngine, params,
+                                         cfg, prompts, kw, PAGED)
     phase_profile(torch, ServeEngine, params, cfg, kw, prompts)
-    del eng, params
+    # the contiguous kernels' launches are those of the int8 run, which
+    # the timings of phase 5 match; the fp32 run's are kept beside them
+    launches = {name: dict(launches=counts[name],
+                           launches_per_step=per_step[name])
+                for name in PAGED}
+    streams = {}
+    for kv_dtype in ("fp32", "int8"):
+        ckw = dict(kw, kv_layout="contiguous", kv_dtype=kv_dtype)
+        del ckw["page_size"]
+        counts, per_step, streams[kv_dtype] = _serve_run(
+            torch, build, ServeEngine, params, cfg, prompts, ckw, CONTIGUOUS)
+        for name in CONTIGUOUS:
+            launches.setdefault(name, {}).update(
+                {"launches": counts[name],
+                 "launches_per_step": per_step[name]} if kv_dtype == "int8"
+                else {"launches_fp32": counts[name]})
+    phase_profile(torch, ServeEngine, params, cfg, ckw, prompts)
+    same = sum(a == b for x, y in zip(paged, streams["int8"])
+               for a, b in zip(x, y))
+    first = sum(x[0] == y[0] for x, y in zip(paged, streams["int8"]))
+    log(f"[serve] temp-0 agreement, paged int8 vs contiguous int8 (ExpMul "
+        f"results depend on the tile width, so no gate): {same} of "
+        f"{sum(map(len, paged))} tokens at the same position, first "
+        f"tokens {first} of {len(paged)}")
+    del params
     torch.cuda.empty_cache()
-    return counts, per_step
+    return launches
 
 
 def phase_profile(torch, ServeEngine, params, cfg, kw, prompts):
     """Device busy share and the top device kernels over one prefill tick
-    and four decode ticks of the serving path, from torch.profiler."""
+    and four decode ticks of a serving path, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(params, cfg, **kw)
@@ -312,45 +455,60 @@ def phase_profile(torch, ServeEngine, params, cfg, kw, prompts):
                 kernels[e.name] = kernels.get(e.name, 0.0) + dur
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        label = f"{kw['kv_layout']}/{kw['kv_dtype']} {kind}"
         if not busy:
-            log(f"[profile] {kind}: the profiler reported no device time")
+            log(f"[profile] {label}: the profiler reported no device time")
             continue
-        log(f"[profile] {kind} x{n}: wall {wall_us / 1e3:.2f} ms, device "
+        log(f"[profile] {label} x{n}: wall {wall_us / 1e3:.2f} ms, device "
             f"busy {busy / 1e3:.2f} ms, idle share "
             f"{1 - busy / wall_us:.3f}; top kernels (ms): " + "; ".join(
                 f"{name[:60]} {us / 1e3:.3f}" for name, us in top))
     eng.run()
 
 
-def _bounds(kind, lengths, n_valid=None):
+def _bounds(name, lengths, n_valid=None):
     """(bytes, flops) the function needs at these lengths: each input read
-    once, each output written once; 4*D flops per (query, key) pair."""
+    once (q, the resident codes and scale rows, the chunk, the block
+    tables of a paged kernel, the lengths), each output written once; 4*D
+    flops per (query, key) pair."""
     L = np.asarray(lengths, np.int64)
-    q_out = 2 * 2 * B * H * D * (1 if kind == "decode" else CHUNK)
-    pool = int((HKV * L * (2 * D + 2 * 4)).sum())           # codes + scales
-    tables = int((-(-L // PS) * 4).sum()) + 4 * B * 2
-    if kind == "decode":
+    decode = name.endswith("decode")
+    q_out = 2 * 2 * B * H * D * (1 if decode else CHUNK)
+    cache = int((HKV * L * (2 * D + 2 * 4)).sum())          # codes + scales
+    if name.startswith("paged"):
+        meta = int((-(-L // PS) * 4).sum()) + 4 * B * 2
+    else:
+        meta = 4 * B * (1 if decode else 2)
+    if decode:
         pairs = int((H * L).sum())
-        return q_out + pool + tables, 4 * D * pairs
+        return q_out + cache + meta, 4 * D * pairs
     nv = np.asarray(n_valid, np.int64)
     chunk = B * HKV * CHUNK * (2 * D + 2 * 4)
     pairs = int((H * (CHUNK * L + nv * (nv + 1) // 2)).sum())
-    return q_out + pool + chunk + tables, 4 * D * pairs
+    return q_out + cache + chunk + meta, 4 * D * pairs
 
 
 def phase_times(torch, checks, F):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rng = np.random.default_rng(4)
-    common = dict(B=B, H=H, Hkv=HKV, D=D, page_size=PS,
-                  max_blocks=MAX_LEN // PS, q_dtype=torch.bfloat16,
+    common = dict(B=B, H=H, Hkv=HKV, D=D, q_dtype=torch.bfloat16,
                   dyadic=False, device="cuda")
+    paged = dict(common, page_size=PS, max_blocks=MAX_LEN // PS)
     lens, nv = [CTX] * B, [CHUNK] * B
+    pf = dict(lengths=lens, n_valid=nv, chunk=CHUNK)
     out = {}
-    for name, run, extra in (
-            ("paged_decode", checks.run_decode, dict(lengths=lens)),
+    for name, run, make in (
+            ("paged_decode", checks.run_decode,
+             lambda kv: checks.paged_case(rng, kv=kv, lengths=lens, **paged)),
             ("paged_prefill", checks.run_prefill,
-             dict(lengths=lens, n_valid=nv, chunk=CHUNK))):
-        case = checks.paged_case(rng, kv="int8", **extra, **common)
+             lambda kv: checks.paged_case(rng, kv=kv, **pf, **paged)),
+            ("decode", checks.run_contiguous_decode,
+             lambda kv: checks.contiguous_case(rng, kv=kv, S=MAX_LEN,
+                                               lengths=lens, **common)),
+            ("prefill", checks.run_contiguous_prefill,
+             lambda kv: checks.contiguous_case(rng, kv=kv, S=MAX_LEN, **pf,
+                                               **common))):
+        case = make("int8")
         got = run(case, "expmul")
         ref = run(case, "expmul", plain=True)
         torch.cuda.synchronize()
@@ -363,14 +521,13 @@ def phase_times(torch, checks, F):
                             hide_host=False)
         plain_ms = median_ms(torch, lambda: run(case, "expmul", plain=True),
                              flush)
-        nbytes, flops = _bounds("decode" if name == "paged_decode"
-                                else "prefill", lens, nv)
+        nbytes, flops = _bounds(name, lens, nv)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-        # the yardstick: the exact variant on a bf16 pool, and SDPA over a
+        # the yardstick: the exact variant on bf16 values, and SDPA over a
         # dense bf16 copy of the same history (no paging, no quantization)
-        case16 = checks.paged_case(rng, kv="bf16", **extra, **common)
+        case16 = make("bf16")
         exact_ms = median_ms(torch, lambda: run(case16, "exact"), flush)
-        C = 1 if name == "paged_decode" else CHUNK
+        C = 1 if name.endswith("decode") else CHUNK
         q = torch.randn(B, H, C, D, device="cuda", dtype=torch.bfloat16)
         k = torch.randn(B, HKV, CTX + C - (C == 1), D, device="cuda",
                         dtype=torch.bfloat16)
@@ -381,13 +538,14 @@ def phase_times(torch, checks, F):
                     <= CTX + torch.arange(C, device="cuda")[:, None])
         sdpa_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), flush)
+        del case, case16
         out[name] = dict(
             max_abs_err=err, ms=ms, ms_with_launch=host_ms,
             plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None,
-            yardstick={"what": "exact variant, bf16 pool vs SDPA over a "
+            yardstick={"what": "exact variant, bf16 values vs SDPA over a "
                        "dense bf16 copy", "kernel_ms": exact_ms,
                        "library_ms": sdpa_ms})
         log(f"[time] {name} (int8 codes, ExpMul, B={B}, ctx {CTX}"
@@ -429,12 +587,10 @@ def main() -> int:
         t0 = time.perf_counter()
         results[name] = fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
-    counts, per_step = results["serve"]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=counts[name],
-                            launches_per_step=per_step[name],
+                            replaces=replaces, **results["serve"][name],
                             **results["times"][name]))
     log(json.dumps({"kernels": kernels}))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

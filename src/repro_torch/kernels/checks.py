@@ -1,10 +1,15 @@
-"""Operands for holding the paged kernels against their plain versions on
-the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+"""Operands for holding the attention kernels against their plain versions
+on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 
 ``paged_case`` builds one paged-attention input: shuffled, fragmented
 block tables with sentinel entries, ragged lengths, and pool blocks that
 no table references filled with NaN (in value pools and scale pools), so
 a kernel that reads an unallocated page shows it in its output.
+``contiguous_case`` builds one input over per-slot caches: the slots a
+sequence has not written hold a previous occupant's rows, large but
+finite (``STALE``, or the largest code with a large scale), since the
+reference multiplies their zero weights into them and NaN would poison
+it too.
 ``dyadic=True`` draws q in multiples of 2^-3 with |q| <= 2, values in
 multiples of 2^-3, integer codes (|c| <= 15 for fp8, exact in e4m3) and
 power-of-two scales: with a power-of-two softmax scale every score is
@@ -17,22 +22,42 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.decode.ops import (
+    decode_attention,
     fused_paged_decode_attention,
+    quant_decode_attention,
     quant_fused_paged_decode_attention,
 )
 from repro_torch.kernels.flash.ops import (
     fused_paged_prefill_attention,
+    prefill_attention,
     quant_fused_paged_prefill_attention,
+    quant_prefill_attention,
 )
 
 KV_KINDS = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
             "fp8": torch.float8_e4m3fn}
+STALE = 1e4        # a previous occupant's rows in a contiguous cache
 
 
 def _act(rng, shape, dyadic):
     if dyadic:
         return rng.integers(-16, 17, shape).astype(np.float32) / 8.0
     return rng.standard_normal(shape).astype(np.float32)
+
+
+def _kv_operand(rng, shape, kv, dyadic, device):
+    """(values or codes, float32 scale rows or None) on ``device``."""
+    if kv in ("int8", "fp8"):
+        # fp8 codes: integers up to 15 are exact in e4m3
+        hi = 15 if kv == "fp8" else 127
+        codes = torch.from_numpy(
+            rng.integers(-hi, hi + 1, shape).astype(np.float32))
+        scale = (2.0 ** rng.integers(-7, -3, shape[:-1]) if dyadic else
+                 rng.uniform(0.004, 0.03, shape[:-1])).astype(np.float32)
+        return (codes.to(KV_KINDS[kv]).to(device),
+                torch.from_numpy(scale).to(device))
+    vals = torch.from_numpy(_act(rng, shape, dyadic)).to(KV_KINDS[kv])
+    return vals.to(device), None
 
 
 def paged_case(rng, *, B, H, Hkv, D, page_size, max_blocks, lengths,
@@ -51,25 +76,15 @@ def paged_case(rng, *, B, H, Hkv, D, page_size, max_blocks, lengths,
             bt[b, i] = perm.pop()
     unused = np.array(perm, np.int64)
     quant = kv in ("int8", "fp8")
-    dt = KV_KINDS[kv]
 
     def kv_operand(shape, rows_axis_blocks):
-        if quant:
-            # fp8 codes: integers up to 15 are exact in e4m3
-            hi = 15 if kv == "fp8" else 127
-            codes = rng.integers(-hi, hi + 1, shape).astype(np.float32)
-            scale = (2.0 ** rng.integers(-7, -3, shape[:-1]) if dyadic else
-                     rng.uniform(0.004, 0.03, shape[:-1])).astype(np.float32)
-            c = torch.from_numpy(codes)
-            c = c.to(dt) if kv == "fp8" else c.to(torch.int8)
-            s = torch.from_numpy(scale)
-            if rows_axis_blocks:
-                s.view(nblk, ps, Hkv)[unused] = float("nan")
-            return c.to(device), s.to(device)
-        vals = torch.from_numpy(_act(rng, shape, dyadic)).to(dt)
-        if rows_axis_blocks:
-            vals.view(nblk, ps, Hkv, D)[unused] = float("nan")
-        return vals.to(device), None
+        vals, scale = _kv_operand(rng, shape, kv, dyadic, "cpu")
+        if rows_axis_blocks:    # NaN in the blocks no table references
+            if quant:
+                scale.view(nblk, ps, Hkv)[unused] = float("nan")
+            else:
+                vals.view(nblk, ps, Hkv, D)[unused] = float("nan")
+        return vals.to(device), None if scale is None else scale.to(device)
 
     pool = (nblk * ps, Hkv, D)
     k, ks = kv_operand(pool, True)
@@ -115,6 +130,71 @@ def run_prefill(case, variant, plain=False):
     return fused_paged_prefill_attention(
         case["q"], case["kn"], case["vn"], case["k_pool"], case["v_pool"],
         case["block_tables"], case["lengths"], case["n_valid"], **kw)
+
+
+def contiguous_case(rng, *, B, H, Hkv, D, S, lengths, n_valid=None, chunk=0,
+                    kv="int8", q_dtype=torch.float32, dyadic=True,
+                    window=None, rolling=False, device="cuda"):
+    """Decode operands (``chunk == 0``; ``lengths <= S`` count the tokens
+    to attend) or prefill operands (``n_valid`` valid tokens of a
+    ``chunk``-token chunk after ``lengths`` resident; ``rolling`` reads the
+    cache as a rolling buffer of span S) over per-slot (B, Hkv, S, D)
+    caches whose slots at or past ``min(length, S)`` are stale."""
+    quant = kv in ("int8", "fp8")
+    k, ks = _kv_operand(rng, (B, Hkv, S, D), kv, dyadic, "cpu")
+    v, vs = _kv_operand(rng, (B, Hkv, S, D), kv, dyadic, "cpu")
+    sign = torch.where(torch.arange(D) % 2 == 1, 1.0, -1.0)
+    for b, n in enumerate(lengths):
+        n = min(int(n), S)
+        for codes, scale in ((k, ks), (v, vs)):
+            if quant:
+                big = 127.0 if kv == "int8" else 448.0
+                codes[b, :, n:] = (big * sign).to(codes.dtype)
+                scale[b, :, n:] = 64.0
+            else:
+                codes[b, :, n:] = (STALE * sign).to(codes.dtype)
+    case = dict(k=k.to(device), v=v.to(device),
+                ks=None if ks is None else ks.to(device),
+                vs=None if vs is None else vs.to(device),
+                lengths=torch.tensor(lengths, dtype=torch.int32,
+                                     device=device),
+                window=window, rolling=rolling, quant=quant)
+    if chunk:
+        case["q"] = torch.from_numpy(_act(rng, (B, H, chunk, D), dyadic)).to(
+            q_dtype).to(device)
+        case["kn"], case["ksn"] = _kv_operand(rng, (B, Hkv, chunk, D), kv,
+                                              dyadic, device)
+        case["vn"], case["vsn"] = _kv_operand(rng, (B, Hkv, chunk, D), kv,
+                                              dyadic, device)
+        case["n_valid"] = torch.tensor(n_valid, dtype=torch.int32,
+                                       device=device)
+    else:
+        case["q"] = torch.from_numpy(_act(rng, (B, H, D), dyadic)).to(
+            q_dtype).to(device)
+    return case
+
+
+def run_contiguous_decode(case, variant, plain=False):
+    kw = dict(variant=variant, plain=plain)
+    if case["quant"]:
+        return quant_decode_attention(case["q"], case["k"], case["v"],
+                                      case["ks"], case["vs"],
+                                      case["lengths"], **kw)
+    return decode_attention(case["q"], case["k"], case["v"], case["lengths"],
+                            **kw)
+
+
+def run_contiguous_prefill(case, variant, plain=False):
+    kw = dict(variant=variant, window=case["window"],
+              rolling=case["rolling"], plain=plain)
+    if case["quant"]:
+        return quant_prefill_attention(
+            case["q"], case["k"], case["v"], case["ks"], case["vs"],
+            case["kn"], case["vn"], case["ksn"], case["vsn"],
+            case["lengths"], case["n_valid"], **kw)
+    return prefill_attention(case["q"], case["k"], case["v"], case["kn"],
+                             case["vn"], case["lengths"], case["n_valid"],
+                             **kw)
 
 
 def kernel_tol(variant, out_dtype) -> float:

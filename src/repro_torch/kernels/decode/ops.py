@@ -1,6 +1,7 @@
-"""Public wrappers of the paged flash-decode kernel (the port of
-``repro/kernels/decode/ops.py``'s fused paged forms): fold q to
-(B*Hkv, group, D) and view the flat pools as pages; no copy is made."""
+"""Public wrappers of the flash-decode kernels (the port of
+``repro/kernels/decode/ops.py``): fold q to (B*Hkv, group, D), view
+per-slot caches as (B*Hkv, S, D) and flat pools as pages; no copy is
+made."""
 from __future__ import annotations
 
 import math
@@ -8,9 +9,47 @@ import math
 import torch
 
 from repro_torch.kernels.decode.decode import (
+    decode_fwd,
+    decode_fwd_plain,
     paged_decode_fwd,
     paged_decode_fwd_plain,
 )
+
+
+def _run_contiguous(q, k_cache, v_cache, k_scale, v_scale, lengths, *, scale,
+                    variant, plain):
+    B, H, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    Dv = v_cache.shape[-1]
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+    def fold(t, *tail):  # (B, Hkv, S, ...) -> (B*Hkv, S, ...)
+        return None if t is None else t.reshape((B * Hkv, S) + tail)
+
+    fn = decode_fwd_plain if plain else decode_fwd
+    o3 = fn(q.reshape(B * Hkv, H // Hkv, D), fold(k_cache, D),
+            fold(v_cache, Dv), lengths.to(torch.int32), fold(k_scale),
+            fold(v_scale), scale=scale, variant=variant, num_kv_heads=Hkv)
+    return o3.reshape(B, H, Dv)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, scale=None,
+                     variant="exact", plain=False):
+    """q (B, H, D) against per-slot caches (B, Hkv, S, D) of values;
+    ``lengths`` (B,) <= S counts the tokens to attend, the current one
+    included. ``plain`` runs the plain version on any device."""
+    return _run_contiguous(q, k_cache, v_cache, None, None, lengths,
+                           scale=scale, variant=variant, plain=plain)
+
+
+def quant_decode_attention(q, k_codes, v_codes, k_scale, v_scale, lengths, *,
+                           scale=None, variant="exact", plain=False):
+    """As ``decode_attention`` over int8/fp8 code caches and their float32
+    scale rows (B, Hkv, S), dequantized in the tile."""
+    f32 = torch.float32
+    return _run_contiguous(q, k_codes, v_codes, k_scale.to(f32),
+                           v_scale.to(f32), lengths, scale=scale,
+                           variant=variant, plain=plain)
 
 
 def _run(q, k_pool, v_pool, ks_pool, vs_pool, block_tables, lengths, *,

@@ -1,6 +1,7 @@
-"""Public wrappers of the paged chunked-prefill kernel (the port of
-``repro/kernels/flash/ops.py``'s fused paged forms): fold the head axes
-and view the flat pools as pages; no copy is made."""
+"""Public wrappers of the chunked-prefill kernels (the port of
+``repro/kernels/flash/ops.py``'s fused prefill forms): fold the head axes,
+view per-slot caches as (B*Hkv, S, D) and flat pools as pages; no copy of
+a cache is made."""
 from __future__ import annotations
 
 import math
@@ -10,7 +11,56 @@ import torch
 from repro_torch.kernels.flash.prefill import (
     paged_prefill_fwd,
     paged_prefill_fwd_plain,
+    prefill_fwd,
+    prefill_fwd_plain,
 )
+
+
+def _run_contiguous(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lengths, n_valid,
+                    *, scale, variant, window, rolling, plain):
+    B, H, C, D = q.shape
+    Hkv = kc.shape[1]
+    Dv = vc.shape[-1]
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+    def fold(t):  # (B, Hkv, L, ...) -> (B*Hkv, L, ...)
+        return None if t is None else t.reshape((B * Hkv,) + t.shape[2:])
+
+    fn = prefill_fwd_plain if plain else prefill_fwd
+    o3 = fn(q.reshape(B * H, C, D), fold(kc), fold(vc), fold(kn), fold(vn),
+            lengths.to(torch.int32), n_valid.to(torch.int32), fold(ksc),
+            fold(vsc), fold(ksn), fold(vsn), scale=scale, variant=variant,
+            window=window, rolling=rolling, num_q_heads=H, num_kv_heads=Hkv)
+    return o3.reshape(B, H, C, Dv)
+
+
+def prefill_attention(q, k_cache, v_cache, k_chunk, v_chunk, lengths,
+                      n_valid, *, scale=None, variant="exact", window=None,
+                      rolling=False, plain=False):
+    """q (B, H, C, D) and the chunk's KV (B, Hkv, C, D) against per-slot
+    caches (B, Hkv, S, D) of values holding ``lengths`` (B,) tokens;
+    ``n_valid`` (B,) chunk tokens are valid. ``rolling`` reads the cache as
+    a rolling buffer of span S. ``plain`` runs the plain version on any
+    device."""
+    return _run_contiguous(q, k_cache, v_cache, None, None, k_chunk, v_chunk,
+                           None, None, lengths, n_valid, scale=scale,
+                           variant=variant, window=window, rolling=rolling,
+                           plain=plain)
+
+
+def quant_prefill_attention(q, kc_codes, vc_codes, kc_scale, vc_scale,
+                            kn_codes, vn_codes, kn_scale, vn_scale, lengths,
+                            n_valid, *, scale=None, variant="exact",
+                            window=None, rolling=False, plain=False):
+    """As ``prefill_attention`` over int8/fp8 codes with float32 scale rows:
+    the cache (B, Hkv, S, ...) and the chunk, already quantized
+    (B, Hkv, C, ...)."""
+    f32 = torch.float32
+    return _run_contiguous(q, kc_codes, vc_codes, kc_scale.to(f32),
+                           vc_scale.to(f32), kn_codes, vn_codes,
+                           kn_scale.to(f32), vn_scale.to(f32), lengths,
+                           n_valid, scale=scale, variant=variant,
+                           window=window, rolling=rolling, plain=plain)
 
 
 def _run(q, kn, vn, ksn, vsn, k_pool, v_pool, ks_pool, vs_pool, block_tables,

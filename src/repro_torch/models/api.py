@@ -1,11 +1,12 @@
-"""Model assembly for paged serving: init, paged state, chunked prefill and
-single-token decode (the paged half of ``repro/models/api.py``).
+"""Model assembly for serving: init, decode state, chunked prefill and
+single-token decode over per-slot (contiguous) caches or paged pools (the
+decoder-only serving half of ``repro/models/api.py``).
 
 Parameters are a dict of tensors with ``repro``'s layouts
 (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...), one entry of ``"layers"`` per
-layer; the layer loop is a Python loop. The paged state is one dict of
-pools per layer and is updated in place: ``prefill_paged`` and
-``decode_step_paged`` return it for symmetry with ``repro``.
+layer; the layer loop is a Python loop. The state is one dict of caches
+per layer and is updated in place: ``prefill``, ``decode_step`` and their
+paged twins return it for symmetry with ``repro``.
 
 Entry points take ``device="cuda"`` by default and raise without a card
 unless the caller passes ``device="cpu"``.
@@ -15,13 +16,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.paged import scatter_plan, token_rows
-from repro_torch.layers.attention_layer import attn_init_paged_cache
+from repro_torch.layers.attention_layer import (
+    attn_init_paged_cache,
+    chunk_gate,
+    chunk_plan,
+)
 from repro_torch.layers.common import rmsnorm, rmsnorm_init
 from repro_torch.layers.embedding import embed_apply, embed_init, logits_apply
 from repro_torch.models.blocks import (
+    block_decode_step,
     block_init,
+    block_init_cache,
     block_paged_decode_step,
     block_paged_prefill,
+    block_prefill,
 )
 
 
@@ -56,6 +64,54 @@ def init_model(cfg, generator: torch.Generator | None = None, *,
     }
 
 
+def init_decode_state(cfg, batch, max_len, *, device="cuda"):
+    """Per-slot KV state: per layer, caches of ``max_len`` slots (a rolling
+    buffer of ``min(max_len, window)`` for a windowed config) for each of
+    ``batch`` sequences; codes plus float32 scale rows for a quantized
+    ``cfg.kv_dtype``."""
+    device = resolve_device(device)
+    dt = _dtype(cfg.dtype)
+    return {"caches": [block_init_cache(cfg, batch, max_len, dt, device)
+                       for _ in range(cfg.num_layers)]}
+
+
+def _last_logits(params, x, n_valid):
+    """Logits of each row's last valid chunk token."""
+    B, C, _ = x.shape
+    x = rmsnorm(params["final_norm"], x)
+    last = torch.clamp(n_valid.to(torch.int64) - 1, 0, C - 1)
+    return logits_apply(params["embed"], x[torch.arange(B, device=x.device),
+                                           last])
+
+
+def prefill(params, state, tokens, lengths, n_valid, cfg):
+    """Chunked prefill against per-slot caches.
+
+    tokens (B, C); lengths (B,) tokens already resident; n_valid (B,) valid
+    chunk tokens (0 = idle slot, a no-op). Every layer attends over its
+    cache and the chunk, then writes the chunk's valid tokens. Returns
+    (logits (B, V) of each row's last valid token, state).
+    """
+    C = tokens.shape[1]
+    x = embed_apply(params["embed"], tokens).to(_dtype(cfg.dtype))
+    span = state["caches"][0]["k"].shape[2]
+    plan = chunk_plan(*chunk_gate(lengths, n_valid, C, span,
+                                  rolling=bool(cfg.window)), span)
+    for p, cache in zip(params["layers"], state["caches"]):
+        _, x = block_prefill(p, cache, x, cfg, lengths, n_valid, plan)
+    return _last_logits(params, x, n_valid), state
+
+
+def decode_step(params, state, tokens1, lengths, cfg):
+    """One decode tick against per-slot caches: tokens1 (B,) at positions
+    ``lengths`` -> (logits (B, V), state)."""
+    x = embed_apply(params["embed"], tokens1).to(_dtype(cfg.dtype))
+    for p, cache in zip(params["layers"], state["caches"]):
+        _, x = block_decode_step(p, cache, x, cfg, lengths)
+    x = rmsnorm(params["final_norm"], x)
+    return logits_apply(params["embed"], x), state
+
+
 def init_paged_state(cfg, slots, pool_blocks, page_size, *, device="cuda"):
     """Paged KV state: per layer, flat pools of ``pool_blocks * page_size``
     rows shared by all ``slots`` sequences through their block tables."""
@@ -79,7 +135,7 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     chunk tokens (0 = idle slot, a no-op); block_tables (B, max_blocks).
     Returns (logits (B, V) of each row's last valid token, state).
     """
-    B, C = tokens.shape
+    C = tokens.shape[1]
     x = embed_apply(params["embed"], tokens).to(_dtype(cfg.dtype))
     idx = torch.arange(C, device=tokens.device)[None, :]
     chunk_rows = token_rows(block_tables, lengths[:, None] + idx, page_size)
@@ -88,10 +144,7 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     for p, cache in zip(params["layers"], state["caches"]):
         _, x = block_paged_prefill(p, cache, x, cfg, lengths, n_valid,
                                    chunk_rows, plan, block_tables, page_size)
-    x = rmsnorm(params["final_norm"], x)
-    last = torch.clamp(n_valid.to(torch.int64) - 1, 0, C - 1)
-    x_last = x[torch.arange(B, device=x.device), last]
-    return logits_apply(params["embed"], x_last), state
+    return _last_logits(params, x, n_valid), state
 
 
 def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,

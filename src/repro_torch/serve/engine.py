@@ -1,6 +1,7 @@
-"""Slot-based serving engine over a paged KV pool: chunked prefill plus
-continuous decode batching (the paged path of ``repro/serve/engine.py``,
-with the shared-prefix cache off).
+"""Slot-based serving engine: chunked prefill plus continuous decode
+batching over per-slot (contiguous) caches or a paged KV pool (the
+decoder-only path of ``repro/serve/engine.py``, with the shared-prefix
+cache off).
 
 A fixed set of ``slots`` shares two model calls:
 
@@ -12,17 +13,22 @@ A fixed set of ``slots`` shares two model calls:
   decode tick    when no slot is prefilling, one token for every active
                  slot (with ``chunk_size=1`` it also teacher-forces prompts).
 
-The host-side ``BlockPool`` grows each slot's block table before the tick,
-oldest request first. When the pool cannot cover a growth, the youngest
-active request is preempted: its blocks are freed and it is requeued with
-prompt + generated tokens as its new prompt (recompute resumption, which
-leaves temperature-0 streams unchanged). An explicit ``pool_blocks`` is a
-byte budget counted in unquantized blocks: a quantized pool spends the
-same bytes on proportionally more blocks.
+``kv_layout="contiguous"`` (the default, as in ``repro``) gives each slot
+its own cache of ``max_len`` slots, or a rolling buffer of
+``min(max_len, window)`` for a windowed config; a slot reused by a new
+request is masked by its length, never cleared. There is no pool, so no
+preemption. ``kv_layout="paged"``: the host-side ``BlockPool`` grows each
+slot's block table before the tick, oldest request first. When the pool
+cannot cover a growth, the youngest active request is preempted: its
+blocks are freed and it is requeued with prompt + generated tokens as its
+new prompt (recompute resumption, which leaves temperature-0 streams
+unchanged). An explicit ``pool_blocks`` is a byte budget counted in
+unquantized blocks: a quantized pool spends the same bytes on
+proportionally more blocks. Windowed configs keep absolute positions in
+the pool and mask by the window.
 
-Left for later slices (``repro`` has them): the contiguous layout, local
-windows, the prefix cache, metrics, deadlines, cancellation, the NaN
-quarantine and snapshots.
+Not ported yet (``repro`` has them): the prefix cache, metrics,
+deadlines, cancellation, the NaN quarantine and snapshots.
 """
 from __future__ import annotations
 
@@ -34,8 +40,11 @@ import torch
 
 from repro_torch.configs.base import ATTENTION_IMPLS
 from repro_torch.models.api import (
+    decode_step,
     decode_step_paged,
+    init_decode_state,
     init_paged_state,
+    prefill,
     prefill_paged,
     resolve_device,
 )
@@ -64,17 +73,16 @@ class Request:
 class ServeEngine:
     def __init__(self, params, cfg, *, slots: int = 8, max_len: int = 512,
                  chunk_size: int = 64, temperature: float = 0.0,
-                 seed: int = 0, kv_layout: str = "paged",
+                 seed: int = 0, kv_layout: str = "contiguous",
                  page_size: int | None = None,
                  pool_blocks: int | None = None,
                  kv_dtype: str | None = None,
                  attention_impl: str | None = None,
                  prefix_cache: bool | None = False,
                  device="cuda"):
-        if kv_layout != "paged":
-            raise NotImplementedError(
-                f"kv_layout={kv_layout!r}: the port serves the paged layout "
-                f"only so far")
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
+                             f"got {kv_layout!r}")
         if prefix_cache:
             raise NotImplementedError("the port has no prefix cache yet; "
                                       "serve with prefix_cache=False")
@@ -95,9 +103,6 @@ class ServeEngine:
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of "
                              f"{ATTENTION_IMPLS}, got {cfg.attention_impl!r}")
-        if cfg.window:
-            raise NotImplementedError("the port's engine serves global "
-                                      "attention only so far")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -106,19 +111,27 @@ class ServeEngine:
         self.chunk_size = int(chunk_size)
         self.temperature = temperature
         self.seed = seed
-        ps = int(page_size or cfg.page_size)
-        max_blocks = blocks_for(max_len, ps)
-        requested = int(pool_blocks or cfg.pool_blocks or 0)
-        if requested:
-            # an unquantized-equivalent byte budget (DESIGN.md §8)
-            n_pool = max(1, requested * kv_token_bytes(cfg, "fp32")
-                         // kv_token_bytes(cfg))
+        self.kv_layout = kv_layout
+        self.paged = kv_layout == "paged"
+        if self.paged:
+            ps = int(page_size or cfg.page_size)
+            max_blocks = blocks_for(max_len, ps)
+            requested = int(pool_blocks or cfg.pool_blocks or 0)
+            if requested:
+                # an unquantized-equivalent byte budget (DESIGN.md §8)
+                n_pool = max(1, requested * kv_token_bytes(cfg, "fp32")
+                             // kv_token_bytes(cfg))
+            else:
+                n_pool = slots * max_blocks  # fully provisioned
+            self.page_size = ps
+            self.pool = BlockPool(n_pool, ps, slots, max_blocks)
+            self.state = init_paged_state(cfg, slots, n_pool, ps,
+                                          device=self.device)
         else:
-            n_pool = slots * max_blocks  # fully provisioned
-        self.page_size = ps
-        self.pool = BlockPool(n_pool, ps, slots, max_blocks)
-        self.state = init_paged_state(cfg, slots, n_pool, ps,
-                                      device=self.device)
+            self.page_size = 0
+            self.pool = None
+            self.state = init_decode_state(cfg, slots, max_len,
+                                           device=self.device)
         self.lengths = np.zeros((slots,), np.int32)
         self.cur_tok = np.zeros((slots,), np.int32)
         self.requests: list[Request | None] = [None] * slots
@@ -165,7 +178,7 @@ class ServeEngine:
             req = self.queue[0]
             take = (min(self.chunk_size, len(req.prefill_toks))
                     if self.chunk_size > 1 else 1)
-            if not self.pool.can_admit(take):
+            if self.paged and not self.pool.can_admit(take):
                 if self.pool.used_blocks == 0 and not any(
                         r is not None for r in self.requests):
                     raise RuntimeError(
@@ -191,7 +204,8 @@ class ServeEngine:
         req.done = True
         req.finish_reason = "length"
         self.requests[s] = None
-        self.pool.free_slot(s)
+        if self.paged:
+            self.pool.free_slot(s)
 
     def _finish_or_continue(self, s, tok):
         """Record a sampled token for slot s; free the slot when done."""
@@ -278,11 +292,14 @@ class ServeEngine:
                 take = 1
                 toks[s, 0] = self.cur_tok[s]
             nv[s] = take
-        logits, self.state = prefill_paged(
-            self.params, self.state, self._tensor(toks),
-            self._tensor(self.lengths), self._tensor(nv),
-            self._tensor(self.pool.tables), self.cfg,
-            page_size=self.page_size)
+        args = (self.params, self.state, self._tensor(toks),
+                self._tensor(self.lengths), self._tensor(nv))
+        if self.paged:
+            logits, self.state = prefill_paged(
+                *args, self._tensor(self.pool.tables), self.cfg,
+                page_size=self.page_size)
+        else:
+            logits, self.state = prefill(*args, self.cfg)
         nxt = self._sample(logits)
         self.ticks += 1
         self.prefill_steps += 1
@@ -303,10 +320,14 @@ class ServeEngine:
     def _decode_tick(self, active):
         """Single-token step; with chunk_size=1 it also teacher-forces
         prompts."""
-        logits, self.state = decode_step_paged(
-            self.params, self.state, self._tensor(self.cur_tok),
-            self._tensor(self.lengths), self._tensor(self.pool.tables),
-            self.cfg, page_size=self.page_size)
+        args = (self.params, self.state, self._tensor(self.cur_tok),
+                self._tensor(self.lengths))
+        if self.paged:
+            logits, self.state = decode_step_paged(
+                *args, self._tensor(self.pool.tables), self.cfg,
+                page_size=self.page_size)
+        else:
+            logits, self.state = decode_step(*args, self.cfg)
         nxt = self._sample(logits)
         self.ticks += 1
         self.decode_steps += 1
@@ -331,9 +352,10 @@ class ServeEngine:
         active = [s for s in range(self.slots) if self.requests[s] is not None]
         if not active:
             return False
-        active = self._reserve(active)
-        if not active:
-            return bool(self.queue)
+        if self.paged:
+            active = self._reserve(active)
+            if not active:
+                return bool(self.queue)
         prefilling = self.chunk_size > 1 and any(
             self.requests[s].pos < len(self.requests[s].prefill_toks)
             for s in active)

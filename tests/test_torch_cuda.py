@@ -7,7 +7,9 @@ JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
 Dyadic inputs make every score exact (``kernels/checks.py``), so both
 variants are held at 1e-5 of the output's magnitude, or at one bf16 ulp
 for the exact variant's bfloat16 output (``kernel_tol``); unallocated
-pool pages hold NaN, so a kernel that reads one fails.
+pool pages hold NaN, so a paged kernel that reads one fails. Contiguous
+caches hold large finite stale rows past each length instead (the
+reference multiplies zero weights into them).
 """
 import numpy as np
 import pytest
@@ -16,9 +18,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.checks import (  # noqa: E402
+    contiguous_case,
     kernel_tol,
     paged_case,
     rel_err,
+    run_contiguous_decode,
+    run_contiguous_prefill,
     run_decode,
     run_prefill,
 )
@@ -110,3 +115,71 @@ def test_paged_kernels_windowed_match_plain(cuda, variant):
     assert rel_err(run_prefill(case, variant),
                    run_prefill(case, variant, plain=True)) <= 1e-5
 
+
+
+# ---------------------------------------------------------------------------
+# contiguous caches
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_contiguous_decode_kernel_matches_plain(cuda, D, kv, variant,
+                                                q_dtype):
+    # two 256-wide tiles; ragged, idle (0), exactly S, stale rows past each
+    rng = np.random.default_rng(D + 2)
+    case = contiguous_case(rng, B=4, D=D, S=400, lengths=[37, 0, 400, 300],
+                           kv=kv, q_dtype=q_dtype, device=cuda, **SHAPES[D])
+    before = build.COUNTS["decode"]
+    got = run_contiguous_decode(case, variant)
+    ref = run_contiguous_decode(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert build.COUNTS["decode"] == before + 1
+    assert got.dtype == q_dtype
+    assert rel_err(got, ref) <= kernel_tol(variant, q_dtype)
+    assert float(got[1].abs().max()) == 0.0            # the idle row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_contiguous_prefill_kernel_matches_plain(cuda, D, kv, variant,
+                                                 q_dtype):
+    # a fresh cache over two 512-wide tiles, ragged chunks, an idle row
+    rng = np.random.default_rng(D + 3)
+    case = contiguous_case(rng, B=4, D=D, S=600, lengths=[530, 0, 17, 600],
+                           n_valid=[70, 0, 33, 64], chunk=70, kv=kv,
+                           q_dtype=q_dtype, device=cuda, **SHAPES[D])
+    before = build.COUNTS["prefill"]
+    got = run_contiguous_prefill(case, variant)
+    ref = run_contiguous_prefill(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert build.COUNTS["prefill"] == before + 1
+    assert got.dtype == q_dtype
+    assert rel_err(got, ref) <= kernel_tol(variant, q_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("window,rolling", [(256, True), (100, True),
+                                            (21, False)],
+                         ids=["rolling", "rolling-narrow", "fresh-window"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_contiguous_prefill_windows_match_plain(cuda, variant, window,
+                                                rolling, kv):
+    """Rolling buffers of span 256: one wrapped (length 1000), one shorter
+    than the span, one empty, one full; a 300-token chunk, longer than
+    the span. A fresh cache with a window skips whole tiles per block."""
+    rng = np.random.default_rng(9)
+    lengths = [1000, 100, 0, 256] if rolling else [200, 100, 0, 256]
+    case = contiguous_case(rng, B=4, D=64, S=256, lengths=lengths,
+                           n_valid=[300, 7, 0, 300], chunk=300, kv=kv,
+                           window=window, rolling=rolling, device=cuda,
+                           **SHAPES[64])
+    assert rel_err(run_contiguous_prefill(case, variant),
+                   run_contiguous_prefill(case, variant, plain=True)) <= 1e-5

@@ -1,6 +1,7 @@
-"""Port model parity: ``repro_torch`` paged prefill and decode ticks against
-``repro`` (its fused Pallas paged kernels in interpret mode) on the same
-converted weights, at smoke size in float32.
+"""Port model parity: ``repro_torch`` prefill and decode ticks against
+``repro`` (its fused Pallas kernels in interpret mode) on the same
+converted weights, at smoke size in float32, over paged pools and
+per-slot (contiguous) caches (windows: ``tests/test_torch_windows.py``).
 
 Both sides walk the same KV tiles in the same order, so each tick's
 logits are held at a limit set from that same-walk gap (about 5e-7 of the
@@ -30,9 +31,9 @@ PS, NBLK, MB = 4, 14, 6
 SAME_WALK_TOL = {"fp32": 1e-4, "int8": 1e-3}
 
 
-def _models(variant, kv_dtype):
+def _models(variant, kv_dtype, window=None):
     over = dict(dtype="float32", param_dtype="float32",
-                attention_variant=variant, kv_dtype=kv_dtype)
+                attention_variant=variant, kv_dtype=kv_dtype, window=window)
     jcfg = jax_get_config("qwen2-0.5b", smoke=True, attention_impl="pallas",
                           **over)
     params = japi.init_model(jax.random.PRNGKey(0), jcfg)
@@ -123,6 +124,65 @@ def test_prefill_and_decode_ticks_match_repro(variant, kv_dtype):
             == before.get("paged_prefill_plain", 0) + 2 * tcfg.num_layers)
 
 
+def contiguous_ticks(variant, kv_dtype, window, max_len, chunks):
+    """Prefill ``chunks`` (n_valid per row, C = 5), then two decodes, on
+    both sides; every tick's logits are compared on the active rows."""
+    jcfg, params, tcfg, tparams = _models(variant, kv_dtype, window)
+    rng = np.random.default_rng(1)
+    B, C = 3, 5
+    jstate = japi.init_decode_state(jcfg, B, max_len)
+    tstate = tapi.init_decode_state(tcfg, B, max_len, device="cpu")
+    tol = SAME_WALK_TOL[kv_dtype]
+    lens = np.zeros(B, np.int32)
+    before = dict(build.COUNTS)
+    for nv in chunks:
+        toks = rng.integers(1, tcfg.vocab_size, (B, C)).astype(np.int32)
+        nv = np.asarray(nv, np.int32)
+        jl, jstate = japi.prefill(params, jstate, jnp.asarray(toks),
+                                  jnp.asarray(lens), jnp.asarray(nv), jcfg)
+        tl, tstate = tapi.prefill(tparams, tstate, torch.from_numpy(toks),
+                                  torch.from_numpy(lens),
+                                  torch.from_numpy(nv), tcfg)
+        rows = nv > 0
+        assert _rel(tl.numpy()[rows], np.asarray(jl)[rows]) <= tol
+        lens = lens + nv
+    live = lens > 0
+    for _ in range(2):
+        tok = rng.integers(1, tcfg.vocab_size, (B,)).astype(np.int32)
+        jl, jstate = japi.decode_step(params, jstate, jnp.asarray(tok),
+                                      jnp.asarray(lens), jcfg)
+        tl, tstate = tapi.decode_step(tparams, tstate, torch.from_numpy(tok),
+                                      torch.from_numpy(lens), tcfg)
+        assert _rel(tl.numpy()[live], np.asarray(jl)[live]) <= tol
+        lens = lens + 1
+    # the caches hold what repro wrote, slot for slot (dequantized rows)
+    jc = jstate["caches"][0]
+    for layer, tc in enumerate(tstate["caches"]):
+        k = np.asarray(jc["k"][layer]).astype(np.float32)
+        tk = tc["k"].to(torch.float32).numpy()
+        if kv_dtype != "fp32":
+            k = k * np.asarray(jc["k_scale"][layer])[..., None]
+            tk = tk * tc["k_scale"].numpy()[..., None]
+        assert tk.shape == k.shape
+        np.testing.assert_allclose(tk, k, atol=5e-2 if kv_dtype != "fp32"
+                                   else 1e-5)
+    # on the CPU the kernels' plain versions ran, never a launch
+    assert build.COUNTS["prefill"] == before.get("prefill", 0)
+    assert build.COUNTS["decode"] == before.get("decode", 0)
+    assert (build.COUNTS["prefill_plain"]
+            == before.get("prefill_plain", 0) + len(chunks) * tcfg.num_layers)
+    assert (build.COUNTS["decode_plain"]
+            == before.get("decode_plain", 0) + 2 * tcfg.num_layers)
+
+
+@pytest.mark.parametrize("variant,kv_dtype", [
+    ("exact", "fp32"), ("exact", "int8"), ("expmul", "fp32"),
+    ("expmul", "int8")])
+def test_contiguous_ticks_match_repro(variant, kv_dtype):
+    # two prefill chunks (row 1 idle, rows 0 and 2 ragged), then decodes
+    contiguous_ticks(variant, kv_dtype, None, 24, ([5, 0, 3], [4, 0, 2]))
+
+
 def test_convert_bfloat16_keeps_bits():
     jcfg = jax_get_config("qwen2-0.5b", smoke=True)           # bf16 params
     params = japi.init_model(jax.random.PRNGKey(1), jcfg)
@@ -144,6 +204,8 @@ def test_entry_points_default_to_cuda():
         tapi.init_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tapi.init_paged_state(cfg, 2, 4, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.init_decode_state(cfg, 2, 16)
 
 
 def test_init_model_is_seeded_and_shaped():
