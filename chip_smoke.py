@@ -5,9 +5,9 @@
 
 from the repository root, on a machine with an NVIDIA Hopper card, PyTorch
 built for CUDA and the CUDA toolkit. It imports nothing of JAX or of the
-JAX package. It drives both KV layouts: the paged pool and the per-slot
-contiguous caches with rolling windows. Phases (a failing check raises,
-and the script exits non-zero):
+JAX package. It drives both serving KV layouts (the paged pool and the
+per-slot contiguous caches with rolling windows) and the training path.
+Phases (a failing check raises, and the script exits non-zero):
 
 1. print the card's name and power limit; build the kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
@@ -21,7 +21,11 @@ and the script exits non-zero):
    buffers (wrapped, shorter than the span, a chunk longer than the span,
    a window narrower than the span, n_valid = 0). Both walk the same
    tiles, so each is held at ``checks.kernel_tol``: 1e-5 of the output's
-   magnitude, or one bf16 ulp for the exact variant's bfloat16 output;
+   magnitude, or one bf16 ulp for the exact variant's bfloat16 output.
+   The full-sequence flash forward likewise, over {exact, expmul} x
+   {float32, bfloat16} x D {64, 128} x block_k {128, 512} x {dyadic,
+   random}, B 2, 14 / 2 heads: Sq = Sk in {1024, 1000} causal, with and
+   without a 256-token window, and non-causal 200 queries over 1000 keys;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -35,11 +39,22 @@ and the script exits non-zero):
    0 just before each run and read just after: the run's two kernels must
    have launched, and no other kernel or plain version;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
-   sequences of 1024 tokens, 256-token chunks, bf16 q): the median of 25
-   runs timed with CUDA events after warm-up, L2 flushed before each,
-   beside the plain version's time and the least time the card could
-   take;
-6. one JSON line of kernels, the card line, and as the last line
+   sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
+   forward, at the training shapes (8 x 1024 tokens, float32, causal,
+   ExpMul, 512-wide tiles): the median of 25 runs timed with CUDA events
+   after warm-up, L2 flushed before each, beside the plain version's time
+   and the least time the card could take;
+6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
+   weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
+   cosine schedule. One train step through the flash kernel and one
+   through its plain version from the same weights: the loss within 1e-5
+   and the grad norm within 1e-4 of their values. Then 6 steps through
+   ``repro_torch.launch.train.main`` with the launch counts set to 0 just
+   before and read just after: every loss finite, the flash kernel
+   launched 48 times a step (24 layers, twice under remat), and no other
+   kernel or plain version. Then the step time (p50 of 4 steps), tokens/s,
+   peak memory, and a one-step profiler window;
+7. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -58,6 +73,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor cores (float32 in)
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 KERNELS = {
     "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/decode/decode.py:285"),
@@ -67,9 +84,12 @@ KERNELS = {
                "src/repro/kernels/decode/decode.py:144"),
     "prefill": ("src/repro_torch/csrc/prefill.cu",
                 "src/repro/kernels/flash/prefill.py:245"),
+    "flash": ("src/repro_torch/csrc/flash.cu",
+              "src/repro/kernels/flash/flash.py:143"),
 }
 PAGED, CONTIGUOUS = ("paged_decode", "paged_prefill"), ("decode", "prefill")
 B, H, HKV, D, PS, MAX_LEN, CHUNK, CTX = 8, 14, 2, 64, 16, 2048, 256, 1024
+TRAIN_SEQ, TRAIN_STEPS = 1024, 6
 
 
 def log(msg):
@@ -234,6 +254,28 @@ def phase_kernel_checks(torch, checks):
                         for name, run, case, label, idle in cases:
                             _hold(torch, checks, name, run, case, variant,
                                   q_dtype, idle, label, worst)
+    # the training path's full-sequence forward
+    flash = [dict(Sq=1024, Sk=1024, causal=True, window=None),
+             dict(Sq=1024, Sk=1024, causal=True, window=256),
+             dict(Sq=1000, Sk=1000, causal=True, window=None),
+             dict(Sq=1000, Sk=1000, causal=True, window=256),
+             dict(Sq=200, Sk=1000, causal=False, window=None)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (64, 128):
+            for sh in flash:
+                for dyadic in (True, False):
+                    case = checks.flash_case(
+                        rng, B=2, H=H, Hkv=HKV, D=hd, dtype=dtype,
+                        dyadic=dyadic, device="cuda", **sh)
+                    for block_k in (128, 512):
+                        case["block_k"] = block_k
+                        label = (f"D={hd} Sq={sh['Sq']} Sk={sh['Sk']} "
+                                 f"causal={sh['causal']} "
+                                 f"window={sh['window']} bk={block_k} "
+                                 f"{'dyadic' if dyadic else 'random'}")
+                        for variant in ("exact", "expmul"):
+                            _hold(torch, checks, "flash", checks.run_flash,
+                                  case, variant, dtype, [], label, worst)
     log(f"[check] worst rel err: {json.dumps(worst)}")
 
 
@@ -426,11 +468,36 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     return launches
 
 
+def _profile_window(torch, fn, label):
+    """Wall time, device busy time, idle share and the top six device
+    kernels of one call of ``fn``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(kernels.values())
+    if not busy:
+        log(f"[profile] {label}: the profiler reported no device time")
+        return
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}; top "
+        f"kernels (ms): " + "; ".join(f"{name[:60]} {us / 1e3:.3f}"
+                                      for name, us in top))
+
+
 def phase_profile(torch, ServeEngine, params, cfg, kw, prompts):
     """Device busy share and the top device kernels over one prefill tick
     and four decode ticks of a serving path, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     eng = ServeEngine(params, cfg, **kw)
     for p in prompts[:8]:
         eng.submit(p[:200], 8)
@@ -440,30 +507,114 @@ def phase_profile(torch, ServeEngine, params, cfg, kw, prompts):
                     r is not None and r.pos < len(r.prefill_toks)
                     for r in eng.requests):
                 eng.tick()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                eng.tick()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = {}
-        for e in prof.events():
-            if str(getattr(e, "device_type", "")).endswith("CUDA"):
-                dur = e.time_range.elapsed_us()
-                kernels[e.name] = kernels.get(e.name, 0.0) + dur
-        busy = sum(kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-        label = f"{kw['kv_layout']}/{kw['kv_dtype']} {kind}"
-        if not busy:
-            log(f"[profile] {label}: the profiler reported no device time")
-            continue
-        log(f"[profile] {label} x{n}: wall {wall_us / 1e3:.2f} ms, device "
-            f"busy {busy / 1e3:.2f} ms, idle share "
-            f"{1 - busy / wall_us:.3f}; top kernels (ms): " + "; ".join(
-                f"{name[:60]} {us / 1e3:.3f}" for name, us in top))
+        _profile_window(torch, lambda: [eng.tick() for _ in range(n)],
+                        f"{kw['kv_layout']}/{kw['kv_dtype']} {kind} x{n}")
     eng.run()
+
+
+def phase_train(torch, cfg_mod, api, build):
+    """Full-width training: the kernel against the plain version on one
+    step, the launcher's 6 steps gated on the launch counts, then step
+    time, memory and a profile. Returns the flash kernel's launches."""
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train.step import build_train_step, make_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = cfg_mod.get_config("qwen2-0.5b", dtype="float32",
+                              param_dtype="float32",
+                              attention_variant="expmul")
+    assert base.remat and base.attention_block_k == 512 \
+        and base.kv_dtype == "fp32"
+    data = SyntheticLMDataset(base.vocab_size, TRAIN_SEQ, seed=0)
+    batch = {"tokens": torch.from_numpy(data.batch(0, B)).cuda()}
+    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(5),
+                            device="cuda")
+    opt = adamw(cosine_schedule(3e-3, 20, TRAIN_STEPS))
+
+    # 1. one step through the kernel and one through the plain version
+    metrics = {}
+    for impl in ("kernel", "plain"):
+        step = build_train_step(base.replace(attention_impl=impl), opt)
+        t0 = time.perf_counter()
+        _, m = step(make_train_state(params, opt), batch)
+        metrics[impl] = {k: float(v) for k, v in m.items()}
+        log(f"[train] one step, attention {impl}: loss "
+            f"{metrics[impl]['loss']:.7f}, grad norm "
+            f"{metrics[impl]['grad_norm']:.7f} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        del m
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = ((metrics[i]["loss"], metrics[i]["grad_norm"])
+                          for i in ("kernel", "plain"))
+    dl, dg = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+    log(f"[train] kernel vs plain: loss {dl:.3e} (limit 1e-5), grad norm "
+        f"{dg:.3e} (limit 1e-4) of their values")
+    if not (dl <= 1e-5 and dg <= 1e-4):
+        raise AssertionError("the train step through the flash kernel "
+                             "disagrees with the plain version")
+
+    # 2. the launcher, 6 steps, with the launch counts gated
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    losses = launch.main(["--steps", str(TRAIN_STEPS), "--batch", str(B),
+                          "--seq", str(TRAIN_SEQ), "--variant", "expmul",
+                          "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.COUNTS)
+    log(f"[train] launcher: {len(losses)} steps of {B} x {TRAIN_SEQ} "
+        f"tokens in {wall:.2f} s (init included); losses "
+        f"{json.dumps([round(x, 5) for x in losses])}; launches "
+        f"{json.dumps(counts)}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"the launcher's losses: {losses}")
+    per_step = 2 * base.num_layers
+    if counts.get("flash", 0) != per_step * TRAIN_STEPS:
+        raise AssertionError(f"flash launched {counts.get('flash', 0)} "
+                             f"times, not {per_step} a step")
+    if any(n for name, n in counts.items() if name != "flash"):
+        raise AssertionError(f"another kernel or a plain version ran while "
+                             f"training: {counts}")
+
+    # 3. step time, tokens/s, peak memory, one profiled step
+    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(5),
+                            device="cuda")
+    state = make_train_state(params, opt)
+    del params
+    step = build_train_step(base, opt)
+    state, _ = step(state, batch)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(4):
+        tb = {"tokens": torch.from_numpy(data.batch(i + 1, B)).cuda()}
+        t = time.perf_counter()
+        state, m = step(state, tb)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = statistics.median(times)
+    log(f"[train] step time, ms: p50 {p50:.1f} (steps "
+        f"{', '.join(f'{x:.1f}' for x in times)}); {B * TRAIN_SEQ / p50 * 1e3:.1f} "
+        f"tokens/s; peak memory {peak / 2**30:.2f} GiB")
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, batch)
+        float(m["loss"])
+
+    _profile_window(torch, one_step, "train step x1")
+    del state
+    torch.cuda.empty_cache()
+    return {"flash": dict(launches=counts["flash"],
+                          launches_per_step=per_step)}
 
 
 def _bounds(name, lengths, n_valid=None):
@@ -555,6 +706,59 @@ def phase_times(torch, checks, F):
             f"ms ({out[name]['bound_by']}: {nbytes} B, {flops} flop), "
             f"max abs err {err:.3e} (rel {rel:.3e}); yardstick exact bf16 "
             f"kernel {exact_ms:.4f} ms vs SDPA dense {sdpa_ms:.4f} ms")
+    out["flash"] = _time_flash(torch, checks, F, flush, rng)
+    return out
+
+
+def _time_flash(torch, checks, F, flush, rng):
+    """The flash forward at the training shapes: 8 x 1024 tokens, 14 / 2
+    heads of 64, float32, causal, ExpMul, 512-wide tiles (the training
+    path's min(512, S)); the library yardstick is SDPA on the same float32
+    q, k, v (the exact variant's function)."""
+    S = TRAIN_SEQ
+    case = checks.flash_case(rng, B=B, H=H, Hkv=HKV, Sq=S, Sk=S, D=D,
+                             dtype=torch.float32, dyadic=False, causal=True,
+                             block_k=512, device="cuda")
+    got = checks.run_flash(case, "expmul")
+    ref = checks.run_flash(case, "expmul", plain=True)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = checks.rel_err(got, ref)
+    if not rel <= checks.kernel_tol("expmul", torch.float32):
+        raise AssertionError("flash disagrees at the training shapes")
+    ms = median_ms(torch, lambda: checks.run_flash(case, "expmul"), flush)
+    host_ms = median_ms(torch, lambda: checks.run_flash(case, "expmul"),
+                        flush, hide_host=False)
+    plain_ms = median_ms(torch, lambda: checks.run_flash(case, "expmul",
+                                                         plain=True), flush)
+    exact_ms = median_ms(torch, lambda: checks.run_flash(case, "exact"),
+                         flush)
+    q, k, v = case["q"], case["k"], case["v"]
+    sdpa_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), flush)
+    # each input read once, the output written once; 4 * D operations per
+    # causal (query, key) pair, at the card's peak for float32 inputs (TF32
+    # tensor cores); the CUDA-core float32 rate the kernel runs at is a
+    # yardstick only
+    nbytes = 4 * (2 * B * H * S * D + 2 * B * HKV * S * D)
+    flops = 4 * D * B * H * (S * (S + 1) // 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S
+    f32_core_ms = flops / F32_FLOPS_PER_S * 1e3
+    out = dict(max_abs_err=err, ms=ms, ms_with_launch=host_ms,
+               plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=sdpa_ms,
+               yardstick={"what": "exact variant vs SDPA, float32",
+                          "kernel_ms": exact_ms, "library_ms": sdpa_ms,
+                          "ops_ms_at_f32_cuda_core_rate": f32_core_ms})
+    log(f"[time] flash (float32, ExpMul, B={B}, S={S}, causal, 512-wide "
+        f"tiles): kernel {ms:.4f} ms on the device, {host_ms:.4f} ms with "
+        f"its launch, plain {plain_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {nbytes} B, {flops} "
+        f"flop at the TF32 tensor-core rate; {f32_core_ms:.4f} ms at the "
+        f"float32 CUDA-core rate, a yardstick), max abs err {err:.3e} (rel "
+        f"{rel:.3e}); exact variant {exact_ms:.4f} ms, library SDPA "
+        f"{sdpa_ms:.4f} ms")
     return out
 
 
@@ -581,6 +785,7 @@ def main() -> int:
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("times", lambda: phase_times(torch, checks, F)),
+        ("train", lambda: phase_train(torch, cfg_mod, api, build)),
     )
     results = {}
     for name, fn in phases:
@@ -588,9 +793,10 @@ def main() -> int:
         results[name] = fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
     kernels = []
+    launches = {**results["serve"], **results["train"]}
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, **results["serve"][name],
+                            replaces=replaces, **launches[name],
                             **results["times"][name]))
     log(json.dumps({"kernels": kernels}))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -33,12 +33,16 @@ class ModelConfig:
     # on any device, the reference the kernels are held against.
     attention_impl: str = "kernel"
     attention_variant: str = "expmul"      # exact | expmul  (paper default on)
+    # the full-sequence forward's KV tile width (part of an ExpMul result;
+    # the backward's blocks are the largest divisor of Sk not above it)
+    attention_block_k: int = 512
 
     page_size: int = 16            # tokens per KV block
     pool_blocks: int = 0           # 0: engine fully provisions slots*max_len
     kv_dtype: str = "fp32"         # fp32 | int8 | fp8
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    remat: bool = True             # recompute each layer in the backward
 
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads

@@ -13,7 +13,7 @@ the package on a machine without ``nvcc``.
 ``COUNTS`` records, per kernel, the launches of the CUDA kernel
 (``"<name>"``) and the calls of its plain PyTorch version
 (``"<name>_plain"``); ``chip_smoke.py`` reads it to show that the serving
-path went through the kernels.
+and training paths went through the kernels.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("paged_decode", "paged_prefill", "decode", "prefill")
+SOURCES = ("paged_decode", "paged_prefill", "decode", "prefill", "flash")
 HEADERS = ("tile.cuh",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

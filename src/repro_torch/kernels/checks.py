@@ -10,6 +10,8 @@ sequence has not written hold a previous occupant's rows, large but
 finite (``STALE``, or the largest code with a large scale), since the
 reference multiplies their zero weights into them and NaN would poison
 it too.
+``flash_case`` builds one full-sequence input (q, k, v of one dtype) for
+the training path's flash forward.
 ``dyadic=True`` draws q in multiples of 2^-3 with |q| <= 2, values in
 multiples of 2^-3, integer codes (|c| <= 15 for fp8, exact in e4m3) and
 power-of-two scales: with a power-of-two softmax scale every score is
@@ -28,6 +30,7 @@ from repro_torch.kernels.decode.ops import (
     quant_fused_paged_decode_attention,
 )
 from repro_torch.kernels.flash.ops import (
+    flash_attention_fwd,
     fused_paged_prefill_attention,
     prefill_attention,
     quant_fused_paged_prefill_attention,
@@ -195,6 +198,25 @@ def run_contiguous_prefill(case, variant, plain=False):
     return prefill_attention(case["q"], case["k"], case["v"], case["kn"],
                              case["vn"], case["lengths"], case["n_valid"],
                              **kw)
+
+
+def flash_case(rng, *, B, H, Hkv, Sq, Sk, D, dtype=torch.float32,
+               dyadic=True, causal=True, window=None, block_k=128,
+               device="cuda"):
+    """Full-sequence operands: q (B, H, Sq, D), k and v (B, Hkv, Sk, D) in
+    ``dtype``, with the mask and the KV tile width to run them at."""
+    def draw(shape):
+        return torch.from_numpy(_act(rng, shape, dyadic)).to(dtype).to(device)
+    return dict(q=draw((B, H, Sq, D)), k=draw((B, Hkv, Sk, D)),
+                v=draw((B, Hkv, Sk, D)), causal=causal, window=window,
+                block_k=block_k)
+
+
+def run_flash(case, variant, plain=False):
+    return flash_attention_fwd(case["q"], case["k"], case["v"],
+                               causal=case["causal"], window=case["window"],
+                               variant=variant, block_k=case["block_k"],
+                               plain=plain)
 
 
 def kernel_tol(variant, out_dtype) -> float:

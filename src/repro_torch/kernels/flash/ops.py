@@ -1,19 +1,50 @@
-"""Public wrappers of the chunked-prefill kernels (the port of
-``repro/kernels/flash/ops.py``'s fused prefill forms): fold the head axes,
-view per-slot caches as (B*Hkv, S, D) and flat pools as pages; no copy of
-a cache is made."""
+"""Public wrappers of the full-sequence forward and the chunked-prefill
+kernels (the port of ``repro/kernels/flash/ops.py``): fold the head axes,
+pad the full-sequence forward's key axis to whole tiles, view
+per-slot caches as (B*Hkv, S, D) and flat pools as pages; no copy of a
+cache is made."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.flash.flash import flash_fwd, flash_fwd_plain
 from repro_torch.kernels.flash.prefill import (
     paged_prefill_fwd,
     paged_prefill_fwd_plain,
     prefill_fwd,
     prefill_fwd_plain,
 )
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, scale=None, window=None,
+                        variant="exact", block_k=128, plain=False):
+    """Full-sequence attention forward: q (B, H, Sq, D), k and v
+    (B, Hkv, Sk, D) -> (B, H, Sq, D) in q's dtype, as
+    ``repro.kernels.flash.ops.flash_attention_fwd``: the key axis is
+    zero-padded to a multiple of ``min(block_k, Sk)``, the padded keys
+    masked by ``kv_len = Sk``. The reference's query padding to whole
+    ``block_q`` blocks changes no number and is not done. ``plain`` runs
+    the plain version on any device."""
+    B, H, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    if v.shape[-1] != D:
+        raise ValueError("the flash kernel requires Dq == Dv")
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    bk = min(block_k, Sk)
+
+    def fold(t, n, pad):
+        if pad:
+            t = F.pad(t, (0, 0, 0, pad))
+        return t.reshape(t.shape[0] * t.shape[1], n + pad, D).contiguous()
+
+    fn = flash_fwd_plain if plain else flash_fwd
+    o3 = fn(fold(q, Sq, 0), fold(k, Sk, -Sk % bk), fold(v, Sk, -Sk % bk),
+            causal=causal, scale=scale, window=window, variant=variant,
+            block_k=bk, num_q_heads=H, num_kv_heads=Hkv, kv_len=Sk)
+    return o3.reshape(B, H, Sq, D)
 
 
 def _run_contiguous(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lengths, n_valid,

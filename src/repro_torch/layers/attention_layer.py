@@ -1,16 +1,21 @@
-"""GQA attention layer with RoPE and QKV bias over per-slot or paged KV
+"""GQA attention layer with RoPE and QKV bias: the full-sequence path of
+training (``attn_apply``) and the serving paths over per-slot or paged KV
 caches.
 
-The serving half of ``repro/layers/attention_layer.py``, with its order of
-operations: decode quantizes and writes the new token's K/V, then attends;
-chunked prefill quantizes the chunk once, attends over [cache ++ chunk
-codes], then writes the chunk. The per-slot (contiguous) cache of a
-windowed layer is a rolling buffer of ``span = min(max_len, window)``
-slots: RoPE uses absolute positions while the slot wraps modulo the span,
-and prefill reads the buffer with the rolling mask, before the chunk
-overwrites slots its own earlier queries still read. With
-``cfg.kv_dtype`` "int8"/"fp8" the caches hold codes plus per-(token, head)
-float32 scale rows. The caches are updated in place.
+``repro/layers/attention_layer.py`` without cross-attention, with its order
+of operations. ``attn_apply`` attends over the sequence's own K/V through
+``core.attention.attention`` (the flash kernel forward and the reference's
+recompute backward); it runs unquantized (``kv_dtype="fp32"``) and raises
+on a quantized ``cfg.kv_dtype``. On the serving paths, decode quantizes
+and writes the new token's K/V, then attends; chunked prefill quantizes
+the chunk once, attends over [cache ++ chunk codes], then writes the
+chunk. The per-slot (contiguous) cache of a windowed layer is a rolling
+buffer of ``span = min(max_len, window)`` slots: RoPE uses absolute
+positions while the slot wraps modulo the span, and prefill reads the
+buffer with the rolling mask, before the chunk overwrites slots its own
+earlier queries still read. With ``cfg.kv_dtype`` "int8"/"fp8" the caches
+hold codes plus per-(token, head) float32 scale rows. The caches are
+updated in place.
 
 ``cfg.attention_impl`` "kernel" runs the CUDA kernels (their plain
 versions for CPU tensors); "plain" runs the plain versions on any device.
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.attention import attention
 from repro_torch.kernels.decode.ops import (
     decode_attention,
     fused_paged_decode_attention,
@@ -77,6 +83,22 @@ def _project_qkv(params, x, cfg, positions):
     q = apply_rope(q, positions[:, None, :], cfg.rope_base)
     k = apply_rope(k, positions[:, None, :], cfg.rope_base)
     return q, k, v
+
+
+def attn_apply(params, x, cfg, *, positions=None, causal=True, window=None):
+    """x (B, S, d) -> (B, S, d): full-sequence attention of the training
+    path, RoPE at ``positions`` (default ``arange(S)`` per row)."""
+    if kv_quantized(cfg):
+        raise NotImplementedError(
+            f"full-sequence attention at kv_dtype={cfg.kv_dtype!r} (the "
+            f"reference's fake-quant training impls) is not ported; train at "
+            f"kv_dtype='fp32'")
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    o = attention(q, k, v, cfg, causal=causal, window=window)
+    return torch.einsum("bhsk,hkd->bsd", o, params["wo"])
 
 
 def _init_kv(shape, cfg, dtype, device):

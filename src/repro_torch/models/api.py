@@ -1,6 +1,7 @@
-"""Model assembly for serving: init, decode state, chunked prefill and
-single-token decode over per-slot (contiguous) caches or paged pools (the
-decoder-only serving half of ``repro/models/api.py``).
+"""Model assembly: init, the full-sequence forward and loss of training,
+and for serving the decode state, chunked prefill and single-token decode
+over per-slot (contiguous) caches or paged pools (the decoder-only half of
+``repro/models/api.py``).
 
 Parameters are a dict of tensors with ``repro``'s layouts
 (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...), one entry of ``"layers"`` per
@@ -14,6 +15,7 @@ unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged import scatter_plan, token_rows
 from repro_torch.layers.attention_layer import (
@@ -24,6 +26,7 @@ from repro_torch.layers.attention_layer import (
 from repro_torch.layers.common import rmsnorm, rmsnorm_init
 from repro_torch.layers.embedding import embed_apply, embed_init, logits_apply
 from repro_torch.models.blocks import (
+    block_apply,
     block_decode_step,
     block_init,
     block_init_cache,
@@ -62,6 +65,42 @@ def init_model(cfg, generator: torch.Generator | None = None, *,
         "layers": [block_init(cfg, pd, generator, device)
                    for _ in range(cfg.num_layers)],
     }
+
+
+def forward(params, batch, cfg):
+    """batch["tokens"] (B, S) -> logits (B, S, V) in ``cfg.dtype``. With
+    ``cfg.remat`` each layer runs under a non-reentrant
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+    layer): its activations are recomputed in the backward, which runs its
+    attention forward a second time."""
+    x = embed_apply(params["embed"], batch["tokens"]).to(_dtype(cfg.dtype))
+    for p in params["layers"]:
+        if cfg.remat:
+            x = checkpoint(block_apply, p, x, cfg, use_reentrant=False)
+        else:
+            x = block_apply(p, x, cfg)
+    x = rmsnorm(params["final_norm"], x)
+    return logits_apply(params["embed"], x)
+
+
+def loss_fn(params, batch, cfg):
+    """Next-token cross entropy, masked by ``batch["loss_mask"]`` when
+    given, in the reference's order: the max of the logits, a float32
+    log-sum-exp of the shifted logits, a gather of the targets, then a
+    masked mean. ``torch.amax`` splits the gradient among tied maxima
+    evenly, as JAX's max does."""
+    logits = forward(params, batch, cfg)[:, :-1]
+    targets = batch["tokens"][:, 1:].to(torch.int64)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32,
+                       device=targets.device)
+            if mask is None else mask[:, 1:])
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = m[..., 0].to(torch.float32) + torch.log(
+        torch.sum(torch.exp((logits - m).to(torch.float32)), dim=-1))
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = lse - tgt.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def init_decode_state(cfg, batch, max_len, *, device="cuda"):

@@ -1,11 +1,12 @@
 """Residual blocks of the ``attn`` kind: norm -> attention -> residual,
-norm -> SwiGLU -> residual, over per-slot (contiguous) caches or a paged
-KV pool."""
+norm -> SwiGLU -> residual, over the full sequence (training) or over
+per-slot (contiguous) caches or a paged KV pool (serving)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.layers.attention_layer import (
+    attn_apply,
     attn_decode_step,
     attn_init,
     attn_init_cache,
@@ -29,6 +30,13 @@ def block_init(cfg, dtype, generator, device):
 
 def _ffn(params, x):
     return x + mlp_apply(params["ffn"], rmsnorm(params["norm_ffn"], x))
+
+
+def block_apply(params, x, cfg):
+    """One causal block over the full sequence x (B, S, d)."""
+    h = rmsnorm(params["norm_mix"], x)
+    h = attn_apply(params["mix"], h, cfg, window=cfg.window or None)
+    return _ffn(params, x + h)
 
 
 def block_init_cache(cfg, batch, max_len, dtype, device):

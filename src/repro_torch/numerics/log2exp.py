@@ -1,5 +1,5 @@
 """Fixed-point Log2Exp quantization and the ExpMul primitive (paper §IV-B),
-forward only.
+with the straight-through autograd forms used in training.
 
 The bit-level contract is ``repro/numerics/log2exp.py``; this module
 reproduces it bit for bit on PyTorch tensors:
@@ -12,7 +12,10 @@ reproduces it bit for bit on PyTorch tensors:
   exponent that reaches <= 0 flushes to +0, so denormals and -0 come out as
   +0 even at ``L_hat = 0``;
 * ``pow2_neg`` assembles ``2^-L_hat`` from bits (0.0 when the exponent
-  underflows).
+  underflows);
+* ``qexp_ste`` and ``expmul_ste`` run the quantized forward bit for bit and
+  take the gradient of the exact ``e^x`` (``e^x * v``) at the clipped input,
+  as ``repro``'s custom VJPs do.
 
 The CUDA kernels carry the same arithmetic in ``csrc/tile.cuh``.
 """
@@ -84,3 +87,61 @@ def expmul(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     lhat = log2exp_lhat(x)
     return apply_pow2_scale(v, lhat.expand(torch.broadcast_shapes(
         lhat.shape, v.shape)))
+
+
+class _QExpSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return pow2_neg(log2exp_lhat(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        e = torch.exp(torch.clamp(x.to(torch.float32), CLIP_LO, CLIP_HI))
+        return (e * g).to(x.dtype)
+
+
+def qexp_ste(x: torch.Tensor) -> torch.Tensor:
+    """Quantized ``e^x`` as the float32 power of two ``2^-L_hat``, with the
+    straight-through gradient ``exp(clip(x, -15, 0)) * g``."""
+    return _QExpSTE.apply(x)
+
+
+def _unbroadcast(t: torch.Tensor, shape) -> torch.Tensor:
+    """Sum ``t`` over the axes that broadcasting added to ``shape``."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape:
+        return t
+    ndiff = t.dim() - len(shape)
+    if ndiff:
+        t = torch.sum(t, dim=tuple(range(ndiff)))
+    axes = tuple(i for i, (a, b) in enumerate(zip(t.shape, shape))
+                 if b == 1 and a != 1)
+    if axes:
+        t = torch.sum(t, dim=axes, keepdim=True)
+    return t.reshape(shape)
+
+
+class _ExpMulSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, v):
+        ctx.save_for_backward(x, v)
+        return expmul(x, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, v = ctx.saved_tensors
+        e = torch.exp(torch.clamp(x.to(torch.float32), CLIP_LO, CLIP_HI))
+        e = e.expand(g.shape)
+        gf = g.to(torch.float32)
+        dv = _unbroadcast(e * gf, v.shape).to(v.dtype)
+        dx = _unbroadcast(e * v.to(torch.float32) * gf, x.shape).to(x.dtype)
+        return dx, dv
+
+
+def expmul_ste(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """ExpMul with a straight-through estimator: the quantized forward of
+    ``expmul``, the gradients of the exact ``e^x * v`` (``x`` clipped to
+    [-15, 0]), with broadcast axes summed."""
+    return _ExpMulSTE.apply(x, v)

@@ -19,12 +19,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.checks import (  # noqa: E402
     contiguous_case,
+    flash_case,
     kernel_tol,
     paged_case,
     rel_err,
     run_contiguous_decode,
     run_contiguous_prefill,
     run_decode,
+    run_flash,
     run_prefill,
 )
 
@@ -183,3 +185,42 @@ def test_contiguous_prefill_windows_match_plain(cuda, variant, window,
                            **SHAPES[64])
     assert rel_err(run_contiguous_prefill(case, variant),
                    run_contiguous_prefill(case, variant, plain=True)) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the training path's full-sequence forward
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("mask", ["causal", "window", "cross"])
+@pytest.mark.parametrize("block_k", [32, 128, 512])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain(cuda, D, mask, block_k, variant, dtype):
+    """Sq = Sk = 200 (ragged against every tile width: K padded, the last
+    tile partly masked), causal, causal with a 48-token window, and
+    non-causal with 120 queries over 200 keys; GQA 6/2."""
+    rng = np.random.default_rng(D + block_k)
+    Sq, causal, window = {"causal": (200, True, None),
+                          "window": (200, True, 48),
+                          "cross": (120, False, None)}[mask]
+    for dyadic in (True, False):
+        case = flash_case(rng, B=2, H=6, Hkv=2, Sq=Sq, Sk=200, D=D,
+                          dtype=dtype, dyadic=dyadic, causal=causal,
+                          window=window, block_k=block_k, device=cuda)
+        before = build.COUNTS["flash"]
+        got = run_flash(case, variant)
+        ref = run_flash(case, variant, plain=True)
+        torch.cuda.synchronize()
+        assert build.COUNTS["flash"] == before + 1
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert rel_err(got, ref) <= kernel_tol(variant, dtype), dyadic
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_wide_tiles(cuda):
+    case = flash_case(np.random.default_rng(0), B=1, H=2, Hkv=1, Sq=600,
+                      Sk=600, D=64, block_k=600, device=cuda)
+    with pytest.raises(ValueError, match="block_k"):
+        run_flash(case, "expmul")

@@ -217,6 +217,8 @@ def test_port_imports_no_jax_and_no_repro():
         "assert not bad, bad\n"
         "assert 'repro_torch.serve.engine' in sys.modules\n"
         "assert 'repro_torch.launch.serve' in sys.modules\n"
+        "assert 'repro_torch.launch.train' in sys.modules\n"
+        "assert 'repro_torch.train.step' in sys.modules\n"
         "print('ok')\n")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
