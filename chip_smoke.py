@@ -6,7 +6,8 @@
 from the repository root, on a machine with an NVIDIA Hopper card, PyTorch
 built for CUDA and the CUDA toolkit. It imports nothing of JAX or of the
 JAX package. It drives both serving KV layouts (the paged pool and the
-per-slot contiguous caches with rolling windows) and the training path.
+per-slot contiguous caches with rolling windows), the training path, and
+the paper's demonstrations (the quickstart and the Table I study).
 Phases (a failing check raises, and the script exits non-zero):
 
 1. print the card's name and power limit; build the kernels from
@@ -26,6 +27,12 @@ Phases (a failing check raises, and the script exits non-zero):
    {float32, bfloat16} x D {64, 128} x block_k {128, 512} x {dyadic,
    random}, B 2, 14 / 2 heads: Sq = Sk in {1024, 1000} causal, with and
    without a 256-token window, and non-causal 200 queries over 1000 keys;
+   and at head dim 32 (the fidelity model's) its shape and a ragged
+   causal 1000; then the standalone ExpMul kernel bit for bit against its
+   plain version and the frexp/ldexp oracle (raw bits), over the
+   reference's sweep and (114688, 65), float32 and bfloat16, with the
+   contract's edge values, and the merged [l, o] update through it; what
+   each gives for NaN and inf, outside the contract, is printed only;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -41,7 +48,9 @@ Phases (a failing check raises, and the script exits non-zero):
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
-   ExpMul, 512-wide tiles): the median of 25 runs timed with CUDA events
+   ExpMul, 512-wide tiles) and, for ExpMul, at the flash recurrence's
+   state of the training shapes ((114688, 64) float32 and bfloat16,
+   (114688, 65) float32): the median of 25 runs timed with CUDA events
    after warm-up, L2 flushed before each, beside the plain version's time
    and the least time the card could take;
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
@@ -54,7 +63,14 @@ Phases (a failing check raises, and the script exits non-zero):
    launched 48 times a step (24 layers, twice under remat), and no other
    kernel or plain version. Then the step time (p50 of 4 steps), tokens/s,
    peak memory, and a one-step profiler window;
-7. one JSON line of kernels, the card line, and as the last line
+7. ``python -m repro_torch.launch.quickstart`` and then ``python -m
+   repro_torch.launch.fidelity`` on the card, the launch counts set to 0
+   just before each and read just after: the quickstart must launch the
+   ExpMul and flash kernels and no plain version, its outputs agreeing
+   with the plain versions; the study (200 training steps, the four-row
+   grid, the raw attention error) must launch flash only, with every
+   perplexity finite; its table is printed, not gated;
+8. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -86,10 +102,17 @@ KERNELS = {
                 "src/repro/kernels/flash/prefill.py:245"),
     "flash": ("src/repro_torch/csrc/flash.cu",
               "src/repro/kernels/flash/flash.py:143"),
+    "expmul": ("src/repro_torch/csrc/expmul.cu",
+               "src/repro/kernels/expmul/expmul.py:57"),
 }
 PAGED, CONTIGUOUS = ("paged_decode", "paged_prefill"), ("decode", "prefill")
 B, H, HKV, D, PS, MAX_LEN, CHUNK, CTX = 8, 14, 2, 64, 16, 2048, 256, 1024
 TRAIN_SEQ, TRAIN_STEPS = 1024, 6
+# the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
+# rows at the training shapes (8 sequences x 14 heads x 1024 rows)
+EXPMUL_SHAPES = [(1, 1), (3, 7), (8, 16), (32, 64), (128, 256), (257, 130),
+                 (64, 1024), (114688, 65)]
+EXPMUL_ROWS = B * H * TRAIN_SEQ
 
 
 def log(msg):
@@ -276,7 +299,86 @@ def phase_kernel_checks(torch, checks):
                         for variant in ("exact", "expmul"):
                             _hold(torch, checks, "flash", checks.run_flash,
                                   case, variant, dtype, [], label, worst)
+    # head dim 32, the fidelity study's: its shape (8 x 64 tokens, 4 / 2
+    # heads, one 64-wide tile) and a ragged causal 1000 over 512-wide tiles
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, hq, s, bk in ((8, 4, 64, 64), (2, H, 1000, 512)):
+            for dyadic in (True, False):
+                case = checks.flash_case(
+                    rng, B=b, H=hq, Hkv=HKV, D=32, Sq=s, Sk=s, dtype=dtype,
+                    dyadic=dyadic, causal=True, block_k=bk, device="cuda")
+                label = (f"D=32 B={b} Sq={s} Sk={s} causal=True bk={bk} "
+                         f"{'dyadic' if dyadic else 'random'}")
+                for variant in ("exact", "expmul"):
+                    _hold(torch, checks, "flash", checks.run_flash, case,
+                          variant, dtype, [], label, worst)
     log(f"[check] worst rel err: {json.dumps(worst)}")
+
+
+def _bits_repr(torch, t):
+    w = torch.int32 if t.dtype == torch.float32 else torch.int16
+    mask = 0xFFFFFFFF if t.dtype == torch.float32 else 0xFFFF
+    return [f"{float(a):g}/0x{int(b) & mask:x}" for a, b in
+            zip(t.float().flatten().tolist(), t.view(w).flatten().tolist())]
+
+
+def phase_expmul_checks(torch, checks, build, ops):
+    """The ExpMul kernel bit for bit against its plain version and the
+    frexp/ldexp oracle, on the card, over the reference's sweep and the
+    merged [l, o] rows of the training shapes, in both dtypes, with the
+    contract's edge values (``checks.expmul_case``); the merged update
+    through the kernel against the bit path (two launches, logged and
+    gated here; no entry point calls it); then, as a report only, what
+    kernel and plain version give for NaN and inf, outside the contract."""
+    from repro_torch.kernels.expmul.expmul import expmul_fwd_plain
+    from repro_torch.numerics.log2exp import expmul as expmul_bits
+
+    rng = np.random.default_rng(10)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in EXPMUL_SHAPES:
+            x, v = checks.expmul_case(rng, *shape, dtype=dtype)
+            views = [("", v)]
+            if shape == (257, 130):      # a misaligned, strided view
+                views.append((" view[:, 1:]", v[:, 1:]))
+            for label, vv in views:
+                got, plain, oracle = checks.run_expmul(x, vv)
+                torch.cuda.synchronize()
+                ok = (checks.same_bits(got, plain)
+                      and checks.same_bits(got, oracle))
+                log(f"[expmul] {shape}{label} "
+                    f"{str(dtype).split('.')[-1]}: kernel == plain == "
+                    f"oracle bit for bit: {ok}")
+                if not ok:
+                    raise AssertionError("the ExpMul kernel disagrees")
+    rows, d1 = EXPMUL_ROWS, D + 1
+    o_star, v_star = (torch.randn(rows, d1, device="cuda") for _ in range(2))
+    m_prev = torch.rand(rows, device="cuda") * 4 - 3
+    m_cur = torch.maximum(m_prev, torch.rand(rows, device="cuda") * 4 - 3)
+    s = m_cur - torch.rand(rows, device="cuda") * 18
+    before = build.COUNTS["expmul"]
+    got = ops.merged_output_update(o_star, v_star, m_prev, m_cur, s)
+    per_update = build.COUNTS["expmul"] - before
+    want = (expmul_bits((m_prev - m_cur)[:, None], o_star)
+            + expmul_bits((s - m_cur)[:, None], v_star))
+    torch.cuda.synchronize()
+    ok = checks.same_bits(got, want)
+    log(f"[expmul] merged [l, o] update ({rows}, {d1}): {per_update} "
+        f"kernel launches, equal to the bit path bit for bit: {ok}")
+    if not ok or per_update != 2:
+        raise AssertionError("the merged update through the kernel")
+    nan, inf = float("nan"), float("inf")
+    x = torch.tensor([nan, inf, -inf, 0.0], device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        v = torch.tensor([[nan, inf, -inf, 1.0, -1.0]] * 4,
+                         device="cuda").to(dtype)
+        got, plain, _ = checks.run_expmul(x, v)
+        host = expmul_fwd_plain(x.cpu(), v.cpu())
+        for i, xi in enumerate(x.tolist()):
+            log(f"[expmul] out of contract, {str(dtype).split('.')[-1]} "
+                f"x={xi}: v {_bits_repr(torch, v[i])} -> kernel "
+                f"{_bits_repr(torch, got[i])}; plain on the card "
+                f"{_bits_repr(torch, plain[i])}; plain on the host "
+                f"{_bits_repr(torch, host[i])}")
 
 
 def _ticks(torch, api, params, cfg, layout, bt, toks, chunks, tok1):
@@ -707,7 +809,59 @@ def phase_times(torch, checks, F):
             f"max abs err {err:.3e} (rel {rel:.3e}); yardstick exact bf16 "
             f"kernel {exact_ms:.4f} ms vs SDPA dense {sdpa_ms:.4f} ms")
     out["flash"] = _time_flash(torch, checks, F, flush, rng)
+    out["expmul"] = _time_expmul(torch, checks, flush, rng)
     return out
+
+
+def _time_expmul(torch, checks, flush, rng):
+    """The ExpMul kernel at the flash recurrence's state of the training
+    shapes, rows = 8 x 14 x 1024: (rows, 64) float32 and bfloat16 and the
+    merged (rows, 65) float32; bytes once each (x, v in, out) at the HBM
+    rate; the yardstick is ``exact_expmul``, the paper's unfused baseline
+    (``torch.exp``, then a broadcast multiply), a different function: no
+    PyTorch call computes the quantized one."""
+    from repro_torch.kernels.expmul.expmul import expmul_fwd, expmul_fwd_plain
+    from repro_torch.numerics.log2exp import exact_expmul
+
+    shapes = []
+    for d, dtype in ((D, torch.float32), (D, torch.bfloat16),
+                     (D + 1, torch.float32)):
+        x, v = checks.expmul_case(rng, EXPMUL_ROWS, d, dtype=dtype)
+        got, plain = expmul_fwd(x, v), expmul_fwd_plain(x, v)
+        torch.cuda.synchronize()
+        if not checks.same_bits(got, plain):
+            raise AssertionError("expmul disagrees at the timing shapes")
+        err = float((got.float() - plain.float()).abs().max())
+        ms = median_ms(torch, lambda: expmul_fwd(x, v), flush)
+        host_ms = median_ms(torch, lambda: expmul_fwd(x, v), flush,
+                            hide_host=False)
+        plain_ms = median_ms(torch, lambda: expmul_fwd_plain(x, v), flush)
+        x2 = x[:, None]
+        exact_ms = median_ms(torch, lambda: exact_expmul(x2, v), flush)
+        nbytes = 4 * EXPMUL_ROWS + 2 * v.numel() * v.element_size()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        dt = str(dtype).split(".")[-1]
+        shapes.append(dict(shape=[EXPMUL_ROWS, d], dtype=dt, max_abs_err=err,
+                           ms=ms, ms_with_launch=host_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bytes=nbytes,
+                           exact_expmul_ms=exact_ms))
+        log(f"[time] expmul ({EXPMUL_ROWS}, {d}) {dt}: kernel {ms:.4f} ms on "
+            f"the device ({nbytes / ms / 1e6:.0f} GB/s, "
+            f"{bound_ms / ms:.1%} of the HBM bound), {host_ms:.4f} ms with "
+            f"its launch, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"(bytes: {nbytes} B), max abs err {err:g}; yardstick "
+            f"exact_expmul {exact_ms:.4f} ms")
+        del x, v, got, plain
+    first = shapes[0]
+    return dict(max_abs_err=first["max_abs_err"], ms=first["ms"],
+                ms_with_launch=first["ms_with_launch"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by="bytes", library_ms=None,
+                yardstick={"what": "exact_expmul: torch.exp then a "
+                           "broadcast multiply (the unfused baseline, not "
+                           "the same function)",
+                           "ms": first["exact_expmul_ms"]},
+                shapes=shapes)
 
 
 def _time_flash(torch, checks, F, flush, rng):
@@ -762,6 +916,73 @@ def _time_flash(torch, checks, F, flush, rng):
     return out
 
 
+def phase_quickstart(torch, build):
+    """``python -m repro_torch.launch.quickstart`` on the card, with the
+    launch counts set to 0 just before and read just after: ExpMul and
+    flash must have launched, and no plain version. Then its outputs: the
+    operator's exact powers of two, and each flash output against the plain
+    version on the same inputs."""
+    from repro_torch.kernels.checks import kernel_tol, rel_err
+    from repro_torch.kernels.flash.ops import flash_attention_fwd
+    from repro_torch.launch import quickstart
+
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    out = quickstart.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.COUNTS)
+    log(f"[quickstart] {wall:.2f} s; launches {json.dumps(counts)}")
+    if not (counts.get("expmul", 0) > 0 and counts.get("flash", 0) > 0):
+        raise AssertionError(f"the quickstart missed a kernel: {counts}")
+    if any(n for name, n in counts.items() if name not in ("expmul", "flash")):
+        raise AssertionError(f"a plain version ran in the quickstart: "
+                             f"{counts}")
+    if out["expmul"][:, 0].tolist() != [0.75, 0.25, 0.0029296875]:
+        raise AssertionError(f"ExpMul values {out['expmul'][:, 0]}")
+    q, k, v = out["q"], out["k"], out["vv"]
+    for name, variant, bk in (("o_exact", "exact", 128),
+                              ("o_expmul", "expmul", 128),
+                              ("o_api", "expmul", 256)):
+        ref = flash_attention_fwd(q, k, v, causal=True, variant=variant,
+                                  block_k=bk, plain=True)
+        err = rel_err(out[name], ref)
+        log(f"[quickstart] {name} against the plain version: rel err "
+            f"{err:.3e}")
+        if not (out[name].shape == (1, 4, 256, 64)
+                and err <= kernel_tol(variant, torch.float32)):
+            raise AssertionError(f"quickstart {name} disagrees")
+    return counts
+
+
+def phase_fidelity(torch, build):
+    """``python -m repro_torch.launch.fidelity`` on the card (Table I:
+    train table1-lm 200 steps, evaluate the grid), with the launch counts
+    set to 0 just before and read just after: only the flash kernel may
+    have launched, and every perplexity must be finite. The paper's claim
+    (flat quality) is printed, not gated."""
+    from repro_torch.launch import fidelity
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    rows, attn_err = fidelity.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.COUNTS)
+    log(f"[fidelity] {wall:.2f} s; launches {json.dumps(counts)}; rows "
+        f"{json.dumps(rows)}; raw attention |err| mean {attn_err!r}")
+    if set(counts) != {"flash"} or not counts["flash"] > 0:
+        raise AssertionError(f"the fidelity study ran another kernel or a "
+                             f"plain version: {counts}")
+    if len(rows) != 4 or not all(np.isfinite(r["perplexity"]) for r in rows):
+        raise AssertionError(f"the fidelity study's rows: {rows}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -772,6 +993,7 @@ def main() -> int:
 
     from repro_torch import configs as cfg_mod
     from repro_torch.kernels import build, checks
+    from repro_torch.kernels.expmul import ops as expmul_ops
     from repro_torch.models import api
     from repro_torch.serve.engine import ServeEngine
 
@@ -781,11 +1003,15 @@ def main() -> int:
     phases = (
         ("build", lambda: phase_build(build)),
         ("kernel checks", lambda: phase_kernel_checks(torch, checks)),
+        ("expmul checks", lambda: phase_expmul_checks(torch, checks, build,
+                                                      expmul_ops)),
         ("model ticks", lambda: phase_model_ticks(torch, cfg_mod, api)),
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("times", lambda: phase_times(torch, checks, F)),
         ("train", lambda: phase_train(torch, cfg_mod, api, build)),
+        ("quickstart", lambda: phase_quickstart(torch, build)),
+        ("fidelity", lambda: phase_fidelity(torch, build)),
     )
     results = {}
     for name, fn in phases:
@@ -794,6 +1020,10 @@ def main() -> int:
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
     kernels = []
     launches = {**results["serve"], **results["train"]}
+    launches["flash"].update(
+        launches_quickstart=results["quickstart"]["flash"],
+        launches_fidelity=results["fidelity"]["flash"])
+    launches["expmul"] = dict(launches=results["quickstart"]["expmul"])
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **launches[name],

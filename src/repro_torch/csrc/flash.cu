@@ -124,6 +124,7 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, void*
                                         causal, window, scale, s)
   switch (D) {
     case 16: REPRO_LAUNCH(16);
+    case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
     case 128: REPRO_LAUNCH(128);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("paged_decode", "paged_prefill", "decode", "prefill", "flash")
+SOURCES = ("paged_decode", "paged_prefill", "decode", "prefill", "flash",
+           "expmul")
 HEADERS = ("tile.cuh",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

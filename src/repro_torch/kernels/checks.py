@@ -12,6 +12,9 @@ reference multiplies their zero weights into them and NaN would poison
 it too.
 ``flash_case`` builds one full-sequence input (q, k, v of one dtype) for
 the training path's flash forward.
+``expmul_case`` builds one input of the standalone ExpMul operator, with
+the contract's edge values, and ``same_bits`` compares two of its
+results as raw bits.
 ``dyadic=True`` draws q in multiples of 2^-3 with |q| <= 2, values in
 multiples of 2^-3, integer codes (|c| <= 15 for fp8, exact in e4m3) and
 power-of-two scales: with a power-of-two softmax scale every score is
@@ -29,6 +32,8 @@ from repro_torch.kernels.decode.ops import (
     quant_decode_attention,
     quant_fused_paged_decode_attention,
 )
+from repro_torch.kernels.expmul.expmul import expmul_fwd, expmul_fwd_plain
+from repro_torch.kernels.expmul.ref import expmul_ref
 from repro_torch.kernels.flash.ops import (
     flash_attention_fwd,
     fused_paged_prefill_attention,
@@ -40,6 +45,14 @@ from repro_torch.kernels.flash.ops import (
 KV_KINDS = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
             "fp8": torch.float8_e4m3fn}
 STALE = 1e4        # a previous occupant's rows in a contiguous cache
+# x: past the clip, -inf, 0 and -0 (L_hat 22, 22, 0, 0)
+EXPMUL_X_EDGES = (-1e6, -float("inf"), 0.0, -0.0)
+# v: +-0; float32 and bfloat16 denormals; the smallest normals; finite
+# values near the top of the exponent range
+EXPMUL_V_EDGES = (0.0, -0.0, 1e-40, -1e-45, 2.0 ** -130, -(2.0 ** -133),
+                  2.0 ** -126, -(2.0 ** -126), 1.5 * 2.0 ** -126,
+                  2.0 ** -125, 2.0 ** 127, -1.5 * 2.0 ** 127, 3.3e38,
+                  -3e38)
 
 
 def _act(rng, shape, dyadic):
@@ -238,3 +251,34 @@ def rel_err(got, ref) -> float:
     if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
         return float("inf")
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def expmul_case(rng, rows, d, dtype=torch.float32, device="cuda"):
+    """ExpMul operands inside the contract (finite inputs): x (rows,)
+    float32 from [-20, 0] (the clip zone included) with ``EXPMUL_X_EDGES``
+    in its first rows; v (rows, d) in ``dtype`` of N(0, 10^2) with
+    ``EXPMUL_V_EDGES`` in its first elements and at ~5% of the others."""
+    x = -rng.uniform(0.0, 20.0, rows).astype(np.float32)
+    n = min(rows, len(EXPMUL_X_EDGES))
+    x[:n] = EXPMUL_X_EDGES[:n]
+    v = (rng.standard_normal(rows * d) * 10.0).astype(np.float32)
+    edges = np.array(EXPMUL_V_EDGES, np.float32)
+    pick = rng.random(v.size) < 0.05
+    v[pick] = rng.choice(edges, int(pick.sum()))
+    n = min(v.size, edges.size)
+    v[:n] = edges[:n]
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(v.reshape(rows, d)).to(dtype).to(device))
+
+
+def same_bits(a, b) -> bool:
+    """Whether two float32 or bfloat16 tensors are equal bit for bit."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    w = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return bool(torch.equal(a.contiguous().view(w), b.contiguous().view(w)))
+
+
+def run_expmul(x, v):
+    """(kernel, plain version, oracle) results of ExpMul on one input."""
+    return expmul_fwd(x, v), expmul_fwd_plain(x, v), expmul_ref(x[:, None], v)

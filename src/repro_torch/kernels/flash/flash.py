@@ -38,7 +38,7 @@ from repro_torch.kernels.flash.tile import (
 )
 
 NAME = "flash"
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 MAX_BLOCK_K = 512  # the widest KV tile the kernel stages (tile.cuh kMaxTile)
 BLOCK_Q = 128      # the reference's query block (cfg.attention_block_q)
 

@@ -145,3 +145,10 @@ def expmul_ste(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     ``expmul``, the gradients of the exact ``e^x * v`` (``x`` clipped to
     [-15, 0]), with broadcast axes summed."""
     return _ExpMulSTE.apply(x, v)
+
+
+def exact_expmul(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The exact ``e^x * v`` the hardware baseline computes (for
+    comparison): ``exp`` in float32, cast to ``v``'s dtype, then a
+    broadcast multiply."""
+    return torch.exp(x.to(torch.float32)).to(v.dtype) * v

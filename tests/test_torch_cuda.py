@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.checks import (  # noqa: E402
     contiguous_case,
+    expmul_case,
     flash_case,
     kernel_tol,
     paged_case,
@@ -26,9 +27,13 @@ from repro_torch.kernels.checks import (  # noqa: E402
     run_contiguous_decode,
     run_contiguous_prefill,
     run_decode,
+    run_expmul,
     run_flash,
     run_prefill,
+    same_bits,
 )
+from repro_torch.kernels.expmul.ops import merged_output_update  # noqa: E402
+from repro_torch.numerics.log2exp import expmul as expmul_bits  # noqa: E402
 
 
 @pytest.fixture
@@ -224,3 +229,72 @@ def test_flash_kernel_rejects_wide_tiles(cuda):
                       Sk=600, D=64, block_k=600, device=cuda)
     with pytest.raises(ValueError, match="block_k"):
         run_flash(case, "expmul")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_head_dim_32_matches_plain(cuda, variant, dtype):
+    """Head dim 32, the fidelity study's: its shape (8 x 64 tokens, 4 / 2
+    heads, one 64-wide tile) and a ragged causal 200 over 128-wide tiles."""
+    rng = np.random.default_rng(32)
+    for B, S, block_k in ((8, 64, 64), (2, 200, 128)):
+        for dyadic in (True, False):
+            case = flash_case(rng, B=B, H=4, Hkv=2, Sq=S, Sk=S, D=32,
+                              dtype=dtype, dyadic=dyadic, causal=True,
+                              block_k=block_k, device=cuda)
+            before = build.COUNTS["flash"]
+            got = run_flash(case, variant)
+            ref = run_flash(case, variant, plain=True)
+            torch.cuda.synchronize()
+            assert build.COUNTS["flash"] == before + 1
+            assert rel_err(got, ref) <= kernel_tol(variant, dtype), dyadic
+
+
+# ---------------------------------------------------------------------------
+# the standalone ExpMul operator
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (3, 7), (8, 16), (32, 64),
+                                   (128, 256), (257, 130), (64, 1024),
+                                   (300, 65), (4096, 65)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_expmul_kernel_bit_identical_to_plain(cuda, shape, dtype):
+    """Kernel, plain version and frexp/ldexp oracle, raw bits, with the
+    contract's edge values (``checks.expmul_case``); odd widths take the
+    kernel's scalar path, the others its 16-byte vectors."""
+    x, v = expmul_case(np.random.default_rng(shape[0] + shape[1]), *shape,
+                       dtype=dtype, device=cuda)
+    before = build.COUNTS["expmul"]
+    got, plain, oracle = run_expmul(x, v)
+    torch.cuda.synchronize()
+    assert build.COUNTS["expmul"] == before + 1
+    assert got.dtype == dtype and got.shape == v.shape
+    assert same_bits(got, plain) and same_bits(got, oracle)
+    # a misaligned view (rows of an odd column offset) is copied, not refused
+    view = v[:, 1:]
+    assert same_bits(run_expmul(x, view)[0], run_expmul(x, view)[1])
+
+
+@pytest.mark.cuda
+def test_merged_output_update_kernel_matches_bit_path(cuda):
+    rng = np.random.default_rng(5)
+    rows = 1000
+    o_star = torch.from_numpy(rng.standard_normal((rows, 65)).astype(
+        np.float32)).to(cuda)
+    v_star = torch.from_numpy(rng.standard_normal((rows, 65)).astype(
+        np.float32)).to(cuda)
+    m_prev = torch.from_numpy(rng.uniform(-3, 1, rows).astype(
+        np.float32)).to(cuda)
+    m_cur = torch.maximum(m_prev, torch.zeros_like(m_prev))
+    s = m_cur - torch.from_numpy(rng.uniform(0, 18, rows).astype(
+        np.float32)).to(cuda)
+    before = build.COUNTS["expmul"]
+    got = merged_output_update(o_star, v_star, m_prev, m_cur, s)
+    want = (expmul_bits((m_prev - m_cur)[:, None], o_star)
+            + expmul_bits((s - m_cur)[:, None], v_star))
+    torch.cuda.synchronize()
+    assert build.COUNTS["expmul"] == before + 2
+    assert same_bits(got, want)

@@ -219,6 +219,9 @@ def test_port_imports_no_jax_and_no_repro():
         "assert 'repro_torch.launch.serve' in sys.modules\n"
         "assert 'repro_torch.launch.train' in sys.modules\n"
         "assert 'repro_torch.train.step' in sys.modules\n"
+        "assert 'repro_torch.kernels.expmul' in sys.modules\n"
+        "assert 'repro_torch.launch.quickstart' in sys.modules\n"
+        "assert 'repro_torch.launch.fidelity' in sys.modules\n"
         "print('ok')\n")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))

@@ -44,12 +44,15 @@ MASKS = {"causal": lambda s: (s, s, True, None),
          "cross": lambda s: (s, s + 16, False, None)}
 
 
+def _act(rng, shape, dyadic):
+    if dyadic:
+        return rng.integers(-16, 17, shape).astype(np.float32) / 8.0
+    return rng.standard_normal(shape).astype(np.float32)
+
+
 def _inputs(rng, B, H, Hkv, Sq, Sk, dyadic):
-    def draw(shape):
-        if dyadic:
-            return rng.integers(-16, 17, shape).astype(np.float32) / 8.0
-        return rng.standard_normal(shape).astype(np.float32)
-    return draw((B, H, Sq, D)), draw((B, Hkv, Sk, D)), draw((B, Hkv, Sk, D))
+    return tuple(_act(rng, shape, dyadic) for shape in
+                 ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
 
 
 def _rel(got, ref):
@@ -83,6 +86,32 @@ def test_flash_forward_plain_matches_pallas(variant, dtype, mask, heads, Sq):
             causal=causal, window=window, variant=variant, block_k=BK)
         assert build.COUNTS["flash_plain"] == before + 1
         assert got.dtype == tdt and tuple(got.shape) == (2, H, Sq, D)
+        if dtype == "bfloat16":
+            tol = 2.0 ** -7
+        else:
+            tol = 1e-6 if dyadic else 1e-5
+        err = _rel(_np(got), np.asarray(want, np.float32))
+        assert err <= tol, (dyadic, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_flash_forward_plain_matches_pallas_head_dim_32(variant, dtype):
+    """Head dim 32 (one accumulator value a lane in ``csrc/flash.cu``), the
+    width of the fidelity study's model: causal over 80 tokens, GQA 4/2,
+    at the limits of the test above."""
+    rng = np.random.default_rng(32)
+    tdt = getattr(torch, dtype)
+    for dyadic in (True, False):
+        q, k, v = (_act(rng, s, dyadic) for s in
+                   ((2, 4, 80, 32), (2, 2, 80, 32), (2, 2, 80, 32)))
+        want = jax_flash(*(jnp.asarray(x, dtype) for x in (q, k, v)),
+                         causal=True, variant=variant, block_q=BQ,
+                         block_k=BK)
+        got = flash_attention_fwd(
+            *(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal=True,
+            variant=variant, block_k=BK)
+        assert got.dtype == tdt and tuple(got.shape) == (2, 4, 80, 32)
         if dtype == "bfloat16":
             tol = 2.0 ** -7
         else:
