@@ -20,9 +20,17 @@ Phases (a failing check raises, and the script exits non-zero):
    ragged lengths, an idle row, a length of exactly S and large finite
    stale rows past each length; prefill on fresh caches and on rolling
    buffers (wrapped, shorter than the span, a chunk longer than the span,
-   a window narrower than the span, n_valid = 0). Both walk the same
-   tiles, so each is held at ``checks.kernel_tol``: 1e-5 of the output's
-   magnitude, or one bf16 ulp for the exact variant's bfloat16 output.
+   a window narrower than the span, n_valid = 0). Then the edges of the
+   redesigned contiguous kernels: decode at S = 2048 over lengths 0, 1,
+   255, 256, 257 and 2048 (0 to 8 tiles of a thread-block cluster, so
+   idle ranks too) for GQA groups 1, 7 and 32, and at S = 32768 (up to 16
+   rounds of the cluster, the last one partly idle) for group 7 over
+   float32 values and int8 codes; and prefill chunks of C in
+   {1, 15, 100, 256} rows (not multiples of the 32-row query block),
+   float32 q over fp32 caches and int8 codes, n_valid 0 on one row. Both
+   walk the same tiles, so each is held at ``checks.kernel_tol``: 1e-5 of
+   the output's magnitude, or one bf16 ulp for the exact variant's
+   bfloat16 output.
    The full-sequence flash forward likewise, over {exact, expmul} x
    {float32, bfloat16} x D {64, 128} x block_k {128, 512} x {dyadic,
    random}, B 2, 14 / 2 heads: Sq = Sk in {1024, 1000} causal, with and
@@ -31,8 +39,10 @@ Phases (a failing check raises, and the script exits non-zero):
    causal 1000; then the standalone ExpMul kernel bit for bit against its
    plain version and the frexp/ldexp oracle (raw bits), over the
    reference's sweep and (114688, 65), float32 and bfloat16, with the
-   contract's edge values, and the merged [l, o] update through it; what
-   each gives for NaN and inf, outside the contract, is printed only;
+   contract's edge values, and the merged [l, o] update through it; and
+   for NaN and inf x, outside the contract, kernel bits equal to the plain
+   version's on the card and on the host, a NaN x leaving v unchanged (as
+   the reference's L_hat 0 does);
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -51,8 +61,12 @@ Phases (a failing check raises, and the script exits non-zero):
    ExpMul, 512-wide tiles) and, for ExpMul, at the flash recurrence's
    state of the training shapes ((114688, 64) float32 and bfloat16,
    (114688, 65) float32): the median of 25 runs timed with CUDA events
-   after warm-up, L2 flushed before each, beside the plain version's time
-   and the least time the card could take;
+   after warm-up, L2 flushed before each, beside the plain version's time,
+   the least time the card could take and each kernel's time at commit
+   d4109f5 (before the contiguous kernels' redesign); with the compiler's
+   registers and spills of the two redesigned kernels' serving
+   instantiations, and the shared memory a CTA of each is given, as the
+   kernel's source reports it;
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
    cosine schedule. One train step through the flash kernel and one
@@ -113,6 +127,11 @@ TRAIN_SEQ, TRAIN_STEPS = 1024, 6
 EXPMUL_SHAPES = [(1, 1), (3, 7), (8, 16), (32, 64), (128, 256), (257, 130),
                  (64, 1024), (114688, 65)]
 EXPMUL_ROWS = B * H * TRAIN_SEQ
+# each kernel's phase-5 time at commit d4109f5, before the contiguous
+# kernels' redesign (H100 80GB HBM3, 700 W), ms
+BEFORE_MS = {"paged_decode": 0.2399, "paged_prefill": 1.5433,
+             "decode": 0.2962, "prefill": 1.2032, "flash": 1.7984,
+             "expmul": 0.0272}
 
 
 def log(msg):
@@ -277,6 +296,40 @@ def phase_kernel_checks(torch, checks):
                         for name, run, case, label, idle in cases:
                             _hold(torch, checks, name, run, case, variant,
                                   q_dtype, idle, label, worst)
+    # the redesign's edges: decode over 0-8 tiles of one cluster for GQA
+    # groups 1, 7 and 32, and over up to 16 rounds of a cluster at S =
+    # 32768 (Qwen2-0.5B's context); prefill chunks not a multiple of the
+    # 32-row query block, float32 q over fp32 caches and int8 codes
+    edges = [1, 255, 256, 257, MAX_LEN, 0]
+    long_ctx = 32768
+    decode_edges = [(group, kv, MAX_LEN, edges)
+                    for group in (1, 7) for kv in ("f32", "bf16", "int8")]
+    decode_edges += [(32, kv, MAX_LEN, edges) for kv in ("f32", "int8")]
+    decode_edges += [(7, kv, long_ctx, [long_ctx, 2305, 20001, 0])
+                     for kv in ("f32", "int8")]
+    for group, kv, S, lengths in decode_edges:
+        for q_dtype in (torch.float32, torch.bfloat16):
+            dec = checks.contiguous_case(
+                rng, B=len(lengths), H=HKV * group, Hkv=HKV, D=D, S=S,
+                lengths=lengths, kv=kv, q_dtype=q_dtype, dyadic=False,
+                device="cuda")
+            for variant in ("exact", "expmul"):
+                _hold(torch, checks, "decode", checks.run_contiguous_decode,
+                      dec, variant, q_dtype, [len(lengths) - 1],
+                      f"D={D} S={S} group={group} lengths {lengths} {kv} "
+                      f"random", worst)
+            del dec
+    for C in (1, 15, 100, CHUNK):
+        nv = [C, 0, max(1, C // 3), C]
+        for kv in ("f32", "int8"):
+            pre = checks.contiguous_case(
+                rng, B=4, H=H, Hkv=HKV, D=D, S=MAX_LEN,
+                lengths=[700, 0, 1500, 64], n_valid=nv, chunk=C, kv=kv,
+                q_dtype=torch.float32, dyadic=False, device="cuda")
+            for variant in ("exact", "expmul"):
+                _hold(torch, checks, "prefill", checks.run_contiguous_prefill,
+                      pre, variant, torch.float32, [1], f"D={D} S={MAX_LEN} "
+                      f"C={C} n_valid={nv} {kv} random", worst)
     # the training path's full-sequence forward
     flash = [dict(Sq=1024, Sk=1024, causal=True, window=None),
              dict(Sq=1024, Sk=1024, causal=True, window=256),
@@ -328,8 +381,9 @@ def phase_expmul_checks(torch, checks, build, ops):
     merged [l, o] rows of the training shapes, in both dtypes, with the
     contract's edge values (``checks.expmul_case``); the merged update
     through the kernel against the bit path (two launches, logged and
-    gated here; no entry point calls it); then, as a report only, what
-    kernel and plain version give for NaN and inf, outside the contract."""
+    gated here; no entry point calls it); then NaN and inf x, outside the
+    contract: kernel bits equal to the plain version's on the card and on
+    the host, a NaN x leaving v unchanged (L_hat 0, as the reference)."""
     from repro_torch.kernels.expmul.expmul import expmul_fwd_plain
     from repro_torch.numerics.log2exp import expmul as expmul_bits
 
@@ -374,11 +428,17 @@ def phase_expmul_checks(torch, checks, build, ops):
         got, plain, _ = checks.run_expmul(x, v)
         host = expmul_fwd_plain(x.cpu(), v.cpu())
         for i, xi in enumerate(x.tolist()):
+            ok = (checks.same_bits(got[i], plain[i])
+                  and checks.same_bits(got[i].cpu(), host[i])
+                  and (xi == xi or checks.same_bits(got[i], v[i])))
             log(f"[expmul] out of contract, {str(dtype).split('.')[-1]} "
                 f"x={xi}: v {_bits_repr(torch, v[i])} -> kernel "
-                f"{_bits_repr(torch, got[i])}; plain on the card "
-                f"{_bits_repr(torch, plain[i])}; plain on the host "
-                f"{_bits_repr(torch, host[i])}")
+                f"{_bits_repr(torch, got[i])}; kernel == plain on the card "
+                f"== plain on the host{', v unchanged' if xi != xi else ''}: "
+                f"{ok}")
+            if not ok:
+                raise AssertionError("ExpMul out of contract: the kernel "
+                                     "disagrees with its plain version")
 
 
 def _ticks(torch, api, params, cfg, layout, bt, toks, chunks, tok1):
@@ -810,7 +870,50 @@ def phase_times(torch, checks, F):
             f"kernel {exact_ms:.4f} ms vs SDPA dense {sdpa_ms:.4f} ms")
     out["flash"] = _time_flash(torch, checks, F, flush, rng)
     out["expmul"] = _time_expmul(torch, checks, flush, rng)
+    for name, r in out.items():
+        log(f"[time] {name}: {r['ms']:.4f} ms, before the redesign "
+            f"{BEFORE_MS[name]:.4f} ms ({BEFORE_MS[name] / r['ms']:.2f}x)")
     return out
+
+
+# the serving instantiations of the redesigned kernels (int8 codes, D 64,
+# ExpMul), as the compiler names them
+SERVING_ENTRY = {"decode": "decode_kernelIaLi64ELb1EE",
+                 "prefill": "prefill_kernelIaLi64ELb1EE"}
+
+
+def phase_resources(build, decode, prefill):
+    """Registers and spills of the redesigned kernels' serving
+    instantiations (nvcc -Xptxas -v), and the dynamic shared memory each
+    gives a CTA, as the kernel's own source computes it (its C query)."""
+    import ctypes
+
+    import torch
+    smem = {}
+    lib = build.load("decode", decode._CONTIGUOUS_SIGNATURE)
+    fn = lib.contiguous_decode_smem
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 4
+    for group, dtype in ((H // HKV, torch.int8), (H // HKV, torch.float32),
+                         (32, torch.float32)):
+        smem[f"decode group {group} {dtype}"] = fn(
+            group, D, 256, decode.KV_DTYPES[dtype])
+    lib = build.load("prefill", prefill._CONTIGUOUS_SIGNATURE)
+    fn = lib.contiguous_prefill_smem
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    smem["prefill bk 512"] = fn(D, 512)
+    for name, entry in SERVING_ENTRY.items():
+        lines = build.build_log(name).splitlines()
+        at = [i for i, l in enumerate(lines)
+              if "Compiling entry function" in l and entry in l]
+        if not at:
+            raise AssertionError(f"no compiler report for {entry}")
+        info = " | ".join(l.split(":", 1)[-1].strip()
+                          if "ptxas" in l else l.strip()
+                          for l in lines[at[0] + 1:at[0] + 5]
+                          if "registers" in l or "spill" in l)
+        log(f"[resources] {name} ({entry}): {info}")
+    log(f"[resources] dynamic shared memory a CTA, B (any S): "
+        f"{json.dumps(smem)}")
 
 
 def _time_expmul(torch, checks, flush, rng):
@@ -994,6 +1097,8 @@ def main() -> int:
     from repro_torch import configs as cfg_mod
     from repro_torch.kernels import build, checks
     from repro_torch.kernels.expmul import ops as expmul_ops
+    from repro_torch.kernels.decode import decode
+    from repro_torch.kernels.flash import prefill
     from repro_torch.models import api
     from repro_torch.serve.engine import ServeEngine
 
@@ -1009,6 +1114,7 @@ def main() -> int:
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("times", lambda: phase_times(torch, checks, F)),
+        ("resources", lambda: phase_resources(build, decode, prefill)),
         ("train", lambda: phase_train(torch, cfg_mod, api, build)),
         ("quickstart", lambda: phase_quickstart(torch, build)),
         ("fidelity", lambda: phase_fidelity(torch, build)),

@@ -33,9 +33,8 @@
 // into the row: no division in the loop. lhat is recomputed from x[row]
 // per vector: a few integer operations against 16 bytes of traffic.
 //
-// Out of contract: a NaN x. fmaxf/fminf drop a NaN, so the clamp gives -15
-// (lhat = 22) here, while torch.clamp and jnp.clip keep it and then cast it
-// to int32 each in its own way.
+// Outside the contract (finite inputs), as the reference: a NaN x gives
+// lhat 0 (log2exp_lhat's guard), so v comes out as for x = 0.
 #include "tile.cuh"  // log2exp_lhat, the dtype codes
 
 using namespace repro;

@@ -1,4 +1,4 @@
-// The shared online-softmax tile step of the decode and prefill kernels.
+// The shared online-softmax tile step of the attention kernels.
 //
 // Replaces kernels/flash/tile.py:28 (online_softmax_tile) and :79
 // (finalize_tiles) of the JAX package, in two forms:
@@ -7,8 +7,8 @@
 //    scores column j of a KV tile of at most 32 columns (one page), the row
 //    max and weight sum are warp reductions, and lane i accumulates output
 //    features i, i + 32, ... in registers.
-//  - wide_tile_step (the contiguous kernels): a KV tile of up to kMaxTile
-//    columns (the reference's 256 for decode, 512 for prefill). The tile is
+//  - wide_tile_step (csrc/flash.cu): a KV tile of up to kMaxTile
+//    columns (the reference's block_k, at most 512). The tile is
 //    staged in sub-tiles of kSubRows rows, lane j scoring columns j, j + 32,
 //    ... into shared memory; the row max, the rescale and the weight sum
 //    are taken once for the whole tile, as tile.py does, then the value
@@ -71,7 +71,10 @@ __device__ __forceinline__ void store_act(void* p, int64_t i, float x, int dtype
 }
 
 // ---- ExpMul numerics (numerics/log2exp.py) --------------------------------
+// A NaN x gives 0, as the reference's clip-then-cast does (fminf/fmaxf
+// would drop the NaN and clamp it to -15).
 __device__ __forceinline__ int log2exp_lhat(float x) {
+  if (x != x) return 0;
   const float xc = fminf(fmaxf(x, -15.0f), 0.0f);
   const int xfix = __float2int_rn(xc * 1024.0f);  // round half to even
   const int acc = xfix + (xfix >> 1) - (xfix >> 4);  // arithmetic shifts

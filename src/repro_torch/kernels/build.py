@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("paged_decode", "paged_prefill", "decode", "prefill", "flash",
            "expmul")
-HEADERS = ("tile.cuh",)
+HEADERS = ("tile.cuh", "tile_sm90.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

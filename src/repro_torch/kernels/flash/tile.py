@@ -5,8 +5,9 @@ arithmetic, with optional dequantization of K/V codes — the arithmetic of
 ``repro/kernels/flash/tile.py`` (``online_softmax_tile`` and
 ``finalize_tiles``) operation for operation. The plain versions of the
 paged decode and prefill kernels call it on each tile in the kernels'
-tile order; the CUDA kernels run the same step per query row in
-``csrc/tile.cuh``.
+tile order; the CUDA kernels run the same step in ``csrc/tile.cuh`` and
+``csrc/tile_sm90.cuh``. ``decode_fold`` is the contiguous decode
+kernel's parallel form of the walk, for the tests.
 
 Shapes carry any leading batch axes: q (..., rows, D), k (..., bk, D),
 v (..., bk, Dv), k_scale / v_scale (..., bk) or None, mask
@@ -79,3 +80,69 @@ def select_state(run, new, old):
     skips leaves that row's state untouched. ``run`` has the rows' shape."""
     r = run[..., None]
     return tuple(torch.where(r, n, o) for n, o in zip(new, old))
+
+
+def decode_fold(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
+                num_kv_heads, block_k=256):
+    """The contiguous decode kernel's algorithm (``csrc/decode.cu``) in
+    plain PyTorch, for the tests: every tile's scores and maximum first,
+    then each tile's weights, weight sum and value product from the prefix
+    maximum m_t = max(m_{t-1}, max_j s_tj) alone, then the fold of those
+    partials in tile order. The same float operations as
+    ``decode_fwd_plain``'s sequential walk, so the same bits; the main path
+    does not call it. Shapes as ``decode_fwd_plain``'s."""
+    BHkv, group, _ = q3.shape
+    S, Dv = k3.shape[1], v3.shape[-1]
+    dev = q3.device
+    quant = ks2 is not None
+    bk = min(block_k, S)
+    pad = -S % bk
+    length = lengths.to(torch.int64)[torch.arange(BHkv, device=dev)
+                                     // num_kv_heads]
+    k = torch.nn.functional.pad(k3.to(torch.float32), (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v3.to(torch.float32), (0, 0, 0, pad))
+    ks = torch.nn.functional.pad(ks2, (0, pad)) if quant else None
+    vs = torch.nn.functional.pad(vs2, (0, pad)) if quant else None
+    q = q3.to(torch.float32)
+    cols = torch.arange(bk, device=dev)
+    top = min(int(lengths.max()), S) if lengths.numel() else 0
+    # 1. each tile's scores and row maxima
+    tiles = []
+    for c0 in range(0, top, bk):
+        sl = slice(c0, c0 + bk)
+        mask = ((c0 + cols)[None, :] < length[:, None])[:, None, :].expand(
+            BHkv, group, bk)
+        s = torch.matmul(q, k[:, sl].transpose(-1, -2)) * scale
+        if quant:
+            s = s * ks[:, sl][..., None, :]
+        s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+        tiles.append((sl, mask, s, torch.amax(s, dim=-1, keepdim=True),
+                      (c0 < length)[:, None].expand(BHkv, group)))
+    # 2. per tile, from the prefix maximum alone: psum_t and dsum_t
+    m, l, acc = init_state((BHkv, group), Dv, dev)
+    m_prev = m
+    parts = []
+    for sl, mask, s, tmax, run in tiles:
+        m_new = torch.maximum(m_prev, tmax)
+        zero = torch.zeros_like(s)
+        if variant == "exact":
+            p = torch.where(mask, torch.exp(s - m_new), zero)
+        elif variant == "expmul":
+            p = torch.where(mask, pow2_neg(log2exp_lhat(s - m_new)), zero)
+        else:
+            raise ValueError(f"unknown attention variant {variant!r}")
+        pv = p if not quant else p * vs[:, sl][..., None, :]
+        parts.append((m_prev, m_new, torch.sum(p, dim=-1, keepdim=True),
+                      torch.matmul(pv, v[:, sl]), run))
+        m_prev = m_new
+    # 3. the fold, in tile order
+    for m_old, m_new, psum, dsum, run in parts:
+        if variant == "exact":
+            alpha = torch.exp(m_old - m_new)
+            new = (m_new, l * alpha + psum, acc * alpha + dsum)
+        else:
+            lr = log2exp_lhat(m_old - m_new)
+            new = (m_new, apply_pow2_scale(l, lr) + psum,
+                   apply_pow2_scale(acc, lr.expand(acc.shape)) + dsum)
+        m, l, acc = select_state(run, new, (m, l, acc))
+    return finalize_tiles((m, l, acc), q3.dtype)

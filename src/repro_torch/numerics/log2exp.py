@@ -44,8 +44,12 @@ def _layout(dtype):
 
 
 def log2exp_lhat(x: torch.Tensor) -> torch.Tensor:
-    """Integer L_hat >= 0 (int32) such that e^x ~= 2^{-L_hat} (x <= 0)."""
-    xc = torch.clamp(x.to(torch.float32), CLIP_LO, CLIP_HI)
+    """Integer L_hat >= 0 (int32) such that e^x ~= 2^{-L_hat} (x <= 0).
+    A NaN x gives 0, as the reference's clip-then-cast does; the NaN is
+    replaced before the clamp, so no platform's NaN-to-int cast is met."""
+    xf = torch.nan_to_num(x.to(torch.float32), nan=0.0, posinf=float("inf"),
+                          neginf=float("-inf"))
+    xc = torch.clamp(xf, CLIP_LO, CLIP_HI)
     xfix = torch.round(xc * FRAC_SCALE).to(torch.int32)
     acc = xfix + (xfix >> 1) - (xfix >> 4)   # arithmetic shifts: floor
     return (ROUND_HALF - acc) >> FRAC_BITS

@@ -192,6 +192,64 @@ def test_contiguous_prefill_windows_match_plain(cuda, variant, window,
                    run_contiguous_prefill(case, variant, plain=True)) <= 1e-5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,group", [(2048, 1), (2048, 7), (2048, 32),
+                                     (32768, 7)],
+                         ids=["S2048-group1", "S2048-group7",
+                              "S2048-group32", "S32768-group7"])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_contiguous_decode_cluster_tiles_match_plain(cuda, S, group, kv,
+                                                     variant, q_dtype):
+    """One cluster of 8 CTAs per (sequence, KV head), one 256-wide tile a
+    rank in a round. S = 2048: lengths 1, 255, 256, 257, 1024, 2048 and 0
+    read 1 to 8 tiles, so some ranks are idle, and one row none; GQA
+    groups 1, 7 and 32 (the most the kernel takes). S = 32768 (Qwen2-0.5B's
+    context): 128 tiles in 16 rounds, lengths ending inside a round. The
+    kernel's shared memory does not grow with S, so every case launches."""
+    lengths = ([1, 255, 256, 257, 1024, 2048, 0] if S == 2048
+               else [S, 2305, S // 2 + 1, 0])
+    rng = np.random.default_rng(S + group)
+    case = contiguous_case(rng, B=len(lengths), H=2 * group, Hkv=2, D=64,
+                           S=S, lengths=lengths, kv=kv, q_dtype=q_dtype,
+                           dyadic=False, device=cuda)
+    before = build.COUNTS["decode"]
+    got = run_contiguous_decode(case, variant)
+    ref = run_contiguous_decode(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert build.COUNTS["decode"] == before + 1
+    assert rel_err(got, ref) <= kernel_tol(variant, q_dtype)
+    assert float(got[-1].abs().max()) == 0.0            # the idle row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 15, 100])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_contiguous_prefill_ragged_chunks_match_plain(cuda, C, kv, variant,
+                                                      q_dtype):
+    """Chunks of C rows, not a multiple of the kernel's 32-row query block,
+    over cache tiles of 512 (S = 1100: the last one ragged); float32 and
+    bf16 q over float32 values, bf16 values and int8 codes; one row idle
+    (n_valid 0)."""
+    rng = np.random.default_rng(C)
+    case = contiguous_case(rng, B=3, D=64, S=1100, lengths=[1100, 0, 700],
+                           n_valid=[C, 0, max(1, C // 3)], chunk=C, kv=kv,
+                           q_dtype=q_dtype, dyadic=False, device=cuda,
+                           **SHAPES[64])
+    before = build.COUNTS["prefill"]
+    got = run_contiguous_prefill(case, variant)
+    ref = run_contiguous_prefill(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert build.COUNTS["prefill"] == before + 1
+    assert rel_err(got, ref) <= kernel_tol(variant, q_dtype)
+    assert float(got[1].abs().max()) == 0.0             # the idle row
+
+
 # ---------------------------------------------------------------------------
 # the training path's full-sequence forward
 # ---------------------------------------------------------------------------

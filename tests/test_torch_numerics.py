@@ -47,6 +47,34 @@ def test_log2exp_lhat_bit_exact():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_log2exp_and_expmul_nan_inf_x_bit_exact(dtype):
+    """Outside the contract (finite inputs), still as the reference: a NaN
+    x gives L_hat 0 (``repro`` clips, then casts), +inf 0 and -inf 22;
+    ExpMul then scales v by those, NaN and inf v included. The bfloat16 v
+    is built from raw bits on both sides, since a NaN's conversion from
+    float32 differs between the frameworks."""
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    x = np.array([nan, -nan, inf, -inf, 0.0, -0.0, -3.0], np.float32)
+    np.testing.assert_array_equal(tl.log2exp_lhat(_t(x)).numpy(),
+                                  np.asarray(jl.log2exp_lhat(jnp.asarray(x))))
+    v32 = np.array([nan, inf, -inf, 1.0, -1.5, 1e-40, -0.0, 3e38], np.float32)
+    X = np.repeat(x[:, None], v32.size, 1)
+    if dtype == "float32":
+        V = np.repeat(v32[None], x.size, 0)
+        jv, tv = jnp.asarray(V), _t(V)
+    else:
+        bits = np.repeat(np.asarray(jnp.asarray(v32).astype(jnp.bfloat16))
+                         .view(np.uint16)[None], x.size, 0)
+        jv = jnp.asarray(bits.view(ml_dtypes.bfloat16))
+        tv = _t(bits.view(np.int16)).view(torch.bfloat16)
+    ref = np.asarray(jl.expmul(jnp.asarray(X), jv))
+    got = tl.expmul(_t(X), tv)
+    got_bits = (got.numpy().view(np.uint32) if dtype == "float32"
+                else got.view(torch.int16).numpy().view(np.uint16))
+    np.testing.assert_array_equal(got_bits, _bits(ref, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_apply_pow2_scale_bit_exact(dtype):
     rng = np.random.default_rng(1)
     v = np.concatenate([
