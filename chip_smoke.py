@@ -27,10 +27,18 @@ Phases (a failing check raises, and the script exits non-zero):
    rounds of the cluster, the last one partly idle) for group 7 over
    float32 values and int8 codes; and prefill chunks of C in
    {1, 15, 100, 256} rows (not multiples of the 32-row query block),
-   float32 q over fp32 caches and int8 codes, n_valid 0 on one row. Both
-   walk the same tiles, so each is held at ``checks.kernel_tol``: 1e-5 of
-   the output's magnitude, or one bf16 ulp for the exact variant's
-   bfloat16 output.
+   float32 and bfloat16 q over fp32 caches and int8 codes, n_valid 0 on
+   one row. And the edges of the redesigned paged kernels: decode over
+   lengths 0, 1, ps - 1, ps, ps + 1 and the table's full width, and a row
+   with a sentinel inside its length, for GQA groups 1, 7 and 32 at pages
+   of 16 and 32 over float32 values and int8 codes, and over a
+   32,768-token context (2,048 pages of 16) for group 7; prefill chunks of
+   C in {1, 15, 100, 256} over 0, 1 page and 1,000 tokens of history,
+   float32 and bfloat16 q. Kernel and plain version walk the same tiles
+   and sum both products in the same order
+   (``kernels/flash/tile.py:fma_chain``), so each is held at
+   ``checks.kernel_tol``: 1e-5 of the output's magnitude, or one bf16 ulp
+   for the exact variant's bfloat16 output.
    The full-sequence flash forward likewise, over {exact, expmul} x
    {float32, bfloat16} x D {64, 128} x block_k {128, 512} x {dyadic,
    random}, B 2, 14 / 2 heads: Sq = Sk in {1024, 1000} causal, with and
@@ -54,7 +62,8 @@ Phases (a failing check raises, and the script exits non-zero):
    three times: a paged int8 pool, then contiguous caches at kv_dtype
    fp32 (the CLI's default) and int8. The kernel launch counts are set to
    0 just before each run and read just after: the run's two kernels must
-   have launched, and no other kernel or plain version;
+   have launched, and no other kernel or plain version. Tokens/s and TTFT
+   are printed beside their values before the paged kernels' redesign;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -62,11 +71,12 @@ Phases (a failing check raises, and the script exits non-zero):
    state of the training shapes ((114688, 64) float32 and bfloat16,
    (114688, 65) float32): the median of 25 runs timed with CUDA events
    after warm-up, L2 flushed before each, beside the plain version's time,
-   the least time the card could take and each kernel's time at commit
-   d4109f5 (before the contiguous kernels' redesign); with the compiler's
-   registers and spills of the two redesigned kernels' serving
-   instantiations, and the shared memory a CTA of each is given, as the
-   kernel's source reports it;
+   the least time the card could take and each kernel's time at commits
+   d4109f5 (before the contiguous kernels' redesign) and 35522df (before
+   the paged kernels'); with the compiler's registers and spills of the
+   four serving kernels' serving instantiations, and the shared memory a
+   CTA of each is given, as the kernel's source reports it (the paged
+   decode's at 1,024 and 32,768 tokens of context, gated equal);
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
    cosine schedule. One train step through the flash kernel and one
@@ -128,10 +138,20 @@ EXPMUL_SHAPES = [(1, 1), (3, 7), (8, 16), (32, 64), (128, 256), (257, 130),
                  (64, 1024), (114688, 65)]
 EXPMUL_ROWS = B * H * TRAIN_SEQ
 # each kernel's phase-5 time at commit d4109f5, before the contiguous
-# kernels' redesign (H100 80GB HBM3, 700 W), ms
-BEFORE_MS = {"paged_decode": 0.2399, "paged_prefill": 1.5433,
-             "decode": 0.2962, "prefill": 1.2032, "flash": 1.7984,
-             "expmul": 0.0272}
+# kernels' redesign, and at 35522df, before the paged kernels' (as PERF.md
+# records them; H100 80GB HBM3, 700 W), ms
+BEFORE_MS = {
+    "d4109f5": {"paged_decode": 0.2399, "paged_prefill": 1.5433,
+                "decode": 0.2962, "prefill": 1.2032, "flash": 1.7984,
+                "expmul": 0.0272},
+    "35522df": {"paged_decode": 0.2327, "paged_prefill": 1.5343,
+                "decode": 0.0210, "prefill": 0.4999, "flash": 1.8059,
+                "expmul": 0.0270},
+}
+# the serving runs at 35522df, as PERF.md records them: tokens/s of the
+# final tree's run, TTFT p50 (ms) of an earlier run of that change
+BEFORE_SERVE = {"paged/int8": (254.2, 988.6), "contiguous/fp32": (273.4, 1089.4),
+                "contiguous/int8": (227.3, 1202.2)}
 
 
 def log(msg):
@@ -322,14 +342,17 @@ def phase_kernel_checks(torch, checks):
     for C in (1, 15, 100, CHUNK):
         nv = [C, 0, max(1, C // 3), C]
         for kv in ("f32", "int8"):
-            pre = checks.contiguous_case(
-                rng, B=4, H=H, Hkv=HKV, D=D, S=MAX_LEN,
-                lengths=[700, 0, 1500, 64], n_valid=nv, chunk=C, kv=kv,
-                q_dtype=torch.float32, dyadic=False, device="cuda")
-            for variant in ("exact", "expmul"):
-                _hold(torch, checks, "prefill", checks.run_contiguous_prefill,
-                      pre, variant, torch.float32, [1], f"D={D} S={MAX_LEN} "
-                      f"C={C} n_valid={nv} {kv} random", worst)
+            for q_dtype in (torch.float32, torch.bfloat16):
+                pre = checks.contiguous_case(
+                    rng, B=4, H=H, Hkv=HKV, D=D, S=MAX_LEN,
+                    lengths=[700, 0, 1500, 64], n_valid=nv, chunk=C, kv=kv,
+                    q_dtype=q_dtype, dyadic=False, device="cuda")
+                for variant in ("exact", "expmul"):
+                    _hold(torch, checks, "prefill",
+                          checks.run_contiguous_prefill, pre, variant,
+                          q_dtype, [1], f"D={D} S={MAX_LEN} C={C} "
+                          f"n_valid={nv} {kv} random", worst)
+    _paged_edges(torch, checks, rng, worst)
     # the training path's full-sequence forward
     flash = [dict(Sq=1024, Sk=1024, causal=True, window=None),
              dict(Sq=1024, Sk=1024, causal=True, window=256),
@@ -366,6 +389,61 @@ def phase_kernel_checks(torch, checks):
                     _hold(torch, checks, "flash", checks.run_flash, case,
                           variant, dtype, [], label, worst)
     log(f"[check] worst rel err: {json.dumps(worst)}")
+
+
+def _paged_edges(torch, checks, rng, worst):
+    """The paged redesign's edges: decode over lengths 0, 1, ps - 1, ps,
+    ps + 1 and the table's full width (2,048 tokens), and a row whose table
+    holds a sentinel inside its length (clamped to the last pool block),
+    for GQA groups 1, 7 and 32 at pages of 16 and 32 (one round of a
+    cluster to 2,048 / (8 x 128) = 2 rounds, idle ranks), over float32
+    values and int8 codes; a 32,768-token context (2,048 pages of 16: 32
+    rounds) for group 7 over both; prefill chunks of C in {1, 15, 100,
+    256} rows over 0, 1 page and 1,000 tokens of history, float32 and
+    bfloat16 q, one row idle."""
+    for ps in (PS, 2 * PS):
+        mb = MAX_LEN // ps
+        lengths = [0, 1, ps - 1, ps, ps + 1, mb * ps, 5 * ps + 3]
+        for group in (1, 7, 32):
+            for kv in ("f32", "int8"):
+                for q_dtype in (torch.float32, torch.bfloat16):
+                    dec = checks.paged_case(
+                        rng, B=len(lengths), H=HKV * group, Hkv=HKV, D=D,
+                        page_size=ps, max_blocks=mb, lengths=lengths, kv=kv,
+                        q_dtype=q_dtype, dyadic=False, device="cuda")
+                    checks.sentinel_within(dec, len(lengths) - 1, 2)
+                    for variant in ("exact", "expmul"):
+                        _hold(torch, checks, "paged_decode", checks.run_decode,
+                              dec, variant, q_dtype, [0],
+                              f"D={D} ps={ps} group={group} lengths {lengths} "
+                              f"(a sentinel in the last) {kv} random", worst)
+                    del dec
+    long_ctx = 32768
+    lengths = [long_ctx, 2305, 20001, 0]
+    for kv in ("f32", "int8"):
+        dec = checks.paged_case(
+            rng, B=len(lengths), H=HKV * 7, Hkv=HKV, D=D, page_size=PS,
+            max_blocks=long_ctx // PS, lengths=lengths, kv=kv,
+            q_dtype=torch.bfloat16, dyadic=False, device="cuda")
+        for variant in ("exact", "expmul"):
+            _hold(torch, checks, "paged_decode", checks.run_decode, dec,
+                  variant, torch.bfloat16, [3], f"D={D} ps={PS} group=7 "
+                  f"lengths {lengths} {kv} random", worst)
+        del dec
+    for C in (1, 15, 100, CHUNK):
+        nv = [C, C, max(1, C // 3), 0]
+        for kv in ("f32", "int8"):
+            for q_dtype in (torch.float32, torch.bfloat16):
+                pre = checks.paged_case(
+                    rng, B=4, H=H, Hkv=HKV, D=D, page_size=PS,
+                    max_blocks=MAX_LEN // PS, lengths=[0, PS, 1000, 0],
+                    n_valid=nv, chunk=C, kv=kv, q_dtype=q_dtype,
+                    dyadic=False, device="cuda")
+                for variant in ("exact", "expmul"):
+                    _hold(torch, checks, "paged_prefill", checks.run_prefill,
+                          pre, variant, q_dtype, [3], f"D={D} C={C} history "
+                          f"[0, {PS}, 1000, 0] n_valid={nv} {kv} random",
+                          worst)
 
 
 def _bits_repr(torch, t):
@@ -575,6 +653,9 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair):
         f"= {gen / wall:.1f} tokens/s; TTFT from submit p50 "
         f"{statistics.median(ttft):.1f} ms, max {max(ttft):.1f} ms; peak "
         f"memory {peak / 2**30:.2f} GiB; preemptions {eng.preemptions}")
+    tps0, ttft0 = BEFORE_SERVE[label]
+    log(f"[serve] {label}: at 35522df {tps0} tokens/s, TTFT p50 {ttft0} ms "
+        f"(not gated)")
     log(f"[serve] {label}: launches {json.dumps(counts)}")
     log(f"[serve] {label}: tick wall time, ms: prefill p50 "
         f"{statistics.median(tick_ms['prefill']):.2f} (sum "
@@ -871,21 +952,25 @@ def phase_times(torch, checks, F):
     out["flash"] = _time_flash(torch, checks, F, flush, rng)
     out["expmul"] = _time_expmul(torch, checks, flush, rng)
     for name, r in out.items():
-        log(f"[time] {name}: {r['ms']:.4f} ms, before the redesign "
-            f"{BEFORE_MS[name]:.4f} ms ({BEFORE_MS[name] / r['ms']:.2f}x)")
+        log(f"[time] {name}: {r['ms']:.4f} ms; " + ", ".join(
+            f"at {commit} {ms[name]:.4f} ms ({ms[name] / r['ms']:.2f}x)"
+            for commit, ms in BEFORE_MS.items()))
     return out
 
 
-# the serving instantiations of the redesigned kernels (int8 codes, D 64,
+# the serving instantiations of the serving kernels (int8 codes, D 64,
 # ExpMul), as the compiler names them
 SERVING_ENTRY = {"decode": "decode_kernelIaLi64ELb1EE",
-                 "prefill": "prefill_kernelIaLi64ELb1EE"}
+                 "prefill": "prefill_kernelIaLi64ELb1EE",
+                 "paged_decode": "paged_decode_kernelIaLi64ELb1EE",
+                 "paged_prefill": "paged_prefill_kernelIaLi64ELb1EE"}
 
 
 def phase_resources(build, decode, prefill):
-    """Registers and spills of the redesigned kernels' serving
-    instantiations (nvcc -Xptxas -v), and the dynamic shared memory each
-    gives a CTA, as the kernel's own source computes it (its C query)."""
+    """Registers and spills of the serving kernels' serving instantiations
+    (nvcc -Xptxas -v), and the shared memory each gives a CTA, as the
+    kernel's own source computes it (its C query). The paged decode's must
+    be the same at 1,024 and at 32,768 tokens of context."""
     import ctypes
 
     import torch
@@ -901,6 +986,22 @@ def phase_resources(build, decode, prefill):
     fn = lib.contiguous_prefill_smem
     fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
     smem["prefill bk 512"] = fn(D, 512)
+    lib = build.load("paged_decode", decode._SIGNATURE)
+    fn = lib.paged_decode_smem
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 5
+    for group, dtype in ((H // HKV, torch.int8), (H // HKV, torch.float32),
+                         (32, torch.float32)):
+        at = {ctx: fn(group, D, PS, ctx // PS, decode.KV_DTYPES[dtype])
+              for ctx in (CTX, 32768)}
+        if len(set(at.values())) != 1 or min(at.values()) <= 0:
+            raise AssertionError(f"paged_decode's shared memory grows with "
+                                 f"the context: {at}")
+        smem[f"paged_decode group {group} {dtype} (ctx {CTX} and 32768)"] = \
+            at[CTX]
+    lib = build.load("paged_prefill", prefill._SIGNATURE)
+    fn = lib.paged_prefill_smem
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int]
+    smem["paged_prefill (static)"] = fn(D)
     for name, entry in SERVING_ENTRY.items():
         lines = build.build_log(name).splitlines()
         at = [i for i, l in enumerate(lines)
@@ -912,7 +1013,7 @@ def phase_resources(build, decode, prefill):
                           for l in lines[at[0] + 1:at[0] + 5]
                           if "registers" in l or "spill" in l)
         log(f"[resources] {name} ({entry}): {info}")
-    log(f"[resources] dynamic shared memory a CTA, B (any S): "
+    log(f"[resources] shared memory a CTA, B (any S or context): "
         f"{json.dumps(smem)}")
 
 

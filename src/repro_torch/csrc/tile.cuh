@@ -1,13 +1,10 @@
 // The shared online-softmax tile step of the attention kernels.
 //
 // Replaces kernels/flash/tile.py:28 (online_softmax_tile) and :79
-// (finalize_tiles) of the JAX package, in two forms:
+// (finalize_tiles) of the JAX package: the ExpMul numerics, the warp
+// reductions and, for csrc/flash.cu,
 //
-//  - row_tile_step (the paged kernels): one warp owns one query row; lane j
-//    scores column j of a KV tile of at most 32 columns (one page), the row
-//    max and weight sum are warp reductions, and lane i accumulates output
-//    features i, i + 32, ... in registers.
-//  - wide_tile_step (csrc/flash.cu): a KV tile of up to kMaxTile
+//  - wide_tile_step: a KV tile of up to kMaxTile
 //    columns (the reference's block_k, at most 512). The tile is
 //    staged in sub-tiles of kSubRows rows, lane j scoring columns j, j + 32,
 //    ... into shared memory; the row max, the rescale and the weight sum
@@ -130,66 +127,6 @@ struct RowState {
     }
   }
 };
-
-// One KV tile for one query row. The tile sits in shared memory as float32:
-// k_t[j * (D + 1) + d] (rows padded by one word so that the lanes' column
-// reads fall in distinct banks), v_t[j * D + d], and for codes the per-row
-// scales ks_t[j], vs_t[j]. n <= 32 is the tile width; `valid` is this lane's
-// column mask (false for lanes >= n).
-template <int D, bool EXPMUL, bool QUANT>
-__device__ __forceinline__ void row_tile_step(RowState<D>& st, const float* q_row,
-                                              const float* k_t, const float* v_t,
-                                              const float* ks_t, const float* vs_t,
-                                              int n, bool valid, float scale, int lane) {
-  constexpr int P = RowState<D>::kPerLane;
-  float s = kMaskValue;
-  if (lane < n) {
-    const float* kr = k_t + lane * (D + 1);
-    float dot = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) dot = fmaf(q_row[d], kr[d], dot);
-    float sc = dot * scale;
-    if (QUANT) sc *= ks_t[lane];
-    s = valid ? sc : kMaskValue;
-  }
-  const float m_new = fmaxf(st.m, warp_max(s));
-
-  float p, alpha = 1.0f;
-  int lr = 0;
-  if (EXPMUL) {
-    lr = log2exp_lhat(st.m - m_new);
-    p = valid ? pow2_neg(log2exp_lhat(s - m_new)) : 0.0f;
-  } else {
-    alpha = expf(st.m - m_new);
-    p = valid ? expf(s - m_new) : 0.0f;
-  }
-  const float psum = warp_sum(p);
-  const float pv = (QUANT && lane < n) ? p * vs_t[lane] : p;
-
-  float dsum[P];
-#pragma unroll
-  for (int t = 0; t < P; ++t) dsum[t] = 0.0f;
-  for (int j = 0; j < n; ++j) {
-    const float w = __shfl_sync(kFull, pv, j);
-    const float* vr = v_t + j * D;
-#pragma unroll
-    for (int t = 0; t < P; ++t) {
-      const int d = lane + kWarp * t;
-      if (d < D) dsum[t] = fmaf(w, vr[d], dsum[t]);
-    }
-  }
-
-  if (EXPMUL) {
-    st.l = apply_pow2_scale(st.l, lr) + psum;
-#pragma unroll
-    for (int t = 0; t < P; ++t) st.acc[t] = apply_pow2_scale(st.acc[t], lr) + dsum[t];
-  } else {
-    st.l = st.l * alpha + psum;
-#pragma unroll
-    for (int t = 0; t < P; ++t) st.acc[t] = st.acc[t] * alpha + dsum[t];
-  }
-  st.m = m_new;
-}
 
 // One KV tile of up to kMaxTile columns for the R query rows of each warp
 // (row w * R + i of the CTA for warp w), called by every thread of the CTA.

@@ -1,7 +1,8 @@
-// Hopper building blocks of the contiguous decode and prefill kernels
-// (csrc/decode.cu, csrc/prefill.cu): asynchronous copies into shared
-// memory, the thread-block-cluster barrier, conversions of staged KV codes,
-// and the online-softmax weight and rescale of one tile.
+// Hopper building blocks of the decode and prefill kernels (csrc/decode.cu,
+// csrc/prefill.cu, csrc/paged_decode.cu, csrc/paged_prefill.cu):
+// asynchronous copies into shared memory, the thread-block-cluster barrier,
+// conversions of staged KV codes, and the online-softmax weight and rescale
+// of one tile.
 //
 // The arithmetic is tile.cuh's (numerics/log2exp.py for ExpMul), operation
 // for operation: a weight is expf(s - m) or 2^-lhat(s - m), a rescale is
@@ -42,26 +43,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy `rows` rows of `row_bytes` bytes (a multiple of 4) from global src
-// (rows contiguous) to shared dst (rows `dst_stride` bytes apart), in
-// 16-byte pieces when both sides allow it, else in 4-byte pieces. Called by
-// every thread of the CTA; the caller commits and waits.
-__device__ __forceinline__ void copy_rows_async(unsigned char* dst, int dst_stride,
-                                                const unsigned char* src, int rows,
-                                                int row_bytes, bool vec16) {
+// Copy `rows` rows of `row_bytes` bytes (a multiple of 4) from global memory,
+// row r starting at src_row(r), to shared dst (rows `dst_stride` bytes
+// apart), in 16-byte pieces when both sides allow it, else in 4-byte
+// pieces. Called by every thread of the CTA; the caller commits and waits.
+template <typename SrcRow>
+__device__ __forceinline__ void copy_rows_async_at(unsigned char* dst, int dst_stride, int rows,
+                                                   int row_bytes, bool vec16, SrcRow src_row) {
   const int piece = vec16 ? 16 : 4;
   const int per_row = row_bytes / piece;
   const int n = rows * per_row;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int r = i / per_row, c = (i - r * per_row) * piece;
     unsigned char* d = dst + r * dst_stride + c;
-    const unsigned char* s = src + static_cast<int64_t>(r) * row_bytes + c;
+    const unsigned char* s = src_row(r) + c;
     if (vec16) {
       cp_async16(d, s);
     } else {
       cp_async4(d, s);
     }
   }
+}
+
+// The same for rows contiguous in global memory from src.
+__device__ __forceinline__ void copy_rows_async(unsigned char* dst, int dst_stride,
+                                                const unsigned char* src, int rows,
+                                                int row_bytes, bool vec16) {
+  copy_rows_async_at(dst, dst_stride, rows, row_bytes, vec16,
+                     [=](int r) { return src + static_cast<int64_t>(r) * row_bytes; });
 }
 
 // ---- thread-block clusters (sm_90) ----------------------------------------
@@ -148,6 +157,173 @@ __device__ __forceinline__ float rescale_factor(float m_old, float m_new) {
 template <bool EXPMUL>
 __device__ __forceinline__ float rescale(float x, float r) {
   return EXPMUL ? apply_pow2_scale(x, __float_as_int(r)) : x * r;
+}
+
+// ---- the CUDA-core layout of the prefill kernels ----------------------------
+// One CTA of kChunkThreads threads per (sequence, query head, kChunkRows chunk
+// rows), q in shared memory as float32 rows of D + kStagePad; KV staged in
+// sub-tiles of kStageRows rows (the next one's 16-byte loads in flight in
+// registers while the current one is computed on), converted to float32
+// rows of D + kStagePad in shared memory; the scores transposed,
+// p_s[col * kScoreLd + row]. Both products are fmaf chains in the plain
+// version's order (kernels/flash/tile.py:fma_chain): the scores in depth
+// order, the values in column order.
+constexpr int kChunkThreads = 128;
+constexpr int kChunkRows = 32;
+constexpr int kStageRows = 64;
+constexpr int kStagePad = 4;
+constexpr int kScoreLd = kChunkRows + kStagePad;
+
+// Raw bytes of one staged sub-tile (kStageRows rows of D elements of KV) in
+// flight in registers: 16-byte pieces, kPer a thread, and one scale row.
+template <typename KV, int D>
+struct Stage {
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
+  static constexpr int kPerRow = kRowBytes / 16;
+  static constexpr int kPieces = kStageRows * kPerRow;
+  static constexpr int kPer = (kPieces + kChunkThreads - 1) / kChunkThreads;
+  uint4 raw[kPer];
+  float sc;
+
+  // rows r < nrows, row r from src_row(r) (its first byte) and, for codes,
+  // its scale from sc_row(r); zeros past nrows
+  template <typename SrcRow, typename ScRow>
+  __device__ __forceinline__ void fetch_at(SrcRow src_row, ScRow sc_row, int nrows,
+                                           bool vec16) {
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) {
+      const int i = threadIdx.x + c * kChunkThreads;
+      const int r = i / kPerRow;
+      raw[c] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < kPieces && r < nrows) {
+        const unsigned char* p = src_row(r) + (i - r * kPerRow) * 16;
+        if (vec16) {
+          raw[c] = __ldg(reinterpret_cast<const uint4*>(p));
+        } else {
+          const unsigned* w = reinterpret_cast<const unsigned*>(p);
+          raw[c] = make_uint4(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3));
+        }
+      }
+    }
+    sc = 0.0f;
+    if (IsCode<KV>::value && static_cast<int>(threadIdx.x) < nrows)
+      sc = __ldg(sc_row(static_cast<int>(threadIdx.x)));
+  }
+
+  // the same for rows contiguous from src, scales from scale (codes only)
+  __device__ __forceinline__ void fetch(const KV* src, const float* scale, int nrows,
+                                        bool vec16) {
+    const unsigned char* base = reinterpret_cast<const unsigned char*>(src);
+    fetch_at([=](int r) { return base + static_cast<int64_t>(r) * kRowBytes; },
+             [=](int r) { return scale + r; }, nrows, vec16);
+  }
+
+  // the sub-tile as float32 rows x_s[r * (D + kStagePad) + d], zeros past nrows
+  __device__ __forceinline__ void commit(float* x_s, float* sc_s) const {
+    constexpr int kElems = 16 / static_cast<int>(sizeof(KV));
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) {
+      const int i = threadIdx.x + c * kChunkThreads;
+      if (i >= kPieces) continue;
+      const int r = i / kPerRow, e0 = (i - r * kPerRow) * kElems;
+      float4* dst = reinterpret_cast<float4*>(x_s + r * (D + kStagePad) + e0);
+      const unsigned w[4] = {raw[c].x, raw[c].y, raw[c].z, raw[c].w};
+      if constexpr (std::is_same<KV, float>::value) {
+        dst[0] = make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]),
+                             __uint_as_float(w[2]), __uint_as_float(w[3]));
+      } else if constexpr (std::is_same<KV, __nv_bfloat16>::value) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          dst[h] = make_float4(__uint_as_float(w[2 * h] << 16),
+                               __uint_as_float(w[2 * h] & 0xFFFF0000u),
+                               __uint_as_float(w[2 * h + 1] << 16),
+                               __uint_as_float(w[2 * h + 1] & 0xFFFF0000u));
+      } else {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) dst[h] = codes4<KV>(w[h]);
+      }
+    }
+    if (threadIdx.x < kStageRows) sc_s[threadIdx.x] = sc;
+  }
+};
+
+// The scores of one staged K sub-tile (x_s, its scale rows sc_s) for the
+// CTA's query rows (q_s): p_s[j * kScoreLd + row] = (q_row . k_j) * scale
+// [* sc_s[j]] for the columns j < ncols. A 4 x 4 block of (rows, columns) a
+// thread: rows 4 rg.., columns cg + 16 c.
+template <int D, bool QUANT>
+__device__ __forceinline__ void score_block(const float* q_s, const float* x_s,
+                                            const float* sc_s, float* p_s, int ncols,
+                                            float scale) {
+  static_assert(kChunkRows / 4 * 16 == kChunkThreads && kStageRows == 64, "thread mapping");
+  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 qv[4], kv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      qv[r] = *reinterpret_cast<const float4*>(q_s + (4 * rg + r) * (D + kStagePad) + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      kv[c] = *reinterpret_cast<const float4*>(x_s + (cg + 16 * c) * (D + kStagePad) + d);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[r][c] = fmaf(qv[r].x, kv[c].x, acc[r][c]);
+        acc[r][c] = fmaf(qv[r].y, kv[c].y, acc[r][c]);
+        acc[r][c] = fmaf(qv[r].z, kv[c].z, acc[r][c]);
+        acc[r][c] = fmaf(qv[r].w, kv[c].w, acc[r][c]);
+      }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int col = cg + 16 * c;
+    if (col >= ncols) continue;
+    const float ks = QUANT ? sc_s[col] : 1.0f;
+    float s[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      s[r] = acc[r][c] * scale;
+      if (QUANT) s[r] *= ks;
+    }
+    *reinterpret_cast<float4*>(p_s + col * kScoreLd + 4 * rg) = make_float4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// dsum[r][e] += sum_{j < ncols} w_j[r] v_j[e], in column order, for a
+// thread's RPT rows and 4 features: pw points at the first column's weights
+// of those rows (p_s + col * kScoreLd + RPT * row group), xv at the first
+// column's features (x_s + col * (D + kStagePad) + 4 * feature group).
+template <int D, int RPT>
+__device__ __forceinline__ void value_block(float (&dsum)[RPT][4], const float* pw,
+                                            const float* xv, int ncols) {
+#pragma unroll 4
+  for (int j = 0; j < ncols; ++j) {
+    const float4 v4 = *reinterpret_cast<const float4*>(xv + j * (D + kStagePad));
+    float w[RPT];
+    if (RPT == 4) {
+      const float4 w4 = *reinterpret_cast<const float4*>(pw + j * kScoreLd);
+      w[0] = w4.x;
+      w[RPT > 1 ? 1 : 0] = w4.y;
+      w[RPT > 2 ? 2 : 0] = w4.z;
+      w[RPT > 3 ? 3 : 0] = w4.w;
+    } else {
+      w[0] = pw[j * kScoreLd];
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      dsum[r][0] = fmaf(w[r], v4.x, dsum[r][0]);
+      dsum[r][1] = fmaf(w[r], v4.y, dsum[r][1]);
+      dsum[r][2] = fmaf(w[r], v4.z, dsum[r][2]);
+      dsum[r][3] = fmaf(w[r], v4.w, dsum[r][3]);
+    }
+  }
 }
 
 }  // namespace repro

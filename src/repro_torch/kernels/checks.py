@@ -123,6 +123,22 @@ def paged_case(rng, *, B, H, Hkv, D, page_size, max_blocks, lengths,
     return case
 
 
+def sentinel_within(case, row, page):
+    """Put the sentinel (the pool's block count) at entry ``page`` of
+    ``row``'s block table, inside its length: both versions clamp it to the
+    last pool block, which then takes the replaced block's rows, so the
+    row attends to the same keys as before (a row that holds that last
+    block attends to the new rows)."""
+    bt, ps = case["block_tables"], case["page_size"]
+    nblk = case["k_pool"].shape[0] // ps
+    blk = int(bt[row, page])
+    for name in ("k_pool", "v_pool", "ks_pool", "vs_pool"):
+        if case[name] is not None:
+            pool = case[name].view((nblk, ps) + tuple(case[name].shape[1:]))
+            pool[nblk - 1] = pool[blk].clone()
+    bt[row, page] = nblk
+
+
 def run_decode(case, variant, plain=False):
     kw = dict(page_size=case["page_size"], window=case["window"],
               variant=variant, plain=plain)

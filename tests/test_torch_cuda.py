@@ -4,13 +4,18 @@ JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Dyadic inputs make every score exact (``kernels/checks.py``), so both
-variants are held at 1e-5 of the output's magnitude, or at one bf16 ulp
-for the exact variant's bfloat16 output (``kernel_tol``); unallocated
+Kernel and plain version sum both products in the same order
+(``kernels/flash/tile.py:fma_chain``), and dyadic inputs make every score
+exact (``kernels/checks.py``), so both variants are held at 1e-5 of the
+output's magnitude, or at one bf16 ulp for the exact variant's bfloat16
+output (``kernel_tol``); unallocated
 pool pages hold NaN, so a paged kernel that reads one fails. Contiguous
 caches hold large finite stale rows past each length instead (the
 reference multiplies zero weights into them).
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -31,9 +36,13 @@ from repro_torch.kernels.checks import (  # noqa: E402
     run_flash,
     run_prefill,
     same_bits,
+    sentinel_within,
 )
 from repro_torch.kernels.expmul.ops import merged_output_update  # noqa: E402
+from repro_torch.kernels.flash.tile import fma_chain  # noqa: E402
 from repro_torch.numerics.log2exp import expmul as expmul_bits  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -122,6 +131,114 @@ def test_paged_kernels_windowed_match_plain(cuda, variant):
     assert rel_err(run_prefill(case, variant),
                    run_prefill(case, variant, plain=True)) <= 1e-5
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 7, 32])
+@pytest.mark.parametrize("ps", [16, 32])
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_paged_decode_cluster_edges_match_plain(cuda, group, ps, kv, variant,
+                                                q_dtype):
+    """The cluster layout's edges over a 2,048-token table: lengths 0, 1,
+    ps - 1, ps, ps + 1 and the full width (one or two rounds, idle ranks),
+    and a sentinel inside a length (clamped to the last pool block); GQA
+    groups 1, 7 and 32 (the most the kernel takes)."""
+    mb = 2048 // ps
+    lengths = [0, 1, ps - 1, ps, ps + 1, mb * ps, 5 * ps + 3]
+    rng = np.random.default_rng(ps + group)
+    case = paged_case(rng, B=len(lengths), H=2 * group, Hkv=2, D=64,
+                      page_size=ps, max_blocks=mb, lengths=lengths, kv=kv,
+                      q_dtype=q_dtype, dyadic=False, device=cuda)
+    sentinel_within(case, len(lengths) - 1, 2)
+    before = build.COUNTS["paged_decode"]
+    got = run_decode(case, variant)
+    ref = run_decode(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert build.COUNTS["paged_decode"] == before + 1
+    assert rel_err(got, ref) <= kernel_tol(variant, q_dtype)
+    assert float(got[0].abs().max()) == 0.0             # the idle row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [16, 32])
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_paged_decode_long_context_matches_plain(cuda, ps, kv, variant):
+    """A 32,768-token context (Qwen2-0.5B's): 2,048 pages of 16 or 1,024
+    of 32 in 32 rounds of the cluster, lengths ending inside a round; GQA
+    group 7, bf16 q (the serving path's)."""
+    lengths = [32768, 2305, 20001, 0]
+    rng = np.random.default_rng(ps)
+    case = paged_case(rng, B=len(lengths), H=14, Hkv=2, D=64, page_size=ps,
+                      max_blocks=32768 // ps, lengths=lengths, kv=kv,
+                      q_dtype=torch.bfloat16, dyadic=False, device=cuda)
+    got = run_decode(case, variant)
+    ref = run_decode(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert rel_err(got, ref) <= kernel_tol(variant, torch.bfloat16)
+    assert float(got[-1].abs().max()) == 0.0            # the idle row
+
+
+@pytest.mark.cuda
+def test_paged_decode_shared_memory_does_not_grow(cuda):
+    """The kernel's own query: a CTA's shared memory is the same at 1,024
+    and at 32,768 tokens of context (its chunk and partials only)."""
+    import ctypes
+
+    from repro_torch.kernels.decode import decode
+    fn = build.load("paged_decode", decode._SIGNATURE).paged_decode_smem
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 5
+    for group in (1, 7, 32):
+        for kv in (0, 1, 2, 3):
+            at = {fn(group, 64, ps, ctx // ps, kv) for ps in (16, 32)
+                  for ctx in (1024, 32768)}
+            assert len(at) == 1 and 0 < min(at) <= 232448
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 15, 100, 256])
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_paged_prefill_chunk_edges_match_plain(cuda, C, kv, variant,
+                                               q_dtype):
+    """Chunks of C rows (not multiples of the 32-row query block) over 0,
+    1 page and 1,000 tokens of history (several pages staged at once, the
+    last partly); one row idle."""
+    rng = np.random.default_rng(C + 1)
+    case = paged_case(rng, B=4, D=64, page_size=16, max_blocks=128,
+                      lengths=[0, 16, 1000, 0],
+                      n_valid=[C, C, max(1, C // 3), 0], chunk=C, kv=kv,
+                      q_dtype=q_dtype, dyadic=False, device=cuda,
+                      **SHAPES[64])
+    before = build.COUNTS["paged_prefill"]
+    got = run_prefill(case, variant)
+    ref = run_prefill(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert build.COUNTS["paged_prefill"] == before + 1
+    assert rel_err(got, ref) <= kernel_tol(variant, q_dtype)
+    assert float(got.view(4, -1)[3].abs().max()) == 0.0  # the idle row
+
+
+@pytest.mark.cuda
+def test_fma_chain_equals_raw_fmaf_chain(cuda, tmp_path):
+    """The plain tile step's products (``fma_chain``), on the card and on
+    the host, equal a raw ``fmaf`` chain kernel bit for bit, on operands
+    where fused and unfused rounding differ (``tools/fma_witness.py``)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import fma_witness
+
+    chain = fma_witness.fmaf_chain_kernel(tmp_path)
+    rng = np.random.default_rng(0)
+    for M, K, N in ((64, 64, 64), (33, 256, 65), (7, 16, 64)):
+        a, b = (torch.from_numpy(x).to(cuda)
+                for x in fma_witness.operands(rng, M, K, N))
+        want = chain(a, b)
+        assert same_bits(fma_chain(a, b), want)
+        assert same_bits(fma_chain(a.cpu(), b.cpu()).to(cuda), want)
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +352,8 @@ def test_contiguous_prefill_ragged_chunks_match_plain(cuda, C, kv, variant,
     """Chunks of C rows, not a multiple of the kernel's 32-row query block,
     over cache tiles of 512 (S = 1100: the last one ragged); float32 and
     bf16 q over float32 values, bf16 values and int8 codes; one row idle
-    (n_valid 0)."""
+    (n_valid 0). The plain version sums as the kernel does at every shape
+    (``fma_chain``), the 15-row chunk included."""
     rng = np.random.default_rng(C)
     case = contiguous_case(rng, B=3, D=64, S=1100, lengths=[1100, 0, 700],
                            n_valid=[C, 0, max(1, C // 3)], chunk=C, kv=kv,

@@ -40,7 +40,7 @@ def tile_step(q, k, v, k_scale, v_scale, mask, state, *, scale, variant,
     if "scores" in f64:
         s = torch.matmul(q.double(), k.double().transpose(-1, -2)).float()
     else:
-        s = torch.matmul(q, k.transpose(-1, -2))
+        s = tile.fma_chain(q, k.transpose(-1, -2))
     s = s * scale
     if k_scale is not None:
         s = s * k_scale[..., None, :]
@@ -55,7 +55,7 @@ def tile_step(q, k, v, k_scale, v_scale, mask, state, *, scale, variant,
     if "values" in f64:
         dsum = torch.matmul(pv.double(), v.double()).float()
     else:
-        dsum = torch.matmul(pv, v)
+        dsum = tile.fma_chain(pv, v)
     return m_new, l_new, (tile.apply_pow2_scale(
         acc_prev, lr.expand(acc_prev.shape)) + dsum)
 

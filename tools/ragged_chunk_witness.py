@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Which side moves where the contiguous prefill kernel and its plain
-version disagree at a chunk of 15 rows: a witness on the card.
+version would disagree at a chunk of 15 rows: a witness on the card.
 
     python3 tools/ragged_chunk_witness.py [--src DIR]
 
@@ -11,8 +11,9 @@ with bf16 q and ExpMul (chunks of C in {1, 15, 100} rows over float32
 values, bf16 values and int8 codes) and prints, for each, the relative
 error of
 
-* the kernel against the plain version (its products float32
-  ``torch.matmul``, i.e. cuBLAS, in whatever order cuBLAS picks),
+* the kernel against the plain version (its products ``fma_chain``s, in
+  the kernel's order; ``torch.matmul`` in an earlier checkout, in
+  whatever order cuBLAS picks),
 * the kernel against the plain version with both products summed in
   float64 and rounded once (``tools/order_sensitivity.py``'s tile step),
 * the plain version against that,
