@@ -44,7 +44,12 @@ Phases (a failing check raises, and the script exits non-zero):
    random}, B 2, 14 / 2 heads: Sq = Sk in {1024, 1000} causal, with and
    without a 256-token window, and non-causal 200 queries over 1000 keys;
    and at head dim 32 (the fidelity model's) its shape and a ragged
-   causal 1000; then the standalone ExpMul kernel bit for bit against its
+   causal 1000; and the edges of its register-tiled layout
+   (``checks.flash_edge_cases``): Sq = Sk in {1, 31, 33, 65, 1000}, causal,
+   with a window ending inside a 64-row sub-tile, and over keys past
+   kv_len (causal and not), GQA groups 1 and 7, D {16, 32, 64, 128} x
+   {float32, bfloat16} x {dyadic, random}; then the standalone ExpMul
+   kernel bit for bit against its
    plain version and the frexp/ldexp oracle (raw bits), over the
    reference's sweep and (114688, 65), float32 and bfloat16, with the
    contract's edge values, and the merged [l, o] update through it; and
@@ -72,10 +77,12 @@ Phases (a failing check raises, and the script exits non-zero):
    (114688, 65) float32): the median of 25 runs timed with CUDA events
    after warm-up, L2 flushed before each, beside the plain version's time,
    the least time the card could take and each kernel's time at commits
-   d4109f5 (before the contiguous kernels' redesign) and 35522df (before
-   the paged kernels'); with the compiler's registers and spills of the
-   four serving kernels' serving instantiations, and the shared memory a
-   CTA of each is given, as the kernel's source reports it (the paged
+   d4109f5 (before the contiguous kernels' redesign), 35522df (before
+   the paged kernels') and 1f2c920 (before the flash kernel's); flash's
+   achieved rate beside the float32 CUDA-core rate and its TF32 bound;
+   with the compiler's registers and spills of the four serving kernels'
+   serving instantiations and flash's training one, and the shared memory
+   a CTA of each is given, as the kernel's source reports it (the paged
    decode's at 1,024 and 32,768 tokens of context, gated equal);
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
@@ -86,7 +93,8 @@ Phases (a failing check raises, and the script exits non-zero):
    before and read just after: every loss finite, the flash kernel
    launched 48 times a step (24 layers, twice under remat), and no other
    kernel or plain version. Then the step time (p50 of 4 steps), tokens/s,
-   peak memory, and a one-step profiler window;
+   peak memory, and a one-step profiler window with flash's device time
+   and share of the step's busy time;
 7. ``python -m repro_torch.launch.quickstart`` and then ``python -m
    repro_torch.launch.fidelity`` on the card, the launch counts set to 0
    just before each and read just after: the quickstart must launch the
@@ -132,14 +140,16 @@ KERNELS = {
 PAGED, CONTIGUOUS = ("paged_decode", "paged_prefill"), ("decode", "prefill")
 B, H, HKV, D, PS, MAX_LEN, CHUNK, CTX = 8, 14, 2, 64, 16, 2048, 256, 1024
 TRAIN_SEQ, TRAIN_STEPS = 1024, 6
+FLASH_EDGE_SEQS = (1, 31, 33, 65, 1000)
 # the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
 # rows at the training shapes (8 sequences x 14 heads x 1024 rows)
 EXPMUL_SHAPES = [(1, 1), (3, 7), (8, 16), (32, 64), (128, 256), (257, 130),
                  (64, 1024), (114688, 65)]
 EXPMUL_ROWS = B * H * TRAIN_SEQ
 # each kernel's phase-5 time at commit d4109f5, before the contiguous
-# kernels' redesign, and at 35522df, before the paged kernels' (as PERF.md
-# records them; H100 80GB HBM3, 700 W), ms
+# kernels' redesign, at 35522df, before the paged kernels', and at 1f2c920,
+# before the flash kernel's (as PERF.md records them; H100 80GB HBM3, 700
+# W), ms
 BEFORE_MS = {
     "d4109f5": {"paged_decode": 0.2399, "paged_prefill": 1.5433,
                 "decode": 0.2962, "prefill": 1.2032, "flash": 1.7984,
@@ -147,6 +157,9 @@ BEFORE_MS = {
     "35522df": {"paged_decode": 0.2327, "paged_prefill": 1.5343,
                 "decode": 0.0210, "prefill": 0.4999, "flash": 1.8059,
                 "expmul": 0.0270},
+    "1f2c920": {"paged_decode": 0.0279, "paged_prefill": 0.5774,
+                "decode": 0.0213, "prefill": 0.5079, "flash": 1.8068,
+                "expmul": 0.0272},
 }
 # the serving runs at 35522df, as PERF.md records them: tokens/s of the
 # final tree's run, TTFT p50 (ms) of an earlier run of that change
@@ -388,6 +401,23 @@ def phase_kernel_checks(torch, checks):
                 for variant in ("exact", "expmul"):
                     _hold(torch, checks, "flash", checks.run_flash, case,
                           variant, dtype, [], label, worst)
+    # the register-tiled layout's edges: Sq = Sk off the 32-row query block
+    # and the 64-row sub-tile, a window ending inside a sub-tile, keys past
+    # kv_len, GQA groups 1 and 7, every head dim
+    for S in FLASH_EDGE_SEQS:
+        for hd in (16, 32, 64, 128):
+            for group in (1, 7):
+                for dtype in (torch.float32, torch.bfloat16):
+                    for dyadic in (True, False):
+                        kind = "dyadic" if dyadic else "random"
+                        for label, case in checks.flash_edge_cases(
+                                rng, S=S, D=hd, group=group, dtype=dtype,
+                                dyadic=dyadic, device="cuda"):
+                            for variant in ("exact", "expmul"):
+                                _hold(torch, checks, "flash", checks.run_flash,
+                                      case, variant, dtype, [],
+                                      f"D={hd} S={S} group={group} {label} "
+                                      f"{kind}", worst)
     log(f"[check] worst rel err: {json.dumps(worst)}")
 
 
@@ -713,7 +743,9 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
 
 def _profile_window(torch, fn, label):
     """Wall time, device busy time, idle share and the top six device
-    kernels of one call of ``fn``, from torch.profiler."""
+    kernels of one call of ``fn``, from torch.profiler. Returns the busy
+    time and {kernel name: (us, launches)}, both empty when the profiler
+    reported no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -726,16 +758,18 @@ def _profile_window(torch, fn, label):
     kernels = {}
     for e in prof.events():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = sum(kernels.values())
+            us, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy = sum(us for us, _ in kernels.values())
     if not busy:
         log(f"[profile] {label}: the profiler reported no device time")
-        return
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        return 0.0, {}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}; top "
         f"kernels (ms): " + "; ".join(f"{name[:60]} {us / 1e3:.3f}"
-                                      for name, us in top))
+                                      for name, (us, _) in top))
+    return busy, kernels
 
 
 def phase_profile(torch, ServeEngine, params, cfg, kw, prompts):
@@ -853,7 +887,14 @@ def phase_train(torch, cfg_mod, api, build):
         state, m = step(state, batch)
         float(m["loss"])
 
-    _profile_window(torch, one_step, "train step x1")
+    busy, kernels = _profile_window(torch, one_step, "train step x1")
+    flash = [(us, n) for name, (us, n) in kernels.items()
+             if "flash_kernel" in name]
+    if busy:
+        us, n = sum(u for u, _ in flash), sum(c for _, c in flash)
+        log(f"[train] flash in the profiled step: {us / 1e3:.3f} ms of "
+            f"{busy / 1e3:.2f} ms device busy ({us / busy:.1%}), {n} "
+            f"launches")
     del state
     torch.cuda.empty_cache()
     return {"flash": dict(launches=counts["flash"],
@@ -958,19 +999,22 @@ def phase_times(torch, checks, F):
     return out
 
 
-# the serving instantiations of the serving kernels (int8 codes, D 64,
-# ExpMul), as the compiler names them
-SERVING_ENTRY = {"decode": "decode_kernelIaLi64ELb1EE",
-                 "prefill": "prefill_kernelIaLi64ELb1EE",
-                 "paged_decode": "paged_decode_kernelIaLi64ELb1EE",
-                 "paged_prefill": "paged_prefill_kernelIaLi64ELb1EE"}
+# the main-path instantiations of the kernels, as the compiler names them:
+# the serving kernels' (int8 codes, D 64, ExpMul) and flash's training one
+# (float32, D 64, ExpMul)
+MAIN_ENTRY = {"decode": "decode_kernelIaLi64ELb1EE",
+              "prefill": "prefill_kernelIaLi64ELb1EE",
+              "paged_decode": "paged_decode_kernelIaLi64ELb1EE",
+              "paged_prefill": "paged_prefill_kernelIaLi64ELb1EE",
+              "flash": "flash_kernelIfLi64ELb1EE"}
 
 
-def phase_resources(build, decode, prefill):
-    """Registers and spills of the serving kernels' serving instantiations
+def phase_resources(build, decode, prefill, flash):
+    """Registers and spills of the kernels' main-path instantiations
     (nvcc -Xptxas -v), and the shared memory each gives a CTA, as the
     kernel's own source computes it (its C query). The paged decode's must
-    be the same at 1,024 and at 32,768 tokens of context."""
+    be the same at 1,024 and at 32,768 tokens of context. Returns flash's
+    registers, spills and shared memory at the training shapes."""
     import ctypes
 
     import torch
@@ -1002,19 +1046,24 @@ def phase_resources(build, decode, prefill):
     fn = lib.paged_prefill_smem
     fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int]
     smem["paged_prefill (static)"] = fn(D)
-    for name, entry in SERVING_ENTRY.items():
+    for hd in flash.HEAD_DIMS:
+        smem[f"flash D {hd} bk 512"] = flash.smem_bytes(hd, 512)
+    info = {}
+    for name, entry in MAIN_ENTRY.items():
         lines = build.build_log(name).splitlines()
         at = [i for i, l in enumerate(lines)
               if "Compiling entry function" in l and entry in l]
         if not at:
             raise AssertionError(f"no compiler report for {entry}")
-        info = " | ".join(l.split(":", 1)[-1].strip()
-                          if "ptxas" in l else l.strip()
-                          for l in lines[at[0] + 1:at[0] + 5]
-                          if "registers" in l or "spill" in l)
-        log(f"[resources] {name} ({entry}): {info}")
+        info[name] = " | ".join(l.split(":", 1)[-1].strip()
+                                if "ptxas" in l else l.strip()
+                                for l in lines[at[0] + 1:at[0] + 5]
+                                if "registers" in l or "spill" in l)
+        log(f"[resources] {name} ({entry}): {info[name]}")
     log(f"[resources] shared memory a CTA, B (any S or context): "
         f"{json.dumps(smem)}")
+    return {"flash": {"ptxas": info["flash"],
+                      "smem_bytes": smem[f"flash D {D} bk 512"]}}
 
 
 def _time_expmul(torch, checks, flush, rng):
@@ -1102,10 +1151,11 @@ def _time_flash(torch, checks, F, flush, rng):
     flops = 4 * D * B * H * (S * (S + 1) // 2)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S
     f32_core_ms = flops / F32_FLOPS_PER_S * 1e3
+    rate = flops / (ms * 1e-3)
     out = dict(max_abs_err=err, ms=ms, ms_with_launch=host_ms,
                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               library_ms=sdpa_ms,
+               library_ms=sdpa_ms, achieved_flop_per_s=rate,
                yardstick={"what": "exact variant vs SDPA, float32",
                           "kernel_ms": exact_ms, "library_ms": sdpa_ms,
                           "ops_ms_at_f32_cuda_core_rate": f32_core_ms})
@@ -1117,6 +1167,11 @@ def _time_flash(torch, checks, F, flush, rng):
         f"float32 CUDA-core rate, a yardstick), max abs err {err:.3e} (rel "
         f"{rel:.3e}); exact variant {exact_ms:.4f} ms, library SDPA "
         f"{sdpa_ms:.4f} ms")
+    log(f"[time] flash achieved {rate / 1e12:.2f} TFLOP/s: "
+        f"{rate / F32_FLOPS_PER_S:.1%} of the float32 CUDA-core rate "
+        f"({F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {f32_core_ms:.4f} ms), "
+        f"{out['bound_ms'] / ms:.2%} of the TF32 bound "
+        f"({out['bound_ms']:.4f} ms)")
     return out
 
 
@@ -1199,7 +1254,7 @@ def main() -> int:
     from repro_torch.kernels import build, checks
     from repro_torch.kernels.expmul import ops as expmul_ops
     from repro_torch.kernels.decode import decode
-    from repro_torch.kernels.flash import prefill
+    from repro_torch.kernels.flash import flash, prefill
     from repro_torch.models import api
     from repro_torch.serve.engine import ServeEngine
 
@@ -1215,7 +1270,8 @@ def main() -> int:
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("times", lambda: phase_times(torch, checks, F)),
-        ("resources", lambda: phase_resources(build, decode, prefill)),
+        ("resources", lambda: phase_resources(build, decode, prefill,
+                                              flash)),
         ("train", lambda: phase_train(torch, cfg_mod, api, build)),
         ("quickstart", lambda: phase_quickstart(torch, build)),
         ("fidelity", lambda: phase_fidelity(torch, build)),
@@ -1234,7 +1290,8 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **launches[name],
-                            **results["times"][name]))
+                            **results["times"][name],
+                            **results["resources"].get(name, {})))
     log(json.dumps({"kernels": kernels}))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -37,7 +37,7 @@
 // the weights) into its own shared memory; after a second barrier rank 0
 // reads the round's partials from every rank and folds them in order into
 // its running (m, l, acc), and at the end finalizes (acc / l, 0 for a row
-// with no column) as RowState::finalize does. Every rank arrives at every
+// with no column) as tile.py:finalize_tiles does. Every rank arrives at every
 // barrier, idle ones too (tiles at or past the length, or a length of 0).
 // A rank writes round k + 1's partials only after the barrier that rank 0
 // reaches once it has folded round k, the maxima alternate between two

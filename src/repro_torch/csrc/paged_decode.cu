@@ -52,7 +52,7 @@
 // every rank's shared memory, page by page in order into the running
 // (l, acc) of its own rows (rows rank, rank + CL, ...; one thread an entry),
 // and at the end finalizes them (acc / l, 0 for a row with no column) as
-// RowState::finalize does. Every rank arrives at every barrier, idle ones
+// tile.py:finalize_tiles does. Every rank arrives at every barrier, idle ones
 // too. A rank writes round k + 1's partials only after the barrier that
 // every rank reaches once it has folded round k, the chunk maxima alternate
 // between two buffers, and a last barrier keeps every CTA alive until the

@@ -21,7 +21,8 @@
 // card, on its own copy of this kernel). So both products are fmaf chains in
 // the plain version's order on the CUDA cores, register-tiled
 // (tile_sm90.cuh: Stage, score_block, value_block, shared with
-// csrc/paged_prefill.cu).
+// csrc/paged_prefill.cu; the whole tile step, chunk_tile_step, shared with
+// csrc/flash.cu).
 //
 // Design: one CTA of 128 threads per (sequence, query head, 32 chunk rows),
 // two CTAs an SM. It walks the reference's KV tiles, bk = min(512, max(S,
@@ -81,10 +82,6 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
                void* __restrict__ out, int H, int Hkv, int C, int S, int bk, int window,
                int rolling, float scale, int act_dtype, int vec16) {
   constexpr bool QUANT = IsCode<KV>::value;
-  constexpr int DG = D / 4;                      // 4-feature groups
-  constexpr int RPT = kRows * DG / kThreads;     // value rows a thread (4 or 1)
-  static_assert(RPT == 4 || RPT == 1, "head dims 16 and 64");
-  static_assert(kRows / 4 * 16 == kThreads && kRows * 4 == kThreads, "thread mappings");
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                             // [kRows][D + kPad]
   float* p_s = q_s + kRows * (D + kPad);         // [bk][kPLd]: scores, then weights
@@ -180,94 +177,19 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
   }
   __syncthreads();
 
-  // the scores of one staged K sub-tile (ncols columns) into p_s[sub * kSub + j][row]
-  const auto scores = [&](int sub, int ncols) {
-    score_block<D, QUANT>(q_s, x_s, sc_s, p_s + sub * kSub * kPLd, ncols, scale);
-  };
-
-  // the running state: (m, l) of row tid / 4 in its four weight threads;
-  // acc of RPT rows x 4 features in each thread
-  const int wrow = tid / 4, wpart = tid % 4;
-  float m_run = kMaskValue, l_run = 0.0f;
-  const int vrg = tid / DG, vdg = tid % DG;
-  float acc[RPT][4], dsum[RPT][4];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[r][e] = 0.0f;
-
+  ChunkRows<D> st;
   for (int ci = 0; ci < n_cand; ++ci) {
     Tile t;
     if (!tile_at(ci, t)) continue;
-    const int ns = (t.nr + kSub - 1) / kSub;
-    for (int sub = 0; sub < ns; ++sub) {
-      advance();
-      scores(sub, min(kSub, t.nr - sub * kSub));
-    }
-    // the tile's v scales, then per row: the max, the weights, their sum
-    if constexpr (QUANT) {
-      const float* vsrc = (t.chunk ? vsn + chunk0 : vsc + cache0) + t.c0;
-      for (int j = tid; j < t.nr; j += kThreads) vt_s[j] = vsrc[j];
-    }
-    __syncthreads();
-    {
-      // a fresh cache without a window: every column read is valid
-      const bool dense = !t.chunk && !rolling && window <= 0;
-      float mx = kMaskValue;
-#pragma unroll 4
-      for (int j = wpart; j < t.nr; j += 4)
-        if (dense || valid(t, wrow, j)) mx = fmaxf(mx, p_s[j * kPLd + wrow]);
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float ps = 0.0f;
-#pragma unroll 4
-      for (int j = wpart; j < t.nr; j += 4) {
-        float* pj = p_s + j * kPLd + wrow;
-        const float p =
-            dense || valid(t, wrow, j) ? softmax_weight<EXPMUL>(*pj, m_new) : 0.0f;
-        ps += p;
-        *pj = QUANT ? p * vt_s[j] : p;  // the weight the value product takes
-      }
-      ps += __shfl_xor_sync(kFull, ps, 1);
-      ps += __shfl_xor_sync(kFull, ps, 2);
-      const float r = rescale_factor<EXPMUL>(m_run, m_new);
-      l_run = rescale<EXPMUL>(l_run, r) + ps;
-      m_run = m_new;
-      if (wpart == 0) r_s[wrow] = r;
-    }
-    // the values: dsum[r][e] = sum_j w_rj v_j[4 vdg + e], in column order
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dsum[r][e] = 0.0f;
-    for (int sub = 0; sub < ns; ++sub) {
-      advance();
-      const int ncols = min(kSub, t.nr - sub * kSub);
-      const float* pw = p_s + sub * kSub * kPLd + RPT * vrg;
-      value_block<D, RPT>(dsum, pw, x_s + 4 * vdg, ncols);
-    }
-    // the online-softmax update, once per tile
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float f = r_s[RPT * vrg + r];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][e] = rescale<EXPMUL>(acc[r][e], f) + dsum[r][e];
-    }
+    // a fresh cache without a window: every column read is valid
+    const bool dense = !t.chunk && !rolling && window <= 0;
+    const float* vscale = nullptr;
+    if constexpr (QUANT) vscale = (t.chunk ? vsn + chunk0 : vsc + cache0) + t.c0;
+    chunk_tile_step<D, EXPMUL, QUANT>(st, q_s, p_s, x_s, sc_s, vt_s, r_s, vscale, t.nr, scale,
+                                      dense, advance,
+                                      [&](int r, int j) { return valid(t, r, j); });
   }
-
-  if (wpart == 0) l_s[wrow] = l_run;
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = RPT * vrg + r;
-    if (row >= rows) continue;
-    const float l = l_s[row];
-    const float den = l == 0.0f ? 1.0f : l;
-    const int64_t o = (static_cast<int64_t>(bh) * C + r0 + row) * D + 4 * vdg;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) store_act(out, o + e, acc[r][e] / den, act_dtype);
-  }
+  st.store(out, (static_cast<int64_t>(bh) * C + r0) * D, l_s, rows, act_dtype);
 }
 
 template <typename KV, int D, bool EXPMUL>

@@ -1,8 +1,9 @@
-// Hopper building blocks of the decode and prefill kernels (csrc/decode.cu,
-// csrc/prefill.cu, csrc/paged_decode.cu, csrc/paged_prefill.cu):
-// asynchronous copies into shared memory, the thread-block-cluster barrier,
-// conversions of staged KV codes, and the online-softmax weight and rescale
-// of one tile.
+// Hopper building blocks of the attention kernels (csrc/decode.cu,
+// csrc/prefill.cu, csrc/paged_decode.cu, csrc/paged_prefill.cu,
+// csrc/flash.cu): asynchronous copies into shared memory, the
+// thread-block-cluster barrier, conversions of staged KV codes, the
+// online-softmax weight and rescale of one tile, and the register-tiled
+// CUDA-core tile step of the prefill and flash kernels.
 //
 // The arithmetic is tile.cuh's (numerics/log2exp.py for ExpMul), operation
 // for operation: a weight is expf(s - m) or 2^-lhat(s - m), a rescale is
@@ -159,9 +160,9 @@ __device__ __forceinline__ float rescale(float x, float r) {
   return EXPMUL ? apply_pow2_scale(x, __float_as_int(r)) : x * r;
 }
 
-// ---- the CUDA-core layout of the prefill kernels ----------------------------
-// One CTA of kChunkThreads threads per (sequence, query head, kChunkRows chunk
-// rows), q in shared memory as float32 rows of D + kStagePad; KV staged in
+// ---- the CUDA-core layout of the prefill and flash kernels ------------------
+// One CTA of kChunkThreads threads per (sequence, query head, kChunkRows
+// query rows), q in shared memory as float32 rows of D + kStagePad; KV staged in
 // sub-tiles of kStageRows rows (the next one's 16-byte loads in flight in
 // registers while the current one is computed on), converted to float32
 // rows of D + kStagePad in shared memory; the scores transposed,
@@ -297,22 +298,31 @@ __device__ __forceinline__ void score_block(const float* q_s, const float* x_s,
 }
 
 // dsum[r][e] += sum_{j < ncols} w_j[r] v_j[e], in column order, for a
-// thread's RPT rows and 4 features: pw points at the first column's weights
-// of those rows (p_s + col * kScoreLd + RPT * row group), xv at the first
-// column's features (x_s + col * (D + kStagePad) + 4 * feature group).
+// thread's RPT rows (1, 2, 4 or 8: head dims 16, 32, 64, 128) and 4
+// features: pw points at the first column's weights of those rows (p_s +
+// col * kScoreLd + RPT * row group), xv at the first column's features (x_s
+// + col * (D + kStagePad) + 4 * feature group).
 template <int D, int RPT>
 __device__ __forceinline__ void value_block(float (&dsum)[RPT][4], const float* pw,
                                             const float* xv, int ncols) {
+  static_assert(RPT == 1 || RPT == 2 || RPT == 4 || RPT == 8, "value rows a thread");
 #pragma unroll 4
   for (int j = 0; j < ncols; ++j) {
     const float4 v4 = *reinterpret_cast<const float4*>(xv + j * (D + kStagePad));
     float w[RPT];
-    if (RPT == 4) {
-      const float4 w4 = *reinterpret_cast<const float4*>(pw + j * kScoreLd);
-      w[0] = w4.x;
-      w[RPT > 1 ? 1 : 0] = w4.y;
-      w[RPT > 2 ? 2 : 0] = w4.z;
-      w[RPT > 3 ? 3 : 0] = w4.w;
+    if constexpr (RPT >= 4) {
+#pragma unroll
+      for (int h = 0; h < RPT / 4; ++h) {
+        const float4 w4 = *reinterpret_cast<const float4*>(pw + j * kScoreLd + 4 * h);
+        w[4 * h] = w4.x;
+        w[4 * h + 1] = w4.y;
+        w[4 * h + 2] = w4.z;
+        w[4 * h + 3] = w4.w;
+      }
+    } else if constexpr (RPT == 2) {
+      const float2 w2 = *reinterpret_cast<const float2*>(pw + j * kScoreLd);
+      w[0] = w2.x;
+      w[1] = w2.y;
     } else {
       w[0] = pw[j * kScoreLd];
     }
@@ -323,6 +333,113 @@ __device__ __forceinline__ void value_block(float (&dsum)[RPT][4], const float* 
       dsum[r][2] = fmaf(w[r], v4.z, dsum[r][2]);
       dsum[r][3] = fmaf(w[r], v4.w, dsum[r][3]);
     }
+  }
+}
+
+// The running state of the CTA's kChunkRows rows: (m, l) of row tid / 4 in
+// its four weight threads; acc of RPT rows x 4 features in each thread, rows
+// RPT * (tid / (D / 4)) + r, features 4 * (tid % (D / 4)) + e.
+template <int D>
+struct ChunkRows {
+  static constexpr int kGroups = D / 4;                              // 4-feature groups
+  static constexpr int RPT = kChunkRows * kGroups / kChunkThreads;  // value rows a thread
+  static_assert(kChunkRows * 4 == kChunkThreads, "four weight threads a row");
+  float m = kMaskValue, l = 0.0f, acc[RPT][4] = {};
+
+  // acc / l of the rows below `rows` into out[base + row * D + feature] as
+  // act_dtype; a row with no valid column (l == 0) gives 0. l_s holds
+  // kChunkRows floats.
+  __device__ __forceinline__ void store(void* out, int64_t base, float* l_s, int rows,
+                                        int act_dtype) const {
+    const int tid = threadIdx.x;
+    if (tid % 4 == 0) l_s[tid / 4] = l;
+    __syncthreads();
+    const int vrg = tid / kGroups, vdg = tid % kGroups;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int row = RPT * vrg + r;
+      if (row >= rows) continue;
+      const float ls = l_s[row];
+      const float den = ls == 0.0f ? 1.0f : ls;
+      const int64_t o = base + static_cast<int64_t>(row) * D + 4 * vdg;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) store_act(out, o + e, acc[r][e] / den, act_dtype);
+    }
+  }
+};
+
+// One reference tile of nr columns for the CTA's rows (q_s), called by every
+// thread of the CTA: its K sub-tiles of kStageRows rows, each staged into
+// x_s (scales sc_s) by advance(), scored into p_s; then, once for the whole
+// tile, each row's max, weights (in place of the scores), their sum and the
+// rescale of (m, l), four threads a row, the factor passed to the value
+// threads through r_s (kChunkRows floats); then its V sub-tiles, staged by
+// advance(), multiplied by the weights in column order from a fresh chain,
+// and folded into acc.
+// valid(r, j) is the mask of column j < nr of row r; dense says that every
+// column read is valid. For codes, vscale points at the tile's v scale
+// rows, which the weights take (staged through vt_s, nr floats).
+template <int D, bool EXPMUL, bool QUANT, typename Advance, typename Valid>
+__device__ __forceinline__ void chunk_tile_step(ChunkRows<D>& st, const float* q_s, float* p_s,
+                                                const float* x_s, const float* sc_s,
+                                                float* vt_s, float* r_s,
+                                                const float* __restrict__ vscale, int nr,
+                                                float scale, bool dense, Advance advance,
+                                                Valid valid) {
+  constexpr int RPT = ChunkRows<D>::RPT, DG = ChunkRows<D>::kGroups;
+  const int tid = threadIdx.x;
+  const int wrow = tid / 4, wpart = tid % 4;
+  const int vrg = tid / DG, vdg = tid % DG;
+  const int ns = (nr + kStageRows - 1) / kStageRows;
+  for (int sub = 0; sub < ns; ++sub) {
+    advance();
+    score_block<D, QUANT>(q_s, x_s, sc_s, p_s + sub * kStageRows * kScoreLd,
+                          min(kStageRows, nr - sub * kStageRows), scale);
+  }
+  if constexpr (QUANT) {
+    for (int j = tid; j < nr; j += kChunkThreads) vt_s[j] = vscale[j];
+  }
+  __syncthreads();
+  {
+    float mx = kMaskValue;
+#pragma unroll 4
+    for (int j = wpart; j < nr; j += 4)
+      if (dense || valid(wrow, j)) mx = fmaxf(mx, p_s[j * kScoreLd + wrow]);
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(st.m, mx);
+    float ps = 0.0f;
+#pragma unroll 4
+    for (int j = wpart; j < nr; j += 4) {
+      float* pj = p_s + j * kScoreLd + wrow;
+      const float p = dense || valid(wrow, j) ? softmax_weight<EXPMUL>(*pj, m_new) : 0.0f;
+      ps += p;
+      *pj = QUANT ? p * vt_s[j] : p;  // the weight the value product takes
+    }
+    ps += __shfl_xor_sync(kFull, ps, 1);
+    ps += __shfl_xor_sync(kFull, ps, 2);
+    const float r = rescale_factor<EXPMUL>(st.m, m_new);
+    st.l = rescale<EXPMUL>(st.l, r) + ps;
+    st.m = m_new;
+    if (wpart == 0) r_s[wrow] = r;
+  }
+  // the values: dsum[r][e] = sum_j w_rj v_j[4 vdg + e], in column order
+  float dsum[RPT][4];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dsum[r][e] = 0.0f;
+  for (int sub = 0; sub < ns; ++sub) {
+    advance();  // its first barrier also publishes the weights and r_s
+    value_block<D, RPT>(dsum, p_s + sub * kStageRows * kScoreLd + RPT * vrg, x_s + 4 * vdg,
+                        min(kStageRows, nr - sub * kStageRows));
+  }
+  // the online-softmax update, once per tile
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const float f = r_s[RPT * vrg + r];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.acc[r][e] = rescale<EXPMUL>(st.acc[r][e], f) + dsum[r][e];
   }
 }
 

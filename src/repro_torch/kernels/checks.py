@@ -11,7 +11,8 @@ finite (``STALE``, or the largest code with a large scale), since the
 reference multiplies their zero weights into them and NaN would poison
 it too.
 ``flash_case`` builds one full-sequence input (q, k, v of one dtype) for
-the training path's flash forward.
+the training path's flash forward, and ``flash_edge_cases`` the edges of
+its kernel's layout.
 ``expmul_case`` builds one input of the standalone ExpMul operator, with
 the contract's edge values, and ``same_bits`` compares two of its
 results as raw bits.
@@ -22,6 +23,8 @@ then exact in any summation order, so no ExpMul L_hat can flip between
 two implementations.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -34,6 +37,7 @@ from repro_torch.kernels.decode.ops import (
 )
 from repro_torch.kernels.expmul.expmul import expmul_fwd, expmul_fwd_plain
 from repro_torch.kernels.expmul.ref import expmul_ref
+from repro_torch.kernels.flash.flash import flash_fwd, flash_fwd_plain
 from repro_torch.kernels.flash.ops import (
     flash_attention_fwd,
     fused_paged_prefill_attention,
@@ -231,21 +235,64 @@ def run_contiguous_prefill(case, variant, plain=False):
 
 def flash_case(rng, *, B, H, Hkv, Sq, Sk, D, dtype=torch.float32,
                dyadic=True, causal=True, window=None, block_k=128,
-               device="cuda"):
+               kv_len=None, device="cuda"):
     """Full-sequence operands: q (B, H, Sq, D), k and v (B, Hkv, Sk, D) in
-    ``dtype``, with the mask and the KV tile width to run them at."""
+    ``dtype``, with the mask and the KV tile width to run them at. With
+    ``kv_len`` (Sk then a multiple of ``block_k``) the keys at or past it
+    are large finite stale rows (``STALE``), and ``run_flash`` hands the
+    folded operands to the forward at that ``kv_len``, as the reference's
+    padded call does: a kernel that weighs such a row shows it."""
     def draw(shape):
-        return torch.from_numpy(_act(rng, shape, dyadic)).to(dtype).to(device)
-    return dict(q=draw((B, H, Sq, D)), k=draw((B, Hkv, Sk, D)),
-                v=draw((B, Hkv, Sk, D)), causal=causal, window=window,
-                block_k=block_k)
+        return torch.from_numpy(_act(rng, shape, dyadic))
+    q, k, v = draw((B, H, Sq, D)), draw((B, Hkv, Sk, D)), draw((B, Hkv, Sk, D))
+    if kv_len is not None:
+        sign = torch.where(torch.arange(D) % 2 == 1, 1.0, -1.0)
+        k[:, :, kv_len:] = STALE * sign
+        v[:, :, kv_len:] = STALE * sign
+    return dict(q=q.to(dtype).to(device), k=k.to(dtype).to(device),
+                v=v.to(dtype).to(device), causal=causal, window=window,
+                block_k=block_k, kv_len=kv_len)
+
+
+def flash_edge_cases(rng, *, S, D, group, dtype, dyadic, device="cuda"):
+    """The flash kernel's layout edges at Sq = S (2 sequences, 2 KV heads
+    of ``group`` query heads each): causal over 128-wide tiles; causal with
+    a 40-token window over 64-wide tiles (its lower edge inside a 64-row
+    sub-tile; whole tiles skipped at S = 1000); non-causal over one more
+    64-wide tile of keys than S needs, kv_len = S; causal over those keys
+    at kv_len = S - S // 3. Returns [(label, case)]."""
+    padded = S + -S % 64 + 64
+    cases = []
+    for label, kw in (
+            ("causal bk=128", dict(causal=True, block_k=128, Sk=S)),
+            ("causal window=40 bk=64", dict(causal=True, window=40,
+                                            block_k=64, Sk=S)),
+            (f"cross kv_len={S} of {padded} bk=64",
+             dict(causal=False, block_k=64, Sk=padded, kv_len=S)),
+            (f"causal kv_len={S - S // 3} of {padded} bk=64",
+             dict(causal=True, block_k=64, Sk=padded, kv_len=S - S // 3))):
+        cases.append((label, flash_case(rng, B=2, H=2 * group, Hkv=2, Sq=S,
+                                        D=D, dtype=dtype, dyadic=dyadic,
+                                        device=device, **kw)))
+    return cases
 
 
 def run_flash(case, variant, plain=False):
-    return flash_attention_fwd(case["q"], case["k"], case["v"],
-                               causal=case["causal"], window=case["window"],
-                               variant=variant, block_k=case["block_k"],
-                               plain=plain)
+    if case.get("kv_len") is None:
+        return flash_attention_fwd(case["q"], case["k"], case["v"],
+                                   causal=case["causal"],
+                                   window=case["window"], variant=variant,
+                                   block_k=case["block_k"], plain=plain)
+    q, k, v = case["q"], case["k"], case["v"]
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    fn = flash_fwd_plain if plain else flash_fwd
+    out = fn(q.reshape(B * H, Sq, D), k.reshape(B * Hkv, Sk, D),
+             v.reshape(B * Hkv, Sk, D), causal=case["causal"],
+             scale=1.0 / math.sqrt(D), window=case["window"], variant=variant,
+             block_k=case["block_k"], num_q_heads=H, num_kv_heads=Hkv,
+             kv_len=case["kv_len"])
+    return out.reshape(B, H, Sq, D)
 
 
 def kernel_tol(variant, out_dtype) -> float:

@@ -14,10 +14,22 @@ head h reads KV head ``h // (H / Hkv)``.
 ``flash_fwd_plain`` walks those tiles vectorized over every row and
 reproduces the Pallas kernel's ``min(block_q, Sq)``-row query blocks
 (``BLOCK_Q``, Pallas' default) and the tiles each block skips, so it equals
-the Pallas kernel tile for tile. The CUDA kernel takes 32 query rows per
-block and skips the tiles that are wholly masked for all of them. The row
-blocking changes no number (a wholly masked tile leaves a row's (m, l, acc)
-as it was), so neither version needs Sq padded.
+the Pallas kernel tile for tile. It sums both products as ``fma_chain``s,
+the scores in depth order and the values in column order.
+
+The CUDA kernel runs the contiguous prefill's register-tiled CUDA-core
+layout (``csrc/tile_sm90.cuh``): a block of 128 threads per (batch x head,
+32 query rows), causal blocks launched heaviest first; each tile's K and V
+staged in 64-row sub-tiles converted to float32 in shared memory, its scores
+in 4 x 4 register blocks, its row max, weights, weight sum and rescale once
+per tile, and its value product from a fresh chain, all in the plain
+version's order. A block skips the tiles wholly masked for all of its rows
+and reads no column at or past ``kv_len`` or, when causal, past its last
+row. The row blocking changes no number (a wholly masked tile leaves a
+row's (m, l, acc) as it was), so neither version needs Sq padded. Its shared
+memory grows with the head dim and the tile width (``flash_smem``: 100,352
+bytes at D 64 and 512-wide tiles, two blocks an SM); the wrapper checks it
+against the card's limit before the launch.
 
 ``flash_fwd`` launches the CUDA kernel for CUDA tensors and runs the plain
 version only for CPU tensors.
@@ -25,6 +37,7 @@ version only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,7 +57,22 @@ BLOCK_Q = 128      # the reference's query block (cfg.attention_block_q)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURE = {"flash_forward": (ctypes.c_int, [_P] * 4 + [_I] * 10 + [_F]
-                                + [_I] * 2 + [_P])}
+                                + [_I] * 2 + [_P]),
+              "flash_smem": (ctypes.c_longlong, [_I] * 2)}
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes(D, block_k) -> int:
+    """The shared memory, in bytes, the kernel gives a block at head dim
+    ``D`` and tile width ``block_k`` (``csrc/flash.cu:flash_smem``; the
+    launch asks the card for exactly this much)."""
+    return int(build.load(NAME, _SIGNATURE).flash_smem(D, block_k))
+
+
+@functools.lru_cache(maxsize=None)
+def card_smem_limit(device) -> int:
+    """The most dynamic shared memory a block may take on ``device``."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
 
 def _check(q3, k3, v3, *, block_k, num_q_heads, num_kv_heads, kv_len):
@@ -133,6 +161,11 @@ def flash_fwd(q3, k3, v3, *, causal, scale, window, variant, block_k,
     if D not in HEAD_DIMS:
         raise ValueError(f"{NAME}: the kernel is built for head dims "
                          f"{HEAD_DIMS}, got {D}")
+    need, limit = smem_bytes(D, block_k), card_smem_limit(q3.device)
+    if need > limit:
+        raise ValueError(f"{NAME}: head dim {D} at block_k {block_k} needs "
+                         f"{need} B of shared memory a block, the card "
+                         f"allows {limit}")
     out = torch.empty_like(q3)
     if BH == 0 or Sq == 0:
         return out

@@ -26,6 +26,7 @@ from repro_torch.kernels.checks import (  # noqa: E402
     contiguous_case,
     expmul_case,
     flash_case,
+    flash_edge_cases,
     kernel_tol,
     paged_case,
     rel_err,
@@ -397,6 +398,57 @@ def test_flash_kernel_matches_plain(cuda, D, mask, block_k, variant, dtype):
         assert build.COUNTS["flash"] == before + 1
         assert got.dtype == dtype and got.shape == ref.shape
         assert rel_err(got, ref) <= kernel_tol(variant, dtype), dyadic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 31, 33, 65, 1000])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_layout_edges_match_plain(cuda, S, D, group, variant,
+                                               dtype):
+    """The register-tiled layout's edges (``checks.flash_edge_cases``):
+    Sq = Sk off the 32-row query block and the 64-row sub-tile, a window
+    ending inside a sub-tile, keys past ``kv_len`` (stale rows) causal and
+    not, GQA groups 1 and 7, dyadic and random."""
+    rng = np.random.default_rng(S * 1000 + D * 10 + group)
+    for dyadic in (True, False):
+        for label, case in flash_edge_cases(rng, S=S, D=D, group=group,
+                                            dtype=dtype, dyadic=dyadic,
+                                            device=cuda):
+            before = build.COUNTS["flash"]
+            got = run_flash(case, variant)
+            ref = run_flash(case, variant, plain=True)
+            torch.cuda.synchronize()
+            assert build.COUNTS["flash"] == before + 1
+            assert got.dtype == dtype and got.shape == ref.shape
+            assert rel_err(got, ref) <= kernel_tol(variant, dtype), \
+                (label, dyadic)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_checks_shared_memory_before_launch(cuda, monkeypatch):
+    """A shape whose shared memory a block exceeds the card's raises
+    ValueError through the kernel's own query (``flash_smem``), before any
+    launch: here a card that allows one byte less than D 128 at 512-wide
+    tiles needs."""
+    from repro_torch.kernels.flash import flash
+    need = flash.smem_bytes(128, 512)
+    assert need == 124928 and flash.smem_bytes(64, 512) == 100352
+    assert need <= flash.card_smem_limit(cuda)
+    monkeypatch.setattr(flash, "card_smem_limit", lambda device: need - 1)
+    case = flash_case(np.random.default_rng(0), B=1, H=2, Hkv=1, Sq=600,
+                      Sk=1024, D=128, block_k=512, device=cuda)
+    before = build.COUNTS["flash"]
+    with pytest.raises(ValueError, match="shared memory"):
+        run_flash(case, "expmul")
+    assert build.COUNTS["flash"] == before
+    case = flash_case(np.random.default_rng(0), B=1, H=2, Hkv=1, Sq=600,
+                      Sk=1024, D=128, block_k=256, device=cuda)
+    run_flash(case, "expmul")                  # narrower tiles fit
+    assert build.COUNTS["flash"] == before + 1
 
 
 @pytest.mark.cuda
