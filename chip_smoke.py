@@ -64,11 +64,29 @@ Phases (a failing check raises, and the script exits non-zero):
    magnitude for exact, the gap printed for ExpMul;
 4. serving at full width: ``ServeEngine`` with 8 slots, 16 requests of
    128-1024 prompt tokens and 32 new tokens each, ExpMul, temperature 0,
-   three times: a paged int8 pool, then contiguous caches at kv_dtype
-   fp32 (the CLI's default) and int8. The kernel launch counts are set to
-   0 just before each run and read just after: the run's two kernels must
-   have launched, and no other kernel or plain version. Tokens/s and TTFT
-   are printed beside their values before the paged kernels' redesign;
+   three times: a paged int8 pool (its shared-prefix cache on, the
+   default), then contiguous caches at kv_dtype fp32 (the CLI's default)
+   and int8. The kernel launch counts are set to 0 just before each run
+   and read just after: the run's two kernels must have launched, and no
+   other kernel or plain version. Tokens/s and TTFT are printed beside
+   their values before the paged kernels' redesign. The paged run is
+   served twice more, with the engine's dispatch counters off and then on
+   again (streams gated equal), and the three runs' tick wall time p50s
+   are printed side by side;
+4b. the shared-prefix cache at full width (bf16, ExpMul, the same seed-2
+   weights), paged int8, pages of 16, 8 slots, ``max_len`` 2048,
+   temperature 0: a 1,024-token system prompt and 16 distinct tails of
+   32-512 tokens, 32 new tokens each, served cold (cache off) and warm
+   (cache on, first seeded with the system prompt plus one token), both
+   traced. At chunk 256 the warm streams must equal the cold ones token
+   for token, with at least 16 x 1,024 hit tokens; at chunk 200 (4
+   requests) the chunk grid puts the resume cursor at 1,000, inside page
+   62, so every warm request copies that page on write (at least 4
+   copies) and the streams must still equal the cold ones. Each run is
+   gated on the two paged kernels alone (counts set to 0 before it, read
+   after), on ``check_consistency()`` and on no block left in use; it
+   prints tokens/s, TTFT p50, prefill steps, prompt tokens prefilled and
+   the tick spans' host-clock p50;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -629,19 +647,24 @@ def phase_model_ticks(torch, cfg_mod, api):
     torch.cuda.empty_cache()
 
 
-def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair):
+def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
+               sink=True):
     """Serve ``prompts`` (32 new tokens each) on a fresh engine with the
     launch counts set to 0 just before and read just after: the ``pair``
     of kernels of the layout must have launched, and nothing else (no
-    other kernel, no plain version). Returns (counts, per-step launches,
-    the streams)."""
-    label = f"{kw['kv_layout']}/{kw['kv_dtype']}"
+    other kernel, no plain version). ``sink=False`` serves with the
+    engine's dispatch counters off. Returns (counts, per-step launches,
+    the streams, the tick wall times by kind)."""
+    label = f"{kw['kv_layout']}/{kw['kv_dtype']}" + ("" if sink
+                                                     else " (no sink)")
     warm = ServeEngine(params, cfg, **kw)              # cuBLAS, allocator
     for p in prompts[:2]:
         warm.submit(p[:300], 2)
     warm.run()
     del warm
     eng = ServeEngine(params, cfg, **kw)
+    if not sink:
+        eng.dispatch_sink = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_counts()
@@ -683,9 +706,10 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair):
         f"= {gen / wall:.1f} tokens/s; TTFT from submit p50 "
         f"{statistics.median(ttft):.1f} ms, max {max(ttft):.1f} ms; peak "
         f"memory {peak / 2**30:.2f} GiB; preemptions {eng.preemptions}")
-    tps0, ttft0 = BEFORE_SERVE[label]
-    log(f"[serve] {label}: at 35522df {tps0} tokens/s, TTFT p50 {ttft0} ms "
-        f"(not gated)")
+    if sink:
+        tps0, ttft0 = BEFORE_SERVE[label]
+        log(f"[serve] {label}: at 35522df {tps0} tokens/s, TTFT p50 {ttft0} "
+            f"ms (not gated)")
     log(f"[serve] {label}: launches {json.dumps(counts)}")
     log(f"[serve] {label}: tick wall time, ms: prefill p50 "
         f"{statistics.median(tick_ms['prefill']):.2f} (sum "
@@ -695,7 +719,7 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair):
     dec, pre = pair
     per_step = {dec: counts[dec] / eng.decode_steps,
                 pre: counts[pre] / eng.prefill_steps}
-    return counts, per_step, [r.out for r in reqs]
+    return counts, per_step, [r.out for r in reqs], tick_ms
 
 
 def phase_serve(torch, cfg_mod, api, build, ServeEngine):
@@ -709,8 +733,21 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     kw = dict(kv_layout="paged", page_size=PS, kv_dtype="int8", slots=B,
               max_len=MAX_LEN, chunk_size=CHUNK, temperature=0.0,
               attention_impl="kernel", device="cuda")
-    counts, per_step, paged = _serve_run(torch, build, ServeEngine, params,
-                                         cfg, prompts, kw, PAGED)
+    counts, per_step, paged, ticks = _serve_run(
+        torch, build, ServeEngine, params, cfg, prompts, kw, PAGED)
+    # the engine's dispatch counters cost host time on every wrapper call:
+    # the same run without them, then with them again, read within this call
+    runs = [ticks]
+    for sink in (False, True):
+        *_, out, t = _serve_run(torch, build, ServeEngine, params, cfg,
+                                prompts, kw, PAGED, sink=sink)
+        if out != paged:
+            raise AssertionError("the dispatch sink changed the streams")
+        runs.append(t)
+    log("[serve] paged/int8 tick wall time p50 ms, sink on / off / on: "
+        + "; ".join(f"{kind} " + " / ".join(
+            f"{statistics.median(t[kind]):.2f}" for t in runs)
+            for kind in ("prefill", "decode")))
     phase_profile(torch, ServeEngine, params, cfg, kw, prompts)
     # the contiguous kernels' launches are those of the int8 run, which
     # the timings of phase 5 match; the fp32 run's are kept beside them
@@ -721,7 +758,7 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     for kv_dtype in ("fp32", "int8"):
         ckw = dict(kw, kv_layout="contiguous", kv_dtype=kv_dtype)
         del ckw["page_size"]
-        counts, per_step, streams[kv_dtype] = _serve_run(
+        counts, per_step, streams[kv_dtype], _ = _serve_run(
             torch, build, ServeEngine, params, cfg, prompts, ckw, CONTIGUOUS)
         for name in CONTIGUOUS:
             launches.setdefault(name, {}).update(
@@ -739,6 +776,103 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def _prefix_run(torch, build, ServeEngine, params, cfg, system, tails,
+                prefix_cache, chunk):
+    """Serve ``system`` + each tail (32 new tokens each) on a fresh traced
+    paged int8 engine; with the cache on it is first seeded with the
+    system prompt plus one token. The launch counts are set to 0 just
+    before the seeding and read just after the run: the two paged kernels
+    must have launched, and nothing else. Returns (engine, streams)."""
+    label = f"chunk {chunk}, cache {'on' if prefix_cache else 'off'}"
+    eng = ServeEngine(params, cfg, kv_layout="paged", page_size=PS,
+                      kv_dtype="int8", slots=B, max_len=MAX_LEN,
+                      chunk_size=chunk, temperature=0.0,
+                      attention_impl="kernel", prefix_cache=prefix_cache,
+                      trace=True, device="cuda")
+    torch.cuda.synchronize()
+    build.reset_counts()
+    if prefix_cache:
+        eng.submit(system + [1], 1)
+        eng.run()
+    generated = eng.tokens_generated
+    t0 = time.perf_counter()
+    reqs = [eng.submit(system + t, 32) for t in tails]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.COUNTS)
+    if not all(r.done and r.finish_reason == "length" and len(r.out) == 32
+               for r in reqs):
+        raise AssertionError(f"prefix {label}: a request did not finish")
+    if not all(counts.get(name, 0) > 0 for name in PAGED) or any(
+            n for name, n in counts.items() if name not in PAGED):
+        raise AssertionError(f"prefix {label}: not the two paged kernels "
+                             f"alone: {counts}")
+    eng.pool.check_consistency()
+    if eng.pool.used_blocks:
+        raise AssertionError(f"prefix {label}: {eng.pool.used_blocks} "
+                             f"blocks still used after the run")
+    tps = (eng.tokens_generated - generated) / wall
+    ttft = statistics.median((r.first_token_time - r.submit_time) * 1e3
+                             for r in reqs)
+    spans = {}
+    for e in eng.metrics.events:
+        if e["ph"] == "X":
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    st = eng.memory_stats()
+    log(f"[prefix] {label}: {len(reqs)} requests of {len(system)} + "
+        f"{min(map(len, tails))}-{max(map(len, tails))} tokens, 32 new "
+        f"each: {tps:.1f} tokens/s, TTFT p50 {ttft:.1f} ms from submit; "
+        f"{eng.prefill_steps} prefill + {eng.decode_steps} decode steps "
+        f"(seeding included), {eng.prompt_tokens} prompt tokens prefilled; "
+        f"tick span (host clock) p50 ms: " + ", ".join(
+            f"{k} {statistics.median(v):.2f} (x{len(v)})"
+            for k, v in sorted(spans.items())))
+    log(f"[prefix] {label}: launches {json.dumps(counts)}; "
+        + json.dumps({k: st[k] for k in (
+            "cache_hits", "prefix_hit_tokens", "cow_copies",
+            "kv_cached_blocks", "prefill_flops_skipped", "preemptions")
+            if k in st}))
+    return eng, [r.out for r in reqs]
+
+
+def phase_prefix(torch, cfg_mod, api, build, ServeEngine):
+    """The shared-prefix cache at full width: a 1,024-token system prompt
+    and 16 distinct tails of 32-512 tokens, served cold (cache off) and
+    warm (cache on, seeded). (a) At chunk 256 the warm streams must equal
+    the cold ones and every request must hit the whole system prompt.
+    (b) At chunk 200 the grid puts the cursor at 1,000, inside page 62,
+    so each of 4 warm requests copies that page before writing it: the
+    streams must still equal the cold ones."""
+    cfg = cfg_mod.get_config("qwen2-0.5b")          # bf16, ExpMul
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
+                            device="cuda")
+    rng = np.random.default_rng(5)
+    system = rng.integers(1, cfg.vocab_size, size=1024).tolist()
+    tails = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+             for n in rng.integers(32, 513, size=16)]
+    for chunk, n in ((256, 16), (200, 4)):
+        _, cold = _prefix_run(torch, build, ServeEngine, params, cfg,
+                              system, tails[:n], False, chunk)
+        eng, warm = _prefix_run(torch, build, ServeEngine, params, cfg,
+                                system, tails[:n], True, chunk)
+        same = sum(a == b for x, y in zip(cold, warm) for a, b in zip(x, y))
+        log(f"[prefix] chunk {chunk}: warm vs cold, {same} of "
+            f"{sum(map(len, cold))} tokens equal")
+        if warm != cold:
+            raise AssertionError(f"prefix chunk {chunk}: warm streams differ "
+                                 f"from cold ones")
+        st = eng.memory_stats()
+        if chunk == 256 and st["prefix_hit_tokens"] < n * 1024:
+            raise AssertionError(f"prefix: {st['prefix_hit_tokens']} hit "
+                                 f"tokens, fewer than {n} x 1024")
+        if chunk == 200 and st["cow_copies"] < n:
+            raise AssertionError(f"prefix: {st['cow_copies']} copies on "
+                                 f"write, fewer than {n}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def _profile_window(torch, fn, label):
@@ -1269,6 +1403,8 @@ def main() -> int:
         ("model ticks", lambda: phase_model_ticks(torch, cfg_mod, api)),
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
+        ("prefix", lambda: phase_prefix(torch, cfg_mod, api, build,
+                                        ServeEngine)),
         ("times", lambda: phase_times(torch, checks, F)),
         ("resources", lambda: phase_resources(build, decode, prefill,
                                               flash)),

@@ -14,6 +14,11 @@ the package on a machine without ``nvcc``.
 (``"<name>"``) and the calls of its plain PyTorch version
 (``"<name>_plain"``); ``chip_smoke.py`` reads it to show that the serving
 and training paths went through the kernels.
+
+``DISPATCH_SINK`` is the one process-global observer of the attention
+wrappers (``kernels/flash/ops.py``, ``kernels/decode/ops.py``): when set
+(``set_dispatch_sink``, or ``serve.metrics.install_dispatch_counters``)
+each wrapper call reports its kind and shapes to it once.
 """
 from __future__ import annotations
 
@@ -36,12 +41,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 COUNTS: collections.Counter = collections.Counter()
+DISPATCH_SINK = None
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_counts():
     COUNTS.clear()
+
+
+def set_dispatch_sink(sink) -> None:
+    """Install (or with ``None`` remove) the attention wrappers' observer."""
+    global DISPATCH_SINK
+    DISPATCH_SINK = sink
+
+
+def kv_label(codes, scale) -> str:
+    """The ``kv_dtype`` label of a cache or pool: "fp32" when it has no
+    scale rows (unquantized, whatever its float type), else its codes'."""
+    if scale is None:
+        return "fp32"
+    return "int8" if str(codes.dtype) == "torch.int8" else "fp8"
 
 
 def _nvcc() -> str:

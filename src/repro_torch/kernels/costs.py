@@ -1,0 +1,133 @@
+"""Analytic datapath cost model for attention calls (the port of
+``repro/kernels/costs.py``, DESIGN.md §12).
+
+It prices what an attention call is *designed* to move and compute, and
+is shared by two layers: the dispatch counters of the attention wrappers
+(shape-level cost per call, ``serve/metrics.py``) and the ``ServeEngine``
+executed-cost ledger (actual host-side lengths per engine step). The
+formulas are the reference's, so the port's ledger equals ``repro``'s
+for the same steps.
+
+Cost conventions (documented per helper): q/output traffic is excluded
+(identical across paths), gather datapaths pay a write + read of the
+materialized fp32 copy, paged layouts amortize the int32 block-table
+read, quantized dtypes add the per-row float32 scale reads.
+"""
+from __future__ import annotations
+
+SCALE_BYTES = 4   # per-row float32 scale (numerics/quant.py contract)
+F32 = 4
+TABLE_BYTES = 4   # int32 block-table entry, amortized over page_size tokens
+
+
+def kv_code_bytes(kv_dtype: str) -> int:
+    """Bytes per stored KV element: 1 for int8/fp8 codes, 4 for fp32."""
+    return F32 if kv_dtype == "fp32" else 1
+
+
+def impl_path(impl: str) -> str:
+    """Map an attention impl onto the cost model's two datapaths. Both of
+    the port's ("kernel", and "plain", the kernel's arithmetic in PyTorch
+    ops) are ``"fused"``: in-kernel block tables and in-register dequant,
+    no materialized copy, like the reference's Pallas kernels. Anything
+    else is ``"gather"``."""
+    return "fused" if impl in ("kernel", "plain") else "gather"
+
+
+def analytic_bytes_per_ctx_token(layout, kv_dtype, path, *, Hkv, D, Dv,
+                                 page_size):
+    """Designed HBM bytes touched per context token for one decode step.
+
+    Counted per logical token of resident history, summed over the K and V
+    rows of all ``Hkv`` heads:
+
+      * cache read — what the attention math must load: codes (1 B/elt) +
+        scale rows for quantized dtypes, 4 B/elt for fp32.
+      * gather overhead — the gather datapaths materialize a contiguous
+        fp32 copy of the (dequantized) history before attending, paying a
+        full write + read of that copy on top of the cache read. The
+        contiguous-fp32 gather ("xla") reads the cache in place (masked
+        one-pass softmax, no copy), so its overhead is zero — fused vs
+        gather only diverges where a copy exists (every paged cell and,
+        in time if not bytes, the dequant cells).
+      * paged adds the block-table read, amortized per token.
+
+    q/o traffic is context-independent and excluded (identical across
+    paths).
+    """
+    elt = kv_code_bytes(kv_dtype)
+    cache_read = Hkv * (D + Dv) * elt
+    if kv_dtype != "fp32":
+        cache_read += Hkv * 2 * SCALE_BYTES
+    copy = 2 * Hkv * (D + Dv) * F32  # write + read of the fp32 copy
+    b = cache_read
+    if layout == "paged":
+        b += TABLE_BYTES / page_size
+        if path == "gather":
+            b += copy
+    elif path == "gather" and kv_dtype != "fp32":
+        # contiguous quantized gather: dequantized fp32 copy of the cache
+        b += copy
+    return b
+
+
+def analytic_bytes_per_chunk_token(layout, kv_dtype, path, *, Hkv, D, Dv,
+                                   ctx, chunk, page_size):
+    """Designed HBM bytes touched per *chunk token* for one prefill step.
+
+    A chunk of ``chunk`` fresh tokens attends over ``ctx`` resident
+    history tokens plus itself; per KV head a token row costs
+    ``(D + Dv) * elt`` bytes (+ 2 scale rows when quantized):
+
+      * history read — what the attention math must load once per chunk:
+        codes (1 B/elt) + scale rows for quantized dtypes, 4 B/elt fp32.
+      * gather overhead — the gather datapaths materialize a contiguous
+        dequantized fp32 copy of the history (and of the quantized chunk)
+        before attending, paying a full write + read of that copy on top
+        of the raw read. The contiguous-fp32 gather reads the cache in
+        place (masked one-pass softmax, no copy), so its overhead is
+        zero — fused vs gather only diverges where a copy exists (every
+        paged cell and every quantized cell).
+      * the chunk's own fresh KV is read once by both paths; paged adds
+        the block-table read.
+
+    Everything is divided by ``chunk``: the steady-state per-prompt-token
+    HBM cost of prefilling at this chunk size. q/output traffic is
+    identical across paths and excluded.
+    """
+    elt = kv_code_bytes(kv_dtype)
+    row = Hkv * (D + Dv) * elt
+    if kv_dtype != "fp32":
+        row += Hkv * 2 * SCALE_BYTES
+    row_f32 = Hkv * (D + Dv) * F32
+    hist = ctx * row
+    chunk_bytes = chunk * row
+    b = hist + chunk_bytes
+    copy = 2 * (ctx + chunk) * row_f32      # write + read of the fp32 copy
+    if layout == "paged":
+        b += TABLE_BYTES * (-(-ctx // page_size))
+        if path == "gather":
+            b += copy
+    elif path == "gather" and kv_dtype != "fp32":
+        b += copy
+    return b / chunk
+
+
+def analytic_attention_flops(q_tokens, kv_tokens, *, heads, d_qk, d_v):
+    """Attention-math FLOPs for ``q_tokens`` queries over ``kv_tokens``
+    keys/values: 2·D_qk per (q, k) score pair + 2·D_v per weighted-sum
+    pair, per head — the standard estimate, masking ignored (an upper
+    bound within 2x for causal chunks, exact for decode)."""
+    return 2 * heads * (d_qk + d_v) * int(q_tokens) * int(kv_tokens)
+
+
+def attn_kv_geometry(cfg) -> dict:
+    """Per-attention-layer KV geometry of a model config, in the shape the
+    analytic helpers take: ``Hkv`` heads of ``D``-dim K plus ``Dv``-dim V
+    rows per token, over ``layers`` attention layers (every layer of the
+    port's configs, which are GQA/MHA; MLA's latent rows come with its
+    slice)."""
+    d = cfg.resolved_head_dim()
+    return {"Hkv": cfg.num_kv_heads, "D": d, "Dv": d,
+            "heads": cfg.num_heads, "layers": cfg.num_layers, "d_qk": d,
+            "d_v": d}

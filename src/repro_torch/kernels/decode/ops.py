@@ -8,6 +8,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.decode.decode import (
     decode_fwd,
     decode_fwd_plain,
@@ -22,6 +23,12 @@ def _run_contiguous(q, k_cache, v_cache, k_scale, v_scale, lengths, *, scale,
     _, Hkv, S, _ = k_cache.shape
     Dv = v_cache.shape[-1]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    if build.DISPATCH_SINK is not None:
+        build.DISPATCH_SINK("decode", impl="plain" if plain else "kernel",
+                            variant=variant,
+                            kv_dtype=build.kv_label(k_cache, k_scale),
+                            batch=B, heads=H, heads_kv=Hkv, d_qk=D, d_v=Dv,
+                            kv_tokens=S, q_tokens=1)
 
     def fold(t, *tail):  # (B, Hkv, S, ...) -> (B*Hkv, S, ...)
         return None if t is None else t.reshape((B * Hkv, S) + tail)
@@ -62,6 +69,14 @@ def _run(q, k_pool, v_pool, ks_pool, vs_pool, block_tables, lengths, *,
                          f"of {page_size}-token pages")
     nblk = pool_tokens // page_size
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    if build.DISPATCH_SINK is not None:
+        build.DISPATCH_SINK("paged_decode",
+                            impl="plain" if plain else "kernel",
+                            variant=variant,
+                            kv_dtype=build.kv_label(k_pool, ks_pool),
+                            batch=B, heads=H, heads_kv=Hkv, d_qk=D, d_v=Dv,
+                            kv_tokens=block_tables.shape[1] * page_size,
+                            q_tokens=1, page_size=page_size)
     q3 = q.reshape(B * Hkv, H // Hkv, D)
     fn = paged_decode_fwd_plain if plain else paged_decode_fwd
     o3 = fn(block_tables.to(torch.int32), lengths.to(torch.int32), q3,

@@ -10,6 +10,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import build
 from repro_torch.kernels.flash.flash import flash_fwd, flash_fwd_plain
 from repro_torch.kernels.flash.prefill import (
     paged_prefill_fwd,
@@ -34,6 +35,11 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None, window=None,
         raise ValueError("the flash kernel requires Dq == Dv")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     bk = min(block_k, Sk)
+    if build.DISPATCH_SINK is not None:
+        build.DISPATCH_SINK("full", impl="plain" if plain else "kernel",
+                            variant=variant, kv_dtype="fp32", batch=B,
+                            heads=H, heads_kv=Hkv, d_qk=D, d_v=D,
+                            kv_tokens=Sk, q_tokens=Sq)
 
     def fold(t, n, pad):
         if pad:
@@ -53,6 +59,11 @@ def _run_contiguous(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lengths, n_valid,
     Hkv = kc.shape[1]
     Dv = vc.shape[-1]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    if build.DISPATCH_SINK is not None:
+        build.DISPATCH_SINK("prefill", impl="plain" if plain else "kernel",
+                            variant=variant, kv_dtype=build.kv_label(kc, ksc),
+                            batch=B, heads=H, heads_kv=Hkv, d_qk=D, d_v=Dv,
+                            kv_tokens=kc.shape[2], q_tokens=C)
 
     def fold(t):  # (B, Hkv, L, ...) -> (B*Hkv, L, ...)
         return None if t is None else t.reshape((B * Hkv,) + t.shape[2:])
@@ -104,6 +115,14 @@ def _run(q, kn, vn, ksn, vsn, k_pool, v_pool, ks_pool, vs_pool, block_tables,
                          f"of {page_size}-token pages")
     nblk = pool_tokens // page_size
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    if build.DISPATCH_SINK is not None:
+        build.DISPATCH_SINK("paged_prefill",
+                            impl="plain" if plain else "kernel",
+                            variant=variant,
+                            kv_dtype=build.kv_label(k_pool, ks_pool),
+                            batch=B, heads=H, heads_kv=Hkv, d_qk=D, d_v=Dv,
+                            kv_tokens=block_tables.shape[1] * page_size,
+                            q_tokens=C, page_size=page_size)
 
     def pages(t, *tail):
         return None if t is None else t.reshape((nblk, page_size, Hkv) + tail)

@@ -3,11 +3,20 @@
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \
       --requests 8 --max-new 32 --chunk 32 [--variant expmul] \
       [--kv-layout paged --page-size 16 --pool-blocks 0] [--kv-dtype int8] \
-      [--attention-impl kernel|plain] [--device cuda|cpu]
+      [--attention-impl kernel|plain] [--device cuda|cpu] \
+      [--prefix-cache|--no-prefix-cache] [--metrics-json PATH] \
+      [--trace-out PATH] [--log-metrics-every N]
 
 (with ``src`` on ``PYTHONPATH``). The flags and their defaults are those
 of ``repro.launch.serve`` that the port supports: a float32 model with
 random weights from seed 0, the contiguous layout, unquantized KV, ExpMul.
+The shared-prefix cache is on by default for the paged layout
+(``--no-prefix-cache`` turns it off; ``--prefix-cache`` with the
+contiguous layout is an error). ``--metrics-json`` writes
+``metrics_snapshot()`` after the run, ``--trace-out`` turns on span
+tracing and writes a Chrome-trace/Perfetto JSON of the request
+lifecycles, ``--log-metrics-every N`` prints a progress line every N
+engine steps.
 ``--attention-impl kernel`` (the config's default) runs the attention
 ticks on the CUDA kernels, ``plain`` on their plain PyTorch versions.
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device
@@ -16,6 +25,7 @@ cpu`` runs the plain versions on the CPU (use ``--smoke`` there).
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -61,7 +71,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--prefix-cache", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="shared-prefix KV caching (default: on for the "
+                         "paged layout; with --kv-layout contiguous it is an "
+                         "error)")
+    ap.add_argument("--metrics-json", default=None,
+                    help="write ServeEngine.metrics_snapshot() as JSON here "
+                         "after the run")
+    ap.add_argument("--trace-out", default=None,
+                    help="enable span tracing and write the Chrome-trace/"
+                         "Perfetto JSON timeline here")
+    ap.add_argument("--log-metrics-every", type=int, default=0,
+                    help="print a metrics line every N engine steps "
+                         "(0 = off)")
     args = ap.parse_args(argv)
+    if args.prefix_cache and args.kv_layout != "paged":
+        ap.error("--prefix-cache requires --kv-layout paged: the contiguous "
+                 "layout has no shared physical blocks to dedupe")
 
     try:
         device = resolve_device(args.device)
@@ -77,7 +104,9 @@ def main(argv=None):
                       page_size=args.page_size or None,
                       pool_blocks=args.pool_blocks or None,
                       kv_dtype=args.kv_dtype,
-                      attention_impl=args.attention_impl, device=device)
+                      attention_impl=args.attention_impl,
+                      prefix_cache=args.prefix_cache,
+                      trace=bool(args.trace_out), device=device)
     rng = np.random.default_rng(0)
     reqs = [
         eng.submit(list(rng.integers(
@@ -86,7 +115,18 @@ def main(argv=None):
         for _ in range(args.requests)
     ]
     t0 = time.perf_counter()
-    eng.run()
+    if args.log_metrics_every > 0:
+        # the run's tick loop, reporting progress every N steps
+        while eng.tick() or eng.queue:
+            if eng.ticks % args.log_metrics_every == 0:
+                snap = eng.metrics_snapshot()
+                print(f"  [step {eng.ticks}] generated="
+                      f"{eng.tokens_generated} queue={len(eng.queue)} "
+                      f"preempt={eng.preemptions} "
+                      f"ttft_p50={snap['ttft_steps_p50']:.0f} "
+                      f"tpot_p50={snap['tpot_steps_p50']:.0f} steps")
+    else:
+        eng.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -98,11 +138,31 @@ def main(argv=None):
           f"{eng.prefill_steps} / decode {eng.decode_steps}) "
           f"generated={eng.tokens_generated} tokens in {dt:.3f} s on "
           f"{where} ({eng.tokens_generated / dt:.1f} tok/s)")
+    st = eng.memory_stats()
     if eng.paged:
         print(f"  KV pool: {eng.pool.pool_blocks} blocks of "
               f"{eng.page_size} tokens, {eng.preemptions} preemptions")
+        if st["prefix_cache"]:
+            print(f"  prefix cache: {st['cache_hits']}/{st['cache_lookups']} "
+                  f"hits, {st['prefix_hit_tokens']} prompt tokens skipped "
+                  f"({st['prefill_flops_skipped']:.3g} FLOPs), "
+                  f"{st['cow_copies']} COW copies, "
+                  f"{st['kv_cached_blocks']} blocks cached")
+    snap = eng.metrics_snapshot()
+    print(f"  TTFT p50/p99 {snap['ttft_steps_p50']:.0f}/"
+          f"{snap['ttft_steps_p99']:.0f} steps, TPOT p50/p99 "
+          f"{snap['tpot_steps_p50']:.0f}/{snap['tpot_steps_p99']:.0f} steps")
     reasons = sorted({r.finish_reason for r in reqs})
     print(f"  finish reasons: {reasons}")
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(snap, f, indent=2)
+            f.write("\n")
+        print(f"  wrote {args.metrics_json}")
+    if args.trace_out:
+        eng.metrics.write_chrome_trace(args.trace_out)
+        print(f"  wrote {args.trace_out} "
+              f"({len(eng.metrics.events)} trace events)")
     for r in reqs[:3]:
         print(f"  req {r.rid}: prompt[:4]={r.prompt[:4]} -> out[:8]={r.out[:8]}")
     return reqs

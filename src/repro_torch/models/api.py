@@ -186,6 +186,21 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     return _last_logits(params, x, n_valid), state
 
 
+def copy_paged_block(state, cfg, src, dst, *, page_size):
+    """Copy physical page ``src`` to page ``dst`` in every leaf of every
+    layer's pool (K/V values, or codes and their float32 scale rows), in
+    place, and return the state: the device half of a copy-on-write for
+    the shared-prefix cache. A pool's token rows are its axis 0, so a page
+    is ``page_size`` consecutive rows; ``src`` and ``dst`` are host ints,
+    so the copy needs no sync."""
+    del cfg  # attention-only: every layer holds a paged pool
+    s, d = int(src) * page_size, int(dst) * page_size
+    for cache in state["caches"]:
+        for leaf in cache.values():
+            leaf[d:d + page_size].copy_(leaf[s:s + page_size])
+    return state
+
+
 def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
                       page_size):
     """One decode tick: tokens1 (B,) at positions ``lengths`` ->

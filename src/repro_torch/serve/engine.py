@@ -1,7 +1,7 @@
 """Slot-based serving engine: chunked prefill plus continuous decode
-batching over per-slot (contiguous) caches or a paged KV pool (the
-decoder-only path of ``repro/serve/engine.py``, with the shared-prefix
-cache off).
+batching over per-slot (contiguous) caches or a paged KV pool, with the
+shared-prefix cache and the metrics layer (the decoder-only path of
+``repro/serve/engine.py``, DESIGN.md §6-§8, §11 and §12).
 
 A fixed set of ``slots`` shares two model calls:
 
@@ -27,8 +27,35 @@ unquantized blocks: a quantized pool spends the same bytes on
 proportionally more blocks. Windowed configs keep absolute positions in
 the pool and mask by the window.
 
-Not ported yet (``repro`` has them): the prefix cache, metrics,
-deadlines, cancellation, the NaN quarantine and snapshots.
+``prefix_cache`` (paged only; default None = on for the paged layout, off
+for the contiguous one: every block of the port's configs is attention,
+so every layer's state is a KV cache a hit can splice) indexes full pages by their whole token prefix as
+they are written. Admission splices the longest indexed prefix of a new
+prompt into the slot's block table and starts the prefill cursor past it,
+trimmed down to the chunk grid, so the remaining chunks tile as a cold
+run's would and warm temp-0 streams equal cold ones under ExpMul too. A
+write into a shared page (the page straddling a mid-page cursor) copies
+it first (``models.api.copy_paged_block``), before the tick's writes.
+The pools are updated in place, so a reclaimed cached page is de-indexed,
+with its descendants, before it is handed out and rewritten.
+
+Observability (DESIGN.md §12): one ``MetricsRegistry``, shared with the
+pool, owns every counter; the engine's counter attributes (``ticks``,
+``prompt_tokens``, ...) and ``memory_stats()`` read through it. TTFT/TPOT
+are histograms in engine steps, with host-clock ms twins taken from one
+timestamp a tick. ``trace=True`` records the request lifecycle (B/E per
+request, ``first_token``/``prefix_splice``/``preempt``/``resume``/
+``cow_copy`` instants) and one X span per tick, for
+``metrics.write_chrome_trace``. Every step is priced through
+``kernels.costs`` into ``attention_ledger()``. Tracing off records no
+event, and no mode adds a device sync: the one sync a tick is the sampled
+tokens' copy to the host. ``dispatch_sink`` is installed as the attention
+wrappers' observer (``kernels.build.DISPATCH_SINK``) for the length of each
+``tick()`` only, and the one it replaced is put back, so calls made
+between ticks, or by another engine, are not counted here.
+
+Not ported yet (``repro`` has them, DESIGN.md §13): deadlines,
+cancellation, the NaN quarantine, the chaos harness and snapshots.
 """
 from __future__ import annotations
 
@@ -39,7 +66,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTENTION_IMPLS
+from repro_torch.kernels import build
+from repro_torch.kernels.costs import (
+    analytic_attention_flops,
+    analytic_bytes_per_chunk_token,
+    analytic_bytes_per_ctx_token,
+    attn_kv_geometry,
+    impl_path,
+)
 from repro_torch.models.api import (
+    copy_paged_block,
     decode_step,
     decode_step_paged,
     init_decode_state,
@@ -49,8 +85,34 @@ from repro_torch.models.api import (
     resolve_device,
 )
 from repro_torch.numerics.quant import KV_DTYPES
+from repro_torch.serve.metrics import (
+    MS_BUCKETS,
+    PID_ENGINE,
+    PID_REQUESTS,
+    MetricsRegistry,
+    make_dispatch_sink,
+)
 from repro_torch.serve.paged import BlockPool, blocks_for, kv_token_bytes
 from repro_torch.serve.sampling import row_seed, sample_tokens
+
+# terminal request states: the port finishes requests by length only (the
+# reference's deadline, cancelled, failed and preempt_limit come with §13)
+FINISH_REASONS = ("length",)
+
+
+def analytic_prefill_flops(cfg, start: int, end: int) -> int:
+    """Analytic decoder FLOPs to prefill positions [start, end) on top of a
+    resident ``start``-token prefix: 2·params per token for the linear path
+    plus 4·H·hd per (query, key) causal pair for scores + weighted sum —
+    what a prefix-cache hit skips (``prefill_flops_skipped``)."""
+    n = max(0, end - start)
+    if n == 0:
+        return 0
+    flops = 2 * cfg.param_count() * n
+    span = (end * (end + 1) - start * (start + 1)) // 2
+    flops += (4 * cfg.num_heads * cfg.resolved_head_dim() * cfg.num_layers
+              * span)
+    return int(flops)
 
 
 @dataclasses.dataclass
@@ -61,13 +123,21 @@ class Request:
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: str | None = None   # "length" once done
+    submit_time: float | None = None       # host clock at submit()
+    first_token_time: float | None = None  # host clock when out[0] arrived
     pos: int = 0            # prefill cursor into ``prefill_toks``
+    first_token_step: int | None = None  # engine step that produced out[0]
+    preemptions: int = 0    # times this request was evicted and requeued
     admit_order: int = -1   # admission sequence number (victim selection)
     # teacher-forced prefix: the prompt, extended with already-generated
     # tokens after a preemption (recompute resumption)
     prefill_toks: list = dataclasses.field(default_factory=list)
-    submit_time: float | None = None       # host clock at submit()
-    first_token_time: float | None = None  # host clock when out[0] arrived
+    admit_step: int | None = None  # engine step of first admission (TTFT base)
+    admit_time: float | None = None   # tick timestamp of first admission
+    last_token_step: int | None = None  # engine step of latest sample (TPOT)
+    last_token_time: float | None = None
+    prefix_hit: int = 0     # tokens skipped via prefix-cache hits (cumulative)
+    registered_blocks: int = 0  # full pages of this slot already indexed
 
 
 class ServeEngine:
@@ -78,14 +148,13 @@ class ServeEngine:
                  pool_blocks: int | None = None,
                  kv_dtype: str | None = None,
                  attention_impl: str | None = None,
-                 prefix_cache: bool | None = False,
+                 prefix_cache: bool | None = None,
+                 metrics: MetricsRegistry | None = None,
+                 trace: bool = False,
                  device="cuda"):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
                              f"got {kv_layout!r}")
-        if prefix_cache:
-            raise NotImplementedError("the port has no prefix cache yet; "
-                                      "serve with prefix_cache=False")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_len < 2:
@@ -93,16 +162,22 @@ class ServeEngine:
                              f"one generated), got {max_len}")
         if int(chunk_size) < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        # the registry owns every serving counter; ``trace`` gates span and
+        # event recording only
+        self.metrics = metrics if metrics is not None else MetricsRegistry(
+            trace=trace)
         kv_dtype = kv_dtype or cfg.kv_dtype
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}; choose one of "
                              f"{KV_DTYPES}")
+        self.kv_dtype = kv_dtype
         cfg = cfg.replace(kv_dtype=kv_dtype)
         if attention_impl is not None:
             cfg = cfg.replace(attention_impl=attention_impl)
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of "
                              f"{ATTENTION_IMPLS}, got {cfg.attention_impl!r}")
+        self.attention_impl = cfg.attention_impl
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -113,6 +188,19 @@ class ServeEngine:
         self.seed = seed
         self.kv_layout = kv_layout
         self.paged = kv_layout == "paged"
+        # shared-prefix caching needs paged physical blocks to splice (the
+        # port's blocks are all attention; recurrent kinds, whose per-slot
+        # state a splice cannot rebuild, bring their refusal with their slice)
+        if prefix_cache and not self.paged:
+            raise ValueError(
+                "prefix_cache=True requires kv_layout='paged': the "
+                "contiguous layout has no shared physical blocks to "
+                "dedupe — serve with kv_layout='paged' or drop the flag")
+        self.prefix_cache = (bool(prefix_cache) if prefix_cache is not None
+                             else self.paged)
+        # bytes per resident token over every layer (codes + scale rows for
+        # quantized dtypes): the unit of every *_bytes stat
+        self.token_bytes = kv_token_bytes(cfg)
         if self.paged:
             ps = int(page_size or cfg.page_size)
             max_blocks = blocks_for(max_len, ps)
@@ -120,11 +208,14 @@ class ServeEngine:
             if requested:
                 # an unquantized-equivalent byte budget (DESIGN.md §8)
                 n_pool = max(1, requested * kv_token_bytes(cfg, "fp32")
-                             // kv_token_bytes(cfg))
+                             // self.token_bytes)
             else:
                 n_pool = slots * max_blocks  # fully provisioned
             self.page_size = ps
-            self.pool = BlockPool(n_pool, ps, slots, max_blocks)
+            self.pool = BlockPool(n_pool, ps, slots, max_blocks,
+                                  token_bytes=self.token_bytes,
+                                  prefix_cache=self.prefix_cache,
+                                  metrics=self.metrics)
             self.state = init_paged_state(cfg, slots, n_pool, ps,
                                           device=self.device)
         else:
@@ -139,13 +230,61 @@ class ServeEngine:
         self._admit_seq = 0
         self._next_rid = 0
         self._rids: set = set()
-        self.ticks = 0
-        self.prefill_steps = 0
-        self.decode_steps = 0
-        self.prompt_tokens = 0       # prompt tokens absorbed
-        self.recompute_tokens = 0    # generated tokens re-prefilled
-        self.tokens_generated = 0
-        self.preemptions = 0
+        m = self.metrics
+        self._c_ticks = m.counter("serve_steps_total")
+        self._c_prefill_steps = m.counter("serve_prefill_steps_total")
+        self._c_decode_steps = m.counter("serve_decode_steps_total")
+        self._c_prompt_tokens = m.counter("serve_prompt_tokens_total")
+        self._c_recompute = m.counter("serve_recompute_tokens_total")
+        self._c_generated = m.counter("serve_tokens_generated_total")
+        self._c_preemptions = m.counter("serve_preemptions_total")
+        self._c_hit_tokens = m.counter("serve_prefix_hit_tokens_total")
+        self._c_flops_skipped = m.counter("serve_prefill_flops_skipped_total")
+        self._c_submitted = m.counter("serve_requests_submitted_total")
+        self._c_finished = m.counter("serve_requests_finished_total")
+        self._c_reason = {
+            reason: m.counter("serve_finish_reasons_total", reason=reason)
+            for reason in FINISH_REASONS
+        }
+        self._g_peak_active = m.gauge("serve_peak_active_tokens")
+        self._g_peak_kv = m.gauge("serve_peak_kv_used_tokens")
+        self._g_queue = m.gauge("serve_queue_depth")
+        # TTFT/TPOT in engine steps (exact), with host-clock ms twins
+        self._h_ttft_steps = m.histogram("serve_ttft_steps")
+        self._h_tpot_steps = m.histogram("serve_tpot_steps")
+        self._h_ttft_ms = m.histogram("serve_ttft_ms", buckets=MS_BUCKETS)
+        self._h_tpot_ms = m.histogram("serve_tpot_ms", buckets=MS_BUCKETS)
+        self._now = 0.0  # host timestamp taken once per tick
+        m.name_track(PID_ENGINE, 0, "engine steps")
+        # executed-cost ledger: each step priced at its actual host-side
+        # lengths, keyed by the impl the engine's attention runs
+        self._geom = g = attn_kv_geometry(cfg)
+        layout = "paged" if self.paged else "contiguous"
+        impl = cfg.attention_impl
+        self._exec = {}
+        for kind in ("prefill", "decode"):
+            labels = {"kind": kind, "impl": impl,
+                      "variant": cfg.attention_variant,
+                      "kv_dtype": self.kv_dtype, "layout": layout}
+            self._exec[kind] = {
+                "impl": impl,
+                "path": impl_path(impl),
+                "calls": m.counter("attention_exec_calls_total", **labels),
+                "steps": m.counter("attention_exec_steps_total", **labels),
+                "tokens": m.counter("attention_exec_kv_tokens_total",
+                                    **labels),
+                "bytes": m.counter("attention_exec_analytic_bytes",
+                                   **labels),
+                "flops": m.counter("attention_exec_analytic_flops",
+                                   **labels),
+            }
+        self._decode_bytes_per_ctx_token = analytic_bytes_per_ctx_token(
+            layout, self.kv_dtype, self._exec["decode"]["path"],
+            Hkv=g["Hkv"], D=g["D"], Dv=g["Dv"],
+            page_size=self.page_size or 1)
+        # the attention wrappers' observer while this engine ticks (None:
+        # the wrappers count nothing)
+        self.dispatch_sink = make_dispatch_sink(self.metrics)
 
     # -- request lifecycle --------------------------------------------------
     def submit(self, prompt, max_new: int, rid: int | None = None) -> Request:
@@ -169,23 +308,126 @@ class ServeEngine:
         req = Request(rid, prompt, max_new, prefill_toks=list(prompt),
                       submit_time=time.perf_counter())
         self.queue.append(req)
+        self._c_submitted.inc()
+        self._g_queue.set(len(self.queue))
         return req
+
+    def _release_slot(self, s: int, reason: str):
+        """Finish the request in slot ``s`` and free the slot; its completed
+        full pages are indexed first (their KV is valid)."""
+        req = self.requests[s]
+        req.done = True
+        req.finish_reason = reason
+        self._c_finished.inc()
+        self._c_reason[reason].inc()
+        self.requests[s] = None
+        if self.metrics.trace:
+            self.metrics.end(f"req {req.rid}", pid=PID_REQUESTS,
+                             tid=req.rid, step=self.ticks,
+                             tokens=len(req.out),
+                             preemptions=req.preemptions, reason=reason)
+        if self.paged:
+            if self.prefix_cache:
+                self._register_full_pages(s, req)
+            self.pool.free_slot(s)
+
+    # -- counter attributes: read-through registry views ---------------------
+    @property
+    def ticks(self) -> int:
+        """Total engine steps (prefill + decode)."""
+        return self._c_ticks.value
+
+    @property
+    def prefill_steps(self) -> int:
+        return self._c_prefill_steps.value
+
+    @property
+    def decode_steps(self) -> int:
+        return self._c_decode_steps.value
+
+    @property
+    def prompt_tokens(self) -> int:
+        """Prompt tokens absorbed by prefill."""
+        return self._c_prompt_tokens.value
+
+    @property
+    def recompute_tokens(self) -> int:
+        """Generated tokens re-prefilled after a preemption."""
+        return self._c_recompute.value
+
+    @property
+    def tokens_generated(self) -> int:
+        return self._c_generated.value
+
+    @property
+    def preemptions(self) -> int:
+        return self._c_preemptions.value
+
+    @property
+    def prefix_hit_tokens(self) -> int:
+        """Prompt tokens skipped via prefix-cache hits."""
+        return self._c_hit_tokens.value
+
+    @property
+    def prefill_flops_skipped(self) -> int:
+        """Analytic FLOPs those hit tokens would have cost."""
+        return self._c_flops_skipped.value
+
+    @property
+    def peak_active_tokens(self) -> int:
+        """Max over ticks of sum(active lengths)."""
+        return self._g_peak_active.value
+
+    @property
+    def peak_kv_used_tokens(self) -> int:
+        """Max over ticks of resident KV tokens."""
+        return self._g_peak_kv.value
+
+    def _prefix_hit(self, req: Request):
+        """Longest indexed full-page prefix of the teacher-forced tokens,
+        trimmed to the chunk grid (DESIGN.md §11).
+
+        Every prefill starts at position 0 and absorbs ``chunk_size``
+        tokens a tick, so a cold run's chunks lie on one grid; aligning the
+        cursor down to it keeps the warm chunks, and the tiles the kernels
+        walk over them, those of the cold run. The cursor is also capped at
+        len-1 so one position remains to produce the first sampled token's
+        logits. The kept blocks are those covering the cursor: a block
+        straddling it stays spliced (its head rows are live context) and is
+        copied on its first write.
+
+        Returns (blocks_to_splice, cursor_tokens).
+        """
+        blocks = self.pool.match_prefix(req.prefill_toks)
+        if not blocks:
+            return [], 0
+        grid = self.chunk_size if self.chunk_size > 1 else 1
+        cursor = min(len(blocks) * self.page_size, len(req.prefill_toks) - 1)
+        cursor = cursor // grid * grid
+        if cursor <= 0:
+            return [], 0
+        return blocks[:blocks_for(cursor, self.page_size)], cursor
 
     def _admit(self):
         for s in range(self.slots):
             if self.requests[s] is not None or not self.queue:
                 continue
             req = self.queue[0]
-            take = (min(self.chunk_size, len(req.prefill_toks))
+            hit_blocks, cursor = ([], 0)
+            if self.prefix_cache:
+                hit_blocks, cursor = self._prefix_hit(req)
+            take = (min(self.chunk_size, len(req.prefill_toks) - cursor)
                     if self.chunk_size > 1 else 1)
-            if self.paged and not self.pool.can_admit(take):
+            if self.paged and not self.pool.can_admit(hit_blocks,
+                                                      cursor + take):
                 if self.pool.used_blocks == 0 and not any(
                         r is not None for r in self.requests):
                     raise RuntimeError(
-                        f"KV pool too small: request {req.rid} needs {take} "
-                        f"tokens for its first chunk but the whole pool "
-                        f"holds {self.pool.pool_blocks * self.page_size}; "
-                        f"raise pool_blocks")
+                        f"KV pool too small: request {req.rid} needs "
+                        f"{cursor + take} tokens for its first chunk but the "
+                        f"whole pool holds "
+                        f"{self.pool.pool_blocks * self.page_size}; raise "
+                        f"pool_blocks")
                 break  # pool too tight right now; retry as blocks free
             self.queue.pop(0)
             if req.admit_order < 0:
@@ -194,41 +436,86 @@ class ServeEngine:
                 req.admit_order = self._admit_seq
                 self._admit_seq += 1
             self.requests[s] = req
-            req.pos = 0
-            self.lengths[s] = 0
-            self.cur_tok[s] = req.prefill_toks[0]
-
-    def _release_slot(self, s: int):
-        """Finish the request in slot ``s`` (its length budget is spent)."""
-        req = self.requests[s]
-        req.done = True
-        req.finish_reason = "length"
-        self.requests[s] = None
-        if self.paged:
-            self.pool.free_slot(s)
+            if req.admit_step is None:
+                req.admit_step = self.ticks
+                req.admit_time = self._now
+                if self.metrics.trace:
+                    self.metrics.name_track(PID_REQUESTS, req.rid,
+                                            f"req {req.rid}")
+                    self.metrics.begin(
+                        f"req {req.rid}", pid=PID_REQUESTS, tid=req.rid,
+                        step=self.ticks, prompt=len(req.prompt),
+                        max_new=req.max_new)
+            elif self.metrics.trace:
+                self.metrics.instant(
+                    "resume", pid=PID_REQUESTS, tid=req.rid, step=self.ticks,
+                    recompute=len(req.prefill_toks) - len(req.prompt))
+            if hit_blocks:
+                self.pool.splice(s, hit_blocks)
+                req.prefix_hit += cursor
+                self._c_hit_tokens.inc(cursor)
+                self._c_flops_skipped.inc(
+                    analytic_prefill_flops(self.cfg, 0, cursor))
+                if self.metrics.trace:
+                    self.metrics.instant(
+                        "prefix_splice", pid=PID_REQUESTS, tid=req.rid,
+                        step=self.ticks, hit_tokens=cursor,
+                        blocks=len(hit_blocks))
+            req.registered_blocks = len(hit_blocks)
+            req.pos = cursor
+            self.lengths[s] = cursor
+            self.cur_tok[s] = req.prefill_toks[cursor]
 
     def _finish_or_continue(self, s, tok):
-        """Record a sampled token for slot s; free the slot when done."""
+        """Record a sampled token for slot s; free the slot when done.
+
+        TTFT in engine steps is first_token_step - admit_step + 1; TPOT is
+        the step gap between consecutive samples of one request (the gap
+        after a preemption spans the requeue). The ms twins reuse the tick's
+        one host timestamp."""
         req = self.requests[s]
-        if req.first_token_time is None:
+        if req.first_token_step is None:
+            req.first_token_step = self.ticks
             req.first_token_time = time.perf_counter()
+            self._h_ttft_steps.record(req.first_token_step
+                                      - req.admit_step + 1)
+            self._h_ttft_ms.record((self._now - req.admit_time) * 1e3)
+            if self.metrics.trace:
+                self.metrics.instant("first_token", pid=PID_REQUESTS,
+                                     tid=req.rid, step=self.ticks)
+        else:
+            self._h_tpot_steps.record(self.ticks - req.last_token_step)
+            self._h_tpot_ms.record((self._now - req.last_token_time) * 1e3)
+        req.last_token_step = self.ticks
+        req.last_token_time = self._now
         req.out.append(tok)
         self.cur_tok[s] = tok
-        self.tokens_generated += 1
+        self._c_generated.inc()
         if len(req.out) >= req.max_new or self.lengths[s] >= self.max_len - 1:
-            self._release_slot(s)
+            self._release_slot(s, "length")
 
     # -- paged capacity management ------------------------------------------
     def _preempt(self, s):
-        """Evict slot s and requeue its request for recompute resumption."""
+        """Evict slot s and requeue its request for recompute resumption.
+        Its completed pages are indexed first: they land in the cached
+        tier, so unless the preemptor reclaims them the victim resumes
+        through a prefix hit."""
         req = self.requests[s]
+        if self.prefix_cache:
+            self._register_full_pages(s, req)
         self.pool.evict_slot(s)
         self.requests[s] = None
         self.lengths[s] = 0
         req.prefill_toks = list(req.prompt) + list(req.out)
         req.pos = 0
-        self.preemptions += 1
+        req.preemptions += 1
+        self._c_preemptions.inc()
+        if self.metrics.trace:
+            self.metrics.instant("preempt", pid=PID_REQUESTS, tid=req.rid,
+                                 step=self.ticks,
+                                 tokens=len(req.prefill_toks))
         self.queue.insert(0, req)  # resumes as soon as space frees up
+        self._g_queue.set(len(self.queue))
 
     def _pick_victim(self, exclude):
         """Youngest active request (latest admitted) other than ``exclude``."""
@@ -247,13 +534,52 @@ class ServeEngine:
             return min(self.chunk_size, len(req.prefill_toks) - req.pos)
         return 1
 
+    def _cow_shared_tail(self, s):
+        """Copy-on-write before this tick's writes to slot ``s``.
+
+        Writes append at ``lengths[s]``; the only block that can be both
+        shared and written is the one straddling a mid-page cursor, a
+        spliced hit block whose tail rows this slot is about to overwrite
+        (fresh blocks are private, and a block this slot registered is
+        full and never written again). The pool hands out a private
+        replacement and the page is copied on the device here, in place,
+        before the tick builds its write plan; the original keeps its
+        index entry and its other references."""
+        off = int(self.lengths[s])
+        if off % self.page_size == 0:
+            return
+        idx = off // self.page_size
+        if not self.pool.is_shared(int(self.pool.tables[s, idx])):
+            return
+        while True:
+            pair = self.pool.cow_block(s, idx)
+            if pair is not None:
+                break
+            victim = self._pick_victim(exclude=s)
+            if victim is None:
+                raise RuntimeError(
+                    f"KV pool exhausted: slot {s} needs a copy-on-write "
+                    f"block (pool={self.pool.pool_blocks}) with no one "
+                    f"left to evict; raise pool_blocks")
+            self._preempt(victim)
+        src, dst = pair
+        self.state = copy_paged_block(self.state, self.cfg, src, dst,
+                                      page_size=self.page_size)
+        if self.metrics.trace:
+            self.metrics.instant("cow_copy", pid=PID_REQUESTS,
+                                 tid=self.requests[s].rid, step=self.ticks,
+                                 src=src, dst=dst)
+
     def _reserve(self, active):
         """Grow block tables for this tick's writes, oldest request first;
-        preempt youngest-first when the pool is exhausted. Returns the
+        preempt youngest-first when the pool is exhausted (the pool itself
+        reclaims cached blocks LRU-first before that). Returns the
         surviving active slots."""
         for s in sorted(active, key=lambda s: self.requests[s].admit_order):
             if self.requests[s] is None:
                 continue  # preempted by an older request's reservation
+            if self.prefix_cache:
+                self._cow_shared_tail(s)
             target = int(self.lengths[s]) + self._take_for(s)
             while not self.pool.alloc(s, target):
                 victim = self._pick_victim(exclude=s)
@@ -265,6 +591,29 @@ class ServeEngine:
                         f"to evict; raise pool_blocks")
                 self._preempt(victim)
         return [s for s in range(self.slots) if self.requests[s] is not None]
+
+    def _register_full_pages(self, s, req: Request):
+        """Index newly completed full pages of slot ``s`` for future prefix
+        hits. Page i's key is (physical id of page i-1, its tokens), so it
+        covers the whole prefix the page's KV depends on. The token at
+        position p is (prompt + out)[p]: after a preemption
+        ``prefill_toks`` is prompt + out-so-far and sampling keeps
+        appending to ``out``."""
+        ps = self.page_size
+        full = int(self.lengths[s]) // ps
+        if full <= req.registered_blocks:
+            return
+        seq = req.prompt + req.out
+        for i in range(req.registered_blocks, full):
+            parent = int(self.pool.tables[s, i - 1]) if i else -1
+            self.pool.register_block(int(self.pool.tables[s, i]), parent,
+                                     seq[i * ps:(i + 1) * ps])
+        req.registered_blocks = full
+
+    def _register_active_pages(self):
+        for s in range(self.slots):
+            if self.requests[s] is not None:
+                self._register_full_pages(s, self.requests[s])
 
     # -- engine steps -------------------------------------------------------
     def _tensor(self, a):
@@ -301,8 +650,9 @@ class ServeEngine:
         else:
             logits, self.state = prefill(*args, self.cfg)
         nxt = self._sample(logits)
-        self.ticks += 1
-        self.prefill_steps += 1
+        self._c_ticks.inc()
+        self._c_prefill_steps.inc()
+        self._price_prefill(active, nv)
         for s in active:
             req = self.requests[s]
             take = int(nv[s])
@@ -311,8 +661,8 @@ class ServeEngine:
                 recompute = max(0, min(req.pos + take, len(req.prefill_toks))
                                 - max(req.pos, len(req.prompt)))
                 req.pos += take
-                self.prompt_tokens += take - recompute
-                self.recompute_tokens += recompute
+                self._c_prompt_tokens.inc(take - recompute)
+                self._c_recompute.inc(recompute)
                 if req.pos < len(req.prefill_toks):
                     continue                    # still mid-prompt: no sample
             self._finish_or_continue(s, int(nxt[s]))
@@ -329,15 +679,18 @@ class ServeEngine:
         else:
             logits, self.state = decode_step(*args, self.cfg)
         nxt = self._sample(logits)
-        self.ticks += 1
-        self.decode_steps += 1
+        self._c_ticks.inc()
+        self._c_decode_steps.inc()
+        self._price_decode(active)
         for s in active:
             req = self.requests[s]
             if self.lengths[s] < len(req.prefill_toks):
+                # the token written this tick was a prompt token (counted
+                # before the increment, so prompt[0] is included)
                 if self.lengths[s] < len(req.prompt):
-                    self.prompt_tokens += 1
+                    self._c_prompt_tokens.inc()
                 else:
-                    self.recompute_tokens += 1
+                    self._c_recompute.inc()
             self.lengths[s] += 1
             req.pos = max(req.pos, int(self.lengths[s]))
             pos = int(self.lengths[s])
@@ -346,9 +699,75 @@ class ServeEngine:
             else:
                 self._finish_or_continue(s, int(nxt[s]))
 
+    # -- executed-cost ledger (DESIGN.md §12) --------------------------------
+    def _price_prefill(self, active, nv):
+        """Ledger entry for one chunked-prefill step: each slot's chunk
+        priced at its actual (resident history, chunk), x attention layers.
+        Called before the lengths grow, so ``lengths[s]`` is the history
+        the chunk attended over."""
+        ex = self._exec["prefill"]
+        g = self._geom
+        layout = "paged" if self.paged else "contiguous"
+        bytes_ = 0.0
+        flops = 0
+        kv = 0
+        for s in active:
+            chunk = int(nv[s])
+            ctx = int(self.lengths[s])
+            bytes_ += analytic_bytes_per_chunk_token(
+                layout, self.kv_dtype, ex["path"], Hkv=g["Hkv"], D=g["D"],
+                Dv=g["Dv"], ctx=ctx, chunk=chunk,
+                page_size=self.page_size or 1) * chunk
+            flops += analytic_attention_flops(
+                chunk, ctx + chunk, heads=g["heads"], d_qk=g["d_qk"],
+                d_v=g["d_v"])
+            kv += ctx + chunk
+        ex["calls"].inc(len(active))
+        ex["steps"].inc()
+        ex["tokens"].inc(kv)
+        ex["bytes"].inc(int(bytes_) * g["layers"])
+        ex["flops"].inc(flops * g["layers"])
+
+    def _price_decode(self, active):
+        """Ledger entry for one decode tick: every active slot reads its
+        resident history + the row written this tick."""
+        ex = self._exec["decode"]
+        g = self._geom
+        kv = 0
+        flops = 0
+        for s in active:
+            ctx = int(self.lengths[s]) + 1
+            kv += ctx
+            flops += analytic_attention_flops(
+                1, ctx, heads=g["heads"], d_qk=g["d_qk"], d_v=g["d_v"])
+        ex["calls"].inc(len(active))
+        ex["steps"].inc()
+        ex["tokens"].inc(kv)
+        ex["bytes"].inc(int(self._decode_bytes_per_ctx_token * kv)
+                        * g["layers"])
+        ex["flops"].inc(flops * g["layers"])
+
+    def _track_memory(self, active):
+        self._g_peak_active.set_max(
+            int(sum(self.lengths[s] for s in active)))
+        used = (self.pool.used_blocks * self.page_size if self.paged
+                else self.slots * self.max_len)
+        self._g_peak_kv.set_max(int(used))
+
     def tick(self) -> bool:
-        """Advance the engine by one step (prefill or decode)."""
+        """Advance the engine by one step (prefill or decode), with
+        ``dispatch_sink`` observing the attention wrappers meanwhile."""
+        prev = build.DISPATCH_SINK
+        build.set_dispatch_sink(self.dispatch_sink)
+        try:
+            return self._tick()
+        finally:
+            build.set_dispatch_sink(prev)
+
+    def _tick(self) -> bool:
+        self._now = time.perf_counter()
         self._admit()
+        self._g_queue.set(len(self.queue))
         active = [s for s in range(self.slots) if self.requests[s] is not None]
         if not active:
             return False
@@ -359,13 +778,116 @@ class ServeEngine:
         prefilling = self.chunk_size > 1 and any(
             self.requests[s].pos < len(self.requests[s].prefill_toks)
             for s in active)
-        if prefilling:
-            self._prefill_tick(active)
+        step = self._prefill_tick if prefilling else self._decode_tick
+        if self.metrics.trace:
+            name = "prefill_step" if prefilling else "decode_step"
+            with self.metrics.span(name, step=self.ticks + 1,
+                                   active=len(active)):
+                step(active)
         else:
-            self._decode_tick(active)
+            step(active)
+        if self.prefix_cache:
+            # index the pages this tick's writes completed (finished slots
+            # registered theirs in _release_slot)
+            self._register_active_pages()
+        self._track_memory(
+            [s for s in range(self.slots) if self.requests[s] is not None])
         return True
 
     def run(self):
         """Tick until every request is done."""
         while self.tick() or self.queue:
             pass
+
+    # -- observability surfaces (DESIGN.md §12) ------------------------------
+    def attention_ledger(self) -> dict:
+        """Per-kind executed-cost rows: what the engine's steps were
+        designed to move and compute at their actual lengths."""
+        return {
+            kind: {
+                "impl": ex["impl"],
+                "path": ex["path"],
+                "calls": ex["calls"].value,
+                "steps": ex["steps"].value,
+                "kv_tokens": ex["tokens"].value,
+                "analytic_bytes": ex["bytes"].value,
+                "analytic_flops": ex["flops"].value,
+            }
+            for kind, ex in self._exec.items()
+        }
+
+    def metrics_snapshot(self) -> dict:
+        """Everything observable about this engine as one JSON-able dict:
+        the registry dump (the ``attention_dispatch_*`` and
+        ``attention_exec_*`` families included), TTFT/TPOT quantiles in
+        engine steps, the attention ledger, ``memory_stats()`` and the
+        finish reasons."""
+        snap = self.metrics.snapshot()
+        snap["ttft_steps_p50"] = self._h_ttft_steps.quantile(0.50)
+        snap["ttft_steps_p99"] = self._h_ttft_steps.quantile(0.99)
+        snap["tpot_steps_p50"] = self._h_tpot_steps.quantile(0.50)
+        snap["tpot_steps_p99"] = self._h_tpot_steps.quantile(0.99)
+        snap["attention"] = self.attention_ledger()
+        snap["memory"] = self.memory_stats()
+        snap["finish_reasons"] = {
+            reason: c.value for reason, c in self._c_reason.items()}
+        return snap
+
+    def prometheus_text(self) -> str:
+        """The registry in Prometheus text exposition form."""
+        return self.metrics.prometheus_text()
+
+    # -- memory accounting ---------------------------------------------------
+    def kv_reserved_tokens(self) -> int:
+        """KV token rows reserved up front (per layer)."""
+        if self.paged:
+            return self.pool.pool_blocks * self.page_size
+        return self.slots * self.max_len
+
+    def memory_stats(self) -> dict:
+        st = {
+            "kv_layout": self.kv_layout,
+            "kv_dtype": self.kv_dtype,
+            "kv_token_bytes": int(self.token_bytes),
+            "kv_reserved_tokens": int(self.kv_reserved_tokens()),
+            "kv_peak_used_tokens": int(self.peak_kv_used_tokens),
+            "kv_peak_active_tokens": int(self.peak_active_tokens),
+            "kv_tokens_per_active_token": (
+                self.peak_kv_used_tokens / self.peak_active_tokens
+                if self.peak_active_tokens else 0.0),
+            # real bytes (codes + scale pools): the cross-dtype comparison
+            "kv_reserved_bytes": int(self.kv_reserved_tokens()
+                                     * self.token_bytes),
+            "kv_peak_used_bytes": int(self.peak_kv_used_tokens
+                                      * self.token_bytes),
+            "kv_bytes_per_active_token": (
+                self.peak_kv_used_tokens * self.token_bytes
+                / self.peak_active_tokens
+                if self.peak_active_tokens else 0.0),
+            "preemptions": int(self.preemptions),
+            "recompute_tokens": int(self.recompute_tokens),
+        }
+        if self.paged:
+            st["page_size"] = self.page_size
+            st["pool_blocks"] = self.pool.pool_blocks
+            st["evictions"] = self.pool.stats.evictions
+            st["alloc_failures"] = self.pool.stats.alloc_failures
+            # residency: used = referenced by a live slot, cached =
+            # unreferenced but retained prefix pages, free = blank
+            st["prefix_cache"] = self.prefix_cache
+            st["kv_used_blocks"] = int(self.pool.used_blocks)
+            st["kv_cached_blocks"] = int(self.pool.cached_block_count)
+            st["kv_free_blocks"] = int(self.pool.free_block_count)
+            st["kv_cached_tokens"] = int(self.pool.cached_block_count
+                                         * self.page_size)
+            st["kv_cached_bytes"] = int(self.pool.cached_bytes)
+            if self.prefix_cache:
+                ps = self.pool.stats
+                st["cache_lookups"] = ps.cache_lookups
+                st["cache_hits"] = ps.cache_hits
+                st["hit_blocks"] = ps.hit_blocks
+                st["cow_copies"] = ps.cow_copies
+                st["cached_evictions"] = ps.cached_evictions
+                st["prefix_hit_tokens"] = int(self.prefix_hit_tokens)
+                st["prefill_flops_skipped"] = int(self.prefill_flops_skipped)
+        return st

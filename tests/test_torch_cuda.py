@@ -11,7 +11,10 @@ output's magnitude, or at one bf16 ulp for the exact variant's bfloat16
 output (``kernel_tol``); unallocated
 pool pages hold NaN, so a paged kernel that reads one fails. Contiguous
 caches hold large finite stale rows past each length instead (the
-reference multiplies zero weights into them).
+reference multiplies zero weights into them). At the engine level, the
+shared-prefix cache on the two paged kernels: warm streams equal cold
+ones, and the kernel engine's equal the plain engine's on spliced and
+copied-on-write block tables.
 """
 import sys
 from pathlib import Path
@@ -21,6 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.checks import (  # noqa: E402
     contiguous_case,
@@ -41,7 +45,9 @@ from repro_torch.kernels.checks import (  # noqa: E402
 )
 from repro_torch.kernels.expmul.ops import merged_output_update  # noqa: E402
 from repro_torch.kernels.flash.tile import fma_chain  # noqa: E402
+from repro_torch.models.api import init_model  # noqa: E402
 from repro_torch.numerics.log2exp import expmul as expmul_bits  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -526,3 +532,75 @@ def test_merged_output_update_kernel_matches_bit_path(cuda):
     torch.cuda.synchronize()
     assert build.COUNTS["expmul"] == before + 2
     assert same_bits(got, want)
+
+
+# -- the shared-prefix cache through the paged kernels ------------------------
+
+def _smoke_engine(cuda, variant, kv_dtype, impl="kernel", **kw):
+    cfg = get_config("qwen2-0.5b", smoke=True, dtype="float32",
+                     param_dtype="float32", attention_variant=variant)
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    return ServeEngine(params, cfg, kv_layout="paged", kv_dtype=kv_dtype,
+                       attention_impl=impl, device=cuda, **kw)
+
+
+def _shared_prompts(shared_len, tails, seed):
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, 200, shared_len).tolist()
+    return shared, [shared + rng.integers(1, 200, n).tolist() for n in tails]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_prefix_cache_warm_equals_cold_on_kernels(cuda, variant, kv_dtype):
+    """Warm temp-0 streams (prefix pages spliced from a seeding request)
+    equal cold ones with every tick on the two paged kernels."""
+    shared, prompts = _shared_prompts(40, (7, 7, 7, 7), 0)
+
+    def run(warm):
+        eng = _smoke_engine(cuda, variant, kv_dtype, slots=2, max_len=96,
+                            chunk_size=8, page_size=4)
+        assert eng.prefix_cache
+        if warm:
+            eng.submit(prompts[0][:43], 4, rid=-1)
+            eng.run()
+        build.reset_counts()
+        reqs = [eng.submit(p, 6, rid=i) for i, p in enumerate(prompts)]
+        eng.run()
+        counts = dict(build.COUNTS)
+        assert counts.get("paged_prefill") and counts.get("paged_decode")
+        assert set(counts) == {"paged_prefill", "paged_decode"}, counts
+        eng.pool.check_consistency()
+        return eng, [r.out for r in reqs]
+
+    _, cold = run(False)
+    warm_eng, warm = run(True)
+    assert warm == cold
+    assert warm_eng.memory_stats()["prefix_hit_tokens"] >= 4 * 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_prefix_cache_kernel_streams_equal_plain_on_cow_tables(
+        cuda, variant, kv_dtype):
+    """On spliced block tables with copied-on-write pages, a tight pool
+    that reclaims cached blocks and preempts, the kernel engine's streams
+    equal the plain engine's."""
+    shared, prompts = _shared_prompts(22, (5, 9, 3, 11, 6), 7)
+    kw = dict(slots=3, max_len=48, chunk_size=6, page_size=4,
+              pool_blocks={"fp32": 14, "int8": 4}[kv_dtype])
+    streams, stats = [], []
+    for impl in ("kernel", "plain"):
+        eng = _smoke_engine(cuda, variant, kv_dtype, impl, **kw)
+        eng.submit(shared + [7], 2, rid=100)
+        reqs = [eng.submit(p, 5, rid=i) for i, p in enumerate(prompts)]
+        eng.run()
+        eng.pool.check_consistency()
+        streams.append([r.out for r in reqs])
+        stats.append(eng.memory_stats())
+    assert streams[0] == streams[1]
+    assert stats[0]["cow_copies"] > 0 and stats[0]["preemptions"] > 0
+    assert stats[0]["cow_copies"] == stats[1]["cow_copies"]

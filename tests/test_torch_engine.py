@@ -76,7 +76,8 @@ def test_temp0_streams_match_repro_engine(variant, kv_dtype):
                                 **ENGINE), prompts)
     before = build.COUNTS["paged_prefill_plain"]
     eng = ServeEngine(tparams, tcfg, kv_dtype=kv_dtype,
-                      attention_impl="kernel", device="cpu", **ENGINE)
+                      attention_impl="kernel", prefix_cache=False,
+                      device="cpu", **ENGINE)
     assert _serve(eng, prompts) == ref
     assert eng.prefill_steps > 0 and eng.decode_steps > 0
     assert build.COUNTS["paged_prefill_plain"] > before
@@ -149,7 +150,7 @@ def test_serve_cli_smoke_on_cpu(capsys):
 def test_tight_pool_preemption_keeps_streams():
     _, _, tcfg, tparams = _models("expmul")
     prompts = _prompts(1, (9, 21, 6, 13, 17))
-    kw = dict(ENGINE, kv_dtype="int8")
+    kw = dict(ENGINE, kv_dtype="int8", prefix_cache=False)
     ref = ServeEngine(tparams, tcfg, device="cpu", **kw)
     ref_out = _serve(ref, prompts, max_new=6)
     assert ref.preemptions == 0
@@ -159,7 +160,7 @@ def test_tight_pool_preemption_keeps_streams():
     assert tight.pool.pool_blocks > 4
     assert _serve(tight, prompts, max_new=6) == ref_out
     assert tight.preemptions > 0
-    assert tight.pool.evictions == tight.preemptions
+    assert tight.pool.stats.evictions == tight.preemptions
     assert tight.pool.used_blocks == 0
     assert tight.recompute_tokens > 0
 
@@ -222,6 +223,8 @@ def test_port_imports_no_jax_and_no_repro():
         "assert 'repro_torch.kernels.expmul' in sys.modules\n"
         "assert 'repro_torch.launch.quickstart' in sys.modules\n"
         "assert 'repro_torch.launch.fidelity' in sys.modules\n"
+        "assert 'repro_torch.serve.metrics' in sys.modules\n"
+        "assert 'repro_torch.kernels.costs' in sys.modules\n"
         "print('ok')\n")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))

@@ -93,7 +93,7 @@ def test_windowed_temp0_streams_match_repro_engine(kv_layout):
                           prefix_cache=False, **kw)
     jreqs = [jeng.submit(p, 6, rid=i) for i, p in enumerate(prompts)]
     jeng.run()
-    eng = ServeEngine(tparams, tcfg, device="cpu", **kw)
+    eng = ServeEngine(tparams, tcfg, device="cpu", prefix_cache=False, **kw)
     reqs = [eng.submit(p, 6, rid=i) for i, p in enumerate(prompts)]
     eng.run()
     assert all(r.finish_reason == "length" for r in reqs)
