@@ -38,7 +38,12 @@ Phases (a failing check raises, and the script exits non-zero):
    and sum both products in the same order
    (``kernels/flash/tile.py:fma_chain``), so each is held at
    ``checks.kernel_tol``: 1e-5 of the output's magnitude, or one bf16 ulp
-   for the exact variant's bfloat16 output.
+   for the exact variant's bfloat16 output. Then each serving kernel on
+   a poisoned page (``checks.poisoned_case``: NaN values, or int8 codes
+   of -128 with NaN scales, in the first, a middle or the last page of a
+   1,000-token sequence, or in its rows past the length; exact and
+   ExpMul, f32 and int8): the kernel's non-finite output rows exactly its
+   plain version's, its finite rows within ``kernel_tol``.
    The full-sequence flash forward likewise, over {exact, expmul} x
    {float32, bfloat16} x D {64, 128} x block_k {128, 512} x {dyadic,
    random}, B 2, 14 / 2 heads: Sq = Sk in {1024, 1000} causal, with and
@@ -87,6 +92,26 @@ Phases (a failing check raises, and the script exits non-zero):
    after), on ``check_consistency()`` and on no block left in use; it
    prints tokens/s, TTFT p50, prefill steps, prompt tokens prefilled and
    the tick spans' host-clock p50;
+4c. fault-tolerant serving (DESIGN.md §13) at full width (bf16, ExpMul,
+   the seed-2 weights), paged int8, pages of 16, 8 slots, ``max_len``
+   2048, chunk 256, temperature 0, 8 requests of 128-512 prompt tokens
+   and 32 new tokens each: (a) a fault-free baseline; (b) a delay storm
+   (``pool_alloc``, ``admission`` and ``preempt`` at fixed
+   opportunities), run twice: the two runs' streams equal token for
+   token, every request "length", at least 4 preemptions and recomputed
+   tokens, the agreement with the baseline printed; (c) ``kv_corrupt``
+   on one request at a decode tick and ``logits`` on another: exactly
+   those two "failed", 2 quarantined, every other stream the baseline's,
+   under ExpMul and under exact; (d) the kv_corrupt victim's prompt
+   again: "length" with the baseline's stream; (e) a ``deadline_steps``
+   request finishes "deadline" with a prefix of its stream, one cancelled
+   mid-prefill and one mid-decode, the rest the baseline's; (f) a
+   snapshot after the first tick (slots prefilling and decoding) restored
+   into a fresh engine on the card: the baseline's streams, paged int8
+   and contiguous fp32, with the snapshot's bytes and save and restore
+   times. Every run on its layout's two kernels alone, its pool
+   consistent and empty after it; tokens/s, TTFT p50 and tick p50 of (a)
+   and (b) printed;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -132,6 +157,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -384,6 +410,7 @@ def phase_kernel_checks(torch, checks):
                           q_dtype, [1], f"D={D} S={MAX_LEN} C={C} "
                           f"n_valid={nv} {kv} random", worst)
     _paged_edges(torch, checks, rng, worst)
+    _poisoned_pages(torch, checks, worst)
     # the training path's full-sequence forward
     flash = [dict(Sq=1024, Sk=1024, causal=True, window=None),
              dict(Sq=1024, Sk=1024, causal=True, window=256),
@@ -437,6 +464,43 @@ def phase_kernel_checks(torch, checks):
                                       f"D={hd} S={S} group={group} {label} "
                                       f"{kind}", worst)
     log(f"[check] worst rel err: {json.dumps(worst)}")
+
+
+def _poisoned_pages(torch, checks, worst):
+    """The ``kv_corrupt`` fault at the kernels: a poisoned page (NaN
+    values, or int8 codes of -128 with NaN scales) in the first, a middle
+    or the last page sequence 0 of three reads, or in its rows past the
+    length (1,000 tokens, GQA 14 / 2, D 64, pages of 16; contiguous: 16
+    rows there, or the rows past the length). The kernel's non-finite
+    output rows must be exactly its plain version's, its finite rows within
+    ``kernel_tol`` (``checks.rows_rel_err``)."""
+    for name in checks.SERVING_KERNELS:
+        errs = []
+        for spot in checks.POISON_SPOTS:
+            for kv in ("f32", "int8"):
+                case, run = checks.poisoned_case(
+                    np.random.default_rng(11), name, spot, kv=kv,
+                    device="cuda")
+                for variant in ("exact", "expmul"):
+                    got = run(case, variant)
+                    ref = run(case, variant, plain=True)
+                    torch.cuda.synchronize()
+                    err = checks.rows_rel_err(got, ref)
+                    bad = int((~torch.isfinite(ref).all(-1)).sum())
+                    if (not err <= checks.kernel_tol(variant, torch.float32)
+                            or bad == 0
+                            or not bool(torch.isfinite(ref[1:]).all())):
+                        raise AssertionError(
+                            f"{name} {spot} {kv} {variant}: the kernel's "
+                            f"non-finite rows or finite rows disagree with "
+                            f"its plain version (rows_rel_err {err})")
+                    errs.append(err)
+                    key = f"{name} poisoned {kv} {variant}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+        log(f"[check] {name} poisoned pages ({len(errs)} cases: "
+            f"{', '.join(checks.POISON_SPOTS)} x f32/int8 x exact/expmul): "
+            f"non-finite rows equal to the plain version's, finite rows' "
+            f"worst rel err {max(errs):.3e}")
 
 
 def _paged_edges(torch, checks, rng, worst):
@@ -871,6 +935,273 @@ def phase_prefix(torch, cfg_mod, api, build, ServeEngine):
         if chunk == 200 and st["cow_copies"] < n:
             raise AssertionError(f"prefix: {st['cow_copies']} copies on "
                                  f"write, fewer than {n}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _fault_run(torch, build, faults, eng, prompts, label, pair, injector=None,
+               deadlines=None, during=None, n_new=32):
+    """Serve ``prompts`` (rids 0, 1, ...; ``n_new`` new tokens each) on
+    ``eng`` with ``injector`` installed, the launch counts set to 0 just
+    before and read just after: the ``pair`` of kernels of the layout must
+    have launched, and nothing else. ``deadlines`` maps a rid to its
+    ``deadline_steps``; ``during(eng, reqs)`` runs before every tick (the
+    cancels). With no prompts the run drives the requests ``eng`` carries
+    (a restored engine). After the run the pool must be consistent with no
+    block in use. Returns (requests, stats)."""
+    torch.cuda.synchronize()
+    build.reset_counts()
+    faults.install_fault_injector(injector)
+    generated = eng.tokens_generated
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, n_new, rid=i,
+                           deadline_steps=(deadlines or {}).get(i))
+                for i, p in enumerate(prompts)] or [
+                    r for r in eng.requests if r is not None] + eng.queue
+        tick_ms = []
+        while True:           # eng.run(), with each tick timed
+            if during is not None:
+                during(eng, reqs)
+            t = time.perf_counter()
+            busy = eng.tick()
+            torch.cuda.synchronize()
+            if busy:
+                tick_ms.append((time.perf_counter() - t) * 1e3)
+            if not (busy or eng.queue):
+                break
+        wall = time.perf_counter() - t0
+    finally:
+        faults.install_fault_injector(None)
+    counts = dict(build.COUNTS)
+    if not all(counts.get(name, 0) > 0 for name in pair) or any(
+            n for name, n in counts.items() if name not in pair):
+        raise AssertionError(f"faults {label}: not the layout's two kernels "
+                             f"alone: {counts}")
+    if not all(r.done and r.finish_reason is not None for r in reqs):
+        raise AssertionError(f"faults {label}: a request did not finish")
+    if not all(0 <= t < eng.cfg.vocab_size for r in reqs for t in r.out):
+        raise AssertionError(f"faults {label}: a token out of the vocabulary")
+    if eng.paged:
+        eng.pool.check_consistency()
+        if eng.pool.used_blocks:
+            raise AssertionError(f"faults {label}: {eng.pool.used_blocks} "
+                                 f"blocks still used after the run")
+    ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in reqs
+            if r.first_token_time is not None and r.submit_time is not None]
+    snap = eng.metrics_snapshot()
+    stats = dict(tokens_per_s=(eng.tokens_generated - generated) / wall,
+                 ttft_p50_ms=statistics.median(ttft) if ttft else None,
+                 tick_p50_ms=statistics.median(tick_ms), ticks=len(tick_ms),
+                 preemptions=eng.preemptions,
+                 recompute_tokens=eng.recompute_tokens,
+                 quarantined=snap["quarantined"],
+                 finish_reasons={k: v for k, v in
+                                 snap["finish_reasons"].items() if v})
+    log(f"[faults] {label}: {json.dumps(stats)}; launches "
+        f"{json.dumps(counts)}" + ("" if injector is None else
+                                   f"; chaos fired " + json.dumps(
+                                       {p: injector.fired(p)
+                                        for p in injector.POINTS
+                                        if injector.fired(p)})))
+    return reqs, stats
+
+
+def _same_streams(label, reqs, baseline, skip=()):
+    """Every request not in ``skip`` finished "length" with its baseline
+    stream, token for token."""
+    for r in reqs:
+        if r.rid in skip:
+            continue
+        if r.finish_reason != "length" or r.out != baseline[r.rid]:
+            same = sum(a == b for a, b in zip(r.out, baseline[r.rid]))
+            raise AssertionError(
+                f"faults {label}: request {r.rid} finished "
+                f"{r.finish_reason!r} with {same} of {len(baseline[r.rid])} "
+                f"baseline tokens in place")
+
+
+def phase_faults(torch, cfg_mod, api, build, ServeEngine):
+    """Fault-tolerant serving (DESIGN.md §13) at full width: qwen2-0.5b
+    (bf16, seed-2 weights, ExpMul), paged int8, pages of 16, 8 slots,
+    ``max_len`` 2048, chunk 256, temperature 0, 8 requests of 128-512
+    prompt tokens and 32 new tokens each. (a) a fault-free baseline; (b) a
+    delay storm (``pool_alloc``, ``admission`` and ``preempt`` at fixed
+    opportunities), twice: the runs' streams equal, every request
+    "length", >= 4 preemptions and recomputed tokens, the agreement with
+    the baseline printed; (c) ``kv_corrupt`` on one request at a decode tick
+    and ``logits`` on another: exactly those two "failed", 2 quarantined,
+    every other stream the baseline's, under ExpMul and under exact (its own
+    baseline); (d) the kv_corrupt victim's prompt again on that engine:
+    "length" with the baseline's stream; (e) a ``deadline_steps`` request
+    ("deadline", its tokens a prefix of the baseline's), one cancelled
+    mid-prefill, one mid-decode, the rest the baseline's; (f) a snapshot
+    after the first tick (slots prefilling and decoding), restored into a
+    fresh engine on the card and run to the end: the baseline's streams,
+    for paged int8 and for contiguous fp32. Every run on its layout's two
+    kernels alone, its pool consistent and empty after it."""
+    from repro_torch.serve import faults
+    from repro_torch.serve.snapshot import restore_engine
+
+    cfg = cfg_mod.get_config("qwen2-0.5b")          # bf16, ExpMul
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
+                            device="cuda")
+    rng = np.random.default_rng(7)
+    lens = rng.integers(128, 513, size=8)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    order = [int(i) for i in np.argsort(-lens, kind="stable")]
+    kw = dict(kv_layout="paged", page_size=PS, kv_dtype="int8", slots=B,
+              max_len=MAX_LEN, chunk_size=CHUNK, temperature=0.0,
+              attention_impl="kernel", device="cuda")
+    log(f"[faults] prompts of {sorted(map(int, lens))} tokens; rids by "
+        f"length, longest first: {order}")
+
+    def run(label, pair=PAGED, cfg_=cfg, ekw=None, **k):
+        eng = ServeEngine(params, cfg_, **dict(kw, **(ekw or {})))
+        reqs, stats = _fault_run(torch, build, faults, eng, prompts, label,
+                                 pair, **k)
+        return eng, reqs, stats
+
+    # (a) the baseline
+    _, reqs, base_stats = run("(a) baseline")
+    base = {r.rid: r.out for r in reqs}
+    # (b) the delay storm, twice: the two runs must agree token for token
+    # (the schedule is a function of the opportunities alone); against the
+    # baseline the agreement is printed, not gated: a token recomputed
+    # after a preemption, or ridden along a prefill tick where the baseline
+    # decoded it, runs another kernel and GEMM shape, whose last bits
+    # ExpMul's rounded exponents and bf16 logits' near-ties can turn into
+    # another token
+    storms = []
+    for i in (1, 2):
+        inj = faults.ChaosInjector(at={"pool_alloc": [2, 9],
+                                       "admission": [0, 3],
+                                       "preempt": [20, 37, 54, 71]})
+        eng, reqs, storm = run(f"(b) delay storm, run {i}", injector=inj)
+        if not all(r.finish_reason == "length" and len(r.out) == 32
+                   for r in reqs):
+            raise AssertionError("faults (b): a request did not finish "
+                                 "'length' with 32 tokens")
+        storms.append(([r.out for r in reqs], [r.preemptions for r in reqs],
+                       {p: inj.fired(p) for p in inj.POINTS}))
+    if storms[0] != storms[1]:
+        raise AssertionError("faults (b): two runs of one storm differ")
+    if storm["preemptions"] < 4 or storm["recompute_tokens"] <= 0:
+        raise AssertionError(f"faults (b): {storm['preemptions']} "
+                             f"preemptions, {storm['recompute_tokens']} "
+                             f"recomputed tokens")
+    first = {r.rid: next((i for i, (a, b) in enumerate(zip(r.out,
+                                                          base[r.rid]))
+                          if a != b), None) for r in reqs}
+    log(f"[faults] (b) the two storm runs agree token for token; against "
+        f"the baseline {sum(v is None for v in first.values())} of 8 "
+        f"streams equal, first differing token by rid (None: equal) "
+        f"{json.dumps(first)}, preemptions by rid "
+        f"{json.dumps(storms[0][1])} (not gated)")
+    for name, st in (("baseline", base_stats), ("delay storm", storm)):
+        log(f"[faults] {name}: {st['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{st['ttft_p50_ms']:.1f} ms from submit, tick p50 "
+            f"{st['tick_p50_ms']:.2f} ms over {st['ticks']} ticks")
+    # (c) corruption, under ExpMul and exact; (d) the retry
+    corrupt, poisoned = order[0], order[3]
+    for variant in ("expmul", "exact"):
+        vcfg = cfg.replace(attention_variant=variant)
+        vbase = base
+        if variant == "exact":
+            _, reqs, _ = run("(c) exact baseline", cfg_=vcfg)
+            vbase = {r.rid: r.out for r in reqs}
+        inj = faults.ChaosInjector(
+            at={"kv_corrupt": [6], "logits": [8]},
+            rids={"kv_corrupt": {corrupt}, "logits": {poisoned}})
+        label = f"(c) corruption {variant}"
+        eng, reqs, st = run(label, cfg_=vcfg, injector=inj)
+        failed = sorted(r.rid for r in reqs if r.finish_reason == "failed")
+        if (failed != sorted((corrupt, poisoned)) or st["quarantined"] != 2
+                or inj.fired("kv_corrupt") != 1 or inj.fired("logits") != 1):
+            raise AssertionError(f"faults {label}: failed {failed}, "
+                                 f"quarantined {st['quarantined']}")
+        _same_streams(label, reqs, vbase, skip=(corrupt, poisoned))
+        if variant == "expmul":
+            build.reset_counts()
+            retry = eng.submit(prompts[corrupt], 32)
+            eng.run()
+            counts = dict(build.COUNTS)
+            eng.pool.check_consistency()
+            if (retry.finish_reason != "length" or retry.out != base[corrupt]
+                    or eng.pool.used_blocks or set(counts) != set(PAGED)):
+                raise AssertionError(
+                    f"faults (d): the retry of request {corrupt} finished "
+                    f"{retry.finish_reason!r}, stream equal "
+                    f"{retry.out == base[corrupt]}, launches {counts}")
+            log(f"[faults] (d) retry of request {corrupt}: 'length', the "
+                f"baseline's stream, prefix hit {retry.prefix_hit} tokens; "
+                f"launches {json.dumps(counts)}")
+    # (e) a deadline, a cancel mid-prefill, a cancel mid-decode
+    late, mid_prefill, mid_decode = order[1], order[2], order[5]
+
+    def cancels(eng, reqs):
+        r = reqs[mid_prefill]
+        if not r.done and 0 < r.pos < len(r.prefill_toks):
+            eng.cancel(r.rid)
+        r = reqs[mid_decode]
+        if not r.done and len(r.out) >= 8:
+            eng.cancel(r.rid)
+    _, reqs, st = run("(e) deadline and cancels", deadlines={late: 12},
+                      during=cancels)
+    want = {late: "deadline", mid_prefill: "cancelled",
+            mid_decode: "cancelled"}
+    got = {rid: reqs[rid].finish_reason for rid in want}
+    if got != want or reqs[late].out != base[late][:len(reqs[late].out)] \
+            or not reqs[late].out or reqs[mid_prefill].out:
+        raise AssertionError(f"faults (e): finish reasons {got}")
+    if reqs[mid_decode].out != base[mid_decode][:len(reqs[mid_decode].out)]:
+        raise AssertionError("faults (e): the mid-decode cancel's tokens are "
+                             "not a prefix of its baseline stream")
+    _same_streams("(e) deadline and cancels", reqs, base, skip=want)
+    # (f) snapshot and restore, paged int8 and contiguous fp32
+    ckw = dict(kv_layout="contiguous", kv_dtype="fp32", page_size=None)
+    for label, pair, ekw in (("paged/int8", PAGED, {}),
+                             ("contiguous/fp32", CONTIGUOUS, ckw)):
+        lbase = base
+        if pair is CONTIGUOUS:
+            _, reqs, _ = run(f"(f) {label} baseline", pair, ekw=ekw)
+            lbase = {r.rid: r.out for r in reqs}
+        eng = ServeEngine(params, cfg, **dict(kw, **ekw))
+        build.reset_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(p, 32, rid=i)
+        eng.tick()
+        torch.cuda.synchronize()
+        states = sorted({"prefilling" if r.pos < len(r.prefill_toks)
+                         else "decoding" for r in eng.requests if r})
+        if states != ["decoding", "prefilling"]:
+            raise AssertionError(f"faults (f) {label}: slots {states} at "
+                                 f"the snapshot")
+        path = Path(tempfile.mkdtemp()) / "engine.npz"
+        t = time.perf_counter()
+        eng.save_snapshot(str(path))
+        save_s = time.perf_counter() - t
+        nbytes = path.stat().st_size
+        del eng
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        restored = restore_engine(str(path), params, cfg, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        path.unlink()
+        path.parent.rmdir()
+        carried, st = _fault_run(torch, build, faults, restored, [],
+                                 f"(f) {label} restored", pair)
+        _same_streams(f"(f) {label} restored", carried, lbase)
+        if len(carried) != len(prompts):
+            raise AssertionError(f"faults (f) {label}: {len(carried)} "
+                                 f"requests carried")
+        log(f"[faults] (f) {label}: snapshot after tick 1 (slots "
+            f"prefilling and decoding), {nbytes} bytes, saved in "
+            f"{save_s * 1e3:.1f} ms, restored on the card in "
+            f"{restore_s * 1e3:.1f} ms; {len(carried)} requests carried, "
+            f"each finished with its baseline stream")
     del params
     torch.cuda.empty_cache()
 
@@ -1404,6 +1735,8 @@ def main() -> int:
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("prefix", lambda: phase_prefix(torch, cfg_mod, api, build,
+                                        ServeEngine)),
+        ("faults", lambda: phase_faults(torch, cfg_mod, api, build,
                                         ServeEngine)),
         ("times", lambda: phase_times(torch, checks, F)),
         ("resources", lambda: phase_resources(build, decode, prefill,

@@ -43,8 +43,9 @@
 // reaches once it has folded round k, the maxima alternate between two
 // buffers, and a last barrier keeps every CTA alive until rank 0 has read
 // its partials. Tiles at or past min(length, S) are neither read nor
-// folded, and a tile reads only its rows below the length: stale rows are
-// never touched.
+// folded. A tile reads all its rows (to S), its stale rows past the length
+// too, and weighs those 0 into the value product as the plain version and
+// the Pallas kernel do, so a NaN row there reaches the output (0 * NaN).
 #include <cooperative_groups.h>
 
 #include "tile_sm90.cuh"
@@ -123,10 +124,12 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
   const int rounds = max(1, (n_act + CL - 1) / CL);  // the same on every rank
   const int64_t row0 = static_cast<int64_t>(bh) * S;
 
-  // one commit group each, empty past the walk, so every thread counts alike
+  // one commit group each, empty past the walk, so every thread counts alike;
+  // a tile's rows to its end (or S), past the length too: the plain version
+  // weighs them 0 into its value product, so a NaN there reaches the output
   const auto copy_k = [&](int t) {
     if (t < n_act) {
-      const int c0 = t * bk, nr = min(bk, length - c0);
+      const int c0 = t * bk, nr = min(bk, S - c0);
       const int64_t r = row0 + c0;
       copy_rows_async(k_s, L.k_stride, reinterpret_cast<const unsigned char*>(k + r * D), nr,
                       kRowBytes, vec16);
@@ -138,7 +141,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
   };
   const auto copy_v = [&](int t) {
     if (t < n_act) {
-      const int c0 = t * bk, nr = min(bk, length - c0);
+      const int c0 = t * bk, nr = min(bk, S - c0);
       const int64_t r = row0 + c0;
       copy_rows_async(smem + L.v, kRowBytes, reinterpret_cast<const unsigned char*>(v + r * D),
                       nr, kRowBytes, vec16);
@@ -163,7 +166,8 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
 
   for (int round = 0; round < rounds; ++round) {
     const int t = round * CL + rank;
-    const int nr = t < n_act ? min(bk, length - t * bk) : 0;
+    const int nr = t < n_act ? min(bk, S - t * bk) : 0;      // rows staged
+    const int nv = t < n_act ? min(bk, length - t * bk) : 0;  // those below the length
     float* tmax_s = reinterpret_cast<float*>(smem + L.tmax) + (round & 1) * kMaxCluster * group;
 
     // 1. the scores of this rank's tile and its row maxima, to every rank
@@ -194,7 +198,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
         }
         float sc = dot * scale;
         if (QUANT) sc *= ksj;
-        s_s[i * bk + j] = sc;
+        s_s[i * bk + j] = j < nv ? sc : kMaskValue;
       }
     }
     __syncthreads();  // the K readers are done
@@ -202,7 +206,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     if (round == 0) cluster_wait();
     for (int i = warp; i < group; i += kWarps) {
       float mx = kMaskValue;  // a tile past the length: the mask value
-      for (int j = lane; j < nr; j += kWarp) mx = fmaxf(mx, s_s[i * bk + j]);
+      for (int j = lane; j < nr; j += kWarp) mx = max_nan(mx, s_s[i * bk + j]);
       mx = warp_max(mx);
       if (lane < CL) *cluster.map_shared_rank(tmax_s + rank * group + i, lane) = mx;
     }
@@ -214,10 +218,10 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     if (nr > 0) {
       for (int i = warp; i < group; i += kWarps) {
         float m = carry_s[i];
-        for (int u = 0; u <= rank; ++u) m = fmaxf(m, tmax_s[u * group + i]);
+        for (int u = 0; u <= rank; ++u) m = max_nan(m, tmax_s[u * group + i]);
         float ps = 0.0f;
         for (int j = lane; j < nr; j += kWarp) {
-          const float p = softmax_weight<EXPMUL>(s_s[i * bk + j], m);
+          const float p = j < nv ? softmax_weight<EXPMUL>(s_s[i * bk + j], m) : 0.0f;
           s_s[i * bk + j] = QUANT ? p * vs_s[j] : p;  // the weight the values take
           ps += p;
         }
@@ -248,7 +252,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     __syncthreads();  // the V and carry readers are done
     for (int i = tid; i < group; i += kThreads) {
       float c = carry_s[i];
-      for (int u = 0; u < CL; ++u) c = fmaxf(c, tmax_s[u * group + i]);
+      for (int u = 0; u < CL; ++u) c = max_nan(c, tmax_s[u * group + i]);
       carry_s[i] = c;
     }
     copy_v(t + CL);  // the next round's V
@@ -276,7 +280,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
 #pragma unroll
         for (int r = 0; r < kMaxCluster; ++r) {
           if (r < n_here) {
-            const float m_new = fmaxf(m, tmax_s[r * group + i]);
+            const float m_new = max_nan(m, tmax_s[r * group + i]);
             const float f = rescale_factor<EXPMUL>(m, m_new);
             acc = rescale<EXPMUL>(acc, f) + ds[r];
             if (d == 0) l = rescale<EXPMUL>(l, f) + ps[r];

@@ -36,7 +36,8 @@
 // rank resolves its pages through the block table (a sentinel within the
 // length is clamped to the last pool block, as the Pallas kernel does: the
 // engine's idle decode slots carry length 1 over an all-sentinel table) and
-// has their rows below the length copied into shared memory by 16-byte
+// has every row of those pages (past the length too, weighed 0 into the
+// value product as the plain version does) copied into shared memory by 16-byte
 // cp.async, row by row (a page's rows for KV head h lie Hkv * D elements
 // apart in the (nblk, ps, Hkv, D) pool; V's copy overlaps the scores, the
 // next round's K and V overlap the rest of the round). It scores the GQA
@@ -156,13 +157,15 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     np = c < n_chunks ? min(P, n_pages - p0) : 0;
   };
   // one commit group each, empty past the walk, so every thread counts alike:
-  // the chunk's rows below the length, page by page through the block table
+  // every row of the chunk's pages, page by page through the block table
+  // (the rows past the length too: the plain version weighs them 0 into
+  // its value product, so a NaN there reaches the output, as it must)
   const auto copy_chunk = [&](int c, unsigned char* dst, int dst_stride, const KV* pool,
                               float* sc_dst, const float* sc_pool) {
     int p0, np;
     chunk(c, p0, np);
     if (np > 0) {
-      const int nr = min(np * ps, length - p0 * ps);
+      const int nr = np * ps;
       const auto pool_row = [&](int r) {  // pool row of staged row r
         const int pp = r / ps;
         const int blk = min(__ldg(bt_row + p0 + pp), nblk - 1);
@@ -193,7 +196,8 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     int p0, np;
     chunk(c, p0, np);
     const int col0 = p0 * ps;                            // the chunk's first column
-    const int nr = np > 0 ? min(np * ps, length - col0) : 0;  // its rows staged
+    const int nr = np * ps;                                // its rows staged
+    const int nv = np > 0 ? min(nr, length - col0) : 0;    // those below the length
     float* tmax_s = reinterpret_cast<float*>(smem + L.tmax) + (round & 1) * kMaxCluster * group;
 
     // 1. the scores of this rank's pages, their row maxima, the chunk's to
@@ -216,7 +220,7 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
       }
       float sc = dot * scale;
       if (QUANT) sc *= ks_s[j];
-      s_s[i * kRankRows + j] = col0 + j >= floor_col ? sc : kMaskValue;
+      s_s[i * kRankRows + j] = j < nv && col0 + j >= floor_col ? sc : kMaskValue;
     }
     __syncthreads();  // the K readers are done
     copy_chunk(c + CL, k_s, L.k_stride, kpool, ks_s, kspool);  // the next round's K
@@ -230,7 +234,7 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     __syncthreads();
     for (int i = tid; i < group; i += kThreads) {
       float mx = kMaskValue;  // an idle rank's: the mask value
-      for (int pp = 0; pp < np; ++pp) mx = fmaxf(mx, pmax_s[pp * group + i]);
+      for (int pp = 0; pp < np; ++pp) mx = max_nan(mx, pmax_s[pp * group + i]);
       for (int r = 0; r < CL; ++r) *cluster.map_shared_rank(tmax_s + rank * group + i, r) = mx;
     }
     cluster.sync();
@@ -242,13 +246,14 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     for (int x = warp; x < np * group; x += kWarps) {
       const int pp = x / group, i = x - pp * group;
       float m_prev = carry_s[i];
-      for (int u = 0; u < rank; ++u) m_prev = fmaxf(m_prev, tmax_s[u * group + i]);
-      for (int u = 0; u < pp; ++u) m_prev = fmaxf(m_prev, pmax_s[u * group + i]);
-      const float m = fmaxf(m_prev, pmax_s[pp * group + i]);
+      for (int u = 0; u < rank; ++u) m_prev = max_nan(m_prev, tmax_s[u * group + i]);
+      for (int u = 0; u < pp; ++u) m_prev = max_nan(m_prev, pmax_s[u * group + i]);
+      const float m = max_nan(m_prev, pmax_s[pp * group + i]);
       const int j = pp * ps + lane;
       const bool in = lane < ps && j < nr;
       const float p =
-          in && col0 + j >= floor_col ? softmax_weight<EXPMUL>(s_s[i * kRankRows + j], m) : 0.0f;
+          in && j < nv && col0 + j >= floor_col ? softmax_weight<EXPMUL>(s_s[i * kRankRows + j], m)
+                                                : 0.0f;
       const float psum = warp_sum(p);
       if (in) s_s[i * kRankRows + j] = QUANT ? p * vs_s[j] : p;  // the weight the values take
       if (lane == 0) {
@@ -281,7 +286,7 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     __syncthreads();  // the V and carry readers are done
     for (int i = tid; i < group; i += kThreads) {
       float cm = carry_s[i];
-      for (int u = 0; u < CL; ++u) cm = fmaxf(cm, tmax_s[u * group + i]);
+      for (int u = 0; u < CL; ++u) cm = max_nan(cm, tmax_s[u * group + i]);
       carry_s[i] = cm;
     }
     copy_chunk(c + CL, smem + L.v, kRowBytes, vpool, vs_s, vspool);  // the next round's V

@@ -26,8 +26,10 @@
 // below the window of the block's lowest row are skipped. Pages are staged
 // several at once, G = min(16, 64 / ps) of them (64 rows at ps = 16), each
 // resolved through the block table (a page's rows for KV head h lie
-// Hkv * D elements apart in the (nblk, ps, Hkv, D) pool), only the rows
-// below the length or the chunk's end: K for the scores, then V for the
+// Hkv * D elements apart in the (nblk, ps, Hkv, D) pool): every row of a
+// history page (past the length too, weighed 0 into the value product as
+// the plain version does, so a NaN row there reaches the output), a chunk
+// tile's rows below the chunk's end: K for the scores, then V for the
 // values, the next step's 16-byte loads in flight in registers while the
 // current one is computed on. The group's scores are taken together
 // (columns are independent: each thread a 4 x 4 block of (rows, columns));
@@ -36,7 +38,7 @@
 // page's value product is a fresh fmaf chain over its columns (each thread a
 // 4 x 4 block of (rows, features)) folded into acc, all in registers.
 // Masks, per row:
-//   history:  col < length (the columns read), and length + row - col < window
+//   history:  col < length, and length + row - col < window
 //   chunk:    col < n_valid (the columns read), col <= row, row - col < window
 // The query block (32 rows, not the reference's min(128, C)) changes only
 // which wholly masked tiles are skipped.
@@ -119,7 +121,7 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     t.p0 = t.hist ? h_lo + g * G : c_lo + (g - n_hg) * G;
     t.np = min(G, (t.hist ? n_hist : n_ct) - t.p0);
     t.col0 = t.p0 * ps;
-    t.nrows = min(t.np * ps, (t.hist ? length : chunk_end) - t.col0);
+    t.nrows = t.hist ? t.np * ps : min(t.np * ps, chunk_end - t.col0);
   };
   // pool row of row r of a history group
   const auto pool_row = [&](const Group& t, int r) {
@@ -187,21 +189,23 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     __syncthreads();
     // page by page, in order: the row max, the weights, their sum, the
     // rescale of (m, l)
-    const bool dense = t.hist && window <= 0;  // every history column read is valid
+    // a history page below the length without a window: every column valid
+    const bool dense = t.hist && window <= 0 && t.col0 + t.nrows <= length;
     for (int pp = 0; pp < t.np; ++pp) {
       const int j0 = pp * ps, nc = min(ps, t.nrows - j0);
       const int c0 = t.col0 + j0;
       const auto valid = [&](int j) {
         const int col = c0 + j;
-        if (t.hist) return dense || length + row - col < window;
+        if (t.hist)
+          return dense || (col < length && (window <= 0 || length + row - col < window));
         return col <= row && (window <= 0 || row - col < window);
       };
       float mx = kMaskValue;
       for (int j = wpart; j < nc; j += 4)
-        if (valid(j)) mx = fmaxf(mx, sm.p[(j0 + j) * kPLd + wrow]);
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
+        if (valid(j)) mx = max_nan(mx, sm.p[(j0 + j) * kPLd + wrow]);
+      mx = max_nan(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = max_nan(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = max_nan(m_run, mx);
       float ps_sum = 0.0f;
       for (int j = wpart; j < nc; j += 4) {
         float* pj = sm.p + (j0 + j) * kPLd + wrow;

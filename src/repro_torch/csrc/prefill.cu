@@ -28,8 +28,11 @@
 // two CTAs an SM. It walks the reference's KV tiles, bk = min(512, max(S,
 // C, 1)) columns each (the ExpMul results depend on the width): cache tiles
 // [0, bk), ... below min(length, S), then chunk tiles from the chunk start
-// below n_valid and the block's last row; a tile reads only those columns,
-// so stale rows are never read and nothing is padded. Each tile is staged
+// below n_valid and the block's last row. A cache tile reads all its
+// columns (to S), its stale rows past the length too, weighed 0 into the
+// value product as the plain version does (so a NaN row there reaches the
+// output); a chunk tile reads only the columns below its end, and nothing
+// is padded. Each tile is staged
 // in sub-tiles of 64 rows (K for the scores, then V for the values), the
 // next sub-tile's 16-byte global loads in flight in registers while the
 // current one is computed on, then converted to float32 in shared memory.
@@ -112,7 +115,7 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
   const auto tile_at = [&](int i, Tile& t) {
     t.chunk = i >= n_cache;
     t.c0 = (t.chunk ? i - n_cache : i) * bk;
-    t.nr = min(bk, (t.chunk ? chunk_end : cache_end) - t.c0);
+    t.nr = min(bk, (t.chunk ? chunk_end : S) - t.c0);
     if (window <= 0) return true;
     if (t.chunk) return !(t.c0 + bk <= r0 - window);
     return rolling || !(t.c0 + bk <= length + r0 - window);
@@ -123,10 +126,12 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
       const int row = r0 + r;
       return col <= row && (window <= 0 || row - col < window);
     }
-    int pos = col;  // fresh cache: col < length holds for the columns read
+    int pos = col;
     if (rolling) {
       pos = last - py_mod(last - col, S);
       if (pos < 0) return false;
+    } else if (col >= length) {
+      return false;  // a stale row past the length
     }
     return window <= 0 || length + r0 + r - pos < window;
   };
@@ -181,8 +186,8 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
   for (int ci = 0; ci < n_cand; ++ci) {
     Tile t;
     if (!tile_at(ci, t)) continue;
-    // a fresh cache without a window: every column read is valid
-    const bool dense = !t.chunk && !rolling && window <= 0;
+    // a fresh cache without a window, below the length: every column valid
+    const bool dense = !t.chunk && !rolling && window <= 0 && t.c0 + t.nr <= length;
     const float* vscale = nullptr;
     if constexpr (QUANT) vscale = (t.chunk ? vsn + chunk0 : vsc + cache0) + t.c0;
     chunk_tile_step<D, EXPMUL, QUANT>(st, q_s, p_s, x_s, sc_s, vt_s, r_s, vscale, t.nr, scale,

@@ -11,7 +11,7 @@
 // The arithmetic is that of tile.py, operation for operation:
 //
 //   s   = (q . k) * scale [* k_scale]        masked columns -> MASK_VALUE
-//   m'  = max(m, max_j s_j)                  m starts at MASK_VALUE
+//   m'  = max(m, max_j s_j)                  m starts at MASK_VALUE; NaN wins
 //   exact:  alpha = expf(m - m');  p_j = expf(s_j - m')
 //           l' = l * alpha + sum p;  acc' = acc * alpha + sum_j p_j v_scale_j v_j
 //   expmul: lr = lhat(m - m');  p_j = 2^-lhat(s_j - m')
@@ -85,9 +85,23 @@ __device__ __forceinline__ float pow2_neg(int lhat) {
   return e <= 0 ? 0.0f : __int_as_float(e << 23);
 }
 
+// The running maximum as the reference takes it (jnp.maximum, and
+// torch.maximum in the plain versions): a NaN in either operand gives NaN.
+// fmaxf would drop it, leaving m finite under a NaN score; ExpMul's
+// lhat(NaN) = 0 then weighs the NaN column 1.0 with l finite, and a later
+// rescale by lhat > 0 subtracts from the NaN's exponent field and makes a
+// finite number of it. With m NaN every later lhat is 0 and the NaN stays.
+// One instruction, as fmaxf is: PTX max.NaN (sm_80 and later) returns the
+// canonical NaN when either operand is NaN, fmaxf's result otherwise.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  for (int o = kWarp / 2; o > 0; o >>= 1) x = max_nan(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
 

@@ -404,10 +404,10 @@ __device__ __forceinline__ void chunk_tile_step(ChunkRows<D>& st, const float* q
     float mx = kMaskValue;
 #pragma unroll 4
     for (int j = wpart; j < nr; j += 4)
-      if (dense || valid(wrow, j)) mx = fmaxf(mx, p_s[j * kScoreLd + wrow]);
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-    const float m_new = fmaxf(st.m, mx);
+      if (dense || valid(wrow, j)) mx = max_nan(mx, p_s[j * kScoreLd + wrow]);
+    mx = max_nan(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = max_nan(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = max_nan(st.m, mx);
     float ps = 0.0f;
 #pragma unroll 4
     for (int j = wpart; j < nr; j += 4) {

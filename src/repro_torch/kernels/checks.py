@@ -10,6 +10,9 @@ sequence has not written hold a previous occupant's rows, large but
 finite (``STALE``, or the largest code with a large scale), since the
 reference multiplies their zero weights into them and NaN would poison
 it too.
+``poison_paged`` and ``poison_contiguous`` write the ``kv_corrupt`` fault's
+NaN into pages or rows a sequence reads, and ``rows_rel_err`` holds a
+kernel to its plain version's non-finite output rows.
 ``flash_case`` builds one full-sequence input (q, k, v of one dtype) for
 the training path's flash forward, and ``flash_edge_cases`` the edges of
 its kernel's layout.
@@ -314,6 +317,93 @@ def rel_err(got, ref) -> float:
     if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
         return float("inf")
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def rows_rel_err(got, ref) -> float:
+    """``rel_err`` over the output rows (vectors along the last axis) that
+    hold only finite values; inf when the two differ in which rows hold a
+    non-finite value. A poisoned KV page must leave the kernel's non-finite
+    rows exactly the plain version's, and its finite rows within
+    ``kernel_tol``."""
+    bad = ~torch.isfinite(ref).all(-1)
+    if not torch.equal(~torch.isfinite(got).all(-1), bad):
+        return float("inf")
+    if bool(bad.all()):
+        return 0.0
+    return rel_err(got[~bad], ref[~bad])
+
+
+def _poison(t, index, code):
+    """NaN into ``t[index]``, or ``code`` where ``t`` holds integer codes."""
+    if t is not None:
+        t[index] = code if not t.is_floating_point() else float("nan")
+
+
+def poison_paged(case, row, page, *, tail=False):
+    """Poison page ``page`` of ``row``'s block table, a page the row reads,
+    as ``models.api.poison_paged_block`` does: NaN values, or int8 codes of
+    -128 with NaN scale rows. With ``tail`` only the page's rows at or past
+    the row's length (a recycled page that was never scrubbed)."""
+    ps = case["page_size"]
+    blk = int(case["block_tables"][row, page])
+    lo = int(case["lengths"][row]) - page * ps if tail else 0
+    rows = slice(blk * ps + max(lo, 0), (blk + 1) * ps)
+    for name in ("k_pool", "v_pool", "ks_pool", "vs_pool"):
+        _poison(case[name], rows, -128)
+
+
+def poison_contiguous(case, row, lo, hi):
+    """Poison the cache rows [lo, hi) of sequence ``row`` (every KV head),
+    as ``poison_paged`` does a page."""
+    for name in ("k", "v", "ks", "vs"):
+        if case[name] is not None:
+            _poison(case[name], (row, slice(None), slice(lo, hi)), -128)
+
+
+POISON_SPOTS = ("first", "middle", "last", "tail")
+SERVING_KERNELS = ("paged_decode", "paged_prefill", "decode", "prefill")
+
+
+def poisoned_case(rng, kernel, spot, *, kv="int8", length=1000, chunk=100,
+                  D=64, H=14, Hkv=2, page_size=16, device="cuda"):
+    """One input of a serving ``kernel`` (``SERVING_KERNELS``) with a fault
+    in what sequence 0 (``length`` tokens; 37 and a third row beside it)
+    reads: its first, a middle or its last page (contiguous: 16 rows
+    there, the last 5 rows below the length), or ``"tail"``, its rows past
+    the length (paged: in its last page; contiguous: to the end of the
+    cache, ``length * 3 // 2`` slots). Returns (case, run)."""
+    ps = page_size
+    kw = dict(B=3, H=H, Hkv=Hkv, D=D, kv=kv, device="cpu")
+    lengths = [length, 37, length // 2 + 5]
+    if kernel.startswith("paged_"):
+        max_blocks = -(-(length + chunk) // ps) + 1
+        if kernel == "paged_decode":
+            case, run = paged_case(rng, page_size=ps, max_blocks=max_blocks,
+                                   lengths=lengths, **kw), run_decode
+        else:
+            lengths[1] = 0
+            case, run = paged_case(
+                rng, page_size=ps, max_blocks=max_blocks, lengths=lengths,
+                n_valid=[chunk, chunk // 2, 15], chunk=chunk,
+                **kw), run_prefill
+        last = (length - 1) // ps
+        poison_paged(case, 0, {"first": 0, "middle": last // 2, "last": last,
+                               "tail": last}[spot], tail=spot == "tail")
+    else:
+        S = length * 3 // 2
+        if kernel == "decode":
+            case, run = contiguous_case(rng, S=S, lengths=lengths,
+                                        **kw), run_contiguous_decode
+        else:
+            lengths[1] = 0
+            case, run = contiguous_case(
+                rng, S=S, lengths=lengths, n_valid=[chunk, chunk // 2, 15],
+                chunk=chunk, **kw), run_contiguous_prefill
+        lo, hi = {"first": (0, 16), "middle": (length // 2, length // 2 + 16),
+                  "last": (length - 5, length), "tail": (length, S)}[spot]
+        poison_contiguous(case, 0, lo, hi)
+    return {k: v.to(device) if torch.is_tensor(v) else v
+            for k, v in case.items()}, run
 
 
 def expmul_case(rng, rows, d, dtype=torch.float32, device="cuda"):

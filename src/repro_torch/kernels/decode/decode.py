@@ -15,7 +15,8 @@ layouts:
   ``length <= S``. The tiles are ``bk = min(BLOCK_K, S)`` columns wide,
   the reference's width (ExpMul results depend on it), masked
   ``col < length``; rows past the length (a previous occupant's) are
-  masked, and the kernel never reads them.
+  masked and weighed 0 into the value product, by the kernel too, so a
+  NaN there reaches the output as it does the reference's.
 
 ``*_fwd`` launches the CUDA kernel for CUDA tensors and runs the plain
 version only for CPU tensors. ``*_fwd_plain`` walks the same tiles in the

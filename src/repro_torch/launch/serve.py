@@ -5,7 +5,10 @@
       [--kv-layout paged --page-size 16 --pool-blocks 0] [--kv-dtype int8] \
       [--attention-impl kernel|plain] [--device cuda|cpu] \
       [--prefix-cache|--no-prefix-cache] [--metrics-json PATH] \
-      [--trace-out PATH] [--log-metrics-every N]
+      [--trace-out PATH] [--log-metrics-every N] \
+      [--deadline-steps N] [--deadline-s S] \
+      [--chaos "preempt=0.2,logits=0.2" --chaos-seed N] \
+      [--snapshot-path PATH | --restore-path PATH]
 
 (with ``src`` on ``PYTHONPATH``). The flags and their defaults are those
 of ``repro.launch.serve`` that the port supports: a float32 model with
@@ -17,6 +20,14 @@ contiguous layout is an error). ``--metrics-json`` writes
 tracing and writes a Chrome-trace/Perfetto JSON of the request
 lifecycles, ``--log-metrics-every N`` prints a progress line every N
 engine steps.
+Fault tolerance (DESIGN.md §13): ``--deadline-steps`` / ``--deadline-s``
+give every request a budget (engine steps from admission, seconds from
+submit); ``--chaos`` installs a seeded ``ChaosInjector`` over the points
+``pool_alloc``, ``admission``, ``preempt``, ``logits`` and ``kv_corrupt``
+(each capped at 4 fires) and prints the finish reasons, the fire report
+and the pool's consistency check; ``--snapshot-path`` writes an engine
+snapshot after the run and ``--restore-path`` starts from one (the engine's
+shape then comes from the snapshot, not from the flags).
 ``--attention-impl kernel`` (the config's default) runs the attention
 ticks on the CUDA kernels, ``plain`` on their plain PyTorch versions.
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device
@@ -35,6 +46,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ATTENTION_IMPLS
 from repro_torch.models.api import init_model, resolve_device
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.faults import ChaosInjector, install_fault_injector
+from repro_torch.serve.snapshot import restore_engine
 
 
 def main(argv=None):
@@ -85,6 +98,26 @@ def main(argv=None):
     ap.add_argument("--log-metrics-every", type=int, default=0,
                     help="print a metrics line every N engine steps "
                          "(0 = off)")
+    ap.add_argument("--deadline-steps", type=int, default=0,
+                    help="per-request engine-step budget from first "
+                         "admission (0 = none); expired requests finish "
+                         "with finish_reason='deadline'")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="per-request wall-clock budget from submit in "
+                         "seconds (0 = none)")
+    ap.add_argument("--chaos", default=None,
+                    help="deterministic fault injection for this run: "
+                         "'point=rate,...' over {pool_alloc, admission, "
+                         "preempt, logits, kv_corrupt}; each point is "
+                         "capped at 4 fires")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--snapshot-path", default=None,
+                    help="write a crash-consistent engine snapshot here "
+                         "after the run (restore with --restore-path)")
+    ap.add_argument("--restore-path", default=None,
+                    help="start from a snapshot instead of a fresh engine "
+                         "(same --arch/--smoke checkpoint; the engine's "
+                         "shape comes from the snapshot)")
     args = ap.parse_args(argv)
     if args.prefix_cache and args.kv_layout != "paged":
         ap.error("--prefix-cache requires --kv-layout paged: the contiguous "
@@ -98,17 +131,31 @@ def main(argv=None):
                      param_dtype="float32", attention_variant=args.variant)
     params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
                         device=device)
-    eng = ServeEngine(params, cfg, slots=args.slots, max_len=args.max_len,
-                      chunk_size=args.chunk, temperature=args.temperature,
-                      kv_layout=args.kv_layout,
-                      page_size=args.page_size or None,
-                      pool_blocks=args.pool_blocks or None,
-                      kv_dtype=args.kv_dtype,
-                      attention_impl=args.attention_impl,
-                      prefix_cache=args.prefix_cache,
-                      trace=bool(args.trace_out), device=device)
+    if args.restore_path:
+        eng = restore_engine(args.restore_path, params, cfg,
+                             trace=bool(args.trace_out), device=device)
+        carried = sum(r is not None for r in eng.requests) + len(eng.queue)
+        print(f"restored engine from {args.restore_path} "
+              f"(step {eng.ticks}, {carried} in-flight requests carried)")
+    else:
+        eng = ServeEngine(params, cfg, slots=args.slots,
+                          max_len=args.max_len, chunk_size=args.chunk,
+                          temperature=args.temperature,
+                          kv_layout=args.kv_layout,
+                          page_size=args.page_size or None,
+                          pool_blocks=args.pool_blocks or None,
+                          kv_dtype=args.kv_dtype,
+                          attention_impl=args.attention_impl,
+                          prefix_cache=args.prefix_cache,
+                          deadline_steps=args.deadline_steps or None,
+                          deadline_s=args.deadline_s or None,
+                          trace=bool(args.trace_out), device=device)
+    injector = None
+    if args.chaos:
+        injector = ChaosInjector.from_spec(args.chaos, seed=args.chaos_seed)
+        install_fault_injector(injector)
     rng = np.random.default_rng(0)
-    reqs = [
+    reqs = [      # auto rids: never collide with restored ones
         eng.submit(list(rng.integers(
             1, cfg.vocab_size,
             size=args.prompt_len or rng.integers(4, 12))), args.max_new)
@@ -127,11 +174,15 @@ def main(argv=None):
                       f"tpot_p50={snap['tpot_steps_p50']:.0f} steps")
     else:
         eng.run()
+    if injector is not None:
+        install_fault_injector(None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
+    # layout and dtype come from the engine: under --restore-path they are
+    # the snapshot's, not the flags'
     print(f"variant={args.variant} impl={eng.cfg.attention_impl} "
           f"kv={eng.kv_layout}/{eng.cfg.kv_dtype} requests={len(reqs)} "
           f"chunk={args.chunk} steps={eng.ticks} (prefill "
@@ -152,8 +203,25 @@ def main(argv=None):
     print(f"  TTFT p50/p99 {snap['ttft_steps_p50']:.0f}/"
           f"{snap['ttft_steps_p99']:.0f} steps, TPOT p50/p99 "
           f"{snap['tpot_steps_p50']:.0f}/{snap['tpot_steps_p99']:.0f} steps")
-    reasons = sorted({r.finish_reason for r in reqs})
-    print(f"  finish reasons: {reasons}")
+    reasons = {k: v for k, v in snap["finish_reasons"].items() if v}
+    print(f"  finish reasons: {reasons} (quarantined: "
+          f"{snap['quarantined']})")
+    if injector is not None:
+        fires = {p: injector.fired(p) for p in injector.POINTS
+                 if injector.fired(p)}
+        print(f"  chaos: injected {fires} over "
+              f"{ {p: injector.opportunities(p) for p in fires} } "
+              f"opportunities")
+    if eng.paged:
+        eng.pool.check_consistency()
+        print("  pool accounting consistent (used+cached+free == "
+              "pool_blocks, no dangling keys)")
+    if args.snapshot_path:
+        meta = eng.save_snapshot(args.snapshot_path)
+        print(f"  wrote snapshot {args.snapshot_path} "
+              f"({meta['n_leaves']} state leaves, "
+              f"{len(meta['requests']) + len(meta['queue'])} in-flight "
+              f"requests, cached prefix tier included)")
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             json.dump(snap, f, indent=2)

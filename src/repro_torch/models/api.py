@@ -201,6 +201,33 @@ def copy_paged_block(state, cfg, src, dst, *, page_size):
     return state
 
 
+def poison_paged_block(state, cfg, block, *, page_size, value=None):
+    """Overwrite physical page ``block`` of every layer's pool with
+    non-finite garbage, in place, and return the state: the device half of
+    the ``kv_corrupt`` chaos point (DESIGN.md §13). Float leaves (K/V
+    values, the scale rows of codes) get NaN, integer code leaves their
+    most negative code (the NaN scales alone make every dequantized row
+    non-finite). Attention over the page then gives non-finite logits to
+    exactly the sequences whose block tables reference it.
+
+    ``value`` fills every leaf instead: ``value=0`` is the quarantine
+    *scrub* of a page going back to the free list, since a masked NaN row
+    still reaches the output (weight 0 times NaN is NaN in the value
+    product). ``block`` is a host int, so the write needs no sync."""
+    del cfg  # attention-only: every layer holds a paged pool
+    b = int(block) * page_size
+    for cache in state["caches"]:
+        for leaf in cache.values():
+            if value is not None:
+                fill = value
+            elif leaf.is_floating_point():
+                fill = float("nan")
+            else:
+                fill = torch.iinfo(leaf.dtype).min
+            leaf[b:b + page_size].fill_(fill)
+    return state
+
+
 def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
                       page_size):
     """One decode tick: tokens1 (B,) at positions ``lengths`` ->

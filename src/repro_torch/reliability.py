@@ -1,5 +1,5 @@
-"""Fault-tolerance primitives of the trainer (a copy of the train-side
-pieces of ``repro.reliability``):
+"""Fault-tolerance primitives of the trainer and the serving engine (a
+copy of ``repro.reliability``):
 
   * ``StragglerWatchdog`` — EWMA-based slow-step detector.
   * ``FaultInjector`` — step-keyed deterministic fault injection for
@@ -7,8 +7,9 @@ pieces of ``repro.reliability``):
   * ``RestartSupervisor`` — run a step function with checkpoint/restart
     semantics (the single-process analogue of a multi-host restart
     controller), the reference's ``distributed.fault.TrainSupervisor``.
-
-The serving engine's ``DeadlineWatchdog`` is not ported yet.
+  * ``DeadlineWatchdog`` — per-key step and wall-clock budgets with an
+    ``expired()`` sweep; the serving engine arms one entry per request
+    (engine-step budget from admission, wall-clock budget from submit).
 """
 from __future__ import annotations
 
@@ -109,3 +110,56 @@ class RestartSupervisor:
                 state, step = self.restore_fn()
         self.checkpointer.wait()
         return state, step
+
+
+class DeadlineWatchdog:
+    """Per-key step and wall-clock budgets with an expiry sweep.
+
+    ``arm(key, ...)`` registers a key's budgets; a later ``arm`` for the
+    same key merges (each budget given replaces that budget and its base),
+    so the serving engine can arm the wall-clock budget at submit and the
+    step budget at first admission. ``expired(step, now)`` returns every
+    armed key whose step budget (``step - step_base >= step_budget``) or
+    wall budget (``now - wall_base > wall_budget``) is exhausted; callers
+    decide what expiry means (the engine finishes the request with
+    ``finish_reason="deadline"``). Keys must be ``disarm``-ed when their
+    work completes.
+    """
+
+    def __init__(self):
+        self._armed: dict = {}  # key -> [step_budget, step_base,
+        #                                wall_budget, wall_base]
+
+    def __len__(self) -> int:
+        return len(self._armed)
+
+    def arm(self, key, *, step_budget=None, step_base=0,
+            wall_budget=None, wall_base=0.0):
+        ent = self._armed.get(key)
+        if ent is None:
+            self._armed[key] = [step_budget, step_base,
+                                wall_budget, wall_base]
+            return
+        if step_budget is not None:
+            ent[0], ent[1] = step_budget, step_base
+        if wall_budget is not None:
+            ent[2], ent[3] = wall_budget, wall_base
+
+    def disarm(self, key):
+        self._armed.pop(key, None)
+
+    def budgets(self, key):
+        """The (step_budget, wall_budget) pair for ``key`` (None, None when
+        unarmed)."""
+        ent = self._armed.get(key)
+        return (None, None) if ent is None else (ent[0], ent[2])
+
+    def expired(self, step: int, now: float | None = None) -> list:
+        now = time.perf_counter() if now is None else now
+        out = []
+        for key, (sb, s0, wb, w0) in self._armed.items():
+            if sb is not None and step - s0 >= sb:
+                out.append(key)
+            elif wb is not None and now - w0 > wb:
+                out.append(key)
+        return out

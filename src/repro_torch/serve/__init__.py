@@ -1,6 +1,21 @@
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import (
+    FINISH_REASONS,
+    NonFiniteLogitsError,
+    Request,
+    ServeEngine,
+)
+from repro_torch.serve.faults import (
+    ChaosInjector,
+    current_fault_injector,
+    fault_point,
+    install_fault_injector,
+)
 from repro_torch.serve.paged import BlockPool, blocks_for, kv_token_bytes
 from repro_torch.serve.sampling import sample_tokens
+from repro_torch.serve.snapshot import restore_engine, save_snapshot
 
-__all__ = ["BlockPool", "Request", "ServeEngine", "blocks_for",
-           "kv_token_bytes", "sample_tokens"]
+__all__ = ["BlockPool", "ChaosInjector", "FINISH_REASONS",
+           "NonFiniteLogitsError", "Request", "ServeEngine", "blocks_for",
+           "current_fault_injector", "fault_point", "install_fault_injector",
+           "kv_token_bytes", "restore_engine", "sample_tokens",
+           "save_snapshot"]

@@ -1,7 +1,8 @@
 """Slot-based serving engine: chunked prefill plus continuous decode
 batching over per-slot (contiguous) caches or a paged KV pool, with the
-shared-prefix cache and the metrics layer (the decoder-only path of
-``repro/serve/engine.py``, DESIGN.md §6-§8, §11 and §12).
+shared-prefix cache, the metrics layer and fault tolerance (the
+decoder-only path of ``repro/serve/engine.py``, DESIGN.md §6-§8 and
+§11-§13).
 
 A fixed set of ``slots`` shares two model calls:
 
@@ -54,12 +55,30 @@ wrappers' observer (``kernels.build.DISPATCH_SINK``) for the length of each
 ``tick()`` only, and the one it replaced is put back, so calls made
 between ticks, or by another engine, are not counted here.
 
-Not ported yet (``repro`` has them, DESIGN.md §13): deadlines,
-cancellation, the NaN quarantine, the chaos harness and snapshots.
+Fault tolerance (DESIGN.md §13): every request ends with a
+``finish_reason`` in ``FINISH_REASONS`` ("length", "deadline",
+"cancelled", "failed", "preempt_limit"), counted per reason in
+``metrics_snapshot()``. Requests carry optional budgets, ``deadline_steps``
+(engine steps from first admission) and ``deadline_s`` (wall clock from
+submit), swept by a ``reliability.DeadlineWatchdog`` at the top of every
+tick; ``cancel(rid)`` unwinds a request at any stage (queued, mid-prefill,
+mid-decode, requeued after a preemption); ``max_preemptions`` finishes a
+request evicted that often with "preempt_limit". A sentinel checks each
+tick's logits for non-finite values, the flags coming back in the same
+host transfer as the sampled tokens: ``nan_guard="quarantine"`` (the
+default) fails only the offending request, its pages zeroed, freed and
+de-indexed so a corrupted page is never spliced again, while co-resident
+temp-0 streams stay those of a fault-free run; ``"strict"`` raises
+``NonFiniteLogitsError``; ``"off"`` skips the check. The chaos harness
+(``serve/faults.py``) fires at the reference's points in the reference's
+order, so one schedule hits the same opportunities in both engines;
+``save_snapshot`` / ``serve.snapshot.restore_engine`` carry a mid-flight
+engine across a restart.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 
 import numpy as np
@@ -80,11 +99,14 @@ from repro_torch.models.api import (
     decode_step_paged,
     init_decode_state,
     init_paged_state,
+    poison_paged_block,
     prefill,
     prefill_paged,
     resolve_device,
 )
 from repro_torch.numerics.quant import KV_DTYPES
+from repro_torch.reliability import DeadlineWatchdog
+from repro_torch.serve.faults import fault_point
 from repro_torch.serve.metrics import (
     MS_BUCKETS,
     PID_ENGINE,
@@ -95,9 +117,21 @@ from repro_torch.serve.metrics import (
 from repro_torch.serve.paged import BlockPool, blocks_for, kv_token_bytes
 from repro_torch.serve.sampling import row_seed, sample_tokens
 
-# terminal request states: the port finishes requests by length only (the
-# reference's deadline, cancelled, failed and preempt_limit come with §13)
-FINISH_REASONS = ("length",)
+logger = logging.getLogger("repro_torch.serve")
+
+# terminal request states (DESIGN.md §13): every finished request carries
+# exactly one, and metrics_snapshot()["finish_reasons"] counts each
+FINISH_REASONS = ("length", "deadline", "cancelled", "failed",
+                  "preempt_limit")
+
+# nan_guard modes: quarantine the offending request (default), raise on
+# the first fault, or skip the sentinel
+NAN_GUARDS = ("quarantine", "strict", "off")
+
+
+class NonFiniteLogitsError(RuntimeError):
+    """Raised by ``nan_guard="strict"`` when a tick produces non-finite
+    logits (or an out-of-range sampled token) for an active request."""
 
 
 def analytic_prefill_flops(cfg, start: int, end: int) -> int:
@@ -122,7 +156,9 @@ class Request:
     max_new: int
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
-    finish_reason: str | None = None   # "length" once done
+    finish_reason: str | None = None   # one of FINISH_REASONS once done
+    deadline_steps: int | None = None  # engine-step budget from admission
+    deadline_s: float | None = None    # wall-clock budget from submit
     submit_time: float | None = None       # host clock at submit()
     first_token_time: float | None = None  # host clock when out[0] arrived
     pos: int = 0            # prefill cursor into ``prefill_toks``
@@ -151,10 +187,17 @@ class ServeEngine:
                  prefix_cache: bool | None = None,
                  metrics: MetricsRegistry | None = None,
                  trace: bool = False,
+                 nan_guard: str = "quarantine",
+                 deadline_steps: int | None = None,
+                 deadline_s: float | None = None,
+                 max_preemptions: int | None = None,
                  device="cuda"):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
                              f"got {kv_layout!r}")
+        if nan_guard not in NAN_GUARDS:
+            raise ValueError(f"nan_guard must be one of {NAN_GUARDS}, "
+                             f"got {nan_guard!r}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_len < 2:
@@ -162,6 +205,9 @@ class ServeEngine:
                              f"one generated), got {max_len}")
         if int(chunk_size) < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        if max_preemptions is not None and max_preemptions < 0:
+            raise ValueError(
+                f"max_preemptions must be >= 0, got {max_preemptions}")
         # the registry owns every serving counter; ``trace`` gates span and
         # event recording only
         self.metrics = metrics if metrics is not None else MetricsRegistry(
@@ -230,6 +276,13 @@ class ServeEngine:
         self._admit_seq = 0
         self._next_rid = 0
         self._rids: set = set()
+        # per-request budgets, swept at the top of every tick; the defaults
+        # apply to submits that do not give their own
+        self.nan_guard = nan_guard
+        self.default_deadline_steps = deadline_steps
+        self.default_deadline_s = deadline_s
+        self.max_preemptions = max_preemptions
+        self.deadlines = DeadlineWatchdog()
         m = self.metrics
         self._c_ticks = m.counter("serve_steps_total")
         self._c_prefill_steps = m.counter("serve_prefill_steps_total")
@@ -246,6 +299,7 @@ class ServeEngine:
             reason: m.counter("serve_finish_reasons_total", reason=reason)
             for reason in FINISH_REASONS
         }
+        self._c_quarantined = m.counter("serve_requests_quarantined_total")
         self._g_peak_active = m.gauge("serve_peak_active_tokens")
         self._g_peak_kv = m.gauge("serve_peak_kv_used_tokens")
         self._g_queue = m.gauge("serve_queue_depth")
@@ -285,11 +339,29 @@ class ServeEngine:
         # the attention wrappers' observer while this engine ticks (None:
         # the wrappers count nothing)
         self.dispatch_sink = make_dispatch_sink(self.metrics)
+        # the constructor's record: serve/snapshot.py rebuilds an engine of
+        # the same shape from exactly these arguments
+        self._ctor = {
+            "slots": slots, "max_len": max_len,
+            "chunk_size": self.chunk_size, "temperature": temperature,
+            "seed": seed, "kv_layout": kv_layout,
+            "page_size": page_size, "pool_blocks": pool_blocks,
+            "kv_dtype": self.kv_dtype, "attention_impl": attention_impl,
+            "prefix_cache": self.prefix_cache, "nan_guard": nan_guard,
+            "deadline_steps": deadline_steps, "deadline_s": deadline_s,
+            "max_preemptions": max_preemptions,
+        }
 
     # -- request lifecycle --------------------------------------------------
-    def submit(self, prompt, max_new: int, rid: int | None = None) -> Request:
+    def submit(self, prompt, max_new: int, rid: int | None = None, *,
+               deadline_steps: int | None = None,
+               deadline_s: float | None = None) -> Request:
         """Queue a request; raises ValueError on an empty or oversized
-        prompt, ``max_new < 1`` or a duplicate ``rid``."""
+        prompt, ``max_new < 1``, a budget below its floor or a duplicate
+        ``rid``. ``deadline_steps`` bounds engine steps from first
+        admission, ``deadline_s`` wall-clock seconds from this call (None
+        takes the engine's default); an expired request finishes with
+        ``finish_reason="deadline"`` and the tokens it produced."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt: a request needs at least one "
@@ -299,6 +371,15 @@ class ServeEngine:
                              f"- 1 = {self.max_len - 1}")
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
+        deadline_steps = (deadline_steps if deadline_steps is not None
+                          else self.default_deadline_steps)
+        deadline_s = (deadline_s if deadline_s is not None
+                      else self.default_deadline_s)
+        if deadline_steps is not None and deadline_steps < 1:
+            raise ValueError(
+                f"deadline_steps must be >= 1, got {deadline_steps}")
+        if deadline_s is not None and deadline_s < 0:
+            raise ValueError(f"deadline_s must be >= 0, got {deadline_s}")
         if rid is None:
             rid = self._next_rid
         elif rid in self._rids:
@@ -306,20 +387,60 @@ class ServeEngine:
         self._rids.add(rid)
         self._next_rid = max(self._next_rid, rid + 1)
         req = Request(rid, prompt, max_new, prefill_toks=list(prompt),
+                      deadline_steps=deadline_steps, deadline_s=deadline_s,
                       submit_time=time.perf_counter())
+        if deadline_s is not None:
+            self.deadlines.arm(rid, wall_budget=deadline_s,
+                               wall_base=req.submit_time)
         self.queue.append(req)
         self._c_submitted.inc()
         self._g_queue.set(len(self.queue))
         return req
 
-    def _release_slot(self, s: int, reason: str):
-        """Finish the request in slot ``s`` and free the slot; its completed
-        full pages are indexed first (their KV is valid)."""
-        req = self.requests[s]
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request wherever it is: queued, mid-prefill, mid-decode,
+        or requeued after a preemption. An active slot is unwound through
+        the refcounted pool (its completed full pages are indexed first:
+        their content is valid). Returns False when ``rid`` is not live
+        (unknown, or already finished)."""
+        return self._terminate(rid, "cancelled")
+
+    def _terminate(self, rid: int, reason: str) -> bool:
+        """Move a live request to a terminal state (cancel / deadline)."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                self.queue.pop(i)
+                self._g_queue.set(len(self.queue))
+                self._finalize_request(req, reason)
+                if self.metrics.trace and req.admit_step is not None:
+                    self.metrics.end(f"req {req.rid}", pid=PID_REQUESTS,
+                                     tid=req.rid, step=self.ticks,
+                                     tokens=len(req.out), reason=reason)
+                return True
+        for s in range(self.slots):
+            req = self.requests[s]
+            if req is not None and req.rid == rid:
+                self._release_slot(s, reason)
+                return True
+        return False
+
+    def _finalize_request(self, req: Request, reason: str):
+        """Terminal-state bookkeeping shared by every finish path."""
         req.done = True
         req.finish_reason = reason
+        self.deadlines.disarm(req.rid)
         self._c_finished.inc()
         self._c_reason[reason].inc()
+
+    def _release_slot(self, s: int, reason: str):
+        """Finish the request in slot ``s`` with ``reason`` and free the
+        slot. A valid terminal state indexes the slot's completed full
+        pages first (their KV is valid, a cancelled or expired request
+        still did real work); a quarantine (``"failed"``) zeroes the pages
+        the slot alone holds, then de-indexes and frees every one, so
+        suspect content is never spliced again."""
+        req = self.requests[s]
+        self._finalize_request(req, reason)
         self.requests[s] = None
         if self.metrics.trace:
             self.metrics.end(f"req {req.rid}", pid=PID_REQUESTS,
@@ -327,9 +448,22 @@ class ServeEngine:
                              tokens=len(req.out),
                              preemptions=req.preemptions, reason=reason)
         if self.paged:
-            if self.prefix_cache:
-                self._register_full_pages(s, req)
-            self.pool.free_slot(s)
+            if reason == "failed":
+                self._c_quarantined.inc()
+                self._scrub_slot(s)
+                self.pool.quarantine_slot(s)
+            else:
+                if self.prefix_cache:
+                    self._register_full_pages(s, req)
+                self.pool.free_slot(s)
+
+    def _expire_deadlines(self):
+        """Sweep the deadline watchdog (top of every tick): expired
+        requests finish with ``finish_reason="deadline"`` and their slots
+        free at once, so an over-budget request never pins pool blocks or a
+        batch slot."""
+        for rid in self.deadlines.expired(self.ticks, self._now):
+            self._terminate(rid, "deadline")
 
     # -- counter attributes: read-through registry views ---------------------
     @property
@@ -413,6 +547,11 @@ class ServeEngine:
             if self.requests[s] is not None or not self.queue:
                 continue
             req = self.queue[0]
+            if fault_point("admission", rid=req.rid, slot=s):
+                # a dropped admission (chaos): the head stays queued and is
+                # retried next tick, which delays it and changes nothing
+                # else (sampling seeds do not depend on the schedule)
+                break
             hit_blocks, cursor = ([], 0)
             if self.prefix_cache:
                 hit_blocks, cursor = self._prefix_hit(req)
@@ -439,6 +578,12 @@ class ServeEngine:
             if req.admit_step is None:
                 req.admit_step = self.ticks
                 req.admit_time = self._now
+                if req.deadline_steps is not None:
+                    # the step budget starts at first admission (the wall
+                    # budget, armed at submit, covers the queue wait)
+                    self.deadlines.arm(req.rid,
+                                       step_budget=req.deadline_steps,
+                                       step_base=self.ticks)
                 if self.metrics.trace:
                     self.metrics.name_track(PID_REQUESTS, req.rid,
                                             f"req {req.rid}")
@@ -479,13 +624,16 @@ class ServeEngine:
             req.first_token_time = time.perf_counter()
             self._h_ttft_steps.record(req.first_token_step
                                       - req.admit_step + 1)
-            self._h_ttft_ms.record((self._now - req.admit_time) * 1e3)
+            if req.admit_time is not None:   # None across a restore
+                self._h_ttft_ms.record((self._now - req.admit_time) * 1e3)
             if self.metrics.trace:
                 self.metrics.instant("first_token", pid=PID_REQUESTS,
                                      tid=req.rid, step=self.ticks)
         else:
             self._h_tpot_steps.record(self.ticks - req.last_token_step)
-            self._h_tpot_ms.record((self._now - req.last_token_time) * 1e3)
+            if req.last_token_time is not None:
+                self._h_tpot_ms.record(
+                    (self._now - req.last_token_time) * 1e3)
         req.last_token_step = self.ticks
         req.last_token_time = self._now
         req.out.append(tok)
@@ -499,8 +647,15 @@ class ServeEngine:
         """Evict slot s and requeue its request for recompute resumption.
         Its completed pages are indexed first: they land in the cached
         tier, so unless the preemptor reclaims them the victim resumes
-        through a prefix hit."""
+        through a prefix hit. With ``max_preemptions`` set, a request
+        already evicted that many times finishes with
+        ``finish_reason="preempt_limit"`` instead; its blocks free all the
+        same, so the caller's capacity retry proceeds."""
         req = self.requests[s]
+        if (self.max_preemptions is not None
+                and req.preemptions >= self.max_preemptions):
+            self._release_slot(s, "preempt_limit")
+            return
         if self.prefix_cache:
             self._register_full_pages(s, req)
         self.pool.evict_slot(s)
@@ -580,6 +735,8 @@ class ServeEngine:
                 continue  # preempted by an older request's reservation
             if self.prefix_cache:
                 self._cow_shared_tail(s)
+            if self.requests[s] is None:
+                continue
             target = int(self.lengths[s]) + self._take_for(s)
             while not self.pool.alloc(s, target):
                 victim = self._pick_victim(exclude=s)
@@ -620,11 +777,82 @@ class ServeEngine:
         return torch.tensor(a, device=self.device)
 
     def _sample(self, logits):
+        """(tokens, finite) on the host: the sampled token of every slot and
+        whether its logits row is all finite, brought back in one transfer
+        (the tick's one sync). A non-finite row samples from zeros
+        instead at temperature > 0, as a NaN probability has no draw; its
+        token is discarded by the sentinel (or kept under
+        ``nan_guard="off"``)."""
         seeds = [self.seed if r is None else
                  row_seed(self.seed, r.admit_order, len(r.out))
                  for r in self.requests]
+        finite = torch.isfinite(logits).all(dim=-1)
+        if self.temperature > 0.0:
+            logits = torch.where(finite[:, None], logits,
+                                 torch.zeros_like(logits))
         nxt = sample_tokens(seeds, logits, temperature=self.temperature)
-        return nxt.cpu().numpy()
+        host = torch.stack([nxt, finite.to(nxt.dtype)]).cpu().numpy()
+        return host[0], host[1].astype(bool)
+
+    # -- fault paths (DESIGN.md §13) -----------------------------------------
+    def _corrupt_kv(self, s):
+        """kv_corrupt chaos: poison the last physical page holding slot
+        ``s``'s resident KV (``models.api.poison_paged_block``). The slot's
+        next attention reads the page, and its rows past the length reach
+        the output too (weight 0 times NaN is NaN in the value product), so
+        the slot's logits go non-finite, which the sentinel must catch."""
+        idx = max(0, (int(self.lengths[s]) - 1) // self.page_size)
+        poison_paged_block(self.state, self.cfg, int(self.pool.tables[s, idx]),
+                           page_size=self.page_size)
+
+    def _scrub_slot(self, s):
+        """Zero the physical pages a quarantined slot alone holds before
+        they rejoin the free list. Stale *finite* rows in a freed page are
+        harmless (masked rows get weight 0), but a NaN row survives the
+        mask, so a recycled poisoned page would corrupt its next owner.
+        Shared pages (refcount > 1) are skipped: another live reference
+        holds valid content there, and this slot never wrote them."""
+        for i in range(int(self.pool.n_blocks[s])):
+            b = int(self.pool.tables[s, i])
+            if int(self.pool.refcount[b]) == 1:
+                poison_paged_block(self.state, self.cfg, b,
+                                   page_size=self.page_size, value=0)
+
+    def _chaos_logits(self, active, logits):
+        """logits chaos: overwrite an injected slot's logits row with NaN on
+        the device before sampling (a device-side numerical fault)."""
+        for s in active:
+            if fault_point("logits", slot=s, rid=self.requests[s].rid):
+                logits[s] = float("nan")
+        return logits
+
+    def _guard_nonfinite(self, active, finite, nxt):
+        """The NaN/Inf sentinel: the tick's per-row finiteness flags (from
+        ``_sample``'s one transfer) and a range check on the sampled tokens
+        (``argmax`` of a NaN row is the NaN's index, in range, so the flags
+        decide). Only *active* slots are judged. Faulted requests are
+        quarantined (``"failed"``) or, under ``nan_guard="strict"``, raise
+        ``NonFiniteLogitsError``. Returns the surviving active slots."""
+        if self.nan_guard == "off":
+            return active
+        vocab = self.cfg.vocab_size
+        survivors = []
+        for s in active:
+            tok = int(nxt[s])
+            if bool(finite[s]) and 0 <= tok < vocab:
+                survivors.append(s)
+                continue
+            req = self.requests[s]
+            if self.nan_guard == "strict":
+                raise NonFiniteLogitsError(
+                    f"non-finite logits for request {req.rid} (slot {s}) "
+                    f"at engine step {self.ticks}")
+            logger.warning(
+                "quarantining request %d (slot %d): non-finite logits at "
+                "engine step %d after %d generated tokens", req.rid, s,
+                self.ticks, len(req.out))
+            self._release_slot(s, "failed")
+        return survivors
 
     def _prefill_tick(self, active):
         """One chunked step: prefilling slots absorb up to chunk_size prompt
@@ -649,10 +877,13 @@ class ServeEngine:
                 page_size=self.page_size)
         else:
             logits, self.state = prefill(*args, self.cfg)
-        nxt = self._sample(logits)
+        nxt, finite = self._sample(self._chaos_logits(active, logits))
         self._c_ticks.inc()
         self._c_prefill_steps.inc()
         self._price_prefill(active, nv)
+        # the sentinel before the bookkeeping: a quarantined slot takes no
+        # length or token update, so survivors see a fault-free schedule
+        active = self._guard_nonfinite(active, finite, nxt)
         for s in active:
             req = self.requests[s]
             take = int(nv[s])
@@ -678,10 +909,11 @@ class ServeEngine:
                 page_size=self.page_size)
         else:
             logits, self.state = decode_step(*args, self.cfg)
-        nxt = self._sample(logits)
+        nxt, finite = self._sample(self._chaos_logits(active, logits))
         self._c_ticks.inc()
         self._c_decode_steps.inc()
         self._price_decode(active)
+        active = self._guard_nonfinite(active, finite, nxt)
         for s in active:
             req = self.requests[s]
             if self.lengths[s] < len(req.prefill_toks):
@@ -766,15 +998,31 @@ class ServeEngine:
 
     def _tick(self) -> bool:
         self._now = time.perf_counter()
+        # the deadline sweep first: an expired request is not admitted,
+        # reserved for or stepped this tick
+        self._expire_deadlines()
         self._admit()
         self._g_queue.set(len(self.queue))
         active = [s for s in range(self.slots) if self.requests[s] is not None]
         if not active:
             return False
         if self.paged:
+            # forced-preemption chaos: recompute resumption keeps every
+            # temp-0 stream unchanged, only slower
+            for s in active:
+                if (self.requests[s] is not None and fault_point(
+                        "preempt", slot=s, rid=self.requests[s].rid)):
+                    self._preempt(s)
+            active = [s for s in active if self.requests[s] is not None]
             active = self._reserve(active)
             if not active:
                 return bool(self.queue)
+            # kv corruption after the reservation, so the poisoned page is
+            # one this tick attends over
+            for s in active:
+                if fault_point("kv_corrupt", slot=s,
+                               rid=self.requests[s].rid):
+                    self._corrupt_kv(s)
         prefilling = self.chunk_size > 1 and any(
             self.requests[s].pos < len(self.requests[s].prefill_toks)
             for s in active)
@@ -794,10 +1042,24 @@ class ServeEngine:
             [s for s in range(self.slots) if self.requests[s] is not None])
         return True
 
-    def run(self):
-        """Tick until every request is done."""
+    def run(self, max_steps: int | None = None):
+        """Tick until every request reaches a terminal state. ``max_steps``
+        bounds the loop (a chaos run that drops every admission could
+        otherwise spin on an unadmittable queue); the per-request safety
+        net is ``deadline_steps`` / ``deadline_s``."""
+        steps = 0
         while self.tick() or self.queue:
-            pass
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+
+    def save_snapshot(self, path: str) -> dict:
+        """Crash-consistent snapshot of the whole engine (device state,
+        pool and prefix index, live and queued requests, deadline budgets,
+        metrics), written atomically; call between ticks.
+        ``serve.snapshot.restore_engine(path, params, cfg)`` rebuilds it."""
+        from repro_torch.serve.snapshot import save_snapshot
+        return save_snapshot(self, path)
 
     # -- observability surfaces (DESIGN.md §12) ------------------------------
     def attention_ledger(self) -> dict:
@@ -829,8 +1091,11 @@ class ServeEngine:
         snap["tpot_steps_p99"] = self._h_tpot_steps.quantile(0.99)
         snap["attention"] = self.attention_ledger()
         snap["memory"] = self.memory_stats()
+        # every finished request counted under exactly one reason;
+        # quarantines called out apart
         snap["finish_reasons"] = {
             reason: c.value for reason, c in self._c_reason.items()}
+        snap["quarantined"] = self._c_quarantined.value
         return snap
 
     def prometheus_text(self) -> str:

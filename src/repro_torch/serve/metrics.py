@@ -1,6 +1,7 @@
 """Engine-wide observability: a dependency-free metrics registry plus a
 monotonic-clock span recorder (the port of ``repro/serve/metrics.py``,
-DESIGN.md §12, without the snapshot half ``dump_values``/``load_values``).
+DESIGN.md §12, with the snapshot half ``dump_values``/``load_values`` of
+§13).
 
   * ``Counter`` / ``Gauge`` / ``Histogram`` — plain host-side numbers.
     Histograms use **fixed upper-edge buckets** (Prometheus form) and
@@ -290,6 +291,48 @@ class MetricsRegistry:
     @property
     def events(self) -> list:
         return self._events
+
+    # -- snapshot/restore (DESIGN.md §13) ------------------------------------
+    def dump_values(self) -> dict:
+        """JSON-able dump of every instrument's *values* (labels kept as
+        [key, value] pair lists) — the engine snapshot's metrics half, so
+        counters, TTFT/TPOT histograms, and Prometheus exposition survive
+        a crash-consistent restore. Trace events are deliberately not
+        serialized: a restored process has a fresh monotonic clock, so old
+        span timestamps would be meaningless."""
+        return {
+            "counters": [[name, [list(kv) for kv in labels], c.value]
+                         for (name, labels), c in self._counters.items()],
+            "gauges": [[name, [list(kv) for kv in labels], g.value]
+                       for (name, labels), g in self._gauges.items()],
+            "histograms": [
+                [name, [list(kv) for kv in labels],
+                 {"buckets": list(h.buckets), "counts": list(h.counts),
+                  "overflow": h.overflow, "count": h.count,
+                  "total": h.total}]
+                for (name, labels), h in self._histograms.items()],
+        }
+
+    def load_values(self, dump: dict) -> None:
+        """Restore instrument values from ``dump_values()`` output.
+        Instruments are created (or updated in place) through the normal
+        accessors, so references already held by an engine keep observing
+        the restored values."""
+        for name, labels, value in dump["counters"]:
+            self.counter(name, **dict(tuple(kv) for kv in labels)).value = \
+                value
+        for name, labels, value in dump["gauges"]:
+            self.gauge(name, **dict(tuple(kv) for kv in labels)).value = \
+                value
+        for name, labels, hv in dump["histograms"]:
+            h = self.histogram(name, buckets=tuple(hv["buckets"]),
+                               **dict(tuple(kv) for kv in labels))
+            if h.buckets != tuple(hv["buckets"]):
+                raise ValueError(f"histogram {name!r} bucket mismatch")
+            h.counts = list(hv["counts"])
+            h.overflow = hv["overflow"]
+            h.count = hv["count"]
+            h.total = hv["total"]
 
     # -- export --------------------------------------------------------------
     def snapshot(self) -> dict:

@@ -1,6 +1,6 @@
 """Host-side paged KV-cache management: a block pool, per-slot block
 tables and the shared-prefix index (the port of ``repro/serve/paged.py``,
-DESIGN.md §7 and §11, without the quarantine and snapshot halves of §13).
+DESIGN.md §7, §11 and §13).
 
 Device caches are flat pools of ``pool_blocks * page_size`` physical token
 rows; this module owns the allocation state on the host:
@@ -31,6 +31,12 @@ a live request. A slot that must write into a shared or indexed block
 (the partial tail of a prefix hit) first gets a private copy via
 ``cow_block``; the engine copies the page on the device.
 
+Fault tolerance (§13): ``alloc`` is the ``pool_alloc`` chaos point (a
+forced failure exercises the reclaim -> preemption ladder);
+``quarantine_slot`` releases a failed slot's blocks de-indexed, so a
+suspect page is never spliced again; ``dump_state`` / ``load_state`` carry
+the allocator through an engine snapshot.
+
 Every counter lives in the ``MetricsRegistry`` the pool is given (the
 engine's): ``stats`` is a read-through ``PoolStats`` view.
 """
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.numerics.quant import QUANT_KV_DTYPES, kv_code_bytes
+from repro_torch.serve.faults import fault_point
 from repro_torch.serve.metrics import MetricsRegistry
 
 
@@ -362,7 +369,11 @@ class BlockPool:
         need = want - have
         if need <= 0:
             return True
-        if need > self._available():
+        if need > self._available() or fault_point(
+                "pool_alloc", slot=slot, need=need):
+            # the chaos injector forces a failure here to exercise the
+            # reclaim -> preemption ladder; the engine retries after
+            # evicting a victim, so each retry is a new opportunity
             self._c_alloc_failures.inc()
             return False
         if need > len(self.free_blocks):
@@ -419,6 +430,26 @@ class BlockPool:
         self._c_evictions.inc()
         return n
 
+    def quarantine_slot(self, slot: int) -> int:
+        """Release ``slot``'s blocks as *suspect* (NaN quarantine, §13).
+
+        Every block the slot references is de-indexed from the prefix
+        cache first, with its indexed descendants, so a page that may hold
+        corrupted KV can never be splice-reused; only then is the
+        reference dropped. A de-indexed block whose last reference this
+        was goes straight to the free list (the engine zeroes its content
+        first). Blocks still referenced by another live slot stay used but
+        unindexed. Returns the number of blocks released by this slot."""
+        n = int(self.n_blocks[slot])
+        for i in range(n):
+            b = int(self.tables[slot, i])
+            self._deindex(b)
+            self._decref(b)
+        self.tables[slot, :n] = self.sentinel
+        self.n_blocks[slot] = 0
+        self._sync_residency()
+        return n
+
     # -- invariants -----------------------------------------------------------
     def check_consistency(self):
         """Assert the pool's full accounting invariant set; raises
@@ -472,3 +503,47 @@ class BlockPool:
         for b in cached:
             assert b in self._block_key, \
                 f"cached block {b} is not indexed (unreclaimable)"
+
+    # -- snapshot/restore (DESIGN.md §13) ------------------------------------
+    def dump_state(self) -> dict:
+        """JSON-able allocator state: tables, refcounts, free list, and the
+        full radix index (keys flattened to [parent, tokens, block] rows,
+        JSON having no tuple keys). Counters are not included: the engine
+        snapshot serializes the whole metrics registry."""
+        return {
+            "pool_blocks": self.pool_blocks,
+            "page_size": self.page_size,
+            "tables": self.tables.tolist(),
+            "n_blocks": self.n_blocks.tolist(),
+            "refcount": self.refcount.tolist(),
+            "free_blocks": [int(b) for b in self.free_blocks],
+            "index": [[int(parent), [int(t) for t in tokens], int(b)]
+                      for (parent, tokens), b in self._index.items()],
+            "cached": [[int(b), int(t)] for b, t in self._cached.items()],
+            "tick": self._tick,
+        }
+
+    def load_state(self, dump: dict) -> None:
+        """Restore allocator state from ``dump_state()`` output into a pool
+        constructed with the same geometry."""
+        if (dump["pool_blocks"] != self.pool_blocks
+                or dump["page_size"] != self.page_size):
+            raise ValueError(
+                f"snapshot pool geometry ({dump['pool_blocks']} blocks x "
+                f"{dump['page_size']} tokens) does not match this pool "
+                f"({self.pool_blocks} x {self.page_size})")
+        self.tables = np.asarray(dump["tables"], np.int32)
+        self.n_blocks = np.asarray(dump["n_blocks"], np.int32)
+        self.refcount = np.asarray(dump["refcount"], np.int32)
+        self.free_blocks = [int(b) for b in dump["free_blocks"]]
+        self._index = {(int(p), tuple(int(t) for t in toks)): int(b)
+                       for p, toks, b in dump["index"]}
+        self._block_key = {b: key for key, b in self._index.items()}
+        self._children = {}
+        for (parent, _), b in self._index.items():
+            if parent >= 0:
+                self._children.setdefault(parent, set()).add(b)
+        self._cached = {int(b): int(t) for b, t in dump["cached"]}
+        self._tick = int(dump["tick"])
+        self._sync_residency()
+        self.check_consistency()

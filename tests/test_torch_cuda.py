@@ -32,8 +32,12 @@ from repro_torch.kernels.checks import (  # noqa: E402
     flash_case,
     flash_edge_cases,
     kernel_tol,
+    POISON_SPOTS,
+    SERVING_KERNELS,
     paged_case,
+    poisoned_case,
     rel_err,
+    rows_rel_err,
     run_contiguous_decode,
     run_contiguous_prefill,
     run_decode,
@@ -536,6 +540,30 @@ def test_merged_output_update_kernel_matches_bit_path(cuda):
 
 # -- the shared-prefix cache through the paged kernels ------------------------
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", SERVING_KERNELS)
+@pytest.mark.parametrize("spot", POISON_SPOTS)
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_serving_kernels_keep_plain_nonfinite_rows(cuda, kernel, spot, kv,
+                                                   variant):
+    """A poisoned KV page (NaN values, or int8 codes of -128 with NaN
+    scales) in the first, a middle or the last page sequence 0 reads, or
+    in its rows past the length: the kernel's non-finite output rows are
+    exactly its plain version's (the reference's maxima propagate NaN),
+    and its finite rows within ``kernel_tol``."""
+    case, run = poisoned_case(np.random.default_rng(11), kernel, spot, kv=kv,
+                              device=cuda)
+    before = build.COUNTS[kernel]
+    got = run(case, variant)
+    ref = run(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert build.COUNTS[kernel] == before + 1
+    assert not bool(torch.isfinite(ref[0]).all())     # the fault shows
+    assert bool(torch.isfinite(ref[1:]).all())        # and stays in its row
+    assert rows_rel_err(got, ref) <= kernel_tol(variant, torch.float32)
+
+
 def _smoke_engine(cuda, variant, kv_dtype, impl="kernel", **kw):
     cfg = get_config("qwen2-0.5b", smoke=True, dtype="float32",
                      param_dtype="float32", attention_variant=variant)
@@ -604,3 +632,88 @@ def test_prefix_cache_kernel_streams_equal_plain_on_cow_tables(
     assert streams[0] == streams[1]
     assert stats[0]["cow_copies"] > 0 and stats[0]["preemptions"] > 0
     assert stats[0]["cow_copies"] == stats[1]["cow_copies"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_chaos_quarantines_only_the_victims_on_kernels(cuda, variant):
+    """The chaos matrix's corruption faults through the two paged kernels
+    (int8 pool): ``kv_corrupt`` on one request and ``logits`` on another
+    fail exactly those two, the pool is scrubbed, consistent and empty
+    after the run, every other stream equals the fault-free run's, and the
+    whole outcome equals the plain engine's under the same schedule."""
+    from repro_torch.serve.faults import ChaosInjector, install_fault_injector
+    prompts = [list(np.random.default_rng(s).integers(1, 200, 12))
+               for s in range(4)]
+    kw = dict(slots=2, max_len=64, chunk_size=8, page_size=4,
+              pool_blocks=24)
+
+    def run(impl, schedule):
+        eng = _smoke_engine(cuda, variant, "int8", impl, **kw)
+        install_fault_injector(None if schedule is None
+                               else ChaosInjector(**schedule))
+        try:
+            build.reset_counts()
+            reqs = [eng.submit(p, 8, rid=i) for i, p in enumerate(prompts)]
+            eng.run(max_steps=500)
+        finally:
+            install_fault_injector(None)
+        counts = dict(build.COUNTS)
+        eng.pool.check_consistency()
+        assert eng.pool.used_blocks == 0
+        for cache in eng.state["caches"]:
+            for leaf in cache.values():
+                assert bool(torch.isfinite(leaf.float()).all())
+        return ([(r.finish_reason, r.out) for r in reqs],
+                eng.metrics_snapshot()["quarantined"], counts)
+
+    base, _, _ = run("kernel", None)
+    schedule = dict(at={"kv_corrupt": [4], "logits": [5]},
+                    rids={"kv_corrupt": {2}, "logits": {0}})
+    got, quarantined, counts = run("kernel", schedule)
+    assert set(counts) == {"paged_prefill", "paged_decode"}, counts
+    assert quarantined == 2
+    assert [reason for reason, _ in got] == ["failed", "length", "failed",
+                                             "length"]
+    assert got[1] == base[1] and got[3] == base[3]
+    assert run("plain", schedule)[:2] == (got, quarantined)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_snapshot_round_trip_on_kernels(cuda, layout, tmp_path):
+    """A mid-flight snapshot restored into a fresh engine on the card
+    continues every stream exactly, through the layout's two kernels."""
+    from repro_torch.serve.snapshot import restore_engine
+    cfg = get_config("qwen2-0.5b", smoke=True, dtype="float32",
+                     param_dtype="float32")
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    kw = dict(slots=2, max_len=64, chunk_size=8, kv_dtype="int8",
+              device=cuda)
+    if layout == "paged":
+        kw.update(kv_layout="paged", page_size=4, pool_blocks=32)
+    prompts = [list(np.random.default_rng(s).integers(1, 200, 12))
+               for s in range(3)]
+
+    oracle = ServeEngine(params, cfg, **kw)
+    expect = [oracle.submit(p, 8).out for p in prompts]
+    oracle.run()
+    eng = ServeEngine(params, cfg, **kw)
+    for p in prompts:
+        eng.submit(p, 8)
+    for _ in range(3):
+        eng.tick()
+    path = str(tmp_path / "engine.npz")
+    eng.save_snapshot(path)
+    restored = restore_engine(path, params, cfg, device=cuda)
+    assert restored.state["caches"][0]["k"].device.type == "cuda"
+    carried = [r for r in restored.requests if r is not None]
+    carried += list(restored.queue)
+    build.reset_counts()
+    restored.run()
+    pair = ({"paged_prefill", "paged_decode"} if layout == "paged"
+            else {"prefill", "decode"})
+    assert set(build.COUNTS) <= pair and build.COUNTS
+    for r in carried:
+        assert r.finish_reason == "length" and r.out == expect[r.rid]

@@ -213,7 +213,11 @@ def test_disabled_mode_records_no_spans(models):
     snap = eng.metrics_snapshot()
     assert snap["trace_events"] == 0
     assert snap["counters"]["serve_tokens_generated_total"] == 4
-    assert snap["finish_reasons"] == {"length": 1}
+    # every terminal state is counted, the unused ones at 0 (§13)
+    assert snap["finish_reasons"] == {"length": 1, "deadline": 0,
+                                      "cancelled": 0, "failed": 0,
+                                      "preempt_limit": 0}
+    assert snap["quarantined"] == 0
     assert np.isfinite(snap["ttft_steps_p50"])
     assert json.loads(json.dumps(snap))
     assert "serve_steps_total" in eng.prometheus_text()
