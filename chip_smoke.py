@@ -69,17 +69,25 @@ Phases (a failing check raises, and the script exits non-zero):
    magnitude for exact, the gap printed for ExpMul;
 4. serving at full width: ``ServeEngine`` with 8 slots, 16 requests of
    128-1024 prompt tokens and 32 new tokens each, ExpMul, temperature 0,
-   three times: a paged int8 pool (its shared-prefix cache on, the
+   on three layouts: a paged int8 pool (its shared-prefix cache on, the
    default), then contiguous caches at kv_dtype fp32 (the CLI's default)
-   and int8. The kernel launch counts are set to 0 just before each run
-   and read just after: the run's two kernels must have launched, and no
-   other kernel or plain version. Tokens/s and TTFT are printed beside
-   their values before the paged kernels' redesign. The paged run is
-   served twice more, with the engine's dispatch counters off and then on
-   again (streams gated equal), and the three runs' tick wall time p50s
-   are printed side by side;
-4b. the shared-prefix cache at full width (bf16, ExpMul, the same seed-2
-   weights), paged int8, pages of 16, 8 slots, ``max_len`` 2048,
+   and int8. Each layout is served with its ticks replaying CUDA graphs
+   (the engine's default on the card, ``serve/graphs.py``) and, as a
+   witness, with eager ticks (``eager_ticks=True``): the temp-0 streams
+   must be equal. The kernel launch counts are set to 0 just before each
+   run and read just after: the run's two kernels must have launched, and
+   no other kernel or plain version; under graphs the counts must be each
+   graph's replays times its captured launches. Each run and a profiled
+   window of each (one prefill and four decode ticks, after the ticks that
+   capture) print tokens/s, TTFT p50, the tick p50s, the idle share, the
+   capture and warm-up ms, the graph pool's bytes and the peak memory,
+   graphs beside eager. The eager runs' tokens/s and TTFT are printed
+   beside their values before the paged kernels' redesign. The paged
+   graph run is served twice more, with the engine's dispatch counters off
+   and then on again (streams gated equal), their tick p50s side by side;
+4b. the shared-prefix cache at full width, every tick replaying a CUDA
+   graph (bf16, ExpMul, the same seed-2 weights), paged int8, pages of
+   16, 8 slots, ``max_len`` 2048,
    temperature 0: a 1,024-token system prompt and 16 distinct tails of
    32-512 tokens, 32 new tokens each, served cold (cache off) and warm
    (cache on, first seeded with the system prompt plus one token), both
@@ -109,9 +117,10 @@ Phases (a failing check raises, and the script exits non-zero):
    snapshot after the first tick (slots prefilling and decoding) restored
    into a fresh engine on the card: the baseline's streams, paged int8
    and contiguous fp32, with the snapshot's bytes and save and restore
-   times. Every run on its layout's two kernels alone, its pool
-   consistent and empty after it; tokens/s, TTFT p50 and tick p50 of (a)
-   and (b) printed;
+   times. Every run replays CUDA graphs, on its layout's two kernels
+   alone, its pool consistent and empty after it; (a) is served once more
+   with eager ticks, its streams gated equal to the graphs'; tokens/s,
+   TTFT p50 and tick p50 of (a) and (b) printed;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -716,11 +725,14 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
     """Serve ``prompts`` (32 new tokens each) on a fresh engine with the
     launch counts set to 0 just before and read just after: the ``pair``
     of kernels of the layout must have launched, and nothing else (no
-    other kernel, no plain version). ``sink=False`` serves with the
-    engine's dispatch counters off. Returns (counts, per-step launches,
-    the streams, the tick wall times by kind)."""
-    label = f"{kw['kv_layout']}/{kw['kv_dtype']}" + ("" if sink
-                                                     else " (no sink)")
+    other kernel, no plain version). The engine's ticks replay CUDA graphs
+    unless ``kw`` asks for eager ticks; the fresh engine captures its
+    graphs at its first ticks, inside the measured run. ``sink=False``
+    serves with the engine's dispatch counters off. Returns (counts,
+    per-step launches, the streams, the run's numbers)."""
+    mode = "eager" if kw.get("eager_ticks") else "graphs"
+    label = (f"{kw['kv_layout']}/{kw['kv_dtype']} {mode}"
+             + ("" if sink else " (no sink)"))
     warm = ServeEngine(params, cfg, **kw)              # cuBLAS, allocator
     for p in prompts[:2]:
         warm.submit(p[:300], 2)
@@ -761,8 +773,29 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
     if any(n for name, n in counts.items() if name not in pair):
         raise AssertionError(f"{label}: another kernel or a plain version "
                              f"ran while serving: {counts}")
+    graphs = eng.graph_stats()
+    if mode == "graphs":
+        # every tick replayed its kind's graph, whose captured launches are
+        # the run's: replays x captured launches, kernel by kernel
+        want = {}
+        for kind in ("prefill", "decode"):
+            st = graphs[kind]
+            if st["replays"] != getattr(eng, f"{kind}_steps"):
+                raise AssertionError(f"{label}: {st['replays']} {kind} "
+                                     f"replays in {eng.ticks} ticks")
+            for name, n in st["launches_per_replay"].items():
+                want[name] = want.get(name, 0) + n * st["replays"]
+        if want != counts:
+            raise AssertionError(f"{label}: launches {counts} are not "
+                                 f"replays x captured launches {want}")
+    elif any(st["captured"] for st in graphs.values()):
+        raise AssertionError(f"{label}: an eager engine captured a graph")
     ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in reqs]
     gen = eng.tokens_generated
+    stats = dict(tokens_per_s=gen / wall, ttft_p50_ms=statistics.median(ttft),
+                 prefill_p50_ms=statistics.median(tick_ms["prefill"]),
+                 decode_p50_ms=statistics.median(tick_ms["decode"]),
+                 peak_gib=peak / 2**30, graphs=graphs)
     log(f"[serve] {label}: 16 requests, prompts {min(map(len, prompts))}-"
         f"{max(map(len, prompts))} tokens ({eng.prompt_tokens} in all), "
         f"32 new each: {eng.ticks} steps ({eng.prefill_steps} prefill, "
@@ -770,23 +803,29 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
         f"= {gen / wall:.1f} tokens/s; TTFT from submit p50 "
         f"{statistics.median(ttft):.1f} ms, max {max(ttft):.1f} ms; peak "
         f"memory {peak / 2**30:.2f} GiB; preemptions {eng.preemptions}")
-    if sink:
-        tps0, ttft0 = BEFORE_SERVE[label]
+    if sink and mode == "eager":
+        tps0, ttft0 = BEFORE_SERVE[label.split()[0]]
         log(f"[serve] {label}: at 35522df {tps0} tokens/s, TTFT p50 {ttft0} "
             f"ms (not gated)")
     log(f"[serve] {label}: launches {json.dumps(counts)}")
     log(f"[serve] {label}: tick wall time, ms: prefill p50 "
-        f"{statistics.median(tick_ms['prefill']):.2f} (sum "
+        f"{stats['prefill_p50_ms']:.2f} (sum "
         f"{sum(tick_ms['prefill']):.1f}), decode p50 "
-        f"{statistics.median(tick_ms['decode']):.2f} (sum "
+        f"{stats['decode_p50_ms']:.2f} (sum "
         f"{sum(tick_ms['decode']):.1f})")
+    if mode == "graphs":
+        log(f"[serve] {label}: graphs " + json.dumps(graphs))
     dec, pre = pair
     per_step = {dec: counts[dec] / eng.decode_steps,
                 pre: counts[pre] / eng.prefill_steps}
-    return counts, per_step, [r.out for r in reqs], tick_ms
+    return counts, per_step, [r.out for r in reqs], stats
 
 
 def phase_serve(torch, cfg_mod, api, build, ServeEngine):
+    """Each layout served with its ticks replaying CUDA graphs (the main
+    path) and, as a witness, with eager ticks: the temp-0 streams must be
+    equal; both profiled. The paged graph run is served twice more, with
+    the dispatch counters off, then on."""
     cfg = cfg_mod.get_config("qwen2-0.5b")          # bf16, ExpMul
     assert cfg.attention_variant == "expmul" and cfg.dtype == "bfloat16"
     params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
@@ -797,46 +836,76 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     kw = dict(kv_layout="paged", page_size=PS, kv_dtype="int8", slots=B,
               max_len=MAX_LEN, chunk_size=CHUNK, temperature=0.0,
               attention_impl="kernel", device="cuda")
-    counts, per_step, paged, ticks = _serve_run(
-        torch, build, ServeEngine, params, cfg, prompts, kw, PAGED)
-    # the engine's dispatch counters cost host time on every wrapper call:
-    # the same run without them, then with them again, read within this call
-    runs = [ticks]
+    ckw = dict(kw, kv_layout="contiguous")
+    del ckw["page_size"]
+    layouts = (("paged/int8", kw, PAGED),
+               ("contiguous/fp32", dict(ckw, kv_dtype="fp32"), CONTIGUOUS),
+               ("contiguous/int8", ckw, CONTIGUOUS))
+    launches, streams = {}, {}
+    for label, lkw, pair in layouts:
+        runs, idle = {}, {}
+        for mode in ("graphs", "eager"):
+            mkw = dict(lkw, eager_ticks=mode == "eager")
+            runs[mode] = _serve_run(torch, build, ServeEngine, params, cfg,
+                                    prompts, mkw, pair)
+            idle[mode] = phase_profile(torch, ServeEngine, params, cfg, mkw,
+                                       prompts)
+        (counts, per_step, out, g), (_, _, eager_out, e) = (runs["graphs"],
+                                                            runs["eager"])
+        same = sum(a == b for x, y in zip(out, eager_out)
+                   for a, b in zip(x, y))
+        log(f"[serve] {label}: graphs vs eager temp-0 streams, {same} of "
+            f"{sum(map(len, out))} tokens equal")
+        if out != eager_out:
+            raise AssertionError(f"{label}: the graph engine's streams differ "
+                                 f"from the eager engine's")
+        streams[label] = out
+        gg = g["graphs"]
+        log(f"[serve] {label}, graphs / eager: tokens/s "
+            f"{g['tokens_per_s']:.1f} / {e['tokens_per_s']:.1f}; TTFT p50 "
+            f"{g['ttft_p50_ms']:.1f} / {e['ttft_p50_ms']:.1f} ms; prefill "
+            f"tick p50 {g['prefill_p50_ms']:.2f} / {e['prefill_p50_ms']:.2f} "
+            f"ms; decode tick p50 {g['decode_p50_ms']:.2f} / "
+            f"{e['decode_p50_ms']:.2f} ms; idle share prefill x1 "
+            f"{idle['graphs'].get('prefill')} / {idle['eager'].get('prefill')}"
+            f", decode x4 {idle['graphs'].get('decode')} / "
+            f"{idle['eager'].get('decode')}; capture ms prefill "
+            f"{gg['prefill']['capture_ms']:.1f} (warm-up "
+            f"{gg['prefill']['warmup_ms']:.1f}), decode "
+            f"{gg['decode']['capture_ms']:.1f} (warm-up "
+            f"{gg['decode']['warmup_ms']:.1f}); graph pool "
+            f"{gg['prefill']['pool_bytes'] + gg['decode']['pool_bytes']} "
+            f"bytes; peak memory {g['peak_gib']:.2f} / {e['peak_gib']:.2f} "
+            f"GiB")
+        # the contiguous kernels' launches are those of the int8 run, which
+        # the timings of phase 5 match; the fp32 run's are kept beside them
+        for name in pair:
+            key = "launches_fp32" if label == "contiguous/fp32" else "launches"
+            launches.setdefault(name, {})[key] = counts[name]
+            if key == "launches":
+                launches[name]["launches_per_step"] = per_step[name]
+    # the engine's dispatch counters cost host time on every replay: the
+    # paged graph run without them, then with them again, in this call
+    sink_runs = []
     for sink in (False, True):
-        *_, out, t = _serve_run(torch, build, ServeEngine, params, cfg,
-                                prompts, kw, PAGED, sink=sink)
-        if out != paged:
+        *_, out, st = _serve_run(torch, build, ServeEngine, params, cfg,
+                                 prompts, kw, PAGED, sink=sink)
+        if out != streams["paged/int8"]:
             raise AssertionError("the dispatch sink changed the streams")
-        runs.append(t)
-    log("[serve] paged/int8 tick wall time p50 ms, sink on / off / on: "
+        sink_runs.append(st)
+    log("[serve] paged/int8 graphs tick wall time p50 ms, sink off / on: "
         + "; ".join(f"{kind} " + " / ".join(
-            f"{statistics.median(t[kind]):.2f}" for t in runs)
+            f"{st[f'{kind}_p50_ms']:.2f}" for st in sink_runs)
             for kind in ("prefill", "decode")))
-    phase_profile(torch, ServeEngine, params, cfg, kw, prompts)
-    # the contiguous kernels' launches are those of the int8 run, which
-    # the timings of phase 5 match; the fp32 run's are kept beside them
-    launches = {name: dict(launches=counts[name],
-                           launches_per_step=per_step[name])
-                for name in PAGED}
-    streams = {}
-    for kv_dtype in ("fp32", "int8"):
-        ckw = dict(kw, kv_layout="contiguous", kv_dtype=kv_dtype)
-        del ckw["page_size"]
-        counts, per_step, streams[kv_dtype], _ = _serve_run(
-            torch, build, ServeEngine, params, cfg, prompts, ckw, CONTIGUOUS)
-        for name in CONTIGUOUS:
-            launches.setdefault(name, {}).update(
-                {"launches": counts[name],
-                 "launches_per_step": per_step[name]} if kv_dtype == "int8"
-                else {"launches_fp32": counts[name]})
-    phase_profile(torch, ServeEngine, params, cfg, ckw, prompts)
-    same = sum(a == b for x, y in zip(paged, streams["int8"])
+    same = sum(a == b for x, y in zip(streams["paged/int8"],
+                                      streams["contiguous/int8"])
                for a, b in zip(x, y))
-    first = sum(x[0] == y[0] for x, y in zip(paged, streams["int8"]))
+    first = sum(x[0] == y[0] for x, y in zip(streams["paged/int8"],
+                                             streams["contiguous/int8"]))
     log(f"[serve] temp-0 agreement, paged int8 vs contiguous int8 (ExpMul "
         f"results depend on the tile width, so no gate): {same} of "
-        f"{sum(map(len, paged))} tokens at the same position, first "
-        f"tokens {first} of {len(paged)}")
+        f"{sum(map(len, streams['paged/int8']))} tokens at the same "
+        f"position, first tokens {first} of {len(prompts)}")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1063,9 +1132,12 @@ def phase_faults(torch, cfg_mod, api, build, ServeEngine):
                                  pair, **k)
         return eng, reqs, stats
 
-    # (a) the baseline
+    # (a) the baseline, and its witness with eager ticks
     _, reqs, base_stats = run("(a) baseline")
     base = {r.rid: r.out for r in reqs}
+    _, reqs, eager_stats = run("(a) baseline, eager ticks",
+                               ekw={"eager_ticks": True})
+    _same_streams("(a) eager ticks", reqs, base)
     # (b) the delay storm, twice: the two runs must agree token for token
     # (the schedule is a function of the opportunities alone); against the
     # baseline the agreement is printed, not gated: a token recomputed
@@ -1099,7 +1171,8 @@ def phase_faults(torch, cfg_mod, api, build, ServeEngine):
         f"streams equal, first differing token by rid (None: equal) "
         f"{json.dumps(first)}, preemptions by rid "
         f"{json.dumps(storms[0][1])} (not gated)")
-    for name, st in (("baseline", base_stats), ("delay storm", storm)):
+    for name, st in (("baseline", base_stats), ("delay storm", storm),
+                     ("baseline, eager ticks", eager_stats)):
         log(f"[faults] {name}: {st['tokens_per_s']:.1f} tokens/s, TTFT p50 "
             f"{st['ttft_p50_ms']:.1f} ms from submit, tick p50 "
             f"{st['tick_p50_ms']:.2f} ms over {st['ticks']} ticks")
@@ -1209,8 +1282,8 @@ def phase_faults(torch, cfg_mod, api, build, ServeEngine):
 def _profile_window(torch, fn, label):
     """Wall time, device busy time, idle share and the top six device
     kernels of one call of ``fn``, from torch.profiler. Returns the busy
-    time and {kernel name: (us, launches)}, both empty when the profiler
-    reported no device time."""
+    time, {kernel name: (us, launches)} and the idle share, all empty or
+    None when the profiler reported no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1228,30 +1301,39 @@ def _profile_window(torch, fn, label):
     busy = sum(us for us, _ in kernels.values())
     if not busy:
         log(f"[profile] {label}: the profiler reported no device time")
-        return 0.0, {}
+        return 0.0, {}, None
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    idle = 1 - busy / wall_us
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}; top "
+        f"{busy / 1e3:.2f} ms in {sum(n for _, n in kernels.values())} "
+        f"kernels, idle share {idle:.3f}; top "
         f"kernels (ms): " + "; ".join(f"{name[:60]} {us / 1e3:.3f}"
                                       for name, (us, _) in top))
-    return busy, kernels
+    return busy, kernels, round(idle, 3)
 
 
 def phase_profile(torch, ServeEngine, params, cfg, kw, prompts):
     """Device busy share and the top device kernels over one prefill tick
-    and four decode ticks of a serving path, from torch.profiler."""
+    and four decode ticks of a serving path, from torch.profiler, after a
+    request of one prefill and one decode tick (which capture the graphs).
+    Returns {kind: idle share}."""
     eng = ServeEngine(params, cfg, **kw)
+    eng.submit(prompts[8][:200], 2)
+    eng.run()
     for p in prompts[:8]:
         eng.submit(p[:200], 8)
+    mode = "eager" if kw.get("eager_ticks") else "graphs"
+    idle = {}
     for kind, n in (("prefill", 1), ("decode", 4)):
         if kind == "decode":
-            while eng.prefill_steps == 0 or any(
-                    r is not None and r.pos < len(r.prefill_toks)
-                    for r in eng.requests):
+            while any(r is not None and r.pos < len(r.prefill_toks)
+                      for r in eng.requests):
                 eng.tick()
-        _profile_window(torch, lambda: [eng.tick() for _ in range(n)],
-                        f"{kw['kv_layout']}/{kw['kv_dtype']} {kind} x{n}")
+        *_, idle[kind] = _profile_window(
+            torch, lambda: [eng.tick() for _ in range(n)],
+            f"{kw['kv_layout']}/{kw['kv_dtype']} {mode} {kind} x{n}")
     eng.run()
+    return idle
 
 
 def phase_train(torch, cfg_mod, api, build):
@@ -1352,7 +1434,7 @@ def phase_train(torch, cfg_mod, api, build):
         state, m = step(state, batch)
         float(m["loss"])
 
-    busy, kernels = _profile_window(torch, one_step, "train step x1")
+    busy, kernels, _ = _profile_window(torch, one_step, "train step x1")
     flash = [(us, n) for name, (us, n) in kernels.items()
              if "flash_kernel" in name]
     if busy:

@@ -19,10 +19,17 @@ and training paths went through the kernels.
 wrappers (``kernels/flash/ops.py``, ``kernels/decode/ops.py``): when set
 (``set_dispatch_sink``, or ``serve.metrics.install_dispatch_counters``)
 each wrapper call reports its kind and shapes to it once.
+
+Both fire in Python, so under a CUDA graph they fire when the graph is
+captured, not when it is replayed: ``recording()`` takes what fires
+during a capture into a ``Recording``, whose ``replay()`` re-applies it
+once per replay of the graph (``serve/graphs.py``). The counts and the
+sink then read the same under graphs as under eager calls.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,6 +61,40 @@ def set_dispatch_sink(sink) -> None:
     """Install (or with ``None`` remove) the attention wrappers' observer."""
     global DISPATCH_SINK
     DISPATCH_SINK = sink
+
+
+class Recording:
+    """The launches (``COUNTS`` increments) and dispatch-sink calls that
+    fired inside one ``recording()`` block."""
+
+    def __init__(self):
+        self.counts: collections.Counter = collections.Counter()
+        self.sink_calls: list = []
+
+    def replay(self):
+        """Apply them once more: add the counts, and repeat each sink call
+        into the sink installed now (none: nothing to report)."""
+        COUNTS.update(self.counts)
+        if DISPATCH_SINK is not None:
+            for args, kwargs in self.sink_calls:
+                DISPATCH_SINK(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def recording():
+    """Divert ``COUNTS`` and ``DISPATCH_SINK`` into a fresh ``Recording``
+    for the block; after it both read as they did before it."""
+    global DISPATCH_SINK
+    rec = Recording()
+    counts, sink = COUNTS.copy(), DISPATCH_SINK
+    DISPATCH_SINK = lambda *a, **k: rec.sink_calls.append((a, k))  # noqa: E731
+    try:
+        yield rec
+    finally:
+        rec.counts = COUNTS - counts
+        COUNTS.clear()
+        COUNTS.update(counts)
+        DISPATCH_SINK = sink
 
 
 def kv_label(codes, scale) -> str:

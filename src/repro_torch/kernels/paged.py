@@ -6,8 +6,17 @@ physical rows shared by every sequence. Logical position ``p`` of slot
 p % page_size``. Unallocated table entries hold the sentinel
 ``pool_blocks``, so every row derived from one is out of range: gathers
 read zeros and scatters drop.
+
+A serving tick writes at a fixed shape, with no sync, so that it can be
+captured in a CUDA graph: ``scatter_index`` sends each write a scatter
+drops to a scratch row past the pool's end, which lies in the pool's
+storage (``zeros_with_scratch``) but in no view of it that the kernels,
+the block tables or a snapshot read, and ``scatter_fixed`` writes them
+all. ``scatter_rows`` keeps the reference's contract on any pool.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -59,35 +68,63 @@ def gather_rows(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
                                               device=pool.device))
 
 
-def scatter_plan(rows: torch.Tensor, pool_rows: int,
+def scatter_rows(pool: torch.Tensor, rows: torch.Tensor, values: torch.Tensor,
                  valid: torch.Tensor | None = None):
-    """The (destination rows, source indices) of the writes a scatter keeps:
-    rows inside ``[0, pool_rows)`` whose ``valid`` flag is set.
+    """Write ``values[i]`` into ``pool[rows[i]]`` **in place**; rows out of
+    range or with ``valid[i]`` False are dropped (a negative row counts
+    from the end, as in JAX). Returns ``pool``.
 
-    Finding them syncs with the device once; every layer of a tick writes
-    the same rows, so the model computes the plan once per tick. A
-    negative row counts from the end, as in JAX.
+    The port updates the pools in place (the JAX contract returns a new
+    pool) so a tick never copies the whole cache. Finding the kept writes
+    syncs with the device; a serving tick writes with ``scatter_fixed``.
     """
+    dst = scatter_index(rows, pool.shape[0], valid)
+    src = torch.nonzero(dst < pool.shape[0]).squeeze(1)
+    pool.index_copy_(0, dst[src], values[src].to(pool.dtype))
+    return pool
+
+
+def zeros_with_scratch(shape, scratch: int, dtype, device) -> torch.Tensor:
+    """Zeros of ``shape`` whose storage runs ``scratch`` elements past the
+    tensor's end: the scratch rows of ``rows_with_scratch``. The tensor is
+    contiguous and no read of it sees them."""
+    n = math.prod(shape)
+    return torch.zeros(n + scratch, dtype=dtype, device=device)[:n].view(shape)
+
+
+def rows_with_scratch(t: torch.Tensor, row_shape, extra: int) -> torch.Tensor:
+    """The contiguous ``t`` as rows of ``row_shape``, followed by the
+    ``extra`` scratch rows its storage holds past its end (a view; raises
+    when the storage has no room for them)."""
+    row_shape = tuple(row_shape)
+    per = math.prod(row_shape)
+    strides = tuple(math.prod(row_shape[i + 1:])
+                    for i in range(len(row_shape)))
+    return t.as_strided((t.numel() // per + extra,) + row_shape,
+                        (per,) + strides)
+
+
+def scatter_index(rows: torch.Tensor, pool_rows: int,
+                  valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Each write's destination (int64, the shape of ``rows``): its row
+    where ``scatter_rows`` keeps it (a negative row counting from the end),
+    else ``pool_rows``, the scratch row. Computed on the device, no sync."""
     rows = rows.to(torch.int64)
     rows = torch.where((rows < 0) & (rows >= -pool_rows), rows + pool_rows,
                        rows)
     keep = (rows >= 0) & (rows < pool_rows)
     if valid is not None:
         keep = keep & valid
-    src = torch.nonzero(keep).squeeze(1)
-    return rows[src], src
+    return torch.where(keep, rows, pool_rows)
 
 
-def scatter_rows(pool: torch.Tensor, rows: torch.Tensor, values: torch.Tensor,
-                 valid: torch.Tensor | None = None, *, plan=None):
-    """Write ``values[i]`` into ``pool[rows[i]]`` **in place**; rows out of
-    range or with ``valid[i]`` False are dropped. Returns ``pool``.
-
-    The port updates the pools in place (the JAX contract returns a new
-    pool) so a tick never copies the whole cache. ``plan`` is a
-    precomputed ``scatter_plan(rows, pool.shape[0], valid)``.
-    """
-    dst, src = plan if plan is not None else scatter_plan(
-        rows, pool.shape[0], valid)
-    pool.index_copy_(0, dst, values[src].to(pool.dtype))
+def scatter_fixed(pool: torch.Tensor, index: torch.Tensor,
+                  values: torch.Tensor) -> torch.Tensor:
+    """``scatter_rows`` at a fixed shape: ``values[i]`` into row
+    ``index[i]`` (``scatter_index``) of ``pool`` and its scratch row, **in
+    place**. Only the scratch row can take two writes, and no read sees it,
+    so the rows of ``pool`` are exactly ``scatter_rows``'s. Returns
+    ``pool``."""
+    rows_with_scratch(pool, pool.shape[1:], 1).index_copy_(
+        0, index, values.to(pool.dtype))
     return pool

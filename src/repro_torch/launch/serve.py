@@ -29,7 +29,10 @@ and the pool's consistency check; ``--snapshot-path`` writes an engine
 snapshot after the run and ``--restore-path`` starts from one (the engine's
 shape then comes from the snapshot, not from the flags).
 ``--attention-impl kernel`` (the config's default) runs the attention
-ticks on the CUDA kernels, ``plain`` on their plain PyTorch versions.
+ticks on the CUDA kernels, each tick captured in a CUDA graph on the card
+(``serve/graphs.py``), ``plain`` on their plain PyTorch versions, in eager
+ticks (the plain versions read lengths on the host, which a graph cannot
+capture).
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device
 cpu`` runs the plain versions on the CPU (use ``--smoke`` there).
 """
@@ -131,9 +134,11 @@ def main(argv=None):
                      param_dtype="float32", attention_variant=args.variant)
     params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
                         device=device)
+    eager = args.attention_impl == "plain"
     if args.restore_path:
         eng = restore_engine(args.restore_path, params, cfg,
-                             trace=bool(args.trace_out), device=device)
+                             trace=bool(args.trace_out), eager_ticks=eager,
+                             device=device)
         carried = sum(r is not None for r in eng.requests) + len(eng.queue)
         print(f"restored engine from {args.restore_path} "
               f"(step {eng.ticks}, {carried} in-flight requests carried)")
@@ -149,7 +154,8 @@ def main(argv=None):
                           prefix_cache=args.prefix_cache,
                           deadline_steps=args.deadline_steps or None,
                           deadline_s=args.deadline_s or None,
-                          trace=bool(args.trace_out), device=device)
+                          trace=bool(args.trace_out), eager_ticks=eager,
+                          device=device)
     injector = None
     if args.chaos:
         injector = ChaosInjector.from_spec(args.chaos, seed=args.chaos_seed)
@@ -188,7 +194,8 @@ def main(argv=None):
           f"chunk={args.chunk} steps={eng.ticks} (prefill "
           f"{eng.prefill_steps} / decode {eng.decode_steps}) "
           f"generated={eng.tokens_generated} tokens in {dt:.3f} s on "
-          f"{where} ({eng.tokens_generated / dt:.1f} tok/s)")
+          f"{where} ({eng.tokens_generated / dt:.1f} tok/s, "
+          f"{'eager' if eng.eager_ticks else 'graph'} ticks)")
     st = eng.memory_stats()
     if eng.paged:
         print(f"  KV pool: {eng.pool.pool_blocks} blocks of "

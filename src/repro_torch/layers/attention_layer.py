@@ -15,12 +15,17 @@ positions while the slot wraps modulo the span, and prefill reads the
 buffer with the rolling mask, before the chunk overwrites slots its own
 earlier queries still read. With ``cfg.kv_dtype`` "int8"/"fp8" the caches
 hold codes plus per-(token, head) float32 scale rows. The caches are
-updated in place.
+updated in place, at a fixed shape and with no sync, so a serving tick can
+be captured in a CUDA graph: every cache's storage holds one token's row
+of scratch past its end (``kernels.paged.zeros_with_scratch``), where the
+writes a tick drops land.
 
 ``cfg.attention_impl`` "kernel" runs the CUDA kernels (their plain
 versions for CPU tensors); "plain" runs the plain versions on any device.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -37,7 +42,11 @@ from repro_torch.kernels.flash.ops import (
     quant_fused_paged_prefill_attention,
     quant_prefill_attention,
 )
-from repro_torch.kernels.paged import scatter_rows
+from repro_torch.kernels.paged import (
+    rows_with_scratch,
+    scatter_fixed,
+    zeros_with_scratch,
+)
 from repro_torch.layers.common import dense_init
 from repro_torch.layers.rotary import apply_rope
 from repro_torch.numerics.quant import (
@@ -103,18 +112,24 @@ def attn_apply(params, x, cfg, *, positions=None, causal=True, window=None):
 
 def _init_kv(shape, cfg, dtype, device):
     """KV buffers of ``shape + (head_dim,)``: values in ``dtype``, or codes
-    plus float32 scale rows of ``shape`` for a quantized ``cfg.kv_dtype``."""
-    full = shape + (cfg.resolved_head_dim(),)
+    plus float32 scale rows of ``shape`` for a quantized ``cfg.kv_dtype``;
+    each with one token's row of scratch (Hkv rows of its last axis)."""
+    hd, Hkv = cfg.resolved_head_dim(), cfg.num_kv_heads
+    full = shape + (hd,)
+
+    def zeros(shp, dt):
+        return zeros_with_scratch(shp, Hkv * math.prod(shp[len(shape):]),
+                                  dt, device)
+
     if kv_quantized(cfg):
         cd = kv_code_dtype(cfg.kv_dtype)
         return {
-            "k": torch.zeros(full, dtype=cd, device=device),
-            "v": torch.zeros(full, dtype=cd, device=device),
-            "k_scale": torch.zeros(shape, dtype=torch.float32, device=device),
-            "v_scale": torch.zeros(shape, dtype=torch.float32, device=device),
+            "k": zeros(full, cd),
+            "v": zeros(full, cd),
+            "k_scale": zeros(shape, torch.float32),
+            "v_scale": zeros(shape, torch.float32),
         }
-    return {"k": torch.zeros(full, dtype=dtype, device=device),
-            "v": torch.zeros(full, dtype=dtype, device=device)}
+    return {"k": zeros(full, dtype), "v": zeros(full, dtype)}
 
 
 def attn_init_cache(cfg, batch, max_len, dtype, device):
@@ -175,28 +190,36 @@ def attn_decode_step(params, cache, x1, cfg, lengths, *, write_pos=None,
     return cache, torch.einsum("bhk,hkd->bd", o, params["wo"])
 
 
-def chunk_plan(positions, gate, span):
-    """The (row, chunk index, slot) triples a chunk write keeps: gated-on
-    tokens whose slot ``positions`` lies in ``[0, span)``.
-
-    Finding them syncs with the device once; every layer of a tick writes
-    the same slots, so the model computes the plan once per tick.
-    """
+def chunk_index(positions, gate, span, heads):
+    """The destination of every (row, chunk token, KV head) of a chunk
+    write, (B*C*Hkv,) int64 in that order, into a per-slot buffer
+    (B, Hkv, span, ...) seen as its B*Hkv*span rows of the last axes:
+    gated-on tokens whose slot ``positions`` lies in ``[0, span)`` at their
+    row, every other at the scratch row of its head, B*Hkv*span + h. Every
+    layer of a tick writes the same slots, so the model computes it once
+    per tick, on the device, with no sync."""
+    B, C = positions.shape
     keep = gate & (positions >= 0) & (positions < span)
-    b, c = torch.nonzero(keep, as_tuple=True)
-    return b, c, positions[b, c].to(torch.int64)
+    h = torch.arange(heads, device=positions.device)
+    b = torch.arange(B, device=positions.device)
+    row = (b[:, None, None] * heads + h) * span + positions[:, :, None]
+    return torch.where(keep[:, :, None], row,
+                       B * heads * span + h).reshape(-1)
 
 
-def chunk_write(buf, new, plan):
+def chunk_write(buf, new, index):
     """Write a chunk of C tokens into a per-slot buffer **in place**.
 
-    buf (B, Hkv, span, ...), new (B, Hkv, C, ...); ``plan`` is the
-    ``chunk_plan`` of the write. The kept slots of a row are distinct (the
-    gate keeps only the last ``span`` tokens of a rolling buffer), so the
-    write is deterministic. Returns buf.
+    buf (B, Hkv, span, ...), new (B, Hkv, C, ...); ``index`` is the
+    ``chunk_index`` of the write. The kept slots of a row are distinct (the
+    gate keeps only the last ``span`` tokens of a rolling buffer) and only
+    scratch rows take two writes, so the write is deterministic. Returns
+    buf.
     """
-    b, c, slot = plan
-    buf[b, :, slot] = new[b, :, c].to(buf.dtype)
+    tail = buf.shape[3:]
+    vals = new.transpose(1, 2).reshape((-1,) + tail)     # (b, c, h) order
+    rows_with_scratch(buf, tail, buf.shape[1]).index_copy_(
+        0, index, vals.to(buf.dtype))
     return buf
 
 
@@ -212,13 +235,13 @@ def chunk_gate(lengths, n_valid, C, span, rolling):
     return (torch.remainder(positions, span) if rolling else positions), gate
 
 
-def attn_prefill_step(params, cache, x, cfg, lengths, n_valid, plan, *,
+def attn_prefill_step(params, cache, x, cfg, lengths, n_valid, index, *,
                       window=None):
     """x (B, C, d) a chunk at absolute positions ``lengths + [0, C)``;
     ``n_valid`` (B,) valid chunk tokens (0 for idle slots, which write
     nothing). The chunk attends to [cache ++ chunk] (the cache read as a
     rolling buffer when ``window`` is set), then its valid tokens are
-    written as the tick's ``chunk_plan`` of ``chunk_gate`` says."""
+    written as the tick's ``chunk_index`` of ``chunk_gate`` says."""
     C = x.shape[1]
     positions = lengths[:, None] + torch.arange(C, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)
@@ -236,7 +259,7 @@ def attn_prefill_step(params, cache, x, cfg, lengths, n_valid, plan, *,
         o = prefill_attention(q, cache["k"], cache["v"], new["k"], new["v"],
                               lengths, n_valid, **kw)
     for name, val in new.items():
-        chunk_write(cache[name], val, plan)
+        chunk_write(cache[name], val, index)
     return cache, torch.einsum("bhsk,hkd->bsd", o, params["wo"])
 
 
@@ -245,17 +268,16 @@ def attn_init_paged_cache(cfg, pool_tokens, dtype, device):
     return _init_kv((pool_tokens, cfg.num_kv_heads), cfg, dtype, device)
 
 
-def attn_paged_decode_step(params, pool, x1, cfg, lengths, write_row,
-                           write_plan=None, *, window=None, block_tables,
-                           page_size):
-    """x1 (B, d) one token at absolute position ``lengths``; write_row (B,)
-    its physical row (``token_rows``), ``write_plan`` the precomputed
-    ``scatter_plan`` of those rows. Idle slots carry sentinel rows, so
-    their writes drop and their scores are fully masked."""
+def attn_paged_decode_step(params, pool, x1, cfg, lengths, write_index, *,
+                           window=None, block_tables, page_size):
+    """x1 (B, d) one token at absolute position ``lengths``; write_index
+    (B,) the ``kernels.paged.scatter_index`` of its physical row
+    (``token_rows``). Idle slots carry sentinel rows, so their writes go
+    to the scratch row and their scores are fully masked."""
     q, k, v = _project_token(params, x1, cfg, lengths)
     kw = _kernel_kw(cfg, window, page_size)
     for name, val in _quantized(cfg, k, v).items():
-        scatter_rows(pool[name], write_row, val, plan=write_plan)
+        scatter_fixed(pool[name], write_index, val)
     if kv_quantized(cfg):
         o = quant_fused_paged_decode_attention(
             q, pool["k"], pool["v"], pool["k_scale"], pool["v_scale"],
@@ -267,18 +289,15 @@ def attn_paged_decode_step(params, pool, x1, cfg, lengths, write_row,
 
 
 def attn_paged_prefill_step(params, pool, x, cfg, lengths, n_valid,
-                            chunk_rows, chunk_plan=None, *, window=None,
-                            block_tables, page_size):
+                            write_index, *, window=None, block_tables,
+                            page_size):
     """x (B, C, d) a chunk at absolute positions ``lengths + [0, C)``;
-    chunk_rows (B, C) its physical rows, ``chunk_plan`` the precomputed
-    ``scatter_plan`` of its valid rows. The chunk attends to
+    write_index (B*C,) the ``kernels.paged.scatter_index`` of its physical
+    rows, the invalid ones at the scratch row. The chunk attends to
     [paged history ++ chunk], then its valid tokens are scattered."""
     B, C, _ = x.shape
-    idx = torch.arange(C, device=x.device)[None, :]
-    positions = lengths[:, None] + idx
+    positions = lengths[:, None] + torch.arange(C, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)
-    valid = (idx < n_valid[:, None]).reshape(-1)
-    rows = chunk_rows.reshape(-1)
     kw = _kernel_kw(cfg, window, page_size)
 
     def flat(t):  # (B, Hkv, C, ...) -> (B*C, Hkv, ...) token-major
@@ -296,5 +315,5 @@ def attn_paged_prefill_step(params, pool, x, cfg, lengths, n_valid,
             q, new["k"], new["v"], pool["k"], pool["v"], block_tables,
             lengths, n_valid, **kw)
     for name, val in new.items():
-        scatter_rows(pool[name], rows, flat(val), valid, plan=chunk_plan)
+        scatter_fixed(pool[name], write_index, flat(val))
     return pool, torch.einsum("bhsk,hkd->bsd", o, params["wo"])

@@ -7,7 +7,10 @@ Parameters are a dict of tensors with ``repro``'s layouts
 (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...), one entry of ``"layers"`` per
 layer; the layer loop is a Python loop. The state is one dict of caches
 per layer and is updated in place: ``prefill``, ``decode_step`` and their
-paged twins return it for symmetry with ``repro``.
+paged twins return it for symmetry with ``repro``. Those four read no
+tensor's value on the host and allocate at fixed shapes, so a tick of
+them can be captured in a CUDA graph (``serve/graphs.py``); on the
+kernel path, that is, since the plain versions read the longest length.
 
 Entry points take ``device="cuda"`` by default and raise without a card
 unless the caller passes ``device="cpu"``.
@@ -17,11 +20,11 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.paged import scatter_plan, token_rows
+from repro_torch.kernels.paged import scatter_index, token_rows
 from repro_torch.layers.attention_layer import (
     attn_init_paged_cache,
     chunk_gate,
-    chunk_plan,
+    chunk_index,
 )
 from repro_torch.layers.common import rmsnorm, rmsnorm_init
 from repro_torch.layers.embedding import embed_apply, embed_init, logits_apply
@@ -134,10 +137,11 @@ def prefill(params, state, tokens, lengths, n_valid, cfg):
     C = tokens.shape[1]
     x = embed_apply(params["embed"], tokens).to(_dtype(cfg.dtype))
     span = state["caches"][0]["k"].shape[2]
-    plan = chunk_plan(*chunk_gate(lengths, n_valid, C, span,
-                                  rolling=bool(cfg.window)), span)
+    index = chunk_index(*chunk_gate(lengths, n_valid, C, span,
+                                    rolling=bool(cfg.window)), span,
+                        cfg.num_kv_heads)
     for p, cache in zip(params["layers"], state["caches"]):
-        _, x = block_prefill(p, cache, x, cfg, lengths, n_valid, plan)
+        _, x = block_prefill(p, cache, x, cfg, lengths, n_valid, index)
     return _last_logits(params, x, n_valid), state
 
 
@@ -178,11 +182,11 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     x = embed_apply(params["embed"], tokens).to(_dtype(cfg.dtype))
     idx = torch.arange(C, device=tokens.device)[None, :]
     chunk_rows = token_rows(block_tables, lengths[:, None] + idx, page_size)
-    plan = scatter_plan(chunk_rows.reshape(-1), _pool_rows(state),
-                        (idx < n_valid[:, None]).reshape(-1))
+    index = scatter_index(chunk_rows.reshape(-1), _pool_rows(state),
+                          (idx < n_valid[:, None]).reshape(-1))
     for p, cache in zip(params["layers"], state["caches"]):
         _, x = block_paged_prefill(p, cache, x, cfg, lengths, n_valid,
-                                   chunk_rows, plan, block_tables, page_size)
+                                   index, block_tables, page_size)
     return _last_logits(params, x, n_valid), state
 
 
@@ -233,10 +237,10 @@ def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
     """One decode tick: tokens1 (B,) at positions ``lengths`` ->
     (logits (B, V), state)."""
     x = embed_apply(params["embed"], tokens1).to(_dtype(cfg.dtype))
-    write_row = token_rows(block_tables, lengths, page_size)
-    plan = scatter_plan(write_row, _pool_rows(state))
+    index = scatter_index(token_rows(block_tables, lengths, page_size),
+                          _pool_rows(state))
     for p, cache in zip(params["layers"], state["caches"]):
-        _, x = block_paged_decode_step(p, cache, x, cfg, lengths, write_row,
-                                       plan, block_tables, page_size)
+        _, x = block_paged_decode_step(p, cache, x, cfg, lengths, index,
+                                       block_tables, page_size)
     x = rmsnorm(params["final_norm"], x)
     return logits_apply(params["embed"], x), state

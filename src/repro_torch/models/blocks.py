@@ -46,12 +46,12 @@ def block_init_cache(cfg, batch, max_len, dtype, device):
     return attn_init_cache(cfg, batch, span, dtype, device)
 
 
-def block_prefill(params, cache, x, cfg, lengths, n_valid, plan):
-    """Chunked prefill through one block; ``plan`` is the tick's
-    ``chunk_plan`` of the cache writes."""
+def block_prefill(params, cache, x, cfg, lengths, n_valid, index):
+    """Chunked prefill through one block; ``index`` is the tick's
+    ``chunk_index`` of the cache writes."""
     h = rmsnorm(params["norm_mix"], x)
     cache, h = attn_prefill_step(params["mix"], cache, h, cfg, lengths,
-                                 n_valid, plan, window=cfg.window)
+                                 n_valid, index, window=cfg.window)
     return cache, _ffn(params, x + h)
 
 
@@ -71,20 +71,19 @@ def block_decode_step(params, cache, x1, cfg, lengths):
     return cache, _ffn(params, x1 + h)
 
 
-def block_paged_prefill(params, cache, x, cfg, lengths, n_valid, chunk_rows,
-                        chunk_plan, block_tables, page_size):
+def block_paged_prefill(params, cache, x, cfg, lengths, n_valid, write_index,
+                        block_tables, page_size):
     h = rmsnorm(params["norm_mix"], x)
     cache, h = attn_paged_prefill_step(
-        params["mix"], cache, h, cfg, lengths, n_valid, chunk_rows,
-        chunk_plan, window=cfg.window, block_tables=block_tables,
-        page_size=page_size)
+        params["mix"], cache, h, cfg, lengths, n_valid, write_index,
+        window=cfg.window, block_tables=block_tables, page_size=page_size)
     return cache, _ffn(params, x + h)
 
 
-def block_paged_decode_step(params, cache, x1, cfg, lengths, write_row,
-                            write_plan, block_tables, page_size):
+def block_paged_decode_step(params, cache, x1, cfg, lengths, write_index,
+                            block_tables, page_size):
     h = rmsnorm(params["norm_mix"], x1)
     cache, h = attn_paged_decode_step(
-        params["mix"], cache, h, cfg, lengths, write_row, write_plan,
+        params["mix"], cache, h, cfg, lengths, write_index,
         window=cfg.window, block_tables=block_tables, page_size=page_size)
     return cache, _ffn(params, x1 + h)

@@ -74,6 +74,20 @@ temp-0 streams stay those of a fault-free run; ``"strict"`` raises
 order, so one schedule hits the same opportunities in both engines;
 ``save_snapshot`` / ``serve.snapshot.restore_engine`` carry a mid-flight
 engine across a restart.
+
+Compiled ticks (``serve/graphs.py``, the port of ``repro``'s ``jax.jit``
+over its tick functions): on a CUDA device each tick function, prefill
+and decode, runs as a CUDA graph captured at its first call, over static
+input buffers at the engine's fixed ``slots``, ``chunk_size`` and block
+table width, its logits a static output. Sampling, the chaos points, the
+NaN sentinel, admission, reservation, preemption, copies on write and the
+prefix index stay on the host, outside the graphs, as they stay outside
+``repro``'s ``jit``. ``eager_ticks=True`` runs the ticks eagerly on the
+same buffers (the counterpart of ``jax.disable_jit()``); the CPU always
+does. ``attention_impl="plain"`` reads the longest length on the host,
+which a capture cannot take, so on the card it needs ``eager_ticks``.
+Every path keeps the addresses the graphs hold: the state is updated in
+place, and a restore copies into it.
 """
 from __future__ import annotations
 
@@ -114,6 +128,7 @@ from repro_torch.serve.metrics import (
     MetricsRegistry,
     make_dispatch_sink,
 )
+from repro_torch.serve.graphs import TickGraph
 from repro_torch.serve.paged import BlockPool, blocks_for, kv_token_bytes
 from repro_torch.serve.sampling import row_seed, sample_tokens
 
@@ -147,6 +162,24 @@ def analytic_prefill_flops(cfg, start: int, end: int) -> int:
     flops += (4 * cfg.num_heads * cfg.resolved_head_dim() * cfg.num_layers
               * span)
     return int(flops)
+
+
+def _tick_fns(params, state, cfg, page_size):
+    """The (prefill, decode) tick functions a ``TickGraph`` runs, on the
+    paged pools when ``page_size`` is given: logits only, the state being
+    updated in place. They hold the tensors, not the engine, so an engine
+    dropped by its caller frees its graphs and caches at once."""
+    if page_size is None:
+        return (lambda tokens, lengths, n_valid: prefill(
+                    params, state, tokens, lengths, n_valid, cfg)[0],
+                lambda tokens, lengths: decode_step(
+                    params, state, tokens, lengths, cfg)[0])
+    return (lambda tokens, lengths, n_valid, tables: prefill_paged(
+                params, state, tokens, lengths, n_valid, tables, cfg,
+                page_size=page_size)[0],
+            lambda tokens, lengths, tables: decode_step_paged(
+                params, state, tokens, lengths, tables, cfg,
+                page_size=page_size)[0])
 
 
 @dataclasses.dataclass
@@ -191,6 +224,7 @@ class ServeEngine:
                  deadline_steps: int | None = None,
                  deadline_s: float | None = None,
                  max_preemptions: int | None = None,
+                 eager_ticks: bool = False,
                  device="cuda"):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
@@ -225,6 +259,12 @@ class ServeEngine:
                              f"{ATTENTION_IMPLS}, got {cfg.attention_impl!r}")
         self.attention_impl = cfg.attention_impl
         self.device = resolve_device(device)
+        self.eager_ticks = bool(eager_ticks) or self.device.type != "cuda"
+        if not self.eager_ticks and cfg.attention_impl == "plain":
+            raise ValueError(
+                "attention_impl='plain' reads the longest length on the "
+                "host, which a CUDA graph cannot capture: pass "
+                "eager_ticks=True to serve it on the card")
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -271,6 +311,19 @@ class ServeEngine:
                                            device=self.device)
         self.lengths = np.zeros((slots,), np.int32)
         self.cur_tok = np.zeros((slots,), np.int32)
+        # the tick functions over static input buffers (serve/graphs.py)
+        capture = not self.eager_ticks
+        gpool = torch.cuda.graph_pool_handle() if capture else None
+        tables = ({"tables": self.pool.tables.shape} if self.paged else {})
+        prefill_fn, decode_fn = _tick_fns(
+            params, self.state, cfg, self.page_size if self.paged else None)
+        self._prefill_graph = TickGraph(
+            prefill_fn, {"tokens": (slots, self.chunk_size),
+                         "lengths": (slots,), "n_valid": (slots,), **tables},
+            self.device, capture=capture, pool=gpool, warm_zero=("n_valid",))
+        self._decode_graph = TickGraph(
+            decode_fn, {"tokens": (slots,), "lengths": (slots,), **tables},
+            self.device, capture=capture, pool=gpool)
         self.requests: list[Request | None] = [None] * slots
         self.queue: list[Request] = []
         self._admit_seq = 0
@@ -718,8 +771,8 @@ class ServeEngine:
                     f"left to evict; raise pool_blocks")
             self._preempt(victim)
         src, dst = pair
-        self.state = copy_paged_block(self.state, self.cfg, src, dst,
-                                      page_size=self.page_size)
+        copy_paged_block(self.state, self.cfg, src, dst,
+                         page_size=self.page_size)
         if self.metrics.trace:
             self.metrics.instant("cow_copy", pid=PID_REQUESTS,
                                  tid=self.requests[s].rid, step=self.ticks,
@@ -773,8 +826,15 @@ class ServeEngine:
                 self._register_full_pages(s, self.requests[s])
 
     # -- engine steps -------------------------------------------------------
-    def _tensor(self, a):
-        return torch.tensor(a, device=self.device)
+    def _tables(self) -> dict:
+        return {"tables": self.pool.tables} if self.paged else {}
+
+    def graph_stats(self) -> dict:
+        """Per tick kind: whether its graph was captured, its replays, the
+        warm-up and capture wall ms, the bytes its capture added to the
+        engine's graph pool and its launches a replay."""
+        return {"prefill": self._prefill_graph.stats(),
+                "decode": self._decode_graph.stats()}
 
     def _sample(self, logits):
         """(tokens, finite) on the host: the sampled token of every slot and
@@ -820,7 +880,9 @@ class ServeEngine:
 
     def _chaos_logits(self, active, logits):
         """logits chaos: overwrite an injected slot's logits row with NaN on
-        the device before sampling (a device-side numerical fault)."""
+        the device before sampling (a device-side numerical fault), in
+        place: in a graph's static logits the next replay writes them
+        anew."""
         for s in active:
             if fault_point("logits", slot=s, rid=self.requests[s].rid):
                 logits[s] = float("nan")
@@ -869,14 +931,8 @@ class ServeEngine:
                 take = 1
                 toks[s, 0] = self.cur_tok[s]
             nv[s] = take
-        args = (self.params, self.state, self._tensor(toks),
-                self._tensor(self.lengths), self._tensor(nv))
-        if self.paged:
-            logits, self.state = prefill_paged(
-                *args, self._tensor(self.pool.tables), self.cfg,
-                page_size=self.page_size)
-        else:
-            logits, self.state = prefill(*args, self.cfg)
+        logits = self._prefill_graph(tokens=toks, lengths=self.lengths,
+                                     n_valid=nv, **self._tables())
         nxt, finite = self._sample(self._chaos_logits(active, logits))
         self._c_ticks.inc()
         self._c_prefill_steps.inc()
@@ -901,14 +957,8 @@ class ServeEngine:
     def _decode_tick(self, active):
         """Single-token step; with chunk_size=1 it also teacher-forces
         prompts."""
-        args = (self.params, self.state, self._tensor(self.cur_tok),
-                self._tensor(self.lengths))
-        if self.paged:
-            logits, self.state = decode_step_paged(
-                *args, self._tensor(self.pool.tables), self.cfg,
-                page_size=self.page_size)
-        else:
-            logits, self.state = decode_step(*args, self.cfg)
+        logits = self._decode_graph(tokens=self.cur_tok, lengths=self.lengths,
+                                    **self._tables())
         nxt, finite = self._sample(self._chaos_logits(active, logits))
         self._c_ticks.inc()
         self._c_decode_steps.inc()

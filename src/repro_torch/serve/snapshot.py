@@ -143,11 +143,13 @@ def save_snapshot(engine, path: str) -> dict:
 
 
 def restore_engine(path: str, params, cfg, *, metrics=None, trace=False,
-                   device="cuda"):
+                   eager_ticks=False, device="cuda"):
     """Rebuild a ``ServeEngine`` on ``device`` from a snapshot written by
     ``save_snapshot``. ``params`` and ``cfg`` must be those the saving
     engine served: a snapshot of another architecture raises ValueError
-    (a cache read under the wrong shapes would be wrong, not restarted)."""
+    (a cache read under the wrong shapes would be wrong, not restarted).
+    ``eager_ticks`` is the engine's own (how it ticks, not what it holds,
+    so the snapshot does not record it)."""
     from repro_torch.serve.engine import ServeEngine
 
     with np.load(path, allow_pickle=False) as z:
@@ -166,7 +168,8 @@ def restore_engine(path: str, params, cfg, *, metrics=None, trace=False,
         cur_tok = np.asarray(z["cur_tok"])
 
     engine = ServeEngine(params, cfg, metrics=metrics, trace=trace,
-                         device=device, **meta["ctor"])
+                         eager_ticks=eager_ticks, device=device,
+                         **meta["ctor"])
     fresh = _leaves(engine.state)
     if len(fresh) != meta["n_leaves"]:
         raise ValueError(

@@ -14,7 +14,9 @@ caches hold large finite stale rows past each length instead (the
 reference multiplies zero weights into them). At the engine level, the
 shared-prefix cache on the two paged kernels: warm streams equal cold
 ones, and the kernel engine's equal the plain engine's on spliced and
-copied-on-write block tables.
+copied-on-write block tables. The compiled ticks: an engine whose ticks
+replay CUDA graphs equals one with eager ticks bit for bit, and counts
+each replay's launches.
 """
 import sys
 from pathlib import Path
@@ -570,7 +572,8 @@ def _smoke_engine(cuda, variant, kv_dtype, impl="kernel", **kw):
     params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
     return ServeEngine(params, cfg, kv_layout="paged", kv_dtype=kv_dtype,
-                       attention_impl=impl, device=cuda, **kw)
+                       attention_impl=impl, eager_ticks=impl == "plain",
+                       device=cuda, **kw)
 
 
 def _shared_prompts(shared_len, tails, seed):
@@ -717,3 +720,107 @@ def test_snapshot_round_trip_on_kernels(cuda, layout, tmp_path):
     assert set(build.COUNTS) <= pair and build.COUNTS
     for r in carried:
         assert r.finish_reason == "length" and r.out == expect[r.rid]
+
+
+# -- the compiled ticks: CUDA graphs against eager ticks ----------------------
+
+GRAPH_CELLS = {
+    "paged/int8": dict(kv_layout="paged", page_size=16, kv_dtype="int8"),
+    "contiguous/fp32": dict(kv_layout="contiguous", kv_dtype="fp32"),
+    "contiguous/int8": dict(kv_layout="contiguous", kv_dtype="int8"),
+}
+
+
+def _graph_run(cuda, cell, eager, prompts, fn_wrap=None):
+    """Serve ``prompts`` (8 new tokens each) on a smoke qwen2-0.5b (bf16,
+    ExpMul) engine; returns (engine, streams, every tick's logits, the
+    launch counts)."""
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    eng = ServeEngine(params, cfg, slots=4, max_len=128, chunk_size=32,
+                      eager_ticks=eager, device=cuda, **GRAPH_CELLS[cell])
+    ticks = []
+    chaos = eng._chaos_logits
+
+    def hook(active, logits):
+        ticks.append(logits.clone())
+        return chaos(active, logits)
+
+    eng._chaos_logits = hook
+    build.reset_counts()
+    reqs = [eng.submit(p, 8, rid=i) for i, p in enumerate(prompts)]
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, [r.out for r in reqs], ticks, dict(build.COUNTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(GRAPH_CELLS))
+def test_graph_ticks_equal_eager_ticks(cuda, cell):
+    """Temp-0 streams, and every tick's logits, of an engine replaying CUDA
+    graphs are the eager engine's bit for bit (the same kernels, GEMMs and
+    order; the first ticks are a prefill and, after it, decodes); the
+    launch counts are equal, each replay's captured launches once."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 200, int(n)).tolist()
+               for n in rng.integers(20, 90, 6)]
+    _, out, logits, counts = _graph_run(cuda, cell, True, prompts)
+    eng, gout, glogits, gcounts = _graph_run(cuda, cell, False, prompts)
+    assert gout == out
+    assert len(glogits) == len(logits) > 2
+    for i, (a, b) in enumerate(zip(glogits, logits)):
+        assert torch.equal(a, b), f"tick {i + 1}"
+    assert gcounts == counts
+    st = eng.graph_stats()
+    pair = ({"paged_prefill", "paged_decode"} if cell.startswith("paged")
+            else {"prefill", "decode"})
+    want = {}
+    for kind in ("prefill", "decode"):
+        assert st[kind]["captured"] and st[kind]["replays"] > 0
+        assert st[kind]["replays"] == getattr(eng, f"{kind}_steps")
+        for name, n in st[kind]["launches_per_replay"].items():
+            want[name] = want.get(name, 0) + n * st[kind]["replays"]
+    assert gcounts == want and set(gcounts) == pair
+    dec, pre = sorted(pair)
+    layers = eng.cfg.num_layers
+    assert st["prefill"]["launches_per_replay"] == {pre: layers}
+    assert st["decode"]["launches_per_replay"] == {dec: layers}
+
+
+@pytest.mark.cuda
+def test_plain_impl_needs_eager_ticks_on_the_card(cuda):
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    with pytest.raises(ValueError, match="eager_ticks"):
+        ServeEngine(params, cfg, attention_impl="plain", device=cuda)
+    eng = ServeEngine(params, cfg, attention_impl="plain", eager_ticks=True,
+                      device=cuda)
+    eng.submit([1, 2, 3], 2)
+    eng.run()
+    assert not eng.graph_stats()["prefill"]["captured"]
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda):
+    """A tick that reads a value on the host cannot be captured: the tick
+    raises, and nothing runs it eagerly instead."""
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    eng = ServeEngine(params, cfg, kv_layout="paged", page_size=16,
+                      device=cuda)
+    fn = eng._prefill_graph.fn
+
+    def syncing(**kw):
+        out = fn(**kw)
+        int(kw["lengths"].max())            # a host read: capture refuses it
+        return out
+
+    eng._prefill_graph.fn = syncing
+    eng.submit([1, 2, 3, 4], 2)
+    with pytest.raises(RuntimeError):
+        eng.tick()
+    assert eng.ticks == 0 and eng._prefill_graph.graph is None
+    torch.cuda.synchronize()
