@@ -6,8 +6,9 @@
 from the repository root, on a machine with an NVIDIA Hopper card, PyTorch
 built for CUDA and the CUDA toolkit. It imports nothing of JAX or of the
 JAX package. It drives both serving KV layouts (the paged pool and the
-per-slot contiguous caches with rolling windows), the training path, and
-the paper's demonstrations (the quickstart and the Table I study).
+per-slot contiguous caches with rolling windows) for qwen2-0.5b and
+gemma-7b, the training path, and the paper's demonstrations (the
+quickstart and the Table I study).
 Phases (a failing check raises, and the script exits non-zero):
 
 1. print the card's name and power limit; build the kernels from
@@ -61,12 +62,24 @@ Phases (a failing check raises, and the script exits non-zero):
    for NaN and inf x, outside the contract, kernel bits equal to the plain
    version's on the card and on the host, a NaN x leaving v unchanged (as
    the reference's L_hat 0 does);
+2b. the four serving kernels at gemma-7b's head dims, 32 (its smoke
+   config) and 256, against their plain versions
+   (``checks.head_dim_cases``: 16 / 16 heads, B 4, lengths across the
+   256-wide decode tiles and the 512-wide prefill tiles, a length 0, a
+   chunk with n_valid 0) over float32, bfloat16, int8 and fp8 KV, exact
+   and ExpMul, float32 and bfloat16 q, and GQA group 4 at 256; the largest
+   group each decode kernel takes at 256 by KV dtype, from its shared
+   memory, and a float32 launch one group past it refused with a
+   ValueError before any launch;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
    pair of prefill ticks (window 256, two 256-token chunks, so the
    contiguous rolling buffer wraps). Logits within 1e-3 of their
    magnitude for exact, the gap printed for ExpMul;
+3b. gemma-7b at full width (head dim 256, GeGLU, scaled embeddings),
+   depth cut to 4 layers for the plain runs, float32: the same ticks on a
+   paged int8 pool and on contiguous fp32 caches, gated as in 3;
 4. serving at full width: ``ServeEngine`` with 8 slots, 16 requests of
    128-1024 prompt tokens and 32 new tokens each, ExpMul, temperature 0,
    on three layouts: a paged int8 pool (its shared-prefix cache on, the
@@ -121,6 +134,11 @@ Phases (a failing check raises, and the script exits non-zero):
    alone, its pool consistent and empty after it; (a) is served once more
    with eager ticks, its streams gated equal to the graphs'; tokens/s,
    TTFT p50 and tick p50 of (a) and (b) printed;
+4d. gemma-7b served at full width and depth (bf16, ExpMul, seed-2 random
+   weights) as phase 4 serves qwen2-0.5b, on a paged int8 pool and on
+   contiguous fp32 caches, each with graph ticks and eager ticks: streams
+   gated equal, launches gated as in 4; tokens/s, TTFT p50, tick p50s and
+   peak memory printed;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -135,7 +153,11 @@ Phases (a failing check raises, and the script exits non-zero):
    with the compiler's registers and spills of the four serving kernels'
    serving instantiations and flash's training one, and the shared memory
    a CTA of each is given, as the kernel's source reports it (the paged
-   decode's at 1,024 and 32,768 tokens of context, gated equal);
+   decode's at 1,024 and 32,768 tokens of context, gated equal); then the
+   four serving kernels at gemma-7b's serving shapes (16 / 16 heads of
+   256, the rest as above, the plain versions' median of 5 runs), with
+   the registers, spills and shared memory of every KV dtype's head-dim
+   256 instantiation;
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
    cosine schedule. One train step through the flash kernel and one
@@ -192,6 +214,9 @@ KERNELS = {
 }
 PAGED, CONTIGUOUS = ("paged_decode", "paged_prefill"), ("decode", "prefill")
 B, H, HKV, D, PS, MAX_LEN, CHUNK, CTX = 8, 14, 2, 64, 16, 2048, 256, 1024
+# gemma-7b: 16 / 16 heads of 256 (the paper's largest head dim), and 32 in
+# its smoke config
+GEMMA, GEMMA_H, GEMMA_D, GEMMA_TICK_LAYERS = "gemma-7b", 16, 256, 4
 TRAIN_SEQ, TRAIN_STEPS = 1024, 6
 FLASH_EDGE_SEQS = (1, 31, 33, 65, 1000)
 # the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
@@ -475,6 +500,69 @@ def phase_kernel_checks(torch, checks):
     log(f"[check] worst rel err: {json.dumps(worst)}")
 
 
+def phase_head_dim_checks(torch, checks, build, decode):
+    """The four serving kernels at head dims 32 (gemma-7b's smoke config)
+    and 256 (its full width) against their plain versions
+    (``checks.head_dim_cases``: 16 / 16 heads, B 4, lengths across the
+    256-wide decode tiles and the 512-wide prefill tiles, a length 0, a
+    chunk with n_valid 0) over float32, bfloat16, int8 and fp8 KV, exact
+    and ExpMul, float32 and bfloat16 q, at ``checks.kernel_tol``; GQA group
+    4 at 256; then the largest group each decode kernel takes at 256 (its
+    shared memory, from its own C query, within the card's limit), and a
+    float32 launch one group past it raising ``ValueError`` before any
+    launch."""
+    rng = np.random.default_rng(12)
+    worst, n = {}, 0
+    cases = [(hd, kv, q_dtype, 1) for hd in (32, GEMMA_D)
+             for kv in checks.KV_KINDS
+             for q_dtype in (torch.float32, torch.bfloat16)]
+    cases += [(GEMMA_D, kv, torch.bfloat16, 4) for kv in ("f32", "int8")]
+    for hd, kv, q_dtype, group in cases:
+        for name, run, case, idle, label in checks.head_dim_cases(
+                rng, hd, kv=kv, q_dtype=q_dtype, group=group):
+            for variant in ("exact", "expmul"):
+                _hold(torch, checks, name, run, case, variant, q_dtype, idle,
+                      label, worst)
+                n += 1
+    log(f"[check] head dims 32 and 256: {n} cases, worst rel err "
+        f"{json.dumps(worst)}")
+    limit = decode.card_smem_limit(torch.device("cuda"))
+    largest = {}
+    for kv, dt in checks.KV_KINDS.items():
+        for name, smem in (
+                ("decode", lambda g: decode.contiguous_decode_smem(
+                    g, GEMMA_D, decode.BLOCK_K, dt)),
+                ("paged_decode", lambda g: decode.paged_decode_smem(
+                    g, GEMMA_D, PS, MAX_LEN // PS, dt))):
+            fits = [g for g in range(1, 33) if 0 < smem(g) <= limit]
+            largest[f"{name} {kv}"] = max(fits)
+            if fits != list(range(1, max(fits) + 1)):
+                raise AssertionError(f"{name} {kv}: shared memory not "
+                                     f"monotone in the group")
+    log(f"[check] the largest GQA group a CTA takes at head dim 256 (limit "
+        f"{limit} B): {json.dumps(largest)}")
+    for name, run in (("paged_decode", checks.run_decode),
+                      ("decode", checks.run_contiguous_decode)):
+        group = largest[f"{name} f32"] + 1
+        if group > 32:
+            continue
+        kw = dict(B=2, H=group, Hkv=1, D=GEMMA_D, lengths=[40, 7], kv="f32")
+        case = (checks.paged_case(rng, page_size=PS, max_blocks=4, **kw)
+                if name == "paged_decode" else
+                checks.contiguous_case(rng, S=2 * decode.BLOCK_K, **kw))
+        before = dict(build.COUNTS)
+        try:
+            run(case, "expmul")
+        except ValueError as e:
+            log(f"[check] {name} group {group} float32 at head dim 256 "
+                f"refused before its launch: {e}")
+        else:
+            raise AssertionError(f"{name}: group {group} was not refused")
+        if dict(build.COUNTS) != before:
+            raise AssertionError(f"{name}: a refused call launched")
+    return largest
+
+
 def _poisoned_pages(torch, checks, worst):
     """The ``kv_corrupt`` fault at the kernels: a poisoned page (NaN
     values, or int8 codes of -128 with NaN scales) in the first, a middle
@@ -670,39 +758,23 @@ def _ticks(torch, api, params, cfg, layout, bt, toks, chunks, tok1):
     return out
 
 
-def phase_model_ticks(torch, cfg_mod, api):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    base = cfg_mod.get_config("qwen2-0.5b", dtype="float32",
-                              param_dtype="float32", kv_dtype="int8")
-    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(0),
-                            device="cuda")
-    rng = np.random.default_rng(1)
-    mb = MAX_LEN // PS
-    bt = torch.from_numpy(rng.permutation(B * mb).astype(np.int32)
-                          .reshape(B, mb)).cuda()
-    chunks = [[256, 0, 100, 256, 17, 256, 1, 200],
-              [256, 0, 40, 256, 256, 10, 0, 256]]
-    toks = [torch.from_numpy(rng.integers(1, base.vocab_size, (B, CHUNK))
-                             .astype(np.int32)).cuda() for _ in chunks]
-    tok1 = torch.from_numpy(rng.integers(1, base.vocab_size, B)
-                            .astype(np.int32)).cuda()
-    # the windowed pair: a 256-slot rolling buffer that the second chunk
-    # wraps (rows of 356-512 tokens)
-    runs = [("paged", None, chunks, tok1), ("contiguous", None, chunks, tok1),
-            ("contiguous", 256, [chunks[0], [256, 0, 256, 256, 256, 10, 0,
-                                             256]], None)]
-    for layout, window, chs, t1 in runs:
+def _hold_ticks(torch, api, params, base, runs, bt, toks, tag=""):
+    """Each run (layout, window, kv_dtype, chunks, decode token) through the
+    kernels and through the plain versions, exact and ExpMul: logits
+    within 1e-3 of their magnitude for exact, the gap printed for
+    ExpMul."""
+    for layout, window, kv_dtype, chs, t1 in runs:
         for variant in ("exact", "expmul"):
             logits = {}
             for impl in ("kernel", "plain"):
                 cfg = base.replace(attention_variant=variant,
-                                   attention_impl=impl, window=window)
+                                   attention_impl=impl, window=window,
+                                   kv_dtype=kv_dtype)
                 t0 = time.perf_counter()
                 logits[impl] = _ticks(torch, api, params, cfg, layout, bt,
                                       toks, chs, t1)
-                log(f"[model] {layout} window={window} {variant} {impl}: "
-                    f"{len(logits[impl])} ticks in "
+                log(f"[model] {tag}{layout} {kv_dtype} window={window} "
+                    f"{variant} {impl}: {len(logits[impl])} ticks in "
                     f"{time.perf_counter() - t0:.2f} s")
             for i, ((a, rows), (b, _)) in enumerate(zip(logits["kernel"],
                                                         logits["plain"])):
@@ -711,17 +783,70 @@ def phase_model_ticks(torch, cfg_mod, api):
                     raise AssertionError("non-finite logits")
                 gap = float((a - b).abs().max() / b.abs().max())
                 tick = ["prefill", "prefill over history", "decode"][i]
-                log(f"[model] {layout} window={window} {variant} {tick}: "
-                    f"max|dlogits| / max|logits| = {gap:.3e} "
-                    f"(max|logits| {float(b.abs().max()):.3f})")
+                log(f"[model] {tag}{layout} {kv_dtype} window={window} "
+                    f"{variant} {tick}: max|dlogits| / max|logits| = "
+                    f"{gap:.3e} (max|logits| {float(b.abs().max()):.3f})")
                 if variant == "exact" and not gap <= 1e-3:
                     raise AssertionError("kernel logits disagree with plain")
+
+
+def _tick_inputs(torch, rng, vocab):
+    """Shuffled block tables, two chunks of token ids and one decode token
+    a row, with the chunks' n_valid (8 rows: idle, ragged and full)."""
+    mb = MAX_LEN // PS
+    bt = torch.from_numpy(rng.permutation(B * mb).astype(np.int32)
+                          .reshape(B, mb)).cuda()
+    chunks = [[256, 0, 100, 256, 17, 256, 1, 200],
+              [256, 0, 40, 256, 256, 10, 0, 256]]
+    toks = [torch.from_numpy(rng.integers(1, vocab, (B, CHUNK))
+                             .astype(np.int32)).cuda() for _ in chunks]
+    tok1 = torch.from_numpy(rng.integers(1, vocab, B)
+                            .astype(np.int32)).cuda()
+    return bt, chunks, toks, tok1
+
+
+def phase_model_ticks(torch, cfg_mod, api):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = cfg_mod.get_config("qwen2-0.5b", dtype="float32",
+                              param_dtype="float32", kv_dtype="int8")
+    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    bt, chunks, toks, tok1 = _tick_inputs(torch, np.random.default_rng(1),
+                                          base.vocab_size)
+    # the windowed pair: a 256-slot rolling buffer that the second chunk
+    # wraps (rows of 356-512 tokens)
+    runs = [("paged", None, "int8", chunks, tok1),
+            ("contiguous", None, "int8", chunks, tok1),
+            ("contiguous", 256, "int8", [chunks[0], [256, 0, 256, 256, 256,
+                                                     10, 0, 256]], None)]
+    _hold_ticks(torch, api, params, base, runs, bt, toks)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_gemma_ticks(torch, cfg_mod, api):
+    """gemma-7b at full width (head dim 256, GeGLU, scaled embeddings),
+    depth cut to 4 layers for the plain runs' time, float32 (TF32 off):
+    the ticks of phase 3 on a paged int8 pool and on contiguous fp32
+    caches, kernels against plain versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = cfg_mod.get_config(GEMMA, dtype="float32", param_dtype="float32",
+                              num_layers=GEMMA_TICK_LAYERS)
+    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    bt, chunks, toks, tok1 = _tick_inputs(torch, np.random.default_rng(1),
+                                          base.vocab_size)
+    runs = [("paged", None, "int8", chunks, tok1),
+            ("contiguous", None, "fp32", chunks, tok1)]
+    _hold_ticks(torch, api, params, base, runs, bt, toks, tag=f"{GEMMA} ")
     del params
     torch.cuda.empty_cache()
 
 
 def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
-               sink=True):
+               sink=True, tag=""):
     """Serve ``prompts`` (32 new tokens each) on a fresh engine with the
     launch counts set to 0 just before and read just after: the ``pair``
     of kernels of the layout must have launched, and nothing else (no
@@ -731,7 +856,7 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
     serves with the engine's dispatch counters off. Returns (counts,
     per-step launches, the streams, the run's numbers)."""
     mode = "eager" if kw.get("eager_ticks") else "graphs"
-    label = (f"{kw['kv_layout']}/{kw['kv_dtype']} {mode}"
+    label = (f"{tag}{kw['kv_layout']}/{kw['kv_dtype']} {mode}"
              + ("" if sink else " (no sink)"))
     warm = ServeEngine(params, cfg, **kw)              # cuBLAS, allocator
     for p in prompts[:2]:
@@ -803,7 +928,7 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
         f"= {gen / wall:.1f} tokens/s; TTFT from submit p50 "
         f"{statistics.median(ttft):.1f} ms, max {max(ttft):.1f} ms; peak "
         f"memory {peak / 2**30:.2f} GiB; preemptions {eng.preemptions}")
-    if sink and mode == "eager":
+    if sink and mode == "eager" and not tag:
         tps0, ttft0 = BEFORE_SERVE[label.split()[0]]
         log(f"[serve] {label}: at 35522df {tps0} tokens/s, TTFT p50 {ttft0} "
             f"ms (not gated)")
@@ -906,6 +1031,58 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
         f"results depend on the tile width, so no gate): {same} of "
         f"{sum(map(len, streams['paged/int8']))} tokens at the same "
         f"position, first tokens {first} of {len(prompts)}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine):
+    """gemma-7b at full width and depth (bf16, ExpMul, random weights from
+    seed 2) served as phase 4 serves qwen2-0.5b: the same 16 prompts'
+    lengths, 32 new tokens each, 8 slots, ``max_len`` 2048, chunk 256,
+    temperature 0, on a paged int8 pool and on contiguous fp32 caches
+    (bf16 rows, the compute dtype), each with CUDA-graph ticks and eager
+    ticks: streams gated equal, each run on its layout's two kernels
+    alone, in replays x captured launches under graphs. Returns the
+    launches of each kernel under graphs."""
+    cfg = cfg_mod.get_config(GEMMA)                 # bf16, ExpMul
+    assert cfg.attention_variant == "expmul" and cfg.dtype == "bfloat16"
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
+                            device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(128, 1025, size=16)]
+    kw = dict(kv_layout="paged", page_size=PS, kv_dtype="int8", slots=B,
+              max_len=MAX_LEN, chunk_size=CHUNK, temperature=0.0,
+              attention_impl="kernel", device="cuda")
+    ckw = dict(kw, kv_layout="contiguous", kv_dtype="fp32")
+    del ckw["page_size"]
+    launches = {}
+    for label, lkw, pair in (("paged/int8", kw, PAGED),
+                             ("contiguous/fp32", ckw, CONTIGUOUS)):
+        runs = {}
+        for mode in ("graphs", "eager"):
+            runs[mode] = _serve_run(torch, build, ServeEngine, params, cfg,
+                                    prompts, dict(lkw, eager_ticks=mode ==
+                                                  "eager"), pair,
+                                    tag=f"{GEMMA} ")
+            torch.cuda.empty_cache()
+        (counts, _, out, g), (_, _, eager_out, e) = (runs["graphs"],
+                                                     runs["eager"])
+        same = sum(a == b for x, y in zip(out, eager_out)
+                   for a, b in zip(x, y))
+        log(f"[serve] {GEMMA} {label}: graphs vs eager temp-0 streams, "
+            f"{same} of {sum(map(len, out))} tokens equal; tokens/s "
+            f"{g['tokens_per_s']:.1f} / {e['tokens_per_s']:.1f}; TTFT p50 "
+            f"{g['ttft_p50_ms']:.1f} / {e['ttft_p50_ms']:.1f} ms; tick p50 "
+            f"prefill {g['prefill_p50_ms']:.2f} / {e['prefill_p50_ms']:.2f} "
+            f"ms, decode {g['decode_p50_ms']:.2f} / {e['decode_p50_ms']:.2f} "
+            f"ms; peak memory {g['peak_gib']:.2f} / {e['peak_gib']:.2f} GiB")
+        if out != eager_out:
+            raise AssertionError(f"{GEMMA} {label}: the graph engine's "
+                                 f"streams differ from the eager engine's")
+        for name in pair:
+            launches[name] = counts[name]
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1448,32 +1625,35 @@ def phase_train(torch, cfg_mod, api, build):
                           launches_per_step=per_step)}
 
 
-def _bounds(name, lengths, n_valid=None):
+def _bounds(name, lengths, n_valid=None, h=H, hkv=HKV, d=D):
     """(bytes, flops) the function needs at these lengths: each input read
     once (q, the resident codes and scale rows, the chunk, the block
     tables of a paged kernel, the lengths), each output written once; 4*D
-    flops per (query, key) pair."""
+    flops per (query, key) pair; h / hkv heads of d."""
     L = np.asarray(lengths, np.int64)
     decode = name.endswith("decode")
-    q_out = 2 * 2 * B * H * D * (1 if decode else CHUNK)
-    cache = int((HKV * L * (2 * D + 2 * 4)).sum())          # codes + scales
+    q_out = 2 * 2 * B * h * d * (1 if decode else CHUNK)
+    cache = int((hkv * L * (2 * d + 2 * 4)).sum())          # codes + scales
     if name.startswith("paged"):
         meta = int((-(-L // PS) * 4).sum()) + 4 * B * 2
     else:
         meta = 4 * B * (1 if decode else 2)
     if decode:
-        pairs = int((H * L).sum())
-        return q_out + cache + meta, 4 * D * pairs
+        pairs = int((h * L).sum())
+        return q_out + cache + meta, 4 * d * pairs
     nv = np.asarray(n_valid, np.int64)
-    chunk = B * HKV * CHUNK * (2 * D + 2 * 4)
-    pairs = int((H * (CHUNK * L + nv * (nv + 1) // 2)).sum())
-    return q_out + cache + chunk + meta, 4 * D * pairs
+    chunk = B * hkv * CHUNK * (2 * d + 2 * 4)
+    pairs = int((h * (CHUNK * L + nv * (nv + 1) // 2)).sum())
+    return q_out + cache + chunk + meta, 4 * d * pairs
 
 
-def phase_times(torch, checks, F):
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    rng = np.random.default_rng(4)
-    common = dict(B=B, H=H, Hkv=HKV, D=D, q_dtype=torch.bfloat16,
+def _time_serving(torch, checks, F, flush, rng, h=H, hkv=HKV, d=D,
+                  plain_n=25, plain_warmup=3):
+    """The four serving kernels at the serving shapes (int8 codes, ExpMul,
+    bf16 q, B sequences of CTX tokens, CHUNK-token chunks) with h / hkv
+    heads of d: device time, time with the launch, the plain version's time
+    (the median of ``plain_n`` runs), the bound, and the yardstick."""
+    common = dict(B=B, H=h, Hkv=hkv, D=d, q_dtype=torch.bfloat16,
                   dyadic=False, device="cuda")
     paged = dict(common, page_size=PS, max_blocks=MAX_LEN // PS)
     lens, nv = [CTX] * B, [CHUNK] * B
@@ -1497,21 +1677,22 @@ def phase_times(torch, checks, F):
         err = float((got.float() - ref.float()).abs().max())
         rel = checks.rel_err(got, ref)
         if not rel <= checks.kernel_tol("expmul", torch.bfloat16):
-            raise AssertionError(f"{name} disagrees at the serving shapes")
+            raise AssertionError(f"{name} disagrees at the serving shapes "
+                                 f"(head dim {d})")
         ms = median_ms(torch, lambda: run(case, "expmul"), flush)
         host_ms = median_ms(torch, lambda: run(case, "expmul"), flush,
                             hide_host=False)
         plain_ms = median_ms(torch, lambda: run(case, "expmul", plain=True),
-                             flush)
-        nbytes, flops = _bounds(name, lens, nv)
+                             flush, n=plain_n, warmup=plain_warmup)
+        nbytes, flops = _bounds(name, lens, nv, h, hkv, d)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
         # the yardstick: the exact variant on bf16 values, and SDPA over a
         # dense bf16 copy of the same history (no paging, no quantization)
         case16 = make("bf16")
         exact_ms = median_ms(torch, lambda: run(case16, "exact"), flush)
         C = 1 if name.endswith("decode") else CHUNK
-        q = torch.randn(B, H, C, D, device="cuda", dtype=torch.bfloat16)
-        k = torch.randn(B, HKV, CTX + C - (C == 1), D, device="cuda",
+        q = torch.randn(B, h, C, d, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn(B, hkv, CTX + C - (C == 1), d, device="cuda",
                         dtype=torch.bfloat16)
         v = torch.randn_like(k)
         mask = None
@@ -1530,13 +1711,21 @@ def phase_times(torch, checks, F):
             yardstick={"what": "exact variant, bf16 values vs SDPA over a "
                        "dense bf16 copy", "kernel_ms": exact_ms,
                        "library_ms": sdpa_ms})
-        log(f"[time] {name} (int8 codes, ExpMul, B={B}, ctx {CTX}"
-            f"{', chunk %d' % CHUNK if C > 1 else ''}): kernel {ms:.4f} ms "
-            f"on the device, {host_ms:.4f} ms with its launch, "
-            f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.4f} "
-            f"ms ({out[name]['bound_by']}: {nbytes} B, {flops} flop), "
-            f"max abs err {err:.3e} (rel {rel:.3e}); yardstick exact bf16 "
-            f"kernel {exact_ms:.4f} ms vs SDPA dense {sdpa_ms:.4f} ms")
+        log(f"[time] {name} (int8 codes, ExpMul, B={B}, {h} / {hkv} heads "
+            f"of {d}, ctx {CTX}{', chunk %d' % CHUNK if C > 1 else ''}): "
+            f"kernel {ms:.4f} ms on the device, {host_ms:.4f} ms with its "
+            f"launch, plain {plain_ms:.4f} ms, bound "
+            f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({out[name]['bound_by']}: "
+            f"{nbytes} B, {flops} flop), max abs err {err:.3e} (rel "
+            f"{rel:.3e}); yardstick exact bf16 kernel {exact_ms:.4f} ms vs "
+            f"SDPA dense {sdpa_ms:.4f} ms")
+    return out
+
+
+def phase_times(torch, checks, F):
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(4)
+    out = _time_serving(torch, checks, F, flush, rng)
     out["flash"] = _time_flash(torch, checks, F, flush, rng)
     out["expmul"] = _time_expmul(torch, checks, flush, rng)
     for name, r in out.items():
@@ -1544,6 +1733,15 @@ def phase_times(torch, checks, F):
             f"at {commit} {ms[name]:.4f} ms ({ms[name] / r['ms']:.2f}x)"
             for commit, ms in BEFORE_MS.items()))
     return out
+
+
+def phase_gemma_times(torch, checks, F):
+    """The four serving kernels at gemma-7b's serving shapes: 16 / 16 heads
+    of 256, the rest as phase 5 (the plain versions' median of 5 runs)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    return _time_serving(torch, checks, F, flush, np.random.default_rng(5),
+                         h=GEMMA_H, hkv=GEMMA_H, d=GEMMA_D, plain_n=5,
+                         plain_warmup=1)
 
 
 # the main-path instantiations of the kernels, as the compiler names them:
@@ -1562,55 +1760,70 @@ def phase_resources(build, decode, prefill, flash):
     kernel's own source computes it (its C query). The paged decode's must
     be the same at 1,024 and at 32,768 tokens of context. Returns flash's
     registers, spills and shared memory at the training shapes."""
-    import ctypes
-
     import torch
     smem = {}
-    lib = build.load("decode", decode._CONTIGUOUS_SIGNATURE)
-    fn = lib.contiguous_decode_smem
-    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 4
     for group, dtype in ((H // HKV, torch.int8), (H // HKV, torch.float32),
                          (32, torch.float32)):
-        smem[f"decode group {group} {dtype}"] = fn(
-            group, D, 256, decode.KV_DTYPES[dtype])
-    lib = build.load("prefill", prefill._CONTIGUOUS_SIGNATURE)
-    fn = lib.contiguous_prefill_smem
-    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
-    smem["prefill bk 512"] = fn(D, 512)
-    lib = build.load("paged_decode", decode._SIGNATURE)
-    fn = lib.paged_decode_smem
-    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 5
+        smem[f"decode group {group} {dtype}"] = decode.contiguous_decode_smem(
+            group, D, 256, dtype)
+    smem["prefill bk 512"] = prefill.contiguous_prefill_smem(D, 512)
     for group, dtype in ((H // HKV, torch.int8), (H // HKV, torch.float32),
                          (32, torch.float32)):
-        at = {ctx: fn(group, D, PS, ctx // PS, decode.KV_DTYPES[dtype])
+        at = {ctx: decode.paged_decode_smem(group, D, PS, ctx // PS, dtype)
               for ctx in (CTX, 32768)}
         if len(set(at.values())) != 1 or min(at.values()) <= 0:
             raise AssertionError(f"paged_decode's shared memory grows with "
                                  f"the context: {at}")
         smem[f"paged_decode group {group} {dtype} (ctx {CTX} and 32768)"] = \
             at[CTX]
-    lib = build.load("paged_prefill", prefill._SIGNATURE)
-    fn = lib.paged_prefill_smem
-    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int]
-    smem["paged_prefill (static)"] = fn(D)
+    smem["paged_prefill"] = prefill.paged_prefill_smem(D)
     for hd in flash.HEAD_DIMS:
         smem[f"flash D {hd} bk 512"] = flash.smem_bytes(hd, 512)
     info = {}
     for name, entry in MAIN_ENTRY.items():
-        lines = build.build_log(name).splitlines()
-        at = [i for i, l in enumerate(lines)
-              if "Compiling entry function" in l and entry in l]
-        if not at:
-            raise AssertionError(f"no compiler report for {entry}")
-        info[name] = " | ".join(l.split(":", 1)[-1].strip()
-                                if "ptxas" in l else l.strip()
-                                for l in lines[at[0] + 1:at[0] + 5]
-                                if "registers" in l or "spill" in l)
+        info[name] = _ptxas(build, name, entry)
         log(f"[resources] {name} ({entry}): {info[name]}")
     log(f"[resources] shared memory a CTA, B (any S or context): "
         f"{json.dumps(smem)}")
-    return {"flash": {"ptxas": info["flash"],
-                      "smem_bytes": smem[f"flash D {D} bk 512"]}}
+    out = {"flash": {"ptxas": info["flash"],
+                     "smem_bytes": smem[f"flash D {D} bk 512"]}}
+    # gemma-7b's head dim: every KV dtype's ExpMul instantiation, group 1
+    smem_256 = {
+        "paged_decode": lambda dt: decode.paged_decode_smem(
+            1, GEMMA_D, PS, CTX // PS, dt),
+        "paged_prefill": lambda dt: prefill.paged_prefill_smem(GEMMA_D),
+        "decode": lambda dt: decode.contiguous_decode_smem(
+            1, GEMMA_D, decode.BLOCK_K, dt),
+        "prefill": lambda dt: prefill.contiguous_prefill_smem(
+            GEMMA_D, prefill.BLOCK_K)}
+    for name in PAGED + CONTIGUOUS:
+        d256 = {"ptxas": {}, "smem_bytes": {}}
+        for kv, (mangled, dtype) in KV_MANGLED.items():
+            d256["ptxas"][kv] = _ptxas(
+                build, name, f"{name}_kernelI{mangled}Li{GEMMA_D}ELb1EE")
+            d256["smem_bytes"][kv] = smem_256[name](getattr(torch, dtype))
+        log(f"[resources] {name} at head dim {GEMMA_D}, ExpMul, by KV "
+            f"dtype: {json.dumps(d256)}")
+        out[name] = {"d256": d256}
+    return out
+
+
+# the template arguments of a KV dtype as the compiler spells them
+KV_MANGLED = {"f32": ("f", "float32"), "bf16": ("13__nv_bfloat16", "bfloat16"),
+              "int8": ("a", "int8"), "fp8": ("13__nv_fp8_e4m3",
+                                              "float8_e4m3fn")}
+
+
+def _ptxas(build, name, entry) -> str:
+    """The compiler's registers and spills line of one instantiation."""
+    lines = build.build_log(name).splitlines()
+    at = [i for i, l in enumerate(lines)
+          if "Compiling entry function" in l and entry in l]
+    if not at:
+        raise AssertionError(f"no compiler report for {entry}")
+    return " | ".join(l.split(":", 1)[-1].strip() if "ptxas" in l
+                      else l.strip() for l in lines[at[0] + 1:at[0] + 5]
+                      if "registers" in l or "spill" in l)
 
 
 def _time_expmul(torch, checks, flush, rng):
@@ -1811,16 +2024,22 @@ def main() -> int:
     phases = (
         ("build", lambda: phase_build(build)),
         ("kernel checks", lambda: phase_kernel_checks(torch, checks)),
+        ("head dim checks", lambda: phase_head_dim_checks(torch, checks,
+                                                          build, decode)),
         ("expmul checks", lambda: phase_expmul_checks(torch, checks, build,
                                                       expmul_ops)),
         ("model ticks", lambda: phase_model_ticks(torch, cfg_mod, api)),
+        ("gemma ticks", lambda: phase_gemma_ticks(torch, cfg_mod, api)),
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("prefix", lambda: phase_prefix(torch, cfg_mod, api, build,
                                         ServeEngine)),
         ("faults", lambda: phase_faults(torch, cfg_mod, api, build,
                                         ServeEngine)),
+        ("gemma serve", lambda: phase_gemma_serve(torch, cfg_mod, api, build,
+                                                  ServeEngine)),
         ("times", lambda: phase_times(torch, checks, F)),
+        ("gemma times", lambda: phase_gemma_times(torch, checks, F)),
         ("resources", lambda: phase_resources(build, decode, prefill,
                                               flash)),
         ("train", lambda: phase_train(torch, cfg_mod, api, build)),
@@ -1838,6 +2057,15 @@ def main() -> int:
         launches_quickstart=results["quickstart"]["flash"],
         launches_fidelity=results["fidelity"]["flash"])
     launches["expmul"] = dict(launches=results["quickstart"]["expmul"])
+    # the serving kernels at gemma-7b's head dim: its serving run's
+    # launches, its times, each KV dtype's resources
+    for name in PAGED + CONTIGUOUS:
+        results["resources"][name]["d256"].update(
+            launches=results["gemma serve"][name],
+            largest_group={kv: results["head dim checks"][f"{name} {kv}"]
+                           for kv in KV_MANGLED}
+            if name.endswith("decode") else None,
+            **results["gemma times"][name])
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **launches[name],

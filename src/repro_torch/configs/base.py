@@ -2,7 +2,8 @@
 of ``repro.configs.base.ModelConfig`` under the same names and defaults.
 
 Fields of families the port does not serve yet (MoE, MLA, recurrent block
-kinds, encoder-decoder, modality frontends) are left out until their slice.
+kinds, encoder-decoder, modality frontends) are left out until their slice,
+and so are ``family`` and ``max_seq_len``, which nothing of the port reads.
 """
 from __future__ import annotations
 
@@ -22,9 +23,10 @@ class ModelConfig:
     head_dim: int | None = None    # default d_model // num_heads
     d_ff: int = 1024
     vocab_size: int = 1000
-    activation: str = "swiglu"     # swiglu (the only gated MLP ported)
+    activation: str = "swiglu"     # swiglu | geglu (gated MLPs)
     qkv_bias: bool = False
     tie_embeddings: bool = True
+    scale_embeddings: bool = False  # gemma: embed * sqrt(d_model)
     rope_base: float = 10000.0
     window: int | None = None      # local attention window
 
@@ -56,6 +58,6 @@ class ModelConfig:
                 + self.num_heads * hd * d)
         if self.qkv_bias:
             attn += (self.num_heads + 2 * self.num_kv_heads) * hd
-        ffn = 3 * d * self.d_ff
+        ffn = 3 * d * self.d_ff        # gated: w_gate, w_up, w_down
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return emb + d + self.num_layers * (attn + ffn + 2 * d)

@@ -46,6 +46,16 @@
 // folded. A tile reads all its rows (to S), its stale rows past the length
 // too, and weighs those 0 into the value product as the plain version and
 // the Pallas kernel do, so a NaN row there reaches the output (0 * NaN).
+//
+// Above head dim 64 (gemma's 256) a tile's rows do not fit in a CTA, and the
+// tile cannot shrink (its width is part of an ExpMul result): the round's
+// tile is staged in steps through two buffers instead, K in chunks of 64
+// features of all its rows (one thread a column, its score chain carried
+// from chunk to chunk in depth order), then V in sub-tiles of 64 rows (one
+// thread a (row, feature) output, its value chain carried from sub-tile to
+// sub-tile in column order), the next step's cp.async in flight while the
+// current one is computed on. The scores, maxima, weights and fold are the
+// same operations in the same order.
 #include <cooperative_groups.h>
 
 #include "tile_sm90.cuh"
@@ -68,15 +78,37 @@ struct Layout {
 
 __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 
+// Above head dim 64 a tile's K and V rows do not fit in a CTA (256 rows of
+// 256 float32 are 256 KB each), so the tile is staged in steps: K in depth
+// chunks of kDepth features of all its rows (each thread carries its
+// columns' score chains from chunk to chunk in s_s), then V in sub-tiles of
+// kSubRows rows of all D features (each thread carries its outputs' value
+// chains from sub-tile to sub-tile in part_s), every step double-buffered
+// by cp.async. The tile, its maxima and every chain's order stay as they are.
+template <int D>
+__host__ __device__ constexpr bool split_tile() { return D > 64; }
+constexpr int kDepth = 64;    // K features a step (split tiles)
+constexpr int kSubRows = 64;  // V rows a step (split tiles)
+
 template <typename KV, int D>
 __host__ __device__ Layout layout(int group, int bk) {
   constexpr int F = sizeof(float);
   Layout L;
   const int row = D * static_cast<int>(sizeof(KV));
-  L.k_stride = row + 16;
-  L.k = 0;
-  L.v = align16(L.k + bk * L.k_stride);
-  L.ks = align16(L.v + bk * row);
+  if constexpr (split_tile<D>()) {
+    // two step buffers: a K chunk of bk rows, or a V sub-tile
+    L.k_stride = kDepth * static_cast<int>(sizeof(KV)) + 16;
+    const int step = align16(bk * L.k_stride > kSubRows * row ? bk * L.k_stride
+                                                               : kSubRows * row);
+    L.k = 0;
+    L.v = step;
+    L.ks = 2 * step;
+  } else {
+    L.k_stride = row + 16;
+    L.k = 0;
+    L.v = align16(L.k + bk * L.k_stride);
+    L.ks = align16(L.v + bk * row);
+  }
   L.vs = align16(L.ks + F * bk);
   L.q = align16(L.vs + F * bk);
   L.s = align16(L.q + F * group * D);                       // [group][bk]
@@ -98,6 +130,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
               const int* __restrict__ lens, void* __restrict__ out, int Hkv, int group, int S,
               int bk, int CL, float scale, int act_dtype, int vec16) {
   constexpr bool QUANT = IsCode<KV>::value;
+  constexpr bool SPLIT = split_tile<D>();
   constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout<KV, D>(group, bk);
@@ -151,10 +184,47 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     }
     cp_async_commit();
   };
+  // split tiles: step g of the walk (a round's D / kDepth K chunks, then its
+  // V sub-tiles) into buffer g % 2, one commit group each; the first K
+  // chunk brings both scale rows of the tile
+  constexpr int kChunks = D / kDepth;
+  const int n_steps = kChunks + (bk + kSubRows - 1) / kSubRows;  // a round's
+  const auto step_buf = [&](int g) { return smem + (g & 1) * L.v; };
+  const auto copy_step = [&](int g) {
+    const int t = (g / n_steps) * CL + rank, st = g % n_steps;
+    if (t < n_act) {
+      const int c0 = t * bk, nr = min(bk, S - c0);
+      const int64_t r = row0 + c0;
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(st < kChunks ? k : v) + r * kRowBytes;
+      if (st < kChunks) {
+        const int d0 = st * kDepth * static_cast<int>(sizeof(KV));
+        copy_rows_async_at(step_buf(g), L.k_stride, nr, kDepth * static_cast<int>(sizeof(KV)),
+                           vec16, [=](int j) { return src + j * kRowBytes + d0; });
+        if (QUANT && st == 0) {
+          for (int j = tid; j < nr; j += kThreads) {
+            cp_async4(ks_s + j, ks + r + j);
+            cp_async4(vs_s + j, vs + r + j);
+          }
+        }
+      } else {
+        const int j0 = (st - kChunks) * kSubRows;
+        if (j0 < nr)
+          copy_rows_async(step_buf(g), kRowBytes, src + j0 * kRowBytes, min(kSubRows, nr - j0),
+                          kRowBytes, vec16);
+      }
+    }
+    cp_async_commit();
+  };
+  int g = 0;  // split tiles: the step in flight or being computed on
 
   // the first round's K and V in flight while q is read
-  copy_k(rank);
-  copy_v(rank);
+  if constexpr (SPLIT) {
+    copy_step(0);
+  } else {
+    copy_k(rank);
+    copy_v(rank);
+  }
   for (int i = tid; i < group * D; i += kThreads)
     q_s[i] = load_act(q, static_cast<int64_t>(bh) * group * D + i, act_dtype);
   for (int i = tid; i < group; i += kThreads) {
@@ -171,38 +241,80 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     float* tmax_s = reinterpret_cast<float*>(smem + L.tmax) + (round & 1) * kMaxCluster * group;
 
     // 1. the scores of this rank's tile and its row maxima, to every rank
-    cp_async_wait<1>();  // K landed; V may still be in flight
-    __syncthreads();
-    for (int j = tid; j < nr; j += kThreads) {
-      float kr[D];
-      const KV* krow = reinterpret_cast<const KV*>(k_s + j * L.k_stride);
+    if constexpr (SPLIT) {
+      // each column's chain over the depth, kDepth features a step
+      for (int c = 0; c < kChunks; ++c, ++g) {
+        copy_step(g + 1);
+        cp_async_wait<1>();  // this step's rows landed; the next may be in flight
+        __syncthreads();
+        for (int j = tid; j < nr; j += kThreads) {
+          float kr[kDepth];
+          const KV* krow = reinterpret_cast<const KV*>(step_buf(g) + j * L.k_stride);
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 x = load4<KV>(krow + d);
-        kr[d] = x.x;
-        kr[d + 1] = x.y;
-        kr[d + 2] = x.z;
-        kr[d + 3] = x.w;
+          for (int d = 0; d < kDepth; d += 4) {
+            const float4 x = load4<KV>(krow + d);
+            kr[d] = x.x;
+            kr[d + 1] = x.y;
+            kr[d + 2] = x.z;
+            kr[d + 3] = x.w;
+          }
+          const float ksj = QUANT ? ks_s[j] : 1.0f;
+          for (int i = 0; i < group; ++i) {
+            const float4* qr = reinterpret_cast<const float4*>(q_s + i * D + c * kDepth);
+            float dot = c == 0 ? 0.0f : s_s[i * bk + j];
+#pragma unroll
+            for (int d = 0; d < kDepth; d += 4) {
+              const float4 qd = qr[d / 4];
+              dot = fmaf(qd.x, kr[d], dot);
+              dot = fmaf(qd.y, kr[d + 1], dot);
+              dot = fmaf(qd.z, kr[d + 2], dot);
+              dot = fmaf(qd.w, kr[d + 3], dot);
+            }
+            if (c + 1 < kChunks) {
+              s_s[i * bk + j] = dot;
+            } else {
+              float sc = dot * scale;
+              if (QUANT) sc *= ksj;
+              s_s[i * bk + j] = j < nv ? sc : kMaskValue;
+            }
+          }
+        }
+        __syncthreads();  // the step's readers are done
       }
-      const float ksj = QUANT ? ks_s[j] : 1.0f;
-      for (int i = 0; i < group; ++i) {
-        const float4* qr = reinterpret_cast<const float4*>(q_s + i * D);
-        float dot = 0.0f;
+    } else {
+      cp_async_wait<1>();  // K landed; V may still be in flight
+      __syncthreads();
+      for (int j = tid; j < nr; j += kThreads) {
+        float kr[D];
+        const KV* krow = reinterpret_cast<const KV*>(k_s + j * L.k_stride);
 #pragma unroll
         for (int d = 0; d < D; d += 4) {
-          const float4 qd = qr[d / 4];
-          dot = fmaf(qd.x, kr[d], dot);
-          dot = fmaf(qd.y, kr[d + 1], dot);
-          dot = fmaf(qd.z, kr[d + 2], dot);
-          dot = fmaf(qd.w, kr[d + 3], dot);
+          const float4 x = load4<KV>(krow + d);
+          kr[d] = x.x;
+          kr[d + 1] = x.y;
+          kr[d + 2] = x.z;
+          kr[d + 3] = x.w;
         }
-        float sc = dot * scale;
-        if (QUANT) sc *= ksj;
-        s_s[i * bk + j] = j < nv ? sc : kMaskValue;
+        const float ksj = QUANT ? ks_s[j] : 1.0f;
+        for (int i = 0; i < group; ++i) {
+          const float4* qr = reinterpret_cast<const float4*>(q_s + i * D);
+          float dot = 0.0f;
+#pragma unroll
+          for (int d = 0; d < D; d += 4) {
+            const float4 qd = qr[d / 4];
+            dot = fmaf(qd.x, kr[d], dot);
+            dot = fmaf(qd.y, kr[d + 1], dot);
+            dot = fmaf(qd.z, kr[d + 2], dot);
+            dot = fmaf(qd.w, kr[d + 3], dot);
+          }
+          float sc = dot * scale;
+          if (QUANT) sc *= ksj;
+          s_s[i * bk + j] = j < nv ? sc : kMaskValue;
+        }
       }
+      __syncthreads();  // the K readers are done
+      copy_k(t + CL);   // the next round's K
     }
-    __syncthreads();  // the K readers are done
-    copy_k(t + CL);   // the next round's K
     if (round == 0) cluster_wait();
     for (int i = warp; i < group; i += kWarps) {
       float mx = kMaskValue;  // a tile past the length: the mask value
@@ -213,8 +325,10 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     cluster.sync();
 
     // 2. the weights from the prefix maximum, psum_t and dsum_t into part_s
-    cp_async_wait<1>();  // V landed; the next K may still be in flight
-    __syncthreads();
+    if constexpr (!SPLIT) {
+      cp_async_wait<1>();  // V landed; the next K may still be in flight
+      __syncthreads();
+    }
     if (nr > 0) {
       for (int i = warp; i < group; i += kWarps) {
         float m = carry_s[i];
@@ -229,6 +343,27 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
         if (lane == 0) part_s[i * (D + 1) + D] = ps;
       }
       __syncthreads();  // the weights are in place
+    }
+    if constexpr (SPLIT) {
+      // one thread a (row, feature): its chain over the columns in order,
+      // kSubRows columns a step
+      for (int sub = 0; sub < n_steps - kChunks; ++sub, ++g) {
+        copy_step(g + 1);
+        cp_async_wait<1>();
+        __syncthreads();
+        const int c0 = sub * kSubRows, nc = min(kSubRows, nr - c0);
+        const KV* vb = reinterpret_cast<const KV*>(step_buf(g));
+        for (int e = tid; nc > 0 && e < group * D; e += kThreads) {
+          const int i = e / D, d = e - i * D;
+          const float* wr = s_s + i * bk + c0;
+          float ds = c0 == 0 ? 0.0f : part_s[i * (D + 1) + d];
+#pragma unroll 8
+          for (int j = 0; j < nc; ++j) ds = fmaf(wr[j], to_f32(vb[j * D + d]), ds);
+          part_s[i * (D + 1) + d] = ds;
+        }
+        __syncthreads();  // the step's readers are done
+      }
+    } else if (nr > 0) {
       // one thread a (row, 4 features): fmaf chains over the columns in order
       for (int e = tid; e < group * (D / 4); e += kThreads) {
         const int i = e / (D / 4), d4 = (e - i * (D / 4)) * 4;
@@ -249,13 +384,13 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
         for (int u = 0; u < 4; ++u) dst[u] = ds[u];
       }
     }
-    __syncthreads();  // the V and carry readers are done
+    if constexpr (!SPLIT) __syncthreads();  // the V and carry readers are done
     for (int i = tid; i < group; i += kThreads) {
       float c = carry_s[i];
       for (int u = 0; u < CL; ++u) c = max_nan(c, tmax_s[u * group + i]);
       carry_s[i] = c;
     }
-    copy_v(t + CL);  // the next round's V
+    if constexpr (!SPLIT) copy_v(t + CL);  // the next round's V
     cluster.sync();  // every partial of the round is in place
 
     // 3. rank 0 folds the round's tiles in order: one thread an output
@@ -359,7 +494,9 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const
                                          scale, act_dtype, s)
   switch (D) {
     case 16: REPRO_LAUNCH(16);
+    case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
+    case 256: REPRO_LAUNCH(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_LAUNCH
@@ -369,7 +506,9 @@ template <typename KV>
 long long smem_by_dim(int D, int group, int bk) {
   switch (D) {
     case 16: return static_cast<long long>(smem_bytes<KV, 16>(group, bk));
+    case 32: return static_cast<long long>(smem_bytes<KV, 32>(group, bk));
     case 64: return static_cast<long long>(smem_bytes<KV, 64>(group, bk));
+    case 256: return static_cast<long long>(smem_bytes<KV, 256>(group, bk));
     default: return -1;
   }
 }

@@ -25,9 +25,10 @@
 //
 // So the pages of one (sequence, KV head) run in parallel on the CTAs of one
 // thread-block cluster of CL = min(8, ceil(MB / P)) CTAs (cudaLaunchKernelEx
-// with a cluster dimension; the host reads no length), P = min(8, 128 / ps)
-// pages (at most 128 pool rows; 8 pages at ps = 16, so 1,024 tokens are one
-// round) a rank a round: round k gives chunk
+// with a cluster dimension; the host reads no length), P = min(8, R / ps)
+// pages (at most R = 128 pool rows, fewer for rows over 256 bytes: 32 at
+// head dim 256 in float32; 8 pages at ps = 16 and R = 128, so 1,024 tokens
+// are one round) a rank a round: round k gives chunk
 // k * CL + r, pages [first + (k * CL + r) * P, ... + P) of the table, to
 // rank r, so a CTA's shared memory holds one chunk and its partials at any
 // length or table width. The walk covers pages [first, n): n stops at the
@@ -71,13 +72,25 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kMaxCluster = 8;     // the portable cluster size
 constexpr int kMaxGroup = 32;      // query heads per KV head
-constexpr int kRankRows = 128;     // pool rows a rank stages a round
+constexpr int kMaxRankRows = 128;  // pool rows a rank stages a round
+constexpr int kRankBytes = 32768;  // at most this many bytes of K rows
 constexpr int kMaxRankPages = 8;   // pages a rank takes a round
 constexpr int kMaxSmem = 232448;   // bytes of shared memory a CTA can use
 
+// pool rows a rank stages a round: 128 rows, or fewer where a row of D
+// elements of KV is over 256 bytes (head dim 256: 32 float32 rows, 64
+// bfloat16), so the staged K and V rows stay within ~64 KB at every D
+template <typename KV, int D>
+__host__ __device__ constexpr int rank_rows() {
+  constexpr int row = D * static_cast<int>(sizeof(KV));
+  return kRankBytes / row < kMaxRankRows ? kRankBytes / row : kMaxRankRows;
+}
+
 // pages a rank takes a round at page size ps (<= kMaxPage)
+template <typename KV, int D>
 __host__ __device__ constexpr int rank_pages(int ps) {
-  return kRankRows / ps < kMaxRankPages ? kRankRows / ps : kMaxRankPages;
+  constexpr int rows = rank_rows<KV, D>();
+  return rows / ps < kMaxRankPages ? rows / ps : kMaxRankPages;
 }
 
 struct Layout {
@@ -91,6 +104,7 @@ template <typename KV, int D>
 __host__ __device__ Layout layout(int group) {
   constexpr int F = sizeof(float);
   constexpr int P = kMaxRankPages;
+  constexpr int kRankRows = rank_rows<KV, D>();
   Layout L;
   const int row = D * static_cast<int>(sizeof(KV));
   L.k_stride = row + 16;
@@ -120,6 +134,7 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
                     int act_dtype, int vec16) {
   constexpr bool QUANT = IsCode<KV>::value;
   constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
+  constexpr int kRankRows = rank_rows<KV, D>();
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout<KV, D>(group);
   unsigned char* k_s = smem + L.k;
@@ -141,7 +156,7 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   const int b = bh / Hkv, h = bh - b * Hkv;
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int length = lens[b];
-  const int P = rank_pages(ps);
+  const int P = rank_pages<KV, D>(ps);
   // the walk: pages [first, n_pages), stopping at the length and at the
   // table's width; pages wholly below the window's floor are skipped
   const int n_pages = min((length + ps - 1) / ps, MB);
@@ -334,7 +349,7 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
 // ps over a table MB pages wide; the memory depends on neither.
 template <typename KV, int D>
 int launch_shape(int group, int ps, int MB, int& CL) {
-  const int P = rank_pages(ps);
+  const int P = rank_pages<KV, D>(ps);
   const int T = (MB + P - 1) / P;  // chunks of the table's width
   CL = T < 1 ? 1 : (T < kMaxCluster ? T : kMaxCluster);
   return layout<KV, D>(group).total;
@@ -387,7 +402,9 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const
                                          nblk, ps, MB, window, scale, act_dtype, s)
   switch (D) {
     case 16: REPRO_LAUNCH(16);
+    case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
+    case 256: REPRO_LAUNCH(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_LAUNCH
@@ -398,7 +415,9 @@ long long smem_by_dim(int D, int group, int ps, int MB) {
   int CL;
   switch (D) {
     case 16: return static_cast<long long>(launch_shape<KV, 16>(group, ps, MB, CL));
+    case 32: return static_cast<long long>(launch_shape<KV, 32>(group, ps, MB, CL));
     case 64: return static_cast<long long>(launch_shape<KV, 64>(group, ps, MB, CL));
+    case 256: return static_cast<long long>(launch_shape<KV, 256>(group, ps, MB, CL));
     default: return -1;
   }
 }

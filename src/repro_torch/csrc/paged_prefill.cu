@@ -31,8 +31,10 @@
 // the plain version does, so a NaN row there reaches the output), a chunk
 // tile's rows below the chunk's end: K for the scores, then V for the
 // values, the next step's 16-byte loads in flight in registers while the
-// current one is computed on. The group's scores are taken together
-// (columns are independent: each thread a 4 x 4 block of (rows, columns));
+// current one is computed on (at head dim 256, float32 and bfloat16 rows
+// are loaded and converted when their step begins, as in csrc/prefill.cu).
+// The group's scores are taken together (columns are independent: each
+// thread a 4 x 4 block of (rows, columns));
 // then page by page, in order, four threads a row take the page's row max,
 // its weights, their sum and the rescale of (m, l); after V lands, each
 // page's value product is a fresh fmaf chain over its columns (each thread a
@@ -78,8 +80,10 @@ struct Group {
   int p0, np, col0, nrows;
 };
 
+// three CTAs an SM at head dims up to 64; two at 256 (111,744 B of shared
+// memory a CTA, and a thread's accumulators take 128 registers)
 template <typename KV, int D, bool EXPMUL>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, D >= 256 ? 2 : 3)
 paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
                      const KV* __restrict__ vpool, const float* __restrict__ kspool,
                      const float* __restrict__ vspool, const KV* __restrict__ kn,
@@ -91,10 +95,10 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   constexpr bool QUANT = IsCode<KV>::value;
   constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
   constexpr int DG = D / 4;                      // 4-feature groups
-  constexpr int RPT = kRows * DG / kThreads;     // value rows a thread (4 or 1)
-  static_assert(RPT == 4 || RPT == 1, "head dims 16 and 64");
+  constexpr int RPT = kRows * DG / kThreads;     // value rows a thread
   static_assert(kRows * 4 == kThreads, "four weight threads a row");
-  __shared__ __align__(16) Smem<D> sm;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem);
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = (bh % H) / (H / Hkv);
@@ -130,9 +134,11 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     return (static_cast<int64_t>(blk) * ps + (r - pp * ps)) * Hkv + h;
   };
 
-  // staging step i: the K rows of group i / 2, or its V rows for odd i
-  Stage<KV, D> stage;
-  const auto fetch_step = [&](int i) {
+  // staging step i: the K rows of group i / 2, or its V rows for odd i; in
+  // flight in registers, or (St::kSync) straight into sm.x
+  using St = Stage<KV, D>;
+  St stage;
+  const auto stage_step = [&](int i) {
     Group t;
     if (i / 2 >= n_groups) return;
     group_at(i / 2, t);
@@ -140,22 +146,37 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     if (t.hist) {
       const unsigned char* pool = reinterpret_cast<const unsigned char*>(is_v ? vpool : kpool);
       const float* spool = is_v ? vspool : kspool;
-      stage.fetch_at([&](int r) { return pool + pool_row(t, r) * kRowBytes; },
-                     [&](int r) { return spool + pool_row(t, r); }, t.nrows, vec16);
+      const auto src_row = [&](int r) { return pool + pool_row(t, r) * kRowBytes; };
+      const auto sc_row = [&](int r) { return spool + pool_row(t, r); };
+      if constexpr (St::kSync) {
+        stage.load_at(sm.x, sm.sc, src_row, sc_row, t.nrows, vec16);
+      } else {
+        stage.fetch_at(src_row, sc_row, t.nrows, vec16);
+      }
     } else {
       const int64_t r = chunk0 + t.col0;
-      stage.fetch((is_v ? vn : kn) + r * D, QUANT ? (is_v ? vsn : ksn) + r : nullptr, t.nrows,
-                  vec16);
+      const KV* src = (is_v ? vn : kn) + r * D;
+      const float* sc = QUANT ? (is_v ? vsn : ksn) + r : nullptr;
+      if constexpr (St::kSync) {
+        stage.load(sm.x, sm.sc, src, sc, t.nrows, vec16);
+      } else {
+        stage.fetch(src, sc, t.nrows, vec16);
+      }
     }
   };
   int step = 0;
-  fetch_step(0);
-  // the staged rows of the current step into sm.x, the next step's in flight
+  if constexpr (!St::kSync) stage_step(0);
+  // the current step's rows into sm.x (the next step's in flight)
   const auto advance = [&]() {
     __syncthreads();  // the previous step's readers of sm.x are done
-    stage.commit(sm.x, sm.sc);
-    __syncthreads();
-    fetch_step(++step);
+    if constexpr (St::kSync) {
+      stage_step(step++);
+      __syncthreads();
+    } else {
+      stage.commit(sm.x, sm.sc);
+      __syncthreads();
+      stage_step(++step);
+    }
   };
 
   for (int i = tid; i < kRows * D; i += kThreads) {
@@ -260,10 +281,19 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
            const int* lens, const int* nvalid, void* out, int B, int H, int Hkv, int C,
            int nblk, int ps, int MB, int window, float scale, int act_dtype,
            cudaStream_t stream) {
+  auto kernel = paged_prefill_kernel<KV, D, EXPMUL>;
+  constexpr int smem = static_cast<int>(sizeof(Smem<D>));
+  static bool wide_smem = smem <= 48 * 1024;  // once per instantiation
+  if (!wide_smem) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    wide_smem = true;
+  }
   const uintptr_t any = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
                         reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn);
   const dim3 grid(B * H, (C + kRows - 1) / kRows);
-  paged_prefill_kernel<KV, D, EXPMUL><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       q, static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs,
       static_cast<const KV*>(kn), static_cast<const KV*>(vn), ksn, vsn, bt, lens, nvalid, out,
       H, Hkv, C, nblk, ps, MB, window, scale, act_dtype, (any & 15) == 0);
@@ -285,7 +315,9 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const
                                          scale, act_dtype, s)
   switch (D) {
     case 16: REPRO_LAUNCH(16);
+    case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
+    case 256: REPRO_LAUNCH(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_LAUNCH
@@ -328,12 +360,15 @@ extern "C" int paged_prefill(const void* q, const void* k, const void* v, const 
   }
 }
 
-// The shared memory, in bytes, that paged_prefill gives each CTA (static,
-// independent of every length and of the page size); -1 for an unsupported D.
+// The dynamic shared memory, in bytes, that paged_prefill gives each CTA
+// (independent of every length and of the page size); -1 for an
+// unsupported D.
 extern "C" long long paged_prefill_smem(int D) {
   switch (D) {
     case 16: return static_cast<long long>(sizeof(Smem<16>));
+    case 32: return static_cast<long long>(sizeof(Smem<32>));
     case 64: return static_cast<long long>(sizeof(Smem<64>));
+    case 256: return static_cast<long long>(sizeof(Smem<256>));
     default: return -1;
   }
 }

@@ -25,7 +25,7 @@
 // csrc/flash.cu).
 //
 // Design: one CTA of 128 threads per (sequence, query head, 32 chunk rows),
-// two CTAs an SM. It walks the reference's KV tiles, bk = min(512, max(S,
+// two CTAs an SM (one at head dim 256: 176,128 B of shared memory a CTA). It walks the reference's KV tiles, bk = min(512, max(S,
 // C, 1)) columns each (the ExpMul results depend on the width): cache tiles
 // [0, bk), ... below min(length, S), then chunk tiles from the chunk start
 // below n_valid and the block's last row. A cache tile reads all its
@@ -35,7 +35,9 @@
 // is padded. Each tile is staged
 // in sub-tiles of 64 rows (K for the scores, then V for the values), the
 // next sub-tile's 16-byte global loads in flight in registers while the
-// current one is computed on, then converted to float32 in shared memory.
+// current one is computed on, then converted to float32 in shared memory
+// (at head dim 256, float32 and bfloat16 rows are loaded and converted when
+// their step begins: a thread's accumulators take 128 registers there).
 // The tile's scores (32 rows x bk, 64 KB) stay in shared memory, so the row
 // max, the weights and the rescale are taken once per reference tile, as
 // tile.py does. Scores: each thread a 4 x 4 block of (rows, columns);
@@ -155,23 +157,33 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
     return false;
   };
 
-  Stage<KV, D> stage;
+  using St = Stage<KV, D>;
+  St stage;
   int step = 0;
-  {
+  // staging step i: in flight in registers, or (St::kSync) straight into x_s
+  const auto stage_step = [&](int i) {
     const KV* src;
     const float* sc;
     int nrows;
-    if (step_at(0, src, sc, nrows)) stage.fetch(src, sc, nrows, vec16);
-  }
-  // the staged rows of the current step into x_s, the next step's in flight
+    if (!step_at(i, src, sc, nrows)) return;
+    if constexpr (St::kSync) {
+      stage.load(x_s, sc_s, src, sc, nrows, vec16);
+    } else {
+      stage.fetch(src, sc, nrows, vec16);
+    }
+  };
+  if constexpr (!St::kSync) stage_step(0);
+  // the current step's rows into x_s (the next step's in flight)
   const auto advance = [&]() {
     __syncthreads();  // the previous step's readers of x_s are done
-    stage.commit(x_s, sc_s);
-    __syncthreads();
-    const KV* src;
-    const float* sc;
-    int nrows;
-    if (step_at(++step, src, sc, nrows)) stage.fetch(src, sc, nrows, vec16);
+    if constexpr (St::kSync) {
+      stage_step(step++);
+      __syncthreads();
+    } else {
+      stage.commit(x_s, sc_s);
+      __syncthreads();
+      stage_step(++step);
+    }
   };
 
   for (int i = tid; i < kRows * D; i += kThreads) {
@@ -236,7 +248,9 @@ int by_dim(int D, int expmul, const void* q, const void* kc, const void* vc, con
                                          scale, act_dtype, s)
   switch (D) {
     case 16: REPRO_LAUNCH(16);
+    case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
+    case 256: REPRO_LAUNCH(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_LAUNCH
@@ -286,7 +300,9 @@ extern "C" int contiguous_prefill(const void* q, const void* kc, const void* vc,
 extern "C" long long contiguous_prefill_smem(int D, int bk) {
   switch (D) {
     case 16: return static_cast<long long>(smem_bytes<16>(bk));
+    case 32: return static_cast<long long>(smem_bytes<32>(bk));
     case 64: return static_cast<long long>(smem_bytes<64>(bk));
+    case 256: return static_cast<long long>(smem_bytes<256>(bk));
     default: return -1;
   }
 }

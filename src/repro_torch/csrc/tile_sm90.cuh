@@ -177,34 +177,61 @@ constexpr int kScoreLd = kChunkRows + kStagePad;
 
 // Raw bytes of one staged sub-tile (kStageRows rows of D elements of KV) in
 // flight in registers: 16-byte pieces, kPer a thread, and one scale row.
+// At D 256 a thread's value accumulators take 128 registers (ChunkRows<256>
+// has RPT 16): there rows of more than 8 pieces a thread (float32 and
+// bfloat16) are not held in flight (kSync): load() reads and converts them
+// straight into shared memory when the step begins.
 template <typename KV, int D>
 struct Stage {
   static constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
   static constexpr int kPerRow = kRowBytes / 16;
   static constexpr int kPieces = kStageRows * kPerRow;
   static constexpr int kPer = (kPieces + kChunkThreads - 1) / kChunkThreads;
-  uint4 raw[kPer];
+  static constexpr bool kSync = D >= 256 && kPer > 8;
+  uint4 raw[kSync ? 1 : kPer];
   float sc;
+
+  // the 16 bytes at p (16-byte aligned with vec16, else 4-byte aligned)
+  __device__ __forceinline__ static uint4 piece(const unsigned char* p, bool vec16) {
+    if (vec16) return __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned* w = reinterpret_cast<const unsigned*>(p);
+    return make_uint4(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3));
+  }
+
+  // piece i of the sub-tile (its raw bytes raw_i) as float32 in its row of x_s
+  __device__ __forceinline__ static void put(float* x_s, int i, uint4 raw_i) {
+    constexpr int kElems = 16 / static_cast<int>(sizeof(KV));
+    const int r = i / kPerRow, e0 = (i - r * kPerRow) * kElems;
+    float4* dst = reinterpret_cast<float4*>(x_s + r * (D + kStagePad) + e0);
+    const unsigned w[4] = {raw_i.x, raw_i.y, raw_i.z, raw_i.w};
+    if constexpr (std::is_same<KV, float>::value) {
+      dst[0] = make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]),
+                           __uint_as_float(w[2]), __uint_as_float(w[3]));
+    } else if constexpr (std::is_same<KV, __nv_bfloat16>::value) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        dst[h] = make_float4(__uint_as_float(w[2 * h] << 16),
+                             __uint_as_float(w[2 * h] & 0xFFFF0000u),
+                             __uint_as_float(w[2 * h + 1] << 16),
+                             __uint_as_float(w[2 * h + 1] & 0xFFFF0000u));
+    } else {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) dst[h] = codes4<KV>(w[h]);
+    }
+  }
 
   // rows r < nrows, row r from src_row(r) (its first byte) and, for codes,
   // its scale from sc_row(r); zeros past nrows
   template <typename SrcRow, typename ScRow>
   __device__ __forceinline__ void fetch_at(SrcRow src_row, ScRow sc_row, int nrows,
                                            bool vec16) {
+    static_assert(!kSync, "loaded at the step, not fetched ahead");
 #pragma unroll
     for (int c = 0; c < kPer; ++c) {
       const int i = threadIdx.x + c * kChunkThreads;
       const int r = i / kPerRow;
       raw[c] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < kPieces && r < nrows) {
-        const unsigned char* p = src_row(r) + (i - r * kPerRow) * 16;
-        if (vec16) {
-          raw[c] = __ldg(reinterpret_cast<const uint4*>(p));
-        } else {
-          const unsigned* w = reinterpret_cast<const unsigned*>(p);
-          raw[c] = make_uint4(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3));
-        }
-      }
+      if (i < kPieces && r < nrows) raw[c] = piece(src_row(r) + (i - r * kPerRow) * 16, vec16);
     }
     sc = 0.0f;
     if (IsCode<KV>::value && static_cast<int>(threadIdx.x) < nrows)
@@ -221,30 +248,38 @@ struct Stage {
 
   // the sub-tile as float32 rows x_s[r * (D + kStagePad) + d], zeros past nrows
   __device__ __forceinline__ void commit(float* x_s, float* sc_s) const {
-    constexpr int kElems = 16 / static_cast<int>(sizeof(KV));
+    static_assert(!kSync, "loaded at the step, not fetched ahead");
 #pragma unroll
     for (int c = 0; c < kPer; ++c) {
       const int i = threadIdx.x + c * kChunkThreads;
-      if (i >= kPieces) continue;
-      const int r = i / kPerRow, e0 = (i - r * kPerRow) * kElems;
-      float4* dst = reinterpret_cast<float4*>(x_s + r * (D + kStagePad) + e0);
-      const unsigned w[4] = {raw[c].x, raw[c].y, raw[c].z, raw[c].w};
-      if constexpr (std::is_same<KV, float>::value) {
-        dst[0] = make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]),
-                             __uint_as_float(w[2]), __uint_as_float(w[3]));
-      } else if constexpr (std::is_same<KV, __nv_bfloat16>::value) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          dst[h] = make_float4(__uint_as_float(w[2 * h] << 16),
-                               __uint_as_float(w[2 * h] & 0xFFFF0000u),
-                               __uint_as_float(w[2 * h + 1] << 16),
-                               __uint_as_float(w[2 * h + 1] & 0xFFFF0000u));
-      } else {
-#pragma unroll
-        for (int h = 0; h < 4; ++h) dst[h] = codes4<KV>(w[h]);
-      }
+      if (i < kPieces) put(x_s, i, raw[c]);
     }
     if (threadIdx.x < kStageRows) sc_s[threadIdx.x] = sc;
+  }
+
+  // kSync: the rows of fetch_at straight into x_s and sc_s, as commit puts
+  // them (the caller's barriers fence x_s)
+  template <typename SrcRow, typename ScRow>
+  __device__ __forceinline__ void load_at(float* x_s, float* sc_s, SrcRow src_row,
+                                          ScRow sc_row, int nrows, bool vec16) const {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kPieces; i += kChunkThreads) {
+      const int r = i / kPerRow;
+      put(x_s, i,
+          r < nrows ? piece(src_row(r) + (i - r * kPerRow) * 16, vec16)
+                    : make_uint4(0u, 0u, 0u, 0u));
+    }
+    if (threadIdx.x < kStageRows)
+      sc_s[threadIdx.x] = IsCode<KV>::value && static_cast<int>(threadIdx.x) < nrows
+                              ? __ldg(sc_row(static_cast<int>(threadIdx.x)))
+                              : 0.0f;
+  }
+
+  __device__ __forceinline__ void load(float* x_s, float* sc_s, const KV* src,
+                                       const float* scale, int nrows, bool vec16) const {
+    const unsigned char* base = reinterpret_cast<const unsigned char*>(src);
+    load_at(x_s, sc_s, [=](int r) { return base + static_cast<int64_t>(r) * kRowBytes; },
+            [=](int r) { return scale + r; }, nrows, vec16);
   }
 };
 
@@ -298,14 +333,15 @@ __device__ __forceinline__ void score_block(const float* q_s, const float* x_s,
 }
 
 // dsum[r][e] += sum_{j < ncols} w_j[r] v_j[e], in column order, for a
-// thread's RPT rows (1, 2, 4 or 8: head dims 16, 32, 64, 128) and 4
+// thread's RPT rows (1, 2, 4, 8 or 16: head dims 16, 32, 64, 128, 256) and 4
 // features: pw points at the first column's weights of those rows (p_s +
 // col * kScoreLd + RPT * row group), xv at the first column's features (x_s
 // + col * (D + kStagePad) + 4 * feature group).
 template <int D, int RPT>
 __device__ __forceinline__ void value_block(float (&dsum)[RPT][4], const float* pw,
                                             const float* xv, int ncols) {
-  static_assert(RPT == 1 || RPT == 2 || RPT == 4 || RPT == 8, "value rows a thread");
+  static_assert(RPT == 1 || RPT == 2 || RPT == 4 || RPT == 8 || RPT == 16,
+                "value rows a thread");
 #pragma unroll 4
   for (int j = 0; j < ncols; ++j) {
     const float4 v4 = *reinterpret_cast<const float4*>(xv + j * (D + kStagePad));

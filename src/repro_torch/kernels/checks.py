@@ -13,6 +13,8 @@ it too.
 ``poison_paged`` and ``poison_contiguous`` write the ``kv_corrupt`` fault's
 NaN into pages or rows a sequence reads, and ``rows_rel_err`` holds a
 kernel to its plain version's non-finite output rows.
+``head_dim_cases`` builds one input of each serving kernel at gemma-7b's
+head count (16 query heads) and a given head dim, over any KV kind.
 ``flash_case`` builds one full-sequence input (q, k, v of one dtype) for
 the training path's flash forward, and ``flash_edge_cases`` the edges of
 its kernel's layout.
@@ -358,6 +360,37 @@ def poison_contiguous(case, row, lo, hi):
     for name in ("k", "v", "ks", "vs"):
         if case[name] is not None:
             _poison(case[name], (row, slice(None), slice(lo, hi)), -128)
+
+
+def head_dim_cases(rng, D, *, kv, q_dtype=torch.float32, group=1,
+                   dyadic=False, device="cuda"):
+    """One input of each serving kernel at gemma-7b's 16 query heads (16 /
+    ``group`` KV heads) of head dim ``D`` (gemma's 256, or 32 in its smoke
+    config), over KV kind ``kv`` (``KV_KINDS``): 4 sequences whose lengths
+    cross the decode's 256-wide tiles and the contiguous prefill's 512-wide
+    ones (300, 0, 600, 17 resident for decode; 530, 0, 17, 600 before a
+    70-token chunk of which 70, 0, 33 and 0 tokens are valid), pages of 16,
+    640 contiguous slots. Returns [(kernel, run, case, idle rows, label)]:
+    row 1 attends to nothing."""
+    kw = dict(B=4, H=16, Hkv=16 // group, D=D, kv=kv, q_dtype=q_dtype,
+              dyadic=dyadic, device=device)
+    dec, pf, nv, C, S = [300, 0, 600, 17], [530, 0, 17, 600], [70, 0, 33, 0], \
+        70, 640
+    mb = -(-(max(pf) + C) // 16) + 1
+    label = f"D={D} group={group} {kv} {'dyadic' if dyadic else 'random'}"
+    return [
+        ("paged_decode", run_decode,
+         paged_case(rng, page_size=16, max_blocks=mb, lengths=dec, **kw),
+         [1], label),
+        ("paged_prefill", run_prefill,
+         paged_case(rng, page_size=16, max_blocks=mb, lengths=pf,
+                    n_valid=nv, chunk=C, **kw), [1], label),
+        ("decode", run_contiguous_decode,
+         contiguous_case(rng, S=S, lengths=dec, **kw), [1], label),
+        ("prefill", run_contiguous_prefill,
+         contiguous_case(rng, S=S, lengths=pf, n_valid=nv, chunk=C, **kw),
+         [1], label),
+    ]
 
 
 POISON_SPOTS = ("first", "middle", "last", "tail")

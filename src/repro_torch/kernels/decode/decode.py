@@ -21,10 +21,17 @@ layouts:
 ``*_fwd`` launches the CUDA kernel for CUDA tensors and runs the plain
 version only for CPU tensors. ``*_fwd_plain`` walks the same tiles in the
 same order on any device, through the shared tile step.
+
+The kernels are built for head dims ``HEAD_DIMS`` with Dv == D. Their
+shared memory a block grows with the head dim, the GQA group and the KV
+dtype (``paged_decode_smem``, ``contiguous_decode_smem``, the kernels' own
+C queries); each wrapper checks it against the card's limit before the
+launch (``check_smem``) and raises a ``ValueError`` naming both.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +47,7 @@ from repro_torch.kernels.flash.tile import (
 NAME = "paged_decode"
 CONTIGUOUS = "decode"
 BLOCK_K = 256      # the reference's decode tile (spec.decode_block_k)
-HEAD_DIMS = (16, 64)
+HEAD_DIMS = (16, 32, 64, 256)
 ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
@@ -49,9 +56,46 @@ MAX_PAGE = 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURE = {NAME: (ctypes.c_int, [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3
-                     + [_P])}
-_CONTIGUOUS_SIGNATURE = {"contiguous_decode": (
-    ctypes.c_int, [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3 + [_P])}
+                     + [_P]),
+              "paged_decode_smem": (ctypes.c_longlong, [_I] * 5)}
+_CONTIGUOUS_SIGNATURE = {
+    "contiguous_decode": (ctypes.c_int, [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3
+                          + [_P]),
+    "contiguous_decode_smem": (ctypes.c_longlong, [_I] * 4)}
+
+
+@functools.lru_cache(maxsize=None)
+def card_smem_limit(device) -> int:
+    """The most dynamic shared memory a block may take on ``device``."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def check_smem(name, need, device, what):
+    """Raise before a launch whose ``need`` bytes of shared memory a block
+    (-1: no instantiation) the card would refuse."""
+    if need < 0:
+        raise ValueError(f"{name}: no kernel is built for {what}")
+    limit = card_smem_limit(device)
+    if need > limit:
+        raise ValueError(f"{name}: {what} needs {need} B of shared memory a "
+                         f"block, the card allows {limit}")
+
+
+@functools.lru_cache(maxsize=None)
+def paged_decode_smem(group, D, page_size, max_blocks, kv_dtype) -> int:
+    """The shared memory, in bytes, the paged decode gives a block
+    (``csrc/paged_decode.cu:paged_decode_smem``; the same at any length and
+    table width)."""
+    return int(build.load(NAME, _SIGNATURE).paged_decode_smem(
+        group, D, page_size, max_blocks, KV_DTYPES[kv_dtype]))
+
+
+@functools.lru_cache(maxsize=None)
+def contiguous_decode_smem(group, D, block_k, kv_dtype) -> int:
+    """The shared memory, in bytes, the contiguous decode gives a block at
+    tile width ``block_k`` (``csrc/decode.cu:contiguous_decode_smem``)."""
+    return int(build.load(CONTIGUOUS, _CONTIGUOUS_SIGNATURE)
+               .contiguous_decode_smem(group, D, block_k, KV_DTYPES[kv_dtype]))
 
 
 def paged_decode_fwd_plain(bt, len1, q3, k4, v4, ks3=None, vs3=None, *,
@@ -142,6 +186,9 @@ def paged_decode_fwd(bt, len1, q3, k4, v4, ks3=None, vs3=None, *, scale,
         raise ValueError(f"unknown attention variant {variant!r}")
     _check(bt, len1, q3, k4, v4, ks3, vs3, page_size, num_kv_heads)
     BHkv, group, D = q3.shape
+    check_smem(NAME, paged_decode_smem(group, D, page_size, bt.shape[1],
+                                       k4.dtype), q3.device,
+               f"group {group} at head dim {D} over {k4.dtype}")
     out = torch.empty_like(q3)
     if BHkv == 0:
         return out
@@ -247,6 +294,10 @@ def decode_fwd(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
     _check_contiguous(q3, k3, v3, lengths, ks2, vs2, num_kv_heads)
     BHkv, group, D = q3.shape
     S = k3.shape[1]
+    bk = min(BLOCK_K, S)
+    check_smem(CONTIGUOUS, contiguous_decode_smem(group, D, bk, k3.dtype),
+               q3.device, f"group {group} at head dim {D} over {k3.dtype} "
+               f"in {bk}-wide tiles")
     out = torch.empty_like(q3)
     if BHkv == 0:
         return out
@@ -257,7 +308,7 @@ def decode_fwd(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
         ks2.data_ptr() if ks2 is not None else None,
         vs2.data_ptr() if vs2 is not None else None,
         lengths.data_ptr(), out.data_ptr(), lengths.shape[0], num_kv_heads,
-        group, D, S, min(BLOCK_K, S), float(scale), int(variant == "expmul"),
+        group, D, S, bk, float(scale), int(variant == "expmul"),
         ACT_DTYPES[q3.dtype], KV_DTYPES[k3.dtype], stream)
     build.check(err, CONTIGUOUS)
     build.COUNTS[CONTIGUOUS] += 1

@@ -42,7 +42,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode.decode import ACT_DTYPES
+from repro_torch.kernels.decode.decode import ACT_DTYPES, card_smem_limit
 from repro_torch.kernels.flash.tile import (
     finalize_tiles,
     init_state,
@@ -67,12 +67,6 @@ def smem_bytes(D, block_k) -> int:
     ``D`` and tile width ``block_k`` (``csrc/flash.cu:flash_smem``; the
     launch asks the card for exactly this much)."""
     return int(build.load(NAME, _SIGNATURE).flash_smem(D, block_k))
-
-
-@functools.lru_cache(maxsize=None)
-def card_smem_limit(device) -> int:
-    """The most dynamic shared memory a block may take on ``device``."""
-    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
 
 def _check(q3, k3, v3, *, block_k, num_q_heads, num_kv_heads, kv_len):

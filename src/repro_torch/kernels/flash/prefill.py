@@ -34,6 +34,7 @@ blocks, which changes only which fully masked tiles they skip.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +46,7 @@ from repro_torch.kernels.decode.decode import (
     HEAD_DIMS,
     KV_DTYPES,
     MAX_PAGE,
+    check_smem,
 )
 from repro_torch.kernels.flash.tile import (
     finalize_tiles,
@@ -60,9 +62,28 @@ BLOCK_K = 512      # the reference's contiguous KV tile (cfg.attention_block_k)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURE = {NAME: (ctypes.c_int, [_P] * 13 + [_I] * 9 + [_F] + [_I] * 3
-                     + [_P])}
-_CONTIGUOUS_SIGNATURE = {"contiguous_prefill": (
-    ctypes.c_int, [_P] * 12 + [_I] * 9 + [_F] + [_I] * 3 + [_P])}
+                     + [_P]),
+              "paged_prefill_smem": (ctypes.c_longlong, [_I])}
+_CONTIGUOUS_SIGNATURE = {
+    "contiguous_prefill": (ctypes.c_int, [_P] * 12 + [_I] * 9 + [_F]
+                           + [_I] * 3 + [_P]),
+    "contiguous_prefill_smem": (ctypes.c_longlong, [_I] * 2)}
+
+
+@functools.lru_cache(maxsize=None)
+def paged_prefill_smem(D) -> int:
+    """The shared memory, in bytes, the paged prefill gives a block
+    (``csrc/paged_prefill.cu:paged_prefill_smem``; the same at any length
+    and page size)."""
+    return int(build.load(NAME, _SIGNATURE).paged_prefill_smem(D))
+
+
+@functools.lru_cache(maxsize=None)
+def contiguous_prefill_smem(D, block_k) -> int:
+    """The shared memory, in bytes, the contiguous prefill gives a block at
+    tile width ``block_k`` (``csrc/prefill.cu:contiguous_prefill_smem``)."""
+    return int(build.load(CONTIGUOUS, _CONTIGUOUS_SIGNATURE)
+               .contiguous_prefill_smem(D, block_k))
 
 
 def paged_prefill_fwd_plain(bt, lengths, n_valid, q3, k4, v4, kn3, vn3,
@@ -194,6 +215,7 @@ def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
     _check(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, vs3, ksn2, vsn2,
            page_size, num_q_heads, num_kv_heads)
     BH, C, D = q3.shape
+    check_smem(NAME, paged_prefill_smem(D), q3.device, f"head dim {D}")
     out = torch.empty_like(q3)
     if BH == 0 or C == 0:
         return out
@@ -369,6 +391,9 @@ def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
                       ksn2, vsn2, num_q_heads, num_kv_heads)
     BH, C, D = q3.shape
     S = kc3.shape[1]
+    bk = prefill_blocks(S, C)[1]
+    check_smem(CONTIGUOUS, contiguous_prefill_smem(D, bk), q3.device,
+               f"head dim {D} in {bk}-wide tiles")
     out = torch.empty_like(q3)
     if BH == 0 or C == 0:
         return out
@@ -379,8 +404,8 @@ def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
         q3.data_ptr(), kc3.data_ptr(), vc3.data_ptr(), ptr(ksc2), ptr(vsc2),
         kn3.data_ptr(), vn3.data_ptr(), ptr(ksn2), ptr(vsn2),
         lengths.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-        lengths.shape[0], num_q_heads, num_kv_heads, C, D, S,
-        prefill_blocks(S, C)[1], window or 0, int(bool(rolling)),
+        lengths.shape[0], num_q_heads, num_kv_heads, C, D, S, bk,
+        window or 0, int(bool(rolling)),
         float(scale), int(variant == "expmul"), ACT_DTYPES[q3.dtype],
         KV_DTYPES[kc3.dtype], stream)
     build.check(err, CONTIGUOUS)

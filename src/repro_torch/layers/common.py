@@ -30,5 +30,11 @@ def rmsnorm(params, x, eps=1e-6):
     return (y * (1.0 + params["scale"].to(torch.float32))).to(x.dtype)
 
 
-def silu(x):
-    return F.silu(x)
+def activation_fn(name: str):
+    """The gate's activation of a gated MLP, as ``repro/layers/common.py``
+    has it: SiLU, or GELU in its tanh form (``jax.nn.gelu(approximate=True)``)."""
+    if name in ("swiglu", "silu"):
+        return F.silu
+    if name in ("geglu", "gelu"):
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")

@@ -1,6 +1,8 @@
 """Token embeddings and the tied output head."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.layers.common import dense_init
@@ -13,8 +15,16 @@ def embed_init(cfg, dtype, generator, device):
                                 generator, device, scale=0.02)}
 
 
-def embed_apply(params, tokens):
-    return params["table"][tokens.to(torch.int64)]
+def embed_apply(params, tokens, cfg):
+    """The table's rows of ``tokens``; with ``cfg.scale_embeddings`` times
+    sqrt(d_model) as a float32 product (``repro`` multiplies by a numpy
+    float32 scalar, which promotes a bfloat16 row to float32; the caller
+    casts to the compute dtype)."""
+    x = params["table"][tokens.to(torch.int64)]
+    if cfg.scale_embeddings:
+        x = x.to(torch.float32) * torch.tensor(math.sqrt(cfg.d_model),
+                                               dtype=torch.float32)
+    return x
 
 
 def logits_apply(params, x):

@@ -76,7 +76,8 @@ def forward(params, batch, cfg):
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
     layer): its activations are recomputed in the backward, which runs its
     attention forward a second time."""
-    x = embed_apply(params["embed"], batch["tokens"]).to(_dtype(cfg.dtype))
+    x = embed_apply(params["embed"], batch["tokens"], cfg).to(
+        _dtype(cfg.dtype))
     for p in params["layers"]:
         if cfg.remat:
             x = checkpoint(block_apply, p, x, cfg, use_reentrant=False)
@@ -135,7 +136,7 @@ def prefill(params, state, tokens, lengths, n_valid, cfg):
     (logits (B, V) of each row's last valid token, state).
     """
     C = tokens.shape[1]
-    x = embed_apply(params["embed"], tokens).to(_dtype(cfg.dtype))
+    x = embed_apply(params["embed"], tokens, cfg).to(_dtype(cfg.dtype))
     span = state["caches"][0]["k"].shape[2]
     index = chunk_index(*chunk_gate(lengths, n_valid, C, span,
                                     rolling=bool(cfg.window)), span,
@@ -148,7 +149,7 @@ def prefill(params, state, tokens, lengths, n_valid, cfg):
 def decode_step(params, state, tokens1, lengths, cfg):
     """One decode tick against per-slot caches: tokens1 (B,) at positions
     ``lengths`` -> (logits (B, V), state)."""
-    x = embed_apply(params["embed"], tokens1).to(_dtype(cfg.dtype))
+    x = embed_apply(params["embed"], tokens1, cfg).to(_dtype(cfg.dtype))
     for p, cache in zip(params["layers"], state["caches"]):
         _, x = block_decode_step(p, cache, x, cfg, lengths)
     x = rmsnorm(params["final_norm"], x)
@@ -179,7 +180,7 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     Returns (logits (B, V) of each row's last valid token, state).
     """
     C = tokens.shape[1]
-    x = embed_apply(params["embed"], tokens).to(_dtype(cfg.dtype))
+    x = embed_apply(params["embed"], tokens, cfg).to(_dtype(cfg.dtype))
     idx = torch.arange(C, device=tokens.device)[None, :]
     chunk_rows = token_rows(block_tables, lengths[:, None] + idx, page_size)
     index = scatter_index(chunk_rows.reshape(-1), _pool_rows(state),
@@ -236,7 +237,7 @@ def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
                       page_size):
     """One decode tick: tokens1 (B,) at positions ``lengths`` ->
     (logits (B, V), state)."""
-    x = embed_apply(params["embed"], tokens1).to(_dtype(cfg.dtype))
+    x = embed_apply(params["embed"], tokens1, cfg).to(_dtype(cfg.dtype))
     index = scatter_index(token_rows(block_tables, lengths, page_size),
                           _pool_rows(state))
     for p, cache in zip(params["layers"], state["caches"]):

@@ -1,6 +1,7 @@
 """Residual blocks of the ``attn`` kind: norm -> attention -> residual,
-norm -> SwiGLU -> residual, over the full sequence (training) or over
-per-slot (contiguous) caches or a paged KV pool (serving)."""
+norm -> gated MLP (SwiGLU or GeGLU) -> residual, over the full sequence
+(training) or over per-slot (contiguous) caches or a paged KV pool
+(serving)."""
 from __future__ import annotations
 
 import torch
@@ -28,15 +29,16 @@ def block_init(cfg, dtype, generator, device):
     }
 
 
-def _ffn(params, x):
-    return x + mlp_apply(params["ffn"], rmsnorm(params["norm_ffn"], x))
+def _ffn(params, x, cfg):
+    return x + mlp_apply(params["ffn"], rmsnorm(params["norm_ffn"], x),
+                         cfg.activation)
 
 
 def block_apply(params, x, cfg):
     """One causal block over the full sequence x (B, S, d)."""
     h = rmsnorm(params["norm_mix"], x)
     h = attn_apply(params["mix"], h, cfg, window=cfg.window or None)
-    return _ffn(params, x + h)
+    return _ffn(params, x + h, cfg)
 
 
 def block_init_cache(cfg, batch, max_len, dtype, device):
@@ -52,7 +54,7 @@ def block_prefill(params, cache, x, cfg, lengths, n_valid, index):
     h = rmsnorm(params["norm_mix"], x)
     cache, h = attn_prefill_step(params["mix"], cache, h, cfg, lengths,
                                  n_valid, index, window=cfg.window)
-    return cache, _ffn(params, x + h)
+    return cache, _ffn(params, x + h, cfg)
 
 
 def block_decode_step(params, cache, x1, cfg, lengths):
@@ -68,7 +70,7 @@ def block_decode_step(params, cache, x1, cfg, lengths):
             attn_len=torch.clamp(lengths + 1, max=span))
     else:
         cache, h = attn_decode_step(params["mix"], cache, h, cfg, lengths)
-    return cache, _ffn(params, x1 + h)
+    return cache, _ffn(params, x1 + h, cfg)
 
 
 def block_paged_prefill(params, cache, x, cfg, lengths, n_valid, write_index,
@@ -77,7 +79,7 @@ def block_paged_prefill(params, cache, x, cfg, lengths, n_valid, write_index,
     cache, h = attn_paged_prefill_step(
         params["mix"], cache, h, cfg, lengths, n_valid, write_index,
         window=cfg.window, block_tables=block_tables, page_size=page_size)
-    return cache, _ffn(params, x + h)
+    return cache, _ffn(params, x + h, cfg)
 
 
 def block_paged_decode_step(params, cache, x1, cfg, lengths, write_index,
@@ -86,4 +88,4 @@ def block_paged_decode_step(params, cache, x1, cfg, lengths, write_index,
     cache, h = attn_paged_decode_step(
         params["mix"], cache, h, cfg, lengths, write_index,
         window=cfg.window, block_tables=block_tables, page_size=page_size)
-    return cache, _ffn(params, x1 + h)
+    return cache, _ffn(params, x1 + h, cfg)

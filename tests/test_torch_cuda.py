@@ -31,6 +31,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.checks import (  # noqa: E402
     contiguous_case,
     expmul_case,
+    head_dim_cases,
     flash_case,
     flash_edge_cases,
     kernel_tol,
@@ -464,6 +465,75 @@ def test_flash_kernel_checks_shared_memory_before_launch(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 256])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_serving_kernels_at_gemma_head_dims_match_plain(cuda, D, kv, variant,
+                                                        q_dtype):
+    """The four serving kernels at gemma-7b's head dims (32 smoke, 256
+    full) and its 16 / 16 heads (``checks.head_dim_cases``): lengths across
+    the decode's 256-wide and the prefill's 512-wide tiles, an idle row, a
+    chunk with no valid token."""
+    for name, run, case, idle, label in head_dim_cases(
+            np.random.default_rng(D), D, kv=kv, q_dtype=q_dtype,
+            device=cuda):
+        got = run(case, variant)
+        ref = run(case, variant, plain=True)
+        torch.cuda.synchronize()
+        assert rel_err(got, ref) <= kernel_tol(variant, q_dtype), name
+        for i in idle:
+            assert float(got[i].abs().max()) == 0.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_serving_kernels_at_head_dim_256_group_4_match_plain(cuda, kv,
+                                                             variant):
+    for name, run, case, idle, label in head_dim_cases(
+            np.random.default_rng(4), 256, kv=kv, group=4,
+            q_dtype=torch.bfloat16, device=cuda):
+        got = run(case, variant)
+        ref = run(case, variant, plain=True)
+        torch.cuda.synchronize()
+        assert rel_err(got, ref) <= kernel_tol(variant, torch.bfloat16), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", SERVING_KERNELS)
+def test_serving_kernels_check_shared_memory_before_launch(cuda, kernel,
+                                                           monkeypatch):
+    """A launch whose shared memory a block exceeds the card's raises
+    ValueError through the kernel's own query, before any launch: here a
+    card that allows one byte less than head dim 256 needs; head dim 32,
+    which needs less, still launches."""
+    from repro_torch.kernels.decode import decode
+    from repro_torch.kernels.flash import prefill
+    need = {"paged_decode": lambda: decode.paged_decode_smem(
+                1, 256, 16, 43, torch.float32),
+            "decode": lambda: decode.contiguous_decode_smem(
+                1, 256, 256, torch.float32),
+            "paged_prefill": lambda: prefill.paged_prefill_smem(256),
+            "prefill": lambda: prefill.contiguous_prefill_smem(256, 512)
+            }[kernel]()
+    assert 0 < need <= decode.card_smem_limit(cuda)
+    monkeypatch.setattr(decode, "card_smem_limit", lambda device: need - 1)
+    cases = {hd: {n: (run, case) for n, run, case, _, _ in head_dim_cases(
+        np.random.default_rng(hd), hd, kv="f32", device=cuda)}
+        for hd in (32, 256)}
+    run, case = cases[256][kernel]
+    before = build.COUNTS[kernel]
+    with pytest.raises(ValueError, match="shared memory"):
+        run(case, "expmul")
+    assert build.COUNTS[kernel] == before
+    run, case = cases[32][kernel]
+    run(case, "expmul")
+    assert build.COUNTS[kernel] == before + 1
+
+
+@pytest.mark.cuda
 def test_flash_kernel_rejects_wide_tiles(cuda):
     case = flash_case(np.random.default_rng(0), B=1, H=2, Hkv=1, Sq=600,
                       Sk=600, D=64, block_k=600, device=cuda)
@@ -731,11 +801,11 @@ GRAPH_CELLS = {
 }
 
 
-def _graph_run(cuda, cell, eager, prompts, fn_wrap=None):
-    """Serve ``prompts`` (8 new tokens each) on a smoke qwen2-0.5b (bf16,
+def _graph_run(cuda, cell, eager, prompts, fn_wrap=None, arch="qwen2-0.5b"):
+    """Serve ``prompts`` (8 new tokens each) on a smoke ``arch`` (bf16,
     ExpMul) engine; returns (engine, streams, every tick's logits, the
     launch counts)."""
-    cfg = get_config("qwen2-0.5b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
     eng = ServeEngine(params, cfg, slots=4, max_len=128, chunk_size=32,
@@ -753,6 +823,28 @@ def _graph_run(cuda, cell, eager, prompts, fn_wrap=None):
     eng.run()
     torch.cuda.synchronize()
     return eng, [r.out for r in reqs], ticks, dict(build.COUNTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["paged/int8", "contiguous/fp32"])
+def test_gemma_smoke_graph_ticks_equal_eager_ticks(cuda, cell):
+    """gemma-7b's smoke config (head dim 32, GeGLU, scaled embeddings)
+    served with CUDA-graph ticks: every tick's logits the eager engine's
+    bit for bit, on the layout's two kernels alone."""
+    prompts = [list(np.random.default_rng(2).integers(1, 256, n))
+               for n in (40, 7, 66)]
+    _, out, logits, counts = _graph_run(cuda, cell, True, prompts,
+                                        arch="gemma-7b")
+    eng, gout, glogits, gcounts = _graph_run(cuda, cell, False, prompts,
+                                             arch="gemma-7b")
+    assert gout == out and len(glogits) == len(logits) > 2
+    for i, (a, b) in enumerate(zip(glogits, logits)):
+        assert torch.equal(a, b), f"tick {i + 1}"
+    assert gcounts == counts
+    assert set(gcounts) == ({"paged_prefill", "paged_decode"}
+                            if cell.startswith("paged") else
+                            {"prefill", "decode"})
+    assert eng.graph_stats()["decode"]["replays"] == eng.decode_steps > 0
 
 
 @pytest.mark.cuda

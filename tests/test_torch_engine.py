@@ -44,12 +44,12 @@ ENGINE = dict(slots=3, max_len=48, chunk_size=8, kv_layout="paged",
 CONTIGUOUS = dict(slots=3, max_len=48, chunk_size=8)
 
 
-def _models(variant):
+def _models(variant, arch="qwen2-0.5b"):
     over = dict(dtype="float32", param_dtype="float32",
                 attention_variant=variant)
-    jcfg = jax_get_config("qwen2-0.5b", smoke=True, **over)
+    jcfg = jax_get_config(arch, smoke=True, **over)
     params = jax_init_model(jax.random.PRNGKey(0), jcfg)
-    tcfg = get_config("qwen2-0.5b", smoke=True, **over)
+    tcfg = get_config(arch, smoke=True, **over)
     return jcfg, params, tcfg, params_from_jax(
         jax.tree.map(np.asarray, params), tcfg, device="cpu")
 
@@ -66,10 +66,9 @@ def _serve(engine, prompts, max_new=8):
     return [r.out for r in reqs]
 
 
-@pytest.mark.parametrize("variant,kv_dtype", [
-    ("exact", "int8"), ("exact", "fp32"), ("expmul", "int8")])
-def test_temp0_streams_match_repro_engine(variant, kv_dtype):
-    jcfg, params, tcfg, tparams = _models(variant)
+def paged_streams(variant, kv_dtype, arch="qwen2-0.5b"):
+    """Both engines' temp-0 streams on the paged layout, held equal."""
+    jcfg, params, tcfg, tparams = _models(variant, arch)
     prompts = _prompts()
     ref = _serve(JaxServeEngine(params, jcfg, kv_dtype=kv_dtype,
                                 attention_impl="pallas", prefix_cache=False,
@@ -85,8 +84,13 @@ def test_temp0_streams_match_repro_engine(variant, kv_dtype):
 
 @pytest.mark.parametrize("variant,kv_dtype", [
     ("exact", "int8"), ("exact", "fp32"), ("expmul", "int8")])
-def test_contiguous_temp0_streams_match_repro_engine(variant, kv_dtype):
-    jcfg, params, tcfg, tparams = _models(variant)
+def test_temp0_streams_match_repro_engine(variant, kv_dtype):
+    paged_streams(variant, kv_dtype)
+
+
+def contiguous_streams(variant, kv_dtype, arch="qwen2-0.5b"):
+    """Both engines' temp-0 streams on the contiguous layout, held equal."""
+    jcfg, params, tcfg, tparams = _models(variant, arch)
     prompts = _prompts()
     ref = _serve(JaxServeEngine(params, jcfg, kv_layout="contiguous",
                                 kv_dtype=kv_dtype, attention_impl="pallas",
@@ -98,6 +102,12 @@ def test_contiguous_temp0_streams_match_repro_engine(variant, kv_dtype):
     assert _serve(eng, prompts) == ref
     assert eng.prefill_steps > 0 and eng.decode_steps > 0
     assert build.COUNTS["prefill_plain"] > before
+
+
+@pytest.mark.parametrize("variant,kv_dtype", [
+    ("exact", "int8"), ("exact", "fp32"), ("expmul", "int8")])
+def test_contiguous_temp0_streams_match_repro_engine(variant, kv_dtype):
+    contiguous_streams(variant, kv_dtype)
 
 
 def test_contiguous_chunked_matches_legacy_and_paged():

@@ -31,14 +31,12 @@ PS, NBLK, MB = 4, 14, 6
 SAME_WALK_TOL = {"fp32": 1e-4, "int8": 1e-3}
 
 
-def _models(variant, kv_dtype, window=None):
+def _models(variant, kv_dtype, window=None, arch="qwen2-0.5b"):
     over = dict(dtype="float32", param_dtype="float32",
                 attention_variant=variant, kv_dtype=kv_dtype, window=window)
-    jcfg = jax_get_config("qwen2-0.5b", smoke=True, attention_impl="pallas",
-                          **over)
+    jcfg = jax_get_config(arch, smoke=True, attention_impl="pallas", **over)
     params = japi.init_model(jax.random.PRNGKey(0), jcfg)
-    tcfg = get_config("qwen2-0.5b", smoke=True, attention_impl="kernel",
-                      **over)
+    tcfg = get_config(arch, smoke=True, attention_impl="kernel", **over)
     tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg,
                               device="cpu")
     return jcfg, params, tcfg, tparams
@@ -64,11 +62,11 @@ def test_convert_keeps_layouts_and_values():
         np.asarray(params["units"][0]["ffn"]["w_gate"][0]))
 
 
-@pytest.mark.parametrize("variant,kv_dtype", [
-    ("exact", "fp32"), ("exact", "int8"), ("expmul", "fp32"),
-    ("expmul", "int8")])
-def test_prefill_and_decode_ticks_match_repro(variant, kv_dtype):
-    jcfg, params, tcfg, tparams = _models(variant, kv_dtype)
+def paged_ticks(variant, kv_dtype, arch="qwen2-0.5b"):
+    """Two prefill chunks (the second starts mid-page), then two decodes,
+    over shuffled block tables on both sides; every tick's logits are
+    compared on the active rows, then the pools."""
+    jcfg, params, tcfg, tparams = _models(variant, kv_dtype, arch=arch)
     rng = np.random.default_rng(0)
     B = 3
     # shuffled tables; row 1 is an idle slot (all sentinel)
@@ -124,10 +122,18 @@ def test_prefill_and_decode_ticks_match_repro(variant, kv_dtype):
             == before.get("paged_prefill_plain", 0) + 2 * tcfg.num_layers)
 
 
-def contiguous_ticks(variant, kv_dtype, window, max_len, chunks):
+@pytest.mark.parametrize("variant,kv_dtype", [
+    ("exact", "fp32"), ("exact", "int8"), ("expmul", "fp32"),
+    ("expmul", "int8")])
+def test_prefill_and_decode_ticks_match_repro(variant, kv_dtype):
+    paged_ticks(variant, kv_dtype)
+
+
+def contiguous_ticks(variant, kv_dtype, window, max_len, chunks,
+                     arch="qwen2-0.5b"):
     """Prefill ``chunks`` (n_valid per row, C = 5), then two decodes, on
     both sides; every tick's logits are compared on the active rows."""
-    jcfg, params, tcfg, tparams = _models(variant, kv_dtype, window)
+    jcfg, params, tcfg, tparams = _models(variant, kv_dtype, window, arch)
     rng = np.random.default_rng(1)
     B, C = 3, 5
     jstate = japi.init_decode_state(jcfg, B, max_len)

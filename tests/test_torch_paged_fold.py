@@ -11,8 +11,9 @@ sequential walk, which the kernel is held against on the card) bit for
 bit: {exact, expmul} x {f32, int8} pools, shuffled tables, lengths 0, 1,
 ps - 1, ps, ps + 1, the table's full width and past it, a sentinel inside
 a length, with and without a window, at 1, 3 and 8 pages a rank over
-clusters of 2 and 8. One case is also held against ``repro``'s Pallas
-kernel in interpret mode.
+clusters of 2 and 8; and at gemma-7b's head dim 256 over float32 pools,
+at the pages a rank takes there (2 of 16 rows, 1 of 32). One case is also
+held against ``repro``'s Pallas kernel in interpret mode.
 
 ``fma_chain`` sums a product as the kernels do, one fused multiply-add
 chain per output in index order: pinned here on inputs where the order,
@@ -81,6 +82,34 @@ def test_paged_decode_fold_equals_sequential_walk(variant, kv, window, pages,
     assert torch.isfinite(ref).all()
     assert torch.equal(got, ref)
     assert float(got.view(-1, HKV, GROUP, D)[0].abs().max()) == 0.0  # idle
+
+
+@pytest.mark.parametrize("ps,pages", [(16, 2), (32, 1)],
+                         ids=["ps16-2pages", "ps32-1page"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_paged_decode_fold_at_head_dim_256(variant, ps, pages):
+    """At head dim 256 a rank stages 32 float32 pool rows a round
+    (``csrc/paged_decode.cu:rank_rows``): 2 pages of 16 or 1 of 32 over a
+    cluster of 8, so 256 tokens a round: a 300-token row and the table's
+    full width (512) take 2 rounds. The fold is still the sequential walk
+    bit for bit."""
+    hkv, d, mb = 2, 256, 512 // ps
+    lengths = [0, 1, ps + 1, 300, mb * ps]
+    case = paged_case(np.random.default_rng(ps), B=len(lengths), H=hkv,
+                      Hkv=hkv, D=d, page_size=ps, max_blocks=mb,
+                      lengths=lengths, kv="f32", dyadic=False, device="cpu")
+    nblk = case["k_pool"].shape[0] // ps
+    args = (case["block_tables"], case["lengths"],
+            case["q"].reshape(len(lengths) * hkv, 1, d),
+            case["k_pool"].view(nblk, ps, hkv, d),
+            case["v_pool"].view(nblk, ps, hkv, d))
+    kw = dict(scale=d ** -0.5, variant=variant, page_size=ps, window=None,
+              num_kv_heads=hkv)
+    got = paged_decode_fold(*args, pages_per_rank=pages, cluster=8, **kw)
+    ref = paged_decode_fwd_plain(*args, **kw)
+    assert torch.isfinite(ref).all()
+    assert torch.equal(got, ref)
+    assert float(got[:hkv].abs().max()) == 0.0                      # idle
 
 
 @pytest.mark.parametrize("variant", ["exact", "expmul"])
