@@ -6,8 +6,9 @@
 from the repository root, on a machine with an NVIDIA Hopper card, PyTorch
 built for CUDA and the CUDA toolkit. It imports nothing of JAX or of the
 JAX package. It drives both serving KV layouts (the paged pool and the
-per-slot contiguous caches with rolling windows) for qwen2-0.5b and
-gemma-7b, the training path, and the paper's demonstrations (the
+per-slot contiguous caches with rolling windows) for qwen2-0.5b,
+gemma-7b and minicpm3-4b (MLA: latent caches, expanded K/V at head dims
+96 and 64), the training path, and the paper's demonstrations (the
 quickstart and the Table I study).
 Phases (a failing check raises, and the script exits non-zero):
 
@@ -71,6 +72,13 @@ Phases (a failing check raises, and the script exits non-zero):
    group each decode kernel takes at 256 by KV dtype, from its shared
    memory, and a float32 launch one group past it refused with a
    ValueError before any launch;
+2c. the contiguous decode and prefill at minicpm3-4b's head dims (K rows
+   of 96, V rows of 64) against their plain versions
+   (``checks.mla_cases``: 4 / 4 heads, lengths 0, 1, 300 and S, a
+   partial chunk and n_valid 0, stale rows past every length) over
+   float32 and bfloat16 KV, exact and ExpMul, float32 and bfloat16 q; a
+   NaN row inside or past a length (non-finite rows the plain version's);
+   int8 codes at 96/64 and a pair not built refused before any launch;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -80,6 +88,9 @@ Phases (a failing check raises, and the script exits non-zero):
 3b. gemma-7b at full width (head dim 256, GeGLU, scaled embeddings),
    depth cut to 4 layers for the plain runs, float32: the same ticks on a
    paged int8 pool and on contiguous fp32 caches, gated as in 3;
+3c. minicpm3-4b at full width and depth (62 layers, bf16, ExpMul): the
+   ticks of phase 3 on a paged int8-latent pool and on contiguous fp32
+   caches, kernels against plain versions, ExpMul logits gated at 1e-3;
 4. serving at full width: ``ServeEngine`` with 8 slots, 16 requests of
    128-1024 prompt tokens and 32 new tokens each, ExpMul, temperature 0,
    on three layouts: a paged int8 pool (its shared-prefix cache on, the
@@ -139,6 +150,11 @@ Phases (a failing check raises, and the script exits non-zero):
    contiguous fp32 caches, each with graph ticks and eager ticks: streams
    gated equal, launches gated as in 4; tokens/s, TTFT p50, tick p50s and
    peak memory printed;
+4e. minicpm3-4b served the same way (62 layers, bf16, ExpMul, seed-2
+   weights), paged int8 latents and contiguous fp32: streams gated
+   equal, and each run on the contiguous decode and prefill alone (an
+   MLA pool holds latents, gathered and expanded each tick), neither
+   paged kernel;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -158,6 +174,12 @@ Phases (a failing check raises, and the script exits non-zero):
    256, the rest as above, the plain versions' median of 5 runs), with
    the registers, spills and shared memory of every KV dtype's head-dim
    256 instantiation;
+5c. the contiguous decode and prefill at minicpm3-4b's serving shapes
+   (bf16 expanded K/V at 96/64, ExpMul, bf16 q, 8 x 1,024 tokens, 40 /
+   40 heads, chunk 256): device and launch times, the bound, the plain
+   version, float32 K/V beside, the exact-bf16 yardstick against SDPA
+   under each backend that takes Dv != D, registers, spills and shared
+   memory;
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
    cosine schedule. One train step through the flash kernel and one
@@ -217,6 +239,8 @@ B, H, HKV, D, PS, MAX_LEN, CHUNK, CTX = 8, 14, 2, 64, 16, 2048, 256, 1024
 # gemma-7b: 16 / 16 heads of 256 (the paper's largest head dim), and 32 in
 # its smoke config
 GEMMA, GEMMA_H, GEMMA_D, GEMMA_TICK_LAYERS = "gemma-7b", 16, 256, 4
+# minicpm3-4b: MLA, 40 / 40 heads, expanded K rows of 96 and V rows of 64
+MLA, MLA_H = "minicpm3-4b", 40
 TRAIN_SEQ, TRAIN_STEPS = 1024, 6
 FLASH_EDGE_SEQS = (1, 31, 33, 65, 1000)
 # the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
@@ -563,6 +587,76 @@ def phase_head_dim_checks(torch, checks, build, decode):
     return largest
 
 
+def phase_mla_checks(torch, checks, build):
+    """The contiguous decode and prefill at minicpm3-4b's head dims
+    (``checks.MLA_DIMS``: K rows of 96, V rows of 64) against their plain
+    versions (``checks.mla_cases``: 4 / 4 heads, lengths 0, 1, 300 and S
+    for decode, a partial 70-token chunk and one with n_valid 0 for
+    prefill, stale rows past every length) over float32 and bfloat16 KV,
+    exact and ExpMul, float32 and bfloat16 q, dyadic and random, at
+    ``checks.kernel_tol``; a NaN row in the first, a middle or the last 16
+    rows of a 1,000-token sequence or past its length, the kernel's
+    non-finite output rows exactly its plain version's (0 * NaN reaches
+    the output); then int8 codes at (96, 64) and a pair not built
+    (64, 32), each refused with a ``ValueError`` before any launch."""
+    rng = np.random.default_rng(13)
+    worst, n = {}, 0
+    for kv in ("f32", "bf16"):
+        for q_dtype in (torch.float32, torch.bfloat16):
+            for dyadic in (True, False):
+                for name, run, case, idle, label in checks.mla_cases(
+                        rng, kv=kv, q_dtype=q_dtype, dyadic=dyadic):
+                    for variant in ("exact", "expmul"):
+                        _hold(torch, checks, name, run, case, variant,
+                              q_dtype, idle, label, worst)
+                        n += 1
+    D, Dv = checks.MLA_DIMS
+    for name in ("decode", "prefill"):
+        errs = []
+        for spot in checks.POISON_SPOTS:
+            for kv in ("f32", "bf16"):
+                case, run = checks.poisoned_case(
+                    np.random.default_rng(11), name, spot, kv=kv, D=D, Dv=Dv,
+                    H=4, Hkv=4, device="cuda")
+                for variant in ("exact", "expmul"):
+                    got = run(case, variant)
+                    ref = run(case, variant, plain=True)
+                    torch.cuda.synchronize()
+                    err = checks.rows_rel_err(got, ref)
+                    bad = int((~torch.isfinite(ref).all(-1)).sum())
+                    if (not err <= checks.kernel_tol(variant, torch.float32)
+                            or bad == 0
+                            or not bool(torch.isfinite(ref[1:]).all())):
+                        raise AssertionError(
+                            f"{name} at {D}/{Dv} {spot} {kv} {variant}: the "
+                            f"kernel's non-finite or finite rows disagree "
+                            f"with its plain version (rows_rel_err {err})")
+                    errs.append(err)
+        n += len(errs)
+        log(f"[check] {name} at {D}/{Dv}, a NaN row ({len(errs)} cases: "
+            f"{', '.join(checks.POISON_SPOTS)} x f32/bf16 x exact/expmul): "
+            f"non-finite rows equal to the plain version's, finite rows' "
+            f"worst rel err {max(errs):.3e}")
+    for what, kv, (dk, dv) in (("int8 codes at 96/64", "int8", (D, Dv)),
+                               ("a pair not built, 64/32", "f32", (64, 32))):
+        for name, run in (("decode", checks.run_contiguous_decode),
+                          ("prefill", checks.run_contiguous_prefill)):
+            pf = dict(n_valid=[5, 5], chunk=5) if name == "prefill" else {}
+            case = checks.contiguous_case(rng, B=2, H=4, Hkv=4, D=dk, Dv=dv,
+                                          S=64, lengths=[40, 7], kv=kv, **pf)
+            before = dict(build.COUNTS)
+            try:
+                run(case, "expmul")
+            except ValueError as e:
+                log(f"[check] {name}: {what} refused before its launch: {e}")
+            else:
+                raise AssertionError(f"{name}: {what} was not refused")
+            if dict(build.COUNTS) != before:
+                raise AssertionError(f"{name}: a refused call launched")
+    log(f"[check] MLA head dims {D}/{Dv}: {n} cases, worst rel err "
+        f"{json.dumps(worst)}")
+
+
 def _poisoned_pages(torch, checks, worst):
     """The ``kv_corrupt`` fault at the kernels: a poisoned page (NaN
     values, or int8 codes of -128 with NaN scales) in the first, a middle
@@ -758,13 +852,16 @@ def _ticks(torch, api, params, cfg, layout, bt, toks, chunks, tok1):
     return out
 
 
-def _hold_ticks(torch, api, params, base, runs, bt, toks, tag=""):
+def _hold_ticks(torch, api, params, base, runs, bt, toks, tag="",
+                variants=("exact", "expmul"), gated=("exact",)):
     """Each run (layout, window, kv_dtype, chunks, decode token) through the
-    kernels and through the plain versions, exact and ExpMul: logits
-    within 1e-3 of their magnitude for exact, the gap printed for
-    ExpMul."""
+    kernels and through the plain versions, in each of ``variants``:
+    logits within 1e-3 of their magnitude for the ``gated`` variants, the
+    gap printed for the others."""
     for layout, window, kv_dtype, chs, t1 in runs:
-        for variant in ("exact", "expmul"):
+        ticks = (["prefill", "prefill over history"][:len(chs)]
+                 + (["decode"] if t1 is not None else []))
+        for variant in variants:
             logits = {}
             for impl in ("kernel", "plain"):
                 cfg = base.replace(attention_variant=variant,
@@ -782,11 +879,11 @@ def _hold_ticks(torch, api, params, base, runs, bt, toks, tag=""):
                 if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
                     raise AssertionError("non-finite logits")
                 gap = float((a - b).abs().max() / b.abs().max())
-                tick = ["prefill", "prefill over history", "decode"][i]
                 log(f"[model] {tag}{layout} {kv_dtype} window={window} "
-                    f"{variant} {tick}: max|dlogits| / max|logits| = "
-                    f"{gap:.3e} (max|logits| {float(b.abs().max()):.3f})")
-                if variant == "exact" and not gap <= 1e-3:
+                    f"{variant} {ticks[i]}: max|dlogits| / max|logits| = "
+                    f"{gap:.3e} (max|logits| {float(b.abs().max()):.3f}; "
+                    f"{'gated at 1e-3' if variant in gated else 'not gated'})")
+                if variant in gated and not gap <= 1e-3:
                     raise AssertionError("kernel logits disagree with plain")
 
 
@@ -841,6 +938,27 @@ def phase_gemma_ticks(torch, cfg_mod, api):
     runs = [("paged", None, "int8", chunks, tok1),
             ("contiguous", None, "fp32", chunks, tok1)]
     _hold_ticks(torch, api, params, base, runs, bt, toks, tag=f"{GEMMA} ")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_mla_ticks(torch, cfg_mod, api):
+    """minicpm3-4b at full width and depth (62 layers, bf16, ExpMul,
+    random weights from seed 0): phase 3's two prefill ticks and a decode
+    tick on a paged int8-latent pool and on contiguous fp32 caches (bf16
+    latents), kernels against plain versions, the logits gated within 1e-3
+    of their magnitude (phase 3b's bound, here on ExpMul). Either layout
+    runs the contiguous decode and prefill at 96/64."""
+    base = cfg_mod.get_config(MLA)                  # bf16, ExpMul
+    assert base.attention_variant == "expmul" and base.dtype == "bfloat16"
+    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    bt, chunks, toks, tok1 = _tick_inputs(torch, np.random.default_rng(1),
+                                          base.vocab_size)
+    runs = [("paged", None, "int8", chunks, tok1),
+            ("contiguous", None, "fp32", chunks, tok1)]
+    _hold_ticks(torch, api, params, base, runs, bt, toks, tag=f"{MLA} ",
+                variants=("expmul",), gated=("expmul",))
     del params
     torch.cuda.empty_cache()
 
@@ -1036,16 +1154,20 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     return launches
 
 
-def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine):
-    """gemma-7b at full width and depth (bf16, ExpMul, random weights from
-    seed 2) served as phase 4 serves qwen2-0.5b: the same 16 prompts'
-    lengths, 32 new tokens each, 8 slots, ``max_len`` 2048, chunk 256,
-    temperature 0, on a paged int8 pool and on contiguous fp32 caches
+def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA):
+    """gemma-7b (or ``arch``) at full width and depth (bf16, ExpMul, random
+    weights from seed 2) served as phase 4 serves qwen2-0.5b: the same 16
+    prompts' lengths, 32 new tokens each, 8 slots, ``max_len`` 2048, chunk
+    256, temperature 0, on a paged int8 pool and on contiguous fp32 caches
     (bf16 rows, the compute dtype), each with CUDA-graph ticks and eager
     ticks: streams gated equal, each run on its layout's two kernels
-    alone, in replays x captured launches under graphs. Returns the
-    launches of each kernel under graphs."""
-    cfg = cfg_mod.get_config(GEMMA)                 # bf16, ExpMul
+    alone, in replays x captured launches under graphs. An MLA config's
+    layers run the contiguous kernels on both layouts (its paged pool
+    holds latents): each run must launch those two and neither paged
+    kernel, and each layout's graph ticks are profiled (``phase_profile``:
+    where an MLA tick's time goes beside the kernels). Returns the
+    launches of each kernel under graphs, by layout for MLA."""
+    cfg = cfg_mod.get_config(arch)                  # bf16, ExpMul
     assert cfg.attention_variant == "expmul" and cfg.dtype == "bfloat16"
     params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
                             device="cuda")
@@ -1058,20 +1180,25 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine):
     ckw = dict(kw, kv_layout="contiguous", kv_dtype="fp32")
     del ckw["page_size"]
     launches = {}
-    for label, lkw, pair in (("paged/int8", kw, PAGED),
+    for label, lkw, pair in (("paged/int8", kw,
+                              CONTIGUOUS if cfg.mla else PAGED),
                              ("contiguous/fp32", ckw, CONTIGUOUS)):
         runs = {}
         for mode in ("graphs", "eager"):
             runs[mode] = _serve_run(torch, build, ServeEngine, params, cfg,
                                     prompts, dict(lkw, eager_ticks=mode ==
                                                   "eager"), pair,
-                                    tag=f"{GEMMA} ")
+                                    tag=f"{arch} ")
+            torch.cuda.empty_cache()
+        if cfg.mla:
+            phase_profile(torch, ServeEngine, params, cfg, lkw, prompts,
+                          tag=f"{arch} ")
             torch.cuda.empty_cache()
         (counts, _, out, g), (_, _, eager_out, e) = (runs["graphs"],
                                                      runs["eager"])
         same = sum(a == b for x, y in zip(out, eager_out)
                    for a, b in zip(x, y))
-        log(f"[serve] {GEMMA} {label}: graphs vs eager temp-0 streams, "
+        log(f"[serve] {arch} {label}: graphs vs eager temp-0 streams, "
             f"{same} of {sum(map(len, out))} tokens equal; tokens/s "
             f"{g['tokens_per_s']:.1f} / {e['tokens_per_s']:.1f}; TTFT p50 "
             f"{g['ttft_p50_ms']:.1f} / {e['ttft_p50_ms']:.1f} ms; tick p50 "
@@ -1079,10 +1206,13 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine):
             f"ms, decode {g['decode_p50_ms']:.2f} / {e['decode_p50_ms']:.2f} "
             f"ms; peak memory {g['peak_gib']:.2f} / {e['peak_gib']:.2f} GiB")
         if out != eager_out:
-            raise AssertionError(f"{GEMMA} {label}: the graph engine's "
+            raise AssertionError(f"{arch} {label}: the graph engine's "
                                  f"streams differ from the eager engine's")
         for name in pair:
-            launches[name] = counts[name]
+            if cfg.mla:
+                launches.setdefault(name, {})[label] = counts[name]
+            else:
+                launches[name] = counts[name]
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1489,7 +1619,7 @@ def _profile_window(torch, fn, label):
     return busy, kernels, round(idle, 3)
 
 
-def phase_profile(torch, ServeEngine, params, cfg, kw, prompts):
+def phase_profile(torch, ServeEngine, params, cfg, kw, prompts, tag=""):
     """Device busy share and the top device kernels over one prefill tick
     and four decode ticks of a serving path, from torch.profiler, after a
     request of one prefill and one decode tick (which capture the graphs).
@@ -1508,7 +1638,7 @@ def phase_profile(torch, ServeEngine, params, cfg, kw, prompts):
                 eng.tick()
         *_, idle[kind] = _profile_window(
             torch, lambda: [eng.tick() for _ in range(n)],
-            f"{kw['kv_layout']}/{kw['kv_dtype']} {mode} {kind} x{n}")
+            f"{tag}{kw['kv_layout']}/{kw['kv_dtype']} {mode} {kind} x{n}")
     eng.run()
     return idle
 
@@ -1744,11 +1874,124 @@ def phase_gemma_times(torch, checks, F):
                          plain_warmup=1)
 
 
+def _sdpa_backends(torch, F, flush, q, k, v, mask):
+    """SDPA over dense operands under each backend that takes them (K rows
+    of 96, V rows of 64: flash attention needs Dv == D), in PyTorch's
+    default order, and under the default dispatch: {backend: ms}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]):
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def run(be=be):
+            with sdpa_kernel([be]):
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        out[be.name] = median_ms(torch, run, flush)
+    out["default"] = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), flush)
+    return out
+
+
+def phase_mla_times(torch, checks, F, build, decode, prefill):
+    """The contiguous decode and prefill at minicpm3-4b's serving shapes:
+    bf16 expanded K (96) and V (64), ExpMul, bf16 q, 8 sequences of 1,024
+    resident tokens, 40 / 40 heads, 256-token chunks; device time, time
+    with the launch, the plain version's (median of 5), the bound (each
+    input and output byte once at the HBM rate; 2 (D + Dv) operations a
+    (query, key) pair at the bf16 peak), the exact-bf16 yardstick against
+    SDPA over the same dense bf16 operands under each backend that takes
+    Dv != D, and float32 K/V (what a dequantized int8 latent expands to,
+    the paged int8 run's operands) beside; then each instantiation's
+    registers, spills and shared memory a CTA."""
+    D, Dv = checks.MLA_DIMS
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(6)
+    lens, nv = [CTX] * B, [CHUNK] * B
+    common = dict(B=B, H=MLA_H, Hkv=MLA_H, D=D, Dv=Dv, S=MAX_LEN,
+                  lengths=lens, q_dtype=torch.bfloat16, dyadic=False,
+                  device="cuda")
+    L = np.asarray(lens, np.int64)
+    out = {}
+    for name, run, pf in (("decode", checks.run_contiguous_decode, {}),
+                          ("prefill", checks.run_contiguous_prefill,
+                           dict(n_valid=nv, chunk=CHUNK))):
+        C = CHUNK if pf else 1
+        case = checks.contiguous_case(rng, kv="bf16", **common, **pf)
+        got = run(case, "expmul")
+        ref = run(case, "expmul", plain=True)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        rel = checks.rel_err(got, ref)
+        if not rel <= checks.kernel_tol("expmul", torch.bfloat16):
+            raise AssertionError(f"{name} disagrees at minicpm3-4b's "
+                                 f"serving shapes")
+        ms = median_ms(torch, lambda: run(case, "expmul"), flush)
+        host_ms = median_ms(torch, lambda: run(case, "expmul"), flush,
+                            hide_host=False)
+        plain_ms = median_ms(torch, lambda: run(case, "expmul", plain=True),
+                             flush, n=5, warmup=1)
+        # bytes: q and the output, the resident K/V rows and the chunk's,
+        # the lengths (and n_valid); pairs: every resident key, and the
+        # chunk's causal triangle
+        kv_row = MLA_H * (D + Dv) * 2
+        nbytes = (B * MLA_H * C * (D + Dv) * 2 + int(L.sum()) * kv_row
+                  + (B * C * kv_row if pf else 0) + 4 * B * (2 if pf else 1))
+        pairs = int((MLA_H * (C * L + (C * (C + 1) // 2 if pf else 0))).sum())
+        flops = 2 * (D + Dv) * pairs
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        exact_ms = median_ms(torch, lambda: run(case, "exact"), flush)
+        case32 = checks.contiguous_case(rng, kv="f32", **common, **pf)
+        ms32 = median_ms(torch, lambda: run(case32, "expmul"), flush)
+        del case32
+        q = torch.randn(B, MLA_H, C, D, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn(B, MLA_H, CTX + C - (C == 1), D, device="cuda",
+                        dtype=torch.bfloat16)
+        v = torch.randn(B, MLA_H, CTX + C - (C == 1), Dv, device="cuda",
+                        dtype=torch.bfloat16)
+        mask = None
+        if C > 1:    # chunk rows see the history and the chunk causally
+            mask = (torch.arange(CTX + C, device="cuda")[None, :]
+                    <= CTX + torch.arange(C, device="cuda")[:, None])
+        sdpa = _sdpa_backends(torch, F, flush, q, k, v, mask)
+        del case, q, k, v
+        entry = f"{name}_kernelI13__nv_bfloat16Li{D}ELi{Dv}ELb1EE"
+        smem = (decode.contiguous_decode_smem(1, D, decode.BLOCK_K,
+                                              torch.bfloat16, Dv)
+                if name == "decode" else
+                prefill.contiguous_prefill_smem(D, prefill.BLOCK_K, Dv))
+        out[name] = dict(
+            max_abs_err=err, ms=ms, ms_with_launch=host_ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, ms_f32_kv=ms32,
+            yardstick={"what": "exact variant, bf16 values vs SDPA over the "
+                       "same dense bf16 operands, by backend",
+                       "kernel_ms": exact_ms, "library_ms": sdpa},
+            ptxas=_ptxas(build, name, entry), smem_bytes=smem)
+        log(f"[time] {name} at {D}/{Dv} (bf16 K/V, ExpMul, B={B}, "
+            f"{MLA_H} / {MLA_H} heads, ctx {CTX}"
+            f"{', chunk %d' % CHUNK if pf else ''}): kernel {ms:.4f} ms on "
+            f"the device, {host_ms:.4f} ms with its launch, plain "
+            f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.4f} ms "
+            f"({out[name]['bound_by']}: {nbytes} B, {flops} flop), max abs "
+            f"err {err:.3e} (rel {rel:.3e}); float32 K/V {ms32:.4f} ms; "
+            f"yardstick exact bf16 kernel {exact_ms:.4f} ms vs SDPA "
+            f"{json.dumps(sdpa)}; {entry}: {out[name]['ptxas']}, {smem} B of "
+            f"shared memory a CTA")
+    return out
+
+
 # the main-path instantiations of the kernels, as the compiler names them:
 # the serving kernels' (int8 codes, D 64, ExpMul) and flash's training one
 # (float32, D 64, ExpMul)
-MAIN_ENTRY = {"decode": "decode_kernelIaLi64ELb1EE",
-              "prefill": "prefill_kernelIaLi64ELb1EE",
+MAIN_ENTRY = {"decode": "decode_kernelIaLi64ELi64ELb1EE",
+              "prefill": "prefill_kernelIaLi64ELi64ELb1EE",
               "paged_decode": "paged_decode_kernelIaLi64ELb1EE",
               "paged_prefill": "paged_prefill_kernelIaLi64ELb1EE",
               "flash": "flash_kernelIfLi64ELb1EE"}
@@ -1798,9 +2041,10 @@ def phase_resources(build, decode, prefill, flash):
             GEMMA_D, prefill.BLOCK_K)}
     for name in PAGED + CONTIGUOUS:
         d256 = {"ptxas": {}, "smem_bytes": {}}
+        dims = f"Li{GEMMA_D}E" * (2 if name in CONTIGUOUS else 1)
         for kv, (mangled, dtype) in KV_MANGLED.items():
             d256["ptxas"][kv] = _ptxas(
-                build, name, f"{name}_kernelI{mangled}Li{GEMMA_D}ELb1EE")
+                build, name, f"{name}_kernelI{mangled}{dims}Lb1EE")
             d256["smem_bytes"][kv] = smem_256[name](getattr(torch, dtype))
         log(f"[resources] {name} at head dim {GEMMA_D}, ExpMul, by KV "
             f"dtype: {json.dumps(d256)}")
@@ -2026,10 +2270,12 @@ def main() -> int:
         ("kernel checks", lambda: phase_kernel_checks(torch, checks)),
         ("head dim checks", lambda: phase_head_dim_checks(torch, checks,
                                                           build, decode)),
+        ("mla checks", lambda: phase_mla_checks(torch, checks, build)),
         ("expmul checks", lambda: phase_expmul_checks(torch, checks, build,
                                                       expmul_ops)),
         ("model ticks", lambda: phase_model_ticks(torch, cfg_mod, api)),
         ("gemma ticks", lambda: phase_gemma_ticks(torch, cfg_mod, api)),
+        ("mla ticks", lambda: phase_mla_ticks(torch, cfg_mod, api)),
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("prefix", lambda: phase_prefix(torch, cfg_mod, api, build,
@@ -2038,8 +2284,12 @@ def main() -> int:
                                         ServeEngine)),
         ("gemma serve", lambda: phase_gemma_serve(torch, cfg_mod, api, build,
                                                   ServeEngine)),
+        ("mla serve", lambda: phase_gemma_serve(torch, cfg_mod, api, build,
+                                                ServeEngine, arch=MLA)),
         ("times", lambda: phase_times(torch, checks, F)),
         ("gemma times", lambda: phase_gemma_times(torch, checks, F)),
+        ("mla times", lambda: phase_mla_times(torch, checks, F, build, decode,
+                                              prefill)),
         ("resources", lambda: phase_resources(build, decode, prefill,
                                               flash)),
         ("train", lambda: phase_train(torch, cfg_mod, api, build)),
@@ -2066,6 +2316,11 @@ def main() -> int:
                            for kv in KV_MANGLED}
             if name.endswith("decode") else None,
             **results["gemma times"][name])
+    # the contiguous kernels at minicpm3-4b's head dims 96/64: its serving
+    # runs' launches (graphs, by layout), its times and resources
+    for name in CONTIGUOUS:
+        results["resources"][name]["mla_96_64"] = dict(
+            launches=results["mla serve"][name], **results["mla times"][name])
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **launches[name],

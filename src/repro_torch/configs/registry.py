@@ -7,6 +7,7 @@ _ARCH_MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
     "gemma-7b": "repro_torch.configs.gemma_7b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -4,8 +4,9 @@
 ``init_model`` with every leaf turned into a numpy array (for example
 ``jax.tree.map(np.asarray, params)``): ``units[0]`` holds each leaf stacked
 on a leading layer axis. It returns the port's parameter dict with the
-same per-layer layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...), so
-both frameworks run the same weights. This module imports neither ``jax``
+same per-layer layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...; MLA's
+``q_norm`` and ``kv_norm`` stay dicts of their ``scale``), so both
+frameworks run the same weights. This module imports neither ``jax``
 nor ``repro``: the arrays arrive as numpy.
 """
 from __future__ import annotations
@@ -30,14 +31,13 @@ def params_from_jax(np_params, cfg, *, device="cuda"):
                          "unit kind)")
     stacked = np_params["units"][0]
 
-    def layer(i):
-        return {group: {name: _tensor(arr[i], device)
-                        for name, arr in leaves.items()}
-                for group, leaves in stacked.items()}
+    def layer(tree, i):  # nested dicts (MLA's norms) keep their nesting
+        return {name: layer(leaf, i) if isinstance(leaf, dict)
+                else _tensor(leaf[i], device) for name, leaf in tree.items()}
 
     return {
         "embed": {"table": _tensor(np_params["embed"]["table"], device)},
         "final_norm": {"scale": _tensor(np_params["final_norm"]["scale"],
                                         device)},
-        "layers": [layer(i) for i in range(cfg.num_layers)],
+        "layers": [layer(stacked, i) for i in range(cfg.num_layers)],
     }

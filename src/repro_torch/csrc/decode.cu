@@ -56,6 +56,14 @@
 // sub-tile in column order), the next step's cp.async in flight while the
 // current one is computed on. The scores, maxima, weights and fold are the
 // same operations in the same order.
+//
+// K rows may be wider than V rows (MLA's expanded latents: DK 96, DV 64, as
+// the reference's kernel takes them): q and the scores walk DK features, the
+// partials, the running state and the output DV. Built for (D, D) with D in
+// {16, 32, 64, 256} over every KV dtype, and for (96, 64) over float32 and
+// bfloat16 KV only (MLA's expanded K/V are never codes). At (96, 64) a tile
+// fits a CTA unsplit: 256 rows of K and V are 53,248 + 32,768 B in bfloat16
+// and 102,400 + 65,536 B in float32, under the 232,448 a CTA can use.
 #include <cooperative_groups.h>
 
 #include "tile_sm90.cuh"
@@ -78,62 +86,66 @@ struct Layout {
 
 __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 
-// Above head dim 64 a tile's K and V rows do not fit in a CTA (256 rows of
-// 256 float32 are 256 KB each), so the tile is staged in steps: K in depth
-// chunks of kDepth features of all its rows (each thread carries its
+// Above DK + DV = 160 features a tile's K and V rows do not fit in a CTA (256
+// rows of 256 float32 are 256 KB each), so the tile is staged in steps: K in
+// depth chunks of kDepth features of all its rows (each thread carries its
 // columns' score chains from chunk to chunk in s_s), then V in sub-tiles of
 // kSubRows rows of all D features (each thread carries its outputs' value
 // chains from sub-tile to sub-tile in part_s), every step double-buffered
 // by cp.async. The tile, its maxima and every chain's order stay as they are.
-template <int D>
-__host__ __device__ constexpr bool split_tile() { return D > 64; }
+// Only D 256 is split (DK == DV there).
+template <int DK, int DV>
+__host__ __device__ constexpr bool split_tile() { return DK + DV > 160; }
 constexpr int kDepth = 64;    // K features a step (split tiles)
 constexpr int kSubRows = 64;  // V rows a step (split tiles)
 
-template <typename KV, int D>
+template <typename KV, int DK, int DV>
 __host__ __device__ Layout layout(int group, int bk) {
   constexpr int F = sizeof(float);
   Layout L;
-  const int row = D * static_cast<int>(sizeof(KV));
-  if constexpr (split_tile<D>()) {
+  const int krow = DK * static_cast<int>(sizeof(KV));
+  const int vrow = DV * static_cast<int>(sizeof(KV));
+  if constexpr (split_tile<DK, DV>()) {
     // two step buffers: a K chunk of bk rows, or a V sub-tile
     L.k_stride = kDepth * static_cast<int>(sizeof(KV)) + 16;
-    const int step = align16(bk * L.k_stride > kSubRows * row ? bk * L.k_stride
-                                                               : kSubRows * row);
+    const int step = align16(bk * L.k_stride > kSubRows * vrow ? bk * L.k_stride
+                                                                : kSubRows * vrow);
     L.k = 0;
     L.v = step;
     L.ks = 2 * step;
   } else {
-    L.k_stride = row + 16;
+    L.k_stride = krow + 16;
     L.k = 0;
     L.v = align16(L.k + bk * L.k_stride);
-    L.ks = align16(L.v + bk * row);
+    L.ks = align16(L.v + bk * vrow);
   }
   L.vs = align16(L.ks + F * bk);
   L.q = align16(L.vs + F * bk);
-  L.s = align16(L.q + F * group * D);                       // [group][bk]
+  L.s = align16(L.q + F * group * DK);                      // [group][bk]
   L.tmax = align16(L.s + F * group * bk);                   // [2][kMaxCluster][group]
   L.carry = align16(L.tmax + F * 2 * kMaxCluster * group);  // [group]
-  L.part = align16(L.carry + F * group);                    // [group][D + 1]
+  L.part = align16(L.carry + F * group);                    // [group][DV + 1]
   // rank 0's running state: m (two buffers), l, acc
-  L.m = align16(L.part + F * group * (D + 1));  // [2][group]
-  L.l = align16(L.m + F * 2 * group);           // [group]
-  L.acc = align16(L.l + F * group);             // [group][D]
-  L.total = L.acc + F * group * D;
+  L.m = align16(L.part + F * group * (DV + 1));  // [2][group]
+  L.l = align16(L.m + F * 2 * group);            // [group]
+  L.acc = align16(L.l + F * group);              // [group][DV]
+  L.total = L.acc + F * group * DV;
   return L;
 }
 
-template <typename KV, int D, bool EXPMUL>
+template <typename KV, int DK, int DV, bool EXPMUL>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
               const float* __restrict__ ks, const float* __restrict__ vs,
               const int* __restrict__ lens, void* __restrict__ out, int Hkv, int group, int S,
               int bk, int CL, float scale, int act_dtype, int vec16) {
   constexpr bool QUANT = IsCode<KV>::value;
-  constexpr bool SPLIT = split_tile<D>();
-  constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
+  constexpr bool SPLIT = split_tile<DK, DV>();
+  static_assert(!SPLIT || DK == DV, "split tiles at DK == DV only");
+  constexpr int kKRow = DK * static_cast<int>(sizeof(KV));  // bytes of a K row
+  constexpr int kVRow = DV * static_cast<int>(sizeof(KV));  // bytes of a V row
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout<KV, D>(group, bk);
+  const Layout L = layout<KV, DK, DV>(group, bk);
   unsigned char* k_s = smem + L.k;
   const KV* v_s = reinterpret_cast<const KV*>(smem + L.v);
   float* ks_s = reinterpret_cast<float*>(smem + L.ks);
@@ -164,8 +176,8 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     if (t < n_act) {
       const int c0 = t * bk, nr = min(bk, S - c0);
       const int64_t r = row0 + c0;
-      copy_rows_async(k_s, L.k_stride, reinterpret_cast<const unsigned char*>(k + r * D), nr,
-                      kRowBytes, vec16);
+      copy_rows_async(k_s, L.k_stride, reinterpret_cast<const unsigned char*>(k + r * DK), nr,
+                      kKRow, vec16);
       if (QUANT) {
         for (int j = tid; j < nr; j += kThreads) cp_async4(ks_s + j, ks + r + j);
       }
@@ -176,8 +188,8 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     if (t < n_act) {
       const int c0 = t * bk, nr = min(bk, S - c0);
       const int64_t r = row0 + c0;
-      copy_rows_async(smem + L.v, kRowBytes, reinterpret_cast<const unsigned char*>(v + r * D),
-                      nr, kRowBytes, vec16);
+      copy_rows_async(smem + L.v, kVRow, reinterpret_cast<const unsigned char*>(v + r * DV),
+                      nr, kVRow, vec16);
       if (QUANT) {
         for (int j = tid; j < nr; j += kThreads) cp_async4(vs_s + j, vs + r + j);
       }
@@ -187,7 +199,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
   // split tiles: step g of the walk (a round's D / kDepth K chunks, then its
   // V sub-tiles) into buffer g % 2, one commit group each; the first K
   // chunk brings both scale rows of the tile
-  constexpr int kChunks = D / kDepth;
+  constexpr int kChunks = DK / kDepth;
   const int n_steps = kChunks + (bk + kSubRows - 1) / kSubRows;  // a round's
   const auto step_buf = [&](int g) { return smem + (g & 1) * L.v; };
   const auto copy_step = [&](int g) {
@@ -195,12 +207,11 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     if (t < n_act) {
       const int c0 = t * bk, nr = min(bk, S - c0);
       const int64_t r = row0 + c0;
-      const unsigned char* src =
-          reinterpret_cast<const unsigned char*>(st < kChunks ? k : v) + r * kRowBytes;
       if (st < kChunks) {
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(k) + r * kKRow;
         const int d0 = st * kDepth * static_cast<int>(sizeof(KV));
         copy_rows_async_at(step_buf(g), L.k_stride, nr, kDepth * static_cast<int>(sizeof(KV)),
-                           vec16, [=](int j) { return src + j * kRowBytes + d0; });
+                           vec16, [=](int j) { return src + j * kKRow + d0; });
         if (QUANT && st == 0) {
           for (int j = tid; j < nr; j += kThreads) {
             cp_async4(ks_s + j, ks + r + j);
@@ -208,10 +219,11 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
           }
         }
       } else {
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(v) + r * kVRow;
         const int j0 = (st - kChunks) * kSubRows;
         if (j0 < nr)
-          copy_rows_async(step_buf(g), kRowBytes, src + j0 * kRowBytes, min(kSubRows, nr - j0),
-                          kRowBytes, vec16);
+          copy_rows_async(step_buf(g), kVRow, src + j0 * kVRow, min(kSubRows, nr - j0), kVRow,
+                          vec16);
       }
     }
     cp_async_commit();
@@ -225,14 +237,14 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     copy_k(rank);
     copy_v(rank);
   }
-  for (int i = tid; i < group * D; i += kThreads)
-    q_s[i] = load_act(q, static_cast<int64_t>(bh) * group * D + i, act_dtype);
+  for (int i = tid; i < group * DK; i += kThreads)
+    q_s[i] = load_act(q, static_cast<int64_t>(bh) * group * DK + i, act_dtype);
   for (int i = tid; i < group; i += kThreads) {
     carry_s[i] = kMaskValue;
     m_s[i] = kMaskValue;
     l_s[i] = 0.0f;
   }
-  for (int i = tid; i < group * D; i += kThreads) acc_s[i] = 0.0f;
+  for (int i = tid; i < group * DV; i += kThreads) acc_s[i] = 0.0f;
 
   for (int round = 0; round < rounds; ++round) {
     const int t = round * CL + rank;
@@ -260,7 +272,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
           }
           const float ksj = QUANT ? ks_s[j] : 1.0f;
           for (int i = 0; i < group; ++i) {
-            const float4* qr = reinterpret_cast<const float4*>(q_s + i * D + c * kDepth);
+            const float4* qr = reinterpret_cast<const float4*>(q_s + i * DK + c * kDepth);
             float dot = c == 0 ? 0.0f : s_s[i * bk + j];
 #pragma unroll
             for (int d = 0; d < kDepth; d += 4) {
@@ -284,28 +296,41 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     } else {
       cp_async_wait<1>();  // K landed; V may still be in flight
       __syncthreads();
+      // one thread a column; its row in registers up to 64 features, above
+      // that read from shared memory for each query row (the same chain)
+      constexpr bool kHold = DK <= 64;
       for (int j = tid; j < nr; j += kThreads) {
-        float kr[D];
+        [[maybe_unused]] float kr[kHold ? DK : 1];
         const KV* krow = reinterpret_cast<const KV*>(k_s + j * L.k_stride);
+        if constexpr (kHold) {
 #pragma unroll
-        for (int d = 0; d < D; d += 4) {
-          const float4 x = load4<KV>(krow + d);
-          kr[d] = x.x;
-          kr[d + 1] = x.y;
-          kr[d + 2] = x.z;
-          kr[d + 3] = x.w;
+          for (int d = 0; d < DK; d += 4) {
+            const float4 x = load4<KV>(krow + d);
+            kr[d] = x.x;
+            kr[d + 1] = x.y;
+            kr[d + 2] = x.z;
+            kr[d + 3] = x.w;
+          }
         }
         const float ksj = QUANT ? ks_s[j] : 1.0f;
         for (int i = 0; i < group; ++i) {
-          const float4* qr = reinterpret_cast<const float4*>(q_s + i * D);
+          const float4* qr = reinterpret_cast<const float4*>(q_s + i * DK);
           float dot = 0.0f;
 #pragma unroll
-          for (int d = 0; d < D; d += 4) {
+          for (int d = 0; d < DK; d += 4) {
             const float4 qd = qr[d / 4];
-            dot = fmaf(qd.x, kr[d], dot);
-            dot = fmaf(qd.y, kr[d + 1], dot);
-            dot = fmaf(qd.z, kr[d + 2], dot);
-            dot = fmaf(qd.w, kr[d + 3], dot);
+            if constexpr (kHold) {
+              dot = fmaf(qd.x, kr[d], dot);
+              dot = fmaf(qd.y, kr[d + 1], dot);
+              dot = fmaf(qd.z, kr[d + 2], dot);
+              dot = fmaf(qd.w, kr[d + 3], dot);
+            } else {
+              const float4 x = load4<KV>(krow + d);
+              dot = fmaf(qd.x, x.x, dot);
+              dot = fmaf(qd.y, x.y, dot);
+              dot = fmaf(qd.z, x.z, dot);
+              dot = fmaf(qd.w, x.w, dot);
+            }
           }
           float sc = dot * scale;
           if (QUANT) sc *= ksj;
@@ -340,7 +365,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
           ps += p;
         }
         ps = warp_sum(ps);
-        if (lane == 0) part_s[i * (D + 1) + D] = ps;
+        if (lane == 0) part_s[i * (DV + 1) + DV] = ps;
       }
       __syncthreads();  // the weights are in place
     }
@@ -353,33 +378,33 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
         __syncthreads();
         const int c0 = sub * kSubRows, nc = min(kSubRows, nr - c0);
         const KV* vb = reinterpret_cast<const KV*>(step_buf(g));
-        for (int e = tid; nc > 0 && e < group * D; e += kThreads) {
-          const int i = e / D, d = e - i * D;
+        for (int e = tid; nc > 0 && e < group * DV; e += kThreads) {
+          const int i = e / DV, d = e - i * DV;
           const float* wr = s_s + i * bk + c0;
-          float ds = c0 == 0 ? 0.0f : part_s[i * (D + 1) + d];
+          float ds = c0 == 0 ? 0.0f : part_s[i * (DV + 1) + d];
 #pragma unroll 8
-          for (int j = 0; j < nc; ++j) ds = fmaf(wr[j], to_f32(vb[j * D + d]), ds);
-          part_s[i * (D + 1) + d] = ds;
+          for (int j = 0; j < nc; ++j) ds = fmaf(wr[j], to_f32(vb[j * DV + d]), ds);
+          part_s[i * (DV + 1) + d] = ds;
         }
         __syncthreads();  // the step's readers are done
       }
     } else if (nr > 0) {
       // one thread a (row, 4 features): fmaf chains over the columns in order
-      for (int e = tid; e < group * (D / 4); e += kThreads) {
-        const int i = e / (D / 4), d4 = (e - i * (D / 4)) * 4;
+      for (int e = tid; e < group * (DV / 4); e += kThreads) {
+        const int i = e / (DV / 4), d4 = (e - i * (DV / 4)) * 4;
         const float* wr = s_s + i * bk;
         const KV* vc = v_s + d4;
         float ds[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 8
         for (int j = 0; j < nr; ++j) {
-          const float4 vv = load4<KV>(vc + j * D);
+          const float4 vv = load4<KV>(vc + j * DV);
           const float w = wr[j];
           ds[0] = fmaf(w, vv.x, ds[0]);
           ds[1] = fmaf(w, vv.y, ds[1]);
           ds[2] = fmaf(w, vv.z, ds[2]);
           ds[3] = fmaf(w, vv.w, ds[3]);
         }
-        float* dst = part_s + i * (D + 1) + d4;
+        float* dst = part_s + i * (DV + 1) + d4;
 #pragma unroll
         for (int u = 0; u < 4; ++u) dst[u] = ds[u];
       }
@@ -400,15 +425,15 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
       const int n_here = min(CL, n_act - round * CL);
       const float* m_in = m_s + (round & 1) * group;
       float* m_out = m_s + ((round + 1) & 1) * group;
-      for (int e = tid; e < group * D; e += kThreads) {
-        const int i = e / D, d = e - i * D;
+      for (int e = tid; e < group * DV; e += kThreads) {
+        const int i = e / DV, d = e - i * DV;
         float ds[kMaxCluster], ps[kMaxCluster];
 #pragma unroll
         for (int r = 0; r < kMaxCluster; ++r) {
           if (r < n_here) {
-            const float* pr = cluster.map_shared_rank(part_s, r) + i * (D + 1);
+            const float* pr = cluster.map_shared_rank(part_s, r) + i * (DV + 1);
             ds[r] = pr[d];
-            if (d == 0) ps[r] = pr[D];
+            if (d == 0) ps[r] = pr[DV];
           }
         }
         float m = m_in[i], l = l_s[i], acc = acc_s[e];
@@ -433,29 +458,29 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
 
   if (rank == 0) {
     __syncthreads();  // every row's l is in place
-    for (int e = tid; e < group * D; e += kThreads) {
-      const float l = l_s[e / D];
-      store_act(out, static_cast<int64_t>(bh) * group * D + e,
+    for (int e = tid; e < group * DV; e += kThreads) {
+      const float l = l_s[e / DV];
+      store_act(out, static_cast<int64_t>(bh) * group * DV + e,
                 acc_s[e] / (l == 0.0f ? 1.0f : l), act_dtype);
     }
   }
   cluster.sync();  // no CTA leaves while rank 0 may still read its partials
 }
 
-template <typename KV, int D>
+template <typename KV, int DK, int DV>
 int smem_bytes(int group, int bk) {
-  return layout<KV, D>(group, bk).total;
+  return layout<KV, DK, DV>(group, bk).total;
 }
 
-template <typename KV, int D, bool EXPMUL>
+template <typename KV, int DK, int DV, bool EXPMUL>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* lens, void* out, int B, int Hkv, int group, int S, int bk, float scale,
            int act_dtype, cudaStream_t stream) {
   const int T = (S + bk - 1) / bk;  // the walk's tiles at a length of S
   const int CL = T < kMaxCluster ? T : kMaxCluster;
-  const int smem = smem_bytes<KV, D>(group, bk);
+  const int smem = smem_bytes<KV, DK, DV>(group, bk);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = decode_kernel<KV, D, EXPMUL>;
+  auto kernel = decode_kernel<KV, DK, DV, EXPMUL>;
   static int granted = 48 * 1024;  // per instantiation
   if (smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -483,79 +508,88 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   return static_cast<int>(cudaGetLastError());
 }
 
+// (DK, DV): (D, D) for D in {16, 32, 64, 256}, and (96, 64) for float KV
 template <typename KV>
-int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const float* ks,
-           const float* vs, const int* lens, void* out, int B, int Hkv, int group, int S,
-           int bk, float scale, int act_dtype, cudaStream_t s) {
-#define REPRO_LAUNCH(DIM)                                                                 \
-  return expmul ? launch<KV, DIM, true>(q, k, v, ks, vs, lens, out, B, Hkv, group, S, bk, \
-                                        scale, act_dtype, s)                             \
-                : launch<KV, DIM, false>(q, k, v, ks, vs, lens, out, B, Hkv, group, S, bk, \
-                                         scale, act_dtype, s)
-  switch (D) {
-    case 16: REPRO_LAUNCH(16);
-    case 32: REPRO_LAUNCH(32);
-    case 64: REPRO_LAUNCH(64);
-    case 256: REPRO_LAUNCH(256);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+int by_dims(int D, int Dv, int expmul, const void* q, const void* k, const void* v,
+            const float* ks, const float* vs, const int* lens, void* out, int B, int Hkv,
+            int group, int S, int bk, float scale, int act_dtype, cudaStream_t s) {
+#define REPRO_LAUNCH(DK, DV)                                                              \
+  return expmul ? launch<KV, DK, DV, true>(q, k, v, ks, vs, lens, out, B, Hkv, group, S, \
+                                           bk, scale, act_dtype, s)                      \
+                : launch<KV, DK, DV, false>(q, k, v, ks, vs, lens, out, B, Hkv, group, S, \
+                                            bk, scale, act_dtype, s)
+  if (D == Dv) {
+    switch (D) {
+      case 16: REPRO_LAUNCH(16, 16);
+      case 32: REPRO_LAUNCH(32, 32);
+      case 64: REPRO_LAUNCH(64, 64);
+      case 256: REPRO_LAUNCH(256, 256);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  if constexpr (!IsCode<KV>::value) {
+    if (D == 96 && Dv == 64) REPRO_LAUNCH(96, 64);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 #undef REPRO_LAUNCH
 }
 
 template <typename KV>
-long long smem_by_dim(int D, int group, int bk) {
-  switch (D) {
-    case 16: return static_cast<long long>(smem_bytes<KV, 16>(group, bk));
-    case 32: return static_cast<long long>(smem_bytes<KV, 32>(group, bk));
-    case 64: return static_cast<long long>(smem_bytes<KV, 64>(group, bk));
-    case 256: return static_cast<long long>(smem_bytes<KV, 256>(group, bk));
-    default: return -1;
+long long smem_by_dims(int D, int Dv, int group, int bk) {
+  if (D == Dv) {
+    switch (D) {
+      case 16: return static_cast<long long>(smem_bytes<KV, 16, 16>(group, bk));
+      case 32: return static_cast<long long>(smem_bytes<KV, 32, 32>(group, bk));
+      case 64: return static_cast<long long>(smem_bytes<KV, 64, 64>(group, bk));
+      case 256: return static_cast<long long>(smem_bytes<KV, 256, 256>(group, bk));
+      default: return -1;
+    }
   }
+  if constexpr (!IsCode<KV>::value) {
+    if (D == 96 && Dv == 64) return static_cast<long long>(smem_bytes<KV, 96, 64>(group, bk));
+  }
+  return -1;
 }
 
 }  // namespace
 
-// q (B*Hkv, group, D) f32/bf16; caches k/v (B*Hkv, S, D) of kv_dtype; scale
-// rows ks/vs (B*Hkv, S) f32 for codes (else unused); lens (B,) i32, the
-// tokens to attend (columns >= min(len, S) are masked); bk the KV tile width
-// (<= kMaxTile); out (B*Hkv, group, D) in q's dtype. Returns the cudaError_t
-// of the launch (cudaErrorInvalidValue where one tile would not fit in a
-// CTA's shared memory: float32 caches at bk = 512; never at the wrapper's
-// bk <= 256).
+// q (B*Hkv, group, D) f32/bf16; caches k (B*Hkv, S, D) and v (B*Hkv, S, Dv)
+// of kv_dtype; scale rows ks/vs (B*Hkv, S) f32 for codes (else unused); lens
+// (B,) i32, the tokens to attend (columns >= min(len, S) are masked); bk the
+// KV tile width (<= kMaxTile); out (B*Hkv, group, Dv) in q's dtype. Returns
+// the cudaError_t of the launch (cudaErrorInvalidValue for a (D, Dv) pair or
+// KV dtype not built, or where one tile would not fit in a CTA's shared
+// memory: float32 caches at bk = 512; never at the wrapper's bk <= 256).
 extern "C" int contiguous_decode(const void* q, const void* k, const void* v, const float* ks,
                                  const float* vs, const int* lens, void* out, int B, int Hkv,
-                                 int group, int D, int S, int bk, float scale, int expmul,
-                                 int act_dtype, int kv_dtype, void* stream) {
+                                 int group, int D, int Dv, int S, int bk, float scale,
+                                 int expmul, int act_dtype, int kv_dtype, void* stream) {
   if (B <= 0 || Hkv <= 0 || group <= 0 || group > kMaxGroup || S <= 0 || bk <= 0 ||
       bk > kMaxTile)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_DTYPE(KV)                                                                   \
+  return by_dims<KV>(D, Dv, expmul, q, k, v, ks, vs, lens, out, B, Hkv, group, S, bk, \
+                     scale, act_dtype, s)
   switch (kv_dtype) {
-    case kF32:
-      return by_dim<float>(D, expmul, q, k, v, ks, vs, lens, out, B, Hkv, group, S, bk, scale,
-                           act_dtype, s);
-    case kBF16:
-      return by_dim<__nv_bfloat16>(D, expmul, q, k, v, ks, vs, lens, out, B, Hkv, group, S,
-                                   bk, scale, act_dtype, s);
-    case kI8:
-      return by_dim<int8_t>(D, expmul, q, k, v, ks, vs, lens, out, B, Hkv, group, S, bk,
-                            scale, act_dtype, s);
-    case kFP8:
-      return by_dim<__nv_fp8_e4m3>(D, expmul, q, k, v, ks, vs, lens, out, B, Hkv, group, S,
-                                   bk, scale, act_dtype, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kF32: REPRO_DTYPE(float);
+    case kBF16: REPRO_DTYPE(__nv_bfloat16);
+    case kI8: REPRO_DTYPE(int8_t);
+    case kFP8: REPRO_DTYPE(__nv_fp8_e4m3);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_DTYPE
 }
 
 // The dynamic shared memory, in bytes, that contiguous_decode gives each CTA
-// at these arguments (independent of S); -1 for an unsupported D or dtype.
-extern "C" long long contiguous_decode_smem(int group, int D, int bk, int kv_dtype) {
+// at these arguments (independent of S); -1 for a (D, Dv) pair or dtype not
+// built.
+extern "C" long long contiguous_decode_smem(int group, int D, int Dv, int bk, int kv_dtype) {
   switch (kv_dtype) {
-    case kF32: return smem_by_dim<float>(D, group, bk);
-    case kBF16: return smem_by_dim<__nv_bfloat16>(D, group, bk);
-    case kI8: return smem_by_dim<int8_t>(D, group, bk);
-    case kFP8: return smem_by_dim<__nv_fp8_e4m3>(D, group, bk);
+    case kF32: return smem_by_dims<float>(D, Dv, group, bk);
+    case kBF16: return smem_by_dims<__nv_bfloat16>(D, Dv, group, bk);
+    case kI8: return smem_by_dims<int8_t>(D, Dv, group, bk);
+    case kFP8: return smem_by_dims<__nv_fp8_e4m3>(D, Dv, group, bk);
     default: return -1;
   }
 }

@@ -50,6 +50,14 @@
 //   chunk:               col < n_valid, col <= row (and row - col < window)
 // The query block (32 rows, not the reference's min(128, C)) changes only
 // which wholly masked tiles are skipped.
+//
+// K rows may be wider than V rows (MLA's expanded latents: DK 96, DV 64, as
+// the reference's kernel takes them): q is staged at DK, both K and V
+// sub-tiles at one stride of max(DK, DV) + 4 floats (the x_s buffer holds
+// either), the scores walk DK features, the values and the output DV.
+// Built for (D, D) with D in {16, 32, 64, 256} over every KV dtype, and for
+// (96, 64) over float32 and bfloat16 KV only (MLA's expanded K/V are never
+// codes).
 #include <type_traits>
 
 #include "tile_sm90.cuh"
@@ -64,10 +72,11 @@ constexpr int kSub = kStageRows;      // KV rows staged at once
 constexpr int kPad = kStagePad;       // floats of padding on staged rows
 constexpr int kPLd = kScoreLd;        // row stride of the transposed scores
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t smem_bytes(int bk) {
-  return sizeof(float) * (kRows * (D + kPad) + static_cast<size_t>(bk) * kPLd +
-                          kSub * (D + kPad) + kSub + bk + 2 * kRows);
+  constexpr int DS = DK > DV ? DK : DV;  // the staged rows' width
+  return sizeof(float) * (kRows * (DK + kPad) + static_cast<size_t>(bk) * kPLd +
+                          kSub * (DS + kPad) + kSub + bk + 2 * kRows);
 }
 
 // One tile of the walk: its first column (in the cache or in the chunk) and
@@ -77,7 +86,7 @@ struct Tile {
   bool chunk;
 };
 
-template <typename KV, int D, bool EXPMUL>
+template <typename KV, int DK, int DV, bool EXPMUL>
 __global__ void __launch_bounds__(kThreads, 2)
 prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* __restrict__ vc,
                const float* __restrict__ ksc, const float* __restrict__ vsc,
@@ -87,11 +96,12 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
                void* __restrict__ out, int H, int Hkv, int C, int S, int bk, int window,
                int rolling, float scale, int act_dtype, int vec16) {
   constexpr bool QUANT = IsCode<KV>::value;
+  constexpr int DS = DK > DV ? DK : DV;
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                             // [kRows][D + kPad]
-  float* p_s = q_s + kRows * (D + kPad);         // [bk][kPLd]: scores, then weights
-  float* x_s = p_s + bk * kPLd;                  // [kSub][D + kPad]: staged K or V
-  float* sc_s = x_s + kSub * (D + kPad);         // [kSub]: its scale rows
+  float* q_s = smem;                             // [kRows][DK + kPad]
+  float* p_s = q_s + kRows * (DK + kPad);        // [bk][kPLd]: scores, then weights
+  float* x_s = p_s + bk * kPLd;                  // [kSub][DS + kPad]: staged K or V
+  float* sc_s = x_s + kSub * (DS + kPad);        // [kSub]: its scale rows
   float* vt_s = sc_s + kSub;                     // [bk]: the tile's v scales
   float* r_s = vt_s + bk;                        // [kRows]: each row's rescale
   float* l_s = r_s + kRows;                      // [kRows]: each row's l
@@ -138,16 +148,17 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
     return window <= 0 || length + r0 + r - pos < window;
   };
   // staging step i: the K sub-tiles of a tile, then its V sub-tiles
-  const auto step_at = [&](int i, const KV*& src, const float*& sc, int& nrows) {
+  const auto step_at = [&](int i, const KV*& src, const float*& sc, int& nrows,
+                           bool& is_v) {
     for (int ci = 0; ci < n_cand; ++ci) {
       Tile t;
       if (!tile_at(ci, t)) continue;
       const int ns = (t.nr + kSub - 1) / kSub;
       if (i < 2 * ns) {
-        const bool is_v = i >= ns;
+        is_v = i >= ns;
         const int sub = is_v ? i - ns : i;
         const int64_t r = (t.chunk ? chunk0 : cache0) + t.c0 + sub * kSub;
-        src = (t.chunk ? (is_v ? vn : kn) : (is_v ? vc : kc)) + r * D;
+        src = (t.chunk ? (is_v ? vn : kn) : (is_v ? vc : kc)) + r * (is_v ? DV : DK);
         sc = QUANT ? (t.chunk ? (is_v ? vsn : ksn) : (is_v ? vsc : ksc)) + r : nullptr;
         nrows = min(kSub, t.nr - sub * kSub);
         return true;
@@ -157,7 +168,7 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
     return false;
   };
 
-  using St = Stage<KV, D>;
+  using St = Stage<KV, DK, DV>;
   St stage;
   int step = 0;
   // staging step i: in flight in registers, or (St::kSync) straight into x_s
@@ -165,11 +176,12 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
     const KV* src;
     const float* sc;
     int nrows;
-    if (!step_at(i, src, sc, nrows)) return;
+    bool is_v;
+    if (!step_at(i, src, sc, nrows, is_v)) return;
     if constexpr (St::kSync) {
-      stage.load(x_s, sc_s, src, sc, nrows, vec16);
+      stage.load(x_s, sc_s, src, sc, nrows, vec16, is_v);
     } else {
-      stage.fetch(src, sc, nrows, vec16);
+      stage.fetch(src, sc, nrows, vec16, is_v);
     }
   };
   if constexpr (!St::kSync) stage_step(0);
@@ -186,15 +198,15 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
     }
   };
 
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    q_s[r * (D + kPad) + d] =
-        r < rows ? load_act(q, (static_cast<int64_t>(bh) * C + r0 + r) * D + d, act_dtype)
+  for (int i = tid; i < kRows * DK; i += kThreads) {
+    const int r = i / DK, d = i - r * DK;
+    q_s[r * (DK + kPad) + d] =
+        r < rows ? load_act(q, (static_cast<int64_t>(bh) * C + r0 + r) * DK + d, act_dtype)
                  : 0.0f;
   }
   __syncthreads();
 
-  ChunkRows<D> st;
+  ChunkRows<DV> st;
   for (int ci = 0; ci < n_cand; ++ci) {
     Tile t;
     if (!tile_at(ci, t)) continue;
@@ -202,107 +214,111 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
     const bool dense = !t.chunk && !rolling && window <= 0 && t.c0 + t.nr <= length;
     const float* vscale = nullptr;
     if constexpr (QUANT) vscale = (t.chunk ? vsn + chunk0 : vsc + cache0) + t.c0;
-    chunk_tile_step<D, EXPMUL, QUANT>(st, q_s, p_s, x_s, sc_s, vt_s, r_s, vscale, t.nr, scale,
+    chunk_tile_step<DK, EXPMUL, QUANT>(st, q_s, p_s, x_s, sc_s, vt_s, r_s, vscale, t.nr, scale,
                                       dense, advance,
                                       [&](int r, int j) { return valid(t, r, j); });
   }
-  st.store(out, (static_cast<int64_t>(bh) * C + r0) * D, l_s, rows, act_dtype);
+  st.store(out, (static_cast<int64_t>(bh) * C + r0) * DV, l_s, rows, act_dtype);
 }
 
-template <typename KV, int D, bool EXPMUL>
+template <typename KV, int DK, int DV, bool EXPMUL>
 int launch(const void* q, const void* kc, const void* vc, const float* ksc, const float* vsc,
            const void* kn, const void* vn, const float* ksn, const float* vsn, const int* lens,
            const int* nvalid, void* out, int B, int H, int Hkv, int C, int S, int bk,
            int window, int rolling, float scale, int act_dtype, cudaStream_t stream) {
-  auto kernel = prefill_kernel<KV, D, EXPMUL>;
+  auto kernel = prefill_kernel<KV, DK, DV, EXPMUL>;
   static bool wide_smem = false;  // once per instantiation: room for the widest tile
   if (!wide_smem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<D>(kMaxTile)));
+        static_cast<int>(smem_bytes<DK, DV>(kMaxTile)));
     if (e != cudaSuccess) return static_cast<int>(e);
     wide_smem = true;
   }
   const uintptr_t any = reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc) |
                         reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn);
   const dim3 grid(B * H, (C + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem_bytes<D>(bk), stream>>>(
+  kernel<<<grid, kThreads, smem_bytes<DK, DV>(bk), stream>>>(
       q, static_cast<const KV*>(kc), static_cast<const KV*>(vc), ksc, vsc,
       static_cast<const KV*>(kn), static_cast<const KV*>(vn), ksn, vsn, lens, nvalid, out, H,
       Hkv, C, S, bk, window, rolling, scale, act_dtype, (any & 15) == 0);
   return static_cast<int>(cudaGetLastError());
 }
 
+// (DK, DV): (D, D) for D in {16, 32, 64, 256}, and (96, 64) for float KV
 template <typename KV>
-int by_dim(int D, int expmul, const void* q, const void* kc, const void* vc, const float* ksc,
-           const float* vsc, const void* kn, const void* vn, const float* ksn,
-           const float* vsn, const int* lens, const int* nvalid, void* out, int B, int H,
-           int Hkv, int C, int S, int bk, int window, int rolling, float scale, int act_dtype,
-           cudaStream_t s) {
-#define REPRO_LAUNCH(DIM)                                                                    \
-  return expmul ? launch<KV, DIM, true>(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens, nvalid, \
-                                        out, B, H, Hkv, C, S, bk, window, rolling, scale,   \
-                                        act_dtype, s)                                       \
-                : launch<KV, DIM, false>(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens,       \
-                                         nvalid, out, B, H, Hkv, C, S, bk, window, rolling, \
-                                         scale, act_dtype, s)
-  switch (D) {
-    case 16: REPRO_LAUNCH(16);
-    case 32: REPRO_LAUNCH(32);
-    case 64: REPRO_LAUNCH(64);
-    case 256: REPRO_LAUNCH(256);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+int by_dims(int D, int Dv, int expmul, const void* q, const void* kc, const void* vc,
+            const float* ksc, const float* vsc, const void* kn, const void* vn,
+            const float* ksn, const float* vsn, const int* lens, const int* nvalid, void* out,
+            int B, int H, int Hkv, int C, int S, int bk, int window, int rolling, float scale,
+            int act_dtype, cudaStream_t s) {
+#define REPRO_LAUNCH(DK, DV)                                                                  \
+  return expmul ? launch<KV, DK, DV, true>(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens,       \
+                                           nvalid, out, B, H, Hkv, C, S, bk, window, rolling, \
+                                           scale, act_dtype, s)                               \
+                : launch<KV, DK, DV, false>(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens,      \
+                                            nvalid, out, B, H, Hkv, C, S, bk, window,         \
+                                            rolling, scale, act_dtype, s)
+  if (D == Dv) {
+    switch (D) {
+      case 16: REPRO_LAUNCH(16, 16);
+      case 32: REPRO_LAUNCH(32, 32);
+      case 64: REPRO_LAUNCH(64, 64);
+      case 256: REPRO_LAUNCH(256, 256);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  if constexpr (!IsCode<KV>::value) {
+    if (D == 96 && Dv == 64) REPRO_LAUNCH(96, 64);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 #undef REPRO_LAUNCH
 }
 
 }  // namespace
 
-// q (B*H, C, D) f32/bf16; cache kc/vc (B*Hkv, S, D) of kv_dtype and its
-// scale rows ksc/vsc (B*Hkv, S) f32 for codes; chunk kn/vn (B*Hkv, C, D) of
-// kv_dtype and ksn/vsn (B*Hkv, C) f32 for codes; lens / nvalid (B,) i32;
-// bk the KV tile width (<= kMaxTile); window <= 0: none; rolling: the cache
-// is a rolling buffer of span S; out (B*H, C, D) in q's dtype. With
-// rolling = 0 the caller keeps length <= S. Returns the cudaError_t of the
-// launch.
+// q (B*H, C, D) f32/bf16; cache kc (B*Hkv, S, D) and vc (B*Hkv, S, Dv) of
+// kv_dtype and its scale rows ksc/vsc (B*Hkv, S) f32 for codes; chunk kn
+// (B*Hkv, C, D) and vn (B*Hkv, C, Dv) of kv_dtype and ksn/vsn (B*Hkv, C) f32
+// for codes; lens / nvalid (B,) i32; bk the KV tile width (<= kMaxTile);
+// window <= 0: none; rolling: the cache is a rolling buffer of span S; out
+// (B*H, C, Dv) in q's dtype. With rolling = 0 the caller keeps length <= S.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a (D, Dv)
+// pair or KV dtype not built).
 extern "C" int contiguous_prefill(const void* q, const void* kc, const void* vc,
                                   const float* ksc, const float* vsc, const void* kn,
                                   const void* vn, const float* ksn, const float* vsn,
                                   const int* lens, const int* nvalid, void* out, int B, int H,
-                                  int Hkv, int C, int D, int S, int bk, int window, int rolling,
-                                  float scale, int expmul, int act_dtype, int kv_dtype,
-                                  void* stream) {
+                                  int Hkv, int C, int D, int Dv, int S, int bk, int window,
+                                  int rolling, float scale, int expmul, int act_dtype,
+                                  int kv_dtype, void* stream) {
   if (B <= 0 || C <= 0 || S < 0 || Hkv <= 0 || H % Hkv != 0 || bk <= 0 || bk > kMaxTile)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_DTYPE(KV)                                                                       \
+  return by_dims<KV>(D, Dv, expmul, q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens, nvalid, out, \
+                     B, H, Hkv, C, S, bk, window, rolling, scale, act_dtype, s)
   switch (kv_dtype) {
-    case kF32:
-      return by_dim<float>(D, expmul, q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens, nvalid, out,
-                           B, H, Hkv, C, S, bk, window, rolling, scale, act_dtype, s);
-    case kBF16:
-      return by_dim<__nv_bfloat16>(D, expmul, q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens,
-                                   nvalid, out, B, H, Hkv, C, S, bk, window, rolling, scale,
-                                   act_dtype, s);
-    case kI8:
-      return by_dim<int8_t>(D, expmul, q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens, nvalid,
-                            out, B, H, Hkv, C, S, bk, window, rolling, scale, act_dtype, s);
-    case kFP8:
-      return by_dim<__nv_fp8_e4m3>(D, expmul, q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens,
-                                   nvalid, out, B, H, Hkv, C, S, bk, window, rolling, scale,
-                                   act_dtype, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kF32: REPRO_DTYPE(float);
+    case kBF16: REPRO_DTYPE(__nv_bfloat16);
+    case kI8: REPRO_DTYPE(int8_t);
+    case kFP8: REPRO_DTYPE(__nv_fp8_e4m3);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_DTYPE
 }
 
 // The dynamic shared memory, in bytes, that contiguous_prefill gives each CTA
-// at tile width bk (independent of S and C); -1 for an unsupported D.
-extern "C" long long contiguous_prefill_smem(int D, int bk) {
+// at tile width bk (independent of S and C); -1 for a (D, Dv) pair not built
+// (its KV dtypes are contiguous_prefill's).
+extern "C" long long contiguous_prefill_smem(int D, int Dv, int bk) {
+  if (D == 96 && Dv == 64) return static_cast<long long>(smem_bytes<96, 64>(bk));
+  if (D != Dv) return -1;
   switch (D) {
-    case 16: return static_cast<long long>(smem_bytes<16>(bk));
-    case 32: return static_cast<long long>(smem_bytes<32>(bk));
-    case 64: return static_cast<long long>(smem_bytes<64>(bk));
-    case 256: return static_cast<long long>(smem_bytes<256>(bk));
+    case 16: return static_cast<long long>(smem_bytes<16, 16>(bk));
+    case 32: return static_cast<long long>(smem_bytes<32, 32>(bk));
+    case 64: return static_cast<long long>(smem_bytes<64, 64>(bk));
+    case 256: return static_cast<long long>(smem_bytes<256, 256>(bk));
     default: return -1;
   }
 }

@@ -162,34 +162,45 @@ __device__ __forceinline__ float rescale(float x, float r) {
 
 // ---- the CUDA-core layout of the prefill and flash kernels ------------------
 // One CTA of kChunkThreads threads per (sequence, query head, kChunkRows
-// query rows), q in shared memory as float32 rows of D + kStagePad; KV staged in
+// query rows), q in shared memory as float32 rows of DK + kStagePad; KV staged in
 // sub-tiles of kStageRows rows (the next one's 16-byte loads in flight in
 // registers while the current one is computed on), converted to float32
-// rows of D + kStagePad in shared memory; the scores transposed,
-// p_s[col * kScoreLd + row]. Both products are fmaf chains in the plain
-// version's order (kernels/flash/tile.py:fma_chain): the scores in depth
-// order, the values in column order.
+// rows in shared memory; the scores transposed, p_s[col * kScoreLd + row].
+// K rows hold DK features and V rows DV (MLA: DK 96, DV 64); both are staged
+// at one row stride, max(DK, DV) + kStagePad floats. Both products are fmaf
+// chains in the plain version's order (kernels/flash/tile.py:fma_chain): the
+// scores in depth order, the values in column order.
 constexpr int kChunkThreads = 128;
 constexpr int kChunkRows = 32;
 constexpr int kStageRows = 64;
 constexpr int kStagePad = 4;
 constexpr int kScoreLd = kChunkRows + kStagePad;
 
-// Raw bytes of one staged sub-tile (kStageRows rows of D elements of KV) in
-// flight in registers: 16-byte pieces, kPer a thread, and one scale row.
+// Raw bytes of one staged sub-tile (kStageRows rows of DK elements of KV, or
+// of DV for V rows: the `v` argument of fetch and load) in flight in
+// registers: 16-byte pieces, kPer a thread, and one scale row. Rows land at
+// a stride of DS + kStagePad floats, DS = max(DK, DV).
 // At D 256 a thread's value accumulators take 128 registers (ChunkRows<256>
 // has RPT 16): there rows of more than 8 pieces a thread (float32 and
 // bfloat16) are not held in flight (kSync): load() reads and converts them
 // straight into shared memory when the step begins.
-template <typename KV, int D>
+template <typename KV, int DK, int DV = DK>
 struct Stage {
-  static constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
+  static constexpr int DS = DK > DV ? DK : DV;
+  static constexpr int kRowBytes = DK * static_cast<int>(sizeof(KV));
+  static constexpr int kVRowBytes = DV * static_cast<int>(sizeof(KV));
   static constexpr int kPerRow = kRowBytes / 16;
-  static constexpr int kPieces = kStageRows * kPerRow;
+  static constexpr int kVPerRow = kVRowBytes / 16;
+  static constexpr int kPieces = kStageRows * (kPerRow > kVPerRow ? kPerRow : kVPerRow);
   static constexpr int kPer = (kPieces + kChunkThreads - 1) / kChunkThreads;
-  static constexpr bool kSync = D >= 256 && kPer > 8;
+  static constexpr bool kSync = DS >= 256 && kPer > 8;
   uint4 raw[kSync ? 1 : kPer];
   float sc;
+  bool v_rows = false;  // the rows in flight are V rows (read only when DV != DK)
+
+  __device__ __forceinline__ static constexpr int per_row(bool v) {
+    return DV != DK && v ? kVPerRow : kPerRow;
+  }
 
   // the 16 bytes at p (16-byte aligned with vec16, else 4-byte aligned)
   __device__ __forceinline__ static uint4 piece(const unsigned char* p, bool vec16) {
@@ -198,11 +209,12 @@ struct Stage {
     return make_uint4(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3));
   }
 
-  // piece i of the sub-tile (its raw bytes raw_i) as float32 in its row of x_s
-  __device__ __forceinline__ static void put(float* x_s, int i, uint4 raw_i) {
+  // piece i of the sub-tile (its raw bytes raw_i, rows of pr pieces) as
+  // float32 in its row of x_s
+  __device__ __forceinline__ static void put(float* x_s, int i, uint4 raw_i, int pr) {
     constexpr int kElems = 16 / static_cast<int>(sizeof(KV));
-    const int r = i / kPerRow, e0 = (i - r * kPerRow) * kElems;
-    float4* dst = reinterpret_cast<float4*>(x_s + r * (D + kStagePad) + e0);
+    const int r = i / pr, e0 = (i - r * pr) * kElems;
+    float4* dst = reinterpret_cast<float4*>(x_s + r * (DS + kStagePad) + e0);
     const unsigned w[4] = {raw_i.x, raw_i.y, raw_i.z, raw_i.w};
     if constexpr (std::is_same<KV, float>::value) {
       dst[0] = make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]),
@@ -224,14 +236,16 @@ struct Stage {
   // its scale from sc_row(r); zeros past nrows
   template <typename SrcRow, typename ScRow>
   __device__ __forceinline__ void fetch_at(SrcRow src_row, ScRow sc_row, int nrows,
-                                           bool vec16) {
+                                           bool vec16, bool v = false) {
     static_assert(!kSync, "loaded at the step, not fetched ahead");
+    v_rows = v;
+    const int pr = per_row(v), pieces = kStageRows * pr;
 #pragma unroll
     for (int c = 0; c < kPer; ++c) {
       const int i = threadIdx.x + c * kChunkThreads;
-      const int r = i / kPerRow;
+      const int r = i / pr;
       raw[c] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < kPieces && r < nrows) raw[c] = piece(src_row(r) + (i - r * kPerRow) * 16, vec16);
+      if (i < pieces && r < nrows) raw[c] = piece(src_row(r) + (i - r * pr) * 16, vec16);
     }
     sc = 0.0f;
     if (IsCode<KV>::value && static_cast<int>(threadIdx.x) < nrows)
@@ -240,19 +254,21 @@ struct Stage {
 
   // the same for rows contiguous from src, scales from scale (codes only)
   __device__ __forceinline__ void fetch(const KV* src, const float* scale, int nrows,
-                                        bool vec16) {
+                                        bool vec16, bool v = false) {
     const unsigned char* base = reinterpret_cast<const unsigned char*>(src);
-    fetch_at([=](int r) { return base + static_cast<int64_t>(r) * kRowBytes; },
-             [=](int r) { return scale + r; }, nrows, vec16);
+    const int64_t row = DV != DK && v ? kVRowBytes : kRowBytes;
+    fetch_at([=](int r) { return base + static_cast<int64_t>(r) * row; },
+             [=](int r) { return scale + r; }, nrows, vec16, v);
   }
 
-  // the sub-tile as float32 rows x_s[r * (D + kStagePad) + d], zeros past nrows
+  // the sub-tile as float32 rows x_s[r * (DS + kStagePad) + d], zeros past nrows
   __device__ __forceinline__ void commit(float* x_s, float* sc_s) const {
     static_assert(!kSync, "loaded at the step, not fetched ahead");
+    const int pr = per_row(v_rows), pieces = kStageRows * pr;
 #pragma unroll
     for (int c = 0; c < kPer; ++c) {
       const int i = threadIdx.x + c * kChunkThreads;
-      if (i < kPieces) put(x_s, i, raw[c]);
+      if (i < pieces) put(x_s, i, raw[c], pr);
     }
     if (threadIdx.x < kStageRows) sc_s[threadIdx.x] = sc;
   }
@@ -261,13 +277,16 @@ struct Stage {
   // them (the caller's barriers fence x_s)
   template <typename SrcRow, typename ScRow>
   __device__ __forceinline__ void load_at(float* x_s, float* sc_s, SrcRow src_row,
-                                          ScRow sc_row, int nrows, bool vec16) const {
+                                          ScRow sc_row, int nrows, bool vec16,
+                                          bool v = false) const {
+    const int pr = per_row(v), pieces = kStageRows * pr;
 #pragma unroll 4
-    for (int i = threadIdx.x; i < kPieces; i += kChunkThreads) {
-      const int r = i / kPerRow;
+    for (int i = threadIdx.x; i < pieces; i += kChunkThreads) {
+      const int r = i / pr;
       put(x_s, i,
-          r < nrows ? piece(src_row(r) + (i - r * kPerRow) * 16, vec16)
-                    : make_uint4(0u, 0u, 0u, 0u));
+          r < nrows ? piece(src_row(r) + (i - r * pr) * 16, vec16)
+                    : make_uint4(0u, 0u, 0u, 0u),
+          pr);
     }
     if (threadIdx.x < kStageRows)
       sc_s[threadIdx.x] = IsCode<KV>::value && static_cast<int>(threadIdx.x) < nrows
@@ -276,18 +295,21 @@ struct Stage {
   }
 
   __device__ __forceinline__ void load(float* x_s, float* sc_s, const KV* src,
-                                       const float* scale, int nrows, bool vec16) const {
+                                       const float* scale, int nrows, bool vec16,
+                                       bool v = false) const {
     const unsigned char* base = reinterpret_cast<const unsigned char*>(src);
-    load_at(x_s, sc_s, [=](int r) { return base + static_cast<int64_t>(r) * kRowBytes; },
-            [=](int r) { return scale + r; }, nrows, vec16);
+    const int64_t row = DV != DK && v ? kVRowBytes : kRowBytes;
+    load_at(x_s, sc_s, [=](int r) { return base + static_cast<int64_t>(r) * row; },
+            [=](int r) { return scale + r; }, nrows, vec16, v);
   }
 };
 
-// The scores of one staged K sub-tile (x_s, its scale rows sc_s) for the
-// CTA's query rows (q_s): p_s[j * kScoreLd + row] = (q_row . k_j) * scale
-// [* sc_s[j]] for the columns j < ncols. A 4 x 4 block of (rows, columns) a
-// thread: rows 4 rg.., columns cg + 16 c.
-template <int D, bool QUANT>
+// The scores of one staged K sub-tile (x_s, rows XLD floats apart; its scale
+// rows sc_s) for the CTA's query rows (q_s, rows D + kStagePad apart):
+// p_s[j * kScoreLd + row] = (q_row . k_j) * scale [* sc_s[j]] for the
+// columns j < ncols. A 4 x 4 block of (rows, columns) a thread: rows 4 rg..,
+// columns cg + 16 c.
+template <int D, bool QUANT, int XLD = D + kStagePad>
 __device__ __forceinline__ void score_block(const float* q_s, const float* x_s,
                                             const float* sc_s, float* p_s, int ncols,
                                             float scale) {
@@ -306,7 +328,7 @@ __device__ __forceinline__ void score_block(const float* q_s, const float* x_s,
       qv[r] = *reinterpret_cast<const float4*>(q_s + (4 * rg + r) * (D + kStagePad) + d);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      kv[c] = *reinterpret_cast<const float4*>(x_s + (cg + 16 * c) * (D + kStagePad) + d);
+      kv[c] = *reinterpret_cast<const float4*>(x_s + (cg + 16 * c) * XLD + d);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -336,15 +358,15 @@ __device__ __forceinline__ void score_block(const float* q_s, const float* x_s,
 // thread's RPT rows (1, 2, 4, 8 or 16: head dims 16, 32, 64, 128, 256) and 4
 // features: pw points at the first column's weights of those rows (p_s +
 // col * kScoreLd + RPT * row group), xv at the first column's features (x_s
-// + col * (D + kStagePad) + 4 * feature group).
-template <int D, int RPT>
+// + col * XLD + 4 * feature group; rows XLD floats apart).
+template <int D, int RPT, int XLD = D + kStagePad>
 __device__ __forceinline__ void value_block(float (&dsum)[RPT][4], const float* pw,
                                             const float* xv, int ncols) {
   static_assert(RPT == 1 || RPT == 2 || RPT == 4 || RPT == 8 || RPT == 16,
                 "value rows a thread");
 #pragma unroll 4
   for (int j = 0; j < ncols; ++j) {
-    const float4 v4 = *reinterpret_cast<const float4*>(xv + j * (D + kStagePad));
+    const float4 v4 = *reinterpret_cast<const float4*>(xv + j * XLD);
     float w[RPT];
     if constexpr (RPT >= 4) {
 #pragma unroll
@@ -404,9 +426,10 @@ struct ChunkRows {
   }
 };
 
-// One reference tile of nr columns for the CTA's rows (q_s), called by every
-// thread of the CTA: its K sub-tiles of kStageRows rows, each staged into
-// x_s (scales sc_s) by advance(), scored into p_s; then, once for the whole
+// One reference tile of nr columns for the CTA's rows (q_s, D features), called
+// by every thread of the CTA: its K sub-tiles of kStageRows rows, each staged
+// into x_s (rows max(D, DV) + kStagePad floats apart; scales sc_s) by
+// advance(), scored into p_s; then, once for the whole
 // tile, each row's max, weights (in place of the scores), their sum and the
 // rescale of (m, l), four threads a row, the factor passed to the value
 // threads through r_s (kChunkRows floats); then its V sub-tiles, staged by
@@ -415,21 +438,22 @@ struct ChunkRows {
 // valid(r, j) is the mask of column j < nr of row r; dense says that every
 // column read is valid. For codes, vscale points at the tile's v scale
 // rows, which the weights take (staged through vt_s, nr floats).
-template <int D, bool EXPMUL, bool QUANT, typename Advance, typename Valid>
-__device__ __forceinline__ void chunk_tile_step(ChunkRows<D>& st, const float* q_s, float* p_s,
+template <int D, bool EXPMUL, bool QUANT, int DV, typename Advance, typename Valid>
+__device__ __forceinline__ void chunk_tile_step(ChunkRows<DV>& st, const float* q_s, float* p_s,
                                                 const float* x_s, const float* sc_s,
                                                 float* vt_s, float* r_s,
                                                 const float* __restrict__ vscale, int nr,
                                                 float scale, bool dense, Advance advance,
                                                 Valid valid) {
-  constexpr int RPT = ChunkRows<D>::RPT, DG = ChunkRows<D>::kGroups;
+  constexpr int RPT = ChunkRows<DV>::RPT, DG = ChunkRows<DV>::kGroups;
+  constexpr int XLD = (D > DV ? D : DV) + kStagePad;  // staged rows' stride
   const int tid = threadIdx.x;
   const int wrow = tid / 4, wpart = tid % 4;
   const int vrg = tid / DG, vdg = tid % DG;
   const int ns = (nr + kStageRows - 1) / kStageRows;
   for (int sub = 0; sub < ns; ++sub) {
     advance();
-    score_block<D, QUANT>(q_s, x_s, sc_s, p_s + sub * kStageRows * kScoreLd,
+    score_block<D, QUANT, XLD>(q_s, x_s, sc_s, p_s + sub * kStageRows * kScoreLd,
                           min(kStageRows, nr - sub * kStageRows), scale);
   }
   if constexpr (QUANT) {
@@ -467,7 +491,7 @@ __device__ __forceinline__ void chunk_tile_step(ChunkRows<D>& st, const float* q
     for (int e = 0; e < 4; ++e) dsum[r][e] = 0.0f;
   for (int sub = 0; sub < ns; ++sub) {
     advance();  // its first barrier also publishes the weights and r_s
-    value_block<D, RPT>(dsum, p_s + sub * kStageRows * kScoreLd + RPT * vrg, x_s + 4 * vdg,
+    value_block<DV, RPT, XLD>(dsum, p_s + sub * kStageRows * kScoreLd + RPT * vrg, x_s + 4 * vdg,
                         min(kStageRows, nr - sub * kStageRows));
   }
   // the online-softmax update, once per tile

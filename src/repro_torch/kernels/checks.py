@@ -14,7 +14,9 @@ it too.
 NaN into pages or rows a sequence reads, and ``rows_rel_err`` holds a
 kernel to its plain version's non-finite output rows.
 ``head_dim_cases`` builds one input of each serving kernel at gemma-7b's
-head count (16 query heads) and a given head dim, over any KV kind.
+head count (16 query heads) and a given head dim, over any KV kind;
+``mla_cases`` one input of each contiguous kernel at minicpm3-4b's head
+dims (``MLA_DIMS``: K rows of 96, V rows of 64).
 ``flash_case`` builds one full-sequence input (q, k, v of one dtype) for
 the training path's flash forward, and ``flash_edge_cases`` the edges of
 its kernel's layout.
@@ -54,6 +56,7 @@ from repro_torch.kernels.flash.ops import (
 KV_KINDS = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
             "fp8": torch.float8_e4m3fn}
 STALE = 1e4        # a previous occupant's rows in a contiguous cache
+MLA_DIMS = (96, 64)  # minicpm3-4b's expanded K and V widths
 # x: past the clip, -inf, 0 and -0 (L_hat 22, 22, 0, 0)
 EXPMUL_X_EDGES = (-1e6, -float("inf"), 0.0, -0.0)
 # v: +-0; float32 and bfloat16 denormals; the smallest normals; finite
@@ -175,19 +178,22 @@ def run_prefill(case, variant, plain=False):
 
 def contiguous_case(rng, *, B, H, Hkv, D, S, lengths, n_valid=None, chunk=0,
                     kv="int8", q_dtype=torch.float32, dyadic=True,
-                    window=None, rolling=False, device="cuda"):
+                    window=None, rolling=False, Dv=None, device="cuda"):
     """Decode operands (``chunk == 0``; ``lengths <= S`` count the tokens
     to attend) or prefill operands (``n_valid`` valid tokens of a
     ``chunk``-token chunk after ``lengths`` resident; ``rolling`` reads the
-    cache as a rolling buffer of span S) over per-slot (B, Hkv, S, D)
-    caches whose slots at or past ``min(length, S)`` are stale."""
+    cache as a rolling buffer of span S) over per-slot caches, K
+    (B, Hkv, S, D) and V (B, Hkv, S, Dv) (``Dv`` default D), whose slots
+    at or past ``min(length, S)`` are stale."""
     quant = kv in ("int8", "fp8")
+    Dv = D if Dv is None else Dv
     k, ks = _kv_operand(rng, (B, Hkv, S, D), kv, dyadic, "cpu")
-    v, vs = _kv_operand(rng, (B, Hkv, S, D), kv, dyadic, "cpu")
-    sign = torch.where(torch.arange(D) % 2 == 1, 1.0, -1.0)
+    v, vs = _kv_operand(rng, (B, Hkv, S, Dv), kv, dyadic, "cpu")
     for b, n in enumerate(lengths):
         n = min(int(n), S)
         for codes, scale in ((k, ks), (v, vs)):
+            sign = torch.where(torch.arange(codes.shape[-1]) % 2 == 1, 1.0,
+                               -1.0)
             if quant:
                 big = 127.0 if kv == "int8" else 448.0
                 codes[b, :, n:] = (big * sign).to(codes.dtype)
@@ -205,7 +211,7 @@ def contiguous_case(rng, *, B, H, Hkv, D, S, lengths, n_valid=None, chunk=0,
             q_dtype).to(device)
         case["kn"], case["ksn"] = _kv_operand(rng, (B, Hkv, chunk, D), kv,
                                               dyadic, device)
-        case["vn"], case["vsn"] = _kv_operand(rng, (B, Hkv, chunk, D), kv,
+        case["vn"], case["vsn"] = _kv_operand(rng, (B, Hkv, chunk, Dv), kv,
                                               dyadic, device)
         case["n_valid"] = torch.tensor(n_valid, dtype=torch.int32,
                                        device=device)
@@ -393,18 +399,42 @@ def head_dim_cases(rng, D, *, kv, q_dtype=torch.float32, group=1,
     ]
 
 
+def mla_cases(rng, *, kv, q_dtype=torch.float32, dyadic=False, S=640,
+              device="cuda"):
+    """One input of each contiguous kernel at MLA's head dims
+    (``MLA_DIMS``), 4 / 4 heads (MLA's group of 1), over float KV kind
+    ``kv``: 4 sequences over ``S`` slots holding 300, 0, S and 1 tokens
+    for decode (a length crossing the 256-wide tiles, none, the whole
+    cache, one), and 530, 0, S and 1 before a 70-token chunk of which 70,
+    0, 33 and 70 tokens are valid (a partial chunk); every slot past a
+    length stale. Returns [(kernel, run, case, idle rows, label)]: row 1
+    attends to nothing."""
+    D, Dv = MLA_DIMS
+    kw = dict(B=4, H=4, Hkv=4, D=D, Dv=Dv, S=S, kv=kv, q_dtype=q_dtype,
+              dyadic=dyadic, device=device)
+    label = f"D={D} Dv={Dv} {kv} {'dyadic' if dyadic else 'random'}"
+    return [
+        ("decode", run_contiguous_decode,
+         contiguous_case(rng, lengths=[300, 0, S, 1], **kw), [1], label),
+        ("prefill", run_contiguous_prefill,
+         contiguous_case(rng, lengths=[530, 0, S, 1], n_valid=[70, 0, 33, 70],
+                         chunk=70, **kw), [1], label),
+    ]
+
+
 POISON_SPOTS = ("first", "middle", "last", "tail")
 SERVING_KERNELS = ("paged_decode", "paged_prefill", "decode", "prefill")
 
 
 def poisoned_case(rng, kernel, spot, *, kv="int8", length=1000, chunk=100,
-                  D=64, H=14, Hkv=2, page_size=16, device="cuda"):
+                  D=64, H=14, Hkv=2, page_size=16, Dv=None, device="cuda"):
     """One input of a serving ``kernel`` (``SERVING_KERNELS``) with a fault
     in what sequence 0 (``length`` tokens; 37 and a third row beside it)
     reads: its first, a middle or its last page (contiguous: 16 rows
     there, the last 5 rows below the length), or ``"tail"``, its rows past
     the length (paged: in its last page; contiguous: to the end of the
-    cache, ``length * 3 // 2`` slots). Returns (case, run)."""
+    cache, ``length * 3 // 2`` slots). ``Dv`` (contiguous kernels only)
+    sets the V rows' width. Returns (case, run)."""
     ps = page_size
     kw = dict(B=3, H=H, Hkv=Hkv, D=D, kv=kv, device="cpu")
     lengths = [length, 37, length // 2 + 5]
@@ -424,6 +454,7 @@ def poisoned_case(rng, kernel, spot, *, kv="int8", length=1000, chunk=100,
                                "tail": last}[spot], tail=spot == "tail")
     else:
         S = length * 3 // 2
+        kw["Dv"] = Dv
         if kernel == "decode":
             case, run = contiguous_case(rng, S=S, lengths=lengths,
                                         **kw), run_contiguous_decode

@@ -10,23 +10,28 @@ layouts:
   lengths (B,) int32 counting the current token. The tiles are pages
   0, 1, ... of the block table, masked ``col < length`` (and the window).
 * **contiguous** (``csrc/decode.cu``, the port of ``decode_fwd_pallas``):
-  q (B*Hkv, group, D), per-slot caches (B*Hkv, S, D) of values or codes,
-  scale rows (B*Hkv, S) float32 for codes, lengths (B,) int32 with
-  ``length <= S``. The tiles are ``bk = min(BLOCK_K, S)`` columns wide,
-  the reference's width (ExpMul results depend on it), masked
-  ``col < length``; rows past the length (a previous occupant's) are
-  masked and weighed 0 into the value product, by the kernel too, so a
-  NaN there reaches the output as it does the reference's.
+  q (B*Hkv, group, D), per-slot caches K (B*Hkv, S, D) and V
+  (B*Hkv, S, Dv) of values or codes, scale rows (B*Hkv, S) float32 for
+  codes, lengths (B,) int32 with ``length <= S``. The tiles are
+  ``bk = min(BLOCK_K, S)`` columns wide, the reference's width (ExpMul
+  results depend on it), masked ``col < length``; rows past the length
+  (a previous occupant's) are masked and weighed 0 into the value
+  product, by the kernel too, so a NaN there reaches the output as it
+  does the reference's.
 
 ``*_fwd`` launches the CUDA kernel for CUDA tensors and runs the plain
 version only for CPU tensors. ``*_fwd_plain`` walks the same tiles in the
 same order on any device, through the shared tile step.
 
-The kernels are built for head dims ``HEAD_DIMS`` with Dv == D. Their
-shared memory a block grows with the head dim, the GQA group and the KV
-dtype (``paged_decode_smem``, ``contiguous_decode_smem``, the kernels' own
-C queries); each wrapper checks it against the card's limit before the
-launch (``check_smem``) and raises a ``ValueError`` naming both.
+The kernels are built for head dims ``HEAD_DIMS`` with Dv == D; the
+contiguous kernels (this decode and ``kernels/flash/prefill.py``'s) also
+for the (D, Dv) pairs of ``FLOAT_HEAD_DIMS`` (MLA's expanded latents, qk
+96 and v 64) over float32 and bfloat16 KV, never codes
+(``check_head_dims``). Their shared memory a block grows with the head
+dims, the GQA group and the KV dtype (``paged_decode_smem``,
+``contiguous_decode_smem``, the kernels' own C queries); each wrapper
+checks it against the card's limit before the launch (``check_smem``) and
+raises a ``ValueError`` naming both.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ NAME = "paged_decode"
 CONTIGUOUS = "decode"
 BLOCK_K = 256      # the reference's decode tile (spec.decode_block_k)
 HEAD_DIMS = (16, 32, 64, 256)
+FLOAT_HEAD_DIMS = ((96, 64),)   # (D, Dv) of the contiguous kernels, float KV
 ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
@@ -59,9 +65,9 @@ _SIGNATURE = {NAME: (ctypes.c_int, [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3
                      + [_P]),
               "paged_decode_smem": (ctypes.c_longlong, [_I] * 5)}
 _CONTIGUOUS_SIGNATURE = {
-    "contiguous_decode": (ctypes.c_int, [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3
+    "contiguous_decode": (ctypes.c_int, [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3
                           + [_P]),
-    "contiguous_decode_smem": (ctypes.c_longlong, [_I] * 4)}
+    "contiguous_decode_smem": (ctypes.c_longlong, [_I] * 5)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,6 +87,22 @@ def check_smem(name, need, device, what):
                          f"block, the card allows {limit}")
 
 
+def check_head_dims(name, D, Dv, kv_dtype):
+    """Raise before a launch of a contiguous kernel at a (D, Dv) pair or a
+    KV dtype it is not built for: (D, D) for D in ``HEAD_DIMS`` over any
+    KV dtype, ``FLOAT_HEAD_DIMS`` over float32 and bfloat16 only."""
+    if D == Dv and D in HEAD_DIMS:
+        return
+    if (D, Dv) not in FLOAT_HEAD_DIMS:
+        raise ValueError(f"{name}: no kernel is built for head dims D={D}, "
+                         f"Dv={Dv}; built: Dv == D in {HEAD_DIMS}, and "
+                         f"(D, Dv) in {FLOAT_HEAD_DIMS} for float KV")
+    if kv_dtype in CODE_DTYPES:
+        raise ValueError(f"{name}: no kernel is built for {kv_dtype} codes "
+                         f"at Dv != D ({D}, {Dv}): MLA's expanded K/V are "
+                         f"float32 or bfloat16 values")
+
+
 @functools.lru_cache(maxsize=None)
 def paged_decode_smem(group, D, page_size, max_blocks, kv_dtype) -> int:
     """The shared memory, in bytes, the paged decode gives a block
@@ -91,11 +113,14 @@ def paged_decode_smem(group, D, page_size, max_blocks, kv_dtype) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def contiguous_decode_smem(group, D, block_k, kv_dtype) -> int:
+def contiguous_decode_smem(group, D, block_k, kv_dtype, Dv=None) -> int:
     """The shared memory, in bytes, the contiguous decode gives a block at
-    tile width ``block_k`` (``csrc/decode.cu:contiguous_decode_smem``)."""
+    tile width ``block_k`` and head dims D, Dv (default D)
+    (``csrc/decode.cu:contiguous_decode_smem``; -1 for a pair or dtype not
+    built)."""
     return int(build.load(CONTIGUOUS, _CONTIGUOUS_SIGNATURE)
-               .contiguous_decode_smem(group, D, block_k, KV_DTYPES[kv_dtype]))
+               .contiguous_decode_smem(group, D, D if Dv is None else Dv,
+                                       block_k, KV_DTYPES[kv_dtype]))
 
 
 def paged_decode_fwd_plain(bt, len1, q3, k4, v4, ks3=None, vs3=None, *,
@@ -264,10 +289,10 @@ def _check_contiguous(q3, k3, v3, lengths, ks2, vs2, num_kv_heads):
                          f"only with them")
     BHkv, group, D = q3.shape
     B, S = lengths.shape[0], k3.shape[1]
-    if D not in HEAD_DIMS or k3.shape[-1] != D or v3.shape[-1] != D:
-        raise ValueError(f"{name}: the kernel is built for head dims "
-                         f"{HEAD_DIMS} with Dv == D, got q {tuple(q3.shape)}, "
-                         f"v {tuple(v3.shape)}")
+    if k3.shape[-1] != D:
+        raise ValueError(f"{name}: k {tuple(k3.shape)} does not match q "
+                         f"{tuple(q3.shape)}")
+    check_head_dims(name, D, v3.shape[-1], k3.dtype)
     if not 0 < group <= 32 or BHkv != B * num_kv_heads or S == 0:
         raise ValueError(f"{name}: q {tuple(q3.shape)} with {B} lengths and "
                          f"Hkv={num_kv_heads} over {S} slots is not supported")
@@ -283,7 +308,7 @@ def _check_contiguous(q3, k3, v3, lengths, ks2, vs2, num_kv_heads):
 def decode_fwd(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
                num_kv_heads):
     """Contiguous decode on the CUDA kernel (CUDA tensors) or its plain
-    version (CPU tensors). Returns (B*Hkv, group, D) in q's dtype."""
+    version (CPU tensors). Returns (B*Hkv, group, Dv) in q's dtype."""
     if q3.device.type == "cpu":
         return decode_fwd_plain(q3, k3, v3, lengths, ks2, vs2, scale=scale,
                                 variant=variant, num_kv_heads=num_kv_heads)
@@ -293,12 +318,12 @@ def decode_fwd(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
         raise ValueError(f"unknown attention variant {variant!r}")
     _check_contiguous(q3, k3, v3, lengths, ks2, vs2, num_kv_heads)
     BHkv, group, D = q3.shape
-    S = k3.shape[1]
+    S, Dv = k3.shape[1], v3.shape[-1]
     bk = min(BLOCK_K, S)
-    check_smem(CONTIGUOUS, contiguous_decode_smem(group, D, bk, k3.dtype),
-               q3.device, f"group {group} at head dim {D} over {k3.dtype} "
-               f"in {bk}-wide tiles")
-    out = torch.empty_like(q3)
+    check_smem(CONTIGUOUS, contiguous_decode_smem(group, D, bk, k3.dtype, Dv),
+               q3.device, f"group {group} at head dims {D}/{Dv} over "
+               f"{k3.dtype} in {bk}-wide tiles")
+    out = q3.new_empty((BHkv, group, Dv))
     if BHkv == 0:
         return out
     lib = build.load(CONTIGUOUS, _CONTIGUOUS_SIGNATURE)
@@ -308,7 +333,7 @@ def decode_fwd(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
         ks2.data_ptr() if ks2 is not None else None,
         vs2.data_ptr() if vs2 is not None else None,
         lengths.data_ptr(), out.data_ptr(), lengths.shape[0], num_kv_heads,
-        group, D, S, bk, float(scale), int(variant == "expmul"),
+        group, D, Dv, S, bk, float(scale), int(variant == "expmul"),
         ACT_DTYPES[q3.dtype], KV_DTYPES[k3.dtype], stream)
     build.check(err, CONTIGUOUS)
     build.COUNTS[CONTIGUOUS] += 1

@@ -42,7 +42,8 @@ def _run_contiguous(q, k_cache, v_cache, k_scale, v_scale, lengths, *, scale,
 
 def decode_attention(q, k_cache, v_cache, lengths, *, scale=None,
                      variant="exact", plain=False):
-    """q (B, H, D) against per-slot caches (B, Hkv, S, D) of values;
+    """q (B, H, D) against per-slot caches K (B, Hkv, S, D) and V
+    (B, Hkv, S, Dv) of values;
     ``lengths`` (B,) <= S counts the tokens to attend, the current one
     included. ``plain`` runs the plain version on any device."""
     return _run_contiguous(q, k_cache, v_cache, None, None, lengths,

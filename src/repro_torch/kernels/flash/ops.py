@@ -79,8 +79,9 @@ def _run_contiguous(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lengths, n_valid,
 def prefill_attention(q, k_cache, v_cache, k_chunk, v_chunk, lengths,
                       n_valid, *, scale=None, variant="exact", window=None,
                       rolling=False, plain=False):
-    """q (B, H, C, D) and the chunk's KV (B, Hkv, C, D) against per-slot
-    caches (B, Hkv, S, D) of values holding ``lengths`` (B,) tokens;
+    """q (B, H, C, D) and the chunk's KV (B, Hkv, C, D / Dv) against
+    per-slot caches K (B, Hkv, S, D) and V (B, Hkv, S, Dv) of values holding
+    ``lengths`` (B,) tokens;
     ``n_valid`` (B,) chunk tokens are valid. ``rolling`` reads the cache as
     a rolling buffer of span S. ``plain`` runs the plain version on any
     device."""

@@ -15,8 +15,9 @@ concatenation.
   [0, ps), [ps, 2ps), ... from the chunk start (masked ``j < n_valid``,
   ``row >= j`` and the window).
 * **contiguous** (``csrc/prefill.cu``, the port of
-  ``prefill_fwd_pallas``): per-slot caches (B*Hkv, S, D) with (B*Hkv, S)
-  scale rows for codes, the chunk as above. The KV tiles are
+  ``prefill_fwd_pallas``): per-slot caches K (B*Hkv, S, D) and V
+  (B*Hkv, S, Dv) with (B*Hkv, S) scale rows for codes, the chunk as above
+  (its V rows Dv wide). The KV tiles are
   ``bk = min(BLOCK_K, max(S, C, 1))`` columns wide, the reference's width
   (ExpMul results depend on it): cache tiles [0, bk), ... below
   ``min(length, S)``, then chunk tiles from the chunk start. With
@@ -46,6 +47,7 @@ from repro_torch.kernels.decode.decode import (
     HEAD_DIMS,
     KV_DTYPES,
     MAX_PAGE,
+    check_head_dims,
     check_smem,
 )
 from repro_torch.kernels.flash.tile import (
@@ -65,9 +67,9 @@ _SIGNATURE = {NAME: (ctypes.c_int, [_P] * 13 + [_I] * 9 + [_F] + [_I] * 3
                      + [_P]),
               "paged_prefill_smem": (ctypes.c_longlong, [_I])}
 _CONTIGUOUS_SIGNATURE = {
-    "contiguous_prefill": (ctypes.c_int, [_P] * 12 + [_I] * 9 + [_F]
+    "contiguous_prefill": (ctypes.c_int, [_P] * 12 + [_I] * 10 + [_F]
                            + [_I] * 3 + [_P]),
-    "contiguous_prefill_smem": (ctypes.c_longlong, [_I] * 2)}
+    "contiguous_prefill_smem": (ctypes.c_longlong, [_I] * 3)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,11 +81,13 @@ def paged_prefill_smem(D) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def contiguous_prefill_smem(D, block_k) -> int:
+def contiguous_prefill_smem(D, block_k, Dv=None) -> int:
     """The shared memory, in bytes, the contiguous prefill gives a block at
-    tile width ``block_k`` (``csrc/prefill.cu:contiguous_prefill_smem``)."""
+    tile width ``block_k`` and head dims D, Dv (default D)
+    (``csrc/prefill.cu:contiguous_prefill_smem``; -1 for a pair not
+    built)."""
     return int(build.load(CONTIGUOUS, _CONTIGUOUS_SIGNATURE)
-               .contiguous_prefill_smem(D, block_k))
+               .contiguous_prefill_smem(D, D if Dv is None else Dv, block_k))
 
 
 def paged_prefill_fwd_plain(bt, lengths, n_valid, q3, k4, v4, kn3, vn3,
@@ -354,10 +358,13 @@ def _check_contiguous(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2, vsc2,
     BH, C, D = q3.shape
     B, S = lengths.shape[0], kc3.shape[1]
     H, Hkv = num_q_heads, num_kv_heads
-    if D not in HEAD_DIMS or {kc3.shape[-1], vc3.shape[-1], kn3.shape[-1],
-                              vn3.shape[-1]} != {D}:
-        raise ValueError(f"{name}: the kernel is built for head dims "
-                         f"{HEAD_DIMS} with Dv == D, got q {tuple(q3.shape)}")
+    Dv = vc3.shape[-1]
+    if {kc3.shape[-1], kn3.shape[-1]} != {D} or vn3.shape[-1] != Dv:
+        raise ValueError(f"{name}: K rows must be q's D={D} wide and V rows "
+                         f"one width, got cache {tuple(kc3.shape)} / "
+                         f"{tuple(vc3.shape)}, chunk {tuple(kn3.shape)} / "
+                         f"{tuple(vn3.shape)}")
+    check_head_dims(name, D, Dv, kc3.dtype)
     if (H % Hkv or BH != B * H or n_valid.shape != (B,)
             or {tuple(kc3.shape[:2]), tuple(vc3.shape[:2])} != {(B * Hkv, S)}
             or {tuple(kn3.shape[:2]), tuple(vn3.shape[:2])}
@@ -377,7 +384,7 @@ def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
                 vsc2=None, ksn2=None, vsn2=None, *, scale, variant, window,
                 rolling, num_q_heads, num_kv_heads):
     """Contiguous prefill on the CUDA kernel (CUDA tensors) or its plain
-    version (CPU tensors). Returns (B*H, C, D) in q's dtype."""
+    version (CPU tensors). Returns (B*H, C, Dv) in q's dtype."""
     if q3.device.type == "cpu":
         return prefill_fwd_plain(
             q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2, vsc2, ksn2, vsn2,
@@ -390,11 +397,11 @@ def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
     _check_contiguous(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2, vsc2,
                       ksn2, vsn2, num_q_heads, num_kv_heads)
     BH, C, D = q3.shape
-    S = kc3.shape[1]
+    S, Dv = kc3.shape[1], vc3.shape[-1]
     bk = prefill_blocks(S, C)[1]
-    check_smem(CONTIGUOUS, contiguous_prefill_smem(D, bk), q3.device,
-               f"head dim {D} in {bk}-wide tiles")
-    out = torch.empty_like(q3)
+    check_smem(CONTIGUOUS, contiguous_prefill_smem(D, bk, Dv), q3.device,
+               f"head dims {D}/{Dv} in {bk}-wide tiles")
+    out = q3.new_empty((BH, C, Dv))
     if BH == 0 or C == 0:
         return out
     lib = build.load(CONTIGUOUS, _CONTIGUOUS_SIGNATURE)
@@ -404,7 +411,7 @@ def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
         q3.data_ptr(), kc3.data_ptr(), vc3.data_ptr(), ptr(ksc2), ptr(vsc2),
         kn3.data_ptr(), vn3.data_ptr(), ptr(ksn2), ptr(vsn2),
         lengths.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-        lengths.shape[0], num_q_heads, num_kv_heads, C, D, S, bk,
+        lengths.shape[0], num_q_heads, num_kv_heads, C, D, Dv, S, bk,
         window or 0, int(bool(rolling)),
         float(scale), int(variant == "expmul"), ACT_DTYPES[q3.dtype],
         KV_DTYPES[kc3.dtype], stream)

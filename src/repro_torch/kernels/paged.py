@@ -13,12 +13,19 @@ drops to a scratch row past the pool's end, which lies in the pool's
 storage (``zeros_with_scratch``) but in no view of it that the kernels,
 the block tables or a snapshot read, and ``scatter_fixed`` writes them
 all. ``scatter_rows`` keeps the reference's contract on any pool.
+
+Quantized pools hold codes plus a parallel float32 scale pool addressed by
+the same rows: ``gather_dequant_rows`` and ``quant_scatter_fixed`` are the
+fixed-shape counterparts of ``repro/kernels/kvquant.py``'s
+``gather_dequant_rows`` and ``quant_scatter_rows``.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.numerics.quant import QuantKV, dequantize_kv, quantize_kv
 
 # Row assigned to positions outside the block table (negative, or at/after
 # max_blocks * page_size): no pool holds it, so its gathers read the fill
@@ -128,3 +135,25 @@ def scatter_fixed(pool: torch.Tensor, index: torch.Tensor,
     rows_with_scratch(pool, pool.shape[1:], 1).index_copy_(
         0, index, values.to(pool.dtype))
     return pool
+
+
+def gather_dequant_rows(code_pool: torch.Tensor, scale_pool: torch.Tensor,
+                        rows: torch.Tensor, kv_dtype: str) -> torch.Tensor:
+    """Gather quantized rows through ``rows`` (B, L) and dequantize them:
+    float32 (B, L, ...). Out-of-range (sentinel) rows read code 0 and
+    scale 0, exactly 0.0."""
+    return dequantize_kv(gather_rows(code_pool, rows),
+                         gather_rows(scale_pool, rows), kv_dtype)
+
+
+def quant_scatter_fixed(code_pool: torch.Tensor, scale_pool: torch.Tensor,
+                        index: torch.Tensor, values: torch.Tensor,
+                        kv_dtype: str) -> QuantKV:
+    """Quantize-on-write at a fixed shape: encode the rows ``values``
+    (N, ..., D) and write their codes and scales to row ``index[i]``
+    (``scatter_index``) of both pools, **in place**, as ``scatter_fixed``
+    does. Returns the codes and scales written."""
+    q = quantize_kv(values, kv_dtype)
+    scatter_fixed(code_pool, index, q.codes)
+    scatter_fixed(scale_pool, index, q.scale)
+    return q

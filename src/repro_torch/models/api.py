@@ -4,13 +4,16 @@ over per-slot (contiguous) caches or paged pools (the decoder-only half of
 ``repro/models/api.py``).
 
 Parameters are a dict of tensors with ``repro``'s layouts
-(``wq (d, H, hd)``, ``wo (H, hd, d)``, ...), one entry of ``"layers"`` per
-layer; the layer loop is a Python loop. The state is one dict of caches
-per layer and is updated in place: ``prefill``, ``decode_step`` and their
-paged twins return it for symmetry with ``repro``. Those four read no
-tensor's value on the host and allocate at fixed shapes, so a tick of
-them can be captured in a CUDA graph (``serve/graphs.py``); on the
-kernel path, that is, since the plain versions read the longest length.
+(``wq (d, H, hd)``, ``wo (H, hd, d)``, ...; an MLA config's ``w_dq``,
+``w_uq``, ``w_dkv``, ``w_ukv``, ``wo`` and its two norms), one entry of
+``"layers"`` per layer; the layer loop is a Python loop. An MLA config's
+caches and pools hold latents (``layers/mla.py``). The state is one dict
+of caches per layer and is updated in place: ``prefill``, ``decode_step``
+and their paged twins return it for symmetry with ``repro``. Those four
+read no tensor's value on the host and allocate at fixed shapes, so a
+tick of them can be captured in a CUDA graph (``serve/graphs.py``); on
+the kernel path, that is, since the plain versions read the longest
+length.
 
 Entry points take ``device="cuda"`` by default and raise without a card
 unless the caller passes ``device="cpu"``.
@@ -20,7 +23,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.paged import scatter_index, token_rows
+from repro_torch.kernels.paged import scatter_index, slot_rows, token_rows
 from repro_torch.layers.attention_layer import (
     attn_init_paged_cache,
     chunk_gate,
@@ -28,6 +31,7 @@ from repro_torch.layers.attention_layer import (
 )
 from repro_torch.layers.common import rmsnorm, rmsnorm_init
 from repro_torch.layers.embedding import embed_apply, embed_init, logits_apply
+from repro_torch.layers.mla import mla_init_paged_cache
 from repro_torch.models.blocks import (
     block_apply,
     block_decode_step,
@@ -137,10 +141,16 @@ def prefill(params, state, tokens, lengths, n_valid, cfg):
     """
     C = tokens.shape[1]
     x = embed_apply(params["embed"], tokens, cfg).to(_dtype(cfg.dtype))
-    span = state["caches"][0]["k"].shape[2]
-    index = chunk_index(*chunk_gate(lengths, n_valid, C, span,
-                                    rolling=bool(cfg.window)), span,
-                        cfg.num_kv_heads)
+    if cfg.mla:   # latent caches (B, max_len, ...): one row a token
+        span = state["caches"][0]["kv_lat"].shape[1]
+        idx = torch.arange(C, device=tokens.device)[None, :]
+        index = chunk_index(lengths[:, None].to(torch.int64) + idx,
+                            idx < n_valid[:, None], span, 1)
+    else:
+        span = state["caches"][0]["k"].shape[2]
+        index = chunk_index(*chunk_gate(lengths, n_valid, C, span,
+                                        rolling=bool(cfg.window)), span,
+                            cfg.num_kv_heads)
     for p, cache in zip(params["layers"], state["caches"]):
         _, x = block_prefill(p, cache, x, cfg, lengths, n_valid, index)
     return _last_logits(params, x, n_valid), state
@@ -150,8 +160,13 @@ def decode_step(params, state, tokens1, lengths, cfg):
     """One decode tick against per-slot caches: tokens1 (B,) at positions
     ``lengths`` -> (logits (B, V), state)."""
     x = embed_apply(params["embed"], tokens1, cfg).to(_dtype(cfg.dtype))
+    index = None
+    if cfg.mla:   # slot lengths of each row (clamped to the last), as rows
+        S = state["caches"][0]["kv_lat"].shape[1]
+        b = torch.arange(tokens1.shape[0], device=tokens1.device)
+        index = b * S + torch.clamp(lengths.to(torch.int64), 0, S - 1)
     for p, cache in zip(params["layers"], state["caches"]):
-        _, x = block_decode_step(p, cache, x, cfg, lengths)
+        _, x = block_decode_step(p, cache, x, cfg, lengths, index)
     x = rmsnorm(params["final_norm"], x)
     return logits_apply(params["embed"], x), state
 
@@ -162,13 +177,13 @@ def init_paged_state(cfg, slots, pool_blocks, page_size, *, device="cuda"):
     del slots  # attention-only: no per-slot state
     device = resolve_device(device)
     dt = _dtype(cfg.dtype)
-    return {"caches": [attn_init_paged_cache(cfg, pool_blocks * page_size,
-                                             dt, device)
+    init = mla_init_paged_cache if cfg.mla else attn_init_paged_cache
+    return {"caches": [init(cfg, pool_blocks * page_size, dt, device)
                        for _ in range(cfg.num_layers)]}
 
 
 def _pool_rows(state) -> int:
-    return state["caches"][0]["k"].shape[0]
+    return next(iter(state["caches"][0].values())).shape[0]
 
 
 def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
@@ -185,19 +200,20 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     chunk_rows = token_rows(block_tables, lengths[:, None] + idx, page_size)
     index = scatter_index(chunk_rows.reshape(-1), _pool_rows(state),
                           (idx < n_valid[:, None]).reshape(-1))
+    rows = slot_rows(block_tables, page_size) if cfg.mla else None
     for p, cache in zip(params["layers"], state["caches"]):
         _, x = block_paged_prefill(p, cache, x, cfg, lengths, n_valid,
-                                   index, block_tables, page_size)
+                                   index, block_tables, page_size, rows)
     return _last_logits(params, x, n_valid), state
 
 
 def copy_paged_block(state, cfg, src, dst, *, page_size):
     """Copy physical page ``src`` to page ``dst`` in every leaf of every
-    layer's pool (K/V values, or codes and their float32 scale rows), in
-    place, and return the state: the device half of a copy-on-write for
-    the shared-prefix cache. A pool's token rows are its axis 0, so a page
-    is ``page_size`` consecutive rows; ``src`` and ``dst`` are host ints,
-    so the copy needs no sync."""
+    layer's pool (K/V values or MLA latents, or codes and their float32
+    scale rows), in place, and return the state: the device half of a
+    copy-on-write for the shared-prefix cache. A pool's token rows are its
+    axis 0, so a page is ``page_size`` consecutive rows; ``src`` and
+    ``dst`` are host ints, so the copy needs no sync."""
     del cfg  # attention-only: every layer holds a paged pool
     s, d = int(src) * page_size, int(dst) * page_size
     for cache in state["caches"]:
@@ -210,10 +226,11 @@ def poison_paged_block(state, cfg, block, *, page_size, value=None):
     """Overwrite physical page ``block`` of every layer's pool with
     non-finite garbage, in place, and return the state: the device half of
     the ``kv_corrupt`` chaos point (DESIGN.md §13). Float leaves (K/V
-    values, the scale rows of codes) get NaN, integer code leaves their
-    most negative code (the NaN scales alone make every dequantized row
-    non-finite). Attention over the page then gives non-finite logits to
-    exactly the sequences whose block tables reference it.
+    values, MLA latents, the scale rows of codes) get NaN, integer code
+    leaves their most negative code (the NaN scales alone make every
+    dequantized row non-finite). Attention over the page then gives
+    non-finite logits to exactly the sequences whose block tables reference
+    it.
 
     ``value`` fills every leaf instead: ``value=0`` is the quarantine
     *scrub* of a page going back to the free list, since a masked NaN row
@@ -240,8 +257,9 @@ def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
     x = embed_apply(params["embed"], tokens1, cfg).to(_dtype(cfg.dtype))
     index = scatter_index(token_rows(block_tables, lengths, page_size),
                           _pool_rows(state))
+    rows = slot_rows(block_tables, page_size) if cfg.mla else None
     for p, cache in zip(params["layers"], state["caches"]):
         _, x = block_paged_decode_step(p, cache, x, cfg, lengths, index,
-                                       block_tables, page_size)
+                                       block_tables, page_size, rows)
     x = rmsnorm(params["final_norm"], x)
     return logits_apply(params["embed"], x), state

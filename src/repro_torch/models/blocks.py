@@ -1,7 +1,9 @@
 """Residual blocks of the ``attn`` kind: norm -> attention -> residual,
 norm -> gated MLP (SwiGLU or GeGLU) -> residual, over the full sequence
 (training) or over per-slot (contiguous) caches or a paged KV pool
-(serving)."""
+(serving). The attention is GQA (``layers/attention_layer.py``) or, for a
+config with ``cfg.mla``, multi-head latent attention (``layers/mla.py``),
+whose caches and pools hold latents."""
 from __future__ import annotations
 
 import torch
@@ -16,13 +18,23 @@ from repro_torch.layers.attention_layer import (
     attn_prefill_step,
 )
 from repro_torch.layers.common import rmsnorm, rmsnorm_init
+from repro_torch.layers.mla import (
+    mla_apply,
+    mla_decode_step,
+    mla_init,
+    mla_init_cache,
+    mla_paged_decode_step,
+    mla_paged_prefill_step,
+    mla_prefill_step,
+)
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 
 
 def block_init(cfg, dtype, generator, device):
     return {
         "norm_mix": rmsnorm_init(cfg.d_model, dtype, device),
-        "mix": attn_init(cfg, dtype, generator, device),
+        "mix": (mla_init if cfg.mla else attn_init)(cfg, dtype, generator,
+                                                   device),
         "norm_ffn": rmsnorm_init(cfg.d_model, dtype, device),
         "ffn": mlp_init(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
                         generator, device),
@@ -37,13 +49,16 @@ def _ffn(params, x, cfg):
 def block_apply(params, x, cfg):
     """One causal block over the full sequence x (B, S, d)."""
     h = rmsnorm(params["norm_mix"], x)
-    h = attn_apply(params["mix"], h, cfg, window=cfg.window or None)
+    h = (mla_apply if cfg.mla else attn_apply)(params["mix"], h, cfg,
+                                               window=cfg.window or None)
     return _ffn(params, x + h, cfg)
 
 
 def block_init_cache(cfg, batch, max_len, dtype, device):
     """Per-slot caches; a windowed layer keeps only a rolling buffer of
-    ``min(max_len, window)`` slots."""
+    ``min(max_len, window)`` slots. MLA latent caches keep ``max_len``."""
+    if cfg.mla:
+        return mla_init_cache(cfg, batch, max_len, dtype, device)
     span = min(max_len, cfg.window) if cfg.window else max_len
     return attn_init_cache(cfg, batch, span, dtype, device)
 
@@ -52,17 +67,25 @@ def block_prefill(params, cache, x, cfg, lengths, n_valid, index):
     """Chunked prefill through one block; ``index`` is the tick's
     ``chunk_index`` of the cache writes."""
     h = rmsnorm(params["norm_mix"], x)
-    cache, h = attn_prefill_step(params["mix"], cache, h, cfg, lengths,
-                                 n_valid, index, window=cfg.window)
+    if cfg.mla:
+        cache, h = mla_prefill_step(params["mix"], cache, h, cfg, lengths,
+                                    n_valid, index)
+    else:
+        cache, h = attn_prefill_step(params["mix"], cache, h, cfg, lengths,
+                                     n_valid, index, window=cfg.window)
     return cache, _ffn(params, x + h, cfg)
 
 
-def block_decode_step(params, cache, x1, cfg, lengths):
+def block_decode_step(params, cache, x1, cfg, lengths, index=None):
     """One decode token through one block; a windowed layer's rolling
     buffer takes the token at slot ``lengths % span`` and attends to its
-    last ``min(lengths + 1, span)`` slots."""
+    last ``min(lengths + 1, span)`` slots. An MLA layer writes its latents
+    at ``index``, the tick's rows of slots ``lengths``."""
     h = rmsnorm(params["norm_mix"], x1)
-    if cfg.window:
+    if cfg.mla:
+        cache, h = mla_decode_step(params["mix"], cache, h, cfg, lengths,
+                                   index)
+    elif cfg.window:
         span = cache["k"].shape[2]
         cache, h = attn_decode_step(
             params["mix"], cache, h, cfg, lengths,
@@ -74,18 +97,30 @@ def block_decode_step(params, cache, x1, cfg, lengths):
 
 
 def block_paged_prefill(params, cache, x, cfg, lengths, n_valid, write_index,
-                        block_tables, page_size):
+                        block_tables, page_size, rows=None):
+    """Chunked prefill through one block over a paged pool; an MLA layer
+    gathers its latent history through ``rows`` (``slot_rows``)."""
     h = rmsnorm(params["norm_mix"], x)
-    cache, h = attn_paged_prefill_step(
-        params["mix"], cache, h, cfg, lengths, n_valid, write_index,
-        window=cfg.window, block_tables=block_tables, page_size=page_size)
+    if cfg.mla:
+        cache, h = mla_paged_prefill_step(params["mix"], cache, h, cfg,
+                                          lengths, n_valid, write_index, rows)
+    else:
+        cache, h = attn_paged_prefill_step(
+            params["mix"], cache, h, cfg, lengths, n_valid, write_index,
+            window=cfg.window, block_tables=block_tables,
+            page_size=page_size)
     return cache, _ffn(params, x + h, cfg)
 
 
 def block_paged_decode_step(params, cache, x1, cfg, lengths, write_index,
-                            block_tables, page_size):
+                            block_tables, page_size, rows=None):
     h = rmsnorm(params["norm_mix"], x1)
-    cache, h = attn_paged_decode_step(
-        params["mix"], cache, h, cfg, lengths, write_index,
-        window=cfg.window, block_tables=block_tables, page_size=page_size)
+    if cfg.mla:
+        cache, h = mla_paged_decode_step(params["mix"], cache, h, cfg,
+                                         lengths, write_index, rows)
+    else:
+        cache, h = attn_paged_decode_step(
+            params["mix"], cache, h, cfg, lengths, write_index,
+            window=cfg.window, block_tables=block_tables,
+            page_size=page_size)
     return cache, _ffn(params, x1 + h, cfg)

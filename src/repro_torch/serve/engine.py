@@ -153,7 +153,10 @@ def analytic_prefill_flops(cfg, start: int, end: int) -> int:
     """Analytic decoder FLOPs to prefill positions [start, end) on top of a
     resident ``start``-token prefix: 2·params per token for the linear path
     plus 4·H·hd per (query, key) causal pair for scores + weighted sum —
-    what a prefix-cache hit skips (``prefill_flops_skipped``)."""
+    what a prefix-cache hit skips (``prefill_flops_skipped``). An MLA
+    config's pair is priced as ``repro`` prices it, at hd =
+    ``resolved_head_dim()`` (64 for minicpm3-4b), not at its qk 96 + v 64,
+    so that the two ledgers agree (ROADMAP C)."""
     n = max(0, end - start)
     if n == 0:
         return 0

@@ -29,8 +29,13 @@ one-time ``cudaFuncSetAttribute`` calls and cuBLAS's workspace happen
 outside the capture; then the capture on that stream. The side stream is
 one per device for the whole process: cuBLAS keeps a workspace for every
 stream it has run on, so a stream per engine would hold one more
-workspace for each engine ever built. A capture that fails raises:
-nothing falls back to eager ticks.
+workspace for each engine ever built. No garbage collection runs inside
+a capture: a dead reference cycle that holds a CUDA event or graph (an
+engine dropped by its caller while something it owns points back at it)
+is destroyed by whichever collection reaches it, and a destroy call
+during a capture invalidates the capture; so the garbage is collected
+before the warm-up, and collection is off until the capture ends. A
+capture that fails raises: nothing falls back to eager ticks.
 
 Counters: the kernel wrappers count launches (``kernels.build.COUNTS``)
 and report to the dispatch sink in Python, so they fire at capture only.
@@ -45,6 +50,7 @@ engine samples every tick before the next).
 """
 from __future__ import annotations
 
+import gc
 import math
 import time
 
@@ -126,6 +132,7 @@ class TickGraph:
         return self.logits
 
     def _capture(self):
+        gc.collect()          # dead cycles' CUDA objects go now, not inside
         current = torch.cuda.current_stream(self.device)
         warm = {name: b.clone() for name, b in self.buffers.items()}
         for name in self.warm_zero:
@@ -139,10 +146,16 @@ class TickGraph:
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         kw = {} if self.pool is None else {"pool": self.pool}
-        with build.recording() as rec:
-            with torch.cuda.graph(graph, stream=side, **kw):
-                reserved = torch.cuda.memory_reserved(self.device)
-                logits = self.fn(**self.buffers)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with build.recording() as rec:
+                with torch.cuda.graph(graph, stream=side, **kw):
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    logits = self.fn(**self.buffers)
+        finally:
+            if collecting:
+                gc.enable()
         current.wait_stream(side)
         self.warmup_ms = (t1 - t0) * 1e3
         self.capture_ms = (time.perf_counter() - t1) * 1e3

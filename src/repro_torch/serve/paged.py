@@ -59,14 +59,20 @@ def blocks_for(n_tokens: int, page_size: int) -> int:
 
 def kv_token_bytes(cfg, kv_dtype: str | None = None) -> int:
     """KV bytes per resident token over every layer: K and V rows of
-    ``Hkv * hd`` elements, plus one float32 scale per row when quantized."""
+    ``Hkv * hd`` elements, or for MLA one ``kv_lat`` row of
+    ``kv_lora_rank`` and one ``k_rope`` row of ``qk_rope_dim`` elements,
+    plus one float32 scale per row when quantized."""
     kv_dtype = kv_dtype if kv_dtype is not None else cfg.kv_dtype
     quant = kv_dtype in QUANT_KV_DTYPES
     elem = (kv_code_bytes(kv_dtype) if quant
             else getattr(torch, cfg.dtype).itemsize)
-    rows = 2 * cfg.num_kv_heads
-    per_layer = rows * cfg.resolved_head_dim() * elem + (rows * 4 if quant
-                                                          else 0)
+    if cfg.mla is not None:
+        rows = 2
+        feats = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+    else:
+        rows = 2 * cfg.num_kv_heads
+        feats = rows * cfg.resolved_head_dim()
+    per_layer = feats * elem + (rows * 4 if quant else 0)
     return per_layer * cfg.num_layers
 
 

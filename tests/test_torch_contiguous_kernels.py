@@ -13,7 +13,12 @@ numpy inputs, over {exact, expmul} x {fp32, int8, fp8} x {dyadic, random}:
 * prefill: fresh and rolling caches, windows, a cache shorter than the
   span, a buffer that has wrapped, a chunk longer than the span, an idle
   row (``n_valid = 0``), and the ``length < span`` rolling case, in which a
-  C-style modulo (truncating toward zero) would unmask stale slots.
+  C-style modulo (truncating toward zero) would unmask stale slots;
+* both at Dv != D, MLA's expanded latents (V rows narrower than K rows):
+  ``tests/cells.py``'s "mla" shape (D 24, Dv 16) and minicpm3-4b's (96,
+  64), float32 values (MLA never hands them codes), one KV head per query
+  head; and the wrappers' refusal of the head dims and KV dtypes the CUDA
+  kernels are not built for (``check_head_dims``).
 
 Both sides walk the same tiles in the same order. Dyadic inputs (q and
 values in multiples of 2^-3, integer codes, power-of-two scales) make every
@@ -39,7 +44,10 @@ from repro.kernels.flash.ops import (  # noqa: E402
     quant_prefill_attention_pallas,
 )
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.decode.decode import decode_fwd_plain  # noqa: E402
+from repro_torch.kernels.decode.decode import (  # noqa: E402
+    check_head_dims,
+    decode_fwd_plain,
+)
 from repro_torch.kernels.decode.ops import (  # noqa: E402
     decode_attention,
     quant_decode_attention,
@@ -342,3 +350,79 @@ def test_rolling_mask_uses_python_modulo():
     pos = last - torch.remainder(last - cols, span)
     assert pos.tolist() == [0, 1, 2, -3, -2, -1]
     assert (last - torch.fmod(last - cols, span)).tolist() == list(range(6))
+
+
+# ---------------------------------------------------------------------------
+# Dv != D: MLA's expanded latents
+# ---------------------------------------------------------------------------
+# (D, Dv): tests/cells.py's "mla" family shape, and minicpm3-4b's
+MLA_DIMS = pytest.mark.parametrize("dims", [(24, 16), (96, 64)],
+                                   ids=["cells-mla", "minicpm3"])
+MLA_H = 4            # MLA expands the latents to every head: group 1
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@MLA_DIMS
+@DYADIC
+def test_decode_plain_matches_pallas_at_dv_ne_d(variant, dims, dyadic):
+    D_, Dv = dims
+    S = 300                                  # two 256-wide tiles
+    lens = np.asarray([13, 0, S, 261], np.int32)
+    rng = np.random.default_rng(40)
+    q = _values(rng, (4, MLA_H, D_), dyadic)
+    k = _values(rng, (4, MLA_H, S, D_), dyadic)
+    v = _values(rng, (4, MLA_H, S, Dv), dyadic)
+    _stale(k, None, lens, "fp32")
+    _stale(v, None, lens, "fp32")
+    got = decode_attention(*(torch.from_numpy(a) for a in (q, k, v, lens)),
+                           variant=variant).numpy()
+    assert got.shape == (4, MLA_H, Dv)
+    np.testing.assert_array_equal(got[1], 0.0)        # the idle row
+    ref = decode_attention_pallas(*(jnp.asarray(a) for a in (q, k, v, lens)),
+                                  variant=variant, block_k=256)
+    assert _rel_err(got, ref) <= TOL[dyadic]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@MLA_DIMS
+@DYADIC
+def test_prefill_plain_matches_pallas_at_dv_ne_d(variant, dims, dyadic):
+    D_, Dv = dims
+    S, C = 40, 8                             # a short cache, one tile
+    lens = np.asarray([29, 0, 3, S], np.int32)
+    nv = np.asarray([8, 8, 0, 5], np.int32)
+    rng = np.random.default_rng(41)
+    q = _values(rng, (4, MLA_H, C, D_), dyadic)
+    kc = _values(rng, (4, MLA_H, S, D_), dyadic)
+    vc = _values(rng, (4, MLA_H, S, Dv), dyadic)
+    kn = _values(rng, (4, MLA_H, C, D_), dyadic)
+    vn = _values(rng, (4, MLA_H, C, Dv), dyadic)
+    _stale(kc, None, lens, "fp32")
+    _stale(vc, None, lens, "fp32")
+    ops = (q, kc, vc, kn, vn, lens, nv)
+    got = prefill_attention(*(torch.from_numpy(a) for a in ops),
+                            variant=variant).numpy()
+    assert got.shape == (4, MLA_H, C, Dv)
+    ref = prefill_attention_pallas(*(jnp.asarray(a) for a in ops),
+                                   variant=variant, window=None,
+                                   rolling=False, block_q=128, block_k=512)
+    assert _rel_err(got, ref) <= TOL[dyadic]
+
+
+@pytest.mark.parametrize("D_,Dv,kv_dtype,refused", [
+    (96, 64, torch.float32, None), (96, 64, torch.bfloat16, None),
+    (64, 64, torch.int8, None), (256, 256, torch.float8_e4m3fn, None),
+    (96, 64, torch.int8, "codes"), (96, 64, torch.float8_e4m3fn, "codes"),
+    (64, 32, torch.float32, "head dims"), (96, 96, torch.float32,
+                                           "head dims"),
+    (24, 16, torch.float32, "head dims")])
+def test_contiguous_kernels_refuse_unbuilt_head_dims(D_, Dv, kv_dtype,
+                                                     refused):
+    """The CUDA kernels are built for (D, D) over every KV dtype and for
+    (96, 64) over float KV only: anything else raises before a launch.
+    The plain versions take any dims (the CPU runs the smoke config's)."""
+    if refused is None:
+        check_head_dims("decode", D_, Dv, kv_dtype)
+    else:
+        with pytest.raises(ValueError, match=refused):
+            check_head_dims("decode", D_, Dv, kv_dtype)

@@ -16,7 +16,9 @@ shared-prefix cache on the two paged kernels: warm streams equal cold
 ones, and the kernel engine's equal the plain engine's on spliced and
 copied-on-write block tables. The compiled ticks: an engine whose ticks
 replay CUDA graphs equals one with eager ticks bit for bit, and counts
-each replay's launches.
+each replay's launches. MLA: the contiguous kernels at minicpm3-4b's head
+dims (K rows of 96, V rows of 64) against their plain versions, their
+refusals, and a narrow MLA config's graph ticks.
 """
 import sys
 from pathlib import Path
@@ -26,7 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import MLAConfig, get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.checks import (  # noqa: E402
     contiguous_case,
@@ -35,6 +37,8 @@ from repro_torch.kernels.checks import (  # noqa: E402
     flash_case,
     flash_edge_cases,
     kernel_tol,
+    MLA_DIMS,
+    mla_cases,
     POISON_SPOTS,
     SERVING_KERNELS,
     paged_case,
@@ -502,6 +506,68 @@ def test_serving_kernels_at_head_dim_256_group_4_match_plain(cuda, kv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+@pytest.mark.parametrize("dyadic", [True, False], ids=["dyadic", "random"])
+def test_contiguous_kernels_at_mla_head_dims_match_plain(cuda, kv, variant,
+                                                         q_dtype, dyadic):
+    """The contiguous decode and prefill at minicpm3-4b's head dims, 96 /
+    64 (``checks.mla_cases``): lengths 0, 1, 300 and S, stale rows past
+    each, a partial chunk and one with no valid token."""
+    for name, run, case, idle, label in mla_cases(
+            np.random.default_rng(13), kv=kv, q_dtype=q_dtype, dyadic=dyadic,
+            device=cuda):
+        before = build.COUNTS[name]
+        got = run(case, variant)
+        ref = run(case, variant, plain=True)
+        torch.cuda.synchronize()
+        assert build.COUNTS[name] == before + 1
+        assert tuple(got.shape[-1:]) == (MLA_DIMS[1],)
+        assert rel_err(got, ref) <= kernel_tol(variant, q_dtype), name
+        for i in idle:
+            assert float(got[i].abs().max()) == 0.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+@pytest.mark.parametrize("spot", POISON_SPOTS)
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_contiguous_kernels_at_mla_head_dims_keep_plain_nonfinite_rows(
+        cuda, kernel, spot, variant):
+    D, Dv = MLA_DIMS
+    case, run = poisoned_case(np.random.default_rng(11), kernel, spot,
+                              kv="bf16", D=D, Dv=Dv, H=4, Hkv=4, device=cuda)
+    got = run(case, variant)
+    ref = run(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(ref).all())
+    assert rows_rel_err(got, ref) <= kernel_tol(variant, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+@pytest.mark.parametrize("kv,dims", [("int8", MLA_DIMS), ("fp8", MLA_DIMS),
+                                     ("f32", (64, 32)), ("bf16", (96, 96))])
+def test_contiguous_kernels_refuse_unbuilt_pairs_before_launch(cuda, kernel,
+                                                               kv, dims):
+    """Codes at Dv != D, and a (D, Dv) pair not built, raise a ValueError
+    before any launch."""
+    pf = dict(n_valid=[5, 5], chunk=5) if kernel == "prefill" else {}
+    case = contiguous_case(np.random.default_rng(0), B=2, H=4, Hkv=4,
+                           D=dims[0], Dv=dims[1], S=64, lengths=[40, 7],
+                           kv=kv, device=cuda, **pf)
+    run = run_contiguous_prefill if kernel == "prefill" else \
+        run_contiguous_decode
+    before = dict(build.COUNTS)
+    with pytest.raises(ValueError, match="no kernel is built"):
+        run(case, "expmul")
+    assert dict(build.COUNTS) == before
+    run(case, "expmul", plain=True)           # the plain version takes it
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", SERVING_KERNELS)
 def test_serving_kernels_check_shared_memory_before_launch(cuda, kernel,
                                                            monkeypatch):
@@ -801,11 +867,12 @@ GRAPH_CELLS = {
 }
 
 
-def _graph_run(cuda, cell, eager, prompts, fn_wrap=None, arch="qwen2-0.5b"):
+def _graph_run(cuda, cell, eager, prompts, fn_wrap=None, arch="qwen2-0.5b",
+               cfg=None):
     """Serve ``prompts`` (8 new tokens each) on a smoke ``arch`` (bf16,
-    ExpMul) engine; returns (engine, streams, every tick's logits, the
-    launch counts)."""
-    cfg = get_config(arch, smoke=True)
+    ExpMul) engine, or on ``cfg``; returns (engine, streams, every tick's
+    logits, the launch counts)."""
+    cfg = cfg or get_config(arch, smoke=True)
     params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
     eng = ServeEngine(params, cfg, slots=4, max_len=128, chunk_size=32,
@@ -845,6 +912,30 @@ def test_gemma_smoke_graph_ticks_equal_eager_ticks(cuda, cell):
                             if cell.startswith("paged") else
                             {"prefill", "decode"})
     assert eng.graph_stats()["decode"]["replays"] == eng.decode_steps > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["paged/int8", "contiguous/fp32"])
+def test_mla_graph_ticks_equal_eager_ticks(cuda, cell):
+    """A narrow MLA config with minicpm3-4b's head dims (qk 64 + 32, v 64;
+    2 layers, 4 heads, d_model 64) served with CUDA-graph ticks: every
+    tick's logits the eager engine's bit for bit, and on either layout the
+    contiguous decode and prefill alone (the pool holds latents)."""
+    cfg = get_config("minicpm3-4b", smoke=True).replace(
+        mla=MLAConfig(q_lora_rank=24, kv_lora_rank=16, qk_rope_dim=32,
+                      qk_nope_dim=64, v_head_dim=64))
+    prompts = [list(np.random.default_rng(2).integers(1, 256, n))
+               for n in (40, 7, 66)]
+    _, out, logits, counts = _graph_run(cuda, cell, True, prompts, cfg=cfg)
+    eng, gout, glogits, gcounts = _graph_run(cuda, cell, False, prompts,
+                                             cfg=cfg)
+    assert gout == out and len(glogits) == len(logits) > 2
+    for i, (a, b) in enumerate(zip(glogits, logits)):
+        assert torch.equal(a, b), f"tick {i + 1}"
+    assert gcounts == counts and set(gcounts) == {"prefill", "decode"}
+    st = eng.graph_stats()
+    assert st["decode"]["replays"] == eng.decode_steps > 0
+    assert st["decode"]["launches_per_replay"] == {"decode": cfg.num_layers}
 
 
 @pytest.mark.cuda

@@ -588,6 +588,7 @@ int by_dim(int D, int expmul, const void* q, const void* kc, const void* vc, con
 
 }  // namespace
 
+// The port's contiguous_prefill entry (csrc/prefill.cu), at Dv == D only.
 // q (B*H, C, D) f32/bf16; cache kc/vc (B*Hkv, S, D) of kv_dtype and its
 // scale rows ksc/vsc (B*Hkv, S) f32 for codes; chunk kn/vn (B*Hkv, C, D) of
 // kv_dtype and ksn/vsn (B*Hkv, C) f32 for codes; lens / nvalid (B,) i32;
@@ -599,10 +600,11 @@ extern "C" int contiguous_prefill(const void* q, const void* kc, const void* vc,
                                   const float* ksc, const float* vsc, const void* kn,
                                   const void* vn, const float* ksn, const float* vsn,
                                   const int* lens, const int* nvalid, void* out, int B, int H,
-                                  int Hkv, int C, int D, int S, int bk, int window, int rolling,
-                                  float scale, int expmul, int act_dtype, int kv_dtype,
-                                  void* stream) {
-  if (B <= 0 || C <= 0 || S < 0 || Hkv <= 0 || H % Hkv != 0 || bk <= 0 || bk > kMaxTile)
+                                  int Hkv, int C, int D, int Dv, int S, int bk, int window,
+                                  int rolling, float scale, int expmul, int act_dtype,
+                                  int kv_dtype, void* stream) {
+  if (B <= 0 || C <= 0 || S < 0 || Hkv <= 0 || H % Hkv != 0 || bk <= 0 || bk > kMaxTile ||
+      Dv != D)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
@@ -625,3 +627,12 @@ extern "C" int contiguous_prefill(const void* q, const void* kc, const void* vc,
   }
 }
 
+// The port's contiguous_prefill_smem query, at Dv == D only.
+extern "C" long long contiguous_prefill_smem(int D, int Dv, int bk) {
+  if (Dv != D) return -1;
+  switch (D) {
+    case 16: return static_cast<long long>(smem_bytes<16>(bk));
+    case 64: return static_cast<long long>(smem_bytes<64>(bk));
+    default: return -1;
+  }
+}
