@@ -7,9 +7,10 @@ from the repository root, on a machine with an NVIDIA Hopper card, PyTorch
 built for CUDA and the CUDA toolkit. It imports nothing of JAX or of the
 JAX package. It drives both serving KV layouts (the paged pool and the
 per-slot contiguous caches with rolling windows) for qwen2-0.5b,
-gemma-7b and minicpm3-4b (MLA: latent caches, expanded K/V at head dims
-96 and 64), the training path, and the paper's demonstrations (the
-quickstart and the Table I study).
+gemma-7b, minicpm3-4b (MLA: latent caches, expanded K/V at head dims
+96 and 64) and arctic-480b (MoE top-2 with a dense residual, head dim
+128; depth cut to 2 of its 35 layers), the training path, and the
+paper's demonstrations (the quickstart and the Table I study).
 Phases (a failing check raises, and the script exits non-zero):
 
 1. print the card's name and power limit; build the kernels from
@@ -79,6 +80,17 @@ Phases (a failing check raises, and the script exits non-zero):
    float32 and bfloat16 KV, exact and ExpMul, float32 and bfloat16 q; a
    NaN row inside or past a length (non-finite rows the plain version's);
    int8 codes at 96/64 and a pair not built refused before any launch;
+2d. the four serving kernels at arctic-480b's head dim 128 (in phase
+   2b's function): ``checks.head_dim_cases`` over every KV dtype, exact
+   and ExpMul, GQA groups 1 (8 / 8 heads, float32 q), 7 (56 / 8,
+   arctic's, bfloat16 q) and 32 (32 / 1, float32 q); a paged decode whose
+   shared memory is over the card's limit (group 32 over float32 and
+   bfloat16 pools) refused before its launch; each kernel on a poisoned
+   page at 128; the largest group each decode kernel takes at 128 by KV
+   dtype, and a float32 launch one group past it refused;
+2e. the MoE router's top-k (a stable descending sort) on the card against
+   the CPU's and ``jax.lax.top_k``'s known ids: ties, an all-NaN row,
+   +-inf, and 2,048 x 128 logits on a 0.25 grid, top-2 and top-8;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -91,6 +103,12 @@ Phases (a failing check raises, and the script exits non-zero):
 3c. minicpm3-4b at full width and depth (62 layers, bf16, ExpMul): the
    ticks of phase 3 on a paged int8-latent pool and on contiguous fp32
    caches, kernels against plain versions, ExpMul logits gated at 1e-3;
+3d. arctic-480b at full width, depth 2 (bf16, ExpMul): the ticks of
+   phase 3 on a paged int8 pool and on contiguous fp32 caches, kernels
+   against plain versions; each MoE layer's routes compared first (top-k
+   ids and kept copies, token by token): a token routed otherwise in a
+   row that had not diverged must be within 1e-3 of a router tie, and
+   the logits of rows routed alike are gated within 1e-3;
 4. serving at full width: ``ServeEngine`` with 8 slots, 16 requests of
    128-1024 prompt tokens and 32 new tokens each, ExpMul, temperature 0,
    on three layouts: a paged int8 pool (its shared-prefix cache on, the
@@ -155,6 +173,11 @@ Phases (a failing check raises, and the script exits non-zero):
    equal, and each run on the contiguous decode and prefill alone (an
    MLA pool holds latents, gathered and expanded each tick), neither
    paged kernel;
+4f. arctic-480b served the same way at depth 2 (``phase_gemma_serve``
+   with the cut; 27.7B parameters, seed-2 bf16 weights), paged int8 and
+   contiguous fp32, graphs against eager, each run on its layout's two
+   kernels alone, its paged graph ticks profiled (where an MoE tick's
+   time goes);
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -180,6 +203,10 @@ Phases (a failing check raises, and the script exits non-zero):
    version, float32 K/V beside, the exact-bf16 yardstick against SDPA
    under each backend that takes Dv != D, registers, spills and shared
    memory;
+5d. the four serving kernels at arctic-480b's serving shapes (56 / 8
+   heads of 128, the rest as phase 5), with the registers, spills and
+   shared memory (at its group of 7) of every KV dtype's head-dim 128
+   instantiation;
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
    cosine schedule. One train step through the flash kernel and one
@@ -198,7 +225,9 @@ Phases (a failing check raises, and the script exits non-zero):
    with the plain versions; the study (200 training steps, the four-row
    grid, the raw attention error) must launch flash only, with every
    perplexity finite; its table is printed, not gated;
-8. one JSON line of kernels, the card line, and as the last line
+8. one JSON line of kernels (each serving kernel with ``d256``,
+   ``d128`` and, for the contiguous pair, ``mla_96_64`` entries), the
+   card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -239,6 +268,11 @@ B, H, HKV, D, PS, MAX_LEN, CHUNK, CTX = 8, 14, 2, 64, 16, 2048, 256, 1024
 # gemma-7b: 16 / 16 heads of 256 (the paper's largest head dim), and 32 in
 # its smoke config
 GEMMA, GEMMA_H, GEMMA_D, GEMMA_TICK_LAYERS = "gemma-7b", 16, 256, 4
+# arctic-480b: 128 experts, top-2, a dense residual in parallel, 56 / 8
+# heads of 128 (GQA group 7), an untied head; served at depth 2 of its 35
+# layers (27.7B parameters, 55.4 GB in bf16)
+ARCTIC, ARCTIC_H, ARCTIC_HKV, ARCTIC_D = "arctic-480b", 56, 8, 128
+ARCTIC_GROUP, ARCTIC_LAYERS = ARCTIC_H // ARCTIC_HKV, 2
 # minicpm3-4b: MLA, 40 / 40 heads, expanded K rows of 96 and V rows of 64
 MLA, MLA_H = "minicpm3-4b", 40
 TRAIN_SEQ, TRAIN_STEPS = 1024, 6
@@ -524,17 +558,67 @@ def phase_kernel_checks(torch, checks):
     log(f"[check] worst rel err: {json.dumps(worst)}")
 
 
+def _largest_groups(torch, checks, build, decode, rng, hd):
+    """The largest GQA group each decode kernel takes at head dim ``hd``
+    by KV dtype (its shared memory, from its own C query, within the
+    card's limit; gated monotone in the group), and a float32 launch one
+    group past it raising ``ValueError`` before any launch."""
+    limit = decode.card_smem_limit(torch.device("cuda"))
+    largest = {}
+    for kv, dt in checks.KV_KINDS.items():
+        for name, smem in (
+                ("decode", lambda g: decode.contiguous_decode_smem(
+                    g, hd, decode.BLOCK_K, dt)),
+                ("paged_decode", lambda g: decode.paged_decode_smem(
+                    g, hd, PS, MAX_LEN // PS, dt))):
+            fits = [g for g in range(1, 33) if 0 < smem(g) <= limit]
+            largest[f"{name} {kv}"] = max(fits)
+            if fits != list(range(1, max(fits) + 1)):
+                raise AssertionError(f"{name} {kv}: shared memory not "
+                                     f"monotone in the group")
+    log(f"[check] the largest GQA group a CTA takes at head dim {hd} "
+        f"(limit {limit} B): {json.dumps(largest)}")
+    for name, run in (("paged_decode", checks.run_decode),
+                      ("decode", checks.run_contiguous_decode)):
+        group = largest[f"{name} f32"] + 1
+        if group > 32:
+            continue
+        kw = dict(B=2, H=group, Hkv=1, D=hd, lengths=[40, 7], kv="f32")
+        case = (checks.paged_case(rng, page_size=PS, max_blocks=4, **kw)
+                if name == "paged_decode" else
+                checks.contiguous_case(rng, S=2 * decode.BLOCK_K, **kw))
+        _refused(build, name, run, case,
+                 f"group {group} float32 at head dim {hd}")
+    return largest
+
+
+def _refused(build, name, run, case, what):
+    """``run`` must raise ``ValueError`` on ``case`` before any launch."""
+    before = dict(build.COUNTS)
+    try:
+        run(case, "expmul")
+    except ValueError as e:
+        log(f"[check] {name} {what} refused before its launch: {e}")
+    else:
+        raise AssertionError(f"{name}: {what} was not refused")
+    if dict(build.COUNTS) != before:
+        raise AssertionError(f"{name}: a refused call launched")
+
+
 def phase_head_dim_checks(torch, checks, build, decode):
-    """The four serving kernels at head dims 32 (gemma-7b's smoke config)
-    and 256 (its full width) against their plain versions
-    (``checks.head_dim_cases``: 16 / 16 heads, B 4, lengths across the
-    256-wide decode tiles and the 512-wide prefill tiles, a length 0, a
-    chunk with n_valid 0) over float32, bfloat16, int8 and fp8 KV, exact
-    and ExpMul, float32 and bfloat16 q, at ``checks.kernel_tol``; GQA group
-    4 at 256; then the largest group each decode kernel takes at 256 (its
-    shared memory, from its own C query, within the card's limit), and a
-    float32 launch one group past it raising ``ValueError`` before any
-    launch."""
+    """The four serving kernels at head dims 32 (gemma-7b's smoke config),
+    256 (its full width) and 128 (arctic-480b's) against their plain
+    versions (``checks.head_dim_cases``: B 4, lengths across the 256-wide
+    decode tiles and the 512-wide prefill tiles, a length 0, a chunk with
+    n_valid 0) over float32, bfloat16, int8 and fp8 KV, exact and ExpMul,
+    at ``checks.kernel_tol``: at 32 and 256, 16 / 16 heads, float32 and
+    bfloat16 q, and GQA group 4 at 256; at 128, GQA groups 1 (8 / 8
+    heads), 7 (56 / 8, arctic's, bfloat16 q) and 32 (32 / 1), where a
+    paged decode whose shared memory is over the card's limit must be
+    refused before its launch; then each serving kernel on a poisoned
+    page at 128 (``_poisoned_pages``), and the largest group each decode
+    kernel takes at 256 and at 128 (``_largest_groups``). Returns the
+    largest groups by head dim."""
     rng = np.random.default_rng(12)
     worst, n = {}, 0
     cases = [(hd, kv, q_dtype, 1) for hd in (32, GEMMA_D)
@@ -550,40 +634,32 @@ def phase_head_dim_checks(torch, checks, build, decode):
                 n += 1
     log(f"[check] head dims 32 and 256: {n} cases, worst rel err "
         f"{json.dumps(worst)}")
+    largest = {GEMMA_D: _largest_groups(torch, checks, build, decode, rng,
+                                        GEMMA_D)}
+    # arctic-480b's head dim: groups 1, 7 (its own) and 32
+    worst, n = {}, 0
     limit = decode.card_smem_limit(torch.device("cuda"))
-    largest = {}
-    for kv, dt in checks.KV_KINDS.items():
-        for name, smem in (
-                ("decode", lambda g: decode.contiguous_decode_smem(
-                    g, GEMMA_D, decode.BLOCK_K, dt)),
-                ("paged_decode", lambda g: decode.paged_decode_smem(
-                    g, GEMMA_D, PS, MAX_LEN // PS, dt))):
-            fits = [g for g in range(1, 33) if 0 < smem(g) <= limit]
-            largest[f"{name} {kv}"] = max(fits)
-            if fits != list(range(1, max(fits) + 1)):
-                raise AssertionError(f"{name} {kv}: shared memory not "
-                                     f"monotone in the group")
-    log(f"[check] the largest GQA group a CTA takes at head dim 256 (limit "
-        f"{limit} B): {json.dumps(largest)}")
-    for name, run in (("paged_decode", checks.run_decode),
-                      ("decode", checks.run_contiguous_decode)):
-        group = largest[f"{name} f32"] + 1
-        if group > 32:
-            continue
-        kw = dict(B=2, H=group, Hkv=1, D=GEMMA_D, lengths=[40, 7], kv="f32")
-        case = (checks.paged_case(rng, page_size=PS, max_blocks=4, **kw)
-                if name == "paged_decode" else
-                checks.contiguous_case(rng, S=2 * decode.BLOCK_K, **kw))
-        before = dict(build.COUNTS)
-        try:
-            run(case, "expmul")
-        except ValueError as e:
-            log(f"[check] {name} group {group} float32 at head dim 256 "
-                f"refused before its launch: {e}")
-        else:
-            raise AssertionError(f"{name}: group {group} was not refused")
-        if dict(build.COUNTS) != before:
-            raise AssertionError(f"{name}: a refused call launched")
+    for group, q_dtype in ((1, torch.float32), (ARCTIC_GROUP, torch.bfloat16),
+                           (32, torch.float32)):
+        heads = ARCTIC_HKV * group if group < 32 else 32
+        for kv, dt in checks.KV_KINDS.items():
+            for name, run, case, idle, label in checks.head_dim_cases(
+                    rng, ARCTIC_D, kv=kv, q_dtype=q_dtype, group=group,
+                    H=heads):
+                if (name == "paged_decode" and decode.paged_decode_smem(
+                        group, ARCTIC_D, 16, case["block_tables"].shape[1],
+                        dt) > limit):
+                    _refused(build, name, run, case, label)
+                    continue
+                for variant in ("exact", "expmul"):
+                    _hold(torch, checks, name, run, case, variant, q_dtype,
+                          idle, label, worst)
+                    n += 1
+    log(f"[check] head dim {ARCTIC_D}: {n} cases, worst rel err "
+        f"{json.dumps(worst)}")
+    _poisoned_pages(torch, checks, worst, D=ARCTIC_D)
+    largest[ARCTIC_D] = _largest_groups(torch, checks, build, decode, rng,
+                                        ARCTIC_D)
     return largest
 
 
@@ -657,20 +733,20 @@ def phase_mla_checks(torch, checks, build):
         f"{json.dumps(worst)}")
 
 
-def _poisoned_pages(torch, checks, worst):
+def _poisoned_pages(torch, checks, worst, D=D):
     """The ``kv_corrupt`` fault at the kernels: a poisoned page (NaN
     values, or int8 codes of -128 with NaN scales) in the first, a middle
     or the last page sequence 0 of three reads, or in its rows past the
-    length (1,000 tokens, GQA 14 / 2, D 64, pages of 16; contiguous: 16
-    rows there, or the rows past the length). The kernel's non-finite
-    output rows must be exactly its plain version's, its finite rows within
-    ``kernel_tol`` (``checks.rows_rel_err``)."""
+    length (1,000 tokens, GQA 14 / 2, head dim ``D``, 64 by default, pages
+    of 16; contiguous: 16 rows there, or the rows past the length). The
+    kernel's non-finite output rows must be exactly its plain version's,
+    its finite rows within ``kernel_tol`` (``checks.rows_rel_err``)."""
     for name in checks.SERVING_KERNELS:
         errs = []
         for spot in checks.POISON_SPOTS:
             for kv in ("f32", "int8"):
                 case, run = checks.poisoned_case(
-                    np.random.default_rng(11), name, spot, kv=kv,
+                    np.random.default_rng(11), name, spot, kv=kv, D=D,
                     device="cuda")
                 for variant in ("exact", "expmul"):
                     got = run(case, variant)
@@ -686,9 +762,9 @@ def _poisoned_pages(torch, checks, worst):
                             f"non-finite rows or finite rows disagree with "
                             f"its plain version (rows_rel_err {err})")
                     errs.append(err)
-                    key = f"{name} poisoned {kv} {variant}"
+                    key = f"{name} D={D} poisoned {kv} {variant}"
                     worst[key] = max(worst.get(key, 0.0), err)
-        log(f"[check] {name} poisoned pages ({len(errs)} cases: "
+        log(f"[check] {name} D={D} poisoned pages ({len(errs)} cases: "
             f"{', '.join(checks.POISON_SPOTS)} x f32/int8 x exact/expmul): "
             f"non-finite rows equal to the plain version's, finite rows' "
             f"worst rel err {max(errs):.3e}")
@@ -963,6 +1039,175 @@ def phase_mla_ticks(torch, cfg_mod, api):
     torch.cuda.empty_cache()
 
 
+def phase_moe_routing(torch):
+    """The MoE router's top-k on the card against the CPU's, and against
+    ``jax.lax.top_k``'s ids where the reference's are known: rows with
+    ties, an all-NaN row (a request poisoned by a NaN page), +-inf; then
+    arctic's shape, 2,048 tokens over 128 experts, logits on a 0.25 grid
+    (ties in most rows) with NaN and inf rows. The card's stable sort must
+    give the CPU's ids exactly."""
+    from repro_torch.layers import moe
+    nan, inf = float("nan"), float("inf")
+    rows = [[1.0, 1.0, 0.2, 1.0], [nan] * 4, [inf, 0.5, -inf, inf],
+            [-inf, -inf, 0.3, -inf], [0.1, 0.7, 0.7, 0.7]]
+    jax_ids = {0: [0, 1], 1: [0, 1]}        # jax.lax.top_k on the CPU
+    logits = torch.tensor(rows)
+    cpu = moe.top_k(logits, 2)[1]
+    card = moe.top_k(logits.cuda(), 2)[1].cpu()
+    for i, want in jax_ids.items():
+        if cpu[i].tolist() != want:
+            raise AssertionError(f"top-k of {rows[i]}: {cpu[i].tolist()}, "
+                                 f"jax.lax.top_k gives {want}")
+    rng = np.random.default_rng(14)
+    wide = torch.from_numpy(np.round(rng.standard_normal((2048, 128)) * 4)
+                            / 4).float()
+    wide[5] = nan
+    wide[6, 3] = inf
+    wide[7, :] = -inf
+    same = [torch.equal(cpu, card)]
+    for x in (logits, wide):
+        for k in (2, 8):
+            same.append(torch.equal(moe.top_k(x, k)[1],
+                                    moe.top_k(x.cuda(), k)[1].cpu()))
+    log(f"[moe] routing ids on the card equal the CPU's: {all(same)} "
+        f"({len(same)} cases; rows {rows} -> {card.tolist()}; 2048 x 128 "
+        f"logits on a 0.25 grid with NaN and inf rows, top-2 and top-8)")
+    if not all(same):
+        raise AssertionError("the card's routing differs from the CPU's")
+
+
+class _RouteLog:
+    """Every MoE layer call's router logits, in call order, while active
+    (``layers/moe.py:router_logits`` wrapped; nothing else changes)."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        inner = self.orig = self.moe.router_logits
+
+        def logged(params, x2):
+            out = inner(params, x2)
+            self.calls.append(out.detach().clone())
+            return out
+        self.moe.router_logits = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_logits = self.orig
+
+
+def _free(torch, label):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[memory] before {label}: {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved")
+
+
+def phase_arctic_ticks(torch, cfg_mod, api):
+    """arctic-480b at full width, depth cut to 2 layers (bf16, ExpMul,
+    random weights from seed 0): phase 3's two prefill ticks and a decode
+    tick on a paged int8 pool and on contiguous fp32 caches (bf16 rows),
+    through the kernels and through the plain versions. Routing is
+    discontinuous (an attention output within ``kernel_tol`` can flip a
+    near-tie of the router), so the two runs' routes are compared first,
+    layer by layer: each token's top-k ids and kept copies. A row
+    diverges at its first token routed otherwise (or a copy kept
+    otherwise); a token routed otherwise in a row that had not diverged
+    must sit within 1e-3 of a tie (its smallest gap between adjacent
+    logits of its top k + 1), else the check fails. The logits of each row
+    that never diverged are gated within 1e-3 of their magnitude."""
+    from repro_torch.layers import moe
+    _free(torch, "arctic ticks")
+    base = cfg_mod.get_config(ARCTIC, num_layers=ARCTIC_LAYERS)
+    assert base.attention_variant == "expmul" and base.dtype == "bfloat16"
+    m = base.moe
+    log(f"[config] {ARCTIC}: d_model {base.d_model}, {base.num_heads} / "
+        f"{base.num_kv_heads} heads of {base.resolved_head_dim()}, "
+        f"{m.num_experts} experts top-{m.top_k} (d_ff {m.d_ff}) + dense "
+        f"residual {m.dense_d_ff}, vocab {base.vocab_size} untied; "
+        f"{base.param_count()} parameters; reduced: num_layers 35 -> "
+        f"{ARCTIC_LAYERS}")
+    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    bt, chunks, toks, tok1 = _tick_inputs(torch, np.random.default_rng(1),
+                                          base.vocab_size)
+    kinds = [("prefill", c) for c in chunks] + [("decode", None)]
+    for layout, kv_dtype in (("paged", "int8"), ("contiguous", "fp32")):
+        runs = {}
+        for impl in ("kernel", "plain"):
+            cfg = base.replace(attention_impl=impl, kv_dtype=kv_dtype)
+            t0 = time.perf_counter()
+            with _RouteLog(moe) as routes:
+                logits = _ticks(torch, api, params, cfg, layout, bt, toks,
+                                chunks, tok1)
+            runs[impl] = (logits, routes.calls)
+            log(f"[model] {ARCTIC} {layout} {kv_dtype} expmul {impl}: "
+                f"{len(logits)} ticks in {time.perf_counter() - t0:.2f} s")
+        (lk, rk), (lp, rp) = runs["kernel"], runs["plain"]
+        if len(rk) != len(rp) or len(rk) != len(kinds) * ARCTIC_LAYERS:
+            raise AssertionError(f"{len(rk)} / {len(rp)} MoE calls")
+        diverged = torch.zeros(B, dtype=torch.bool)
+        for tick, (kind, nv) in enumerate(kinds):
+            for layer in range(ARCTIC_LAYERS):
+                a = rk[tick * ARCTIC_LAYERS + layer]
+                b = rp[tick * ARCTIC_LAYERS + layer]
+                T = a.shape[0]
+                C = moe.capacity(T, m)
+                ids_a = moe.top_k(a, m.top_k)[1]
+                ids_b = moe.top_k(b, m.top_k)[1]
+                keep_a = moe.dispatch(ids_a, m.num_experts, C)[1]
+                keep_b = moe.dispatch(ids_b, m.num_experts, C)[1]
+                flip = (ids_a != ids_b).any(-1).cpu()
+                kept = (keep_a != keep_b).view(T, m.top_k).any(-1).cpu()
+                per = T // B                     # tokens a row this call
+                row = torch.arange(T) // per
+                pos = torch.arange(T) % per
+                valid = (pos < torch.tensor(nv)[row] if nv is not None
+                         else torch.ones(T, dtype=torch.bool))
+                top = torch.sort(b.float().cpu(), dim=-1,
+                                 descending=True)[0][:, :m.top_k + 1]
+                gaps = (top[:, :-1] - top[:, 1:]).min(-1)[0]
+                root = flip & valid & ~diverged[row]
+                for t in root.nonzero().flatten().tolist():
+                    log(f"[model] {ARCTIC} {layout} tick {tick} ({kind}) "
+                        f"layer {layer}: row {int(row[t])} token "
+                        f"{int(pos[t])} routed otherwise, router-logit gap "
+                        f"{float(gaps[t]):.3e}")
+                    if not float(gaps[t]) <= 1e-3:
+                        raise AssertionError("a route flipped away from a "
+                                             "near-tie")
+                newly = (flip | kept) & valid
+                diverged[row[newly].unique()] = True
+                log(f"[model] {ARCTIC} {layout} tick {tick} ({kind}) layer "
+                    f"{layer}: T {T}, capacity {C}, "
+                    f"{int((flip & valid).sum())} valid tokens routed "
+                    f"otherwise, {int((kept & valid).sum())} with a copy "
+                    f"kept otherwise, {int(keep_b.sum())} of "
+                    f"{keep_b.numel()} copies kept; rows diverged "
+                    f"{diverged.nonzero().flatten().tolist()}")
+            (x, rows), (y, _) = lk[tick], lp[tick]
+            rows = rows.cpu() & ~diverged
+            if not rows.any():
+                log(f"[model] {ARCTIC} {layout} tick {tick}: every row "
+                    f"diverged, no logits gated")
+                continue
+            x, y = x[rows.cuda()].double(), y[rows.cuda()].double()
+            if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
+                raise AssertionError("non-finite logits")
+            gap = float((x - y).abs().max() / y.abs().max())
+            log(f"[model] {ARCTIC} {layout} {kv_dtype} expmul tick {tick} "
+                f"({kind}): max|dlogits| / max|logits| = {gap:.3e} over "
+                f"{int(rows.sum())} rows routed alike (max|logits| "
+                f"{float(y.abs().max()):.3f}; gated at 1e-3)")
+            if not gap <= 1e-3:
+                raise AssertionError("kernel logits disagree with plain")
+    del params
+    torch.cuda.empty_cache()
+
+
 def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
                sink=True, tag=""):
     """Serve ``prompts`` (32 new tokens each) on a fresh engine with the
@@ -1154,9 +1399,11 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     return launches
 
 
-def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA):
-    """gemma-7b (or ``arch``) at full width and depth (bf16, ExpMul, random
-    weights from seed 2) served as phase 4 serves qwen2-0.5b: the same 16
+def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
+                      num_layers=None):
+    """gemma-7b (or ``arch``) at full width and depth (``num_layers`` cuts
+    the depth; bf16, ExpMul, random weights from seed 2) served as phase 4
+    serves qwen2-0.5b: the same 16
     prompts' lengths, 32 new tokens each, 8 slots, ``max_len`` 2048, chunk
     256, temperature 0, on a paged int8 pool and on contiguous fp32 caches
     (bf16 rows, the compute dtype), each with CUDA-graph ticks and eager
@@ -1165,10 +1412,18 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA):
     layers run the contiguous kernels on both layouts (its paged pool
     holds latents): each run must launch those two and neither paged
     kernel, and each layout's graph ticks are profiled (``phase_profile``:
-    where an MLA tick's time goes beside the kernels). Returns the
+    where an MLA tick's time goes beside the kernels). An MoE config's
+    paged graph ticks are profiled too (where an MoE tick's time goes: its
+    expert GEMMs read every expert's weights each tick). Returns the
     launches of each kernel under graphs, by layout for MLA."""
-    cfg = cfg_mod.get_config(arch)                  # bf16, ExpMul
+    _free(torch, f"{arch} serve")
+    over = {} if num_layers is None else dict(num_layers=num_layers)
+    cfg = cfg_mod.get_config(arch, **over)          # bf16, ExpMul
     assert cfg.attention_variant == "expmul" and cfg.dtype == "bfloat16"
+    if num_layers is not None:
+        log(f"[config] {arch} served: {cfg.param_count()} parameters; "
+            f"reduced: num_layers "
+            f"{cfg_mod.get_config(arch).num_layers} -> {num_layers}")
     params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
                             device="cuda")
     rng = np.random.default_rng(3)
@@ -1190,7 +1445,7 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA):
                                                   "eager"), pair,
                                     tag=f"{arch} ")
             torch.cuda.empty_cache()
-        if cfg.mla:
+        if cfg.mla or (cfg.moe and label == "paged/int8"):
             phase_profile(torch, ServeEngine, params, cfg, lkw, prompts,
                           tag=f"{arch} ")
             torch.cuda.empty_cache()
@@ -1874,6 +2129,16 @@ def phase_gemma_times(torch, checks, F):
                          plain_warmup=1)
 
 
+def phase_arctic_times(torch, checks, F):
+    """The four serving kernels at arctic-480b's serving shapes: 56 / 8
+    heads of 128, the rest as phase 5 (the plain versions' median of 5
+    runs)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    return _time_serving(torch, checks, F, flush, np.random.default_rng(7),
+                         h=ARCTIC_H, hkv=ARCTIC_HKV, d=ARCTIC_D, plain_n=5,
+                         plain_warmup=1)
+
+
 def _sdpa_backends(torch, F, flush, q, k, v, mask):
     """SDPA over dense operands under each backend that takes them (K rows
     of 96, V rows of 64: flash attention needs Dv == D), in PyTorch's
@@ -2049,6 +2314,26 @@ def phase_resources(build, decode, prefill, flash):
         log(f"[resources] {name} at head dim {GEMMA_D}, ExpMul, by KV "
             f"dtype: {json.dumps(d256)}")
         out[name] = {"d256": d256}
+    # arctic-480b's head dim: every KV dtype's ExpMul instantiation, at its
+    # GQA group of 7
+    smem_128 = {
+        "paged_decode": lambda dt: decode.paged_decode_smem(
+            ARCTIC_GROUP, ARCTIC_D, PS, CTX // PS, dt),
+        "paged_prefill": lambda dt: prefill.paged_prefill_smem(ARCTIC_D),
+        "decode": lambda dt: decode.contiguous_decode_smem(
+            ARCTIC_GROUP, ARCTIC_D, decode.BLOCK_K, dt),
+        "prefill": lambda dt: prefill.contiguous_prefill_smem(
+            ARCTIC_D, prefill.BLOCK_K)}
+    for name in PAGED + CONTIGUOUS:
+        d128 = {"ptxas": {}, "smem_bytes": {}}
+        dims = f"Li{ARCTIC_D}E" * (2 if name in CONTIGUOUS else 1)
+        for kv, (mangled, dtype) in KV_MANGLED.items():
+            d128["ptxas"][kv] = _ptxas(
+                build, name, f"{name}_kernelI{mangled}{dims}Lb1EE")
+            d128["smem_bytes"][kv] = smem_128[name](getattr(torch, dtype))
+        log(f"[resources] {name} at head dim {ARCTIC_D}, ExpMul, by KV "
+            f"dtype (group {ARCTIC_GROUP}): {json.dumps(d128)}")
+        out[name]["d128"] = d128
     return out
 
 
@@ -2271,11 +2556,13 @@ def main() -> int:
         ("head dim checks", lambda: phase_head_dim_checks(torch, checks,
                                                           build, decode)),
         ("mla checks", lambda: phase_mla_checks(torch, checks, build)),
+        ("moe routing", lambda: phase_moe_routing(torch)),
         ("expmul checks", lambda: phase_expmul_checks(torch, checks, build,
                                                       expmul_ops)),
         ("model ticks", lambda: phase_model_ticks(torch, cfg_mod, api)),
         ("gemma ticks", lambda: phase_gemma_ticks(torch, cfg_mod, api)),
         ("mla ticks", lambda: phase_mla_ticks(torch, cfg_mod, api)),
+        ("arctic ticks", lambda: phase_arctic_ticks(torch, cfg_mod, api)),
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("prefix", lambda: phase_prefix(torch, cfg_mod, api, build,
@@ -2286,10 +2573,14 @@ def main() -> int:
                                                   ServeEngine)),
         ("mla serve", lambda: phase_gemma_serve(torch, cfg_mod, api, build,
                                                 ServeEngine, arch=MLA)),
+        ("arctic serve", lambda: phase_gemma_serve(
+            torch, cfg_mod, api, build, ServeEngine, arch=ARCTIC,
+            num_layers=ARCTIC_LAYERS)),
         ("times", lambda: phase_times(torch, checks, F)),
         ("gemma times", lambda: phase_gemma_times(torch, checks, F)),
         ("mla times", lambda: phase_mla_times(torch, checks, F, build, decode,
                                               prefill)),
+        ("arctic times", lambda: phase_arctic_times(torch, checks, F)),
         ("resources", lambda: phase_resources(build, decode, prefill,
                                               flash)),
         ("train", lambda: phase_train(torch, cfg_mod, api, build)),
@@ -2312,10 +2603,19 @@ def main() -> int:
     for name in PAGED + CONTIGUOUS:
         results["resources"][name]["d256"].update(
             launches=results["gemma serve"][name],
-            largest_group={kv: results["head dim checks"][f"{name} {kv}"]
-                           for kv in KV_MANGLED}
+            largest_group={kv: results["head dim checks"][GEMMA_D][
+                f"{name} {kv}"] for kv in KV_MANGLED}
             if name.endswith("decode") else None,
             **results["gemma times"][name])
+    # ... at arctic-480b's head dim 128: its serving runs' launches, its
+    # times, each KV dtype's resources
+    for name in PAGED + CONTIGUOUS:
+        results["resources"][name]["d128"].update(
+            launches=results["arctic serve"][name],
+            largest_group={kv: results["head dim checks"][ARCTIC_D][
+                f"{name} {kv}"] for kv in KV_MANGLED}
+            if name.endswith("decode") else None,
+            **results["arctic times"][name])
     # the contiguous kernels at minicpm3-4b's head dims 96/64: its serving
     # runs' launches (graphs, by layout), its times and resources
     for name in CONTIGUOUS:

@@ -1,13 +1,16 @@
 """Model configuration of the port: the attention-only decoder fields of
 ``repro.configs.base.ModelConfig`` under the same names and defaults, with
-``MLAConfig`` for multi-head latent attention (minicpm3-4b).
+``MLAConfig`` for multi-head latent attention (minicpm3-4b) and
+``MoEConfig`` for a mixture-of-experts FFN (arctic-480b, kimi-k2-1t-a32b).
 
-Fields of families the port does not serve yet (MoE, recurrent block
-kinds, encoder-decoder, modality frontends) are left out until their slice,
-and so are ``family`` and ``max_seq_len``, which nothing of the port reads.
-An MLA config's attention reads its head dims from ``mla`` alone:
-``resolved_head_dim()`` (``d_model // num_heads``) is neither its qk dim
-nor its v dim.
+Fields of families the port does not serve yet (recurrent block kinds,
+encoder-decoder, modality frontends) are left out until their slice, and
+so are ``family``, ``max_seq_len`` and ``opt_state_dtype``, which nothing
+of the port reads (training with MoE, and its bf16 moments, wait for a
+later slice). An MLA config's attention reads its head dims from ``mla``
+alone: ``resolved_head_dim()`` (``d_model // num_heads``) is neither its
+qk dim nor its v dim. A config with ``moe`` has no dense FFN of ``d_ff``:
+its FFN is the experts (and the dense residual of ``moe.dense_d_ff``).
 """
 from __future__ import annotations
 
@@ -15,6 +18,17 @@ import dataclasses
 from dataclasses import dataclass
 
 ATTENTION_IMPLS = ("kernel", "plain")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 0
+    d_ff: int = 0                  # per-expert hidden size
+    dense_residual: bool = False   # arctic: dense FFN in parallel with MoE
+    dense_d_ff: int = 0            # hidden of the dense residual path
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"  # the router softmax is kept exact
 
 
 @dataclass(frozen=True)
@@ -44,6 +58,7 @@ class ModelConfig:
     rope_base: float = 10000.0
     window: int | None = None      # local attention window
     mla: MLAConfig | None = None
+    moe: MoEConfig | None = None
 
     # "kernel": the attention ticks run the hand-written CUDA kernels (their
     # plain versions for CPU tensors); "plain": the plain PyTorch versions
@@ -68,6 +83,16 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
+        """Parameters as ``repro``'s ``param_count`` counts them (MLA's two
+        latent norms left out, as there)."""
+        return self._param_count(active_only=False)
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: ``top_k`` experts of
+        ``num_experts`` (``repro``'s ``active_param_count``)."""
+        return self._param_count(active_only=True)
+
+    def _param_count(self, active_only: bool) -> int:
         d, hd, H = self.d_model, self.resolved_head_dim(), self.num_heads
         if self.mla is not None:
             m = self.mla
@@ -80,6 +105,13 @@ class ModelConfig:
             attn = (d * H * hd + 2 * d * self.num_kv_heads * hd + H * hd * d)
             if self.qkv_bias:
                 attn += (H + 2 * self.num_kv_heads) * hd
-        ffn = 3 * d * self.d_ff        # gated: w_gate, w_up, w_down
+        if self.moe is not None:      # gated experts, router, dense residual
+            m = self.moe
+            n = m.top_k if active_only else m.num_experts
+            ffn = n * 3 * d * m.d_ff + d * m.num_experts
+            if m.dense_residual:
+                ffn += 3 * d * m.dense_d_ff
+        else:
+            ffn = 3 * d * self.d_ff    # gated: w_gate, w_up, w_down
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return emb + d + self.num_layers * (attn + ffn + 2 * d)

@@ -1,0 +1,27 @@
+"""kimi-k2-1t-a32b [moe]: 61L d_model=7168 64H (GQA kv=8) vocab=163840,
+MoE 384 experts top-8, per-expert d_ff=2048, untied head — trillion-param
+MoE (paper-table). [arXiv:2501.kimi2; unverified]
+
+Its head dim is 7168 / 64 = 112, for which no serving kernel is built
+(``kernels/decode/decode.py:HEAD_DIMS``): on the card only its smoke
+config (head dim 16) is served.
+"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="kimi-k2-1t-a32b",
+    num_layers=61,
+    d_model=7168,
+    num_heads=64,
+    num_kv_heads=8,
+    d_ff=0,                      # all FFN capacity lives in the experts
+    vocab_size=163840,
+    activation="swiglu",
+    moe=MoEConfig(num_experts=384, top_k=8, d_ff=2048),
+    tie_embeddings=False,
+)
+
+SMOKE = CONFIG.replace(
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, vocab_size=256,
+    moe=MoEConfig(num_experts=8, top_k=2, d_ff=32),
+)

@@ -8,6 +8,8 @@ _ARCH_MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
     "gemma-7b": "repro_torch.configs.gemma_7b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -5,7 +5,9 @@
 ``jax.tree.map(np.asarray, params)``): ``units[0]`` holds each leaf stacked
 on a leading layer axis. It returns the port's parameter dict with the
 same per-layer layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...; MLA's
-``q_norm`` and ``kv_norm`` stay dicts of their ``scale``), so both
+``q_norm`` and ``kv_norm`` stay dicts of their ``scale``; an MoE layer's
+``ffn`` keeps ``router``, the expert stacks (E, ., .) and its nested
+``dense`` MLP; an untied head ``embed.out`` comes along), so both
 frameworks run the same weights. This module imports neither ``jax``
 nor ``repro``: the arrays arrive as numpy.
 """
@@ -36,7 +38,8 @@ def params_from_jax(np_params, cfg, *, device="cuda"):
                 else _tensor(leaf[i], device) for name, leaf in tree.items()}
 
     return {
-        "embed": {"table": _tensor(np_params["embed"]["table"], device)},
+        "embed": {name: _tensor(w, device)
+                  for name, w in np_params["embed"].items()},
         "final_norm": {"scale": _tensor(np_params["final_norm"]["scale"],
                                         device)},
         "layers": [layer(stacked, i) for i in range(cfg.num_layers)],

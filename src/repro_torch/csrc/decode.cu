@@ -47,8 +47,8 @@
 // too, and weighs those 0 into the value product as the plain version and
 // the Pallas kernel do, so a NaN row there reaches the output (0 * NaN).
 //
-// Above head dim 64 (gemma's 256) a tile's rows do not fit in a CTA, and the
-// tile cannot shrink (its width is part of an ExpMul result): the round's
+// Above head dim 64 (arctic-480b's 128, gemma's 256) a tile's rows do not fit
+// in a CTA, and the tile cannot shrink (its width is part of an ExpMul result): the round's
 // tile is staged in steps through two buffers instead, K in chunks of 64
 // features of all its rows (one thread a column, its score chain carried
 // from chunk to chunk in depth order), then V in sub-tiles of 64 rows (one
@@ -60,7 +60,7 @@
 // K rows may be wider than V rows (MLA's expanded latents: DK 96, DV 64, as
 // the reference's kernel takes them): q and the scores walk DK features, the
 // partials, the running state and the output DV. Built for (D, D) with D in
-// {16, 32, 64, 256} over every KV dtype, and for (96, 64) over float32 and
+// {16, 32, 64, 128, 256} over every KV dtype, and for (96, 64) over float32 and
 // bfloat16 KV only (MLA's expanded K/V are never codes). At (96, 64) a tile
 // fits a CTA unsplit: 256 rows of K and V are 53,248 + 32,768 B in bfloat16
 // and 102,400 + 65,536 B in float32, under the 232,448 a CTA can use.
@@ -93,7 +93,8 @@ __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 // kSubRows rows of all D features (each thread carries its outputs' value
 // chains from sub-tile to sub-tile in part_s), every step double-buffered
 // by cp.async. The tile, its maxima and every chain's order stay as they are.
-// Only D 256 is split (DK == DV there).
+// D 128 and D 256 are split (DK == DV there): at 128, K + V is 256 features,
+// two K chunks and four V sub-tiles a 256-column tile.
 template <int DK, int DV>
 __host__ __device__ constexpr bool split_tile() { return DK + DV > 160; }
 constexpr int kDepth = 64;    // K features a step (split tiles)
@@ -508,7 +509,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-// (DK, DV): (D, D) for D in {16, 32, 64, 256}, and (96, 64) for float KV
+// (DK, DV): (D, D) for D in {16, 32, 64, 128, 256}, and (96, 64) for float KV
 template <typename KV>
 int by_dims(int D, int Dv, int expmul, const void* q, const void* k, const void* v,
             const float* ks, const float* vs, const int* lens, void* out, int B, int Hkv,
@@ -523,6 +524,7 @@ int by_dims(int D, int Dv, int expmul, const void* q, const void* k, const void*
       case 16: REPRO_LAUNCH(16, 16);
       case 32: REPRO_LAUNCH(32, 32);
       case 64: REPRO_LAUNCH(64, 64);
+      case 128: REPRO_LAUNCH(128, 128);
       case 256: REPRO_LAUNCH(256, 256);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -541,6 +543,7 @@ long long smem_by_dims(int D, int Dv, int group, int bk) {
       case 16: return static_cast<long long>(smem_bytes<KV, 16, 16>(group, bk));
       case 32: return static_cast<long long>(smem_bytes<KV, 32, 32>(group, bk));
       case 64: return static_cast<long long>(smem_bytes<KV, 64, 64>(group, bk));
+      case 128: return static_cast<long long>(smem_bytes<KV, 128, 128>(group, bk));
       case 256: return static_cast<long long>(smem_bytes<KV, 256, 256>(group, bk));
       default: return -1;
     }

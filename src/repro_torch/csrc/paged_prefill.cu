@@ -80,10 +80,17 @@ struct Group {
   int p0, np, col0, nrows;
 };
 
-// three CTAs an SM at head dims up to 64; two at 256 (111,744 B of shared
-// memory a CTA, and a thread's accumulators take 128 registers)
+// three CTAs an SM (170 registers a thread) up to head dim 128; two at 128
+// over float32 pages, whose 16-byte loads in flight take 64 registers a
+// thread and spill at 170, and at 256 (111,744 B of shared memory a CTA,
+// and a thread's accumulators take 128 registers)
+template <typename KV, int D>
+constexpr int min_ctas() {
+  return D >= 256 || (D >= 128 && sizeof(KV) == 4) ? 2 : 3;
+}
+
 template <typename KV, int D, bool EXPMUL>
-__global__ void __launch_bounds__(kThreads, D >= 256 ? 2 : 3)
+__global__ void __launch_bounds__(kThreads, min_ctas<KV, D>())
 paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
                      const KV* __restrict__ vpool, const float* __restrict__ kspool,
                      const float* __restrict__ vspool, const KV* __restrict__ kn,
@@ -317,6 +324,7 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
+    case 128: REPRO_LAUNCH(128);
     case 256: REPRO_LAUNCH(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -368,6 +376,7 @@ extern "C" long long paged_prefill_smem(int D) {
     case 16: return static_cast<long long>(sizeof(Smem<16>));
     case 32: return static_cast<long long>(sizeof(Smem<32>));
     case 64: return static_cast<long long>(sizeof(Smem<64>));
+    case 128: return static_cast<long long>(sizeof(Smem<128>));
     case 256: return static_cast<long long>(sizeof(Smem<256>));
     default: return -1;
   }

@@ -25,7 +25,8 @@
 // csrc/flash.cu).
 //
 // Design: one CTA of 128 threads per (sequence, query head, 32 chunk rows),
-// two CTAs an SM (one at head dim 256: 176,128 B of shared memory a CTA). It walks the reference's KV tiles, bk = min(512, max(S,
+// two CTAs an SM (one at head dims 128 and 256: 126,976 and 176,128 B of
+// shared memory a CTA). It walks the reference's KV tiles, bk = min(512, max(S,
 // C, 1)) columns each (the ExpMul results depend on the width): cache tiles
 // [0, bk), ... below min(length, S), then chunk tiles from the chunk start
 // below n_valid and the block's last row. A cache tile reads all its
@@ -55,7 +56,7 @@
 // the reference's kernel takes them): q is staged at DK, both K and V
 // sub-tiles at one stride of max(DK, DV) + 4 floats (the x_s buffer holds
 // either), the scores walk DK features, the values and the output DV.
-// Built for (D, D) with D in {16, 32, 64, 256} over every KV dtype, and for
+// Built for (D, D) with D in {16, 32, 64, 128, 256} over every KV dtype, and for
 // (96, 64) over float32 and bfloat16 KV only (MLA's expanded K/V are never
 // codes).
 #include <type_traits>
@@ -245,7 +246,7 @@ int launch(const void* q, const void* kc, const void* vc, const float* ksc, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// (DK, DV): (D, D) for D in {16, 32, 64, 256}, and (96, 64) for float KV
+// (DK, DV): (D, D) for D in {16, 32, 64, 128, 256}, and (96, 64) for float KV
 template <typename KV>
 int by_dims(int D, int Dv, int expmul, const void* q, const void* kc, const void* vc,
             const float* ksc, const float* vsc, const void* kn, const void* vn,
@@ -264,6 +265,7 @@ int by_dims(int D, int Dv, int expmul, const void* q, const void* kc, const void
       case 16: REPRO_LAUNCH(16, 16);
       case 32: REPRO_LAUNCH(32, 32);
       case 64: REPRO_LAUNCH(64, 64);
+      case 128: REPRO_LAUNCH(128, 128);
       case 256: REPRO_LAUNCH(256, 256);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -318,6 +320,7 @@ extern "C" long long contiguous_prefill_smem(int D, int Dv, int bk) {
     case 16: return static_cast<long long>(smem_bytes<16, 16>(bk));
     case 32: return static_cast<long long>(smem_bytes<32, 32>(bk));
     case 64: return static_cast<long long>(smem_bytes<64, 64>(bk));
+    case 128: return static_cast<long long>(smem_bytes<128, 128>(bk));
     case 256: return static_cast<long long>(smem_bytes<256, 256>(bk));
     default: return -1;
   }

@@ -368,17 +368,18 @@ def poison_contiguous(case, row, lo, hi):
             _poison(case[name], (row, slice(None), slice(lo, hi)), -128)
 
 
-def head_dim_cases(rng, D, *, kv, q_dtype=torch.float32, group=1,
+def head_dim_cases(rng, D, *, kv, q_dtype=torch.float32, group=1, H=16,
                    dyadic=False, device="cuda"):
-    """One input of each serving kernel at gemma-7b's 16 query heads (16 /
-    ``group`` KV heads) of head dim ``D`` (gemma's 256, or 32 in its smoke
-    config), over KV kind ``kv`` (``KV_KINDS``): 4 sequences whose lengths
+    """One input of each serving kernel at ``H`` query heads (``H`` /
+    ``group`` KV heads; gemma-7b's 16 by default) of head dim ``D``
+    (gemma's 256, or 32 in its smoke config; arctic-480b's 128), over KV
+    kind ``kv`` (``KV_KINDS``): 4 sequences whose lengths
     cross the decode's 256-wide tiles and the contiguous prefill's 512-wide
     ones (300, 0, 600, 17 resident for decode; 530, 0, 17, 600 before a
     70-token chunk of which 70, 0, 33 and 0 tokens are valid), pages of 16,
     640 contiguous slots. Returns [(kernel, run, case, idle rows, label)]:
     row 1 attends to nothing."""
-    kw = dict(B=4, H=16, Hkv=16 // group, D=D, kv=kv, q_dtype=q_dtype,
+    kw = dict(B=4, H=H, Hkv=H // group, D=D, kv=kv, q_dtype=q_dtype,
               dyadic=dyadic, device=device)
     dec, pf, nv, C, S = [300, 0, 600, 17], [530, 0, 17, 600], [70, 0, 33, 0], \
         70, 640

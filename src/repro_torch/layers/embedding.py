@@ -1,4 +1,6 @@
-"""Token embeddings and the tied output head."""
+"""Token embeddings and the output head: tied (``x @ table^T``) or, for a
+config with ``tie_embeddings=False`` (arctic-480b, kimi-k2-1t-a32b), its
+own ``out`` weight (d, V)."""
 from __future__ import annotations
 
 import math
@@ -9,10 +11,14 @@ from repro_torch.layers.common import dense_init
 
 
 def embed_init(cfg, dtype, generator, device):
+    """The table (std 0.02) and, untied, the head ``out`` (fan-in std),
+    drawn from ``generator`` in that order."""
+    p = {"table": dense_init((cfg.vocab_size, cfg.d_model), dtype,
+                             generator, device, scale=0.02)}
     if not cfg.tie_embeddings:
-        raise NotImplementedError("the port serves tied embeddings only")
-    return {"table": dense_init((cfg.vocab_size, cfg.d_model), dtype,
-                                generator, device, scale=0.02)}
+        p["out"] = dense_init((cfg.d_model, cfg.vocab_size), dtype,
+                              generator, device)
+    return p
 
 
 def embed_apply(params, tokens, cfg):
@@ -27,6 +33,9 @@ def embed_apply(params, tokens, cfg):
     return x
 
 
-def logits_apply(params, x):
-    """Tied head: ``x @ table^T`` in the model's compute dtype."""
-    return torch.matmul(x, params["table"].transpose(0, 1))
+def logits_apply(params, x, cfg):
+    """The head in the model's compute dtype: ``x @ table^T`` tied,
+    ``x @ out`` untied."""
+    if cfg.tie_embeddings:
+        return torch.matmul(x, params["table"].transpose(0, 1))
+    return torch.matmul(x, params["out"])

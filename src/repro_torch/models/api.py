@@ -5,15 +5,19 @@ over per-slot (contiguous) caches or paged pools (the decoder-only half of
 
 Parameters are a dict of tensors with ``repro``'s layouts
 (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...; an MLA config's ``w_dq``,
-``w_uq``, ``w_dkv``, ``w_ukv``, ``wo`` and its two norms), one entry of
-``"layers"`` per layer; the layer loop is a Python loop. An MLA config's
+``w_uq``, ``w_dkv``, ``w_ukv``, ``wo`` and its two norms; an MoE config's
+``ffn`` holds ``router``, the expert stacks ``w_up``, ``w_gate``,
+``w_down`` (E, ., .) and its ``dense`` residual; an untied head is
+``embed.out``), one entry of ``"layers"`` per layer; the layer loop is a
+Python loop. An MLA config's
 caches and pools hold latents (``layers/mla.py``). The state is one dict
 of caches per layer and is updated in place: ``prefill``, ``decode_step``
 and their paged twins return it for symmetry with ``repro``. Those four
 read no tensor's value on the host and allocate at fixed shapes, so a
 tick of them can be captured in a CUDA graph (``serve/graphs.py``); on
 the kernel path, that is, since the plain versions read the longest
-length.
+length. An MoE layer routes every row of a tick, idle and padding rows
+too, as ``repro`` does (``layers/moe.py``), without a host read.
 
 Entry points take ``device="cuda"`` by default and raise without a card
 unless the caller passes ``device="cpu"``.
@@ -74,8 +78,9 @@ def init_model(cfg, generator: torch.Generator | None = None, *,
     }
 
 
-def forward(params, batch, cfg):
-    """batch["tokens"] (B, S) -> logits (B, S, V) in ``cfg.dtype``. With
+def forward(params, batch, cfg, *, moe_impl="scatter"):
+    """batch["tokens"] (B, S) -> logits (B, S, V) in ``cfg.dtype``; an MoE
+    config's FFN dispatches by ``moe_impl`` (``layers/moe.py``). With
     ``cfg.remat`` each layer runs under a non-reentrant
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
     layer): its activations are recomputed in the backward, which runs its
@@ -84,11 +89,12 @@ def forward(params, batch, cfg):
         _dtype(cfg.dtype))
     for p in params["layers"]:
         if cfg.remat:
-            x = checkpoint(block_apply, p, x, cfg, use_reentrant=False)
+            x = checkpoint(block_apply, p, x, cfg, moe_impl,
+                           use_reentrant=False)
         else:
-            x = block_apply(p, x, cfg)
+            x = block_apply(p, x, cfg, moe_impl)
     x = rmsnorm(params["final_norm"], x)
-    return logits_apply(params["embed"], x)
+    return logits_apply(params["embed"], x, cfg)
 
 
 def loss_fn(params, batch, cfg):
@@ -122,13 +128,13 @@ def init_decode_state(cfg, batch, max_len, *, device="cuda"):
                        for _ in range(cfg.num_layers)]}
 
 
-def _last_logits(params, x, n_valid):
+def _last_logits(params, x, n_valid, cfg):
     """Logits of each row's last valid chunk token."""
     B, C, _ = x.shape
     x = rmsnorm(params["final_norm"], x)
     last = torch.clamp(n_valid.to(torch.int64) - 1, 0, C - 1)
     return logits_apply(params["embed"], x[torch.arange(B, device=x.device),
-                                           last])
+                                           last], cfg)
 
 
 def prefill(params, state, tokens, lengths, n_valid, cfg):
@@ -153,7 +159,7 @@ def prefill(params, state, tokens, lengths, n_valid, cfg):
                             cfg.num_kv_heads)
     for p, cache in zip(params["layers"], state["caches"]):
         _, x = block_prefill(p, cache, x, cfg, lengths, n_valid, index)
-    return _last_logits(params, x, n_valid), state
+    return _last_logits(params, x, n_valid, cfg), state
 
 
 def decode_step(params, state, tokens1, lengths, cfg):
@@ -168,7 +174,7 @@ def decode_step(params, state, tokens1, lengths, cfg):
     for p, cache in zip(params["layers"], state["caches"]):
         _, x = block_decode_step(p, cache, x, cfg, lengths, index)
     x = rmsnorm(params["final_norm"], x)
-    return logits_apply(params["embed"], x), state
+    return logits_apply(params["embed"], x, cfg), state
 
 
 def init_paged_state(cfg, slots, pool_blocks, page_size, *, device="cuda"):
@@ -204,7 +210,7 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     for p, cache in zip(params["layers"], state["caches"]):
         _, x = block_paged_prefill(p, cache, x, cfg, lengths, n_valid,
                                    index, block_tables, page_size, rows)
-    return _last_logits(params, x, n_valid), state
+    return _last_logits(params, x, n_valid, cfg), state
 
 
 def copy_paged_block(state, cfg, src, dst, *, page_size):
@@ -262,4 +268,4 @@ def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
         _, x = block_paged_decode_step(p, cache, x, cfg, lengths, index,
                                        block_tables, page_size, rows)
     x = rmsnorm(params["final_norm"], x)
-    return logits_apply(params["embed"], x), state
+    return logits_apply(params["embed"], x, cfg), state

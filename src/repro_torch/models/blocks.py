@@ -1,5 +1,6 @@
 """Residual blocks of the ``attn`` kind: norm -> attention -> residual,
-norm -> gated MLP (SwiGLU or GeGLU) -> residual, over the full sequence
+norm -> gated MLP (SwiGLU or GeGLU), or for a config with ``cfg.moe`` the
+mixture of experts (``layers/moe.py``) -> residual, over the full sequence
 (training) or over per-slot (contiguous) caches or a paged KV pool
 (serving). The attention is GQA (``layers/attention_layer.py``) or, for a
 config with ``cfg.mla``, multi-head latent attention (``layers/mla.py``),
@@ -28,6 +29,7 @@ from repro_torch.layers.mla import (
     mla_prefill_step,
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.layers.moe import moe_apply, moe_init
 
 
 def block_init(cfg, dtype, generator, device):
@@ -36,22 +38,31 @@ def block_init(cfg, dtype, generator, device):
         "mix": (mla_init if cfg.mla else attn_init)(cfg, dtype, generator,
                                                    device),
         "norm_ffn": rmsnorm_init(cfg.d_model, dtype, device),
-        "ffn": mlp_init(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
-                        generator, device),
+        "ffn": (moe_init(cfg, dtype, generator, device) if cfg.moe else
+                mlp_init(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
+                         generator, device)),
     }
 
 
-def _ffn(params, x, cfg):
-    return x + mlp_apply(params["ffn"], rmsnorm(params["norm_ffn"], x),
-                         cfg.activation)
+def _ffn(params, x, cfg, moe_impl="scatter"):
+    """x + FFN(norm(x)) over x (B, C, d), or over x (B, d) of a decode
+    tick: there the MoE sees the slots as its tokens, (B, 1, d) as
+    ``repro`` hands it ``h[:, None, :]``."""
+    h = rmsnorm(params["norm_ffn"], x)
+    if not cfg.moe:
+        return x + mlp_apply(params["ffn"], h, cfg.activation)
+    if h.dim() == 2:
+        return x + moe_apply(params["ffn"], h[:, None, :], cfg,
+                             impl=moe_impl)[:, 0]
+    return x + moe_apply(params["ffn"], h, cfg, impl=moe_impl)
 
 
-def block_apply(params, x, cfg):
+def block_apply(params, x, cfg, moe_impl="scatter"):
     """One causal block over the full sequence x (B, S, d)."""
     h = rmsnorm(params["norm_mix"], x)
     h = (mla_apply if cfg.mla else attn_apply)(params["mix"], h, cfg,
                                                window=cfg.window or None)
-    return _ffn(params, x + h, cfg)
+    return _ffn(params, x + h, cfg, moe_impl)
 
 
 def block_init_cache(cfg, batch, max_len, dtype, device):

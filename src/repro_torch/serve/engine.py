@@ -152,6 +152,8 @@ class NonFiniteLogitsError(RuntimeError):
 def analytic_prefill_flops(cfg, start: int, end: int) -> int:
     """Analytic decoder FLOPs to prefill positions [start, end) on top of a
     resident ``start``-token prefix: 2·params per token for the linear path
+    (the active parameters: ``top_k`` experts of an MoE layer, as ``repro``
+    prices them)
     plus 4·H·hd per (query, key) causal pair for scores + weighted sum —
     what a prefix-cache hit skips (``prefill_flops_skipped``). An MLA
     config's pair is priced as ``repro`` prices it, at hd =
@@ -160,7 +162,7 @@ def analytic_prefill_flops(cfg, start: int, end: int) -> int:
     n = max(0, end - start)
     if n == 0:
         return 0
-    flops = 2 * cfg.param_count() * n
+    flops = 2 * cfg.active_param_count() * n
     span = (end * (end + 1) - start * (start + 1)) // 2
     flops += (4 * cfg.num_heads * cfg.resolved_head_dim() * cfg.num_layers
               * span)

@@ -135,12 +135,12 @@ def _torch(a, kv_dtype):
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-def _decode_case(seed, kv_dtype, dyadic, lengths, S):
+def _decode_case(seed, kv_dtype, dyadic, lengths, S, d=D):
     rng = np.random.default_rng(seed)
     B = len(lengths)
-    q = _values(rng, (B, H, D), dyadic)
-    k, ks = _kv(rng, (B, HKV, S, D), kv_dtype, dyadic)
-    v, vs = _kv(rng, (B, HKV, S, D), kv_dtype, dyadic)
+    q = _values(rng, (B, H, d), dyadic)
+    k, ks = _kv(rng, (B, HKV, S, d), kv_dtype, dyadic)
+    v, vs = _kv(rng, (B, HKV, S, d), kv_dtype, dyadic)
     _stale(k, ks, lengths, kv_dtype)
     _stale(v, vs, lengths, kv_dtype)
     return q, k, v, ks, vs, np.asarray(lengths, np.int32)
@@ -210,14 +210,14 @@ def test_decode_plain_narrow_tiles_match_pallas(variant):
 # prefill
 # ---------------------------------------------------------------------------
 def _prefill_case(seed, kv_dtype, dyadic, lengths, n_valid, S, C,
-                  rolling):
+                  rolling, d=D):
     rng = np.random.default_rng(seed)
     B = len(lengths)
-    q = _values(rng, (B, H, C, D), dyadic)
-    kc, ksc = _kv(rng, (B, HKV, S, D), kv_dtype, dyadic)
-    vc, vsc = _kv(rng, (B, HKV, S, D), kv_dtype, dyadic)
-    kn, ksn = _kv(rng, (B, HKV, C, D), kv_dtype, dyadic)
-    vn, vsn = _kv(rng, (B, HKV, C, D), kv_dtype, dyadic)
+    q = _values(rng, (B, H, C, d), dyadic)
+    kc, ksc = _kv(rng, (B, HKV, S, d), kv_dtype, dyadic)
+    vc, vsc = _kv(rng, (B, HKV, S, d), kv_dtype, dyadic)
+    kn, ksn = _kv(rng, (B, HKV, C, d), kv_dtype, dyadic)
+    vn, vsn = _kv(rng, (B, HKV, C, d), kv_dtype, dyadic)
     # slots never written yet hold a previous occupant's rows
     filled = [min(n, S) for n in lengths]
     _stale(kc, ksc, filled, kv_dtype)
@@ -294,6 +294,28 @@ def test_prefill_plain_matches_pallas(variant, kv_dtype, dyadic):
     assert build.COUNTS["prefill"] == before.get("prefill", 0)
     assert _rel_err(got, _prefill_pallas(c, variant, kv_dtype, None)) \
         <= TOL[dyadic]
+
+
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_plain_matches_pallas_at_head_dim_128(kernel, variant):
+    """arctic-480b's head dim, 128 (the kernels' D 128 instantiations):
+    one small case each, int8 codes, random inputs; decode over two
+    256-wide tiles, prefill into a fresh cache."""
+    if kernel == "decode":
+        S = 300
+        case = _decode_case(12, "int8", False, [13, 0, S, 261], S, d=128)
+        got = _decode_port(case, variant, "int8")
+        assert got.shape[-1] == 128
+        np.testing.assert_array_equal(got[1], 0.0)    # the idle row
+        ref = _decode_pallas(case, variant, "int8")
+    else:
+        S, C = 600, 8
+        c = _prefill_case(21, "int8", False, [530, 0, 17, S - C],
+                          [8, 8, 0, 5], S, C, rolling=False, d=128)
+        got = _prefill_port(c, variant, "int8", None)
+        ref = _prefill_pallas(c, variant, "int8", None)
+    assert _rel_err(got, ref) <= TOL[False]
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -412,6 +434,7 @@ def test_prefill_plain_matches_pallas_at_dv_ne_d(variant, dims, dyadic):
 @pytest.mark.parametrize("D_,Dv,kv_dtype,refused", [
     (96, 64, torch.float32, None), (96, 64, torch.bfloat16, None),
     (64, 64, torch.int8, None), (256, 256, torch.float8_e4m3fn, None),
+    (128, 128, torch.int8, None), (112, 112, torch.float32, "head dims"),
     (96, 64, torch.int8, "codes"), (96, 64, torch.float8_e4m3fn, "codes"),
     (64, 32, torch.float32, "head dims"), (96, 96, torch.float32,
                                            "head dims"),

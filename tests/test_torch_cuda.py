@@ -18,7 +18,11 @@ copied-on-write block tables. The compiled ticks: an engine whose ticks
 replay CUDA graphs equals one with eager ticks bit for bit, and counts
 each replay's launches. MLA: the contiguous kernels at minicpm3-4b's head
 dims (K rows of 96, V rows of 64) against their plain versions, their
-refusals, and a narrow MLA config's graph ticks.
+refusals, and a narrow MLA config's graph ticks. arctic-480b: the four
+serving kernels at its head dim 128, GQA groups 1, 7 and 32 (a paged
+decode whose shared memory is over the card's limit refused before its
+launch), on poisoned pages too, and its smoke config's MoE ticks, at head
+dim 128, captured in CUDA graphs.
 """
 import sys
 from pathlib import Path
@@ -506,6 +510,60 @@ def test_serving_kernels_at_head_dim_256_group_4_match_plain(cuda, kv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 7, 32])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_serving_kernels_at_head_dim_128_match_plain(cuda, group, kv,
+                                                     variant):
+    """The four serving kernels at arctic-480b's head dim 128, over GQA
+    groups 1 (8 / 8 heads), 7 (56 / 8, arctic's, bfloat16 q) and 32 (32 /
+    1) and ``head_dim_cases``' lengths. A paged decode whose shared memory
+    a block is over the card's limit (group 32 over float32 and bfloat16
+    pools) raises ValueError before any launch."""
+    from repro_torch.kernels.decode import decode
+    from repro_torch.kernels.checks import KV_KINDS
+    q_dtype = torch.bfloat16 if group == 7 else torch.float32
+    for name, run, case, idle, label in head_dim_cases(
+            np.random.default_rng(group), 128, kv=kv, q_dtype=q_dtype,
+            group=group, H=8 * group if group < 32 else 32, device=cuda):
+        if name == "paged_decode" and decode.paged_decode_smem(
+                group, 128, 16, case["block_tables"].shape[1],
+                KV_KINDS[kv]) > decode.card_smem_limit(cuda):
+            before = dict(build.COUNTS)
+            with pytest.raises(ValueError, match="shared memory"):
+                run(case, variant)
+            assert dict(build.COUNTS) == before
+            continue
+        got = run(case, variant)
+        ref = run(case, variant, plain=True)
+        torch.cuda.synchronize()
+        assert rel_err(got, ref) <= kernel_tol(variant, q_dtype), name
+        for i in idle:
+            assert float(got[i].abs().max()) == 0.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", SERVING_KERNELS)
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_serving_kernels_at_head_dim_128_keep_plain_nonfinite_rows(
+        cuda, kernel, kv):
+    """A poisoned page (or the rows past the length) at head dim 128: the
+    kernel's non-finite output rows are its plain version's, its finite
+    rows within ``kernel_tol``."""
+    for spot in POISON_SPOTS:
+        case, run = poisoned_case(np.random.default_rng(11), kernel, spot,
+                                  kv=kv, D=128, device=cuda)
+        for variant in ("exact", "expmul"):
+            got = run(case, variant)
+            ref = run(case, variant, plain=True)
+            torch.cuda.synchronize()
+            assert not bool(torch.isfinite(ref[0]).all()), spot
+            assert bool(torch.isfinite(ref[1:]).all()), spot
+            assert rows_rel_err(got, ref) <= kernel_tol(
+                variant, torch.float32), (spot, variant)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["f32", "bf16"])
 @pytest.mark.parametrize("variant", ["exact", "expmul"])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
@@ -936,6 +994,34 @@ def test_mla_graph_ticks_equal_eager_ticks(cuda, cell):
     st = eng.graph_stats()
     assert st["decode"]["replays"] == eng.decode_steps > 0
     assert st["decode"]["launches_per_replay"] == {"decode": cfg.num_layers}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["paged/int8", "contiguous/fp32"])
+def test_arctic_smoke_graph_ticks_equal_eager_ticks(cuda, cell):
+    """arctic-480b's smoke config (4 experts, top-2, a dense residual, an
+    untied head) at its full head dim, 128, served with CUDA-graph ticks:
+    the MoE routes every row of a tick without a host read, so the ticks
+    capture; every tick's logits the eager engine's bit for bit, on the
+    layout's two kernels alone, one launch a layer a replay."""
+    cfg = get_config("arctic-480b", smoke=True).replace(head_dim=128)
+    prompts = [list(np.random.default_rng(2).integers(1, 256, n))
+               for n in (40, 7, 66)]
+    _, out, logits, counts = _graph_run(cuda, cell, True, prompts, cfg=cfg)
+    eng, gout, glogits, gcounts = _graph_run(cuda, cell, False, prompts,
+                                             cfg=cfg)
+    assert gout == out and len(glogits) == len(logits) > 2
+    for i, (a, b) in enumerate(zip(glogits, logits)):
+        assert torch.equal(a, b), f"tick {i + 1}"
+    pair = ({"paged_prefill", "paged_decode"} if cell.startswith("paged")
+            else {"prefill", "decode"})
+    assert gcounts == counts and set(gcounts) == pair
+    st = eng.graph_stats()
+    assert st["decode"]["replays"] == eng.decode_steps > 0
+    assert st["prefill"]["replays"] == eng.prefill_steps > 0
+    dec, pre = sorted(pair)
+    assert st["decode"]["launches_per_replay"] == {dec: cfg.num_layers}
+    assert st["prefill"]["launches_per_replay"] == {pre: cfg.num_layers}
 
 
 @pytest.mark.cuda

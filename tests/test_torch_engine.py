@@ -235,6 +235,9 @@ def test_port_imports_no_jax_and_no_repro():
         "assert 'repro_torch.launch.fidelity' in sys.modules\n"
         "assert 'repro_torch.serve.metrics' in sys.modules\n"
         "assert 'repro_torch.kernels.costs' in sys.modules\n"
+        "assert 'repro_torch.layers.moe' in sys.modules\n"
+        "assert 'repro_torch.configs.arctic_480b' in sys.modules\n"
+        "assert 'repro_torch.configs.kimi_k2_1t' in sys.modules\n"
         "print('ok')\n")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))

@@ -142,12 +142,12 @@ def test_gather_and_scatter_rows_match_repro():
 # ---------------------------------------------------------------------------
 # paged decode: plain version vs the Pallas kernel
 # ---------------------------------------------------------------------------
-def _decode_case(seed, kv_dtype, dyadic, lengths):
+def _decode_case(seed, kv_dtype, dyadic, lengths, d=D):
     rng = np.random.default_rng(seed)
     B = len(lengths)
-    q = _values(rng, (B, H, D), dyadic)
-    k, ks = _kv(rng, (NBLK * PS, HKV, D), kv_dtype, dyadic)
-    v, vs = _kv(rng, (NBLK * PS, HKV, D), kv_dtype, dyadic)
+    q = _values(rng, (B, H, d), dyadic)
+    k, ks = _kv(rng, (NBLK * PS, HKV, d), kv_dtype, dyadic)
+    v, vs = _kv(rng, (NBLK * PS, HKV, d), kv_dtype, dyadic)
     return q, k, v, ks, vs, _tables(rng, lengths), np.asarray(lengths,
                                                               np.int32)
 
@@ -208,14 +208,14 @@ def test_paged_decode_plain_matches_pallas_windowed(variant):
 # ---------------------------------------------------------------------------
 # paged prefill: plain version vs the Pallas kernel
 # ---------------------------------------------------------------------------
-def _prefill_case(seed, kv_dtype, dyadic, lengths, n_valid, C):
+def _prefill_case(seed, kv_dtype, dyadic, lengths, n_valid, C, d=D):
     rng = np.random.default_rng(seed)
     B = len(lengths)
-    q = _values(rng, (B, H, C, D), dyadic)
-    kn, ksn = _kv(rng, (B, HKV, C, D), kv_dtype, dyadic)
-    vn, vsn = _kv(rng, (B, HKV, C, D), kv_dtype, dyadic)
-    k, ks = _kv(rng, (NBLK * PS, HKV, D), kv_dtype, dyadic)
-    v, vs = _kv(rng, (NBLK * PS, HKV, D), kv_dtype, dyadic)
+    q = _values(rng, (B, H, C, d), dyadic)
+    kn, ksn = _kv(rng, (B, HKV, C, d), kv_dtype, dyadic)
+    vn, vsn = _kv(rng, (B, HKV, C, d), kv_dtype, dyadic)
+    k, ks = _kv(rng, (NBLK * PS, HKV, d), kv_dtype, dyadic)
+    v, vs = _kv(rng, (NBLK * PS, HKV, d), kv_dtype, dyadic)
     bt = _tables(rng, [n + m for n, m in zip(lengths, n_valid)])
     return (q, kn, vn, ksn, vsn, k, v, ks, vs, bt,
             np.asarray(lengths, np.int32), np.asarray(n_valid, np.int32))
@@ -257,6 +257,24 @@ def test_paged_prefill_plain_matches_pallas(variant, kv_dtype, dyadic):
     np.testing.assert_array_equal(got[1], 0.0)        # the idle row
     tol = 1e-6 if dyadic else _ref_tol(variant, kv_dtype)
     assert _rel_err(got, ref) <= tol
+
+
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_paged_plain_matches_pallas_at_head_dim_128(kernel, variant):
+    """arctic-480b's head dim, 128 (the kernels' D 128 instantiations):
+    one small case each, int8 codes, random inputs, ragged lengths, an
+    idle row."""
+    if kernel == "decode":
+        case = _decode_case(13, "int8", False, [13, 0, MB * PS, 6], d=128)
+        got, ref = _decode_pair(variant, "int8", case)
+    else:
+        case = _prefill_case(21, "int8", False, [6, 0, 9, 0], [7, 0, 5, 3],
+                             C=7, d=128)
+        got, ref = _prefill_pair(variant, "int8", case)
+    assert got.shape[-1] == 128
+    np.testing.assert_array_equal(got[1], 0.0)        # the idle row
+    assert _rel_err(got, ref) <= _ref_tol(variant, "int8")
 
 
 @pytest.mark.parametrize("variant", ["exact", "expmul"])
