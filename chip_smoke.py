@@ -8,9 +8,11 @@ built for CUDA and the CUDA toolkit. It imports nothing of JAX or of the
 JAX package. It drives both serving KV layouts (the paged pool and the
 per-slot contiguous caches with rolling windows) for qwen2-0.5b,
 gemma-7b, minicpm3-4b (MLA: latent caches, expanded K/V at head dims
-96 and 64) and arctic-480b (MoE top-2 with a dense residual, head dim
-128; depth cut to 2 of its 35 layers), the training path, and the
-paper's demonstrations (the quickstart and the Table I study).
+96 and 64), arctic-480b (MoE top-2 with a dense residual, head dim
+128; depth cut to 2 of its 35 layers) and recurrentgemma-2b (RG-LRU
+blocks beside local-attention MQA blocks: GQA group 10 at head dim 256,
+a 2,048-token window), the training path, and the paper's
+demonstrations (the quickstart and the Table I study).
 Phases (a failing check raises, and the script exits non-zero):
 
 1. print the card's name and power limit; build the kernels from
@@ -91,6 +93,13 @@ Phases (a failing check raises, and the script exits non-zero):
 2e. the MoE router's top-k (a stable descending sort) on the card against
    the CPU's and ``jax.lax.top_k``'s known ids: ties, an all-NaN row,
    +-inf, and 2,048 x 128 logits on a 0.25 grid, top-2 and top-8;
+2f. the four serving kernels at recurrentgemma-2b's local attention
+   (``checks.windowed_cases``: 10 / 1 heads of 256, a 2,048-token window;
+   histories of 1,024, 2,048, 2,049, 3,000 and 3,584 tokens, window
+   floors inside a page and a tile, a rolling buffer of span 2,048 that
+   every long history has wrapped, an idle row) against their plain
+   versions, float32 and bfloat16 values and q, exact and ExpMul, at
+   ``checks.kernel_tol``;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -109,6 +118,12 @@ Phases (a failing check raises, and the script exits non-zero):
    ids and kept copies, token by token): a token routed otherwise in a
    row that had not diverged must be within 1e-3 of a router tie, and
    the logits of rows routed alike are gated within 1e-3;
+3e. recurrentgemma-2b at full width and depth (26 layers, bf16, ExpMul):
+   two prefill ticks of 1,152-token chunks (three rows past the window)
+   and a decode tick on a paged fp32 pool and on contiguous fp32 caches
+   (bf16 rows), kernels against plain versions: logits within 1e-3 of
+   their magnitude, every RG-LRU layer's ``h`` and ``conv`` bit for bit
+   before the first attention layer and within 1e-2 after it;
 4. serving at full width: ``ServeEngine`` with 8 slots, 16 requests of
    128-1024 prompt tokens and 32 new tokens each, ExpMul, temperature 0,
    on three layouts: a paged int8 pool (its shared-prefix cache on, the
@@ -178,6 +193,17 @@ Phases (a failing check raises, and the script exits non-zero):
    contiguous fp32, graphs against eager, each run on its layout's two
    kernels alone, its paged graph ticks profiled (where an MoE tick's
    time goes);
+4g. recurrentgemma-2b served at full width and depth (bf16, ExpMul,
+   seed-2 weights): (a) phase 4's traffic on a paged fp32 pool and on
+   contiguous fp32 caches (bf16 rows; int8 is refused for a recurrent
+   pattern), graphs against eager, each run on its layout's two kernels
+   alone, once a tick in each of the 8 attention layers, the paged graph
+   ticks profiled with the device time by kernel family (the recurrence
+   loop's elementwise kernels, the GEMMs, attention); (b) windowed
+   traffic, 8 requests of 2,304-3,840 prompt tokens (every rolling
+   buffer wraps), 32 new each, ``max_len`` 4096, graph ticks on both
+   layouts: every request finishes, launches gated, the layouts' stream
+   agreement printed;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -207,6 +233,12 @@ Phases (a failing check raises, and the script exits non-zero):
    heads of 128, the rest as phase 5), with the registers, spills and
    shared memory (at its group of 7) of every KV dtype's head-dim 128
    instantiation;
+5e. the four serving kernels at recurrentgemma-2b's serving shapes (bf16
+   values, ExpMul, bf16 q, 8 x 3,072 resident tokens, window 2,048, 10 /
+   1 heads of 256, chunk 256): device and launch times, the bound from
+   this run's windowed work, the plain version, the exact-bf16 yardstick
+   against SDPA under the same windowed mask, and the shared memory a
+   CTA at group 10;
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
    cosine schedule. One train step through the flash kernel and one
@@ -226,8 +258,8 @@ Phases (a failing check raises, and the script exits non-zero):
    grid, the raw attention error) must launch flash only, with every
    perplexity finite; its table is printed, not gated;
 8. one JSON line of kernels (each serving kernel with ``d256``,
-   ``d128`` and, for the contiguous pair, ``mla_96_64`` entries), the
-   card line, and as the last line
+   ``d128``, ``rg_w2048`` and, for the contiguous pair, ``mla_96_64``
+   entries), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -275,6 +307,12 @@ ARCTIC, ARCTIC_H, ARCTIC_HKV, ARCTIC_D = "arctic-480b", 56, 8, 128
 ARCTIC_GROUP, ARCTIC_LAYERS = ARCTIC_H // ARCTIC_HKV, 2
 # minicpm3-4b: MLA, 40 / 40 heads, expanded K rows of 96 and V rows of 64
 MLA, MLA_H = "minicpm3-4b", 40
+# recurrentgemma-2b: 18 RG-LRU blocks beside 8 local-attention blocks of
+# 10 / 1 heads of 256 (GQA group 10), a 2,048-token window, a logit
+# softcap; served at full width and depth (2.89B parameters). Its ticks'
+# chunk (two of them pass the window) and its windowed serving shapes
+RG, RG_H, RG_HKV, RG_D, RG_WINDOW = "recurrentgemma-2b", 10, 1, 256, 2048
+RG_TICK_CHUNK, RG_CTX, RG_MAX_LEN = 1152, 3072, 4096
 TRAIN_SEQ, TRAIN_STEPS = 1024, 6
 FLASH_EDGE_SEQS = (1, 31, 33, 65, 1000)
 # the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
@@ -663,6 +701,33 @@ def phase_head_dim_checks(torch, checks, build, decode):
     return largest
 
 
+def phase_rg_checks(torch, checks):
+    """The four serving kernels at recurrentgemma-2b's local attention
+    (``checks.windowed_cases``: 10 / 1 heads of 256, a 2,048-token window;
+    histories of 1,024, 2,048, 2,049 and 3,584 tokens and one of 3,000
+    whose window floor lies inside a page and a tile, a rolling buffer of
+    span 2,048 that every long history has wrapped, an idle row) against
+    their plain versions, over float32 and bfloat16 values, float32 and
+    bfloat16 q, dyadic and random, exact and ExpMul, at
+    ``checks.kernel_tol``."""
+    rng = np.random.default_rng(13)
+    worst, n = {}, 0
+    for kv, q_dtype, dyadic in (("f32", torch.float32, True),
+                                ("bf16", torch.bfloat16, False),
+                                ("f32", torch.bfloat16, False),
+                                ("bf16", torch.float32, True)):
+        for name, run, case, idle, label in checks.windowed_cases(
+                rng, kv=kv, q_dtype=q_dtype, dyadic=dyadic):
+            for variant in ("exact", "expmul"):
+                _hold(torch, checks, name, run, case, variant, q_dtype, idle,
+                      label, worst)
+                n += 1
+            del case
+    log(f"[check] {RG} windowed kernels (group {RG_H // RG_HKV}, head dim "
+        f"{RG_D}, window {RG_WINDOW}): {n} cases, worst rel err "
+        f"{json.dumps(worst)}")
+
+
 def phase_mla_checks(torch, checks, build):
     """The contiguous decode and prefill at minicpm3-4b's head dims
     (``checks.MLA_DIMS``: K rows of 96, V rows of 64) against their plain
@@ -898,14 +963,17 @@ def phase_expmul_checks(torch, checks, build, ops):
                                      "disagrees with its plain version")
 
 
-def _ticks(torch, api, params, cfg, layout, bt, toks, chunks, tok1):
+def _ticks(torch, api, params, cfg, layout, bt, toks, chunks, tok1,
+           keep_state=False):
     """Logits of prefill ticks over ``chunks`` (then one decode tick when
     ``tok1`` is given) on a fresh state of ``layout``, with the rows each
-    tick's logits are defined for."""
+    tick's logits are defined for (and the state, with ``keep_state``).
+    The contiguous caches hold as many tokens as a row of ``bt``."""
     if layout == "paged":
         state = api.init_paged_state(cfg, B, bt.numel(), PS, device="cuda")
     else:
-        state = api.init_decode_state(cfg, B, MAX_LEN, device="cuda")
+        state = api.init_decode_state(cfg, B, bt.shape[1] * PS,
+                                      device="cuda")
     lens = torch.zeros(B, dtype=torch.int32, device="cuda")
     out = []
     for tk, nv in zip(toks, chunks):
@@ -925,7 +993,7 @@ def _ticks(torch, api, params, cfg, layout, bt, toks, chunks, tok1):
             lg, state = api.decode_step(params, state, tok1, lens, cfg)
         out.append((lg, torch.ones(B, dtype=torch.bool, device="cuda")))
     torch.cuda.synchronize()
-    return out
+    return (out, state) if keep_state else out
 
 
 def _hold_ticks(torch, api, params, base, runs, bt, toks, tag="",
@@ -1208,12 +1276,93 @@ def phase_arctic_ticks(torch, cfg_mod, api):
     torch.cuda.empty_cache()
 
 
+def phase_rg_ticks(torch, cfg_mod, api):
+    """recurrentgemma-2b at full width and depth (26 layers, bf16, ExpMul,
+    random weights from seed 0): two prefill ticks of 1,152-token chunks
+    (rows of 0 to 2,304 tokens, three past the 2,048-token window, so the
+    contiguous rolling buffer wraps and the paged kernels skip pages below
+    the floor) and a decode tick, on a paged pool and on contiguous caches
+    at kv_dtype fp32 (bf16 rows), through the kernels and through the plain
+    versions: logits within 1e-3 of their magnitude, and every RG-LRU
+    layer's state after the ticks: bit for bit in the layers before the
+    first attention layer, within 1e-2 of its magnitude after it (one
+    bf16 step is 2^-8 of a value)."""
+    _free(torch, f"{RG} ticks")
+    base = cfg_mod.get_config(RG)                   # bf16, ExpMul
+    assert base.attention_variant == "expmul" and base.dtype == "bfloat16"
+    kinds = base.pattern_for()
+    log(f"[config] {RG}: d_model {base.d_model}, {base.num_heads} / "
+        f"{base.num_kv_heads} heads of {base.resolved_head_dim()}, window "
+        f"{base.window}, lru width {base.lru_width}, {kinds.count('rglru')} "
+        f"RG-LRU and {kinds.count('attn')} attention layers, softcap "
+        f"{base.logits_softcap}; {base.param_count()} parameters")
+    params = api.init_model(
+        base, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(1)
+    C = RG_TICK_CHUNK
+    mb = -(-(2 * C + 1) // PS) + 1
+    bt = torch.from_numpy(rng.permutation(B * mb).astype(np.int32)
+                          .reshape(B, mb)).cuda()
+    chunks = [[C, 0, 300, C, 17, C, 1, 900], [C, 0, 40, C, C, 10, 0, C]]
+    toks = [torch.from_numpy(rng.integers(1, base.vocab_size, (B, C))
+                             .astype(np.int32)).cuda() for _ in chunks]
+    tok1 = torch.from_numpy(rng.integers(1, base.vocab_size, B)
+                            .astype(np.int32)).cuda()
+    first_attn = kinds.index("attn")
+    names = ["prefill", "prefill over history", "decode"]
+    for layout in ("paged", "contiguous"):
+        runs = {}
+        for impl in ("kernel", "plain"):
+            cfg = base.replace(attention_impl=impl)
+            t0 = time.perf_counter()
+            runs[impl] = _ticks(torch, api, params, cfg, layout, bt, toks,
+                                chunks, tok1, keep_state=True)
+            log(f"[model] {RG} {layout} fp32 expmul {impl}: 3 ticks in "
+                f"{time.perf_counter() - t0:.2f} s")
+        (lk, sk), (lp, sp) = runs["kernel"], runs["plain"]
+        for i, ((a, rows), (b, _)) in enumerate(zip(lk, lp)):
+            a, b = a[rows].double(), b[rows].double()
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError("non-finite logits")
+            gap = float((a - b).abs().max() / b.abs().max())
+            log(f"[model] {RG} {layout} expmul {names[i]}: max|dlogits| / "
+                f"max|logits| = {gap:.3e} (max|logits| "
+                f"{float(b.abs().max()):.3f}; gated at 1e-3)")
+            if not gap <= 1e-3:
+                raise AssertionError("kernel logits disagree with plain")
+        gaps = {}
+        for layer, kind in enumerate(kinds):
+            if kind != "rglru":
+                continue
+            for name in ("h", "conv"):
+                x = sk["caches"][layer][name].double()
+                y = sp["caches"][layer][name].double()
+                if layer < first_attn:
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"layer {layer} {name}: state "
+                                             f"before any attention differs")
+                    continue
+                gap = float((x - y).abs().max() / y.abs().max())
+                gaps[f"{layer}/{name}"] = gap
+                if not (torch.isfinite(x).all() and gap <= 1e-2):
+                    raise AssertionError(f"layer {layer} {name}: recurrent "
+                                         f"state gap {gap:.3e}")
+        log(f"[model] {RG} {layout}: RG-LRU state after the ticks, layers "
+            f"0-{first_attn - 1} bit for bit, the rest max|dstate| / "
+            f"max|state| (gated at 1e-2): worst {max(gaps.values()):.3e}; "
+            + json.dumps({k: float(f"{v:.3e}") for k, v in gaps.items()}))
+        del runs, sk, sp
+    del params
+    torch.cuda.empty_cache()
+
+
 def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
                sink=True, tag=""):
     """Serve ``prompts`` (32 new tokens each) on a fresh engine with the
     launch counts set to 0 just before and read just after: the ``pair``
     of kernels of the layout must have launched, and nothing else (no
-    other kernel, no plain version). The engine's ticks replay CUDA graphs
+    other kernel, no plain version), once a tick in each attention layer.
+    The engine's ticks replay CUDA graphs
     unless ``kw`` asks for eager ticks; the fresh engine captures its
     graphs at its first ticks, inside the measured run. ``sink=False``
     serves with the engine's dispatch counters off. Returns (counts,
@@ -1262,6 +1411,12 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
         raise AssertionError(f"{label}: another kernel or a plain version "
                              f"ran while serving: {counts}")
     graphs = eng.graph_stats()
+    n_attn = cfg.pattern_for().count("attn")
+    dec, pre = pair
+    if (counts[dec] != n_attn * eng.decode_steps
+            or counts[pre] != n_attn * eng.prefill_steps):
+        raise AssertionError(f"{label}: launches {counts} are not one a tick "
+                             f"in each of {n_attn} attention layers")
     if mode == "graphs":
         # every tick replayed its kind's graph, whose captured launches are
         # the run's: replays x captured launches, kernel by kernel
@@ -1284,7 +1439,8 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
                  prefill_p50_ms=statistics.median(tick_ms["prefill"]),
                  decode_p50_ms=statistics.median(tick_ms["decode"]),
                  peak_gib=peak / 2**30, graphs=graphs)
-    log(f"[serve] {label}: 16 requests, prompts {min(map(len, prompts))}-"
+    log(f"[serve] {label}: {len(prompts)} requests, prompts "
+        f"{min(map(len, prompts))}-"
         f"{max(map(len, prompts))} tokens ({eng.prompt_tokens} in all), "
         f"32 new each: {eng.ticks} steps ({eng.prefill_steps} prefill, "
         f"{eng.decode_steps} decode), {gen} tokens generated in {wall:.3f} s "
@@ -1303,7 +1459,6 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
         f"{sum(tick_ms['decode']):.1f})")
     if mode == "graphs":
         log(f"[serve] {label}: graphs " + json.dumps(graphs))
-    dec, pre = pair
     per_step = {dec: counts[dec] / eng.decode_steps,
                 pre: counts[pre] / eng.prefill_steps}
     return counts, per_step, [r.out for r in reqs], stats
@@ -1415,11 +1570,17 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
     where an MLA tick's time goes beside the kernels). An MoE config's
     paged graph ticks are profiled too (where an MoE tick's time goes: its
     expert GEMMs read every expert's weights each tick). Returns the
-    launches of each kernel under graphs, by layout for MLA."""
+    launches of each kernel under graphs, by layout for MLA. A hybrid
+    config (RG-LRU blocks) is served on a paged pool at kv_dtype fp32 (int8
+    is refused for a recurrent pattern), and its paged graph ticks are
+    profiled too (where a hybrid tick's time goes: the recurrence loop,
+    the GEMMs or attention)."""
     _free(torch, f"{arch} serve")
     over = {} if num_layers is None else dict(num_layers=num_layers)
     cfg = cfg_mod.get_config(arch, **over)          # bf16, ExpMul
     assert cfg.attention_variant == "expmul" and cfg.dtype == "bfloat16"
+    hybrid = set(cfg.block_pattern) != {"attn"}
+    paged_kv = "fp32" if hybrid else "int8"
     if num_layers is not None:
         log(f"[config] {arch} served: {cfg.param_count()} parameters; "
             f"reduced: num_layers "
@@ -1429,13 +1590,13 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
     rng = np.random.default_rng(3)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                for n in rng.integers(128, 1025, size=16)]
-    kw = dict(kv_layout="paged", page_size=PS, kv_dtype="int8", slots=B,
+    kw = dict(kv_layout="paged", page_size=PS, kv_dtype=paged_kv, slots=B,
               max_len=MAX_LEN, chunk_size=CHUNK, temperature=0.0,
               attention_impl="kernel", device="cuda")
     ckw = dict(kw, kv_layout="contiguous", kv_dtype="fp32")
     del ckw["page_size"]
     launches = {}
-    for label, lkw, pair in (("paged/int8", kw,
+    for label, lkw, pair in ((f"paged/{paged_kv}", kw,
                               CONTIGUOUS if cfg.mla else PAGED),
                              ("contiguous/fp32", ckw, CONTIGUOUS)):
         runs = {}
@@ -1445,7 +1606,7 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
                                                   "eager"), pair,
                                     tag=f"{arch} ")
             torch.cuda.empty_cache()
-        if cfg.mla or (cfg.moe and label == "paged/int8"):
+        if cfg.mla or ((cfg.moe or hybrid) and label.startswith("paged")):
             phase_profile(torch, ServeEngine, params, cfg, lkw, prompts,
                           tag=f"{arch} ")
             torch.cuda.empty_cache()
@@ -1471,6 +1632,50 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_rg_windowed_serve(torch, cfg_mod, api, build, ServeEngine):
+    """recurrentgemma-2b at full width and depth (bf16, ExpMul, seed-2
+    weights) under windowed traffic: 8 requests of 2,304-3,840 prompt
+    tokens (every one past the 2,048-token window, so every rolling buffer
+    wraps and the paged kernels skip whole pages below the window floor),
+    32 new tokens each, 8 slots, ``max_len`` 4096, chunk 256, graph ticks,
+    on a paged fp32 pool and on contiguous fp32 caches (bf16 rows): every
+    request finishes and each run launches its layout's two kernels alone,
+    once a tick in each attention layer. The agreement of the two layouts'
+    streams is printed, not gated (their kernels walk other tiles).
+    Returns each run's numbers by layout."""
+    _free(torch, f"{RG} windowed serve")
+    cfg = cfg_mod.get_config(RG)
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
+                            device="cuda")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(2304, 3841, size=B)]
+    assert min(map(len, prompts)) > cfg.window
+    kw = dict(kv_layout="paged", page_size=PS, kv_dtype="fp32", slots=B,
+              max_len=RG_MAX_LEN, chunk_size=CHUNK, temperature=0.0,
+              attention_impl="kernel", device="cuda")
+    ckw = dict(kw, kv_layout="contiguous")
+    del ckw["page_size"]
+    streams, stats = {}, {}
+    for label, lkw, pair in (("paged/fp32", kw, PAGED),
+                             ("contiguous/fp32", ckw, CONTIGUOUS)):
+        counts, _, out, st = _serve_run(torch, build, ServeEngine, params,
+                                        cfg, prompts, lkw, pair,
+                                        tag=f"{RG} windowed ")
+        streams[label], stats[label] = out, dict(st, launches=counts)
+        torch.cuda.empty_cache()
+    a, b = streams["paged/fp32"], streams["contiguous/fp32"]
+    same = sum(x == y for p, q in zip(a, b) for x, y in zip(p, q))
+    first = sum(p[0] == q[0] for p, q in zip(a, b))
+    log(f"[serve] {RG} windowed: temp-0 agreement, paged vs contiguous (the "
+        f"layouts' kernels walk other tiles, so no gate): {same} of "
+        f"{sum(map(len, a))} tokens at the same position, first tokens "
+        f"{first} of {len(prompts)}")
+    del params
+    torch.cuda.empty_cache()
+    return stats
 
 
 def _prefix_run(torch, build, ServeEngine, params, cfg, system, tails,
@@ -1871,6 +2076,18 @@ def _profile_window(torch, fn, label):
         f"kernels, idle share {idle:.3f}; top "
         f"kernels (ms): " + "; ".join(f"{name[:60]} {us / 1e3:.3f}"
                                       for name, (us, _) in top))
+    family = {}
+    for name, (us, n) in kernels.items():
+        low = name.lower()
+        kind = ("attention" if "decode_kernel" in low
+                or "prefill_kernel" in low or "flash_kernel" in low else
+                "gemm" if any(w in low for w in ("gemm", "xmma", "cutlass",
+                                                 "nvjet")) else "other")
+        ms, k = family.get(kind, (0.0, 0))
+        family[kind] = (ms + us / 1e3, k + n)
+    log(f"[profile] {label}: busy ms (launches) by family: "
+        + "; ".join(f"{k} {ms:.3f} ({n})" for k, (ms, n)
+                    in sorted(family.items())))
     return busy, kernels, round(idle, 3)
 
 
@@ -2137,6 +2354,102 @@ def phase_arctic_times(torch, checks, F):
     return _time_serving(torch, checks, F, flush, np.random.default_rng(7),
                          h=ARCTIC_H, hkv=ARCTIC_HKV, d=ARCTIC_D, plain_n=5,
                          plain_warmup=1)
+
+
+def phase_rg_times(torch, checks, F, decode, prefill):
+    """The four serving kernels at recurrentgemma-2b's serving shapes: B
+    sequences of RG_CTX resident tokens, a 2,048-token window (so 2,048
+    keys a query; the contiguous cache a wrapped rolling buffer of span
+    2,048), CHUNK-token chunks, 10 / 1 heads of 256, bf16 values and q,
+    ExpMul: device time, time with the launch, the plain version's time
+    (median of 5 runs), the least time the card could take for this run's
+    work, the exact-variant yardstick against SDPA over a dense bf16 copy
+    under the same windowed mask, and the shared memory a CTA takes at
+    group 10."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(14)
+    W, C, L, d = RG_WINDOW, CHUNK, RG_CTX, RG_D
+    common = dict(B=B, H=RG_H, Hkv=RG_HKV, D=d, kv="bf16",
+                  q_dtype=torch.bfloat16, dyadic=False, window=W,
+                  device="cuda")
+    mb = -(-(L + C) // PS) + 1
+    lens, nv = [L] * B, [C] * B
+    smem = {
+        "paged_decode": decode.paged_decode_smem(RG_H // RG_HKV, d, PS, mb,
+                                                 torch.bfloat16),
+        "paged_prefill": prefill.paged_prefill_smem(d),
+        "decode": decode.contiguous_decode_smem(RG_H // RG_HKV, d,
+                                                decode.BLOCK_K,
+                                                torch.bfloat16),
+        "prefill": prefill.contiguous_prefill_smem(d, prefill.BLOCK_K)}
+    out = {}
+    for name, run, case in (
+            ("paged_decode", checks.run_decode,
+             checks.paged_case(rng, page_size=PS, max_blocks=mb,
+                               lengths=lens, **common)),
+            ("paged_prefill", checks.run_prefill,
+             checks.paged_case(rng, page_size=PS, max_blocks=mb,
+                               lengths=lens, n_valid=nv, chunk=C, **common)),
+            ("decode", checks.run_contiguous_decode,
+             checks.contiguous_case(rng, S=W, lengths=[W] * B, **common)),
+            ("prefill", checks.run_contiguous_prefill,
+             checks.contiguous_case(rng, S=W, lengths=lens, n_valid=nv,
+                                    chunk=C, rolling=True, **common))):
+        got = run(case, "expmul")
+        ref = run(case, "expmul", plain=True)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        rel = checks.rel_err(got, ref)
+        if not rel <= checks.kernel_tol("expmul", torch.bfloat16):
+            raise AssertionError(f"{name} disagrees at {RG}'s serving shapes")
+        ms = median_ms(torch, lambda: run(case, "expmul"), flush)
+        host_ms = median_ms(torch, lambda: run(case, "expmul"), flush,
+                            hide_host=False)
+        plain_ms = median_ms(torch, lambda: run(case, "expmul", plain=True),
+                             flush, n=5, warmup=1)
+        exact_ms = median_ms(torch, lambda: run(case, "exact"), flush)
+        # this run's work: every query sees W keys; the K/V read once are
+        # the window's (the history's last W - 1 tokens and the chunk for
+        # a prefill), q and the output once, the tables' window pages
+        dec = name.endswith("decode")
+        q_len = 1 if dec else C
+        kv_rows = W if dec else (W - 1) + C
+        nbytes = (B * RG_HKV * kv_rows * 2 * d * 2
+                  + 2 * B * RG_H * q_len * d * 2
+                  + (B * (-(-kv_rows // PS) + 1) * 4
+                     if name.startswith("paged") else 0) + 4 * B * 2)
+        flops = 4 * d * B * RG_H * q_len * W
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        q = torch.randn(B, RG_H, q_len, d, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn(B, RG_HKV, kv_rows + (0 if dec else 1), d,
+                        device="cuda", dtype=torch.bfloat16)
+        v = torch.randn_like(k)
+        mask = None
+        if not dec:    # chunk row i is key W + i - 1 + 1; it sees (i, W + i]
+            j = torch.arange(k.shape[2], device="cuda")[None, :]
+            i = torch.arange(C, device="cuda")[:, None]
+            mask = (j > i) & (j <= W + i)
+        sdpa_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), flush)
+        out[name] = dict(
+            max_abs_err=err, ms=ms, ms_with_launch=host_ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, smem_bytes_group_10=smem[name],
+            yardstick={"what": "exact variant, bf16 values vs SDPA over a "
+                       "dense bf16 copy, same windowed mask",
+                       "kernel_ms": exact_ms, "library_ms": sdpa_ms})
+        log(f"[time] {RG} {name} (bf16 values, ExpMul, B={B}, {RG_H} / "
+            f"{RG_HKV} heads of {d}, ctx {L}, window {W}"
+            f"{', chunk %d' % C if not dec else ''}): kernel {ms:.4f} ms on "
+            f"the device, {host_ms:.4f} ms with its launch, plain "
+            f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.4f} ms "
+            f"({out[name]['bound_by']}: {nbytes} B, {flops} flop), max abs "
+            f"err {err:.3e} (rel {rel:.3e}); yardstick exact bf16 kernel "
+            f"{exact_ms:.4f} ms vs SDPA {sdpa_ms:.4f} ms; shared memory at "
+            f"group {RG_H // RG_HKV}: {smem[name]} B")
+        del case
+    return out
 
 
 def _sdpa_backends(torch, F, flush, q, k, v, mask):
@@ -2556,6 +2869,7 @@ def main() -> int:
         ("head dim checks", lambda: phase_head_dim_checks(torch, checks,
                                                           build, decode)),
         ("mla checks", lambda: phase_mla_checks(torch, checks, build)),
+        ("rg checks", lambda: phase_rg_checks(torch, checks)),
         ("moe routing", lambda: phase_moe_routing(torch)),
         ("expmul checks", lambda: phase_expmul_checks(torch, checks, build,
                                                       expmul_ops)),
@@ -2563,6 +2877,7 @@ def main() -> int:
         ("gemma ticks", lambda: phase_gemma_ticks(torch, cfg_mod, api)),
         ("mla ticks", lambda: phase_mla_ticks(torch, cfg_mod, api)),
         ("arctic ticks", lambda: phase_arctic_ticks(torch, cfg_mod, api)),
+        ("rg ticks", lambda: phase_rg_ticks(torch, cfg_mod, api)),
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("prefix", lambda: phase_prefix(torch, cfg_mod, api, build,
@@ -2576,11 +2891,17 @@ def main() -> int:
         ("arctic serve", lambda: phase_gemma_serve(
             torch, cfg_mod, api, build, ServeEngine, arch=ARCTIC,
             num_layers=ARCTIC_LAYERS)),
+        ("rg serve", lambda: phase_gemma_serve(torch, cfg_mod, api, build,
+                                               ServeEngine, arch=RG)),
+        ("rg windowed serve", lambda: phase_rg_windowed_serve(
+            torch, cfg_mod, api, build, ServeEngine)),
         ("times", lambda: phase_times(torch, checks, F)),
         ("gemma times", lambda: phase_gemma_times(torch, checks, F)),
         ("mla times", lambda: phase_mla_times(torch, checks, F, build, decode,
                                               prefill)),
         ("arctic times", lambda: phase_arctic_times(torch, checks, F)),
+        ("rg times", lambda: phase_rg_times(torch, checks, F, decode,
+                                            prefill)),
         ("resources", lambda: phase_resources(build, decode, prefill,
                                               flash)),
         ("train", lambda: phase_train(torch, cfg_mod, api, build)),
@@ -2616,6 +2937,15 @@ def main() -> int:
                 f"{name} {kv}"] for kv in KV_MANGLED}
             if name.endswith("decode") else None,
             **results["arctic times"][name])
+    # ... at recurrentgemma-2b's local attention (group 10, head dim 256,
+    # window 2048): its serving runs' launches (phase 4g), its times
+    windowed = results["rg windowed serve"]
+    for name in PAGED + CONTIGUOUS:
+        layout = "paged/fp32" if name in PAGED else "contiguous/fp32"
+        results["resources"][name]["rg_w2048"] = dict(
+            launches=results["rg serve"][name],
+            launches_windowed=windowed[layout]["launches"][name],
+            **results["rg times"][name])
     # the contiguous kernels at minicpm3-4b's head dims 96/64: its serving
     # runs' launches (graphs, by layout), its times and resources
     for name in CONTIGUOUS:

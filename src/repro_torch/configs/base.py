@@ -1,9 +1,12 @@
 """Model configuration of the port: the attention-only decoder fields of
 ``repro.configs.base.ModelConfig`` under the same names and defaults, with
 ``MLAConfig`` for multi-head latent attention (minicpm3-4b) and
-``MoEConfig`` for a mixture-of-experts FFN (arctic-480b, kimi-k2-1t-a32b).
+``MoEConfig`` for a mixture-of-experts FFN (arctic-480b, kimi-k2-1t-a32b),
+and the hybrid fields of recurrentgemma-2b: ``block_pattern`` (a unit of
+block kinds, ``attn`` or ``rglru``, repeated to fill ``num_layers``),
+``lru_width`` and ``logits_softcap``.
 
-Fields of families the port does not serve yet (recurrent block kinds,
+Fields of families the port does not serve yet (xLSTM block kinds,
 encoder-decoder, modality frontends) are left out until their slice, and
 so are ``family``, ``max_seq_len`` and ``opt_state_dtype``, which nothing
 of the port reads (training with MoE, and its bf16 moments, wait for a
@@ -56,7 +59,11 @@ class ModelConfig:
     tie_embeddings: bool = True
     scale_embeddings: bool = False  # gemma: embed * sqrt(d_model)
     rope_base: float = 10000.0
+    # hybrid patterns: the unit repeats to fill num_layers
+    block_pattern: tuple[str, ...] = ("attn",)   # attn | rglru
     window: int | None = None      # local attention window
+    lru_width: int | None = None   # rg-lru state width (default d_model)
+    logits_softcap: float | None = None
     mla: MLAConfig | None = None
     moe: MoEConfig | None = None
 
@@ -78,6 +85,14 @@ class ModelConfig:
 
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+    def pattern_for(self, num_layers: int | None = None) -> tuple[str, ...]:
+        """The block kind of every layer, in layer order."""
+        n = num_layers if num_layers is not None else self.num_layers
+        unit = self.block_pattern
+        if n % len(unit):
+            raise ValueError(f"{n} layers do not tile the unit {unit}")
+        return tuple(unit) * (n // len(unit))
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -113,5 +128,9 @@ class ModelConfig:
                 ffn += 3 * d * m.dense_d_ff
         else:
             ffn = 3 * d * self.d_ff    # gated: w_gate, w_up, w_down
+        w = self.lru_width or d
+        # in/out projections (two branches), conv4, gates a/x, lambda, norms
+        rglru = 2 * d * w + 4 * w + 2 * w * w + 3 * w + w * d + 2 * d
+        blocks = {"attn": attn + ffn + 2 * d, "rglru": rglru + ffn}
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return emb + d + self.num_layers * (attn + ffn + 2 * d)
+        return emb + d + sum(blocks[kind] for kind in self.pattern_for())

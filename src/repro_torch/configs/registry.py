@@ -10,6 +10,7 @@ _ARCH_MODULES = {
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

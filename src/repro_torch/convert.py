@@ -2,9 +2,12 @@
 
 ``params_from_jax(np_params, cfg)`` takes the pytree of ``repro``'s
 ``init_model`` with every leaf turned into a numpy array (for example
-``jax.tree.map(np.asarray, params)``): ``units[0]`` holds each leaf stacked
-on a leading layer axis. It returns the port's parameter dict with the
-same per-layer layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...; MLA's
+``jax.tree.map(np.asarray, params)``): ``units[pos]`` holds the blocks of
+kind ``block_pattern[pos]``, each leaf stacked on a leading axis over the
+``num_layers / len(block_pattern)`` units, so layer ``u * len(unit) + pos``
+is ``units[pos][u]``. It returns the port's parameter dict, one entry a
+layer in true layer order, with the same per-layer layouts (``wq (d, H,
+hd)``, ``wo (H, hd, d)``, ...; MLA's
 ``q_norm`` and ``kv_norm`` stay dicts of their ``scale``; an MoE layer's
 ``ffn`` keeps ``router``, the expert stacks (E, ., .) and its nested
 ``dense`` MLP; an untied head ``embed.out`` comes along), so both
@@ -28,19 +31,21 @@ def _tensor(a, device):
 
 def params_from_jax(np_params, cfg, *, device="cuda"):
     device = resolve_device(device)
-    if len(np_params["units"]) != 1:
-        raise ValueError("the port converts attention-only models (one "
-                         "unit kind)")
-    stacked = np_params["units"][0]
+    units = np_params["units"]
+    if len(units) != len(cfg.block_pattern):
+        raise ValueError(f"{len(units)} unit kinds for the block pattern "
+                         f"{cfg.block_pattern}")
 
     def layer(tree, i):  # nested dicts (MLA's norms) keep their nesting
         return {name: layer(leaf, i) if isinstance(leaf, dict)
                 else _tensor(leaf[i], device) for name, leaf in tree.items()}
 
+    n = len(units)
     return {
         "embed": {name: _tensor(w, device)
                   for name, w in np_params["embed"].items()},
         "final_norm": {"scale": _tensor(np_params["final_norm"]["scale"],
                                         device)},
-        "layers": [layer(stacked, i) for i in range(cfg.num_layers)],
+        "layers": [layer(units[i % n], i // n)
+                   for i in range(cfg.num_layers)],
     }

@@ -16,7 +16,10 @@ kernel to its plain version's non-finite output rows.
 ``head_dim_cases`` builds one input of each serving kernel at gemma-7b's
 head count (16 query heads) and a given head dim, over any KV kind;
 ``mla_cases`` one input of each contiguous kernel at minicpm3-4b's head
-dims (``MLA_DIMS``: K rows of 96, V rows of 64).
+dims (``MLA_DIMS``: K rows of 96, V rows of 64); ``windowed_cases`` one
+input of each serving kernel at recurrentgemma-2b's local attention (MQA,
+10 query heads over 1 KV head of 256, a 2,048-token window, the
+contiguous cache a rolling buffer of span 2,048 that wraps).
 ``flash_case`` builds one full-sequence input (q, k, v of one dtype) for
 the training path's flash forward, and ``flash_edge_cases`` the edges of
 its kernel's layout.
@@ -420,6 +423,45 @@ def mla_cases(rng, *, kv, q_dtype=torch.float32, dyadic=False, S=640,
         ("prefill", run_contiguous_prefill,
          contiguous_case(rng, lengths=[530, 0, S, 1], n_valid=[70, 0, 33, 70],
                          chunk=70, **kw), [1], label),
+    ]
+
+
+def windowed_cases(rng, *, kv, q_dtype=torch.float32, H=10, Hkv=1, D=256,
+                   window=2048, chunk=256, dyadic=False, device="cuda"):
+    """One input of each serving kernel at recurrentgemma-2b's local
+    attention: ``H`` / ``Hkv`` heads of ``D``, a ``window``-token window,
+    over KV kind ``kv``. Six sequences: histories of 1,024, 2,048, 2,049
+    (the window's floor at 1, inside the first page and tile), 3,584 and
+    3,000 (the floor at 952 for decode, inside a page of 16 and a 256-wide
+    tile; whole pages below it skipped), and an idle row. Prefill: a
+    ``chunk``-token chunk of which 256 (all), 200, 1, 256, 77 and 0 tokens
+    are valid, after those histories, paged and on a rolling buffer of
+    span ``window`` (every history past it wrapped). Contiguous decode
+    attends to ``min(length + 1, span)`` slots of the rolling buffer:
+    1,024, 2,048 (a wrapped buffer, every slot), 2,047, 1 and 1,537.
+    Returns [(kernel, run, case, idle rows, label)]: row 5 attends to
+    nothing."""
+    hist = [1024, 2048, 2049, 3584, 3000, 0]
+    nv = [chunk, 200, 1, chunk, 77, 0]
+    kw = dict(B=len(hist), H=H, Hkv=Hkv, D=D, kv=kv, q_dtype=q_dtype,
+              dyadic=dyadic, window=window, device=device)
+    label = (f"D={D} group={H // Hkv} window={window} {kv} "
+             f"{'dyadic' if dyadic else 'random'}")
+    mb = -(-(max(hist) + chunk) // 16) + 1
+    return [
+        ("paged_decode", run_decode,
+         paged_case(rng, page_size=16, max_blocks=mb, lengths=hist, **kw),
+         [5], label),
+        ("paged_prefill", run_prefill,
+         paged_case(rng, page_size=16, max_blocks=mb, lengths=hist,
+                    n_valid=nv, chunk=chunk, **kw), [5], label),
+        ("decode", run_contiguous_decode,
+         contiguous_case(rng, S=window, lengths=[1024, window, window - 1, 1,
+                                                 1537, 0], **kw),
+         [5], label),
+        ("prefill", run_contiguous_prefill,
+         contiguous_case(rng, S=window, lengths=hist, n_valid=nv,
+                         chunk=chunk, rolling=True, **kw), [5], label),
     ]
 
 

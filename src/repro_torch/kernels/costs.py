@@ -124,17 +124,19 @@ def analytic_attention_flops(q_tokens, kv_tokens, *, heads, d_qk, d_v):
 def attn_kv_geometry(cfg) -> dict:
     """Per-attention-layer KV geometry of a model config, in the shape the
     analytic helpers take: ``Hkv`` heads of ``D``-dim K plus ``Dv``-dim V
-    rows per token, over ``layers`` attention layers. An MLA layer stores
+    rows per token, over ``layers`` attention layers (recurrent kinds hold
+    no KV and are left out). An MLA layer stores
     one latent row of ``kv_lora_rank + qk_rope_dim`` features per token,
     priced as one ``Hkv=1`` head with ``Dv=0`` (as ``kv_token_bytes``);
     its ``d_qk`` / ``d_v`` are the attention math's per-head dims after
     the latents' expansion, which price its FLOPs."""
+    layers = cfg.pattern_for().count("attn")
     if cfg.mla is not None:
         m = cfg.mla
         return {"Hkv": 1, "D": m.kv_lora_rank + m.qk_rope_dim, "Dv": 0,
-                "heads": cfg.num_heads, "layers": cfg.num_layers,
+                "heads": cfg.num_heads, "layers": layers,
                 "d_qk": m.qk_nope_dim + m.qk_rope_dim, "d_v": m.v_head_dim}
     d = cfg.resolved_head_dim()
     return {"Hkv": cfg.num_kv_heads, "D": d, "Dv": d,
-            "heads": cfg.num_heads, "layers": cfg.num_layers, "d_qk": d,
+            "heads": cfg.num_heads, "layers": layers, "d_qk": d,
             "d_v": d}

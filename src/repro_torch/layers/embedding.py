@@ -1,6 +1,7 @@
 """Token embeddings and the output head: tied (``x @ table^T``) or, for a
 config with ``tie_embeddings=False`` (arctic-480b, kimi-k2-1t-a32b), its
-own ``out`` weight (d, V)."""
+own ``out`` weight (d, V); with ``cfg.logits_softcap`` (recurrentgemma-2b)
+the logits are capped softly at +-c."""
 from __future__ import annotations
 
 import math
@@ -35,7 +36,14 @@ def embed_apply(params, tokens, cfg):
 
 def logits_apply(params, x, cfg):
     """The head in the model's compute dtype: ``x @ table^T`` tied,
-    ``x @ out`` untied."""
+    ``x @ out`` untied; a softcap c maps them to ``tanh(logits / c) * c``
+    in float32, cast back to their dtype."""
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["table"].transpose(0, 1))
-    return torch.matmul(x, params["out"])
+        logits = torch.matmul(x, params["table"].transpose(0, 1))
+    else:
+        logits = torch.matmul(x, params["out"])
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = (torch.tanh(logits.to(torch.float32) / c) * c).to(
+            logits.dtype)
+    return logits

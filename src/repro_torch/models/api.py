@@ -8,10 +8,13 @@ Parameters are a dict of tensors with ``repro``'s layouts
 ``w_uq``, ``w_dkv``, ``w_ukv``, ``wo`` and its two norms; an MoE config's
 ``ffn`` holds ``router``, the expert stacks ``w_up``, ``w_gate``,
 ``w_down`` (E, ., .) and its ``dense`` residual; an untied head is
-``embed.out``), one entry of ``"layers"`` per layer; the layer loop is a
-Python loop. An MLA config's
+``embed.out``), one entry of ``"layers"`` per layer in true layer order,
+layer ``l`` of kind ``cfg.pattern_for()[l]`` (``attn`` or ``rglru``); the
+layer loop is a Python loop. An MLA config's
 caches and pools hold latents (``layers/mla.py``). The state is one dict
-of caches per layer and is updated in place: ``prefill``, ``decode_step``
+of caches per layer: an attention layer's KV cache or pool, or an RG-LRU
+layer's per-slot ``h`` and ``conv`` (on the paged layout too). It is
+updated in place: ``prefill``, ``decode_step``
 and their paged twins return it for symmetry with ``repro``. Those four
 read no tensor's value on the host and allocate at fixed shapes, so a
 tick of them can be captured in a CUDA graph (``serve/graphs.py``); on
@@ -73,8 +76,8 @@ def init_model(cfg, generator: torch.Generator | None = None, *,
     return {
         "embed": embed_init(cfg, pd, generator, device),
         "final_norm": rmsnorm_init(cfg.d_model, pd, device),
-        "layers": [block_init(cfg, pd, generator, device)
-                   for _ in range(cfg.num_layers)],
+        "layers": [block_init(cfg, kind, pd, generator, device)
+                   for kind in cfg.pattern_for()],
     }
 
 
@@ -87,12 +90,12 @@ def forward(params, batch, cfg, *, moe_impl="scatter"):
     attention forward a second time."""
     x = embed_apply(params["embed"], batch["tokens"], cfg).to(
         _dtype(cfg.dtype))
-    for p in params["layers"]:
+    for p, kind in zip(params["layers"], cfg.pattern_for()):
         if cfg.remat:
-            x = checkpoint(block_apply, p, x, cfg, moe_impl,
+            x = checkpoint(block_apply, p, x, cfg, kind, moe_impl,
                            use_reentrant=False)
         else:
-            x = block_apply(p, x, cfg, moe_impl)
+            x = block_apply(p, x, cfg, kind, moe_impl)
     x = rmsnorm(params["final_norm"], x)
     return logits_apply(params["embed"], x, cfg)
 
@@ -121,11 +124,17 @@ def init_decode_state(cfg, batch, max_len, *, device="cuda"):
     """Per-slot KV state: per layer, caches of ``max_len`` slots (a rolling
     buffer of ``min(max_len, window)`` for a windowed config) for each of
     ``batch`` sequences; codes plus float32 scale rows for a quantized
-    ``cfg.kv_dtype``."""
+    ``cfg.kv_dtype``. An RG-LRU layer's state is one token's a slot."""
     device = resolve_device(device)
     dt = _dtype(cfg.dtype)
-    return {"caches": [block_init_cache(cfg, batch, max_len, dt, device)
-                       for _ in range(cfg.num_layers)]}
+    return {"caches": [block_init_cache(cfg, kind, batch, max_len, dt, device)
+                       for kind in cfg.pattern_for()]}
+
+
+def _attn_cache(state, cfg):
+    """The cache of the first attention layer, whose geometry (span, pool
+    rows) every attention layer shares."""
+    return state["caches"][cfg.pattern_for().index("attn")]
 
 
 def _last_logits(params, x, n_valid, cfg):
@@ -147,18 +156,20 @@ def prefill(params, state, tokens, lengths, n_valid, cfg):
     """
     C = tokens.shape[1]
     x = embed_apply(params["embed"], tokens, cfg).to(_dtype(cfg.dtype))
+    attn = _attn_cache(state, cfg)
     if cfg.mla:   # latent caches (B, max_len, ...): one row a token
-        span = state["caches"][0]["kv_lat"].shape[1]
+        span = attn["kv_lat"].shape[1]
         idx = torch.arange(C, device=tokens.device)[None, :]
         index = chunk_index(lengths[:, None].to(torch.int64) + idx,
                             idx < n_valid[:, None], span, 1)
     else:
-        span = state["caches"][0]["k"].shape[2]
+        span = attn["k"].shape[2]
         index = chunk_index(*chunk_gate(lengths, n_valid, C, span,
                                         rolling=bool(cfg.window)), span,
                             cfg.num_kv_heads)
-    for p, cache in zip(params["layers"], state["caches"]):
-        _, x = block_prefill(p, cache, x, cfg, lengths, n_valid, index)
+    for p, cache, kind in zip(params["layers"], state["caches"],
+                              cfg.pattern_for()):
+        _, x = block_prefill(p, cache, x, cfg, kind, lengths, n_valid, index)
     return _last_logits(params, x, n_valid, cfg), state
 
 
@@ -168,28 +179,32 @@ def decode_step(params, state, tokens1, lengths, cfg):
     x = embed_apply(params["embed"], tokens1, cfg).to(_dtype(cfg.dtype))
     index = None
     if cfg.mla:   # slot lengths of each row (clamped to the last), as rows
-        S = state["caches"][0]["kv_lat"].shape[1]
+        S = _attn_cache(state, cfg)["kv_lat"].shape[1]
         b = torch.arange(tokens1.shape[0], device=tokens1.device)
         index = b * S + torch.clamp(lengths.to(torch.int64), 0, S - 1)
-    for p, cache in zip(params["layers"], state["caches"]):
-        _, x = block_decode_step(p, cache, x, cfg, lengths, index)
+    for p, cache, kind in zip(params["layers"], state["caches"],
+                              cfg.pattern_for()):
+        _, x = block_decode_step(p, cache, x, cfg, kind, lengths, index)
     x = rmsnorm(params["final_norm"], x)
     return logits_apply(params["embed"], x, cfg), state
 
 
 def init_paged_state(cfg, slots, pool_blocks, page_size, *, device="cuda"):
-    """Paged KV state: per layer, flat pools of ``pool_blocks * page_size``
-    rows shared by all ``slots`` sequences through their block tables."""
-    del slots  # attention-only: no per-slot state
+    """Paged KV state: per attention layer, flat pools of ``pool_blocks *
+    page_size`` rows shared by all ``slots`` sequences through their block
+    tables; per RG-LRU layer, the per-slot state of ``init_decode_state``
+    (not paged, not quantized)."""
     device = resolve_device(device)
     dt = _dtype(cfg.dtype)
     init = mla_init_paged_cache if cfg.mla else attn_init_paged_cache
-    return {"caches": [init(cfg, pool_blocks * page_size, dt, device)
-                       for _ in range(cfg.num_layers)]}
+    return {"caches": [
+        init(cfg, pool_blocks * page_size, dt, device) if kind == "attn"
+        else block_init_cache(cfg, kind, slots, 0, dt, device)
+        for kind in cfg.pattern_for()]}
 
 
-def _pool_rows(state) -> int:
-    return next(iter(state["caches"][0].values())).shape[0]
+def _pool_rows(state, cfg) -> int:
+    return next(iter(_attn_cache(state, cfg).values())).shape[0]
 
 
 def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
@@ -204,35 +219,42 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     x = embed_apply(params["embed"], tokens, cfg).to(_dtype(cfg.dtype))
     idx = torch.arange(C, device=tokens.device)[None, :]
     chunk_rows = token_rows(block_tables, lengths[:, None] + idx, page_size)
-    index = scatter_index(chunk_rows.reshape(-1), _pool_rows(state),
+    index = scatter_index(chunk_rows.reshape(-1), _pool_rows(state, cfg),
                           (idx < n_valid[:, None]).reshape(-1))
     rows = slot_rows(block_tables, page_size) if cfg.mla else None
-    for p, cache in zip(params["layers"], state["caches"]):
-        _, x = block_paged_prefill(p, cache, x, cfg, lengths, n_valid,
+    for p, cache, kind in zip(params["layers"], state["caches"],
+                              cfg.pattern_for()):
+        _, x = block_paged_prefill(p, cache, x, cfg, kind, lengths, n_valid,
                                    index, block_tables, page_size, rows)
     return _last_logits(params, x, n_valid, cfg), state
 
 
+def _pools(state, cfg):
+    """The attention layers' pools (an RG-LRU layer's state is per slot)."""
+    return [cache for cache, kind in zip(state["caches"], cfg.pattern_for())
+            if kind == "attn"]
+
+
 def copy_paged_block(state, cfg, src, dst, *, page_size):
     """Copy physical page ``src`` to page ``dst`` in every leaf of every
-    layer's pool (K/V values or MLA latents, or codes and their float32
-    scale rows), in place, and return the state: the device half of a
-    copy-on-write for the shared-prefix cache. A pool's token rows are its
-    axis 0, so a page is ``page_size`` consecutive rows; ``src`` and
-    ``dst`` are host ints, so the copy needs no sync."""
-    del cfg  # attention-only: every layer holds a paged pool
+    attention layer's pool (K/V values or MLA latents, or codes and their
+    float32 scale rows), in place, and return the state: the device half of
+    a copy-on-write for the shared-prefix cache. A pool's token rows are
+    its axis 0, so a page is ``page_size`` consecutive rows; ``src`` and
+    ``dst`` are host ints, so the copy needs no sync. Per-slot recurrent
+    state is untouched."""
     s, d = int(src) * page_size, int(dst) * page_size
-    for cache in state["caches"]:
+    for cache in _pools(state, cfg):
         for leaf in cache.values():
             leaf[d:d + page_size].copy_(leaf[s:s + page_size])
     return state
 
 
 def poison_paged_block(state, cfg, block, *, page_size, value=None):
-    """Overwrite physical page ``block`` of every layer's pool with
-    non-finite garbage, in place, and return the state: the device half of
-    the ``kv_corrupt`` chaos point (DESIGN.md §13). Float leaves (K/V
-    values, MLA latents, the scale rows of codes) get NaN, integer code
+    """Overwrite physical page ``block`` of every attention layer's pool
+    with non-finite garbage, in place, and return the state: the device
+    half of the ``kv_corrupt`` chaos point (DESIGN.md §13). Float leaves
+    (K/V values, MLA latents, the scale rows of codes) get NaN, integer code
     leaves their most negative code (the NaN scales alone make every
     dequantized row non-finite). Attention over the page then gives
     non-finite logits to exactly the sequences whose block tables reference
@@ -241,10 +263,10 @@ def poison_paged_block(state, cfg, block, *, page_size, value=None):
     ``value`` fills every leaf instead: ``value=0`` is the quarantine
     *scrub* of a page going back to the free list, since a masked NaN row
     still reaches the output (weight 0 times NaN is NaN in the value
-    product). ``block`` is a host int, so the write needs no sync."""
-    del cfg  # attention-only: every layer holds a paged pool
+    product). ``block`` is a host int, so the write needs no sync. Per-slot
+    recurrent state is untouched."""
     b = int(block) * page_size
-    for cache in state["caches"]:
+    for cache in _pools(state, cfg):
         for leaf in cache.values():
             if value is not None:
                 fill = value
@@ -262,10 +284,11 @@ def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
     (logits (B, V), state)."""
     x = embed_apply(params["embed"], tokens1, cfg).to(_dtype(cfg.dtype))
     index = scatter_index(token_rows(block_tables, lengths, page_size),
-                          _pool_rows(state))
+                          _pool_rows(state, cfg))
     rows = slot_rows(block_tables, page_size) if cfg.mla else None
-    for p, cache in zip(params["layers"], state["caches"]):
-        _, x = block_paged_decode_step(p, cache, x, cfg, lengths, index,
+    for p, cache, kind in zip(params["layers"], state["caches"],
+                              cfg.pattern_for()):
+        _, x = block_paged_decode_step(p, cache, x, cfg, kind, lengths, index,
                                        block_tables, page_size, rows)
     x = rmsnorm(params["final_norm"], x)
     return logits_apply(params["embed"], x, cfg), state

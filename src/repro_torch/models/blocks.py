@@ -1,10 +1,13 @@
-"""Residual blocks of the ``attn`` kind: norm -> attention -> residual,
-norm -> gated MLP (SwiGLU or GeGLU), or for a config with ``cfg.moe`` the
-mixture of experts (``layers/moe.py``) -> residual, over the full sequence
-(training) or over per-slot (contiguous) caches or a paged KV pool
-(serving). The attention is GQA (``layers/attention_layer.py``) or, for a
-config with ``cfg.mla``, multi-head latent attention (``layers/mla.py``),
-whose caches and pools hold latents."""
+"""Residual blocks, dispatched on their kind (``attn`` or ``rglru``):
+norm -> mix -> residual, norm -> gated MLP (SwiGLU or GeGLU), or for a
+config with ``cfg.moe`` the mixture of experts (``layers/moe.py``) ->
+residual, over the full sequence (training) or over per-slot
+(contiguous) caches or a paged KV pool (serving). The ``attn`` mix is GQA
+(``layers/attention_layer.py``) or, for a config with ``cfg.mla``,
+multi-head latent attention (``layers/mla.py``), whose caches and pools
+hold latents; the ``rglru`` mix is the RG-LRU temporal block
+(``layers/rglru.py``), whose O(1) per-slot state (``h``, ``conv``) stays
+per slot on the paged layout too: no pool, no quantization."""
 from __future__ import annotations
 
 import torch
@@ -30,13 +33,30 @@ from repro_torch.layers.mla import (
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_init
+from repro_torch.layers.rglru import (
+    rglru_apply,
+    rglru_decode_step,
+    rglru_init,
+    rglru_init_cache,
+    rglru_prefill_step,
+)
+
+KINDS = ("attn", "rglru")
 
 
-def block_init(cfg, dtype, generator, device):
+def _check_kind(kind):
+    if kind not in KINDS:
+        raise ValueError(f"block kind {kind!r} is not ported; ported: "
+                         f"{KINDS}")
+
+
+def block_init(cfg, kind, dtype, generator, device):
+    _check_kind(kind)
+    mix = (rglru_init if kind == "rglru" else
+           mla_init if cfg.mla else attn_init)
     return {
         "norm_mix": rmsnorm_init(cfg.d_model, dtype, device),
-        "mix": (mla_init if cfg.mla else attn_init)(cfg, dtype, generator,
-                                                   device),
+        "mix": mix(cfg, dtype, generator, device),
         "norm_ffn": rmsnorm_init(cfg.d_model, dtype, device),
         "ffn": (moe_init(cfg, dtype, generator, device) if cfg.moe else
                 mlp_init(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
@@ -57,28 +77,37 @@ def _ffn(params, x, cfg, moe_impl="scatter"):
     return x + moe_apply(params["ffn"], h, cfg, impl=moe_impl)
 
 
-def block_apply(params, x, cfg, moe_impl="scatter"):
+def block_apply(params, x, cfg, kind, moe_impl="scatter"):
     """One causal block over the full sequence x (B, S, d)."""
     h = rmsnorm(params["norm_mix"], x)
-    h = (mla_apply if cfg.mla else attn_apply)(params["mix"], h, cfg,
-                                               window=cfg.window or None)
+    if kind == "rglru":
+        h = rglru_apply(params["mix"], h, cfg)
+    else:
+        h = (mla_apply if cfg.mla else attn_apply)(params["mix"], h, cfg,
+                                                   window=cfg.window or None)
     return _ffn(params, x + h, cfg, moe_impl)
 
 
-def block_init_cache(cfg, batch, max_len, dtype, device):
+def block_init_cache(cfg, kind, batch, max_len, dtype, device):
     """Per-slot caches; a windowed layer keeps only a rolling buffer of
-    ``min(max_len, window)`` slots. MLA latent caches keep ``max_len``."""
+    ``min(max_len, window)`` slots. MLA latent caches keep ``max_len``; an
+    RG-LRU layer keeps its state of one token a slot."""
+    _check_kind(kind)
+    if kind == "rglru":
+        return rglru_init_cache(cfg, batch, dtype, device)
     if cfg.mla:
         return mla_init_cache(cfg, batch, max_len, dtype, device)
     span = min(max_len, cfg.window) if cfg.window else max_len
     return attn_init_cache(cfg, batch, span, dtype, device)
 
 
-def block_prefill(params, cache, x, cfg, lengths, n_valid, index):
+def block_prefill(params, cache, x, cfg, kind, lengths, n_valid, index):
     """Chunked prefill through one block; ``index`` is the tick's
-    ``chunk_index`` of the cache writes."""
+    ``chunk_index`` of the cache writes (attention layers only)."""
     h = rmsnorm(params["norm_mix"], x)
-    if cfg.mla:
+    if kind == "rglru":
+        cache, h = rglru_prefill_step(params["mix"], cache, h, cfg, n_valid)
+    elif cfg.mla:
         cache, h = mla_prefill_step(params["mix"], cache, h, cfg, lengths,
                                     n_valid, index)
     else:
@@ -87,13 +116,15 @@ def block_prefill(params, cache, x, cfg, lengths, n_valid, index):
     return cache, _ffn(params, x + h, cfg)
 
 
-def block_decode_step(params, cache, x1, cfg, lengths, index=None):
+def block_decode_step(params, cache, x1, cfg, kind, lengths, index=None):
     """One decode token through one block; a windowed layer's rolling
     buffer takes the token at slot ``lengths % span`` and attends to its
     last ``min(lengths + 1, span)`` slots. An MLA layer writes its latents
     at ``index``, the tick's rows of slots ``lengths``."""
     h = rmsnorm(params["norm_mix"], x1)
-    if cfg.mla:
+    if kind == "rglru":
+        cache, h = rglru_decode_step(params["mix"], cache, h, cfg)
+    elif cfg.mla:
         cache, h = mla_decode_step(params["mix"], cache, h, cfg, lengths,
                                    index)
     elif cfg.window:
@@ -107,10 +138,14 @@ def block_decode_step(params, cache, x1, cfg, lengths, index=None):
     return cache, _ffn(params, x1 + h, cfg)
 
 
-def block_paged_prefill(params, cache, x, cfg, lengths, n_valid, write_index,
-                        block_tables, page_size, rows=None):
+def block_paged_prefill(params, cache, x, cfg, kind, lengths, n_valid,
+                        write_index, block_tables, page_size, rows=None):
     """Chunked prefill through one block over a paged pool; an MLA layer
-    gathers its latent history through ``rows`` (``slot_rows``)."""
+    gathers its latent history through ``rows`` (``slot_rows``). An RG-LRU
+    layer takes its per-slot path."""
+    if kind != "attn":
+        return block_prefill(params, cache, x, cfg, kind, lengths, n_valid,
+                             None)
     h = rmsnorm(params["norm_mix"], x)
     if cfg.mla:
         cache, h = mla_paged_prefill_step(params["mix"], cache, h, cfg,
@@ -123,8 +158,10 @@ def block_paged_prefill(params, cache, x, cfg, lengths, n_valid, write_index,
     return cache, _ffn(params, x + h, cfg)
 
 
-def block_paged_decode_step(params, cache, x1, cfg, lengths, write_index,
-                            block_tables, page_size, rows=None):
+def block_paged_decode_step(params, cache, x1, cfg, kind, lengths,
+                            write_index, block_tables, page_size, rows=None):
+    if kind != "attn":
+        return block_decode_step(params, cache, x1, cfg, kind, lengths)
     h = rmsnorm(params["norm_mix"], x1)
     if cfg.mla:
         cache, h = mla_paged_decode_step(params["mix"], cache, h, cfg,

@@ -28,9 +28,10 @@ unquantized blocks: a quantized pool spends the same bytes on
 proportionally more blocks. Windowed configs keep absolute positions in
 the pool and mask by the window.
 
-``prefix_cache`` (paged only; default None = on for the paged layout, off
-for the contiguous one: every block of the port's configs is attention,
-so every layer's state is a KV cache a hit can splice) indexes full pages by their whole token prefix as
+``prefix_cache`` (paged and attention-only; default None = on for the
+paged layout of an attention-only pattern, off otherwise: a recurrent
+layer's per-slot state cannot be rebuilt from spliced KV pages) indexes
+full pages by their whole token prefix as
 they are written. Admission splices the longest indexed prefix of a new
 prompt into the slot's block table and starts the prefill cursor past it,
 trimmed down to the chunk grid, so the remaining chunks tile as a cold
@@ -154,7 +155,8 @@ def analytic_prefill_flops(cfg, start: int, end: int) -> int:
     resident ``start``-token prefix: 2·params per token for the linear path
     (the active parameters: ``top_k`` experts of an MoE layer, as ``repro``
     prices them)
-    plus 4·H·hd per (query, key) causal pair for scores + weighted sum —
+    plus 4·H·hd per (query, key) causal pair and attention layer for
+    scores + weighted sum —
     what a prefix-cache hit skips (``prefill_flops_skipped``). An MLA
     config's pair is priced as ``repro`` prices it, at hd =
     ``resolved_head_dim()`` (64 for minicpm3-4b), not at its qk 96 + v 64,
@@ -164,9 +166,35 @@ def analytic_prefill_flops(cfg, start: int, end: int) -> int:
         return 0
     flops = 2 * cfg.active_param_count() * n
     span = (end * (end + 1) - start * (start + 1)) // 2
-    flops += (4 * cfg.num_heads * cfg.resolved_head_dim() * cfg.num_layers
-              * span)
+    flops += (4 * cfg.num_heads * cfg.resolved_head_dim()
+              * cfg.pattern_for().count("attn") * span)
     return int(flops)
+
+
+def validate_kv_dtype(cfg, kv_dtype: str | None = None) -> str:
+    """The KV dtype to serve ``cfg`` at (``cfg.kv_dtype`` when None). A
+    quantized dtype needs an attention-only pattern: a recurrent layer's
+    state is not a KV cache and would bypass quantization silently, so it
+    is refused, as ``repro`` refuses it."""
+    kv_dtype = kv_dtype or cfg.kv_dtype
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}; choose one of "
+                         f"{KV_DTYPES}")
+    rec = sorted(set(cfg.block_pattern) - {"attn"})
+    if kv_dtype != "fp32" and rec:
+        raise ValueError(
+            f"kv_dtype={kv_dtype!r} requires an attention-only block "
+            f"pattern, but {cfg.name!r} mixes in {rec} blocks whose "
+            f"recurrent state is not a KV cache and would silently bypass "
+            f"quantization; serve this arch with kv_dtype='fp32'")
+    return kv_dtype
+
+
+def _recurrent_state(state, cfg) -> list:
+    """The per-slot state tensors of the recurrent layers (``h``, ``conv``
+    of each RG-LRU layer), first axis the slot."""
+    return [leaf for cache, kind in zip(state["caches"], cfg.pattern_for())
+            if kind != "attn" for leaf in cache.values()]
 
 
 def _tick_fns(params, state, cfg, page_size):
@@ -251,10 +279,7 @@ class ServeEngine:
         # event recording only
         self.metrics = metrics if metrics is not None else MetricsRegistry(
             trace=trace)
-        kv_dtype = kv_dtype or cfg.kv_dtype
-        if kv_dtype not in KV_DTYPES:
-            raise ValueError(f"unknown kv_dtype {kv_dtype!r}; choose one of "
-                             f"{KV_DTYPES}")
+        kv_dtype = validate_kv_dtype(cfg, kv_dtype)
         self.kv_dtype = kv_dtype
         cfg = cfg.replace(kv_dtype=kv_dtype)
         if attention_impl is not None:
@@ -279,16 +304,25 @@ class ServeEngine:
         self.seed = seed
         self.kv_layout = kv_layout
         self.paged = kv_layout == "paged"
-        # shared-prefix caching needs paged physical blocks to splice (the
-        # port's blocks are all attention; recurrent kinds, whose per-slot
-        # state a splice cannot rebuild, bring their refusal with their slice)
-        if prefix_cache and not self.paged:
-            raise ValueError(
-                "prefix_cache=True requires kv_layout='paged': the "
-                "contiguous layout has no shared physical blocks to "
-                "dedupe — serve with kv_layout='paged' or drop the flag")
+        # shared-prefix caching needs paged physical blocks to splice, and
+        # an attention-only pattern: a hit would skip the prefill a
+        # recurrent layer's per-slot state still needs
+        attn_only = set(cfg.block_pattern) == {"attn"}
+        if prefix_cache:
+            if not self.paged:
+                raise ValueError(
+                    "prefix_cache=True requires kv_layout='paged': the "
+                    "contiguous layout has no shared physical blocks to "
+                    "dedupe — serve with kv_layout='paged' or drop the flag")
+            if not attn_only:
+                rec = sorted(set(cfg.block_pattern) - {"attn"})
+                raise ValueError(
+                    f"prefix_cache=True requires an attention-only block "
+                    f"pattern, but {cfg.name!r} mixes in {rec} blocks whose "
+                    f"recurrent state cannot be reconstructed from spliced "
+                    f"KV pages; serve this arch with prefix_cache=False")
         self.prefix_cache = (bool(prefix_cache) if prefix_cache is not None
-                             else self.paged)
+                             else self.paged and attn_only)
         # bytes per resident token over every layer (codes + scale rows for
         # quantized dtypes): the unit of every *_bytes stat
         self.token_bytes = kv_token_bytes(cfg)
@@ -320,15 +354,19 @@ class ServeEngine:
         capture = not self.eager_ticks
         gpool = torch.cuda.graph_pool_handle() if capture else None
         tables = ({"tables": self.pool.tables.shape} if self.paged else {})
+        # an RG-LRU layer's per-slot state, which every admission zeroes and
+        # a capture's warm-up must not advance
+        self._recurrent = _recurrent_state(self.state, cfg)
         prefill_fn, decode_fn = _tick_fns(
             params, self.state, cfg, self.page_size if self.paged else None)
         self._prefill_graph = TickGraph(
             prefill_fn, {"tokens": (slots, self.chunk_size),
                          "lengths": (slots,), "n_valid": (slots,), **tables},
-            self.device, capture=capture, pool=gpool, warm_zero=("n_valid",))
+            self.device, capture=capture, pool=gpool, warm_zero=("n_valid",),
+            keep=self._recurrent)
         self._decode_graph = TickGraph(
             decode_fn, {"tokens": (slots,), "lengths": (slots,), **tables},
-            self.device, capture=capture, pool=gpool)
+            self.device, capture=capture, pool=gpool, keep=self._recurrent)
         self.requests: list[Request | None] = [None] * slots
         self.queue: list[Request] = []
         self._admit_seq = 0
@@ -668,6 +706,15 @@ class ServeEngine:
             req.pos = cursor
             self.lengths[s] = cursor
             self.cur_tok[s] = req.prefill_toks[cursor]
+            # attention caches are masked by the length; recurrent state
+            # needs a true reset
+            self._reset_slot_state(s)
+
+    def _reset_slot_state(self, s):
+        """Zero slot ``s`` of every recurrent layer's state (``h`` and
+        ``conv``), in place: the graphs read these very tensors."""
+        for leaf in self._recurrent:
+            leaf[s].zero_()
 
     def _finish_or_continue(self, s, tok):
         """Record a sampled token for slot s; free the slot when done.

@@ -24,7 +24,9 @@ at capture, so no pool may ever be reallocated.
 The capture: first a warm-up call on a side stream, with the tick's own
 inputs but no chunk token valid (``warm_zero``; a prefill warm-up then
 writes no cache row, and a decode warm-up writes the rows the replay
-rewrites before it reads them), so the kernels' first-use build, their
+rewrites before it reads them; the tensors named in ``keep``, an RG-LRU
+layer's per-slot state that a decode step advances, are put back as they
+were after it), so the kernels' first-use build, their
 one-time ``cudaFuncSetAttribute`` calls and cuBLAS's workspace happen
 outside the capture; then the capture on that stream. The side stream is
 one per device for the whole process: cuBLAS keeps a workspace for every
@@ -78,11 +80,12 @@ class TickGraph:
 
     ``inputs`` maps each keyword argument of ``fn`` to its shape;
     ``warm_zero`` names the inputs the warm-up before a capture zeroes;
-    ``pool`` is the graph memory pool (``torch.cuda.graph_pool_handle()``)
-    that the engine's graphs share."""
+    ``keep`` lists tensors whose values the warm-up must leave as it found
+    them; ``pool`` is the graph memory pool
+    (``torch.cuda.graph_pool_handle()``) that the engine's graphs share."""
 
     def __init__(self, fn, inputs: dict, device, *, capture: bool,
-                 pool=None, warm_zero=()):
+                 pool=None, warm_zero=(), keep=()):
         device = torch.device(device)
         if capture and device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
@@ -91,6 +94,7 @@ class TickGraph:
         self.capture = capture
         self.pool = pool
         self.warm_zero = tuple(warm_zero)
+        self.keep = tuple(keep)
         total = sum(math.prod(shape) for shape in inputs.values())
         on_card = device.type == "cuda"
         self._host = torch.zeros(total, dtype=torch.int32, pin_memory=on_card)
@@ -137,12 +141,15 @@ class TickGraph:
         warm = {name: b.clone() for name, b in self.buffers.items()}
         for name in self.warm_zero:
             warm[name].zero_()
+        kept = [t.clone() for t in self.keep]
         side = capture_stream(self.device)
         side.wait_stream(current)
         t0 = time.perf_counter()
         with torch.cuda.stream(side), build.recording():
             self.fn(**warm)
         side.synchronize()
+        for t, old in zip(self.keep, kept):
+            t.copy_(old)
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         kw = {} if self.pool is None else {"pool": self.pool}

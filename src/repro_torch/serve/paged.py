@@ -58,10 +58,11 @@ def blocks_for(n_tokens: int, page_size: int) -> int:
 
 
 def kv_token_bytes(cfg, kv_dtype: str | None = None) -> int:
-    """KV bytes per resident token over every layer: K and V rows of
-    ``Hkv * hd`` elements, or for MLA one ``kv_lat`` row of
-    ``kv_lora_rank`` and one ``k_rope`` row of ``qk_rope_dim`` elements,
-    plus one float32 scale per row when quantized."""
+    """KV bytes per resident token over every attention layer (an RG-LRU
+    layer holds no KV and counts 0): K and V rows of ``Hkv * hd``
+    elements, or for MLA one ``kv_lat`` row of ``kv_lora_rank`` and one
+    ``k_rope`` row of ``qk_rope_dim`` elements, plus one float32 scale per
+    row when quantized."""
     kv_dtype = kv_dtype if kv_dtype is not None else cfg.kv_dtype
     quant = kv_dtype in QUANT_KV_DTYPES
     elem = (kv_code_bytes(kv_dtype) if quant
@@ -73,7 +74,7 @@ def kv_token_bytes(cfg, kv_dtype: str | None = None) -> int:
         rows = 2 * cfg.num_kv_heads
         feats = rows * cfg.resolved_head_dim()
     per_layer = feats * elem + (rows * 4 if quant else 0)
-    return per_layer * cfg.num_layers
+    return per_layer * cfg.pattern_for().count("attn")
 
 
 @dataclasses.dataclass

@@ -22,7 +22,10 @@ refusals, and a narrow MLA config's graph ticks. arctic-480b: the four
 serving kernels at its head dim 128, GQA groups 1, 7 and 32 (a paged
 decode whose shared memory is over the card's limit refused before its
 launch), on poisoned pages too, and its smoke config's MoE ticks, at head
-dim 128, captured in CUDA graphs.
+dim 128, captured in CUDA graphs. recurrentgemma-2b: the four serving
+kernels at its local attention (10 / 1 heads of 256, a 2,048-token window,
+a wrapped rolling buffer), its smoke config's hybrid ticks captured in
+CUDA graphs, and its RG-LRU state written in place by every replay.
 """
 import sys
 from pathlib import Path
@@ -57,6 +60,7 @@ from repro_torch.kernels.checks import (  # noqa: E402
     run_prefill,
     same_bits,
     sentinel_within,
+    windowed_cases,
 )
 from repro_torch.kernels.expmul.ops import merged_output_update  # noqa: E402
 from repro_torch.kernels.flash.tile import fma_chain  # noqa: E402
@@ -928,13 +932,16 @@ GRAPH_CELLS = {
 def _graph_run(cuda, cell, eager, prompts, fn_wrap=None, arch="qwen2-0.5b",
                cfg=None):
     """Serve ``prompts`` (8 new tokens each) on a smoke ``arch`` (bf16,
-    ExpMul) engine, or on ``cfg``; returns (engine, streams, every tick's
-    logits, the launch counts)."""
+    ExpMul) engine, or on ``cfg``, over ``GRAPH_CELLS[cell]`` (or the
+    paged fp32 pool of "paged/fp32"); returns (engine, streams, every
+    tick's logits, the launch counts)."""
     cfg = cfg or get_config(arch, smoke=True)
     params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
+    layout = GRAPH_CELLS.get(cell) or dict(kv_layout="paged", page_size=16,
+                                           kv_dtype="fp32")
     eng = ServeEngine(params, cfg, slots=4, max_len=128, chunk_size=32,
-                      eager_ticks=eager, device=cuda, **GRAPH_CELLS[cell])
+                      eager_ticks=eager, device=cuda, **layout)
     ticks = []
     chaos = eng._chaos_logits
 
@@ -1022,6 +1029,86 @@ def test_arctic_smoke_graph_ticks_equal_eager_ticks(cuda, cell):
     dec, pre = sorted(pair)
     assert st["decode"]["launches_per_replay"] == {dec: cfg.num_layers}
     assert st["prefill"]["launches_per_replay"] == {pre: cfg.num_layers}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["paged/fp32", "contiguous/fp32"])
+def test_recurrentgemma_smoke_graph_ticks_equal_eager_ticks(cuda, cell):
+    """recurrentgemma-2b's smoke config (RG-LRU, RG-LRU, local attention
+    over a window of 32; MQA; a softcap) served with CUDA-graph ticks over
+    prompts past the window: every tick's logits the eager engine's bit
+    for bit, on the layout's two kernels alone, one launch a replay in
+    its one attention layer."""
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    prompts = [list(np.random.default_rng(2).integers(1, 256, n))
+               for n in (40, 7, 66)]
+    _, out, logits, counts = _graph_run(cuda, cell, True, prompts, cfg=cfg)
+    eng, gout, glogits, gcounts = _graph_run(cuda, cell, False, prompts,
+                                             cfg=cfg)
+    assert gout == out and len(glogits) == len(logits) > 2
+    for i, (a, b) in enumerate(zip(glogits, logits)):
+        assert torch.equal(a, b), f"tick {i + 1}"
+    pair = ({"paged_prefill", "paged_decode"} if cell.startswith("paged")
+            else {"prefill", "decode"})
+    assert gcounts == counts and set(gcounts) == pair
+    st = eng.graph_stats()
+    assert st["decode"]["replays"] == eng.decode_steps > 0
+    dec, pre = sorted(pair)
+    assert st["decode"]["launches_per_replay"] == {dec: 1}
+    assert st["prefill"]["launches_per_replay"] == {pre: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["paged/fp32", "contiguous/fp32"])
+def test_recurrent_state_is_written_in_place_by_replays(cuda, cell):
+    """The engine's RG-LRU tensors are the ones the graphs write: after
+    each replayed tick they hold the eager engine's values bit for bit
+    (a step that rebound them would leave them at their admission zeros),
+    at the addresses they had before the capture."""
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    layout = GRAPH_CELLS.get(cell) or dict(kv_layout="paged", page_size=16,
+                                           kv_dtype="fp32")
+    prompts = [list(np.random.default_rng(3).integers(1, 256, n))
+               for n in (45, 9)]
+    engines = [ServeEngine(params, cfg, slots=2, max_len=96, chunk_size=16,
+                           eager_ticks=eager, device=cuda, **layout)
+               for eager in (False, True)]
+    addrs = [t.data_ptr() for t in engines[0]._recurrent]
+    for eng in engines:
+        for i, p in enumerate(prompts):
+            eng.submit(p, 6, rid=i)
+    moved = 0
+    while any([e.tick() for e in engines]):     # both, in lockstep
+        torch.cuda.synchronize()
+        g, e = engines
+        for a, b in zip(g._recurrent, e._recurrent):
+            assert torch.equal(a, b)
+        moved += any(bool(t.abs().sum() > 0) for t in g._recurrent)
+    assert moved > 0
+    assert [t.data_ptr() for t in engines[0]._recurrent] == addrs
+    assert engines[0].graph_stats()["decode"]["replays"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_serving_kernels_at_recurrentgemma_shapes_match_plain(cuda, kv,
+                                                              variant,
+                                                              q_dtype):
+    """recurrentgemma-2b's local attention: GQA group 10 at head dim 256,
+    a 2,048-token window over histories of 1,024-3,584 tokens (floors
+    inside a page and a tile), a wrapped rolling buffer, an idle row."""
+    rng = np.random.default_rng(21)
+    for name, run, case, idle, label in windowed_cases(
+            rng, kv=kv, q_dtype=q_dtype, dyadic=kv == "f32", device=cuda):
+        got = run(case, variant)
+        assert rel_err(got, run(case, variant, plain=True)) <= kernel_tol(
+            variant, q_dtype), f"{name} {label}"
+        assert all(float(got[i].abs().max()) == 0.0 for i in idle), name
 
 
 @pytest.mark.cuda

@@ -32,8 +32,11 @@ SAME_WALK_TOL = {"fp32": 1e-4, "int8": 1e-3}
 
 
 def _models(variant, kv_dtype, window=None, arch="qwen2-0.5b"):
+    """Both sides' configs and weights; ``window`` None keeps the arch's."""
     over = dict(dtype="float32", param_dtype="float32",
-                attention_variant=variant, kv_dtype=kv_dtype, window=window)
+                attention_variant=variant, kv_dtype=kv_dtype)
+    if window is not None:
+        over["window"] = window
     jcfg = jax_get_config(arch, smoke=True, attention_impl="pallas", **over)
     params = japi.init_model(jax.random.PRNGKey(0), jcfg)
     tcfg = get_config(arch, smoke=True, attention_impl="kernel", **over)
@@ -46,6 +49,39 @@ def _rel(got, ref):
     ref = np.asarray(ref, np.float64)
     return float(np.max(np.abs(np.asarray(got, np.float64) - ref))
                  / np.max(np.abs(ref)))
+
+
+def layer_caches(jstate, tstate, tcfg):
+    """(kind, repro's cache of the layer, the port's) for every layer in
+    layer order: ``repro`` stacks unit position ``pos`` over the units, so
+    layer ``u * len(unit) + pos`` is ``caches[pos]`` at ``u``."""
+    unit = tcfg.block_pattern
+    for layer, (kind, tc) in enumerate(zip(tcfg.pattern_for(),
+                                           tstate["caches"])):
+        u, pos = divmod(layer, len(unit))
+        yield kind, {k: np.asarray(v[u])
+                     for k, v in jstate["caches"][pos].items()}, tc
+
+
+def hold_caches(jstate, tstate, tcfg, kv_dtype):
+    """The KV caches hold what repro wrote (int8 codes may differ by one
+    step where a projection rounds differently, so dequantized rows are
+    compared), and an RG-LRU layer's state (``h``, ``conv``) its state
+    within 1e-5 of its magnitude (XLA's exp, logistic and tanh differ from
+    PyTorch's in the last bit, and so do the inputs of every later layer)."""
+    for kind, jc, tc in layer_caches(jstate, tstate, tcfg):
+        if kind == "rglru":
+            for name in ("h", "conv"):
+                assert _rel(tc[name].numpy(), jc[name]) <= 1e-5, name
+            continue
+        k = jc["k"].astype(np.float32)
+        tk = tc["k"].to(torch.float32).numpy()
+        if kv_dtype != "fp32":
+            k = k * jc["k_scale"][..., None]
+            tk = tk * tc["k_scale"].numpy()[..., None]
+        assert tk.shape == k.shape
+        np.testing.assert_allclose(tk, k, atol=5e-2 if kv_dtype != "fp32"
+                                   else 1e-5)
 
 
 def test_convert_keeps_layouts_and_values():
@@ -104,22 +140,13 @@ def paged_ticks(variant, kv_dtype, arch="qwen2-0.5b"):
             torch.from_numpy(bt), tcfg, page_size=PS)
         assert _rel(tl.numpy()[[0, 2]], np.asarray(jl)[[0, 2]]) <= tol
         lens = lens + np.array([1, 0, 1], np.int32)
-    # the pools hold what repro wrote (int8 codes may differ by one step
-    # where a projection rounds differently, so compare dequantized rows)
-    jc = jstate["caches"][0]
-    for layer, tc in enumerate(tstate["caches"]):
-        k = np.asarray(jc["k"][layer]).astype(np.float32)
-        tk = tc["k"].to(torch.float32).numpy()
-        if kv_dtype != "fp32":
-            k = k * np.asarray(jc["k_scale"][layer])[..., None]
-            tk = tk * tc["k_scale"].numpy()[..., None]
-        np.testing.assert_allclose(tk, k, atol=5e-2 if kv_dtype != "fp32"
-                                   else 1e-5)
+    hold_caches(jstate, tstate, tcfg, kv_dtype)
     # on the CPU the kernels' plain versions ran, never a launch
     assert build.COUNTS["paged_prefill"] == before.get("paged_prefill", 0)
     assert build.COUNTS["paged_decode"] == before.get("paged_decode", 0)
+    n_attn = tcfg.pattern_for().count("attn")
     assert (build.COUNTS["paged_prefill_plain"]
-            == before.get("paged_prefill_plain", 0) + 2 * tcfg.num_layers)
+            == before.get("paged_prefill_plain", 0) + 2 * n_attn)
 
 
 @pytest.mark.parametrize("variant,kv_dtype", [
@@ -161,24 +188,16 @@ def contiguous_ticks(variant, kv_dtype, window, max_len, chunks,
                                       torch.from_numpy(lens), tcfg)
         assert _rel(tl.numpy()[live], np.asarray(jl)[live]) <= tol
         lens = lens + 1
-    # the caches hold what repro wrote, slot for slot (dequantized rows)
-    jc = jstate["caches"][0]
-    for layer, tc in enumerate(tstate["caches"]):
-        k = np.asarray(jc["k"][layer]).astype(np.float32)
-        tk = tc["k"].to(torch.float32).numpy()
-        if kv_dtype != "fp32":
-            k = k * np.asarray(jc["k_scale"][layer])[..., None]
-            tk = tk * tc["k_scale"].numpy()[..., None]
-        assert tk.shape == k.shape
-        np.testing.assert_allclose(tk, k, atol=5e-2 if kv_dtype != "fp32"
-                                   else 1e-5)
+    # the caches hold what repro wrote, slot for slot
+    hold_caches(jstate, tstate, tcfg, kv_dtype)
     # on the CPU the kernels' plain versions ran, never a launch
     assert build.COUNTS["prefill"] == before.get("prefill", 0)
     assert build.COUNTS["decode"] == before.get("decode", 0)
+    n_attn = tcfg.pattern_for().count("attn")
     assert (build.COUNTS["prefill_plain"]
-            == before.get("prefill_plain", 0) + len(chunks) * tcfg.num_layers)
+            == before.get("prefill_plain", 0) + len(chunks) * n_attn)
     assert (build.COUNTS["decode_plain"]
-            == before.get("decode_plain", 0) + 2 * tcfg.num_layers)
+            == before.get("decode_plain", 0) + 2 * n_attn)
 
 
 @pytest.mark.parametrize("variant,kv_dtype", [
