@@ -9,10 +9,12 @@ JAX package. It drives both serving KV layouts (the paged pool and the
 per-slot contiguous caches with rolling windows) for qwen2-0.5b,
 gemma-7b, minicpm3-4b (MLA: latent caches, expanded K/V at head dims
 96 and 64), arctic-480b (MoE top-2 with a dense residual, head dim
-128; depth cut to 2 of its 35 layers) and recurrentgemma-2b (RG-LRU
+128; depth cut to 2 of its 35 layers), recurrentgemma-2b (RG-LRU
 blocks beside local-attention MQA blocks: GQA group 10 at head dim 256,
-a 2,048-token window), the training path, and the paper's
-demonstrations (the quickstart and the Table I study).
+a 2,048-token window) and xlstm-1.3b (mLSTM and sLSTM blocks, no
+attention layer, so no kernel: per-slot matrix memory on both layouts),
+the training path, and the paper's demonstrations (the quickstart and
+the Table I study).
 Phases (a failing check raises, and the script exits non-zero):
 
 1. print the card's name and power limit; build the kernels from
@@ -204,6 +206,21 @@ Phases (a failing check raises, and the script exits non-zero):
    buffer wraps), 32 new each, ``max_len`` 4096, graph ticks on both
    layouts: every request finishes, launches gated, the layouts' stream
    agreement printed;
+4h. xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6 sLSTM;
+   bf16, seed-0 weights): two prefill ticks of 32-token chunks and a
+   decode tick on a paged state and on contiguous caches, logits and
+   every state leaf bit for bit equal; 8 requests served by a graph
+   engine and an eager engine in lockstep on each layout, every tick's
+   logits and recurrent state bit for bit, written in place; ``forward``
+   against a ``decode_step`` loop over 288 tokens, float32 at full depth
+   gated at 1e-3 of the logits' magnitude, bf16 at depth 8 gated at 0.1
+   (``phase_xlstm_ticks`` says why);
+4i. xlstm-1.3b served at full width and depth (bf16, seed-2 weights), 16
+   requests of 32-128 prompt tokens, 32 new each, 8 slots, chunk 32, on a
+   paged state and on contiguous caches under graphs: no kernel launched,
+   the layouts' streams gated equal; tokens/s, TTFT, tick p50s, peak
+   memory; one prefill and one decode tick profiled (busy time, idle
+   share, top kernels). 4h and 4i take ~65-80 s;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -313,6 +330,12 @@ MLA, MLA_H = "minicpm3-4b", 40
 # chunk (two of them pass the window) and its windowed serving shapes
 RG, RG_H, RG_HKV, RG_D, RG_WINDOW = "recurrentgemma-2b", 10, 1, 256, 2048
 RG_TICK_CHUNK, RG_CTX, RG_MAX_LEN = 1152, 3072, 4096
+# xlstm-1.3b: 42 mLSTM and 6 sLSTM blocks, no attention layer, 4 heads
+# (mLSTM heads of 768); served at full width and depth (1.35B parameters).
+# Its ticks' and serving chunk, serving max_len, and the forward check's
+# length (two chunkwise chunks of 144) and bf16 depth
+XLSTM, XLSTM_CHUNK, XLSTM_MAX_LEN = "xlstm-1.3b", 32, 256
+XLSTM_FWD_SEQ, XLSTM_BF16_LAYERS = 288, 8
 TRAIN_SEQ, TRAIN_STEPS = 1024, 6
 FLASH_EDGE_SEQS = (1, 31, 33, 65, 1000)
 # the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
@@ -1361,7 +1384,9 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
     """Serve ``prompts`` (32 new tokens each) on a fresh engine with the
     launch counts set to 0 just before and read just after: the ``pair``
     of kernels of the layout must have launched, and nothing else (no
-    other kernel, no plain version), once a tick in each attention layer.
+    other kernel, no plain version), once a tick in each attention layer
+    (an empty ``pair``: a pattern with no attention layer, which launches
+    no kernel).
     The engine's ticks replay CUDA graphs
     unless ``kw`` asks for eager ticks; the fresh engine captures its
     graphs at its first ticks, inside the measured run. ``sink=False``
@@ -1412,11 +1437,13 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
                              f"ran while serving: {counts}")
     graphs = eng.graph_stats()
     n_attn = cfg.pattern_for().count("attn")
-    dec, pre = pair
-    if (counts[dec] != n_attn * eng.decode_steps
-            or counts[pre] != n_attn * eng.prefill_steps):
-        raise AssertionError(f"{label}: launches {counts} are not one a tick "
-                             f"in each of {n_attn} attention layers")
+    if pair:
+        dec, pre = pair
+        if (counts[dec] != n_attn * eng.decode_steps
+                or counts[pre] != n_attn * eng.prefill_steps):
+            raise AssertionError(f"{label}: launches {counts} are not one a "
+                                 f"tick in each of {n_attn} attention "
+                                 f"layers")
     if mode == "graphs":
         # every tick replayed its kind's graph, whose captured launches are
         # the run's: replays x captured launches, kernel by kernel
@@ -1459,8 +1486,8 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
         f"{sum(tick_ms['decode']):.1f})")
     if mode == "graphs":
         log(f"[serve] {label}: graphs " + json.dumps(graphs))
-    per_step = {dec: counts[dec] / eng.decode_steps,
-                pre: counts[pre] / eng.prefill_steps}
+    per_step = ({dec: counts[dec] / eng.decode_steps,
+                 pre: counts[pre] / eng.prefill_steps} if pair else {})
     return counts, per_step, [r.out for r in reqs], stats
 
 
@@ -1673,6 +1700,221 @@ def phase_rg_windowed_serve(torch, cfg_mod, api, build, ServeEngine):
         f"layouts' kernels walk other tiles, so no gate): {same} of "
         f"{sum(map(len, a))} tokens at the same position, first tokens "
         f"{first} of {len(prompts)}")
+    del params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _xlstm_lockstep(torch, ServeEngine, params, cfg, kw, prompts):
+    """Serve ``prompts`` (4 new tokens each) on a graph engine and an eager
+    engine in lockstep: each tick's logits and every recurrent state
+    tensor after it equal bit for bit, the graph engine's state tensors at
+    their addresses from before the capture (the replays write them in
+    place), the two streams equal. Returns (ticks, replays by kind)."""
+    engines = [ServeEngine(params, cfg, eager_ticks=eager, **kw)
+               for eager in (False, True)]
+    logits, reqs = ([], []), ([], [])
+    for eng, out, rs in zip(engines, logits, reqs):
+        chaos = eng._chaos_logits
+
+        def hook(active, lg, chaos=chaos, out=out):
+            out.append(lg.clone())
+            return chaos(active, lg)
+
+        eng._chaos_logits = hook
+        rs.extend(eng.submit(p, 4, rid=i) for i, p in enumerate(prompts))
+    addrs = [t.data_ptr() for t in engines[0]._recurrent]
+    ticks = 0
+    while any([e.tick() for e in engines]):
+        torch.cuda.synchronize()
+        ticks += 1
+        g, e = engines
+        if not torch.equal(logits[0][-1], logits[1][-1]):
+            raise AssertionError(f"tick {ticks}: graph logits differ from "
+                                 f"eager logits")
+        for a, b in zip(g._recurrent, e._recurrent):
+            if not torch.equal(a, b):
+                raise AssertionError(f"tick {ticks}: graph state differs "
+                                     f"from eager state")
+    if [t.data_ptr() for t in engines[0]._recurrent] != addrs:
+        raise AssertionError("a replay rebound the recurrent state")
+    if ([r.out for r in reqs[0]] != [r.out for r in reqs[1]]
+            or not all(r.finish_reason == "length" for r in reqs[0])):
+        raise AssertionError("the lockstep engines' streams differ")
+    st = engines[0].graph_stats()
+    replays = {k: st[k]["replays"] for k in ("prefill", "decode")}
+    if not (replays["prefill"] and replays["decode"]):
+        raise AssertionError(f"the graph engine did not replay: {replays}")
+    return ticks, replays
+
+
+def phase_xlstm_ticks(torch, cfg_mod, api, ServeEngine):
+    """xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6 sLSTM;
+    bf16, random weights from seed 0; no attention layer, so no kernel):
+    (a) two prefill ticks of ``XLSTM_CHUNK``-token chunks (rows idle,
+    ragged and full) and a decode tick on a paged state and on contiguous
+    caches: logits and every state leaf equal bit for bit (the same
+    arithmetic: a recurrent layer ignores the layout); (b) 8 requests of
+    20-70 prompt tokens, 4 new each, on a graph engine and an eager engine
+    in lockstep on each layout: every tick's logits and recurrent state
+    bit for bit, written in place; (c) ``api.forward`` (chunkwise mLSTM,
+    two chunks of 144 at dh 768) against a loop of ``api.decode_step``
+    from ``init_decode_state`` over ``XLSTM_FWD_SEQ`` tokens, 2 rows: in
+    float32 at full depth (TF32 off), gated at 1e-3 of the logits'
+    magnitude (``repro``'s own CPU test holds 3e-4 at its smoke config);
+    in bf16 at depth ``XLSTM_BF16_LAYERS``, gated at 0.1: each layer's
+    output is rounded to bf16 (2^-8 of a value) at places the two forms
+    reach by other float32 sums, and the random-init model carries the
+    flips through its depth (CPU proxies at depth 8: 0.015-0.021; at 48
+    layers the two forms of ``repro`` itself differ by 0.48). Engine
+    ticks are not compared with ``forward``: an admission zeroes the
+    stabilizers ``m`` where a fresh state holds -1e30, as ``repro``'s
+    does."""
+    _free(torch, f"{XLSTM} ticks")
+    base = cfg_mod.get_config(XLSTM)                # bf16
+    assert base.dtype == "bfloat16" and "attn" not in base.pattern_for()
+    kinds = base.pattern_for()
+    log(f"[config] {XLSTM}: d_model {base.d_model}, {base.num_heads} heads, "
+        f"{kinds.count('mlstm')} mLSTM and {kinds.count('slstm')} sLSTM "
+        f"layers, no attention layer; {base.param_count()} parameters")
+    params = api.init_model(
+        base, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(12)
+    C = XLSTM_CHUNK
+    mb = -(-(2 * C + 1) // PS) + 1
+    bt = torch.from_numpy(rng.permutation(B * mb).astype(np.int32)
+                          .reshape(B, mb)).cuda()
+    chunks = [[C, 0, 5, C, 17, C, 1, 20], [C, 0, 9, C, C, 3, 0, C]]
+    toks = [torch.from_numpy(rng.integers(1, base.vocab_size, (B, C))
+                             .astype(np.int32)).cuda() for _ in chunks]
+    tok1 = torch.from_numpy(rng.integers(1, base.vocab_size, B)
+                            .astype(np.int32)).cuda()
+    runs = {}
+    for layout in ("paged", "contiguous"):
+        t0 = time.perf_counter()
+        runs[layout] = _ticks(torch, api, params, base, layout, bt, toks,
+                              chunks, tok1, keep_state=True)
+        log(f"[model] {XLSTM} {layout}: 3 ticks in "
+            f"{time.perf_counter() - t0:.2f} s")
+    (lp, sp), (lc, sc) = runs["paged"], runs["contiguous"]
+    for i, ((a, rows), (b, _)) in enumerate(zip(lp, lc)):
+        if not torch.isfinite(a[rows]).all():
+            raise AssertionError(f"{XLSTM} tick {i}: non-finite logits")
+        if not torch.equal(a, b):
+            raise AssertionError(f"{XLSTM} tick {i}: paged logits differ "
+                                 f"from contiguous")
+    n_leaves = 0
+    for x, y in zip(sp["caches"], sc["caches"]):
+        for name in x:
+            n_leaves += 1
+            if not torch.equal(x[name], y[name]):
+                raise AssertionError(f"{XLSTM}: state {name} differs "
+                                     f"between the layouts")
+    log(f"[model] {XLSTM}: paged and contiguous ticks bit for bit (3 ticks' "
+        f"logits, {n_leaves} state leaves)")
+    del runs, sp, sc
+    torch.cuda.empty_cache()
+    prompts = [rng.integers(1, base.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(20, 71, size=B)]
+    for layout in ("paged", "contiguous"):
+        kw = dict(kv_layout=layout, kv_dtype="fp32", slots=B,
+                  max_len=XLSTM_MAX_LEN, chunk_size=C, device="cuda")
+        if layout == "paged":
+            kw["page_size"] = PS
+        t0 = time.perf_counter()
+        ticks, replays = _xlstm_lockstep(torch, ServeEngine, params, base,
+                                         kw, prompts)
+        log(f"[model] {XLSTM} {layout}: graph and eager engines in lockstep, "
+            f"{ticks} ticks ({replays['prefill']} prefill and "
+            f"{replays['decode']} decode replays): logits and recurrent "
+            f"state bit for bit, written in place "
+            f"({time.perf_counter() - t0:.2f} s)")
+        torch.cuda.empty_cache()
+    del params
+    _free(torch, f"{XLSTM} forward")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    toks = torch.from_numpy(rng.integers(1, base.vocab_size,
+                                         (2, XLSTM_FWD_SEQ))
+                            .astype(np.int32)).cuda()
+    gaps = {}
+    try:
+        for dt, layers, gate in (("float32", base.num_layers, 1e-3),
+                                 ("bfloat16", XLSTM_BF16_LAYERS, 0.1)):
+            cfg = base.replace(dtype=dt, param_dtype=dt, num_layers=layers)
+            params = api.init_model(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                full = api.forward(params, {"tokens": toks}, cfg).float()
+                state = api.init_decode_state(cfg, 2, XLSTM_FWD_SEQ,
+                                              device="cuda")
+                steps = []
+                for t in range(XLSTM_FWD_SEQ):
+                    lens = torch.full((2,), t, dtype=torch.int32,
+                                      device="cuda")
+                    lg, _ = api.decode_step(params, state, toks[:, t], lens,
+                                            cfg)
+                    steps.append(lg.float())
+            loop = torch.stack(steps, 1)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(full).all() and torch.isfinite(loop).all()):
+                raise AssertionError(f"{XLSTM} {dt}: non-finite logits")
+            gap = float((full - loop).abs().max() / loop.abs().max())
+            agree = float((full.argmax(-1) == loop.argmax(-1)).float().mean())
+            gaps[dt] = gap
+            log(f"[model] {XLSTM} {dt}, {layers} layers: forward vs a "
+                f"decode_step loop over {XLSTM_FWD_SEQ} tokens: max|dlogits| "
+                f"/ max|logits| = {gap:.3e} (gated at {gate:g}), argmax "
+                f"agreement {agree:.4f} ({time.perf_counter() - t0:.2f} s)")
+            if not gap <= gate:
+                raise AssertionError(f"{XLSTM} {dt}: forward and the decode "
+                                     f"loop disagree")
+            del params, state, full, loop, steps
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return gaps
+
+
+def phase_xlstm_serve(torch, cfg_mod, api, build, ServeEngine):
+    """xlstm-1.3b served at full width and depth (bf16, seed-2 weights) on
+    a paged state and on contiguous caches, both at kv_dtype fp32 (there
+    is no KV; int8 is refused), with CUDA-graph ticks: 16 requests of
+    32-128 prompt tokens, 32 new each, 8 slots, ``max_len`` 256, chunk
+    ``XLSTM_CHUNK`` (a prefill tick steps the recurrence over every chunk
+    token: 8 slots x 396.9 MB of mLSTM state, five passes a token), at
+    temperature 0. Each run launches no kernel (the counts set to 0 just
+    before and read just after); the two layouts' streams must be equal.
+    Then one prefill tick and one decode tick of the paged graph engine
+    profiled (``phase_profile``): device busy time, idle share and the top
+    kernels. Returns each run's numbers."""
+    _free(torch, f"{XLSTM} serve")
+    cfg = cfg_mod.get_config(XLSTM)
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
+                            device="cuda")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(32, 129, size=16)]
+    kw = dict(kv_layout="paged", page_size=PS, kv_dtype="fp32", slots=B,
+              max_len=XLSTM_MAX_LEN, chunk_size=XLSTM_CHUNK, temperature=0.0,
+              device="cuda")
+    ckw = dict(kw, kv_layout="contiguous")
+    del ckw["page_size"]
+    streams, stats = {}, {}
+    for label, lkw in (("paged/fp32", kw), ("contiguous/fp32", ckw)):
+        _, _, streams[label], st = _serve_run(torch, build, ServeEngine,
+                                              params, cfg, prompts, lkw, (),
+                                              tag=f"{XLSTM} ")
+        stats[label] = st
+        torch.cuda.empty_cache()
+    if streams["paged/fp32"] != streams["contiguous/fp32"]:
+        raise AssertionError(f"{XLSTM}: the layouts' streams differ")
+    log(f"[serve] {XLSTM}: paged and contiguous temp-0 streams equal "
+        f"({sum(map(len, streams['paged/fp32']))} tokens)")
+    stats["idle"] = phase_profile(torch, ServeEngine, params, cfg, kw,
+                                  prompts, tag=f"{XLSTM} ", decode_ticks=1)
     del params
     torch.cuda.empty_cache()
     return stats
@@ -2091,11 +2333,12 @@ def _profile_window(torch, fn, label):
     return busy, kernels, round(idle, 3)
 
 
-def phase_profile(torch, ServeEngine, params, cfg, kw, prompts, tag=""):
+def phase_profile(torch, ServeEngine, params, cfg, kw, prompts, tag="",
+                  decode_ticks=4):
     """Device busy share and the top device kernels over one prefill tick
-    and four decode ticks of a serving path, from torch.profiler, after a
-    request of one prefill and one decode tick (which capture the graphs).
-    Returns {kind: idle share}."""
+    and ``decode_ticks`` decode ticks of a serving path, from
+    torch.profiler, after a request of one prefill and one decode tick
+    (which capture the graphs). Returns {kind: idle share}."""
     eng = ServeEngine(params, cfg, **kw)
     eng.submit(prompts[8][:200], 2)
     eng.run()
@@ -2103,7 +2346,7 @@ def phase_profile(torch, ServeEngine, params, cfg, kw, prompts, tag=""):
         eng.submit(p[:200], 8)
     mode = "eager" if kw.get("eager_ticks") else "graphs"
     idle = {}
-    for kind, n in (("prefill", 1), ("decode", 4)):
+    for kind, n in (("prefill", 1), ("decode", decode_ticks)):
         if kind == "decode":
             while any(r is not None and r.pos < len(r.prefill_toks)
                       for r in eng.requests):
@@ -2895,6 +3138,10 @@ def main() -> int:
                                                ServeEngine, arch=RG)),
         ("rg windowed serve", lambda: phase_rg_windowed_serve(
             torch, cfg_mod, api, build, ServeEngine)),
+        ("xlstm ticks", lambda: phase_xlstm_ticks(torch, cfg_mod, api,
+                                                  ServeEngine)),
+        ("xlstm serve", lambda: phase_xlstm_serve(torch, cfg_mod, api, build,
+                                                  ServeEngine)),
         ("times", lambda: phase_times(torch, checks, F)),
         ("gemma times", lambda: phase_gemma_times(torch, checks, F)),
         ("mla times", lambda: phase_mla_times(torch, checks, F, build, decode,

@@ -2,12 +2,14 @@
 ``repro.configs.base.ModelConfig`` under the same names and defaults, with
 ``MLAConfig`` for multi-head latent attention (minicpm3-4b) and
 ``MoEConfig`` for a mixture-of-experts FFN (arctic-480b, kimi-k2-1t-a32b),
-and the hybrid fields of recurrentgemma-2b: ``block_pattern`` (a unit of
-block kinds, ``attn`` or ``rglru``, repeated to fill ``num_layers``),
+and the fields of the recurrent patterns: ``block_pattern`` (a unit of
+block kinds, ``attn``, ``rglru``, ``mlstm`` or ``slstm``, repeated to fill
+``num_layers``; recurrentgemma-2b mixes RG-LRU and attention blocks,
+xlstm-1.3b has mLSTM and sLSTM blocks and no attention layer),
 ``lru_width`` and ``logits_softcap``.
 
-Fields of families the port does not serve yet (xLSTM block kinds,
-encoder-decoder, modality frontends) are left out until their slice, and
+Fields of families the port does not serve yet (encoder-decoder,
+modality frontends) are left out until their slice, and
 so are ``family``, ``max_seq_len`` and ``opt_state_dtype``, which nothing
 of the port reads (training with MoE, and its bf16 moments, wait for a
 later slice). An MLA config's attention reads its head dims from ``mla``
@@ -60,7 +62,7 @@ class ModelConfig:
     scale_embeddings: bool = False  # gemma: embed * sqrt(d_model)
     rope_base: float = 10000.0
     # hybrid patterns: the unit repeats to fill num_layers
-    block_pattern: tuple[str, ...] = ("attn",)   # attn | rglru
+    block_pattern: tuple[str, ...] = ("attn",)   # attn|rglru|mlstm|slstm
     window: int | None = None      # local attention window
     lru_width: int | None = None   # rg-lru state width (default d_model)
     logits_softcap: float | None = None
@@ -131,6 +133,15 @@ class ModelConfig:
         w = self.lru_width or d
         # in/out projections (two branches), conv4, gates a/x, lambda, norms
         rglru = 2 * d * w + 4 * w + 2 * w * w + 3 * w + w * d + 2 * d
-        blocks = {"attn": attn + ffn + 2 * d, "rglru": rglru + ffn}
+        # xLSTM blocks carry their own projections and no FFN: mLSTM's
+        # up/gate/down, block-diagonal q/k/v and i/f gates; sLSTM's four
+        # block-diagonal input and recurrent gates and its gated FFN
+        inner = int(1.5 * d)
+        inner -= inner % H
+        mlstm = (2 * d * inner + 3 * H * (inner // H) ** 2 + 2 * inner * H
+                 + inner * d + 2 * d)
+        slstm = 8 * H * (d // H) ** 2 + 3 * d * int(4 / 3 * d) + 2 * d
+        blocks = {"attn": attn + ffn + 2 * d, "rglru": rglru + ffn,
+                  "mlstm": mlstm, "slstm": slstm}
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return emb + d + sum(blocks[kind] for kind in self.pattern_for())

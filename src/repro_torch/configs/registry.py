@@ -11,6 +11,7 @@ _ARCH_MODULES = {
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -10,8 +10,12 @@ layer in true layer order, with the same per-layer layouts (``wq (d, H,
 hd)``, ``wo (H, hd, d)``, ...; MLA's
 ``q_norm`` and ``kv_norm`` stay dicts of their ``scale``; an MoE layer's
 ``ffn`` keeps ``router``, the expert stacks (E, ., .) and its nested
-``dense`` MLP; an untied head ``embed.out`` comes along), so both
-frameworks run the same weights. This module imports neither ``jax``
+``dense`` MLP; an untied head ``embed.out`` comes along; a recurrent
+layer keeps its leaves by name: RG-LRU's, mLSTM's ``w_up``, ``w_gate``,
+``wqh``, ``wkh``, ``wvh``, ``w_i``, ``b_i``, ``w_f``, ``b_f``, ``w_down``,
+sLSTM's ``w_*``, ``r_*``, ``b_*`` of each gate and its ``ffn_*``, and
+an xLSTM block has no ``norm_ffn`` or ``ffn``), so both frameworks run
+the same weights. This module imports neither ``jax``
 nor ``repro``: the arrays arrive as numpy.
 """
 from __future__ import annotations

@@ -9,12 +9,15 @@ Parameters are a dict of tensors with ``repro``'s layouts
 ``ffn`` holds ``router``, the expert stacks ``w_up``, ``w_gate``,
 ``w_down`` (E, ., .) and its ``dense`` residual; an untied head is
 ``embed.out``), one entry of ``"layers"`` per layer in true layer order,
-layer ``l`` of kind ``cfg.pattern_for()[l]`` (``attn`` or ``rglru``); the
-layer loop is a Python loop. An MLA config's
+layer ``l`` of kind ``cfg.pattern_for()[l]`` (``attn``, ``rglru``,
+``mlstm`` or ``slstm``); the layer loop is a Python loop. An MLA config's
 caches and pools hold latents (``layers/mla.py``). The state is one dict
-of caches per layer: an attention layer's KV cache or pool, or an RG-LRU
-layer's per-slot ``h`` and ``conv`` (on the paged layout too). It is
-updated in place: ``prefill``, ``decode_step``
+of caches per layer: an attention layer's KV cache or pool, or a
+recurrent layer's per-slot state (RG-LRU's ``h`` and ``conv``, mLSTM's
+``C``, ``n``, ``m``, sLSTM's ``c``, ``n``, ``h``, ``m``; the stabilizers
+``m`` start at -1e30), on the paged layout too. A pattern with no
+attention layer (xlstm-1.3b) has no KV: its ticks build no cache index.
+The state is updated in place: ``prefill``, ``decode_step``
 and their paged twins return it for symmetry with ``repro``. Those four
 read no tensor's value on the host and allocate at fixed shapes, so a
 tick of them can be captured in a CUDA graph (``serve/graphs.py``); on
@@ -124,7 +127,7 @@ def init_decode_state(cfg, batch, max_len, *, device="cuda"):
     """Per-slot KV state: per layer, caches of ``max_len`` slots (a rolling
     buffer of ``min(max_len, window)`` for a windowed config) for each of
     ``batch`` sequences; codes plus float32 scale rows for a quantized
-    ``cfg.kv_dtype``. An RG-LRU layer's state is one token's a slot."""
+    ``cfg.kv_dtype``. A recurrent layer's state is one token's a slot."""
     device = resolve_device(device)
     dt = _dtype(cfg.dtype)
     return {"caches": [block_init_cache(cfg, kind, batch, max_len, dt, device)
@@ -133,8 +136,10 @@ def init_decode_state(cfg, batch, max_len, *, device="cuda"):
 
 def _attn_cache(state, cfg):
     """The cache of the first attention layer, whose geometry (span, pool
-    rows) every attention layer shares."""
-    return state["caches"][cfg.pattern_for().index("attn")]
+    rows) every attention layer shares; None without an attention
+    layer."""
+    kinds = cfg.pattern_for()
+    return state["caches"][kinds.index("attn")] if "attn" in kinds else None
 
 
 def _last_logits(params, x, n_valid, cfg):
@@ -157,7 +162,9 @@ def prefill(params, state, tokens, lengths, n_valid, cfg):
     C = tokens.shape[1]
     x = embed_apply(params["embed"], tokens, cfg).to(_dtype(cfg.dtype))
     attn = _attn_cache(state, cfg)
-    if cfg.mla:   # latent caches (B, max_len, ...): one row a token
+    if attn is None:
+        index = None
+    elif cfg.mla:   # latent caches (B, max_len, ...): one row a token
         span = attn["kv_lat"].shape[1]
         idx = torch.arange(C, device=tokens.device)[None, :]
         index = chunk_index(lengths[:, None].to(torch.int64) + idx,
@@ -192,8 +199,8 @@ def decode_step(params, state, tokens1, lengths, cfg):
 def init_paged_state(cfg, slots, pool_blocks, page_size, *, device="cuda"):
     """Paged KV state: per attention layer, flat pools of ``pool_blocks *
     page_size`` rows shared by all ``slots`` sequences through their block
-    tables; per RG-LRU layer, the per-slot state of ``init_decode_state``
-    (not paged, not quantized)."""
+    tables; per recurrent layer, the per-slot state of
+    ``init_decode_state`` (not paged, not quantized)."""
     device = resolve_device(device)
     dt = _dtype(cfg.dtype)
     init = mla_init_paged_cache if cfg.mla else attn_init_paged_cache
@@ -207,6 +214,18 @@ def _pool_rows(state, cfg) -> int:
     return next(iter(_attn_cache(state, cfg).values())).shape[0]
 
 
+def _paged_index(state, cfg, block_tables, positions, page_size,
+                 valid=None):
+    """The pool-row scatter index of a tick's writes at token
+    ``positions`` (flattened; None without an attention layer, which
+    writes no KV)."""
+    if _attn_cache(state, cfg) is None:
+        return None
+    rows = token_rows(block_tables, positions, page_size).reshape(-1)
+    return scatter_index(rows, _pool_rows(state, cfg),
+                         None if valid is None else valid.reshape(-1))
+
+
 def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
                   *, page_size):
     """Chunked prefill against the paged pools.
@@ -218,9 +237,8 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     C = tokens.shape[1]
     x = embed_apply(params["embed"], tokens, cfg).to(_dtype(cfg.dtype))
     idx = torch.arange(C, device=tokens.device)[None, :]
-    chunk_rows = token_rows(block_tables, lengths[:, None] + idx, page_size)
-    index = scatter_index(chunk_rows.reshape(-1), _pool_rows(state, cfg),
-                          (idx < n_valid[:, None]).reshape(-1))
+    index = _paged_index(state, cfg, block_tables, lengths[:, None] + idx,
+                         page_size, idx < n_valid[:, None])
     rows = slot_rows(block_tables, page_size) if cfg.mla else None
     for p, cache, kind in zip(params["layers"], state["caches"],
                               cfg.pattern_for()):
@@ -230,7 +248,8 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
 
 
 def _pools(state, cfg):
-    """The attention layers' pools (an RG-LRU layer's state is per slot)."""
+    """The attention layers' pools (a recurrent layer's state is per
+    slot)."""
     return [cache for cache, kind in zip(state["caches"], cfg.pattern_for())
             if kind == "attn"]
 
@@ -283,8 +302,7 @@ def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
     """One decode tick: tokens1 (B,) at positions ``lengths`` ->
     (logits (B, V), state)."""
     x = embed_apply(params["embed"], tokens1, cfg).to(_dtype(cfg.dtype))
-    index = scatter_index(token_rows(block_tables, lengths, page_size),
-                          _pool_rows(state, cfg))
+    index = _paged_index(state, cfg, block_tables, lengths, page_size)
     rows = slot_rows(block_tables, page_size) if cfg.mla else None
     for p, cache, kind in zip(params["layers"], state["caches"],
                               cfg.pattern_for()):

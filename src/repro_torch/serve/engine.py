@@ -191,8 +191,9 @@ def validate_kv_dtype(cfg, kv_dtype: str | None = None) -> str:
 
 
 def _recurrent_state(state, cfg) -> list:
-    """The per-slot state tensors of the recurrent layers (``h``, ``conv``
-    of each RG-LRU layer), first axis the slot."""
+    """The per-slot state tensors of the recurrent layers (RG-LRU's ``h``,
+    ``conv``; mLSTM's ``C``, ``n``, ``m``; sLSTM's ``c``, ``n``, ``h``,
+    ``m``), first axis the slot."""
     return [leaf for cache, kind in zip(state["caches"], cfg.pattern_for())
             if kind != "attn" for leaf in cache.values()]
 
@@ -354,8 +355,8 @@ class ServeEngine:
         capture = not self.eager_ticks
         gpool = torch.cuda.graph_pool_handle() if capture else None
         tables = ({"tables": self.pool.tables.shape} if self.paged else {})
-        # an RG-LRU layer's per-slot state, which every admission zeroes and
-        # a capture's warm-up must not advance
+        # a recurrent layer's per-slot state, which every admission zeroes
+        # and a capture's warm-up must not advance
         self._recurrent = _recurrent_state(self.state, cfg)
         prefill_fn, decode_fn = _tick_fns(
             params, self.state, cfg, self.page_size if self.paged else None)
@@ -711,8 +712,13 @@ class ServeEngine:
             self._reset_slot_state(s)
 
     def _reset_slot_state(self, s):
-        """Zero slot ``s`` of every recurrent layer's state (``h`` and
-        ``conv``), in place: the graphs read these very tensors."""
+        """Zero slot ``s`` of every recurrent layer's state, in place: the
+        graphs read these very tensors. The xLSTM stabilizers ``m`` are
+        zeroed too, not put back to a fresh state's -1e30, as
+        ``repro``'s reset (``repro/serve/engine.py:770-783``) does: the
+        stabilizer cancels except in the clamps ``max(|n.q|, 1)`` and
+        ``max(n, 1)``, so an admitted request's stream follows the
+        reference engine's, not greedy decoding by ``forward``."""
         for leaf in self._recurrent:
             leaf[s].zero_()
 

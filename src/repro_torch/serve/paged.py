@@ -58,8 +58,9 @@ def blocks_for(n_tokens: int, page_size: int) -> int:
 
 
 def kv_token_bytes(cfg, kv_dtype: str | None = None) -> int:
-    """KV bytes per resident token over every attention layer (an RG-LRU
-    layer holds no KV and counts 0): K and V rows of ``Hkv * hd``
+    """KV bytes per resident token over every attention layer (a recurrent
+    layer holds no KV and counts 0; so does a pattern with no attention
+    layer): K and V rows of ``Hkv * hd``
     elements, or for MLA one ``kv_lat`` row of ``kv_lora_rank`` and one
     ``k_rope`` row of ``qk_rope_dim`` elements, plus one float32 scale per
     row when quantized."""

@@ -1065,7 +1065,11 @@ def test_recurrent_state_is_written_in_place_by_replays(cuda, cell):
     each replayed tick they hold the eager engine's values bit for bit
     (a step that rebound them would leave them at their admission zeros),
     at the addresses they had before the capture."""
-    cfg = get_config("recurrentgemma-2b", smoke=True)
+    _state_written_in_place(cuda, cell,
+                            get_config("recurrentgemma-2b", smoke=True))
+
+
+def _state_written_in_place(cuda, cell, cfg):
     params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
     layout = GRAPH_CELLS.get(cell) or dict(kv_layout="paged", page_size=16,
@@ -1089,6 +1093,54 @@ def test_recurrent_state_is_written_in_place_by_replays(cuda, cell):
     assert moved > 0
     assert [t.data_ptr() for t in engines[0]._recurrent] == addrs
     assert engines[0].graph_stats()["decode"]["replays"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["paged/fp32", "contiguous/fp32"])
+def test_xlstm_smoke_graph_ticks_equal_eager_ticks(cuda, cell):
+    """xlstm-1.3b's smoke config (seven mLSTM blocks and one sLSTM block,
+    no attention layer) served with CUDA-graph ticks: every tick's logits
+    the eager engine's bit for bit, and no kernel launched (none lies on
+    this path)."""
+    cfg = get_config("xlstm-1.3b", smoke=True)
+    prompts = [list(np.random.default_rng(2).integers(1, 256, n))
+               for n in (40, 7, 66)]
+    _, out, logits, counts = _graph_run(cuda, cell, True, prompts, cfg=cfg)
+    eng, gout, glogits, gcounts = _graph_run(cuda, cell, False, prompts,
+                                             cfg=cfg)
+    assert gout == out and len(glogits) == len(logits) > 2
+    for i, (a, b) in enumerate(zip(glogits, logits)):
+        assert torch.equal(a, b), f"tick {i + 1}"
+    assert not any(gcounts.values()) and not any(counts.values())
+    st = eng.graph_stats()
+    assert st["decode"]["replays"] == eng.decode_steps > 0
+    assert st["prefill"]["replays"] == eng.prefill_steps > 0
+    assert st["decode"]["launches_per_replay"] == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["paged/fp32", "contiguous/fp32"])
+def test_xlstm_state_is_written_in_place_by_replays(cuda, cell):
+    """The engine's mLSTM and sLSTM tensors (``C``, ``n``, ``m``; ``c``,
+    ``n``, ``h``, ``m``) are the ones the graphs write, as for RG-LRU."""
+    _state_written_in_place(cuda, cell, get_config("xlstm-1.3b", smoke=True))
+
+
+@pytest.mark.cuda
+def test_xlstm_layouts_give_equal_ticks(cuda):
+    """With no attention layer the two layouts run the same arithmetic:
+    paged and contiguous graph ticks' logits equal bit for bit, and the
+    streams."""
+    cfg = get_config("xlstm-1.3b", smoke=True)
+    prompts = [list(np.random.default_rng(4).integers(1, 256, n))
+               for n in (21, 50, 9, 33)]
+    _, pout, plogits, _ = _graph_run(cuda, "paged/fp32", False, prompts,
+                                     cfg=cfg)
+    _, cout, clogits, _ = _graph_run(cuda, "contiguous/fp32", False,
+                                     prompts, cfg=cfg)
+    assert pout == cout and len(plogits) == len(clogits) > 2
+    for i, (a, b) in enumerate(zip(plogits, clogits)):
+        assert torch.equal(a, b), f"tick {i + 1}"
 
 
 @pytest.mark.cuda

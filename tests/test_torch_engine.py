@@ -238,6 +238,8 @@ def test_port_imports_no_jax_and_no_repro():
         "assert 'repro_torch.layers.moe' in sys.modules\n"
         "assert 'repro_torch.configs.arctic_480b' in sys.modules\n"
         "assert 'repro_torch.configs.kimi_k2_1t' in sys.modules\n"
+        "assert 'repro_torch.layers.xlstm' in sys.modules\n"
+        "assert 'repro_torch.configs.xlstm_1_3b' in sys.modules\n"
         "print('ok')\n")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
