@@ -11,10 +11,13 @@ gemma-7b, minicpm3-4b (MLA: latent caches, expanded K/V at head dims
 96 and 64), arctic-480b (MoE top-2 with a dense residual, head dim
 128; depth cut to 2 of its 35 layers), recurrentgemma-2b (RG-LRU
 blocks beside local-attention MQA blocks: GQA group 10 at head dim 256,
-a 2,048-token window) and xlstm-1.3b (mLSTM and sLSTM blocks, no
-attention layer, so no kernel: per-slot matrix memory on both layouts),
-the training path, and the paper's demonstrations (the quickstart and
-the Table I study).
+a 2,048-token window), xlstm-1.3b (mLSTM and sLSTM blocks, no
+attention layer, so no kernel: per-slot matrix memory on both layouts)
+and llava-next-34b (576 projected image patches before the text; GQA
+group 7 at head dim 128); it runs seamless-m4t-medium (an
+encoder-decoder: LayerNorm, a GELU FFN, cross-attention over 1,024 stub
+frames) through its encoder and decode steps, the training path, and
+the paper's demonstrations (the quickstart and the Table I study).
 Phases (a failing check raises, and the script exits non-zero):
 
 1. print the card's name and power limit; build the kernels from
@@ -102,6 +105,12 @@ Phases (a failing check raises, and the script exits non-zero):
    every long history has wrapped, an idle row) against their plain
    versions, float32 and bfloat16 values and q, exact and ExpMul, at
    ``checks.kernel_tol``;
+2g. the flash kernel non-causal at Sq != Sk, as cross-attention calls it
+   (``checks.flash_cross_cases``: 1, 7 and 33 queries over 16 and 1,024
+   keys, tiles of ``min(512, Sk)``) at D 64 group 1 and D 128 group 7,
+   float32 and bfloat16, dyadic and random, exact and ExpMul, at
+   ``checks.kernel_tol``; and the cross-attention decode's one-pass
+   plain route on the card against the CPU;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -126,6 +135,11 @@ Phases (a failing check raises, and the script exits non-zero):
    (bf16 rows), kernels against plain versions: logits within 1e-3 of
    their magnitude, every RG-LRU layer's ``h`` and ``conv`` bit for bit
    before the first attention layer and within 1e-2 after it;
+3f. llava-next-34b at full width, depth cut to 4 layers, float32: 576
+   projected patches prepended to 64 text tokens through ``forward`` on
+   the kernels and on the plain versions, exact and ExpMul (logits within
+   1e-3, one flash launch a layer); then the ticks of phase 3 on a paged
+   int8 pool and on contiguous fp32 caches, gated as in 3;
 4. serving at full width: ``ServeEngine`` with 8 slots, 16 requests of
    128-1024 prompt tokens and 32 new tokens each, ExpMul, temperature 0,
    on three layouts: a paged int8 pool (its shared-prefix cache on, the
@@ -221,6 +235,21 @@ Phases (a failing check raises, and the script exits non-zero):
    the layouts' streams gated equal; tokens/s, TTFT, tick p50s, peak
    memory; one prefill and one decode tick profiled (busy time, idle
    share, top kernels). 4h and 4i take ~65-80 s;
+4j. llava-next-34b served at full width and depth (60 layers, bf16,
+   ExpMul, seed-2 weights; ``phase_gemma_serve``) as phase 4 serves
+   qwen2-0.5b, paged int8 and contiguous fp32, graphs against eager,
+   each run on its layout's two kernels alone; then one timed
+   ``forward`` of 1 x (576 + 512) tokens with frontend embeddings on the
+   served weights: one flash launch a layer and nothing else;
+4k. seamless-m4t-medium at full width and depth (12 + 12 layers, bf16,
+   ExpMul): a teacher-forced ``forward`` (36 flash launches: the
+   encoder's 12 at 1,024 frames, each decoder layer's self-attention and
+   cross-attention at 16 queries against 1,024), then 8 requests encoded
+   once (``enc_len`` 640-1,024; 12 flash launches) and decoded greedily
+   (prompts of 4-16 tokens, 32 new), kernels and plain versions in
+   lockstep: encoder output and every step's logits within 1e-3, 12
+   decode launches a step and nothing else, streams equal; encode ms,
+   decode-step p50, tokens/s and peak memory printed;
 5. per-kernel times at the serving shapes (int8 codes, ExpMul, 8
    sequences of 1024 tokens, 256-token chunks, bf16 q) and, for the flash
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
@@ -256,6 +285,13 @@ Phases (a failing check raises, and the script exits non-zero):
    this run's windowed work, the plain version, the exact-bf16 yardstick
    against SDPA under the same windowed mask, and the shared memory a
    CTA at group 10;
+5f. flash at this slice's new shapes (bf16, ExpMul): llava-next-34b's
+   frontend forward (1 x 1,088, 56 / 8 heads of 128, causal),
+   seamless-m4t-medium's encoder (8 x 1,024, 16 / 16 heads of 64,
+   non-causal) and cross-attention (16 queries over 1,024), and the
+   contiguous decode at seamless's self-attention (D 64, group 1): device
+   and launch times, the plain version, the bound, the exact variant
+   against SDPA;
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
    cosine schedule. One train step through the flash kernel and one
@@ -275,8 +311,10 @@ Phases (a failing check raises, and the script exits non-zero):
    grid, the raw attention error) must launch flash only, with every
    perplexity finite; its table is printed, not gated;
 8. one JSON line of kernels (each serving kernel with ``d256``,
-   ``d128``, ``rg_w2048`` and, for the contiguous pair, ``mla_96_64``
-   entries), the card line, and as the last line
+   ``d128``, ``llava_d128``, ``rg_w2048`` and, for the contiguous pair,
+   ``mla_96_64`` entries; flash with ``llava_frontend``,
+   ``seamless_encoder`` and ``seamless_cross``; the contiguous decode
+   with ``seamless_d64_g1``), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -336,6 +374,17 @@ RG_TICK_CHUNK, RG_CTX, RG_MAX_LEN = 1152, 3072, 4096
 # length (two chunkwise chunks of 144) and bf16 depth
 XLSTM, XLSTM_CHUNK, XLSTM_MAX_LEN = "xlstm-1.3b", 32, 256
 XLSTM_FWD_SEQ, XLSTM_BF16_LAYERS = 288, 8
+# llava-next-34b: a Yi-34B-class decoder, 56 / 8 heads of 128 (GQA group
+# 7), an untied head, RoPE base 5e6, 576 projected patches prepended to the
+# text; served at full depth (60 layers, 64.07 GiB of bf16 weights, a peak
+# of 66.4-68.2 GiB), its ticks at LLAVA_TICK_LAYERS in float32, its timed
+# frontend forward over 576 patches and LLAVA_TEXT tokens
+LLAVA, LLAVA_TICK_LAYERS, LLAVA_TEXT = "llava-next-34b", 4, 512
+# seamless-m4t-medium: 12 + 12 layers, 16 / 16 heads of 64, LayerNorm,
+# non-gated GELU, cross-attention over 1,024 stub frames; 8 requests of
+# prompts of 4-16 tokens, SEAMLESS_NEW greedy tokens each, and a
+# teacher-forced forward of SEAMLESS_TEXT tokens
+SEAMLESS, SEAMLESS_NEW, SEAMLESS_TEXT = "seamless-m4t-medium", 32, 16
 TRAIN_SEQ, TRAIN_STEPS = 1024, 6
 FLASH_EDGE_SEQS = (1, 31, 33, 65, 1000)
 # the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
@@ -1601,7 +1650,9 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
     config (RG-LRU blocks) is served on a paged pool at kv_dtype fp32 (int8
     is refused for a recurrent pattern), and its paged graph ticks are
     profiled too (where a hybrid tick's time goes: the recurrence loop,
-    the GEMMs or attention)."""
+    the GEMMs or attention). A config with a frontend (llava-next-34b)
+    then times a frontend forward on the served weights
+    (``llava_frontend_forward``), returned under "frontend_forward"."""
     _free(torch, f"{arch} serve")
     over = {} if num_layers is None else dict(num_layers=num_layers)
     cfg = cfg_mod.get_config(arch, **over)          # bf16, ExpMul
@@ -1656,6 +1707,9 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
                 launches.setdefault(name, {})[label] = counts[name]
             else:
                 launches[name] = counts[name]
+    if cfg.frontend:
+        launches["frontend_forward"] = llava_frontend_forward(
+            torch, api, build, params, cfg)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2566,6 +2620,423 @@ def _time_serving(torch, checks, F, flush, rng, h=H, hkv=HKV, d=D,
             f"SDPA dense {sdpa_ms:.4f} ms")
     return out
 
+def phase_flash_cross_checks(torch, checks):
+    """The flash kernel non-causal at Sq != Sk, as an encoder-decoder's
+    cross-attention calls it (``checks.flash_cross_cases``: 1, 7 and 33
+    queries over 16 and 1,024 keys), at seamless-m4t-medium's D 64 group 1
+    and llava-next-34b's D 128 group 7, float32 and bfloat16, dyadic and
+    random, exact and ExpMul, against its plain version at
+    ``checks.kernel_tol``; then the cross-attention decode's one-pass
+    route (plain ops on every device) on the card against the CPU, at
+    seamless's cross K/V (lengths 0, 1, 1,024 and ragged): float32 within
+    1e-5, bfloat16 within one bf16 step."""
+    from repro_torch.core.attention import decode_one_pass
+    rng = np.random.default_rng(11)
+    n, worst = 0, 0.0
+    for D, group in ((64, 1), (128, 7)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for dyadic in (True, False):
+                for label, case in checks.flash_cross_cases(
+                        rng, D=D, group=group, dtype=dtype, dyadic=dyadic):
+                    for variant in ("exact", "expmul"):
+                        got = checks.run_flash(case, variant)
+                        ref = checks.run_flash(case, variant, plain=True)
+                        rel = checks.rel_err(got, ref)
+                        tol = checks.kernel_tol(variant, dtype)
+                        worst = max(worst, rel / tol)
+                        n += 1
+                        if not rel <= tol:
+                            raise AssertionError(
+                                f"flash {label} D {D} group {group} "
+                                f"{dtype} {variant} dyadic={dyadic}: rel "
+                                f"{rel:.3e} over {tol:.1e}")
+    log(f"[check] flash cross-attention shapes: {n} cases within "
+        f"kernel_tol (worst {worst:.3f} of it)")
+    names = ("q", "k", "v", "lengths")
+    for dtype in (torch.float32, torch.bfloat16):
+        case = checks.one_pass_case(rng, dtype=dtype)
+        for variant in ("exact", "expmul"):
+            ref = decode_one_pass(*(case[k] for k in names), variant=variant)
+            got = decode_one_pass(*(case[k].cuda() for k in names),
+                                  variant=variant).cpu()
+            rel = checks.rel_err(got, ref)
+            log(f"[check] one-pass cross decode {dtype} {variant}: card vs "
+                f"CPU rel {rel:.3e}")
+            # the card sums in another order than the CPU: a bfloat16
+            # result may round one step apart (kernel_tol's bound for the
+            # exact variant's bfloat16 output), under ExpMul too
+            if not rel <= checks.kernel_tol("exact", dtype):
+                raise AssertionError("the one-pass decode on the card "
+                                     "disagrees with the CPU")
+
+
+def phase_llava_ticks(torch, cfg_mod, api, build):
+    """llava-next-34b at full width, depth cut to 4 layers, float32 (TF32
+    off), random weights from seed 0: 576 projected patches prepended to
+    64 text tokens (2 sequences) through ``forward`` on the kernels and on
+    the plain versions, exact and ExpMul: logits within 1e-3 of their
+    magnitude, flash (or its plain version) launched once a layer and no
+    other kernel; then phase 3's ticks on a paged int8 pool and on
+    contiguous fp32 caches, gated as in 3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _free(torch, "llava ticks")
+    base = cfg_mod.get_config(LLAVA, dtype="float32", param_dtype="float32",
+                              num_layers=LLAVA_TICK_LAYERS)
+    log(f"[config] {LLAVA}: d_model {base.d_model}, {base.num_heads} / "
+        f"{base.num_kv_heads} heads of {base.resolved_head_dim()}, d_ff "
+        f"{base.d_ff}, vocab {base.vocab_size} untied, {base.frontend_tokens}"
+        f" patches of {base.frontend_dim}; {base.param_count()} parameters;"
+        f" reduced: num_layers {cfg_mod.get_config(LLAVA).num_layers} -> "
+        f"{LLAVA_TICK_LAYERS}")
+    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(1, base.vocab_size, (2, 64),
+                                     generator=gen, device="cuda"),
+             "frontend_embeds": torch.randn(
+                 (2, base.frontend_tokens, base.frontend_dim), generator=gen,
+                 device="cuda")}
+    for variant in ("exact", "expmul"):
+        out = {}
+        for impl in ("kernel", "plain"):
+            cfg = base.replace(attention_variant=variant, attention_impl=impl)
+            build.reset_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out[impl] = api.forward(params, batch, cfg).double()
+            torch.cuda.synchronize()
+            counts = dict(build.COUNTS)
+            name = "flash" if impl == "kernel" else "flash_plain"
+            log(f"[model] {LLAVA} forward with frontend {variant} {impl}: "
+                f"{tuple(out[impl].shape)} logits in "
+                f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+            if counts != {name: base.num_layers}:
+                raise AssertionError("the forward is not one flash launch a "
+                                     "layer")
+        a, b = out["kernel"], out["plain"]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("non-finite logits")
+        gap = float((a - b).abs().max() / b.abs().max())
+        log(f"[model] {LLAVA} forward with frontend {variant}: max|dlogits| "
+            f"/ max|logits| = {gap:.3e} (max|logits| "
+            f"{float(b.abs().max()):.3f}; gated at 1e-3)")
+        if not gap <= 1e-3:
+            raise AssertionError("kernel logits disagree with plain")
+        del out, a, b
+    bt, chunks, toks, tok1 = _tick_inputs(torch, np.random.default_rng(1),
+                                          base.vocab_size)
+    runs = [("paged", None, "int8", chunks, tok1),
+            ("contiguous", None, "fp32", chunks, tok1)]
+    _hold_ticks(torch, api, params, base, runs, bt, toks, tag=f"{LLAVA} ")
+    del params
+    torch.cuda.empty_cache()
+
+
+def llava_frontend_forward(torch, api, build, params, cfg):
+    """One timed ``forward`` of 1 x (576 patches + ``LLAVA_TEXT`` tokens)
+    with frontend embeddings, on the served weights (bf16, ExpMul), after
+    one untimed: flash launched once a layer and nothing else, finite
+    logits of the whole sequence. Returns its launches and ms."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, LLAVA_TEXT),
+                                     generator=gen, device="cuda"),
+             "frontend_embeds": torch.randn(
+                 (1, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+                 device="cuda").to(torch.bfloat16)}
+    with torch.no_grad():
+        api.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        logits = api.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(build.COUNTS)
+    S = cfg.frontend_tokens + LLAVA_TEXT
+    log(f"[model] {LLAVA} forward with frontend, bf16 ExpMul, "
+        f"{cfg.num_layers} layers, 1 x ({cfg.frontend_tokens} + "
+        f"{LLAVA_TEXT}) tokens: {ms:.1f} ms, launches {counts}")
+    if counts != {"flash": cfg.num_layers}:
+        raise AssertionError("the frontend forward is not one flash launch a "
+                             "layer")
+    if tuple(logits.shape) != (1, S, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("the frontend forward's logits are not finite "
+                             "of the expected shape")
+    return dict(launches=counts["flash"], forward_ms=ms)
+
+
+def phase_seamless(torch, cfg_mod, api, build):
+    """seamless-m4t-medium at full width and depth (12 + 12 layers, bf16,
+    ExpMul, random weights from seed 0), through the kernels and through
+    the plain versions from the same weights. A teacher-forced ``forward``
+    of 16 text tokens over 8 x 1,024 stub frames: logits within 1e-3 of
+    their magnitude, 36 flash launches (12 encoder layers non-causal at
+    Sq = Sk = 1,024, then each decoder layer's causal self-attention and
+    its cross-attention at Sq = 16 against 1,024). Then its serving path:
+    8 requests of 1,024 frames with ``enc_len`` 640 to 1,024, encoded once
+    (encoder outputs within 1e-3; 12 flash launches and nothing else),
+    each text prompt of 4-16 tokens fed through ``decode_step``, then
+    ``SEAMLESS_NEW`` greedy tokens, both paths in lockstep: every step's
+    logits within 1e-3 (over the rows whose streams have not parted), 12
+    ``decode`` launches a step and nothing else (the cross-attention
+    decode is the reference's one-pass plain route), temp-0 streams
+    equal. Prints encode ms, decode-step p50, tokens/s and peak memory;
+    returns the launches."""
+    _free(torch, "seamless")
+    base = cfg_mod.get_config(SEAMLESS)              # bf16, ExpMul
+    assert base.attention_variant == "expmul" and base.dtype == "bfloat16"
+    L, V = base.decoder_layers, base.vocab_size
+    log(f"[config] {SEAMLESS}: {base.encoder_layers} + {L} layers, d_model "
+        f"{base.d_model}, {base.num_heads} / {base.num_kv_heads} heads of "
+        f"{base.resolved_head_dim()}, d_ff {base.d_ff} GELU, {base.norm}, "
+        f"vocab {V} tied, {base.frontend_tokens} frames of "
+        f"{base.frontend_dim}; {base.param_count()} parameters (uncut)")
+    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    rng = np.random.default_rng(12)
+    Se = base.frontend_tokens
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, Se, base.frontend_dim)).astype(np.float32)).cuda().to(
+            torch.bfloat16)
+    lo = Se * 5 // 8                                 # 640 of 1,024 frames
+    enc_len = np.concatenate([[lo, Se], rng.integers(lo + 1, Se, B - 2)])
+    lens_p = np.concatenate([[4, 16], rng.integers(4, 17, B - 2)])
+    prompts = [rng.integers(1, V, int(n)).tolist() for n in lens_p]
+    impls = ("kernel", "plain")
+    cfgs = {impl: base.replace(attention_impl=impl) for impl in impls}
+    names = {"kernel": ("flash", "decode"),
+             "plain": ("flash_plain", "decode_plain")}
+
+    def gate(label, a, b, quiet=False):
+        a, b = a.double(), b.double()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{label}: non-finite values")
+        gap = float((a - b).abs().max() / b.abs().max())
+        if not quiet or not gap <= 1e-3:
+            log(f"[model] {SEAMLESS} {label}: kernel vs plain max|d| / max| "
+                f"| = {gap:.3e} (max {float(b.abs().max()):.3f}; gated at "
+                f"1e-3)")
+        if not gap <= 1e-3:
+            raise AssertionError(f"{label}: kernels disagree with plain")
+        return gap
+
+    text = torch.from_numpy(rng.integers(1, V, (B, SEAMLESS_TEXT))).cuda()
+    out = {}
+    for impl in impls:
+        build.reset_counts()
+        with torch.no_grad():
+            out[impl] = api.forward(params, {"tokens": text,
+                                             "frontend_embeds": frames},
+                                    cfgs[impl])
+        torch.cuda.synchronize()
+        n = base.encoder_layers + 2 * L
+        if dict(build.COUNTS) != {names[impl][0]: n}:
+            raise AssertionError(f"forward {impl}: launches "
+                                 f"{dict(build.COUNTS)}, not {n} flash")
+    gate(f"forward, {SEAMLESS_TEXT} tokens over {Se} frames", out["kernel"],
+         out["plain"])
+    del out
+    steps = int(lens_p.max()) - 1 + SEAMLESS_NEW
+    enc_t = torch.from_numpy(enc_len.astype(np.int32)).cuda()
+    states, enc, encode_ms = {}, {}, {}
+    for impl in impls:
+        state = api.init_decode_state(cfgs[impl], B, steps + 1, enc_len=Se,
+                                      device="cuda")
+        with torch.no_grad():
+            enc[impl] = api.encode(params, frames, cfgs[impl])
+            torch.cuda.synchronize()
+            build.reset_counts()
+            t0 = time.perf_counter()
+            states[impl] = api.encode_for_decode(params, state, frames, enc_t,
+                                                 cfgs[impl])
+            torch.cuda.synchronize()
+        encode_ms[impl] = (time.perf_counter() - t0) * 1e3
+        if dict(build.COUNTS) != {names[impl][0]: base.encoder_layers}:
+            raise AssertionError(f"encode {impl}: launches "
+                                 f"{dict(build.COUNTS)}")
+    gate(f"encoder output, {B} x {Se} frames", enc["kernel"], enc["plain"])
+    del enc
+    torch.cuda.reset_peak_memory_stats()
+    tok = {impl: torch.tensor([p[0] for p in prompts], dtype=torch.int32,
+                              device="cuda") for impl in impls}
+    streams = {impl: [[] for _ in range(B)] for impl in impls}
+    parted = np.zeros(B, bool)
+    step_ms, gaps = [], []
+    for step in range(steps):
+        lens = torch.full((B,), step, dtype=torch.int32, device="cuda")
+        logits = {}
+        for impl in impls:
+            build.reset_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits[impl], _ = api.decode_step(params, states[impl],
+                                                  tok[impl], lens, cfgs[impl])
+            torch.cuda.synchronize()
+            if impl == "kernel":
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            if dict(build.COUNTS) != {names[impl][1]: L}:
+                raise AssertionError(f"decode step {step} {impl}: launches "
+                                     f"{dict(build.COUNTS)}, not {L} decode")
+        rows = torch.from_numpy(~parted).cuda()
+        gaps.append(gate(f"decode step {step}", logits["kernel"][rows],
+                         logits["plain"][rows], quiet=True))
+        for impl in impls:
+            greedy = logits[impl].argmax(-1).cpu().numpy()
+            nxt = []
+            for b in range(B):
+                if step + 1 < lens_p[b]:
+                    nxt.append(prompts[b][step + 1])
+                else:
+                    if len(streams[impl][b]) < SEAMLESS_NEW:
+                        streams[impl][b].append(int(greedy[b]))
+                    nxt.append(int(greedy[b]))
+            tok[impl] = torch.tensor(nxt, dtype=torch.int32, device="cuda")
+        parted |= [a != b for a, b in zip(streams["kernel"],
+                                          streams["plain"])]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[model] {SEAMLESS} decode steps: kernel vs plain logits, the "
+        f"largest max|d| / max| | of {steps} steps {max(gaps):.3e}, median "
+        f"{statistics.median(gaps):.3e} (each gated at 1e-3)")
+    gen = sum(map(len, streams["kernel"]))
+    same = sum(a == b for x, y in zip(streams["kernel"], streams["plain"])
+               for a, b in zip(x, y))
+    log(f"[serve] {SEAMLESS}: {B} requests, enc_len {int(enc_len.min())}-"
+        f"{int(enc_len.max())} of {Se} frames, prompts {int(lens_p.min())}-"
+        f"{int(lens_p.max())} tokens, {SEAMLESS_NEW} new each: encode "
+        f"{encode_ms['kernel']:.2f} ms (plain {encode_ms['plain']:.2f}); "
+        f"{steps} decode steps, p50 {statistics.median(step_ms):.2f} ms, "
+        f"{gen} tokens generated at {gen / (sum(step_ms) / 1e3):.1f} "
+        f"tokens/s over the steps (prompt feed included); peak memory "
+        f"{peak:.2f} GiB (both paths' states); kernel vs plain temp-0 "
+        f"streams {same} of {gen} tokens equal")
+    if streams["kernel"] != streams["plain"] or gen != B * SEAMLESS_NEW:
+        raise AssertionError("the kernel path's streams differ from the "
+                             "plain path's")
+    del params, states
+    torch.cuda.empty_cache()
+    return {"flash_encode": base.encoder_layers,
+            "flash_forward": base.encoder_layers + 2 * L,
+            "decode": L * steps, "encode_ms": encode_ms["kernel"],
+            "decode_step_p50_ms": statistics.median(step_ms)}
+
+
+def phase_frontend_times(torch, checks, F, build, flash, decode):
+    """flash at this slice's new shapes (bf16, ExpMul, 512-wide tiles):
+    llava-next-34b's frontend forward (1 x 1,088 tokens, 56 / 8 heads of
+    128, causal), seamless-m4t-medium's encoder (8 x 1,024 frames, 16 / 16
+    heads of 64, non-causal) and its cross-attention (16 queries against
+    1,024 frames); and the contiguous decode at seamless's self-attention
+    (8 x 16 / 16 heads of 64, bf16 cache of 64 slots, lengths 16-48):
+    device time, time with the launch, the plain version (median of 5),
+    the bound, the exact variant against SDPA on the same bf16 operands;
+    each bf16 ExpMul instantiation's registers and spills, and the shared
+    memory a CTA."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(13)
+    S_llava = 576 + LLAVA_TEXT
+    out = {"flash": {}}
+    for label, kw in (
+            ("llava_frontend", dict(B=1, H=ARCTIC_H, Hkv=ARCTIC_HKV,
+                                    Sq=S_llava, Sk=S_llava, D=ARCTIC_D,
+                                    causal=True)),
+            ("seamless_encoder", dict(B=B, H=16, Hkv=16, Sq=1024, Sk=1024,
+                                      D=64, causal=False)),
+            ("seamless_cross", dict(B=B, H=16, Hkv=16, Sq=SEAMLESS_TEXT,
+                                    Sk=1024, D=64, causal=False))):
+        case = checks.flash_case(rng, dtype=torch.bfloat16, dyadic=False,
+                                 block_k=512, device="cuda", **kw)
+        got = checks.run_flash(case, "expmul")
+        ref = checks.run_flash(case, "expmul", plain=True)
+        rel = checks.rel_err(got, ref)
+        if not rel <= checks.kernel_tol("expmul", torch.bfloat16):
+            raise AssertionError(f"flash disagrees at {label}")
+        def run(v="expmul", plain=False, case=case):
+            return checks.run_flash(case, v, plain=plain)
+        ms = median_ms(torch, run, flush)
+        host_ms = median_ms(torch, run, flush, hide_host=False)
+        plain_ms = median_ms(torch, lambda: run(plain=True), flush, n=5,
+                             warmup=1)
+        exact_ms = median_ms(torch, lambda: run("exact"), flush)
+        q, k, v = case["q"], case["k"], case["v"]
+        sdpa_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=kw["causal"], enable_gqa=True), flush)
+        Bq, H, Sq, Sk, D = kw["B"], kw["H"], kw["Sq"], kw["Sk"], kw["D"]
+        pairs = Bq * H * (Sq * (Sq + 1) // 2 if kw["causal"] else Sq * Sk)
+        nbytes = 2 * (2 * Bq * H * Sq * D + 2 * Bq * kw["Hkv"] * Sk * D)
+        flops = 4 * D * pairs
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        out["flash"][label] = dict(
+            max_abs_err=float((got.float() - ref.float()).abs().max()),
+            ms=ms, ms_with_launch=host_ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None,
+            yardstick={"what": "exact variant vs SDPA, bf16",
+                       "kernel_ms": exact_ms, "library_ms": sdpa_ms},
+            ptxas=_ptxas(build, "flash",
+                         f"flash_kernelI13__nv_bfloat16Li{D}ELb1EE"),
+            smem_bytes=flash.smem_bytes(D, 512))
+        log(f"[time] flash {label} (bf16, ExpMul, B={Bq}, {H} / "
+            f"{kw['Hkv']} heads of {D}, Sq {Sq}, Sk {Sk}, "
+            f"{'causal' if kw['causal'] else 'non-causal'}): kernel "
+            f"{ms:.4f} ms on the device, {host_ms:.4f} ms with its launch, "
+            f"plain {plain_ms:.4f} ms, bound "
+            f"{out['flash'][label]['bound_ms']:.4f} ms "
+            f"({out['flash'][label]['bound_by']}: {nbytes} B, {flops} flop "
+            f"at the bf16 rate), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+            f"rel err {rel:.3e}; exact variant {exact_ms:.4f} ms vs SDPA "
+            f"{sdpa_ms:.4f} ms")
+    lens = rng.integers(16, 49, B).tolist()
+    case = checks.contiguous_case(rng, B=B, H=16, Hkv=16, D=64, S=64,
+                                  lengths=lens, kv="bf16",
+                                  q_dtype=torch.bfloat16, dyadic=False,
+                                  device="cuda")
+    def run(v="expmul", plain=False):
+        return checks.run_contiguous_decode(case, v, plain=plain)
+    got, ref = run(), run(plain=True)
+    rel = checks.rel_err(got, ref)
+    if not rel <= checks.kernel_tol("expmul", torch.bfloat16):
+        raise AssertionError("decode disagrees at seamless's self-attention")
+    ms = median_ms(torch, run, flush)
+    host_ms = median_ms(torch, run, flush, hide_host=False)
+    plain_ms = median_ms(torch, lambda: run(plain=True), flush, n=5,
+                         warmup=1)
+    exact_ms = median_ms(torch, lambda: run("exact"), flush)
+    q = torch.randn(B, 16, 1, 64, device="cuda", dtype=torch.bfloat16)
+    kd = torch.randn(B, 16, max(lens), 64, device="cuda", dtype=torch.bfloat16)
+    vd = torch.randn_like(kd)
+    sdpa_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kd, vd), flush)
+    L = np.asarray(lens, np.int64)
+    nbytes = 2 * 2 * B * 16 * 64 + int((16 * L * 2 * 64 * 2).sum()) + 4 * B
+    flops = 4 * 64 * int((16 * L).sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    out["decode"] = dict(
+        max_abs_err=float((got.float() - ref.float()).abs().max()), ms=ms,
+        ms_with_launch=host_ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None,
+        yardstick={"what": "exact variant vs SDPA over a dense bf16 copy",
+                   "kernel_ms": exact_ms, "library_ms": sdpa_ms},
+        ptxas=_ptxas(build, "decode",
+                     "decode_kernelI13__nv_bfloat16Li64ELi64ELb1EE"),
+        smem_bytes=decode.contiguous_decode_smem(1, 64, decode.BLOCK_K,
+                                                 torch.bfloat16))
+    for label, r in [*out["flash"].items(), ("decode", out["decode"])]:
+        log(f"[resources] {label}: {r['ptxas']}; {r['smem_bytes']} B of "
+            f"shared memory a CTA")
+    log(f"[time] decode seamless self-attention (bf16 cache, ExpMul, B={B}, "
+        f"16 / 16 heads of 64, lengths {min(lens)}-{max(lens)} of 64): "
+        f"kernel {ms:.4f} ms on the device, {host_ms:.4f} ms with its "
+        f"launch, plain {plain_ms:.4f} ms, bound "
+        f"{out['decode']['bound_ms']:.5f} ms ({out['decode']['bound_by']}: "
+        f"{nbytes} B, {flops} flop), rel err {rel:.3e}; exact variant "
+        f"{exact_ms:.4f} ms vs SDPA {sdpa_ms:.4f} ms")
+    return out
+
 
 def phase_times(torch, checks, F):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -3116,11 +3587,14 @@ def main() -> int:
         ("moe routing", lambda: phase_moe_routing(torch)),
         ("expmul checks", lambda: phase_expmul_checks(torch, checks, build,
                                                       expmul_ops)),
+        ("flash cross checks", lambda: phase_flash_cross_checks(torch,
+                                                                checks)),
         ("model ticks", lambda: phase_model_ticks(torch, cfg_mod, api)),
         ("gemma ticks", lambda: phase_gemma_ticks(torch, cfg_mod, api)),
         ("mla ticks", lambda: phase_mla_ticks(torch, cfg_mod, api)),
         ("arctic ticks", lambda: phase_arctic_ticks(torch, cfg_mod, api)),
         ("rg ticks", lambda: phase_rg_ticks(torch, cfg_mod, api)),
+        ("llava ticks", lambda: phase_llava_ticks(torch, cfg_mod, api, build)),
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
         ("prefix", lambda: phase_prefix(torch, cfg_mod, api, build,
@@ -3142,6 +3616,9 @@ def main() -> int:
                                                   ServeEngine)),
         ("xlstm serve", lambda: phase_xlstm_serve(torch, cfg_mod, api, build,
                                                   ServeEngine)),
+        ("llava serve", lambda: phase_gemma_serve(
+            torch, cfg_mod, api, build, ServeEngine, arch=LLAVA)),
+        ("seamless", lambda: phase_seamless(torch, cfg_mod, api, build)),
         ("times", lambda: phase_times(torch, checks, F)),
         ("gemma times", lambda: phase_gemma_times(torch, checks, F)),
         ("mla times", lambda: phase_mla_times(torch, checks, F, build, decode,
@@ -3149,6 +3626,8 @@ def main() -> int:
         ("arctic times", lambda: phase_arctic_times(torch, checks, F)),
         ("rg times", lambda: phase_rg_times(torch, checks, F, decode,
                                             prefill)),
+        ("frontend times", lambda: phase_frontend_times(
+            torch, checks, F, build, flash, decode)),
         ("resources", lambda: phase_resources(build, decode, prefill,
                                               flash)),
         ("train", lambda: phase_train(torch, cfg_mod, api, build)),
@@ -3198,6 +3677,25 @@ def main() -> int:
     for name in CONTIGUOUS:
         results["resources"][name]["mla_96_64"] = dict(
             launches=results["mla serve"][name], **results["mla times"][name])
+    # llava-next-34b's serving runs (head dim 128, group 7, as arctic's
+    # times), flash at this slice's new shapes (llava's frontend forward,
+    # seamless-m4t-medium's encoder and cross-attention) and the contiguous
+    # decode at seamless's self-attention (D 64, group 1)
+    for name in PAGED + CONTIGUOUS:
+        results["resources"][name]["llava_d128"] = dict(
+            launches=results["llava serve"][name])
+    sm, ft = results["seamless"], results["frontend times"]
+    results["resources"]["flash"].update(
+        llava_frontend=dict(**results["llava serve"]["frontend_forward"],
+                            **ft["flash"]["llava_frontend"]),
+        seamless_encoder=dict(launches_encode=sm["flash_encode"],
+                              encode_ms=sm["encode_ms"],
+                              **ft["flash"]["seamless_encoder"]),
+        seamless_cross=dict(launches_forward=sm["flash_forward"],
+                            **ft["flash"]["seamless_cross"]))
+    results["resources"]["decode"]["seamless_d64_g1"] = dict(
+        launches=sm["decode"], decode_step_p50_ms=sm["decode_step_p50_ms"],
+        **ft["decode"])
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **launches[name],

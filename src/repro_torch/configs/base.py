@@ -6,13 +6,18 @@ and the fields of the recurrent patterns: ``block_pattern`` (a unit of
 block kinds, ``attn``, ``rglru``, ``mlstm`` or ``slstm``, repeated to fill
 ``num_layers``; recurrentgemma-2b mixes RG-LRU and attention blocks,
 xlstm-1.3b has mLSTM and sLSTM blocks and no attention layer),
-``lru_width`` and ``logits_softcap``.
+``lru_width`` and ``logits_softcap``; ``norm`` (RMSNorm, or LayerNorm
+for seamless-m4t-medium); the encoder-decoder depths ``encoder_layers``
+and ``decoder_layers`` (seamless-m4t-medium: a non-causal encoder over
+frontend frames, a decoder with cross-attention); and the modality
+frontend stub ``frontend``, ``frontend_tokens`` and ``frontend_dim``: the
+frontend's embeddings are a model input, projected to ``d_model``
+(llava-next-34b prepends them to the text, seamless-m4t-medium encodes
+them).
 
-Fields of families the port does not serve yet (encoder-decoder,
-modality frontends) are left out until their slice, and
-so are ``family``, ``max_seq_len`` and ``opt_state_dtype``, which nothing
-of the port reads (training with MoE, and its bf16 moments, wait for a
-later slice). An MLA config's attention reads its head dims from ``mla``
+``family``, ``max_seq_len`` and ``opt_state_dtype`` are left out: nothing
+of the port reads them (training with MoE, and its bf16 moments, wait for
+a later slice). An MLA config's attention reads its head dims from ``mla``
 alone: ``resolved_head_dim()`` (``d_model // num_heads``) is neither its
 qk dim nor its v dim. A config with ``moe`` has no dense FFN of ``d_ff``:
 its FFN is the experts (and the dense residual of ``moe.dense_d_ff``).
@@ -56,8 +61,9 @@ class ModelConfig:
     head_dim: int | None = None    # default d_model // num_heads
     d_ff: int = 1024
     vocab_size: int = 1000
-    activation: str = "swiglu"     # swiglu | geglu (gated MLPs)
+    activation: str = "swiglu"     # swiglu | geglu (gated) | gelu
     qkv_bias: bool = False
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
     tie_embeddings: bool = True
     scale_embeddings: bool = False  # gemma: embed * sqrt(d_model)
     rope_base: float = 10000.0
@@ -68,6 +74,14 @@ class ModelConfig:
     logits_softcap: float | None = None
     mla: MLAConfig | None = None
     moe: MoEConfig | None = None
+    # encoder-decoder depths (0: decoder-only)
+    encoder_layers: int = 0
+    decoder_layers: int = 0
+    # modality frontend stub: its embeddings (B, frontend_tokens,
+    # frontend_dim) are a model input
+    frontend: str | None = None    # vision | audio
+    frontend_tokens: int = 0
+    frontend_dim: int = 0
 
     # "kernel": the attention ticks run the hand-written CUDA kernels (their
     # plain versions for CPU tensors); "plain": the plain PyTorch versions
@@ -101,7 +115,9 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Parameters as ``repro``'s ``param_count`` counts them (MLA's two
-        latent norms left out, as there)."""
+        latent norms, LayerNorm biases and the frontend projection of an
+        encoder-decoder left out, a decoder layer's cross-attention counted
+        with the QKV bias it does not have, as there)."""
         return self._param_count(active_only=False)
 
     def active_param_count(self) -> int:
@@ -122,14 +138,16 @@ class ModelConfig:
             attn = (d * H * hd + 2 * d * self.num_kv_heads * hd + H * hd * d)
             if self.qkv_bias:
                 attn += (H + 2 * self.num_kv_heads) * hd
-        if self.moe is not None:      # gated experts, router, dense residual
+        # w_gate, w_up, w_down of a gated MLP; w_up, w_down of a plain one
+        mult = 3 if self.activation in ("swiglu", "geglu") else 2
+        if self.moe is not None:      # experts, router, dense residual
             m = self.moe
             n = m.top_k if active_only else m.num_experts
-            ffn = n * 3 * d * m.d_ff + d * m.num_experts
+            ffn = n * mult * d * m.d_ff + d * m.num_experts
             if m.dense_residual:
-                ffn += 3 * d * m.dense_d_ff
+                ffn += mult * d * m.dense_d_ff
         else:
-            ffn = 3 * d * self.d_ff    # gated: w_gate, w_up, w_down
+            ffn = mult * d * self.d_ff
         w = self.lru_width or d
         # in/out projections (two branches), conv4, gates a/x, lambda, norms
         rglru = 2 * d * w + 4 * w + 2 * w * w + 3 * w + w * d + 2 * d
@@ -144,4 +162,10 @@ class ModelConfig:
         blocks = {"attn": attn + ffn + 2 * d, "rglru": rglru + ffn,
                   "mlstm": mlstm, "slstm": slstm}
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return emb + d + sum(blocks[kind] for kind in self.pattern_for())
+        if self.encoder_layers:       # decoder layers add cross + its norm
+            return (emb + d + sum(blocks[kind] for kind in
+                                  self.pattern_for(self.encoder_layers))
+                    + self.decoder_layers * (blocks["attn"] + attn + d))
+        front = self.frontend_dim * d if self.frontend else 0
+        return (emb + d + front
+                + sum(blocks[kind] for kind in self.pattern_for()))

@@ -12,6 +12,8 @@ _ARCH_MODULES = {
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -15,8 +15,13 @@ layer keeps its leaves by name: RG-LRU's, mLSTM's ``w_up``, ``w_gate``,
 ``wqh``, ``wkh``, ``wvh``, ``w_i``, ``b_i``, ``w_f``, ``b_f``, ``w_down``,
 sLSTM's ``w_*``, ``r_*``, ``b_*`` of each gate and its ``ffn_*``, and
 an xLSTM block has no ``norm_ffn`` or ``ffn``), so both frameworks run
-the same weights. This module imports neither ``jax``
-nor ``repro``: the arrays arrive as numpy.
+the same weights. Norms keep every leaf (a LayerNorm's ``bias`` too). A
+frontend's ``frontend_proj`` comes along; an encoder-decoder's
+``enc_units`` (stacked like ``units``, over ``encoder_layers``) become
+``enc_layers``, its ``dec_units`` (one unit kind, stacked over
+``decoder_layers``, each layer with ``norm_cross`` and ``cross``) become
+``dec_layers``, and ``enc_final_norm`` comes along. This module imports
+neither ``jax`` nor ``repro``: the arrays arrive as numpy.
 """
 from __future__ import annotations
 
@@ -35,21 +40,31 @@ def _tensor(a, device):
 
 def params_from_jax(np_params, cfg, *, device="cuda"):
     device = resolve_device(device)
-    units = np_params["units"]
-    if len(units) != len(cfg.block_pattern):
-        raise ValueError(f"{len(units)} unit kinds for the block pattern "
-                         f"{cfg.block_pattern}")
 
-    def layer(tree, i):  # nested dicts (MLA's norms) keep their nesting
+    def whole(tree):
+        return {name: whole(leaf) if isinstance(leaf, dict)
+                else _tensor(leaf, device) for name, leaf in tree.items()}
+
+    def layer(tree, i):  # nested dicts (norms, MLA's) keep their nesting
         return {name: layer(leaf, i) if isinstance(leaf, dict)
                 else _tensor(leaf[i], device) for name, leaf in tree.items()}
 
-    n = len(units)
-    return {
-        "embed": {name: _tensor(w, device)
-                  for name, w in np_params["embed"].items()},
-        "final_norm": {"scale": _tensor(np_params["final_norm"]["scale"],
-                                        device)},
-        "layers": [layer(units[i % n], i // n)
-                   for i in range(cfg.num_layers)],
-    }
+    def layers(units, n_layers):
+        if len(units) != len(cfg.block_pattern):
+            raise ValueError(f"{len(units)} unit kinds for the block "
+                             f"pattern {cfg.block_pattern}")
+        n = len(units)
+        return [layer(units[i % n], i // n) for i in range(n_layers)]
+
+    out = {"embed": whole(np_params["embed"]),
+           "final_norm": whole(np_params["final_norm"])}
+    if "frontend_proj" in np_params:
+        out["frontend_proj"] = _tensor(np_params["frontend_proj"], device)
+    if not cfg.encoder_layers:
+        out["layers"] = layers(np_params["units"], cfg.num_layers)
+        return out
+    out["enc_layers"] = layers(np_params["enc_units"], cfg.encoder_layers)
+    out["enc_final_norm"] = whole(np_params["enc_final_norm"])
+    out["dec_layers"] = [layer(np_params["dec_units"][0], i)
+                         for i in range(cfg.decoder_layers)]
+    return out

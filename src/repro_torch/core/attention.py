@@ -14,6 +14,11 @@ quantized weights of ``qexp_ste`` whose gradient is that of the exact
 KV tiles of ``flash_ref``, the largest divisor of Sk not above
 ``block_k``, which differ from the forward's padded tiles when
 ``block_k`` does not divide Sk, as in the reference.
+
+``decode_one_pass`` is the reference's "xla" decode route
+(``_decode_xla`` and ``_masked_decode_xla``), which its cross-attention
+decode takes: plain PyTorch ops on any device, the reference's own route
+there (``repro`` reaches no ``pallas_call`` for it).
 """
 from __future__ import annotations
 
@@ -184,3 +189,30 @@ def attention(q, k, v, cfg, *, causal=True, window=None, scale=None):
         q, k, v, causal, float(scale), window, cfg.attention_variant,
         min(cfg.attention_block_k, k.shape[2]),
         cfg.attention_impl == "plain")
+
+
+def decode_one_pass(q, k, v, lengths, *, variant="exact", scale=None):
+    """One query a row over a cache: q (B, H, D), k (B, Hkv, S, D) and v
+    (B, Hkv, S, Dv), the first ``lengths`` (B,) rows valid -> (B, H, Dv)
+    in q's dtype. One masked softmax over all S columns, in float32, as
+    the reference's "xla" decode route computes it: the ExpMul weights are
+    ``pow2_neg(log2exp_lhat(s - m))`` with m the whole row's max, so they
+    differ from a tiled walk's, whose m is a running max. A row of length
+    0 gives zeros."""
+    B, H, D = q.shape
+    _, Hkv, S, _ = k.shape
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    qf = q.to(torch.float32).reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bhkd->bhgk", qf, k.to(torch.float32)) * scale
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])[:, None, None, :]
+    s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = (pow2_neg(log2exp_lhat(s - m)) if variant == "expmul"
+         else torch.exp(s - m))
+    p = torch.where(mask, p, torch.zeros_like(p))
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bhgk,bhkd->bhgd",
+                     p / torch.where(l == 0.0, torch.ones_like(l), l),
+                     v.to(torch.float32))
+    return o.reshape(B, H, v.shape[-1]).to(q.dtype)

@@ -21,8 +21,12 @@ input of each serving kernel at recurrentgemma-2b's local attention (MQA,
 10 query heads over 1 KV head of 256, a 2,048-token window, the
 contiguous cache a rolling buffer of span 2,048 that wraps).
 ``flash_case`` builds one full-sequence input (q, k, v of one dtype) for
-the training path's flash forward, and ``flash_edge_cases`` the edges of
-its kernel's layout.
+the training path's flash forward, ``flash_edge_cases`` the edges of
+its kernel's layout, and ``flash_cross_cases`` its non-causal Sq != Sk
+shapes of an encoder-decoder's cross-attention. ``one_pass_case`` builds
+an input of the cross-attention decode (``core.attention.decode_one_pass``,
+plain PyTorch on every device), to hold its card result against the
+CPU's.
 ``expmul_case`` builds one input of the standalone ExpMul operator, with
 the contract's edge values, and ``same_bits`` compares two of its
 results as raw bits.
@@ -289,6 +293,37 @@ def flash_edge_cases(rng, *, S, D, group, dtype, dyadic, device="cuda"):
                                         D=D, dtype=dtype, dyadic=dyadic,
                                         device=device, **kw)))
     return cases
+
+
+# cross-attention query lengths (under, at one past and past the flash
+# kernel's 32-row query block) and encoder lengths (under one tile, and
+# two 512-wide tiles of seamless-m4t-medium's 1,024 frames)
+CROSS_SQ, CROSS_SK = (1, 7, 33), (16, 1024)
+
+
+def flash_cross_cases(rng, *, D, group, dtype, dyadic, device="cuda"):
+    """Non-causal flash at Sq != Sk, over the tiles cross-attention's
+    ``attention`` call walks (``min(512, Sk)`` wide): every Sq of
+    ``CROSS_SQ`` against every Sk of ``CROSS_SK``, 2 sequences, 2 KV heads
+    of ``group`` query heads each. Returns [(label, case)]."""
+    return [(f"Sq {sq} Sk {sk}",
+             flash_case(rng, B=2, H=2 * group, Hkv=2, Sq=sq, Sk=sk, D=D,
+                        dtype=dtype, dyadic=dyadic, causal=False,
+                        block_k=min(512, sk), device=device))
+            for sq in CROSS_SQ for sk in CROSS_SK]
+
+
+def one_pass_case(rng, *, B=8, H=16, Hkv=16, S=1024, D=64,
+                  dtype=torch.bfloat16):
+    """CPU operands of ``decode_one_pass`` at seamless-m4t-medium's cross
+    K/V (16 / 16 heads of 64, 1,024 frames), dyadic (exact scores), with
+    lengths 0, 1, S and ragged ones between: q (B, H, D), k and v
+    (B, Hkv, S, D) in ``dtype``, lengths (B,) int32."""
+    lengths = np.concatenate([[0, 1, S], rng.integers(2, S, B - 3)])
+    return dict(q=torch.from_numpy(_act(rng, (B, H, D), True)).to(dtype),
+                k=torch.from_numpy(_act(rng, (B, Hkv, S, D), True)).to(dtype),
+                v=torch.from_numpy(_act(rng, (B, Hkv, S, D), True)).to(dtype),
+                lengths=torch.from_numpy(lengths.astype(np.int32)))
 
 
 def run_flash(case, variant, plain=False):

@@ -2,8 +2,8 @@
 training (``attn_apply``) and the serving paths over per-slot or paged KV
 caches.
 
-``repro/layers/attention_layer.py`` without cross-attention, with its order
-of operations. ``attn_apply`` attends over the sequence's own K/V through
+``repro/layers/attention_layer.py`` with its order of operations.
+``attn_apply`` attends over the sequence's own K/V through
 ``core.attention.attention`` (the flash kernel forward and the reference's
 recompute backward); it runs unquantized (``kv_dtype="fp32"``) and raises
 on a quantized ``cfg.kv_dtype``. On the serving paths, decode quantizes
@@ -20,6 +20,13 @@ be captured in a CUDA graph: every cache's storage holds one token's row
 of scratch past its end (``kernels.paged.zeros_with_scratch``), where the
 writes a tick drops land.
 
+Cross-attention of an encoder-decoder's decoder has no RoPE and float
+K/V from the encoder output: ``cross_attn_apply`` runs the full-sequence
+``attention`` non-causally (the flash kernel), ``cross_attn_decode`` the
+reference's one-pass "xla" route (``core.attention.decode_one_pass``),
+which no kernel replaces: ``repro`` forces it, and its ExpMul weights
+differ from a tiled kernel's.
+
 ``cfg.attention_impl`` "kernel" runs the CUDA kernels (their plain
 versions for CPU tensors); "plain" runs the plain versions on any device.
 """
@@ -29,7 +36,7 @@ import math
 
 import torch
 
-from repro_torch.core.attention import attention
+from repro_torch.core.attention import attention, decode_one_pass
 from repro_torch.kernels.decode.ops import (
     decode_attention,
     fused_paged_decode_attention,
@@ -108,6 +115,46 @@ def attn_apply(params, x, cfg, *, positions=None, causal=True, window=None):
     q, k, v = _project_qkv(params, x, cfg, positions)
     o = attention(q, k, v, cfg, causal=causal, window=window)
     return torch.einsum("bhsk,hkd->bsd", o, params["wo"])
+
+
+def cross_attn_init(cfg, dtype, generator, device):
+    """Encoder-decoder cross-attention: no bias, no RoPE."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    return {
+        "wq": dense_init((d, H, hd), dtype, generator, device),
+        "wk": dense_init((d, Hkv, hd), dtype, generator, device),
+        "wv": dense_init((d, Hkv, hd), dtype, generator, device),
+        "wo": dense_init((H, hd, d), dtype, generator, device),
+    }
+
+
+def cross_attn_kv(params, enc_out):
+    """enc_out (B, Se, d) -> k, v (B, Hkv, Se, hd)."""
+    k = torch.einsum("bsd,dhk->bhsk", enc_out, params["wk"])
+    v = torch.einsum("bsd,dhk->bhsk", enc_out, params["wv"])
+    return k, v
+
+
+def cross_attn_apply(params, x, enc_out, cfg):
+    """x (B, S, d) attends to every row of enc_out (B, Se, d): non-causal
+    full-sequence attention (the flash kernel). The encoder's K/V are
+    activations, not a cache, so they are never quantized."""
+    q = torch.einsum("bsd,dhk->bhsk", x, params["wq"])
+    k, v = cross_attn_kv(params, enc_out)
+    o = attention(q, k, v, cfg, causal=False)
+    return torch.einsum("bhsk,hkd->bsd", o, params["wo"])
+
+
+def cross_attn_decode(params, x1, kv, enc_len, cfg):
+    """x1 (B, d) one token against the encoder's ``kv`` (k, v
+    (B, Hkv, Se, hd)), the first ``enc_len`` (B,) rows of each valid: the
+    reference's one-pass "xla" decode (``decode_one_pass``) on every
+    device, as ``repro`` forces it for cross K/V."""
+    q = torch.einsum("bd,dhk->bhk", x1, params["wq"])
+    k, v = kv
+    o = decode_one_pass(q, k, v, enc_len, variant=cfg.attention_variant)
+    return torch.einsum("bhk,hkd->bd", o, params["wo"])
 
 
 def _init_kv(shape, cfg, dtype, device):

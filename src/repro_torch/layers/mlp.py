@@ -1,4 +1,4 @@
-"""Gated MLP (SwiGLU / GeGLU)."""
+"""Gated MLP (SwiGLU / GeGLU) and the plain MLP (GELU)."""
 from __future__ import annotations
 
 from repro_torch.layers.common import activation_fn, dense_init
@@ -7,17 +7,21 @@ GATED = ("swiglu", "geglu")
 
 
 def mlp_init(d_model, d_ff, activation, dtype, generator, device):
-    if activation not in GATED:
-        raise NotImplementedError(f"the port has the gated MLPs {GATED} "
-                                  f"only, got {activation!r}")
-    return {
+    """``w_up`` and ``w_down``, and ``w_gate`` for a gated activation."""
+    p = {
         "w_up": dense_init((d_model, d_ff), dtype, generator, device),
         "w_down": dense_init((d_ff, d_model), dtype, generator, device),
-        "w_gate": dense_init((d_model, d_ff), dtype, generator, device),
     }
+    if activation in GATED:
+        p["w_gate"] = dense_init((d_model, d_ff), dtype, generator, device)
+    return p
 
 
 def mlp_apply(params, x, activation):
+    act = activation_fn(activation)
     up = x @ params["w_up"]
-    up = activation_fn(activation)(x @ params["w_gate"]) * up
+    if "w_gate" in params:
+        up = act(x @ params["w_gate"]) * up
+    else:
+        up = act(up)
     return up @ params["w_down"]

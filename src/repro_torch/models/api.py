@@ -1,6 +1,7 @@
 """Model assembly: init, the full-sequence forward and loss of training,
 and for serving the decode state, chunked prefill and single-token decode
-over per-slot (contiguous) caches or paged pools (the decoder-only half of
+over per-slot (contiguous) caches or paged pools; for an encoder-decoder
+the encoder pass and the decode step with cross-attention (the port of
 ``repro/models/api.py``).
 
 Parameters are a dict of tensors with ``repro``'s layouts
@@ -10,9 +11,15 @@ Parameters are a dict of tensors with ``repro``'s layouts
 ``w_down`` (E, ., .) and its ``dense`` residual; an untied head is
 ``embed.out``), one entry of ``"layers"`` per layer in true layer order,
 layer ``l`` of kind ``cfg.pattern_for()[l]`` (``attn``, ``rglru``,
-``mlstm`` or ``slstm``); the layer loop is a Python loop. An MLA config's
-caches and pools hold latents (``layers/mla.py``). The state is one dict
-of caches per layer: an attention layer's KV cache or pool, or a
+``mlstm`` or ``slstm``); the layer loop is a Python loop. A config with
+a frontend has ``frontend_proj`` (frontend_dim, d). An encoder-decoder
+(``cfg.encoder_layers``) has ``enc_layers`` (of kinds
+``cfg.pattern_for(encoder_layers)``), ``enc_final_norm`` and
+``dec_layers`` in place of ``layers``: each decoder layer an attention
+block with ``norm_cross`` and ``cross`` (``layers/attention_layer.py``)
+between its self-attention and its FFN. Norms are ``cfg.norm``'s. An MLA
+config's caches and pools hold latents (``layers/mla.py``). The state is
+one dict of caches per layer: an attention layer's KV cache or pool, or a
 recurrent layer's per-slot state (RG-LRU's ``h`` and ``conv``, mLSTM's
 ``C``, ``n``, ``m``, sLSTM's ``c``, ``n``, ``h``, ``m``; the stabilizers
 ``m`` start at -1e30), on the paged layout too. A pattern with no
@@ -25,6 +32,12 @@ the kernel path, that is, since the plain versions read the longest
 length. An MoE layer routes every row of a tick, idle and padding rows
 too, as ``repro`` does (``layers/moe.py``), without a host read.
 
+An encoder-decoder serves through ``init_decode_state(enc_len=)``,
+``encode_for_decode`` and ``decode_step``, the one serving path
+``repro`` has for it: its state holds per decoder layer a self-attention
+cache, the encoder's cross K/V and each row's ``enc_len``. Paged state,
+chunked prefill and the paged ticks refuse it, as ``repro``'s do.
+
 Entry points take ``device="cuda"`` by default and raise without a card
 unless the caller passes ``device="cpu"``.
 """
@@ -35,11 +48,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged import scatter_index, slot_rows, token_rows
 from repro_torch.layers.attention_layer import (
+    attn_apply,
+    attn_decode_step,
     attn_init_paged_cache,
     chunk_gate,
     chunk_index,
+    cross_attn_apply,
+    cross_attn_decode,
+    cross_attn_init,
+    cross_attn_kv,
 )
-from repro_torch.layers.common import rmsnorm, rmsnorm_init
+from repro_torch.layers.common import dense_init, make_norm
 from repro_torch.layers.embedding import embed_apply, embed_init, logits_apply
 from repro_torch.layers.mla import mla_init_paged_cache
 from repro_torch.models.blocks import (
@@ -50,6 +69,8 @@ from repro_torch.models.blocks import (
     block_paged_decode_step,
     block_paged_prefill,
     block_prefill,
+    ffn,
+    norm_fn,
 )
 
 
@@ -76,40 +97,94 @@ def init_model(cfg, generator: torch.Generator | None = None, *,
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     pd = _dtype(cfg.param_dtype)
-    return {
-        "embed": embed_init(cfg, pd, generator, device),
-        "final_norm": rmsnorm_init(cfg.d_model, pd, device),
-        "layers": [block_init(cfg, kind, pd, generator, device)
-                   for kind in cfg.pattern_for()],
-    }
+    norm_init = make_norm(cfg.norm)[0]
+    params = {"embed": embed_init(cfg, pd, generator, device),
+              "final_norm": norm_init(cfg.d_model, pd, device)}
+    if cfg.frontend:
+        params["frontend_proj"] = dense_init(
+            (cfg.frontend_dim, cfg.d_model), pd, generator, device)
+    if not cfg.encoder_layers:
+        params["layers"] = [block_init(cfg, kind, pd, generator, device)
+                            for kind in cfg.pattern_for()]
+        return params
+    params["enc_layers"] = [block_init(cfg, kind, pd, generator, device)
+                            for kind in cfg.pattern_for(cfg.encoder_layers)]
+    params["enc_final_norm"] = norm_init(cfg.d_model, pd, device)
+    params["dec_layers"] = []
+    for _ in range(cfg.decoder_layers):
+        p = block_init(cfg, "attn", pd, generator, device)
+        p["norm_cross"] = norm_init(cfg.d_model, pd, device)
+        p["cross"] = cross_attn_init(cfg, pd, generator, device)
+        params["dec_layers"].append(p)
+    return params
+
+
+def _run(fn, cfg, *args, **kw):
+    """``fn(*args, **kw)``, under a non-reentrant checkpoint with
+    ``cfg.remat``."""
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
+
+
+def encode(params, frontend_embeds, cfg, moe_impl="scatter"):
+    """The encoder over the projected frames, every frame (padding too, as
+    ``repro`` runs it), non-causal, then its final norm: (B, Se, d)."""
+    x = frontend_embeds.to(_dtype(cfg.dtype)) @ params["frontend_proj"]
+    for p, kind in zip(params["enc_layers"],
+                       cfg.pattern_for(cfg.encoder_layers)):
+        x = _run(block_apply, cfg, p, x, cfg, kind, moe_impl, causal=False)
+    return norm_fn(cfg)(params["enc_final_norm"], x)
+
+
+def _dec_block_apply(p, x, enc_out, cfg, moe_impl="scatter"):
+    """A decoder layer: causal self-attention, cross-attention to
+    ``enc_out``, then the FFN, each pre-normed with a residual."""
+    norm = norm_fn(cfg)
+    x = x + attn_apply(p["mix"], norm(p["norm_mix"], x), cfg, causal=True)
+    x = x + cross_attn_apply(p["cross"], norm(p["norm_cross"], x), enc_out,
+                             cfg)
+    return ffn(p, x, cfg, moe_impl)
 
 
 def forward(params, batch, cfg, *, moe_impl="scatter"):
-    """batch["tokens"] (B, S) -> logits (B, S, V) in ``cfg.dtype``; an MoE
-    config's FFN dispatches by ``moe_impl`` (``layers/moe.py``). With
+    """batch["tokens"] (B, S) [+ ``frontend_embeds`` (B, T, frontend_dim)]
+    -> logits (B, S_total, V) in ``cfg.dtype``; an MoE config's FFN
+    dispatches by ``moe_impl`` (``layers/moe.py``). A decoder-only config
+    with a frontend prepends the projected ``frontend_embeds``, when
+    given, to the text (S_total = T + S, positions counting the patches);
+    an encoder-decoder encodes them and its decoder attends to them. With
     ``cfg.remat`` each layer runs under a non-reentrant
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
     layer): its activations are recomputed in the backward, which runs its
     attention forward a second time."""
     x = embed_apply(params["embed"], batch["tokens"], cfg).to(
         _dtype(cfg.dtype))
-    for p, kind in zip(params["layers"], cfg.pattern_for()):
-        if cfg.remat:
-            x = checkpoint(block_apply, p, x, cfg, kind, moe_impl,
-                           use_reentrant=False)
-        else:
-            x = block_apply(p, x, cfg, kind, moe_impl)
-    x = rmsnorm(params["final_norm"], x)
+    if cfg.encoder_layers:
+        enc_out = encode(params, batch["frontend_embeds"], cfg, moe_impl)
+        for p in params["dec_layers"]:
+            x = _run(_dec_block_apply, cfg, p, x, enc_out, cfg, moe_impl)
+    else:
+        if cfg.frontend and "frontend_embeds" in batch:
+            fe = (batch["frontend_embeds"].to(_dtype(cfg.dtype))
+                  @ params["frontend_proj"])
+            x = torch.cat([fe, x], dim=1)
+        for p, kind in zip(params["layers"], cfg.pattern_for()):
+            x = _run(block_apply, cfg, p, x, cfg, kind, moe_impl)
+    x = norm_fn(cfg)(params["final_norm"], x)
     return logits_apply(params["embed"], x, cfg)
 
 
 def loss_fn(params, batch, cfg):
-    """Next-token cross entropy, masked by ``batch["loss_mask"]`` when
-    given, in the reference's order: the max of the logits, a float32
-    log-sum-exp of the shifted logits, a gather of the targets, then a
-    masked mean. ``torch.amax`` splits the gradient among tied maxima
-    evenly, as JAX's max does."""
-    logits = forward(params, batch, cfg)[:, :-1]
+    """Next-token cross entropy over the text positions (a prepended
+    frontend's are dropped), masked by ``batch["loss_mask"]`` when given,
+    in the reference's order: the max of the logits, a float32 log-sum-exp
+    of the shifted logits, a gather of the targets, then a masked mean.
+    ``torch.amax`` splits the gradient among tied maxima evenly, as JAX's
+    max does."""
+    logits = forward(params, batch, cfg)
+    n_front = logits.shape[1] - batch["tokens"].shape[1]
+    logits = logits[:, n_front:-1]
     targets = batch["tokens"][:, 1:].to(torch.int64)
     mask = batch.get("loss_mask")
     mask = (torch.ones(targets.shape, dtype=torch.float32,
@@ -123,15 +198,51 @@ def loss_fn(params, batch, cfg):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def init_decode_state(cfg, batch, max_len, *, device="cuda"):
+def init_decode_state(cfg, batch, max_len, *, enc_len=None, device="cuda"):
     """Per-slot KV state: per layer, caches of ``max_len`` slots (a rolling
     buffer of ``min(max_len, window)`` for a windowed config) for each of
     ``batch`` sequences; codes plus float32 scale rows for a quantized
-    ``cfg.kv_dtype``. A recurrent layer's state is one token's a slot."""
+    ``cfg.kv_dtype``. A recurrent layer's state is one token's a slot. An
+    encoder-decoder's state also holds, per decoder layer, cross K/V of
+    ``enc_len`` encoder rows (written by ``encode_for_decode``) and each
+    row's valid ``enc_len``; it refuses a quantized ``kv_dtype``, as
+    ``repro`` does."""
     device = resolve_device(device)
     dt = _dtype(cfg.dtype)
-    return {"caches": [block_init_cache(cfg, kind, batch, max_len, dt, device)
-                       for kind in cfg.pattern_for()]}
+    if not cfg.encoder_layers:
+        return {"caches": [block_init_cache(cfg, kind, batch, max_len, dt,
+                                            device)
+                           for kind in cfg.pattern_for()]}
+    if cfg.kv_dtype != "fp32":
+        raise NotImplementedError(
+            "quantized KV serving targets decoder-only configs; encoder "
+            "cross-attention K/V are recomputed activations, not a cache")
+    if enc_len is None:
+        raise TypeError("an encoder-decoder's decode state needs enc_len, "
+                        "the number of encoder frames")
+    shape = (batch, cfg.num_kv_heads, enc_len, cfg.resolved_head_dim())
+
+    def zeros():
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return {"caches": [block_init_cache(cfg, "attn", batch, max_len, dt,
+                                        device)
+                       for _ in range(cfg.decoder_layers)],
+            "cross_kv": [(zeros(), zeros())
+                         for _ in range(cfg.decoder_layers)],
+            "enc_len": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+
+
+def encode_for_decode(params, state, frontend_embeds, enc_lengths, cfg):
+    """Run the encoder once over ``frontend_embeds`` (B, Se, frontend_dim)
+    and put each decoder layer's cross K/V of its output, and
+    ``enc_lengths`` (B,), into the state; returns the state."""
+    enc_out = encode(params, frontend_embeds, cfg)
+    state["cross_kv"] = [cross_attn_kv(p["cross"], enc_out)
+                         for p in params["dec_layers"]]
+    state["enc_len"] = enc_lengths
+    return state
 
 
 def _attn_cache(state, cfg):
@@ -145,7 +256,7 @@ def _attn_cache(state, cfg):
 def _last_logits(params, x, n_valid, cfg):
     """Logits of each row's last valid chunk token."""
     B, C, _ = x.shape
-    x = rmsnorm(params["final_norm"], x)
+    x = norm_fn(cfg)(params["final_norm"], x)
     last = torch.clamp(n_valid.to(torch.int64) - 1, 0, C - 1)
     return logits_apply(params["embed"], x[torch.arange(B, device=x.device),
                                            last], cfg)
@@ -157,8 +268,13 @@ def prefill(params, state, tokens, lengths, n_valid, cfg):
     tokens (B, C); lengths (B,) tokens already resident; n_valid (B,) valid
     chunk tokens (0 = idle slot, a no-op). Every layer attends over its
     cache and the chunk, then writes the chunk's valid tokens. Returns
-    (logits (B, V) of each row's last valid token, state).
+    (logits (B, V) of each row's last valid token, state). An
+    encoder-decoder is refused.
     """
+    if cfg.encoder_layers:
+        raise NotImplementedError("chunked prefill targets decoder-only "
+                                  "configs; encoder-decoder serving uses "
+                                  "encode_for_decode + decode_step")
     C = tokens.shape[1]
     x = embed_apply(params["embed"], tokens, cfg).to(_dtype(cfg.dtype))
     attn = _attn_cache(state, cfg)
@@ -180,10 +296,30 @@ def prefill(params, state, tokens, lengths, n_valid, cfg):
     return _last_logits(params, x, n_valid, cfg), state
 
 
+def _decode_step_encdec(params, state, x, lengths, cfg):
+    """The decoder layers of one token: self-attention over its per-slot
+    cache (the contiguous decode kernel), cross-attention over the
+    encoder's K/V (``cross_attn_decode``), then the FFN."""
+    norm = norm_fn(cfg)
+    for p, cache, kv in zip(params["dec_layers"], state["caches"],
+                            state["cross_kv"]):
+        _, h = attn_decode_step(p["mix"], cache, norm(p["norm_mix"], x), cfg,
+                                lengths)
+        x = x + h
+        x = x + cross_attn_decode(p["cross"], norm(p["norm_cross"], x), kv,
+                                  state["enc_len"], cfg)
+        x = ffn(p, x, cfg)
+    return x
+
+
 def decode_step(params, state, tokens1, lengths, cfg):
     """One decode tick against per-slot caches: tokens1 (B,) at positions
     ``lengths`` -> (logits (B, V), state)."""
     x = embed_apply(params["embed"], tokens1, cfg).to(_dtype(cfg.dtype))
+    if cfg.encoder_layers:
+        x = _decode_step_encdec(params, state, x, lengths, cfg)
+        x = norm_fn(cfg)(params["final_norm"], x)
+        return logits_apply(params["embed"], x, cfg), state
     index = None
     if cfg.mla:   # slot lengths of each row (clamped to the last), as rows
         S = _attn_cache(state, cfg)["kv_lat"].shape[1]
@@ -192,7 +328,7 @@ def decode_step(params, state, tokens1, lengths, cfg):
     for p, cache, kind in zip(params["layers"], state["caches"],
                               cfg.pattern_for()):
         _, x = block_decode_step(p, cache, x, cfg, kind, lengths, index)
-    x = rmsnorm(params["final_norm"], x)
+    x = norm_fn(cfg)(params["final_norm"], x)
     return logits_apply(params["embed"], x, cfg), state
 
 
@@ -200,7 +336,12 @@ def init_paged_state(cfg, slots, pool_blocks, page_size, *, device="cuda"):
     """Paged KV state: per attention layer, flat pools of ``pool_blocks *
     page_size`` rows shared by all ``slots`` sequences through their block
     tables; per recurrent layer, the per-slot state of
-    ``init_decode_state`` (not paged, not quantized)."""
+    ``init_decode_state`` (not paged, not quantized). An
+    encoder-decoder is refused."""
+    if cfg.encoder_layers:
+        raise NotImplementedError("paged serving targets decoder-only "
+                                  "configs; encoder-decoder serving uses "
+                                  "the contiguous layout")
     device = resolve_device(device)
     dt = _dtype(cfg.dtype)
     init = mla_init_paged_cache if cfg.mla else attn_init_paged_cache
@@ -234,6 +375,9 @@ def prefill_paged(params, state, tokens, lengths, n_valid, block_tables, cfg,
     chunk tokens (0 = idle slot, a no-op); block_tables (B, max_blocks).
     Returns (logits (B, V) of each row's last valid token, state).
     """
+    if cfg.encoder_layers:
+        raise NotImplementedError("paged prefill targets decoder-only "
+                                  "configs")
     C = tokens.shape[1]
     x = embed_apply(params["embed"], tokens, cfg).to(_dtype(cfg.dtype))
     idx = torch.arange(C, device=tokens.device)[None, :]
@@ -301,6 +445,9 @@ def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
                       page_size):
     """One decode tick: tokens1 (B,) at positions ``lengths`` ->
     (logits (B, V), state)."""
+    if cfg.encoder_layers:
+        raise NotImplementedError("paged decode targets decoder-only "
+                                  "configs")
     x = embed_apply(params["embed"], tokens1, cfg).to(_dtype(cfg.dtype))
     index = _paged_index(state, cfg, block_tables, lengths, page_size)
     rows = slot_rows(block_tables, page_size) if cfg.mla else None
@@ -308,5 +455,5 @@ def decode_step_paged(params, state, tokens1, lengths, block_tables, cfg, *,
                               cfg.pattern_for()):
         _, x = block_paged_decode_step(p, cache, x, cfg, kind, lengths, index,
                                        block_tables, page_size, rows)
-    x = rmsnorm(params["final_norm"], x)
+    x = norm_fn(cfg)(params["final_norm"], x)
     return logits_apply(params["embed"], x, cfg), state

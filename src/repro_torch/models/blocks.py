@@ -1,7 +1,7 @@
 """Residual blocks, dispatched on their kind (``attn``, ``rglru``,
 ``mlstm`` or ``slstm``): norm -> mix -> residual, then for ``attn`` and
-``rglru`` (when ``d_ff`` or ``moe`` gives one) norm -> gated MLP (SwiGLU
-or GeGLU), or for a config with ``cfg.moe`` the mixture of experts
+``rglru`` (when ``d_ff`` or ``moe`` gives one) norm -> MLP (SwiGLU, GeGLU
+or plain GELU), or for a config with ``cfg.moe`` the mixture of experts
 (``layers/moe.py``) -> residual, over the full sequence (training) or
 over per-slot (contiguous) caches or a paged KV pool (serving). The
 ``attn`` mix is GQA (``layers/attention_layer.py``) or, for a config with
@@ -11,7 +11,8 @@ and pools hold latents; the ``rglru`` mix is the RG-LRU temporal block
 (``layers/xlstm.py``), which carry their own projections and no FFN. A
 recurrent kind's O(1) per-slot state (``h``, ``conv``; ``C``, ``n``,
 ``m``; ``c``, ``n``, ``h``, ``m``) stays per slot on the paged layout
-too: no pool, no quantization."""
+too: no pool, no quantization. The norms are ``cfg.norm``'s (RMSNorm, or
+LayerNorm with a bias)."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -27,7 +28,7 @@ from repro_torch.layers.attention_layer import (
     attn_paged_prefill_step,
     attn_prefill_step,
 )
-from repro_torch.layers.common import rmsnorm, rmsnorm_init
+from repro_torch.layers.common import make_norm
 from repro_torch.layers.mla import (
     mla_apply,
     mla_decode_step,
@@ -94,28 +95,34 @@ def _has_ffn(cfg, kind):
     return kind in ("attn", "rglru") and (cfg.d_ff > 0 or cfg.moe is not None)
 
 
+def norm_fn(cfg):
+    """The apply function of ``cfg.norm``."""
+    return make_norm(cfg.norm)[1]
+
+
 def block_init(cfg, kind, dtype, generator, device):
     _check_kind(kind)
+    norm_init = make_norm(cfg.norm)[0]
     mix = (_RECURRENT[kind].init if kind in _RECURRENT else
            mla_init if cfg.mla else attn_init)
-    p = {"norm_mix": rmsnorm_init(cfg.d_model, dtype, device),
+    p = {"norm_mix": norm_init(cfg.d_model, dtype, device),
          "mix": mix(cfg, dtype, generator, device)}
     if _has_ffn(cfg, kind):
-        p["norm_ffn"] = rmsnorm_init(cfg.d_model, dtype, device)
+        p["norm_ffn"] = norm_init(cfg.d_model, dtype, device)
         p["ffn"] = (moe_init(cfg, dtype, generator, device) if cfg.moe else
                     mlp_init(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
                              generator, device))
     return p
 
 
-def _ffn(params, x, cfg, moe_impl="scatter"):
+def ffn(params, x, cfg, moe_impl="scatter"):
     """x + FFN(norm(x)) over x (B, C, d), or over x (B, d) of a decode
     tick: there the MoE sees the slots as its tokens, (B, 1, d) as
     ``repro`` hands it ``h[:, None, :]``. A block without an FFN returns
     x."""
     if "ffn" not in params:
         return x
-    h = rmsnorm(params["norm_ffn"], x)
+    h = norm_fn(cfg)(params["norm_ffn"], x)
     if not cfg.moe:
         return x + mlp_apply(params["ffn"], h, cfg.activation)
     if h.dim() == 2:
@@ -124,15 +131,19 @@ def _ffn(params, x, cfg, moe_impl="scatter"):
     return x + moe_apply(params["ffn"], h, cfg, impl=moe_impl)
 
 
-def block_apply(params, x, cfg, kind, moe_impl="scatter"):
-    """One causal block over the full sequence x (B, S, d)."""
-    h = rmsnorm(params["norm_mix"], x)
+def block_apply(params, x, cfg, kind, moe_impl="scatter", *, positions=None,
+                causal=True):
+    """One block over the full sequence x (B, S, d); an attention layer at
+    RoPE ``positions`` (default ``arange(S)`` a row), causal or not (an
+    encoder's)."""
+    h = norm_fn(cfg)(params["norm_mix"], x)
     if kind in _RECURRENT:
         h = _RECURRENT[kind].apply(params["mix"], h, cfg)
     else:
-        h = (mla_apply if cfg.mla else attn_apply)(params["mix"], h, cfg,
-                                                   window=cfg.window or None)
-    return _ffn(params, x + h, cfg, moe_impl)
+        h = (mla_apply if cfg.mla else attn_apply)(
+            params["mix"], h, cfg, positions=positions, causal=causal,
+            window=cfg.window or None)
+    return ffn(params, x + h, cfg, moe_impl)
 
 
 def block_init_cache(cfg, kind, batch, max_len, dtype, device):
@@ -151,7 +162,7 @@ def block_init_cache(cfg, kind, batch, max_len, dtype, device):
 def block_prefill(params, cache, x, cfg, kind, lengths, n_valid, index):
     """Chunked prefill through one block; ``index`` is the tick's
     ``chunk_index`` of the cache writes (attention layers only)."""
-    h = rmsnorm(params["norm_mix"], x)
+    h = norm_fn(cfg)(params["norm_mix"], x)
     if kind in _RECURRENT:
         cache, h = _RECURRENT[kind].prefill(params["mix"], cache, h, cfg,
                                             n_valid)
@@ -161,7 +172,7 @@ def block_prefill(params, cache, x, cfg, kind, lengths, n_valid, index):
     else:
         cache, h = attn_prefill_step(params["mix"], cache, h, cfg, lengths,
                                      n_valid, index, window=cfg.window)
-    return cache, _ffn(params, x + h, cfg)
+    return cache, ffn(params, x + h, cfg)
 
 
 def block_decode_step(params, cache, x1, cfg, kind, lengths, index=None):
@@ -169,7 +180,7 @@ def block_decode_step(params, cache, x1, cfg, kind, lengths, index=None):
     buffer takes the token at slot ``lengths % span`` and attends to its
     last ``min(lengths + 1, span)`` slots. An MLA layer writes its latents
     at ``index``, the tick's rows of slots ``lengths``."""
-    h = rmsnorm(params["norm_mix"], x1)
+    h = norm_fn(cfg)(params["norm_mix"], x1)
     if kind in _RECURRENT:
         cache, h = _RECURRENT[kind].decode(params["mix"], cache, h, cfg)
     elif cfg.mla:
@@ -183,7 +194,7 @@ def block_decode_step(params, cache, x1, cfg, kind, lengths, index=None):
             attn_len=torch.clamp(lengths + 1, max=span))
     else:
         cache, h = attn_decode_step(params["mix"], cache, h, cfg, lengths)
-    return cache, _ffn(params, x1 + h, cfg)
+    return cache, ffn(params, x1 + h, cfg)
 
 
 def block_paged_prefill(params, cache, x, cfg, kind, lengths, n_valid,
@@ -194,7 +205,7 @@ def block_paged_prefill(params, cache, x, cfg, kind, lengths, n_valid,
     if kind != "attn":
         return block_prefill(params, cache, x, cfg, kind, lengths, n_valid,
                              None)
-    h = rmsnorm(params["norm_mix"], x)
+    h = norm_fn(cfg)(params["norm_mix"], x)
     if cfg.mla:
         cache, h = mla_paged_prefill_step(params["mix"], cache, h, cfg,
                                           lengths, n_valid, write_index, rows)
@@ -203,14 +214,14 @@ def block_paged_prefill(params, cache, x, cfg, kind, lengths, n_valid,
             params["mix"], cache, h, cfg, lengths, n_valid, write_index,
             window=cfg.window, block_tables=block_tables,
             page_size=page_size)
-    return cache, _ffn(params, x + h, cfg)
+    return cache, ffn(params, x + h, cfg)
 
 
 def block_paged_decode_step(params, cache, x1, cfg, kind, lengths,
                             write_index, block_tables, page_size, rows=None):
     if kind != "attn":
         return block_decode_step(params, cache, x1, cfg, kind, lengths)
-    h = rmsnorm(params["norm_mix"], x1)
+    h = norm_fn(cfg)(params["norm_mix"], x1)
     if cfg.mla:
         cache, h = mla_paged_decode_step(params["mix"], cache, h, cfg,
                                          lengths, write_index, rows)
@@ -219,4 +230,4 @@ def block_paged_decode_step(params, cache, x1, cfg, kind, lengths,
             params["mix"], cache, h, cfg, lengths, write_index,
             window=cfg.window, block_tables=block_tables,
             page_size=page_size)
-    return cache, _ffn(params, x1 + h, cfg)
+    return cache, ffn(params, x1 + h, cfg)

@@ -26,7 +26,9 @@ new prompt (recompute resumption, which leaves temperature-0 streams
 unchanged). An explicit ``pool_blocks`` is a byte budget counted in
 unquantized blocks: a quantized pool spends the same bytes on
 proportionally more blocks. Windowed configs keep absolute positions in
-the pool and mask by the window.
+the pool and mask by the window. An encoder-decoder config is refused on
+both layouts, as ``repro``'s engine cannot be built for one either: it
+serves through ``models.api.encode_for_decode`` and ``decode_step``.
 
 ``prefix_cache`` (paged and attention-only; default None = on for the
 paged layout of an attention-only pattern, off otherwise: a recurrent
@@ -173,9 +175,10 @@ def analytic_prefill_flops(cfg, start: int, end: int) -> int:
 
 def validate_kv_dtype(cfg, kv_dtype: str | None = None) -> str:
     """The KV dtype to serve ``cfg`` at (``cfg.kv_dtype`` when None). A
-    quantized dtype needs an attention-only pattern: a recurrent layer's
-    state is not a KV cache and would bypass quantization silently, so it
-    is refused, as ``repro`` refuses it."""
+    quantized dtype needs an attention-only decoder: a recurrent layer's
+    state is not a KV cache, nor are an encoder-decoder's cross K/V, and
+    either would bypass quantization silently, so both are refused, as
+    ``repro`` refuses them."""
     kv_dtype = kv_dtype or cfg.kv_dtype
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}; choose one of "
@@ -187,6 +190,12 @@ def validate_kv_dtype(cfg, kv_dtype: str | None = None) -> str:
             f"pattern, but {cfg.name!r} mixes in {rec} blocks whose "
             f"recurrent state is not a KV cache and would silently bypass "
             f"quantization; serve this arch with kv_dtype='fp32'")
+    if kv_dtype != "fp32" and cfg.encoder_layers:
+        raise ValueError(
+            f"kv_dtype={kv_dtype!r} targets decoder-only configs; "
+            f"{cfg.name!r} is encoder-decoder and its cross-attention K/V "
+            f"are recomputed activations, not a cache — serve it with "
+            f"kv_dtype='fp32'")
     return kv_dtype
 
 
@@ -308,7 +317,8 @@ class ServeEngine:
         # shared-prefix caching needs paged physical blocks to splice, and
         # an attention-only pattern: a hit would skip the prefill a
         # recurrent layer's per-slot state still needs
-        attn_only = set(cfg.block_pattern) == {"attn"}
+        attn_only = (set(cfg.block_pattern) == {"attn"}
+                     and not cfg.encoder_layers)
         if prefix_cache:
             if not self.paged:
                 raise ValueError(
@@ -324,6 +334,13 @@ class ServeEngine:
                     f"KV pages; serve this arch with prefix_cache=False")
         self.prefix_cache = (bool(prefix_cache) if prefix_cache is not None
                              else self.paged and attn_only)
+        if cfg.encoder_layers:
+            # repro's engine fails here too (its contiguous state needs an
+            # enc_len, its paged state refuses an encoder-decoder)
+            raise NotImplementedError(
+                f"ServeEngine serves decoder-only configs; {cfg.name!r} is "
+                f"encoder-decoder: serve it through init_decode_state("
+                f"enc_len=), encode_for_decode and decode_step")
         # bytes per resident token over every layer (codes + scale rows for
         # quantized dtypes): the unit of every *_bytes stat
         self.token_bytes = kv_token_bytes(cfg)

@@ -26,6 +26,11 @@ dim 128, captured in CUDA graphs. recurrentgemma-2b: the four serving
 kernels at its local attention (10 / 1 heads of 256, a 2,048-token window,
 a wrapped rolling buffer), its smoke config's hybrid ticks captured in
 CUDA graphs, and its RG-LRU state written in place by every replay.
+The encoder-decoder and frontend archs: flash non-causal at Sq != Sk (an
+encoder-decoder's cross-attention), the cross-attention decode's one-pass
+plain route on the card against the CPU, and the smoke configs of
+llava-next-34b and seamless-m4t-medium through the kernels against the
+plain versions.
 """
 import sys
 from pathlib import Path
@@ -42,10 +47,12 @@ from repro_torch.kernels.checks import (  # noqa: E402
     expmul_case,
     head_dim_cases,
     flash_case,
+    flash_cross_cases,
     flash_edge_cases,
     kernel_tol,
     MLA_DIMS,
     mla_cases,
+    one_pass_case,
     POISON_SPOTS,
     SERVING_KERNELS,
     paged_case,
@@ -62,8 +69,10 @@ from repro_torch.kernels.checks import (  # noqa: E402
     sentinel_within,
     windowed_cases,
 )
+from repro_torch.core.attention import decode_one_pass  # noqa: E402
 from repro_torch.kernels.expmul.ops import merged_output_update  # noqa: E402
 from repro_torch.kernels.flash.tile import fma_chain  # noqa: E402
+from repro_torch.models import api  # noqa: E402
 from repro_torch.models.api import init_model  # noqa: E402
 from repro_torch.numerics.log2exp import expmul as expmul_bits  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -451,6 +460,110 @@ def test_flash_kernel_layout_edges_match_plain(cuda, S, D, group, variant,
             assert got.dtype == dtype and got.shape == ref.shape
             assert rel_err(got, ref) <= kernel_tol(variant, dtype), \
                 (label, dyadic)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,group", [(64, 1), (128, 7)])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_cross_attention_shapes_match_plain(cuda, D, group,
+                                                         variant, dtype):
+    """Non-causal at Sq != Sk (``checks.flash_cross_cases``): 1, 7 and 33
+    queries (off the 32-row query block) over 16 and 1,024 keys, at
+    seamless-m4t-medium's D 64 group 1 and llava-next-34b's D 128 group
+    7, dyadic and random."""
+    rng = np.random.default_rng(D + group)
+    for dyadic in (True, False):
+        for label, case in flash_cross_cases(rng, D=D, group=group,
+                                             dtype=dtype, dyadic=dyadic,
+                                             device=cuda):
+            before = build.COUNTS["flash"]
+            got = run_flash(case, variant)
+            ref = run_flash(case, variant, plain=True)
+            torch.cuda.synchronize()
+            assert build.COUNTS["flash"] == before + 1
+            assert got.dtype == dtype and got.shape == ref.shape
+            assert rel_err(got, ref) <= kernel_tol(variant, dtype), \
+                (label, dyadic)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_one_pass_decode_on_the_card_matches_cpu(cuda, variant, dtype):
+    """The cross-attention decode's route (plain ops on every device) on
+    CUDA tensors against its CPU result, at seamless-m4t-medium's cross
+    K/V, lengths 0, 1, 1,024 and ragged."""
+    case = one_pass_case(np.random.default_rng(3), dtype=dtype)
+    names = ("q", "k", "v", "lengths")
+    ref = decode_one_pass(*(case[n] for n in names), variant=variant)
+    before = dict(build.COUNTS)
+    got = decode_one_pass(*(case[n].to(cuda) for n in names),
+                          variant=variant)
+    assert got.device.type == "cuda" and dict(build.COUNTS) == before
+    assert not got[0].any()                        # length 0: zeros
+    # the card sums in another order than the CPU: float32 within 1e-5, a
+    # bfloat16 result one rounding step apart at most (kernel_tol's bound
+    # for the exact variant's bfloat16 output), under ExpMul too
+    assert rel_err(got.cpu(), ref) <= kernel_tol("exact", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llava-next-34b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_frontend_archs_smoke_kernels_match_plain(cuda, arch, variant):
+    """The smoke configs (float32) through the kernels against the plain
+    versions: ``forward`` with frontend embeddings (llava: prepended;
+    seamless: encoded, and attended to by cross-attention); for seamless
+    ``encode_for_decode`` and four ``decode_step``s, each launching one
+    decode kernel a decoder layer and nothing else."""
+    base = get_config(arch, smoke=True, dtype="float32",
+                      param_dtype="float32", attention_variant=variant)
+    params = init_model(base, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    B = 3
+    batch = {"tokens": torch.randint(1, base.vocab_size, (B, 40),
+                                     generator=gen, device=cuda),
+             "frontend_embeds": torch.randn(
+                 (B, base.frontend_tokens, base.frontend_dim),
+                 generator=gen, device=cuda)}
+    logits = {}
+    for impl in ("kernel", "plain"):
+        cfg = base.replace(attention_impl=impl)
+        build.reset_counts()
+        with torch.no_grad():
+            logits[impl] = api.forward(params, batch, cfg)
+        flash = base.encoder_layers + 2 * base.decoder_layers or \
+            base.num_layers
+        assert build.COUNTS["flash" if impl == "kernel" else
+                            "flash_plain"] == flash
+    assert rel_err(logits["kernel"], logits["plain"]) <= 1e-5
+    if not base.encoder_layers:
+        return
+    enc_len = torch.tensor([16, 9, 12], dtype=torch.int32, device=cuda)
+    steps = {}
+    for impl in ("kernel", "plain"):
+        cfg = base.replace(attention_impl=impl)
+        state = api.init_decode_state(cfg, B, 8, enc_len=16, device=cuda)
+        with torch.no_grad():
+            state = api.encode_for_decode(params, state,
+                                          batch["frontend_embeds"], enc_len,
+                                          cfg)
+            out = []
+            for t in range(4):
+                build.reset_counts()
+                lg, state = api.decode_step(
+                    params, state, batch["tokens"][:, t],
+                    torch.full((B,), t, dtype=torch.int32, device=cuda),
+                    cfg)
+                name = "decode" if impl == "kernel" else "decode_plain"
+                assert dict(build.COUNTS) == {name: base.decoder_layers}
+                out.append(lg)
+        steps[impl] = torch.stack(out)
+    assert rel_err(steps["kernel"], steps["plain"]) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -240,6 +240,9 @@ def test_port_imports_no_jax_and_no_repro():
         "assert 'repro_torch.configs.kimi_k2_1t' in sys.modules\n"
         "assert 'repro_torch.layers.xlstm' in sys.modules\n"
         "assert 'repro_torch.configs.xlstm_1_3b' in sys.modules\n"
+        "assert 'repro_torch.configs.llava_next_34b' in sys.modules\n"
+        "assert 'repro_torch.configs.seamless_m4t_medium' in sys.modules\n"
+        "assert 'repro_torch.models.inputs' in sys.modules\n"
         "print('ok')\n")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))

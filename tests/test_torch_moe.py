@@ -233,7 +233,7 @@ def test_init_model_matches_repro_shapes_and_count(arch):
             t = t[k]
         assert tuple(t.shape) == leaf.shape[1:], path
     assert sum(t.numel() for t in jax.tree.leaves(ours)) == cfg.param_count()
-    # an expert stack is drawn slab by slab at the reference's fan-in std
+    # an expert stack is drawn in blocks of slabs at the reference's fan-in std
     # (E * d): the whole stack's spread, not one slab's
     std = float(ffn["w_up"].std())
     fan_in = cfg.moe.num_experts * cfg.d_model
