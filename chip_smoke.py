@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases "build,kimi checks,..."]
 
 from the repository root, on a machine with an NVIDIA Hopper card, PyTorch
 built for CUDA and the CUDA toolkit. It imports nothing of JAX or of the
@@ -9,7 +9,9 @@ JAX package. It drives both serving KV layouts (the paged pool and the
 per-slot contiguous caches with rolling windows) for qwen2-0.5b,
 gemma-7b, minicpm3-4b (MLA: latent caches, expanded K/V at head dims
 96 and 64), arctic-480b (MoE top-2 with a dense residual, head dim
-128; depth cut to 2 of its 35 layers), recurrentgemma-2b (RG-LRU
+128; depth cut to 2 of its 35 layers), kimi-k2-1t-a32b (MoE with 384
+experts at top-8, head dim 112, GQA group 8, an untied head over 163,840
+tokens; depth cut to 2 of its 61 layers), recurrentgemma-2b (RG-LRU
 blocks beside local-attention MQA blocks: GQA group 10 at head dim 256,
 a 2,048-token window), xlstm-1.3b (mLSTM and sLSTM blocks, no
 attention layer, so no kernel: per-slot matrix memory on both layouts)
@@ -18,7 +20,9 @@ group 7 at head dim 128); it runs seamless-m4t-medium (an
 encoder-decoder: LayerNorm, a GELU FFN, cross-attention over 1,024 stub
 frames) through its encoder and decode steps, the training path, and
 the paper's demonstrations (the quickstart and the Table I study).
-Phases (a failing check raises, and the script exits non-zero):
+Phases (a failing check raises, and the script exits non-zero; the
+``[phase]`` lines print each one's seconds; ``--phases`` runs the named
+ones alone, in this order, and prints no kernels line and no result):
 
 1. print the card's name and power limit; build the kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
@@ -97,7 +101,8 @@ Phases (a failing check raises, and the script exits non-zero):
    dtype, and a float32 launch one group past it refused;
 2e. the MoE router's top-k (a stable descending sort) on the card against
    the CPU's and ``jax.lax.top_k``'s known ids: ties, an all-NaN row,
-   +-inf, and 2,048 x 128 logits on a 0.25 grid, top-2 and top-8;
+   +-inf, and 2,048 x 128 logits on a 0.25 grid, top-2 and top-8, and
+   2,048 x 384 (kimi's experts) at top-8;
 2f. the four serving kernels at recurrentgemma-2b's local attention
    (``checks.windowed_cases``: 10 / 1 heads of 256, a 2,048-token window;
    histories of 1,024, 2,048, 2,049, 3,000 and 3,584 tokens, window
@@ -111,6 +116,14 @@ Phases (a failing check raises, and the script exits non-zero):
    float32 and bfloat16, dyadic and random, exact and ExpMul, at
    ``checks.kernel_tol``; and the cross-attention decode's one-pass
    plain route on the card against the CPU;
+2h. the four serving kernels at kimi-k2-1t-a32b's head dim 112
+   (``checks.head_dim_cases``) over float32, bfloat16, int8 and fp8 KV,
+   exact and ExpMul, dyadic and random inputs, at ``checks.kernel_tol``:
+   GQA group 8 (64 / 8 heads, kimi's) with float32 and bfloat16 q, group
+   1 and the largest group every decode kernel takes; each kernel on a
+   poisoned page at 112; the largest group each decode kernel takes at
+   112 by KV dtype, and a float32 launch one group past it refused before
+   any launch;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -120,16 +133,20 @@ Phases (a failing check raises, and the script exits non-zero):
 3b. gemma-7b at full width (head dim 256, GeGLU, scaled embeddings),
    depth cut to 4 layers for the plain runs, float32: the same ticks on a
    paged int8 pool and on contiguous fp32 caches, gated as in 3;
-3c. minicpm3-4b at full width and depth (62 layers, bf16, ExpMul): the
+3c. minicpm3-4b at full width, depth 16 of 62 (bf16, ExpMul): the
    ticks of phase 3 on a paged int8-latent pool and on contiguous fp32
    caches, kernels against plain versions, ExpMul logits gated at 1e-3;
-3d. arctic-480b at full width, depth 2 (bf16, ExpMul): the ticks of
-   phase 3 on a paged int8 pool and on contiguous fp32 caches, kernels
+3d. arctic-480b at full width, depth 2 (bf16, ExpMul; run with its
+   serving phase 4f on one draw of its weights, ``phase_moe``): the ticks
+   of phase 3 on a paged int8 pool and on contiguous fp32 caches, kernels
    against plain versions; each MoE layer's routes compared first (top-k
    ids and kept copies, token by token): a token routed otherwise in a
    row that had not diverged must be within 1e-3 of a router tie, and
    the logits of rows routed alike are gated within 1e-3;
-3e. recurrentgemma-2b at full width and depth (26 layers, bf16, ExpMul):
+3g. kimi-k2-1t-a32b at full width, depth 2 (bf16, ExpMul, 384 experts at
+   top-8, head dim 112; with its serving phase 4l on one draw of its
+   weights): the ticks and gates of 3d;
+3e. recurrentgemma-2b at full width, depth 13 of 26 (bf16, ExpMul):
    two prefill ticks of 1,152-token chunks (three rows past the window)
    and a decode tick on a paged fp32 pool and on contiguous fp32 caches
    (bf16 rows), kernels against plain versions: logits within 1e-3 of
@@ -199,7 +216,7 @@ Phases (a failing check raises, and the script exits non-zero):
    contiguous fp32 caches, each with graph ticks and eager ticks: streams
    gated equal, launches gated as in 4; tokens/s, TTFT p50, tick p50s and
    peak memory printed;
-4e. minicpm3-4b served the same way (62 layers, bf16, ExpMul, seed-2
+4e. minicpm3-4b served the same way (16 of 62 layers, bf16, ExpMul, seed-2
    weights), paged int8 latents and contiguous fp32: streams gated
    equal, and each run on the contiguous decode and prefill alone (an
    MLA pool holds latents, gathered and expanded each tick), neither
@@ -209,33 +226,36 @@ Phases (a failing check raises, and the script exits non-zero):
    contiguous fp32, graphs against eager, each run on its layout's two
    kernels alone, its paged graph ticks profiled (where an MoE tick's
    time goes);
-4g. recurrentgemma-2b served at full width and depth (bf16, ExpMul,
-   seed-2 weights): (a) phase 4's traffic on a paged fp32 pool and on
-   contiguous fp32 caches (bf16 rows; int8 is refused for a recurrent
-   pattern), graphs against eager, each run on its layout's two kernels
-   alone, once a tick in each of the 8 attention layers, the paged graph
-   ticks profiled with the device time by kernel family (the recurrence
-   loop's elementwise kernels, the GEMMs, attention); (b) windowed
-   traffic, 8 requests of 2,304-3,840 prompt tokens (every rolling
-   buffer wraps), 32 new each, ``max_len`` 4096, graph ticks on both
-   layouts: every request finishes, launches gated, the layouts' stream
-   agreement printed;
-4h. xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6 sLSTM;
+4l. kimi-k2-1t-a32b served as 4f at depth 2 (36.4B parameters, 67.8 GiB
+   of seed-2 bf16 weights), at head dim 112 on both layouts, with the
+   weight draw's seconds and the phase's peak memory;
+4g. recurrentgemma-2b served at full width (bf16, ExpMul, seed-2
+   weights): (a) phase 4's traffic at depth 13 of 26 on a paged fp32 pool
+   and on contiguous fp32 caches (bf16 rows; int8 is refused for a
+   recurrent pattern), graphs against eager, each run on its layout's two
+   kernels alone, once a tick in each of the 4 attention layers, the
+   paged graph ticks profiled with the device time by kernel family (the
+   recurrence loop's elementwise kernels, the GEMMs, attention); (b)
+   windowed traffic at full depth, 8 requests of 2,304-3,840 prompt
+   tokens (every rolling buffer wraps), 32 new each, ``max_len`` 4096,
+   graph ticks on both layouts: every request finishes, launches gated,
+   the layouts' stream agreement printed;
+4h. xlstm-1.3b at full width, depth 16 of 48 (14 mLSTM, 2 sLSTM;
    bf16, seed-0 weights): two prefill ticks of 32-token chunks and a
    decode tick on a paged state and on contiguous caches, logits and
    every state leaf bit for bit equal; 8 requests served by a graph
    engine and an eager engine in lockstep on each layout, every tick's
    logits and recurrent state bit for bit, written in place; ``forward``
-   against a ``decode_step`` loop over 288 tokens, float32 at full depth
+   against a ``decode_step`` loop over 288 tokens, float32 at depth 16
    gated at 1e-3 of the logits' magnitude, bf16 at depth 8 gated at 0.1
    (``phase_xlstm_ticks`` says why);
-4i. xlstm-1.3b served at full width and depth (bf16, seed-2 weights), 16
+4i. xlstm-1.3b served at full width, depth 16 (bf16, seed-2 weights), 16
    requests of 32-128 prompt tokens, 32 new each, 8 slots, chunk 32, on a
    paged state and on contiguous caches under graphs: no kernel launched,
    the layouts' streams gated equal; tokens/s, TTFT, tick p50s, peak
    memory; one prefill and one decode tick profiled (busy time, idle
-   share, top kernels). 4h and 4i take ~65-80 s;
-4j. llava-next-34b served at full width and depth (60 layers, bf16,
+   share, top kernels);
+4j. llava-next-34b served at full width, depth 8 of 60 (bf16,
    ExpMul, seed-2 weights; ``phase_gemma_serve``) as phase 4 serves
    qwen2-0.5b, paged int8 and contiguous fp32, graphs against eager,
    each run on its layout's two kernels alone; then one timed
@@ -279,6 +299,10 @@ Phases (a failing check raises, and the script exits non-zero):
    heads of 128, the rest as phase 5), with the registers, spills and
    shared memory (at its group of 7) of every KV dtype's head-dim 128
    instantiation;
+5g. the four serving kernels at kimi-k2-1t-a32b's serving shapes (64 / 8
+   heads of 112, the rest as phase 5), with the registers, spills and
+   shared memory (at its group of 8) of every KV dtype's head-dim 112
+   instantiation;
 5e. the four serving kernels at recurrentgemma-2b's serving shapes (bf16
    values, ExpMul, bf16 q, 8 x 3,072 resident tokens, window 2,048, 10 /
    1 heads of 256, chunk 256): device and launch times, the bound from
@@ -311,8 +335,8 @@ Phases (a failing check raises, and the script exits non-zero):
    grid, the raw attention error) must launch flash only, with every
    perplexity finite; its table is printed, not gated;
 8. one JSON line of kernels (each serving kernel with ``d256``,
-   ``d128``, ``llava_d128``, ``rg_w2048`` and, for the contiguous pair,
-   ``mla_96_64`` entries; flash with ``llava_frontend``,
+   ``d128``, ``d112``, ``llava_d128``, ``rg_w2048`` and, for the
+   contiguous pair, ``mla_96_64`` entries; flash with ``llava_frontend``,
    ``seamless_encoder`` and ``seamless_cross``; the contiguous decode
    with ``seamless_d64_g1``), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -360,26 +384,40 @@ GEMMA, GEMMA_H, GEMMA_D, GEMMA_TICK_LAYERS = "gemma-7b", 16, 256, 4
 # layers (27.7B parameters, 55.4 GB in bf16)
 ARCTIC, ARCTIC_H, ARCTIC_HKV, ARCTIC_D = "arctic-480b", 56, 8, 128
 ARCTIC_GROUP, ARCTIC_LAYERS = ARCTIC_H // ARCTIC_HKV, 2
-# minicpm3-4b: MLA, 40 / 40 heads, expanded K rows of 96 and V rows of 64
-MLA, MLA_H = "minicpm3-4b", 40
+# kimi-k2-1t-a32b: 384 experts, top-8, no dense residual, 64 / 8 heads of
+# 112 (GQA group 8), an untied head over 163,840 tokens; served at depth 2
+# of its 61 layers (36.4B parameters, 67.8 GiB in bf16)
+KIMI, KIMI_H, KIMI_HKV, KIMI_D = "kimi-k2-1t-a32b", 64, 8, 112
+KIMI_GROUP, KIMI_LAYERS = KIMI_H // KIMI_HKV, 2
+# minicpm3-4b: MLA, 40 / 40 heads, expanded K rows of 96 and V rows of 64;
+# its ticks and serving at depth MLA_LAYERS of 62 (a cut that keeps the
+# script inside its time limit)
+MLA, MLA_H, MLA_LAYERS = "minicpm3-4b", 40, 16
 # recurrentgemma-2b: 18 RG-LRU blocks beside 8 local-attention blocks of
 # 10 / 1 heads of 256 (GQA group 10), a 2,048-token window, a logit
-# softcap; served at full width and depth (2.89B parameters). Its ticks'
+# softcap; its ticks and phase 4's traffic at full width, depth RG_LAYERS
+# of 26 (one unit of its pattern: 9 RG-LRU and 4 attention layers; a cut
+# for the script's time), the windowed traffic at full depth. Its ticks'
 # chunk (two of them pass the window) and its windowed serving shapes
 RG, RG_H, RG_HKV, RG_D, RG_WINDOW = "recurrentgemma-2b", 10, 1, 256, 2048
+RG_LAYERS = 13
 RG_TICK_CHUNK, RG_CTX, RG_MAX_LEN = 1152, 3072, 4096
 # xlstm-1.3b: 42 mLSTM and 6 sLSTM blocks, no attention layer, 4 heads
-# (mLSTM heads of 768); served at full width and depth (1.35B parameters).
+# (mLSTM heads of 768); ticked and served at full width, depth XLSTM_LAYERS
+# of 48 (two units of 7 mLSTM + 1 sLSTM; a cut for the script's time).
 # Its ticks' and serving chunk, serving max_len, and the forward check's
 # length (two chunkwise chunks of 144) and bf16 depth
 XLSTM, XLSTM_CHUNK, XLSTM_MAX_LEN = "xlstm-1.3b", 32, 256
+XLSTM_LAYERS = 16
 XLSTM_FWD_SEQ, XLSTM_BF16_LAYERS = 288, 8
 # llava-next-34b: a Yi-34B-class decoder, 56 / 8 heads of 128 (GQA group
 # 7), an untied head, RoPE base 5e6, 576 projected patches prepended to the
-# text; served at full depth (60 layers, 64.07 GiB of bf16 weights, a peak
-# of 66.4-68.2 GiB), its ticks at LLAVA_TICK_LAYERS in float32, its timed
-# frontend forward over 576 patches and LLAVA_TEXT tokens
+# text; served at full width, depth LLAVA_SERVE_LAYERS of 60 (a cut for
+# the script's time: all 60 are 64.07 GiB of bf16 weights, a peak of
+# 66.4-68.2 GiB), its ticks at LLAVA_TICK_LAYERS in float32, its timed frontend
+# forward over 576 patches and LLAVA_TEXT tokens on the served weights
 LLAVA, LLAVA_TICK_LAYERS, LLAVA_TEXT = "llava-next-34b", 4, 512
+LLAVA_SERVE_LAYERS = 8
 # seamless-m4t-medium: 12 + 12 layers, 16 / 16 heads of 64, LayerNorm,
 # non-gated GELU, cross-attention over 1,024 stub frames; 8 requests of
 # prompts of 4-16 tokens, SEAMLESS_NEW greedy tokens each, and a
@@ -672,7 +710,8 @@ def _largest_groups(torch, checks, build, decode, rng, hd):
     """The largest GQA group each decode kernel takes at head dim ``hd``
     by KV dtype (its shared memory, from its own C query, within the
     card's limit; gated monotone in the group), and a float32 launch one
-    group past it raising ``ValueError`` before any launch."""
+    group past it raising ``ValueError`` before any launch (past 32, the
+    kernels' group bound refuses it)."""
     limit = decode.card_smem_limit(torch.device("cuda"))
     largest = {}
     for kv, dt in checks.KV_KINDS.items():
@@ -691,8 +730,6 @@ def _largest_groups(torch, checks, build, decode, rng, hd):
     for name, run in (("paged_decode", checks.run_decode),
                       ("decode", checks.run_contiguous_decode)):
         group = largest[f"{name} f32"] + 1
-        if group > 32:
-            continue
         kw = dict(B=2, H=group, Hkv=1, D=hd, lengths=[40, 7], kv="f32")
         case = (checks.paged_case(rng, page_size=PS, max_blocks=4, **kw)
                 if name == "paged_decode" else
@@ -770,6 +807,41 @@ def phase_head_dim_checks(torch, checks, build, decode):
     _poisoned_pages(torch, checks, worst, D=ARCTIC_D)
     largest[ARCTIC_D] = _largest_groups(torch, checks, build, decode, rng,
                                         ARCTIC_D)
+    return largest
+
+
+def phase_kimi_checks(torch, checks, build, decode):
+    """The four serving kernels at kimi-k2-1t-a32b's head dim 112 (28
+    feature groups: the prefills' value side padded to 128, the contiguous
+    decode's K rows in two depth steps of 56) against their plain versions
+    (``checks.head_dim_cases``) over float32, bfloat16, int8 and fp8 KV,
+    exact and ExpMul, dyadic and random inputs, at ``checks.kernel_tol``:
+    GQA group 8 (64 / 8 heads, kimi's) with float32 and bfloat16 q, group
+    1 (8 / 8 heads, float32 q) and the largest group every decode kernel
+    takes over every KV dtype (one KV head, bfloat16 q); each kernel on a
+    poisoned page at 112; the largest group each decode kernel takes at
+    112 by KV dtype, and a float32 launch one group past it refused before
+    its launch. Returns the largest groups."""
+    rng = np.random.default_rng(16)
+    largest = _largest_groups(torch, checks, build, decode, rng, KIMI_D)
+    top = min(largest.values())
+    worst, n = {}, 0
+    cases = [(KIMI_GROUP, KIMI_H, q_dtype) for q_dtype in (torch.float32,
+                                                           torch.bfloat16)]
+    cases += [(1, KIMI_HKV, torch.float32), (top, top, torch.bfloat16)]
+    for group, heads, q_dtype in cases:
+        for kv in checks.KV_KINDS:
+            for dyadic in (True, False):
+                for name, run, case, idle, label in checks.head_dim_cases(
+                        rng, KIMI_D, kv=kv, q_dtype=q_dtype, group=group,
+                        H=heads, dyadic=dyadic):
+                    for variant in ("exact", "expmul"):
+                        _hold(torch, checks, name, run, case, variant,
+                              q_dtype, idle, label, worst)
+                        n += 1
+    log(f"[check] head dim {KIMI_D} (groups {KIMI_GROUP}, 1 and {top}): {n} "
+        f"cases, worst rel err {json.dumps(worst)}")
+    _poisoned_pages(torch, checks, worst, D=KIMI_D)
     return largest
 
 
@@ -1159,14 +1231,16 @@ def phase_gemma_ticks(torch, cfg_mod, api):
 
 
 def phase_mla_ticks(torch, cfg_mod, api):
-    """minicpm3-4b at full width and depth (62 layers, bf16, ExpMul,
+    """minicpm3-4b at full width, depth ``MLA_LAYERS`` (bf16, ExpMul,
     random weights from seed 0): phase 3's two prefill ticks and a decode
     tick on a paged int8-latent pool and on contiguous fp32 caches (bf16
     latents), kernels against plain versions, the logits gated within 1e-3
     of their magnitude (phase 3b's bound, here on ExpMul). Either layout
     runs the contiguous decode and prefill at 96/64."""
-    base = cfg_mod.get_config(MLA)                  # bf16, ExpMul
+    base = cfg_mod.get_config(MLA, num_layers=MLA_LAYERS)  # bf16, ExpMul
     assert base.attention_variant == "expmul" and base.dtype == "bfloat16"
+    log(f"[config] {MLA} ticks: {base.param_count()} parameters; reduced: "
+        f"num_layers {cfg_mod.get_config(MLA).num_layers} -> {MLA_LAYERS}")
     params = api.init_model(base, torch.Generator(device="cuda").manual_seed(0),
                             device="cuda")
     bt, chunks, toks, tok1 = _tick_inputs(torch, np.random.default_rng(1),
@@ -1183,9 +1257,9 @@ def phase_moe_routing(torch):
     """The MoE router's top-k on the card against the CPU's, and against
     ``jax.lax.top_k``'s ids where the reference's are known: rows with
     ties, an all-NaN row (a request poisoned by a NaN page), +-inf; then
-    arctic's shape, 2,048 tokens over 128 experts, logits on a 0.25 grid
-    (ties in most rows) with NaN and inf rows. The card's stable sort must
-    give the CPU's ids exactly."""
+    arctic's shape, 2,048 tokens over 128 experts, and kimi's, 2,048 over
+    384 at top-8, logits on a 0.25 grid (ties in most rows) with NaN and
+    inf rows. The card's stable sort must give the CPU's ids exactly."""
     from repro_torch.layers import moe
     nan, inf = float("nan"), float("inf")
     rows = [[1.0, 1.0, 0.2, 1.0], [nan] * 4, [inf, 0.5, -inf, inf],
@@ -1199,19 +1273,23 @@ def phase_moe_routing(torch):
             raise AssertionError(f"top-k of {rows[i]}: {cpu[i].tolist()}, "
                                  f"jax.lax.top_k gives {want}")
     rng = np.random.default_rng(14)
-    wide = torch.from_numpy(np.round(rng.standard_normal((2048, 128)) * 4)
-                            / 4).float()
-    wide[5] = nan
-    wide[6, 3] = inf
-    wide[7, :] = -inf
+    wide = {}
+    for E in (128, 384):
+        x = torch.from_numpy(np.round(rng.standard_normal((2048, E)) * 4)
+                             / 4).float()
+        x[5] = nan
+        x[6, 3] = inf
+        x[7, :] = -inf
+        wide[E] = x
     same = [torch.equal(cpu, card)]
-    for x in (logits, wide):
-        for k in (2, 8):
+    for x, ks in ((logits, (2, 8)), (wide[128], (2, 8)), (wide[384], (8,))):
+        for k in ks:
             same.append(torch.equal(moe.top_k(x, k)[1],
                                     moe.top_k(x.cuda(), k)[1].cpu()))
     log(f"[moe] routing ids on the card equal the CPU's: {all(same)} "
         f"({len(same)} cases; rows {rows} -> {card.tolist()}; 2048 x 128 "
-        f"logits on a 0.25 grid with NaN and inf rows, top-2 and top-8)")
+        f"logits on a 0.25 grid with NaN and inf rows, top-2 and top-8; "
+        f"2048 x 384, top-8)")
     if not all(same):
         raise AssertionError("the card's routing differs from the CPU's")
 
@@ -1246,32 +1324,21 @@ def _free(torch, label):
         f"reserved")
 
 
-def phase_arctic_ticks(torch, cfg_mod, api):
-    """arctic-480b at full width, depth cut to 2 layers (bf16, ExpMul,
-    random weights from seed 0): phase 3's two prefill ticks and a decode
-    tick on a paged int8 pool and on contiguous fp32 caches (bf16 rows),
-    through the kernels and through the plain versions. Routing is
-    discontinuous (an attention output within ``kernel_tol`` can flip a
-    near-tie of the router), so the two runs' routes are compared first,
-    layer by layer: each token's top-k ids and kept copies. A row
-    diverges at its first token routed otherwise (or a copy kept
-    otherwise); a token routed otherwise in a row that had not diverged
-    must sit within 1e-3 of a tie (its smallest gap between adjacent
-    logits of its top k + 1), else the check fails. The logits of each row
-    that never diverged are gated within 1e-3 of their magnitude."""
+def _moe_ticks(torch, api, params, base):
+    """An MoE config (``base``: bf16, ExpMul) on ``params``: phase 3's two
+    prefill ticks and a decode tick on a paged int8 pool and on contiguous
+    fp32 caches (bf16 rows), through the kernels and through the plain
+    versions. Routing is discontinuous (an attention output within
+    ``kernel_tol`` can flip a near-tie of the router), so the two runs'
+    routes are compared first, layer by layer: each token's top-k ids and
+    kept copies. A row diverges at its first token routed otherwise (or a
+    copy kept otherwise); a token routed otherwise in a row that had not
+    diverged must sit within 1e-3 of a tie (its smallest gap between
+    adjacent logits of its top k + 1), else the check fails. The logits of
+    each row that never diverged are gated within 1e-3 of their
+    magnitude."""
     from repro_torch.layers import moe
-    _free(torch, "arctic ticks")
-    base = cfg_mod.get_config(ARCTIC, num_layers=ARCTIC_LAYERS)
-    assert base.attention_variant == "expmul" and base.dtype == "bfloat16"
-    m = base.moe
-    log(f"[config] {ARCTIC}: d_model {base.d_model}, {base.num_heads} / "
-        f"{base.num_kv_heads} heads of {base.resolved_head_dim()}, "
-        f"{m.num_experts} experts top-{m.top_k} (d_ff {m.d_ff}) + dense "
-        f"residual {m.dense_d_ff}, vocab {base.vocab_size} untied; "
-        f"{base.param_count()} parameters; reduced: num_layers 35 -> "
-        f"{ARCTIC_LAYERS}")
-    params = api.init_model(base, torch.Generator(device="cuda").manual_seed(0),
-                            device="cuda")
+    arch, m, layers = base.name, base.moe, base.num_layers
     bt, chunks, toks, tok1 = _tick_inputs(torch, np.random.default_rng(1),
                                           base.vocab_size)
     kinds = [("prefill", c) for c in chunks] + [("decode", None)]
@@ -1284,16 +1351,16 @@ def phase_arctic_ticks(torch, cfg_mod, api):
                 logits = _ticks(torch, api, params, cfg, layout, bt, toks,
                                 chunks, tok1)
             runs[impl] = (logits, routes.calls)
-            log(f"[model] {ARCTIC} {layout} {kv_dtype} expmul {impl}: "
+            log(f"[model] {arch} {layout} {kv_dtype} expmul {impl}: "
                 f"{len(logits)} ticks in {time.perf_counter() - t0:.2f} s")
         (lk, rk), (lp, rp) = runs["kernel"], runs["plain"]
-        if len(rk) != len(rp) or len(rk) != len(kinds) * ARCTIC_LAYERS:
+        if len(rk) != len(rp) or len(rk) != len(kinds) * layers:
             raise AssertionError(f"{len(rk)} / {len(rp)} MoE calls")
         diverged = torch.zeros(B, dtype=torch.bool)
         for tick, (kind, nv) in enumerate(kinds):
-            for layer in range(ARCTIC_LAYERS):
-                a = rk[tick * ARCTIC_LAYERS + layer]
-                b = rp[tick * ARCTIC_LAYERS + layer]
+            for layer in range(layers):
+                a = rk[tick * layers + layer]
+                b = rp[tick * layers + layer]
                 T = a.shape[0]
                 C = moe.capacity(T, m)
                 ids_a = moe.top_k(a, m.top_k)[1]
@@ -1312,7 +1379,7 @@ def phase_arctic_ticks(torch, cfg_mod, api):
                 gaps = (top[:, :-1] - top[:, 1:]).min(-1)[0]
                 root = flip & valid & ~diverged[row]
                 for t in root.nonzero().flatten().tolist():
-                    log(f"[model] {ARCTIC} {layout} tick {tick} ({kind}) "
+                    log(f"[model] {arch} {layout} tick {tick} ({kind}) "
                         f"layer {layer}: row {int(row[t])} token "
                         f"{int(pos[t])} routed otherwise, router-logit gap "
                         f"{float(gaps[t]):.3e}")
@@ -1321,7 +1388,7 @@ def phase_arctic_ticks(torch, cfg_mod, api):
                                              "near-tie")
                 newly = (flip | kept) & valid
                 diverged[row[newly].unique()] = True
-                log(f"[model] {ARCTIC} {layout} tick {tick} ({kind}) layer "
+                log(f"[model] {arch} {layout} tick {tick} ({kind}) layer "
                     f"{layer}: T {T}, capacity {C}, "
                     f"{int((flip & valid).sum())} valid tokens routed "
                     f"otherwise, {int((kept & valid).sum())} with a copy "
@@ -1331,25 +1398,71 @@ def phase_arctic_ticks(torch, cfg_mod, api):
             (x, rows), (y, _) = lk[tick], lp[tick]
             rows = rows.cpu() & ~diverged
             if not rows.any():
-                log(f"[model] {ARCTIC} {layout} tick {tick}: every row "
+                log(f"[model] {arch} {layout} tick {tick}: every row "
                     f"diverged, no logits gated")
                 continue
             x, y = x[rows.cuda()].double(), y[rows.cuda()].double()
             if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
                 raise AssertionError("non-finite logits")
             gap = float((x - y).abs().max() / y.abs().max())
-            log(f"[model] {ARCTIC} {layout} {kv_dtype} expmul tick {tick} "
+            log(f"[model] {arch} {layout} {kv_dtype} expmul tick {tick} "
                 f"({kind}): max|dlogits| / max|logits| = {gap:.3e} over "
                 f"{int(rows.sum())} rows routed alike (max|logits| "
                 f"{float(y.abs().max()):.3f}; gated at 1e-3)")
             if not gap <= 1e-3:
                 raise AssertionError("kernel logits disagree with plain")
+        del runs, lk, lp, rk, rp
+        torch.cuda.empty_cache()
+
+
+def phase_moe(torch, cfg_mod, api, build, ServeEngine, arch, num_layers):
+    """An MoE arch at full width, depth cut to ``num_layers`` (bf16,
+    ExpMul, random weights from seed 2, drawn once): its ticks, kernels
+    against plain versions with the routes compared first (``_moe_ticks``),
+    then served as phase 4 serves qwen2-0.5b (``phase_gemma_serve``: paged
+    int8 and contiguous fp32, graphs against eager, each run on its
+    layout's two kernels alone, the paged graph ticks profiled). Returns
+    the serving runs' launches, with the draw's seconds and the peak
+    memory of the whole phase."""
+    _free(torch, f"{arch} ticks and serve")
+    torch.cuda.reset_peak_memory_stats()
+    full = cfg_mod.get_config(arch)
+    base = full.replace(num_layers=num_layers)
+    assert base.attention_variant == "expmul" and base.dtype == "bfloat16"
+    m = base.moe
+    log(f"[config] {arch}: d_model {base.d_model}, {base.num_heads} / "
+        f"{base.num_kv_heads} heads of {base.resolved_head_dim()}, "
+        f"{m.num_experts} experts top-{m.top_k} (d_ff {m.d_ff})"
+        f"{f' + dense residual {m.dense_d_ff}' if m.dense_residual else ''}"
+        f", vocab {base.vocab_size} untied; {base.param_count()} parameters "
+        f"({base.param_count() * 2 / 2**30:.2f} GiB in bf16); reduced: "
+        f"num_layers {full.num_layers} -> {num_layers}")
+    t0 = time.perf_counter()
+    params = api.init_model(
+        base, torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"[config] {arch}: weights drawn in {init_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    t0 = time.perf_counter()
+    _moe_ticks(torch, api, params, base)
+    log(f"[model] {arch}: ticks in {time.perf_counter() - t0:.1f} s, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    launches = phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine,
+                                 arch=arch, num_layers=num_layers,
+                                 params=params)
     del params
     torch.cuda.empty_cache()
+    launches["phase"] = dict(init_s=init_s, peak_gib=(
+        torch.cuda.max_memory_allocated() / 2**30))
+    log(f"[serve] {arch}: peak memory of the phase "
+        f"{launches['phase']['peak_gib']:.2f} GiB")
+    return launches
 
 
 def phase_rg_ticks(torch, cfg_mod, api):
-    """recurrentgemma-2b at full width and depth (26 layers, bf16, ExpMul,
+    """recurrentgemma-2b at full width, depth ``RG_LAYERS`` (bf16, ExpMul,
     random weights from seed 0): two prefill ticks of 1,152-token chunks
     (rows of 0 to 2,304 tokens, three past the 2,048-token window, so the
     contiguous rolling buffer wraps and the paged kernels skip pages below
@@ -1360,14 +1473,15 @@ def phase_rg_ticks(torch, cfg_mod, api):
     first attention layer, within 1e-2 of its magnitude after it (one
     bf16 step is 2^-8 of a value)."""
     _free(torch, f"{RG} ticks")
-    base = cfg_mod.get_config(RG)                   # bf16, ExpMul
+    base = cfg_mod.get_config(RG, num_layers=RG_LAYERS)  # bf16, ExpMul
     assert base.attention_variant == "expmul" and base.dtype == "bfloat16"
     kinds = base.pattern_for()
     log(f"[config] {RG}: d_model {base.d_model}, {base.num_heads} / "
         f"{base.num_kv_heads} heads of {base.resolved_head_dim()}, window "
         f"{base.window}, lru width {base.lru_width}, {kinds.count('rglru')} "
         f"RG-LRU and {kinds.count('attn')} attention layers, softcap "
-        f"{base.logits_softcap}; {base.param_count()} parameters")
+        f"{base.logits_softcap}; {base.param_count()} parameters; reduced: "
+        f"num_layers {cfg_mod.get_config(RG).num_layers} -> {RG_LAYERS}")
     params = api.init_model(
         base, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     rng = np.random.default_rng(1)
@@ -1631,7 +1745,7 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
 
 
 def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
-                      num_layers=None):
+                      num_layers=None, params=None):
     """gemma-7b (or ``arch``) at full width and depth (``num_layers`` cuts
     the depth; bf16, ExpMul, random weights from seed 2) served as phase 4
     serves qwen2-0.5b: the same 16
@@ -1652,8 +1766,10 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
     profiled too (where a hybrid tick's time goes: the recurrence loop,
     the GEMMs or attention). A config with a frontend (llava-next-34b)
     then times a frontend forward on the served weights
-    (``llava_frontend_forward``), returned under "frontend_forward"."""
-    _free(torch, f"{arch} serve")
+    (``llava_frontend_forward``), returned under "frontend_forward".
+    ``params`` serves weights already drawn (the caller frees them)."""
+    if params is None:
+        _free(torch, f"{arch} serve")
     over = {} if num_layers is None else dict(num_layers=num_layers)
     cfg = cfg_mod.get_config(arch, **over)          # bf16, ExpMul
     assert cfg.attention_variant == "expmul" and cfg.dtype == "bfloat16"
@@ -1663,8 +1779,10 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
         log(f"[config] {arch} served: {cfg.param_count()} parameters; "
             f"reduced: num_layers "
             f"{cfg_mod.get_config(arch).num_layers} -> {num_layers}")
-    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
-                            device="cuda")
+    own = params is None
+    if own:
+        params = api.init_model(
+            cfg, torch.Generator(device="cuda").manual_seed(2), device="cuda")
     rng = np.random.default_rng(3)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                for n in rng.integers(128, 1025, size=16)]
@@ -1710,8 +1828,9 @@ def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
     if cfg.frontend:
         launches["frontend_forward"] = llava_frontend_forward(
             torch, api, build, params, cfg)
-    del params
-    torch.cuda.empty_cache()
+    if own:
+        del params
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1803,7 +1922,7 @@ def _xlstm_lockstep(torch, ServeEngine, params, cfg, kw, prompts):
 
 
 def phase_xlstm_ticks(torch, cfg_mod, api, ServeEngine):
-    """xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6 sLSTM;
+    """xlstm-1.3b at full width, depth ``XLSTM_LAYERS`` (14 mLSTM, 2 sLSTM;
     bf16, random weights from seed 0; no attention layer, so no kernel):
     (a) two prefill ticks of ``XLSTM_CHUNK``-token chunks (rows idle,
     ragged and full) and a decode tick on a paged state and on contiguous
@@ -1814,7 +1933,7 @@ def phase_xlstm_ticks(torch, cfg_mod, api, ServeEngine):
     bit for bit, written in place; (c) ``api.forward`` (chunkwise mLSTM,
     two chunks of 144 at dh 768) against a loop of ``api.decode_step``
     from ``init_decode_state`` over ``XLSTM_FWD_SEQ`` tokens, 2 rows: in
-    float32 at full depth (TF32 off), gated at 1e-3 of the logits'
+    float32 at that depth (TF32 off), gated at 1e-3 of the logits'
     magnitude (``repro``'s own CPU test holds 3e-4 at its smoke config);
     in bf16 at depth ``XLSTM_BF16_LAYERS``, gated at 0.1: each layer's
     output is rounded to bf16 (2^-8 of a value) at places the two forms
@@ -1825,12 +1944,14 @@ def phase_xlstm_ticks(torch, cfg_mod, api, ServeEngine):
     stabilizers ``m`` where a fresh state holds -1e30, as ``repro``'s
     does."""
     _free(torch, f"{XLSTM} ticks")
-    base = cfg_mod.get_config(XLSTM)                # bf16
+    base = cfg_mod.get_config(XLSTM, num_layers=XLSTM_LAYERS)   # bf16
     assert base.dtype == "bfloat16" and "attn" not in base.pattern_for()
     kinds = base.pattern_for()
     log(f"[config] {XLSTM}: d_model {base.d_model}, {base.num_heads} heads, "
         f"{kinds.count('mlstm')} mLSTM and {kinds.count('slstm')} sLSTM "
-        f"layers, no attention layer; {base.param_count()} parameters")
+        f"layers, no attention layer; {base.param_count()} parameters; "
+        f"reduced: num_layers {cfg_mod.get_config(XLSTM).num_layers} -> "
+        f"{XLSTM_LAYERS}")
     params = api.init_model(
         base, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     rng = np.random.default_rng(12)
@@ -1933,7 +2054,8 @@ def phase_xlstm_ticks(torch, cfg_mod, api, ServeEngine):
 
 
 def phase_xlstm_serve(torch, cfg_mod, api, build, ServeEngine):
-    """xlstm-1.3b served at full width and depth (bf16, seed-2 weights) on
+    """xlstm-1.3b served at full width, depth ``XLSTM_LAYERS`` (bf16,
+    seed-2 weights) on
     a paged state and on contiguous caches, both at kv_dtype fp32 (there
     is no KV; int8 is refused), with CUDA-graph ticks: 16 requests of
     32-128 prompt tokens, 32 new each, 8 slots, ``max_len`` 256, chunk
@@ -1945,7 +2067,7 @@ def phase_xlstm_serve(torch, cfg_mod, api, build, ServeEngine):
     profiled (``phase_profile``): device busy time, idle share and the top
     kernels. Returns each run's numbers."""
     _free(torch, f"{XLSTM} serve")
-    cfg = cfg_mod.get_config(XLSTM)
+    cfg = cfg_mod.get_config(XLSTM, num_layers=XLSTM_LAYERS)
     params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
                             device="cuda")
     rng = np.random.default_rng(13)
@@ -3070,6 +3192,16 @@ def phase_arctic_times(torch, checks, F):
                          plain_warmup=1)
 
 
+def phase_kimi_times(torch, checks, F):
+    """The four serving kernels at kimi-k2-1t-a32b's serving shapes: 64 / 8
+    heads of 112, the rest as phase 5 (the plain versions' median of 5
+    runs)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    return _time_serving(torch, checks, F, flush, np.random.default_rng(17),
+                         h=KIMI_H, hkv=KIMI_HKV, d=KIMI_D, plain_n=5,
+                         plain_warmup=1)
+
+
 def phase_rg_times(torch, checks, F, decode, prefill):
     """The four serving kernels at recurrentgemma-2b's serving shapes: B
     sequences of RG_CTX resident tokens, a 2,048-token window (so 2,048
@@ -3341,26 +3473,28 @@ def phase_resources(build, decode, prefill, flash):
         log(f"[resources] {name} at head dim {GEMMA_D}, ExpMul, by KV "
             f"dtype: {json.dumps(d256)}")
         out[name] = {"d256": d256}
-    # arctic-480b's head dim: every KV dtype's ExpMul instantiation, at its
-    # GQA group of 7
-    smem_128 = {
-        "paged_decode": lambda dt: decode.paged_decode_smem(
-            ARCTIC_GROUP, ARCTIC_D, PS, CTX // PS, dt),
-        "paged_prefill": lambda dt: prefill.paged_prefill_smem(ARCTIC_D),
-        "decode": lambda dt: decode.contiguous_decode_smem(
-            ARCTIC_GROUP, ARCTIC_D, decode.BLOCK_K, dt),
-        "prefill": lambda dt: prefill.contiguous_prefill_smem(
-            ARCTIC_D, prefill.BLOCK_K)}
-    for name in PAGED + CONTIGUOUS:
-        d128 = {"ptxas": {}, "smem_bytes": {}}
-        dims = f"Li{ARCTIC_D}E" * (2 if name in CONTIGUOUS else 1)
-        for kv, (mangled, dtype) in KV_MANGLED.items():
-            d128["ptxas"][kv] = _ptxas(
-                build, name, f"{name}_kernelI{mangled}{dims}Lb1EE")
-            d128["smem_bytes"][kv] = smem_128[name](getattr(torch, dtype))
-        log(f"[resources] {name} at head dim {ARCTIC_D}, ExpMul, by KV "
-            f"dtype (group {ARCTIC_GROUP}): {json.dumps(d128)}")
-        out[name]["d128"] = d128
+    # arctic-480b's head dim 128 and kimi-k2-1t-a32b's 112: every KV
+    # dtype's ExpMul instantiation, at their GQA groups of 7 and 8
+    for key, hd, group in (("d128", ARCTIC_D, ARCTIC_GROUP),
+                           ("d112", KIMI_D, KIMI_GROUP)):
+        smem_at = {
+            "paged_decode": lambda dt: decode.paged_decode_smem(
+                group, hd, PS, CTX // PS, dt),
+            "paged_prefill": lambda dt: prefill.paged_prefill_smem(hd),
+            "decode": lambda dt: decode.contiguous_decode_smem(
+                group, hd, decode.BLOCK_K, dt),
+            "prefill": lambda dt: prefill.contiguous_prefill_smem(
+                hd, prefill.BLOCK_K)}
+        for name in PAGED + CONTIGUOUS:
+            res = {"ptxas": {}, "smem_bytes": {}}
+            dims = f"Li{hd}E" * (2 if name in CONTIGUOUS else 1)
+            for kv, (mangled, dtype) in KV_MANGLED.items():
+                res["ptxas"][kv] = _ptxas(
+                    build, name, f"{name}_kernelI{mangled}{dims}Lb1EE")
+                res["smem_bytes"][kv] = smem_at[name](getattr(torch, dtype))
+            log(f"[resources] {name} at head dim {hd}, ExpMul, by KV dtype "
+                f"(group {group}): {json.dumps(res)}")
+            out[name][key] = res
     return out
 
 
@@ -3558,7 +3692,16 @@ def phase_fidelity(torch, build):
     return counts
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of repro_torch on "
+                                 "one card (every phase by default).")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phase names (as the [phase] lines "
+                    "print them) to run alone, in their order: a quicker "
+                    "partial run that prints no kernels line and no result")
+    only = [p.strip() for p in ap.parse_args(argv).phases.split(",")
+            if p.strip()]
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3582,6 +3725,8 @@ def main() -> int:
         ("kernel checks", lambda: phase_kernel_checks(torch, checks)),
         ("head dim checks", lambda: phase_head_dim_checks(torch, checks,
                                                           build, decode)),
+        ("kimi checks", lambda: phase_kimi_checks(torch, checks, build,
+                                                  decode)),
         ("mla checks", lambda: phase_mla_checks(torch, checks, build)),
         ("rg checks", lambda: phase_rg_checks(torch, checks)),
         ("moe routing", lambda: phase_moe_routing(torch)),
@@ -3592,7 +3737,6 @@ def main() -> int:
         ("model ticks", lambda: phase_model_ticks(torch, cfg_mod, api)),
         ("gemma ticks", lambda: phase_gemma_ticks(torch, cfg_mod, api)),
         ("mla ticks", lambda: phase_mla_ticks(torch, cfg_mod, api)),
-        ("arctic ticks", lambda: phase_arctic_ticks(torch, cfg_mod, api)),
         ("rg ticks", lambda: phase_rg_ticks(torch, cfg_mod, api)),
         ("llava ticks", lambda: phase_llava_ticks(torch, cfg_mod, api, build)),
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
@@ -3603,13 +3747,16 @@ def main() -> int:
                                         ServeEngine)),
         ("gemma serve", lambda: phase_gemma_serve(torch, cfg_mod, api, build,
                                                   ServeEngine)),
-        ("mla serve", lambda: phase_gemma_serve(torch, cfg_mod, api, build,
-                                                ServeEngine, arch=MLA)),
-        ("arctic serve", lambda: phase_gemma_serve(
-            torch, cfg_mod, api, build, ServeEngine, arch=ARCTIC,
-            num_layers=ARCTIC_LAYERS)),
-        ("rg serve", lambda: phase_gemma_serve(torch, cfg_mod, api, build,
-                                               ServeEngine, arch=RG)),
+        ("mla serve", lambda: phase_gemma_serve(
+            torch, cfg_mod, api, build, ServeEngine, arch=MLA,
+            num_layers=MLA_LAYERS)),
+        ("arctic", lambda: phase_moe(torch, cfg_mod, api, build,
+                                     ServeEngine, ARCTIC, ARCTIC_LAYERS)),
+        ("kimi", lambda: phase_moe(torch, cfg_mod, api, build, ServeEngine,
+                                   KIMI, KIMI_LAYERS)),
+        ("rg serve", lambda: phase_gemma_serve(
+            torch, cfg_mod, api, build, ServeEngine, arch=RG,
+            num_layers=RG_LAYERS)),
         ("rg windowed serve", lambda: phase_rg_windowed_serve(
             torch, cfg_mod, api, build, ServeEngine)),
         ("xlstm ticks", lambda: phase_xlstm_ticks(torch, cfg_mod, api,
@@ -3617,13 +3764,15 @@ def main() -> int:
         ("xlstm serve", lambda: phase_xlstm_serve(torch, cfg_mod, api, build,
                                                   ServeEngine)),
         ("llava serve", lambda: phase_gemma_serve(
-            torch, cfg_mod, api, build, ServeEngine, arch=LLAVA)),
+            torch, cfg_mod, api, build, ServeEngine, arch=LLAVA,
+            num_layers=LLAVA_SERVE_LAYERS)),
         ("seamless", lambda: phase_seamless(torch, cfg_mod, api, build)),
         ("times", lambda: phase_times(torch, checks, F)),
         ("gemma times", lambda: phase_gemma_times(torch, checks, F)),
         ("mla times", lambda: phase_mla_times(torch, checks, F, build, decode,
                                               prefill)),
         ("arctic times", lambda: phase_arctic_times(torch, checks, F)),
+        ("kimi times", lambda: phase_kimi_times(torch, checks, F)),
         ("rg times", lambda: phase_rg_times(torch, checks, F, decode,
                                             prefill)),
         ("frontend times", lambda: phase_frontend_times(
@@ -3634,11 +3783,22 @@ def main() -> int:
         ("quickstart", lambda: phase_quickstart(torch, build)),
         ("fidelity", lambda: phase_fidelity(torch, build)),
     )
+    if only:
+        unknown = set(only) - {name for name, _ in phases}
+        if unknown:
+            print(f"chip_smoke: no phase named {sorted(unknown)}",
+                  file=sys.stderr)
+            return 2
+        phases = tuple((n, fn) for n, fn in phases if n in only)
     results = {}
     for name, fn in phases:
         t0 = time.perf_counter()
         results[name] = fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    if only:
+        log(f"[total] {time.perf_counter() - t_start:.1f} s; a subset of the "
+            f"phases ({', '.join(only)}): no kernels line, no result")
+        return 0
     kernels = []
     launches = {**results["serve"], **results["train"]}
     launches["flash"].update(
@@ -3654,15 +3814,18 @@ def main() -> int:
                 f"{name} {kv}"] for kv in KV_MANGLED}
             if name.endswith("decode") else None,
             **results["gemma times"][name])
-    # ... at arctic-480b's head dim 128: its serving runs' launches, its
-    # times, each KV dtype's resources
-    for name in PAGED + CONTIGUOUS:
-        results["resources"][name]["d128"].update(
-            launches=results["arctic serve"][name],
-            largest_group={kv: results["head dim checks"][ARCTIC_D][
-                f"{name} {kv}"] for kv in KV_MANGLED}
-            if name.endswith("decode") else None,
-            **results["arctic times"][name])
+    # ... at arctic-480b's head dim 128 and kimi-k2-1t-a32b's 112: their
+    # serving runs' launches, their times, each KV dtype's resources
+    for key, arch, largest in (
+            ("d128", "arctic", results["head dim checks"][ARCTIC_D]),
+            ("d112", "kimi", results["kimi checks"])):
+        for name in PAGED + CONTIGUOUS:
+            results["resources"][name][key].update(
+                launches=results[arch][name],
+                largest_group={kv: largest[f"{name} {kv}"]
+                               for kv in KV_MANGLED}
+                if name.endswith("decode") else None,
+                **results[f"{arch} times"][name])
     # ... at recurrentgemma-2b's local attention (group 10, head dim 256,
     # window 2048): its serving runs' launches (phase 4g), its times
     windowed = results["rg windowed serve"]

@@ -2,9 +2,11 @@
 MoE 384 experts top-8, per-expert d_ff=2048, untied head — trillion-param
 MoE (paper-table). [arXiv:2501.kimi2; unverified]
 
-Its head dim is 7168 / 64 = 112, for which no serving kernel is built
-(``kernels/decode/decode.py:HEAD_DIMS``): on the card only its smoke
-config (head dim 16) is served.
+Its head dim is 7168 / 64 = 112 (GQA group 8): the four serving kernels
+are built for it (``kernels/decode/decode.py:HEAD_DIMS``). One layer's
+384 experts are ~34 GB in bf16, so on one card it is served at full width
+and depth 2 (``chip_smoke.py``); the flash forward of training refuses
+112 (``kernels/flash/flash.py:HEAD_DIMS``).
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
 

@@ -60,7 +60,7 @@
 // K rows may be wider than V rows (MLA's expanded latents: DK 96, DV 64, as
 // the reference's kernel takes them): q and the scores walk DK features, the
 // partials, the running state and the output DV. Built for (D, D) with D in
-// {16, 32, 64, 128, 256} over every KV dtype, and for (96, 64) over float32 and
+// {16, 32, 64, 112, 128, 256} over every KV dtype, and for (96, 64) over float32 and
 // bfloat16 KV only (MLA's expanded K/V are never codes). At (96, 64) a tile
 // fits a CTA unsplit: 256 rows of K and V are 53,248 + 32,768 B in bfloat16
 // and 102,400 + 65,536 B in float32, under the 232,448 a CTA can use.
@@ -93,11 +93,16 @@ __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 // kSubRows rows of all D features (each thread carries its outputs' value
 // chains from sub-tile to sub-tile in part_s), every step double-buffered
 // by cp.async. The tile, its maxima and every chain's order stay as they are.
-// D 128 and D 256 are split (DK == DV there): at 128, K + V is 256 features,
-// two K chunks and four V sub-tiles a 256-column tile.
+// D 112, 128 and 256 are split (DK == DV there): at 128, K + V is 256
+// features, two K chunks and four V sub-tiles a 256-column tile; at 112 (28
+// float4 groups) two K chunks of 56 features.
 template <int DK, int DV>
 __host__ __device__ constexpr bool split_tile() { return DK + DV > 160; }
-constexpr int kDepth = 64;    // K features a step (split tiles)
+// K features a step (split tiles): 64, or 56 at head dim 112. Its rows are 56
+// bytes of int8 or fp8 codes there, so those chunks are copied in 4-byte
+// pieces (kVecDepth).
+template <int DK>
+__host__ __device__ constexpr int split_depth() { return DK % 64 == 0 ? 64 : 56; }
 constexpr int kSubRows = 64;  // V rows a step (split tiles)
 
 template <typename KV, int DK, int DV>
@@ -108,7 +113,7 @@ __host__ __device__ Layout layout(int group, int bk) {
   const int vrow = DV * static_cast<int>(sizeof(KV));
   if constexpr (split_tile<DK, DV>()) {
     // two step buffers: a K chunk of bk rows, or a V sub-tile
-    L.k_stride = kDepth * static_cast<int>(sizeof(KV)) + 16;
+    L.k_stride = split_depth<DK>() * static_cast<int>(sizeof(KV)) + 16;
     const int step = align16(bk * L.k_stride > kSubRows * vrow ? bk * L.k_stride
                                                                 : kSubRows * vrow);
     L.k = 0;
@@ -143,6 +148,9 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
   constexpr bool QUANT = IsCode<KV>::value;
   constexpr bool SPLIT = split_tile<DK, DV>();
   static_assert(!SPLIT || DK == DV, "split tiles at DK == DV only");
+  constexpr int kDepth = split_depth<DK>();  // K features a step (split tiles)
+  static_assert(DK % kDepth == 0 || !SPLIT, "the split depth steps skip K features");
+  constexpr bool kVecDepth = kDepth * sizeof(KV) % 16 == 0;  // 16-byte pieces
   constexpr int kKRow = DK * static_cast<int>(sizeof(KV));  // bytes of a K row
   constexpr int kVRow = DV * static_cast<int>(sizeof(KV));  // bytes of a V row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -212,7 +220,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
         const unsigned char* src = reinterpret_cast<const unsigned char*>(k) + r * kKRow;
         const int d0 = st * kDepth * static_cast<int>(sizeof(KV));
         copy_rows_async_at(step_buf(g), L.k_stride, nr, kDepth * static_cast<int>(sizeof(KV)),
-                           vec16, [=](int j) { return src + j * kKRow + d0; });
+                           vec16 && kVecDepth, [=](int j) { return src + j * kKRow + d0; });
         if (QUANT && st == 0) {
           for (int j = tid; j < nr; j += kThreads) {
             cp_async4(ks_s + j, ks + r + j);
@@ -509,7 +517,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-// (DK, DV): (D, D) for D in {16, 32, 64, 128, 256}, and (96, 64) for float KV
+// (DK, DV): (D, D) for D in {16, 32, 64, 112, 128, 256}, and (96, 64) for float KV
 template <typename KV>
 int by_dims(int D, int Dv, int expmul, const void* q, const void* k, const void* v,
             const float* ks, const float* vs, const int* lens, void* out, int B, int Hkv,
@@ -524,6 +532,7 @@ int by_dims(int D, int Dv, int expmul, const void* q, const void* k, const void*
       case 16: REPRO_LAUNCH(16, 16);
       case 32: REPRO_LAUNCH(32, 32);
       case 64: REPRO_LAUNCH(64, 64);
+      case 112: REPRO_LAUNCH(112, 112);
       case 128: REPRO_LAUNCH(128, 128);
       case 256: REPRO_LAUNCH(256, 256);
       default: return static_cast<int>(cudaErrorInvalidValue);
@@ -543,6 +552,7 @@ long long smem_by_dims(int D, int Dv, int group, int bk) {
       case 16: return static_cast<long long>(smem_bytes<KV, 16, 16>(group, bk));
       case 32: return static_cast<long long>(smem_bytes<KV, 32, 32>(group, bk));
       case 64: return static_cast<long long>(smem_bytes<KV, 64, 64>(group, bk));
+      case 112: return static_cast<long long>(smem_bytes<KV, 112, 112>(group, bk));
       case 128: return static_cast<long long>(smem_bytes<KV, 128, 128>(group, bk));
       case 256: return static_cast<long long>(smem_bytes<KV, 256, 256>(group, bk));
       default: return -1;

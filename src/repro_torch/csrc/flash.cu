@@ -54,6 +54,7 @@ constexpr int kPLd = kScoreLd;     // row stride of the transposed scores
 
 template <int D>
 constexpr size_t smem_bytes(int bk) {
+  static_assert(staged_width(D, D) == D, "staged rows of D floats: no value padding");
   return sizeof(float) * (kRows * (D + kPad) + static_cast<size_t>(bk) * kPLd +
                           kSub * (D + kPad) + kSub + 2 * kRows);
 }

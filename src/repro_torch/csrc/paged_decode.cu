@@ -78,9 +78,9 @@ constexpr int kMaxRankPages = 8;   // pages a rank takes a round
 constexpr int kMaxSmem = 232448;   // bytes of shared memory a CTA can use
 
 // pool rows a rank stages a round: 128 rows, or fewer where a row of D
-// elements of KV is over 256 bytes (head dim 128: 64 float32 rows; head dim
-// 256: 32 float32 rows, 64 bfloat16), so the staged K and V rows stay within
-// ~64 KB at every D
+// elements of KV is over 256 bytes (head dim 112: 73 float32 rows, four pages
+// of 16; head dim 128: 64 float32 rows; head dim 256: 32 float32 rows, 64
+// bfloat16), so the staged K and V rows stay within ~64 KB at every D
 template <typename KV, int D>
 __host__ __device__ constexpr int rank_rows() {
   constexpr int row = D * static_cast<int>(sizeof(KV));
@@ -405,6 +405,7 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
+    case 112: REPRO_LAUNCH(112);
     case 128: REPRO_LAUNCH(128);
     case 256: REPRO_LAUNCH(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -419,6 +420,7 @@ long long smem_by_dim(int D, int group, int ps, int MB) {
     case 16: return static_cast<long long>(launch_shape<KV, 16>(group, ps, MB, CL));
     case 32: return static_cast<long long>(launch_shape<KV, 32>(group, ps, MB, CL));
     case 64: return static_cast<long long>(launch_shape<KV, 64>(group, ps, MB, CL));
+    case 112: return static_cast<long long>(launch_shape<KV, 112>(group, ps, MB, CL));
     case 128: return static_cast<long long>(launch_shape<KV, 128>(group, ps, MB, CL));
     case 256: return static_cast<long long>(launch_shape<KV, 256>(group, ps, MB, CL));
     default: return -1;

@@ -44,6 +44,10 @@
 //   chunk:    col < n_valid (the columns read), col <= row, row - col < window
 // The query block (32 rows, not the reference's min(128, C)) changes only
 // which wholly masked tiles are skipped.
+// Built for D in {16, 32, 64, 112, 128, 256}; at 112 (kimi-k2-1t-a32b) the
+// staged rows are 128 floats wide and the value side runs D 128's layout,
+// storing the first 112 features (tile_sm90.cuh:value_width, as in
+// csrc/prefill.cu).
 #include "tile_sm90.cuh"
 
 using namespace repro;
@@ -64,9 +68,10 @@ __host__ __device__ constexpr int group_pages(int ps) {
 
 template <int D>
 struct Smem {
+  static constexpr int XLD = staged_width(D, D) + kPad;  // staged rows' stride
   float q[kRows * (D + kPad)];         // the CTA's query rows
   float p[kSub * kPLd];                // the group's scores, then weights
-  float x[kSub * (D + kPad)];          // the staged K or V rows
+  float x[kSub * XLD];                 // the staged K or V rows
   float sc[kSub];                      // their scale rows
   float vt[kSub];                      // the group's v scales
   float r[kMaxGroupPages * kRows];     // each page's rescale of each row
@@ -80,13 +85,13 @@ struct Group {
   int p0, np, col0, nrows;
 };
 
-// three CTAs an SM (170 registers a thread) up to head dim 128; two at 128
-// over float32 pages, whose 16-byte loads in flight take 64 registers a
-// thread and spill at 170, and at 256 (111,744 B of shared memory a CTA,
-// and a thread's accumulators take 128 registers)
+// three CTAs an SM (170 registers a thread) up to head dim 128; two at 112
+// and 128 over float32 pages, whose 16-byte loads in flight take 56 and 64
+// registers a thread and spill at 170, and at 256 (111,744 B of shared
+// memory a CTA, and a thread's accumulators take 128 registers)
 template <typename KV, int D>
 constexpr int min_ctas() {
-  return D >= 256 || (D >= 128 && sizeof(KV) == 4) ? 2 : 3;
+  return D >= 256 || (D >= 112 && sizeof(KV) == 4) ? 2 : 3;
 }
 
 template <typename KV, int D, bool EXPMUL>
@@ -101,8 +106,9 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
                      int window, float scale, int act_dtype, int vec16) {
   constexpr bool QUANT = IsCode<KV>::value;
   constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
-  constexpr int DG = D / 4;                      // 4-feature groups
-  constexpr int RPT = kRows * DG / kThreads;     // value rows a thread
+  constexpr int DG = ChunkRows<D>::kGroups;      // 4-feature groups (padded)
+  constexpr int RPT = ChunkRows<D>::RPT;         // value rows a thread
+  constexpr int XLD = Smem<D>::XLD;
   static_assert(kRows * 4 == kThreads, "four weight threads a row");
   extern __shared__ __align__(16) unsigned char smem[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem);
@@ -144,6 +150,7 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   // staging step i: the K rows of group i / 2, or its V rows for odd i; in
   // flight in registers, or (St::kSync) straight into sm.x
   using St = Stage<KV, D>;
+  static_assert(St::DS + kPad == XLD, "staged at the stride the blocks read");
   St stage;
   const auto stage_step = [&](int i) {
     Group t;
@@ -192,6 +199,7 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
         r < rows ? load_act(q, (static_cast<int64_t>(bh) * C + r0 + r) * D + d, act_dtype)
                  : 0.0f;
   }
+  zero_value_pad<D, D>(sm.x);
 
   // the running state: (m, l) of row tid / 4 in its four weight threads;
   // acc of RPT rows x 4 features in each thread
@@ -209,7 +217,7 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     Group t;
     group_at(g, t);
     advance();  // the group's K rows (its first barrier also publishes q)
-    score_block<D, QUANT>(sm.q, sm.x, sm.sc, sm.p, t.nrows, scale);
+    score_block<D, QUANT, XLD>(sm.q, sm.x, sm.sc, sm.p, t.nrows, scale);
     if constexpr (QUANT) {
       for (int j = tid; j < t.nrows; j += kThreads)
         sm.vt[j] = t.hist ? vspool[pool_row(t, j)] : vsn[chunk0 + t.col0 + j];
@@ -257,8 +265,8 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
       for (int r = 0; r < RPT; ++r)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dsum[r][e] = 0.0f;
-      value_block<D, RPT>(dsum, sm.p + j0 * kPLd + RPT * vrg,
-                          sm.x + j0 * (D + kPad) + 4 * vdg, nc);
+      value_block<D, RPT, XLD>(dsum, sm.p + j0 * kPLd + RPT * vrg,
+                               sm.x + j0 * XLD + 4 * vdg, nc);
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         const float f = sm.r[pp * kRows + RPT * vrg + r];
@@ -273,7 +281,7 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int vrow = RPT * vrg + r;
-    if (vrow >= rows) continue;
+    if (vrow >= rows || 4 * vdg >= D) continue;  // a padded feature: not stored
     const float l = sm.l[vrow];
     const float den = l == 0.0f ? 1.0f : l;
     const int64_t o = (static_cast<int64_t>(bh) * C + r0 + vrow) * D + 4 * vdg;
@@ -324,6 +332,7 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
+    case 112: REPRO_LAUNCH(112);
     case 128: REPRO_LAUNCH(128);
     case 256: REPRO_LAUNCH(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -376,6 +385,7 @@ extern "C" long long paged_prefill_smem(int D) {
     case 16: return static_cast<long long>(sizeof(Smem<16>));
     case 32: return static_cast<long long>(sizeof(Smem<32>));
     case 64: return static_cast<long long>(sizeof(Smem<64>));
+    case 112: return static_cast<long long>(sizeof(Smem<112>));
     case 128: return static_cast<long long>(sizeof(Smem<128>));
     case 256: return static_cast<long long>(sizeof(Smem<256>));
     default: return -1;

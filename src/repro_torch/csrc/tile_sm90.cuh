@@ -176,17 +176,50 @@ constexpr int kStageRows = 64;
 constexpr int kStagePad = 4;
 constexpr int kScoreLd = kChunkRows + kStagePad;
 
+// The value side's feature width: the least power of two (from 16) at or
+// above dv, so that the kChunkRows rows of width / 4 feature groups share out
+// evenly over the kChunkThreads threads. At head dim 112 (kimi-k2-1t-a32b,
+// 28 feature groups) it is 128: the staged rows are padded to 128 features,
+// the padding zero (zero_value_pad), and the padded features' accumulators
+// are summed and never stored. Each output feature is its own fmaf chain
+// over the columns, so the 112 real ones keep the plain version's bits.
+__host__ __device__ constexpr int value_width(int dv) {
+  int w = 16;
+  while (w < dv) w *= 2;
+  return w;
+}
+
+// the staged rows' width in floats (their stride is this + kStagePad): K rows
+// of dk features, V rows of value_width(dv)
+__host__ __device__ constexpr int staged_width(int dk, int dv) {
+  return dk > value_width(dv) ? dk : value_width(dv);
+}
+
+// Zero the padded features [max(DK, DV), staged_width(DK, DV)) of the
+// kStageRows staged rows at x_s once, before the first barrier: no staging
+// writes them, and the padded value accumulators read them.
+template <int DK, int DV>
+__device__ __forceinline__ void zero_value_pad(float* x_s) {
+  constexpr int kLo = DK > DV ? DK : DV, kHi = staged_width(DK, DV), kN = kHi - kLo;
+  if constexpr (kN > 0) {
+    for (int i = threadIdx.x; i < kStageRows * kN; i += kChunkThreads) {
+      const int r = i / kN;
+      x_s[r * (kHi + kStagePad) + kLo + (i - r * kN)] = 0.0f;
+    }
+  }
+}
+
 // Raw bytes of one staged sub-tile (kStageRows rows of DK elements of KV, or
 // of DV for V rows: the `v` argument of fetch and load) in flight in
 // registers: 16-byte pieces, kPer a thread, and one scale row. Rows land at
-// a stride of DS + kStagePad floats, DS = max(DK, DV).
+// a stride of DS + kStagePad floats, DS = staged_width(DK, DV).
 // At D 256 a thread's value accumulators take 128 registers (ChunkRows<256>
 // has RPT 16): there rows of more than 8 pieces a thread (float32 and
 // bfloat16) are not held in flight (kSync): load() reads and converts them
 // straight into shared memory when the step begins.
 template <typename KV, int DK, int DV = DK>
 struct Stage {
-  static constexpr int DS = DK > DV ? DK : DV;
+  static constexpr int DS = staged_width(DK, DV);
   static constexpr int kRowBytes = DK * static_cast<int>(sizeof(KV));
   static constexpr int kVRowBytes = DV * static_cast<int>(sizeof(KV));
   static constexpr int kPerRow = kRowBytes / 16;
@@ -355,7 +388,7 @@ __device__ __forceinline__ void score_block(const float* q_s, const float* x_s,
 }
 
 // dsum[r][e] += sum_{j < ncols} w_j[r] v_j[e], in column order, for a
-// thread's RPT rows (1, 2, 4, 8 or 16: head dims 16, 32, 64, 128, 256) and 4
+// thread's RPT rows (1, 2, 4, 8 or 16: value widths 16, 32, 64, 128, 256) and 4
 // features: pw points at the first column's weights of those rows (p_s +
 // col * kScoreLd + RPT * row group), xv at the first column's features (x_s
 // + col * XLD + 4 * feature group; rows XLD floats apart).
@@ -396,10 +429,11 @@ __device__ __forceinline__ void value_block(float (&dsum)[RPT][4], const float* 
 
 // The running state of the CTA's kChunkRows rows: (m, l) of row tid / 4 in
 // its four weight threads; acc of RPT rows x 4 features in each thread, rows
-// RPT * (tid / (D / 4)) + r, features 4 * (tid % (D / 4)) + e.
+// RPT * (tid / kGroups) + r, features 4 * (tid % kGroups) + e (those at or
+// past D are value_width's padding, never stored).
 template <int D>
 struct ChunkRows {
-  static constexpr int kGroups = D / 4;                              // 4-feature groups
+  static constexpr int kGroups = value_width(D) / 4;                 // 4-feature groups
   static constexpr int RPT = kChunkRows * kGroups / kChunkThreads;  // value rows a thread
   static_assert(kChunkRows * 4 == kChunkThreads, "four weight threads a row");
   float m = kMaskValue, l = 0.0f, acc[RPT][4] = {};
@@ -416,7 +450,7 @@ struct ChunkRows {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int row = RPT * vrg + r;
-      if (row >= rows) continue;
+      if (row >= rows || 4 * vdg >= D) continue;
       const float ls = l_s[row];
       const float den = ls == 0.0f ? 1.0f : ls;
       const int64_t o = base + static_cast<int64_t>(row) * D + 4 * vdg;
@@ -428,7 +462,7 @@ struct ChunkRows {
 
 // One reference tile of nr columns for the CTA's rows (q_s, D features), called
 // by every thread of the CTA: its K sub-tiles of kStageRows rows, each staged
-// into x_s (rows max(D, DV) + kStagePad floats apart; scales sc_s) by
+// into x_s (rows staged_width(D, DV) + kStagePad floats apart; scales sc_s) by
 // advance(), scored into p_s; then, once for the whole
 // tile, each row's max, weights (in place of the scores), their sum and the
 // rescale of (m, l), four threads a row, the factor passed to the value
@@ -446,7 +480,7 @@ __device__ __forceinline__ void chunk_tile_step(ChunkRows<DV>& st, const float* 
                                                 float scale, bool dense, Advance advance,
                                                 Valid valid) {
   constexpr int RPT = ChunkRows<DV>::RPT, DG = ChunkRows<DV>::kGroups;
-  constexpr int XLD = (D > DV ? D : DV) + kStagePad;  // staged rows' stride
+  constexpr int XLD = staged_width(D, DV) + kStagePad;  // staged rows' stride
   const int tid = threadIdx.x;
   const int wrow = tid / 4, wpart = tid % 4;
   const int vrg = tid / DG, vdg = tid % DG;

@@ -14,7 +14,8 @@ it too.
 NaN into pages or rows a sequence reads, and ``rows_rel_err`` holds a
 kernel to its plain version's non-finite output rows.
 ``head_dim_cases`` builds one input of each serving kernel at gemma-7b's
-head count (16 query heads) and a given head dim, over any KV kind;
+head count (16 query heads, or any other) and a given head dim (112 for
+kimi-k2-1t-a32b), over any KV kind;
 ``mla_cases`` one input of each contiguous kernel at minicpm3-4b's head
 dims (``MLA_DIMS``: K rows of 96, V rows of 64); ``windowed_cases`` one
 input of each serving kernel at recurrentgemma-2b's local attention (MQA,
@@ -410,7 +411,8 @@ def head_dim_cases(rng, D, *, kv, q_dtype=torch.float32, group=1, H=16,
                    dyadic=False, device="cuda"):
     """One input of each serving kernel at ``H`` query heads (``H`` /
     ``group`` KV heads; gemma-7b's 16 by default) of head dim ``D``
-    (gemma's 256, or 32 in its smoke config; arctic-480b's 128), over KV
+    (gemma's 256, or 32 in its smoke config; arctic-480b's 128;
+    kimi-k2-1t-a32b's 112), over KV
     kind ``kv`` (``KV_KINDS``): 4 sequences whose lengths
     cross the decode's 256-wide tiles and the contiguous prefill's 512-wide
     ones (300, 0, 600, 17 resident for decode; 530, 0, 17, 600 before a

@@ -52,7 +52,7 @@ from repro_torch.kernels.flash.tile import (
 NAME = "paged_decode"
 CONTIGUOUS = "decode"
 BLOCK_K = 256      # the reference's decode tile (spec.decode_block_k)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 FLOAT_HEAD_DIMS = ((96, 64),)   # (D, Dv) of the contiguous kernels, float KV
 ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,

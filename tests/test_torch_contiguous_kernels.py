@@ -14,6 +14,7 @@ numpy inputs, over {exact, expmul} x {fp32, int8, fp8} x {dyadic, random}:
   span, a buffer that has wrapped, a chunk longer than the span, an idle
   row (``n_valid = 0``), and the ``length < span`` rolling case, in which a
   C-style modulo (truncating toward zero) would unmask stale slots;
+* both at kimi-k2-1t-a32b's head dim 112, over fp32 and int8;
 * both at Dv != D, MLA's expanded latents (V rows narrower than K rows):
   ``tests/cells.py``'s "mla" shape (D 24, Dv 16) and minicpm3-4b's (96,
   64), float32 values (MLA never hands them codes), one KV head per query
@@ -318,6 +319,30 @@ def test_plain_matches_pallas_at_head_dim_128(kernel, variant):
     assert _rel_err(got, ref) <= TOL[False]
 
 
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_plain_matches_pallas_at_head_dim_112(kernel, variant, kv_dtype):
+    """kimi-k2-1t-a32b's head dim, 112 (the decode kernel's K rows in two
+    depth steps of 56, the prefill's value side padded to 128): one small
+    case each, random inputs; decode over two 256-wide tiles, prefill into
+    a fresh cache."""
+    if kernel == "decode":
+        S = 300
+        case = _decode_case(15, kv_dtype, False, [13, 0, S, 261], S, d=112)
+        got = _decode_port(case, variant, kv_dtype)
+        assert got.shape[-1] == 112
+        np.testing.assert_array_equal(got[1], 0.0)    # the idle row
+        ref = _decode_pallas(case, variant, kv_dtype)
+    else:
+        S, C = 600, 8
+        c = _prefill_case(24, kv_dtype, False, [530, 0, 17, S - C],
+                          [8, 8, 0, 5], S, C, rolling=False, d=112)
+        got = _prefill_port(c, variant, kv_dtype, None)
+        ref = _prefill_pallas(c, variant, kv_dtype, None)
+    assert _rel_err(got, ref) <= TOL[False]
+
+
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("kv_dtype", KV_DTYPES)
 @DYADIC
@@ -434,11 +459,12 @@ def test_prefill_plain_matches_pallas_at_dv_ne_d(variant, dims, dyadic):
 @pytest.mark.parametrize("D_,Dv,kv_dtype,refused", [
     (96, 64, torch.float32, None), (96, 64, torch.bfloat16, None),
     (64, 64, torch.int8, None), (256, 256, torch.float8_e4m3fn, None),
-    (128, 128, torch.int8, None), (112, 112, torch.float32, "head dims"),
+    (128, 128, torch.int8, None), (112, 112, torch.float32, None),
     (96, 64, torch.int8, "codes"), (96, 64, torch.float8_e4m3fn, "codes"),
     (64, 32, torch.float32, "head dims"), (96, 96, torch.float32,
                                            "head dims"),
-    (24, 16, torch.float32, "head dims")])
+    (24, 16, torch.float32, "head dims"), (80, 80, torch.float32,
+                                           "head dims")])
 def test_contiguous_kernels_refuse_unbuilt_head_dims(D_, Dv, kv_dtype,
                                                      refused):
     """The CUDA kernels are built for (D, D) over every KV dtype and for

@@ -26,6 +26,9 @@ dim 128, captured in CUDA graphs. recurrentgemma-2b: the four serving
 kernels at its local attention (10 / 1 heads of 256, a 2,048-token window,
 a wrapped rolling buffer), its smoke config's hybrid ticks captured in
 CUDA graphs, and its RG-LRU state written in place by every replay.
+kimi-k2-1t-a32b: the four serving kernels at its head dim 112, GQA groups
+1 and 8, on poisoned pages too, and a narrowed kimi (8 / 1 heads of 112,
+16 experts top-8) served through the kernels against the plain versions.
 The encoder-decoder and frontend archs: flash non-causal at Sq != Sk (an
 encoder-decoder's cross-attention), the cross-attention decode's one-pass
 plain route on the card against the CPU, and the smoke configs of
@@ -40,7 +43,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import MLAConfig, get_config  # noqa: E402
+from repro_torch.configs import MLAConfig, MoEConfig, get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.checks import (  # noqa: E402
     contiguous_case,
@@ -681,6 +684,54 @@ def test_serving_kernels_at_head_dim_128_keep_plain_nonfinite_rows(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("dyadic", [True, False], ids=["dyadic", "random"])
+def test_serving_kernels_at_head_dim_112_match_plain(cuda, group, kv,
+                                                     variant, dyadic):
+    """The four serving kernels at kimi-k2-1t-a32b's head dim 112 (28
+    feature groups: the prefills' value side padded to 128, the contiguous
+    decode's K rows in two depth steps of 56), over GQA groups 1 (8 / 8
+    heads, float32 q) and 8 (64 / 8, kimi's, bfloat16 q) and
+    ``head_dim_cases``' lengths."""
+    q_dtype = torch.bfloat16 if group == 8 else torch.float32
+    for name, run, case, idle, label in head_dim_cases(
+            np.random.default_rng(group), 112, kv=kv, q_dtype=q_dtype,
+            group=group, H=8 * group, dyadic=dyadic, device=cuda):
+        before = build.COUNTS[name]
+        got = run(case, variant)
+        ref = run(case, variant, plain=True)
+        torch.cuda.synchronize()
+        assert build.COUNTS[name] == before + 1
+        assert got.shape[-1] == 112
+        assert rel_err(got, ref) <= kernel_tol(variant, q_dtype), name
+        for i in idle:
+            assert float(got[i].abs().max()) == 0.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", SERVING_KERNELS)
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_serving_kernels_at_head_dim_112_keep_plain_nonfinite_rows(
+        cuda, kernel, kv):
+    """A poisoned page (or the rows past the length) at head dim 112: the
+    kernel's non-finite output rows are its plain version's, its finite
+    rows within ``kernel_tol``."""
+    for spot in POISON_SPOTS:
+        case, run = poisoned_case(np.random.default_rng(11), kernel, spot,
+                                  kv=kv, D=112, device=cuda)
+        for variant in ("exact", "expmul"):
+            got = run(case, variant)
+            ref = run(case, variant, plain=True)
+            torch.cuda.synchronize()
+            assert not bool(torch.isfinite(ref[0]).all()), spot
+            assert bool(torch.isfinite(ref[1:]).all()), spot
+            assert rows_rel_err(got, ref) <= kernel_tol(
+                variant, torch.float32), (spot, variant)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["f32", "bf16"])
 @pytest.mark.parametrize("variant", ["exact", "expmul"])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
@@ -1139,6 +1190,40 @@ def test_arctic_smoke_graph_ticks_equal_eager_ticks(cuda, cell):
     st = eng.graph_stats()
     assert st["decode"]["replays"] == eng.decode_steps > 0
     assert st["prefill"]["replays"] == eng.prefill_steps > 0
+    dec, pre = sorted(pair)
+    assert st["decode"]["launches_per_replay"] == {dec: cfg.num_layers}
+    assert st["prefill"]["launches_per_replay"] == {pre: cfg.num_layers}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["paged/int8", "contiguous/fp32"])
+def test_kimi_narrow_kernels_match_plain(cuda, cell):
+    """kimi-k2-1t-a32b narrowed to 8 / 1 heads of its head dim 112 (GQA
+    group 8) over 16 experts at top-8, float32, served through the kernels
+    under CUDA graphs and through the plain versions with eager ticks:
+    every tick's logits within 1e-4 of their magnitude and the streams
+    equal, the kernel run on its layout's two kernels alone, one launch a
+    layer a replay."""
+    base = get_config("kimi-k2-1t-a32b", smoke=True, dtype="float32",
+                      param_dtype="float32")
+    cfg = base.replace(num_layers=2, d_model=896, num_heads=8,
+                       num_kv_heads=1, vocab_size=256,
+                       moe=MoEConfig(num_experts=16, top_k=8, d_ff=64))
+    assert cfg.resolved_head_dim() == 112
+    prompts = [list(np.random.default_rng(2).integers(1, 256, n))
+               for n in (40, 7, 66)]
+    _, out, logits, counts = _graph_run(
+        cuda, cell, True, prompts, cfg=cfg.replace(attention_impl="plain"))
+    eng, gout, glogits, gcounts = _graph_run(cuda, cell, False, prompts,
+                                             cfg=cfg)
+    assert gout == out and len(glogits) == len(logits) > 2
+    for i, (a, b) in enumerate(zip(glogits, logits)):
+        assert rel_err(a, b) <= 1e-4, f"tick {i + 1}"
+    pair = ({"paged_prefill", "paged_decode"} if cell.startswith("paged")
+            else {"prefill", "decode"})
+    assert set(gcounts) == pair and set(counts) == {f"{n}_plain"
+                                                    for n in pair}
+    st = eng.graph_stats()
     dec, pre = sorted(pair)
     assert st["decode"]["launches_per_replay"] == {dec: cfg.num_layers}
     assert st["prefill"]["launches_per_replay"] == {pre: cfg.num_layers}

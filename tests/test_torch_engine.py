@@ -18,6 +18,7 @@ and device guards.
 * Importing all of ``repro_torch`` loads no ``jax`` and no ``repro``; the
   engine defaults to ``device="cuda"`` and raises without a card.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -44,12 +45,23 @@ ENGINE = dict(slots=3, max_len=48, chunk_size=8, kv_layout="paged",
 CONTIGUOUS = dict(slots=3, max_len=48, chunk_size=8)
 
 
-def _models(variant, arch="qwen2-0.5b"):
+def _narrowed(cfg, narrow):
+    """``cfg`` with the fields of ``narrow`` replaced (its ``moe`` entry a
+    dict of the MoE config's fields), in either package's config type."""
+    if not narrow:
+        return cfg
+    narrow = dict(narrow)
+    if "moe" in narrow:
+        narrow["moe"] = dataclasses.replace(cfg.moe, **narrow["moe"])
+    return cfg.replace(**narrow)
+
+
+def _models(variant, arch="qwen2-0.5b", narrow=None):
     over = dict(dtype="float32", param_dtype="float32",
                 attention_variant=variant)
-    jcfg = jax_get_config(arch, smoke=True, **over)
+    jcfg = _narrowed(jax_get_config(arch, smoke=True, **over), narrow)
     params = jax_init_model(jax.random.PRNGKey(0), jcfg)
-    tcfg = get_config(arch, smoke=True, **over)
+    tcfg = _narrowed(get_config(arch, smoke=True, **over), narrow)
     return jcfg, params, tcfg, params_from_jax(
         jax.tree.map(np.asarray, params), tcfg, device="cpu")
 
@@ -66,9 +78,9 @@ def _serve(engine, prompts, max_new=8):
     return [r.out for r in reqs]
 
 
-def paged_streams(variant, kv_dtype, arch="qwen2-0.5b"):
+def paged_streams(variant, kv_dtype, arch="qwen2-0.5b", narrow=None):
     """Both engines' temp-0 streams on the paged layout, held equal."""
-    jcfg, params, tcfg, tparams = _models(variant, arch)
+    jcfg, params, tcfg, tparams = _models(variant, arch, narrow)
     prompts = _prompts()
     ref = _serve(JaxServeEngine(params, jcfg, kv_dtype=kv_dtype,
                                 attention_impl="pallas", prefix_cache=False,
@@ -88,9 +100,9 @@ def test_temp0_streams_match_repro_engine(variant, kv_dtype):
     paged_streams(variant, kv_dtype)
 
 
-def contiguous_streams(variant, kv_dtype, arch="qwen2-0.5b"):
+def contiguous_streams(variant, kv_dtype, arch="qwen2-0.5b", narrow=None):
     """Both engines' temp-0 streams on the contiguous layout, held equal."""
-    jcfg, params, tcfg, tparams = _models(variant, arch)
+    jcfg, params, tcfg, tparams = _models(variant, arch, narrow)
     prompts = _prompts()
     ref = _serve(JaxServeEngine(params, jcfg, kv_layout="contiguous",
                                 kv_dtype=kv_dtype, attention_impl="pallas",

@@ -15,8 +15,9 @@ logits (``test_torch_model.py``'s walks at its ``SAME_WALK_TOL``) and
 temp-0 engine streams (``test_torch_engine.py``'s) against ``repro`` at
 ``attention_impl="pallas"``. Every row of a tick routes through the MoE,
 idle and padding rows too, and takes expert capacity: the streams match
-only because the port feeds it the same rows. Kimi's full head dim, 112,
-has no serving kernel: the wrappers refuse it before a launch.
+only because the port feeds it the same rows. Kimi's head dim, 112, passes
+the serving kernels' checks, and a narrowed kimi (8 / 1 heads of 112, 16
+experts top-8) emits ``repro``'s temp-0 streams on both layouts.
 
 The expert GEMMs and the router sum in another order than XLA's, so
 outputs are held within 1e-6 of their magnitude (measured: under 4e-7).
@@ -264,27 +265,50 @@ def test_temp0_streams_match_repro_engine(arch, layout, variant, kv_dtype):
         contiguous_streams(variant, kv_dtype, arch=arch)
 
 
-def test_kimi_head_dim_112_is_refused_before_a_launch():
+# kimi-k2-1t-a32b narrowed, keeping its head dim (896 / 8 = 112) and a GQA
+# group of 8, over 16 experts at top-8
+KIMI_NARROW = dict(num_layers=2, d_model=896, num_heads=8, num_kv_heads=1,
+                   vocab_size=256,
+                   moe=dict(num_experts=16, top_k=8, d_ff=64))
+
+
+@pytest.mark.parametrize("layout,kv_dtype", [("paged", "int8"),
+                                             ("contiguous", "fp32")])
+def test_kimi_head_dim_112_streams_match_repro_engine(layout, kv_dtype):
+    """Kimi at its head dim (8 / 1 heads of 112, 16 experts top-8): the
+    temp-0 streams equal ``repro``'s engine at ``attention_impl="pallas"``,
+    its Pallas kernels at D 112 in interpret mode."""
+    run = paged_streams if layout == "paged" else contiguous_streams
+    run("expmul", kv_dtype, arch=KIMI, narrow=KIMI_NARROW)
+
+
+def test_kimi_head_dim_112_passes_the_checks_and_80_is_refused():
     """Kimi's full width, 64 / 8 heads of 112: the contiguous kernels'
-    ``check_head_dims`` and the paged kernels' checks raise before any
-    launch, on operands shaped as a tick would give them."""
+    ``check_head_dims`` and the paged kernels' checks pass for every KV
+    dtype, on operands shaped as a tick would give them; a width still
+    unbuilt, 80, raises before any launch."""
     cfg = get_config(KIMI)
     D, Hkv, group = cfg.resolved_head_dim(), cfg.num_kv_heads, 8
-    assert D == 112 and D not in decode.HEAD_DIMS
-    assert 128 in decode.HEAD_DIMS
-    for name in ("decode", "prefill"):
-        for dt in (torch.float32, torch.int8):
-            with pytest.raises(ValueError, match="head dims"):
-                decode.check_head_dims(name, D, D, dt)
+    assert D == 112 and D in decode.HEAD_DIMS and 80 not in decode.HEAD_DIMS
     B, ps, nblk, C = 2, 16, 8, 4
     bt = torch.zeros((B, 4), dtype=torch.int32)
     lens = torch.tensor([5, 9], dtype=torch.int32)
-    pool = torch.zeros((nblk, ps, Hkv, D))
-    with pytest.raises(ValueError, match="head dims"):
-        decode._check(bt, lens, torch.zeros((B * Hkv, group, D)), pool, pool,
-                      None, None, ps, Hkv)
-    with pytest.raises(ValueError, match="head dims"):
-        prefill._check(bt, lens, lens, torch.zeros((B * Hkv * group, C, D)),
-                       pool, pool, torch.zeros((B * Hkv, C, D)),
-                       torch.zeros((B * Hkv, C, D)), None, None, None, None,
+
+    def checks(d, dt):
+        codes = dt in decode.CODE_DTYPES
+        pool = torch.zeros((nblk, ps, Hkv, d)).to(dt)
+        spool = torch.zeros((nblk, ps, Hkv)) if codes else None
+        chunk = torch.zeros((B * Hkv, C, d)).to(dt)
+        schunk = torch.zeros((B * Hkv, C)) if codes else None
+        for name in ("decode", "prefill"):
+            decode.check_head_dims(name, d, d, dt)
+        decode._check(bt, lens, torch.zeros((B * Hkv, group, d)), pool, pool,
+                      spool, spool, ps, Hkv)
+        prefill._check(bt, lens, lens, torch.zeros((B * Hkv * group, C, d)),
+                       pool, pool, chunk, chunk, spool, spool, schunk, schunk,
                        ps, Hkv * group, Hkv)
+
+    for dt in decode.KV_DTYPES:
+        checks(D, dt)
+        with pytest.raises(ValueError, match="head dims"):
+            checks(80, dt)

@@ -6,7 +6,7 @@
   JAX Pallas kernels (run in interpret mode on the CPU, as ``repro``'s own
   tests run them) over {exact, expmul} x {fp32, int8}, with shuffled block
   tables, sentinel entries, an idle row, a window, and a chunk that starts
-  mid-page. Dyadic inputs (q in multiples of 2^-3, integer codes,
+  mid-page; at head dims 16, 128 (arctic-480b's) and 112 (kimi-k2-1t-a32b's). Dyadic inputs (q in multiples of 2^-3, integer codes,
   power-of-two scales) make every score exact in any summation order, so
   no L_hat can flip and both variants are held at 1e-6 of the output's
   magnitude. Random N(0,1) inputs are held at the ``tests/cells.py``
@@ -275,6 +275,26 @@ def test_paged_plain_matches_pallas_at_head_dim_128(kernel, variant):
     assert got.shape[-1] == 128
     np.testing.assert_array_equal(got[1], 0.0)        # the idle row
     assert _rel_err(got, ref) <= _ref_tol(variant, "int8")
+
+
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_paged_plain_matches_pallas_at_head_dim_112(kernel, variant,
+                                                    kv_dtype):
+    """kimi-k2-1t-a32b's head dim, 112 (28 feature groups, which the
+    kernels' value side pads to 128): one small case each, random inputs,
+    ragged lengths, an idle row."""
+    if kernel == "decode":
+        case = _decode_case(14, kv_dtype, False, [13, 0, MB * PS, 6], d=112)
+        got, ref = _decode_pair(variant, kv_dtype, case)
+    else:
+        case = _prefill_case(23, kv_dtype, False, [6, 0, 9, 0], [7, 0, 5, 3],
+                             C=7, d=112)
+        got, ref = _prefill_pair(variant, kv_dtype, case)
+    assert got.shape[-1] == 112
+    np.testing.assert_array_equal(got[1], 0.0)        # the idle row
+    assert _rel_err(got, ref) <= _ref_tol(variant, kv_dtype)
 
 
 @pytest.mark.parametrize("variant", ["exact", "expmul"])
