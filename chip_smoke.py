@@ -124,6 +124,13 @@ ones alone, in this order, and prints no kernels line and no result):
    poisoned page at 112; the largest group each decode kernel takes at
    112 by KV dtype, and a float32 launch one group past it refused before
    any launch;
+2i. flash at head dims 96, 112 and 256 (``phase_flash_head_dim_checks``):
+   causal 1,024 and windowed 1,000 at each arch's heads, recurrentgemma-2b's
+   10 / 1 heads windowed at 2,048 over 3,000 tokens, the layout's edges
+   (``checks.flash_edge_cases`` at 1, 33 and 1,000 tokens, groups 1 and
+   7) and the cross shapes
+   (``checks.flash_cross_cases``, groups 1 and 8), float32 and bfloat16,
+   dyadic and random, exact and ExpMul, at ``checks.kernel_tol``;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -316,6 +323,11 @@ ones alone, in this order, and prints no kernels line and no result):
    contiguous decode at seamless's self-attention (D 64, group 1): device
    and launch times, the plain version, the bound, the exact variant
    against SDPA;
+5h. flash at the training shapes of head dims 256, 112 and 96
+   (float32, ExpMul, 8 x 1,024, causal): gemma-7b's 16 / 16 heads of 256,
+   kimi-k2-1t-a32b's 64 / 8 of 112, minicpm3-4b's 40 / 40 of 96: device
+   and launch times, the plain version, the bound, float32 SDPA; their
+   registers, spills and shared memory a CTA (in phase 5's resources);
 6. training at full width: qwen2-0.5b in float32 (TF32 off) with random
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
    cosine schedule. One train step through the flash kernel and one
@@ -327,6 +339,17 @@ ones alone, in this order, and prints no kernels line and no result):
    kernel or plain version. Then the step time (p50 of 4 steps), tokens/s,
    peak memory, and a one-step profiler window with flash's device time
    and share of the step's busy time;
+6b. gemma-7b (flash at head dim 256) and minicpm3-4b (MLA, flash at 96,
+   V zero-padded to it) trained as phase 6 at full width, their depth cut
+   to 2 of 28 and 8 of 62 layers (the functional step holds the old and
+   the new state side by side), 3 launcher steps each gated on 2 x layers
+   flash launches a step; the allocator's expandable segments on for
+   these two phases only;
+6c. every registered arch through ``launch.main([... "--smoke", "--steps",
+   "2"])`` (2 x 64 tokens): finite losses, flash twice an attention call
+   a step and nothing else (xlstm-1.3b none), bfloat16 moments for
+   arctic-480b and kimi-k2-1t-a32b, zero frontend embeddings for the
+   frontend archs, and qwen2-0.5b once more with ``--compress-grads``;
 7. ``python -m repro_torch.launch.quickstart`` and then ``python -m
    repro_torch.launch.fidelity`` on the card, the launch counts set to 0
    just before each and read just after: the quickstart must launch the
@@ -337,7 +360,8 @@ ones alone, in this order, and prints no kernels line and no result):
 8. one JSON line of kernels (each serving kernel with ``d256``,
    ``d128``, ``d112``, ``llava_d128``, ``rg_w2048`` and, for the
    contiguous pair, ``mla_96_64`` entries; flash with ``llava_frontend``,
-   ``seamless_encoder`` and ``seamless_cross``; the contiguous decode
+   ``seamless_encoder``, ``seamless_cross``, and ``d256``, ``d112`` and
+   ``d96`` with phase 6b's training runs; the contiguous decode
    with ``seamless_d64_g1``), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -424,6 +448,12 @@ LLAVA_SERVE_LAYERS = 8
 # teacher-forced forward of SEAMLESS_TEXT tokens
 SEAMLESS, SEAMLESS_NEW, SEAMLESS_TEXT = "seamless-m4t-medium", 32, 16
 TRAIN_SEQ, TRAIN_STEPS = 1024, 6
+# training at full width, depth cut to keep a step's peak memory (weights,
+# gradients, AdamW moments, the old and the new state side by side, and
+# the float32 logits of 8 x 1,024 tokens) under ~70 GiB: gemma-7b at
+# GEMMA_TRAIN_LAYERS of 28, minicpm3-4b at MLA_TRAIN_LAYERS of 62; the
+# launcher runs TRAIN_CUT_STEPS steps of each
+GEMMA_TRAIN_LAYERS, MLA_TRAIN_LAYERS, TRAIN_CUT_STEPS = 2, 8, 3
 FLASH_EDGE_SEQS = (1, 31, 33, 65, 1000)
 # the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
 # rows at the training shapes (8 sequences x 14 heads x 1024 rows)
@@ -2534,75 +2564,116 @@ def phase_profile(torch, ServeEngine, params, cfg, kw, prompts, tag="",
     return idle
 
 
-def phase_train(torch, cfg_mod, api, build):
-    """Full-width training: the kernel against the plain version on one
-    step, the launcher's 6 steps gated on the launch counts, then step
-    time, memory and a profile. Returns the flash kernel's launches."""
+def _attention_calls(cfg) -> int:
+    """Full-sequence attention calls of one forward: one an attention
+    layer, an encoder-decoder's decoder layer two (self and cross)."""
+    if cfg.encoder_layers:
+        return (cfg.pattern_for(cfg.encoder_layers).count("attn")
+                + 2 * cfg.decoder_layers)
+    return cfg.pattern_for().count("attn")
+
+
+def phase_train(torch, cfg_mod, api, build, arch="qwen2-0.5b",
+                num_layers=None, steps=TRAIN_STEPS):
+    """Full-width training of ``arch`` (its depth cut to ``num_layers``
+    when given), float32, TF32 off, ExpMul, 8 x 1,024 tokens: the kernel
+    against the plain version on one step (loss within 1e-5, grad norm
+    within 1e-4 of their values), the launcher's ``steps`` steps gated on
+    2 x layers flash launches a step and no other kernel or plain version,
+    then step time, tokens/s, peak memory and a profiled step with flash's
+    share. Returns the flash kernel's launches and the numbers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = cfg_mod.get_config(arch)
+    layers = num_layers or full.num_layers
+    if num_layers:
+        # a cut-depth model's step holds ~8 copies of its state and several
+        # (8, 1,023, vocab) float32 logits tensors of many sizes: grow the
+        # allocator's segments instead of caching fixed blocks, which left
+        # 32 GiB reserved but unusable on gemma-7b (a failed 15.6 GiB
+        # request), for this phase only
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        try:
+            return _train(torch, cfg_mod, api, build, arch, full, layers,
+                          steps)
+        finally:
+            torch.cuda.empty_cache()
+            torch.cuda.memory._set_allocator_settings(
+                "expandable_segments:False")
+    return _train(torch, cfg_mod, api, build, arch, full, layers, steps)
+
+
+def _train(torch, cfg_mod, api, build, arch, full, layers, steps):
+    """``phase_train``'s body, at ``layers`` of ``full``'s depth."""
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.launch import train as launch
     from repro_torch.optim import adamw, cosine_schedule
     from repro_torch.train.step import build_train_step, make_train_state
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    base = cfg_mod.get_config("qwen2-0.5b", dtype="float32",
-                              param_dtype="float32",
-                              attention_variant="expmul")
+    base = full.replace(num_layers=layers, dtype="float32",
+                        param_dtype="float32", attention_variant="expmul")
     assert base.remat and base.attention_block_k == 512 \
         and base.kv_dtype == "fp32"
+    tag = f"[train {arch}]"
+    log(f"{tag} {layers} of {full.num_layers} layers, "
+        f"{base.param_count():,} parameters")
     data = SyntheticLMDataset(base.vocab_size, TRAIN_SEQ, seed=0)
     batch = {"tokens": torch.from_numpy(data.batch(0, B)).cuda()}
     params = api.init_model(base, torch.Generator(device="cuda").manual_seed(5),
                             device="cuda")
-    opt = adamw(cosine_schedule(3e-3, 20, TRAIN_STEPS))
+    opt = adamw(cosine_schedule(3e-3, 20, steps),
+                moment_dtype=base.opt_state_dtype)
 
     # 1. one step through the kernel and one through the plain version
     metrics = {}
     for impl in ("kernel", "plain"):
         step = build_train_step(base.replace(attention_impl=impl), opt)
         t0 = time.perf_counter()
-        _, m = step(make_train_state(params, opt), batch)
+        new_state, m = step(make_train_state(params, opt), batch)
         metrics[impl] = {k: float(v) for k, v in m.items()}
-        log(f"[train] one step, attention {impl}: loss "
+        log(f"{tag} one step, attention {impl}: loss "
             f"{metrics[impl]['loss']:.7f}, grad norm "
             f"{metrics[impl]['grad_norm']:.7f} "
             f"({time.perf_counter() - t0:.2f} s)")
-        del m
+        del new_state, m
         torch.cuda.empty_cache()
     (lk, gk), (lp, gp) = ((metrics[i]["loss"], metrics[i]["grad_norm"])
                           for i in ("kernel", "plain"))
     dl, dg = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
-    log(f"[train] kernel vs plain: loss {dl:.3e} (limit 1e-5), grad norm "
+    log(f"{tag} kernel vs plain: loss {dl:.3e} (limit 1e-5), grad norm "
         f"{dg:.3e} (limit 1e-4) of their values")
     if not (dl <= 1e-5 and dg <= 1e-4):
         raise AssertionError("the train step through the flash kernel "
                              "disagrees with the plain version")
 
-    # 2. the launcher, 6 steps, with the launch counts gated
+    # 2. the launcher, with the launch counts gated
     del params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     build.reset_counts()
     t0 = time.perf_counter()
-    losses = launch.main(["--steps", str(TRAIN_STEPS), "--batch", str(B),
+    losses = launch.main(["--steps", str(steps), "--batch", str(B),
                           "--seq", str(TRAIN_SEQ), "--variant", "expmul",
-                          "--log-every", "1"])
+                          "--log-every", "1"],
+                         cfg_override=full.replace(num_layers=layers))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(build.COUNTS)
-    log(f"[train] launcher: {len(losses)} steps of {B} x {TRAIN_SEQ} "
+    log(f"{tag} launcher: {len(losses)} steps of {B} x {TRAIN_SEQ} "
         f"tokens in {wall:.2f} s (init included); losses "
         f"{json.dumps([round(x, 5) for x in losses])}; launches "
         f"{json.dumps(counts)}")
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+    if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"the launcher's losses: {losses}")
-    per_step = 2 * base.num_layers
-    if counts.get("flash", 0) != per_step * TRAIN_STEPS:
+    per_step = 2 * _attention_calls(base)
+    if counts.get("flash", 0) != per_step * steps:
         raise AssertionError(f"flash launched {counts.get('flash', 0)} "
                              f"times, not {per_step} a step")
     if any(n for name, n in counts.items() if name != "flash"):
         raise AssertionError(f"another kernel or a plain version ran while "
                              f"training: {counts}")
+    torch.cuda.empty_cache()
 
     # 3. step time, tokens/s, peak memory, one profiled step
     params = api.init_model(base, torch.Generator(device="cuda").manual_seed(5),
@@ -2623,7 +2694,7 @@ def phase_train(torch, cfg_mod, api, build):
         times.append((time.perf_counter() - t) * 1e3)
     peak = torch.cuda.max_memory_allocated()
     p50 = statistics.median(times)
-    log(f"[train] step time, ms: p50 {p50:.1f} (steps "
+    log(f"{tag} step time, ms: p50 {p50:.1f} (steps "
         f"{', '.join(f'{x:.1f}' for x in times)}); {B * TRAIN_SEQ / p50 * 1e3:.1f} "
         f"tokens/s; peak memory {peak / 2**30:.2f} GiB")
 
@@ -2632,18 +2703,88 @@ def phase_train(torch, cfg_mod, api, build):
         state, m = step(state, batch)
         float(m["loss"])
 
-    busy, kernels, _ = _profile_window(torch, one_step, "train step x1")
+    busy, kernels, idle = _profile_window(torch, one_step,
+                                          f"train {arch} step x1")
     flash = [(us, n) for name, (us, n) in kernels.items()
              if "flash_kernel" in name]
+    share = None
     if busy:
         us, n = sum(u for u, _ in flash), sum(c for _, c in flash)
-        log(f"[train] flash in the profiled step: {us / 1e3:.3f} ms of "
-            f"{busy / 1e3:.2f} ms device busy ({us / busy:.1%}), {n} "
+        share = us / busy
+        log(f"{tag} flash in the profiled step: {us / 1e3:.3f} ms of "
+            f"{busy / 1e3:.2f} ms device busy ({share:.1%}), {n} "
             f"launches")
     del state
     torch.cuda.empty_cache()
     return {"flash": dict(launches=counts["flash"],
-                          launches_per_step=per_step)}
+                          launches_per_step=per_step),
+            "step_p50_ms": p50, "tokens_per_s": B * TRAIN_SEQ / p50 * 1e3,
+            "peak_gib": peak / 2**30, "flash_share": share, "idle": idle,
+            "layers": layers}
+
+
+def phase_train_archs(torch, cfg_mod, build):
+    """Every registered arch through ``launch.main([... "--smoke",
+    "--steps", "2"])`` on the card (2 x 64 tokens): finite losses; flash
+    launched 2 x its attention calls a step (none for xlstm-1.3b) and no
+    other kernel or plain version; arctic-480b and kimi-k2-1t-a32b with
+    bfloat16 AdamW moments, the frontend archs with zero frontend
+    embeddings, qwen2-0.5b once more with ``--compress-grads``. Returns
+    each run's flash launches."""
+    from repro_torch.launch import train as launch
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seen = {}
+    build_step = launch.build_train_step
+
+    def spy(*args, **kw):
+        train_step = build_step(*args, **kw)
+
+        def run(state, batch):
+            seen["state"], seen["batch"] = state, batch
+            seen["compress"] = kw.get("grad_transform") is not None
+            return train_step(state, batch)
+        return run
+
+    launch.build_train_step = spy
+    out = {}
+    try:
+        for arch, extra in [(a, []) for a in cfg_mod.ARCH_IDS] + [
+                ("qwen2-0.5b", ["--compress-grads"])]:
+            cfg = cfg_mod.get_config(arch, smoke=True)
+            build.reset_counts()
+            losses = launch.main(["--arch", arch, "--smoke", "--steps", "2",
+                                  "--batch", "2", "--seq", "64",
+                                  "--log-every", "1"] + extra)
+            torch.cuda.synchronize()
+            counts = dict(build.COUNTS)
+            moments = {str(t.dtype).split(".")[-1]
+                       for t in tree_leaves(seen["state"]["opt"]["m"])}
+            fe = seen["batch"].get("frontend_embeds")
+            label = " ".join([arch] + extra)
+            log(f"[train archs] {label}: losses "
+                f"{json.dumps([round(x, 5) for x in losses])}, launches "
+                f"{json.dumps(counts)}, moments {sorted(moments)}, frontend "
+                f"{None if fe is None else tuple(fe.shape)}")
+            want = 2 * 2 * _attention_calls(cfg)
+            if len(losses) != 2 or not all(np.isfinite(losses)):
+                raise AssertionError(f"{label}: losses {losses}")
+            if counts.get("flash", 0) != want or any(
+                    n for name, n in counts.items() if name != "flash"):
+                raise AssertionError(f"{label}: launches {counts}, not "
+                                     f"{want} flash alone")
+            if moments != {cfg.opt_state_dtype}:
+                raise AssertionError(f"{label}: moments {moments}")
+            if (fe is None) != (not cfg.frontend) or (
+                    fe is not None and bool(fe.any())):
+                raise AssertionError(f"{label}: frontend embeds {fe}")
+            if seen["compress"] != bool(extra):
+                raise AssertionError(f"{label}: grad transform")
+            out[label] = counts.get("flash", 0)
+    finally:
+        launch.build_train_step = build_step
+    return out
 
 
 def _bounds(name, lengths, n_valid=None, h=H, hkv=HKV, d=D):
@@ -2790,6 +2931,92 @@ def phase_flash_cross_checks(torch, checks):
             if not rel <= checks.kernel_tol("exact", dtype):
                 raise AssertionError("the one-pass decode on the card "
                                      "disagrees with the CPU")
+
+
+# flash's training head dims 256, 112 and 96: (D, H, Hkv) at each
+# arch's heads; gemma-7b's 256 (16 / 16), kimi-k2-1t-a32b's 112 (64 / 8)
+# and minicpm3-4b's 96 (40 / 40, V zero-padded to the qk width)
+FLASH_NEW_DIMS = ((256, GEMMA_H, GEMMA_H), (112, KIMI_H, KIMI_HKV),
+                  (96, MLA_H, MLA_H))
+# their layout edges: under one 32-row query block, one row past it, and
+# two 512-wide tiles with a partial last sub-tile
+FLASH_NEW_EDGE_SEQS = (1, 33, 1000)
+
+
+def phase_flash_head_dim_checks(torch, checks):
+    """The flash kernel at head dims 96, 112 and 256 against its plain
+    version at ``checks.kernel_tol``: causal 8 x 1,024 at the arch's own
+    heads (B 1 at 40 or 64 query heads) and a ragged causal 1,000 with a
+    256-token window; recurrentgemma-2b's windowed MQA (10 / 1 heads of
+    256, a 2,048-token window over 3,000 tokens); the layout's edges
+    (``checks.flash_edge_cases`` at 1, 33 and 1,000 tokens, GQA groups 1
+    and 7) and the non-causal
+    cross shapes (``checks.flash_cross_cases``, groups 1 and 8); float32
+    and bfloat16, dyadic and random, exact and ExpMul. Returns the worst
+    relative error by head dim."""
+    rng = np.random.default_rng(18)
+    worst, n = {}, 0
+
+    def hold(case, D, dtype, label):
+        nonlocal n
+        for variant in ("exact", "expmul"):
+            got = checks.run_flash(case, variant)
+            ref = checks.run_flash(case, variant, plain=True)
+            rel = checks.rel_err(got, ref)
+            tol = checks.kernel_tol(variant, dtype)
+            key = f"D {D} {str(dtype).split('.')[-1]} {variant}"
+            worst[key] = max(worst.get(key, 0.0), rel)
+            n += 1
+            if not rel <= tol:
+                raise AssertionError(f"flash D {D} {label} {dtype} {variant}: "
+                                     f"rel {rel:.3e} over {tol:.1e}")
+
+    for D, h, hkv in FLASH_NEW_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for dyadic in (True, False):
+                kind = "dyadic" if dyadic else "random"
+                for sq, window, b in ((1024, None, 1), (1000, 256, 1)):
+                    case = checks.flash_case(
+                        rng, B=b, H=h, Hkv=hkv, Sq=sq, Sk=sq, D=D, dtype=dtype,
+                        dyadic=dyadic, causal=True, window=window,
+                        block_k=512, device="cuda")
+                    hold(case, D, dtype, f"{h} / {hkv} heads S {sq} window "
+                         f"{window} {kind}")
+                if D == RG_D:
+                    case = checks.flash_case(
+                        rng, B=1, H=RG_H, Hkv=RG_HKV, Sq=3000, Sk=3000, D=D,
+                        dtype=dtype, dyadic=dyadic, causal=True,
+                        window=RG_WINDOW, block_k=512, device="cuda")
+                    hold(case, D, dtype, f"rg {RG_H} / {RG_HKV} heads S 3000 "
+                         f"window {RG_WINDOW} {kind}")
+                for S in FLASH_NEW_EDGE_SEQS:
+                    for group in (1, 7):
+                        for label, case in checks.flash_edge_cases(
+                                rng, S=S, D=D, group=group, dtype=dtype,
+                                dyadic=dyadic, device="cuda"):
+                            hold(case, D, dtype, f"S {S} group {group} "
+                                 f"{label} {kind}")
+                for group in (1, 8):
+                    for label, case in checks.flash_cross_cases(
+                            rng, D=D, group=group, dtype=dtype,
+                            dyadic=dyadic):
+                        hold(case, D, dtype, f"cross {label} group {group} "
+                             f"{kind}")
+    log(f"[check] flash at head dims 96, 112, 256: {n} cases within "
+        f"kernel_tol; worst rel err {json.dumps(worst)}")
+    return worst
+
+
+def phase_flash_head_dim_times(torch, checks, F):
+    """The flash forward at the training shapes of gemma-7b (16 / 16 heads
+    of 256), kimi-k2-1t-a32b (64 / 8 of 112) and minicpm3-4b (40 / 40 of
+    96): as phase 5's flash row (8 x 1,024, float32, causal, ExpMul), the
+    plain version's time a median of 5."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(19)
+    return {f"d{D}": _time_flash(torch, checks, F, flush, rng, h=h, hkv=hkv,
+                                 d=D, plain_n=5)
+            for D, h, hkv in FLASH_NEW_DIMS}
 
 
 def phase_llava_ticks(torch, cfg_mod, api, build):
@@ -3454,6 +3681,15 @@ def phase_resources(build, decode, prefill, flash):
         f"{json.dumps(smem)}")
     out = {"flash": {"ptxas": info["flash"],
                      "smem_bytes": smem[f"flash D {D} bk 512"]}}
+    # flash at head dims 256, 112 and 96, float32 and bfloat16, ExpMul
+    for hd, _, _ in FLASH_NEW_DIMS:
+        res = {"ptxas": {dt: _ptxas(build, "flash",
+                                    f"flash_kernelI{mangled}Li{hd}ELb1EE")
+                         for dt, mangled in (("f32", "f"),
+                                             ("bf16", "13__nv_bfloat16"))},
+               "smem_bytes": smem[f"flash D {hd} bk 512"]}
+        log(f"[resources] flash at head dim {hd}, ExpMul: {json.dumps(res)}")
+        out["flash"][f"d{hd}"] = res
     # gemma-7b's head dim: every KV dtype's ExpMul instantiation, group 1
     smem_256 = {
         "paged_decode": lambda dt: decode.paged_decode_smem(
@@ -3567,12 +3803,14 @@ def _time_expmul(torch, checks, flush, rng):
                 shapes=shapes)
 
 
-def _time_flash(torch, checks, F, flush, rng):
-    """The flash forward at the training shapes: 8 x 1024 tokens, 14 / 2
-    heads of 64, float32, causal, ExpMul, 512-wide tiles (the training
-    path's min(512, S)); the library yardstick is SDPA on the same float32
-    q, k, v (the exact variant's function)."""
-    S = TRAIN_SEQ
+def _time_flash(torch, checks, F, flush, rng, h=H, hkv=HKV, d=D,
+                plain_n=25):
+    """The flash forward at the training shapes: 8 x 1024 tokens, ``h`` /
+    ``hkv`` heads of ``d`` (14 / 2 of 64 by default), float32, causal,
+    ExpMul, 512-wide tiles (the training path's min(512, S)); the library
+    yardstick is SDPA on the same float32 q, k, v (the exact variant's
+    function). The plain version's time is a median of ``plain_n``."""
+    S, H, HKV, D = TRAIN_SEQ, h, hkv, d
     case = checks.flash_case(rng, B=B, H=H, Hkv=HKV, Sq=S, Sk=S, D=D,
                              dtype=torch.float32, dyadic=False, causal=True,
                              block_k=512, device="cuda")
@@ -3587,7 +3825,8 @@ def _time_flash(torch, checks, F, flush, rng):
     host_ms = median_ms(torch, lambda: checks.run_flash(case, "expmul"),
                         flush, hide_host=False)
     plain_ms = median_ms(torch, lambda: checks.run_flash(case, "expmul",
-                                                         plain=True), flush)
+                                                         plain=True), flush,
+                         n=plain_n, warmup=min(3, plain_n))
     exact_ms = median_ms(torch, lambda: checks.run_flash(case, "exact"),
                          flush)
     q, k, v = case["q"], case["k"], case["v"]
@@ -3609,9 +3848,9 @@ def _time_flash(torch, checks, F, flush, rng):
                yardstick={"what": "exact variant vs SDPA, float32",
                           "kernel_ms": exact_ms, "library_ms": sdpa_ms,
                           "ops_ms_at_f32_cuda_core_rate": f32_core_ms})
-    log(f"[time] flash (float32, ExpMul, B={B}, S={S}, causal, 512-wide "
-        f"tiles): kernel {ms:.4f} ms on the device, {host_ms:.4f} ms with "
-        f"its launch, plain {plain_ms:.4f} ms, bound "
+    log(f"[time] flash (float32, ExpMul, B={B}, S={S}, {H} / {HKV} heads "
+        f"of {D}, causal, 512-wide tiles): kernel {ms:.4f} ms on the "
+        f"device, {host_ms:.4f} ms with its launch, plain {plain_ms:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {nbytes} B, {flops} "
         f"flop at the TF32 tensor-core rate; {f32_core_ms:.4f} ms at the "
         f"float32 CUDA-core rate, a yardstick), max abs err {err:.3e} (rel "
@@ -3734,6 +3973,8 @@ def main(argv=None) -> int:
                                                       expmul_ops)),
         ("flash cross checks", lambda: phase_flash_cross_checks(torch,
                                                                 checks)),
+        ("flash head dim checks", lambda: phase_flash_head_dim_checks(
+            torch, checks)),
         ("model ticks", lambda: phase_model_ticks(torch, cfg_mod, api)),
         ("gemma ticks", lambda: phase_gemma_ticks(torch, cfg_mod, api)),
         ("mla ticks", lambda: phase_mla_ticks(torch, cfg_mod, api)),
@@ -3777,9 +4018,18 @@ def main(argv=None) -> int:
                                             prefill)),
         ("frontend times", lambda: phase_frontend_times(
             torch, checks, F, build, flash, decode)),
+        ("flash head dim times", lambda: phase_flash_head_dim_times(
+            torch, checks, F)),
         ("resources", lambda: phase_resources(build, decode, prefill,
                                               flash)),
         ("train", lambda: phase_train(torch, cfg_mod, api, build)),
+        ("gemma train", lambda: phase_train(
+            torch, cfg_mod, api, build, arch=GEMMA,
+            num_layers=GEMMA_TRAIN_LAYERS, steps=TRAIN_CUT_STEPS)),
+        ("mla train", lambda: phase_train(
+            torch, cfg_mod, api, build, arch=MLA, num_layers=MLA_TRAIN_LAYERS,
+            steps=TRAIN_CUT_STEPS)),
+        ("train archs", lambda: phase_train_archs(torch, cfg_mod, build)),
         ("quickstart", lambda: phase_quickstart(torch, build)),
         ("fidelity", lambda: phase_fidelity(torch, build)),
     )
@@ -3800,10 +4050,13 @@ def main(argv=None) -> int:
             f"phases ({', '.join(only)}): no kernels line, no result")
         return 0
     kernels = []
-    launches = {**results["serve"], **results["train"]}
+    launches = {**results["serve"], "flash": dict(results["train"]["flash"])}
     launches["flash"].update(
         launches_quickstart=results["quickstart"]["flash"],
-        launches_fidelity=results["fidelity"]["flash"])
+        launches_fidelity=results["fidelity"]["flash"],
+        launches_gemma_train=results["gemma train"]["flash"]["launches"],
+        launches_mla_train=results["mla train"]["flash"]["launches"],
+        launches_train_archs=results["train archs"])
     launches["expmul"] = dict(launches=results["quickstart"]["expmul"])
     # the serving kernels at gemma-7b's head dim: its serving run's
     # launches, its times, each KV dtype's resources
@@ -3859,6 +4112,19 @@ def main(argv=None) -> int:
     results["resources"]["decode"]["seamless_d64_g1"] = dict(
         launches=sm["decode"], decode_step_p50_ms=sm["decode_step_p50_ms"],
         **ft["decode"])
+    # flash at head dims 256, 112 and 96: its checks'
+    # worst errors, times and resources, and the full-width training runs
+    # at 256 (gemma-7b) and 96 (minicpm3-4b)
+    worst = results["flash head dim checks"]
+    for D, _, _ in FLASH_NEW_DIMS:
+        key = f"d{D}"
+        results["resources"]["flash"][key].update(
+            worst_rel_err={k: v for k, v in worst.items()
+                           if k.startswith(f"D {D} ")},
+            **results["flash head dim times"][key])
+    for key, phase in (("d256", "gemma train"), ("d96", "mla train")):
+        results["resources"]["flash"][key]["training"] = {
+            k: v for k, v in results[phase].items() if k != "flash"}
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **launches[name],

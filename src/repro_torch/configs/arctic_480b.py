@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     moe=MoEConfig(num_experts=128, top_k=2, d_ff=4864,
                   dense_residual=True, dense_d_ff=4864),
     tie_embeddings=False,
+    opt_state_dtype="bfloat16",
 )
 
 SMOKE = CONFIG.replace(

@@ -15,9 +15,10 @@ frontend's embeddings are a model input, projected to ``d_model``
 (llava-next-34b prepends them to the text, seamless-m4t-medium encodes
 them).
 
-``family``, ``max_seq_len`` and ``opt_state_dtype`` are left out: nothing
-of the port reads them (training with MoE, and its bf16 moments, wait for
-a later slice). An MLA config's attention reads its head dims from ``mla``
+``family`` and ``max_seq_len`` are left out: nothing of the port reads
+them. ``opt_state_dtype`` is the AdamW moments' dtype the training
+launcher asks for (``bfloat16`` for arctic-480b and kimi-k2-1t-a32b, as in
+``repro``). An MLA config's attention reads its head dims from ``mla``
 alone: ``resolved_head_dim()`` (``d_model // num_heads``) is neither its
 qk dim nor its v dim. A config with ``moe`` has no dense FFN of ``d_ff``:
 its FFN is the experts (and the dense residual of ``moe.dense_d_ff``).
@@ -98,6 +99,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     remat: bool = True             # recompute each layer in the backward
+    opt_state_dtype: str = "float32"  # AdamW moments (the launcher's)
 
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads

@@ -5,8 +5,8 @@ MoE (paper-table). [arXiv:2501.kimi2; unverified]
 Its head dim is 7168 / 64 = 112 (GQA group 8): the four serving kernels
 are built for it (``kernels/decode/decode.py:HEAD_DIMS``). One layer's
 384 experts are ~34 GB in bf16, so on one card it is served at full width
-and depth 2 (``chip_smoke.py``); the flash forward of training refuses
-112 (``kernels/flash/flash.py:HEAD_DIMS``).
+and depth 2 (``chip_smoke.py``); the flash forward of training is built
+for 112 too (``kernels/flash/flash.py:HEAD_DIMS``).
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
@@ -21,6 +21,7 @@ CONFIG = ModelConfig(
     activation="swiglu",
     moe=MoEConfig(num_experts=384, top_k=8, d_ff=2048),
     tie_embeddings=False,
+    opt_state_dtype="bfloat16",
 )
 
 SMOKE = CONFIG.replace(

@@ -20,7 +20,7 @@
 // Design: the register-tiled CUDA-core layout of the prefill kernels
 // (tile_sm90.cuh). One CTA of 128 threads per (batch x query head, 32 query
 // rows), two CTAs an SM where the shared memory allows (head dims up to 64;
-// one at 128); causal row blocks launch heaviest first (the last block of
+// one from 96); causal row blocks launch heaviest first (the last block of
 // the sequence first), so the wave tail holds the light ones. q is staged
 // once as float32 rows. The CTA walks the reference's KV tiles, bk columns
 // each from column 0 of the padded K (the ExpMul results depend on the
@@ -28,7 +28,9 @@
 // chunk_tile_step, the contiguous prefill's tile step: K then V staged in
 // 64-row sub-tiles (the next sub-tile's 16-byte loads in flight in
 // registers while the current one is computed on, converted to float32 in
-// shared memory), the scores in 4 x 4 (rows, columns) register blocks into
+// shared memory; at D 256 loaded and converted when the step begins, as the
+// prefills do: a thread's value accumulators take 128 registers there),
+// the scores in 4 x 4 (rows, columns) register blocks into
 // the tile's transposed scores, then the row max, the weights, their sum
 // and the rescale once per tile (four threads a row), then the values from
 // a fresh chain per tile in RPT x 4 (rows, features) register blocks
@@ -40,6 +42,15 @@
 // col < kv_len, and col <= row when causal, and row - col < window. The
 // reference's query blocks are min(128, Sq) rows; the row blocking changes
 // only which wholly masked tiles are skipped.
+//
+// Head dims 16, 32, 64, 96, 112, 128 and 256. At 96 (minicpm3-4b's qk
+// width, V zero-padded to it by the caller) and 112 (kimi-k2-1t-a32b) the
+// 24 or 28 float4 feature groups do not share out over 128 threads: the
+// staged rows are 128 floats wide, the padding zeroed once
+// (tile_sm90.cuh:value_width, zero_value_pad), the value side runs D 128's
+// layout and stores the first D features. The scores still walk all D
+// features (score_block steps by 4, which divides every D built), and each
+// stored output feature keeps its own fmaf chain over the columns.
 #include "tile_sm90.cuh"
 
 using namespace repro;
@@ -54,9 +65,9 @@ constexpr int kPLd = kScoreLd;     // row stride of the transposed scores
 
 template <int D>
 constexpr size_t smem_bytes(int bk) {
-  static_assert(staged_width(D, D) == D, "staged rows of D floats: no value padding");
+  constexpr int DS = staged_width(D, D);  // the staged rows' width (128 at 96, 112)
   return sizeof(float) * (kRows * (D + kPad) + static_cast<size_t>(bk) * kPLd +
-                          kSub * (D + kPad) + kSub + 2 * kRows);
+                          kSub * (DS + kPad) + kSub + 2 * kRows);
 }
 
 template <typename T, int D, bool EXPMUL>
@@ -65,11 +76,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
              T* __restrict__ out, int H, int Hkv, int Sq, int Sk, int bk, int kv_len,
              int causal, int window, float scale, int vec16) {
   constexpr int kAct = sizeof(T) == sizeof(float) ? kF32 : kBF16;
+  constexpr int DS = staged_width(D, D);
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                      // [kRows][D + kPad]
   float* p_s = q_s + kRows * (D + kPad);  // [bk][kPLd]: scores, then weights
-  float* x_s = p_s + bk * kPLd;           // [kSub][D + kPad]: staged K or V
-  float* sc_s = x_s + kSub * (D + kPad);  // [kSub]: written by Stage, unused (no codes)
+  float* x_s = p_s + bk * kPLd;           // [kSub][DS + kPad]: staged K or V
+  float* sc_s = x_s + kSub * (DS + kPad);  // [kSub]: written by Stage, unused (no codes)
   float* r_s = sc_s + kSub;               // [kRows]: each row's rescale
   float* l_s = r_s + kRows;               // [kRows]: each row's l
 
@@ -101,29 +113,42 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     return true;
   };
 
-  Stage<T, D> stage;
+  using St = Stage<T, D>;
+  St stage;
   int step = 0;
-  {
+  // staging step i: in flight in registers, or (St::kSync) straight into x_s
+  const auto stage_step = [&](int i) {
     const T* src;
     int nrows;
-    if (step_at(0, src, nrows)) stage.fetch(src, nullptr, nrows, vec16);
-  }
-  // the staged rows of the current step into x_s, the next step's in flight
+    if (!step_at(i, src, nrows)) return;
+    if constexpr (St::kSync) {
+      stage.load(x_s, sc_s, src, nullptr, nrows, vec16);
+    } else {
+      stage.fetch(src, nullptr, nrows, vec16);
+    }
+  };
+  if constexpr (!St::kSync) stage_step(0);
+  // the current step's rows into x_s (the next step's in flight)
   const auto advance = [&]() {
     __syncthreads();  // the previous step's readers of x_s are done
-    stage.commit(x_s, sc_s);
-    __syncthreads();
-    const T* src;
-    int nrows;
-    if (step_at(++step, src, nrows)) stage.fetch(src, nullptr, nrows, vec16);
+    if constexpr (St::kSync) {
+      stage_step(step++);
+      __syncthreads();
+    } else {
+      stage.commit(x_s, sc_s);
+      __syncthreads();
+      stage_step(++step);
+    }
   };
 
-  // q as float32 rows (zeros past Sq); the first advance() publishes them
+  // q as float32 rows (zeros past Sq) and the staged rows' zero padding;
+  // the first advance() publishes them
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     q_s[r * (D + kPad) + d] =
         r < rows ? to_f32(q[(static_cast<int64_t>(bh) * Sq + r0 + r) * D + d]) : 0.0f;
   }
+  zero_value_pad<D, D>(x_s);
 
   ChunkRows<D> st;
   const bool dense = !causal && window <= 0;  // every column read is valid
@@ -174,7 +199,10 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, void*
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
+    case 96: REPRO_LAUNCH(96);
+    case 112: REPRO_LAUNCH(112);
     case 128: REPRO_LAUNCH(128);
+    case 256: REPRO_LAUNCH(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_LAUNCH
@@ -214,7 +242,10 @@ extern "C" long long flash_smem(int D, int bk) {
     case 16: return static_cast<long long>(smem_bytes<16>(bk));
     case 32: return static_cast<long long>(smem_bytes<32>(bk));
     case 64: return static_cast<long long>(smem_bytes<64>(bk));
+    case 96: return static_cast<long long>(smem_bytes<96>(bk));
+    case 112: return static_cast<long long>(smem_bytes<112>(bk));
     case 128: return static_cast<long long>(smem_bytes<128>(bk));
+    case 256: return static_cast<long long>(smem_bytes<256>(bk));
     default: return -1;
   }
 }

@@ -347,6 +347,7 @@ __device__ __forceinline__ void score_block(const float* q_s, const float* x_s,
                                             const float* sc_s, float* p_s, int ncols,
                                             float scale) {
   static_assert(kChunkRows / 4 * 16 == kChunkThreads && kStageRows == 64, "thread mapping");
+  static_assert(D % 4 == 0, "the depth loop's step of 4 must divide D: every feature scored");
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
   float acc[4][4];
 #pragma unroll

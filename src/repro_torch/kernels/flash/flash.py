@@ -28,8 +28,11 @@ and reads no column at or past ``kv_len`` or, when causal, past its last
 row. The row blocking changes no number (a wholly masked tile leaves a
 row's (m, l, acc) as it was), so neither version needs Sq padded. Its shared
 memory grows with the head dim and the tile width (``flash_smem``: 100,352
-bytes at D 64 and 512-wide tiles, two blocks an SM); the wrapper checks it
-against the card's limit before the launch.
+bytes at D 64 and 512-wide tiles, two blocks an SM; 174,080 at D 256); the
+wrapper checks it against the card's limit before the launch. At head dims
+96 and 112 the kernel stages V at 128 features, the padding zero, and
+stores the first D (``csrc/tile_sm90.cuh:value_width``); each stored
+feature keeps the plain version's chain.
 
 ``flash_fwd`` launches the CUDA kernel for CUDA tensors and runs the plain
 version only for CPU tensors.
@@ -51,7 +54,7 @@ from repro_torch.kernels.flash.tile import (
 )
 
 NAME = "flash"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
 MAX_BLOCK_K = 512  # the widest KV tile the kernel stages (tile.cuh kMaxTile)
 BLOCK_Q = 128      # the reference's query block (cfg.attention_block_q)
 

@@ -5,9 +5,13 @@ caches.
 ``repro/layers/attention_layer.py`` with its order of operations.
 ``attn_apply`` attends over the sequence's own K/V through
 ``core.attention.attention`` (the flash kernel forward and the reference's
-recompute backward); it runs unquantized (``kv_dtype="fp32"``) and raises
-on a quantized ``cfg.kv_dtype``. On the serving paths, decode quantizes
-and writes the new token's K/V, then attends; chunked prefill quantizes
+recompute backward); at a quantized ``cfg.kv_dtype`` it first
+fake-quantizes K (after RoPE) and V with the cache's codec
+(``numerics.quant.fake_quant_kv``) and attends over those at full
+precision, as the reference's ``*_q`` full-sequence impls do, so that
+``forward`` matches a round trip through a quantized cache. On the
+serving paths, decode quantizes and writes the new token's K/V, then
+attends; chunked prefill quantizes
 the chunk once, attends over [cache ++ chunk codes], then writes the
 chunk. The per-slot (contiguous) cache of a windowed layer is a rolling
 buffer of ``span = min(max_len, window)`` slots: RoPE uses absolute
@@ -58,6 +62,7 @@ from repro_torch.layers.common import dense_init
 from repro_torch.layers.rotary import apply_rope
 from repro_torch.numerics.quant import (
     QUANT_KV_DTYPES,
+    fake_quant_kv,
     kv_code_dtype,
     quantize_kv,
 )
@@ -103,16 +108,15 @@ def _project_qkv(params, x, cfg, positions):
 
 def attn_apply(params, x, cfg, *, positions=None, causal=True, window=None):
     """x (B, S, d) -> (B, S, d): full-sequence attention of the training
-    path, RoPE at ``positions`` (default ``arange(S)`` per row)."""
-    if kv_quantized(cfg):
-        raise NotImplementedError(
-            f"full-sequence attention at kv_dtype={cfg.kv_dtype!r} (the "
-            f"reference's fake-quant training impls) is not ported; train at "
-            f"kv_dtype='fp32'")
+    path, RoPE at ``positions`` (default ``arange(S)`` per row); K and V
+    fake-quantized at a quantized ``cfg.kv_dtype``."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _project_qkv(params, x, cfg, positions)
+    if kv_quantized(cfg):
+        k = fake_quant_kv(k, cfg.kv_dtype)
+        v = fake_quant_kv(v, cfg.kv_dtype)
     o = attention(q, k, v, cfg, causal=causal, window=window)
     return torch.einsum("bhsk,hkd->bsd", o, params["wo"])
 

@@ -44,6 +44,7 @@ from repro_torch.layers.rotary import apply_rope
 from repro_torch.numerics.quant import (
     QUANT_KV_DTYPES,
     dequantize_kv,
+    fake_quant_kv,
     kv_code_dtype,
 )
 
@@ -113,23 +114,23 @@ def _expand_latents(params, kv_lat, k_rope, cfg):
 
 def mla_apply(params, x, cfg, *, positions=None, causal=True, window=None):
     """x (B, S, d) -> (B, S, d): full-sequence MLA of the training path,
-    over the expanded latents. The flash forward takes Dv == Dq only (as
-    the reference's kernel does), so V is zero-padded to the qk width and
-    the padding's output columns dropped: each output column is its own
-    value chain over the same weights, so no number changes. On the card
-    that needs flash at head dim 96, which is not built (ROADMAP A.5): the
-    wrapper raises."""
-    if _quantized(cfg):
-        raise NotImplementedError(
-            f"full-sequence attention at kv_dtype={cfg.kv_dtype!r} (the "
-            f"reference's fake-quant training impls) is not ported; train at "
-            f"kv_dtype='fp32'")
+    over the expanded latents. At a quantized ``cfg.kv_dtype`` the latents
+    (what a quantized cache stores) are fake-quantized before the
+    expansion, as ``repro`` does, so ``forward`` matches a round trip
+    through a latent cache. The flash forward takes Dv == Dq only (as the
+    reference's kernel does), so V is zero-padded to the qk width (96 for
+    minicpm3-4b, a head dim the kernel is built for) and the padding's
+    output columns dropped: each output column is its own value chain over
+    the same weights, so no number changes."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q = _mla_q(params, x, cfg, positions)
-    k, v = _expand_latents(params, *_mla_latents(params, x, cfg, positions),
-                           cfg)
+    kv_lat, k_rope = _mla_latents(params, x, cfg, positions)
+    if _quantized(cfg):
+        kv_lat = fake_quant_kv(kv_lat, cfg.kv_dtype)
+        k_rope = fake_quant_kv(k_rope, cfg.kv_dtype)
+    k, v = _expand_latents(params, kv_lat, k_rope, cfg)
     Dv, D = v.shape[-1], k.shape[-1]
     if Dv > D:
         raise NotImplementedError(f"MLA forward at v_head_dim {Dv} > qk "

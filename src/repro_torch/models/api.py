@@ -175,14 +175,15 @@ def forward(params, batch, cfg, *, moe_impl="scatter"):
     return logits_apply(params["embed"], x, cfg)
 
 
-def loss_fn(params, batch, cfg):
+def loss_fn(params, batch, cfg, *, moe_impl="scatter"):
     """Next-token cross entropy over the text positions (a prepended
-    frontend's are dropped), masked by ``batch["loss_mask"]`` when given,
+    frontend's are dropped) of ``forward(..., moe_impl=moe_impl)``, masked
+    by ``batch["loss_mask"]`` when given,
     in the reference's order: the max of the logits, a float32 log-sum-exp
     of the shifted logits, a gather of the targets, then a masked mean.
     ``torch.amax`` splits the gradient among tied maxima evenly, as JAX's
     max does."""
-    logits = forward(params, batch, cfg)
+    logits = forward(params, batch, cfg, moe_impl=moe_impl)
     n_front = logits.shape[1] - batch["tokens"].shape[1]
     logits = logits[:, n_front:-1]
     targets = batch["tokens"][:, 1:].to(torch.int64)

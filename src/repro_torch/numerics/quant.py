@@ -67,3 +67,14 @@ def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,
     if kv_dtype not in QUANT_KV_DTYPES:
         raise ValueError(f"cannot dequantize kv_dtype {kv_dtype!r}")
     return codes.to(torch.float32) * scale[..., None].to(torch.float32)
+
+
+def fake_quant_kv(x: torch.Tensor, kv_dtype: str) -> torch.Tensor:
+    """Quantize then dequantize ``x`` (the full-sequence attention's K and V
+    at a quantized ``kv_dtype``), in ``x``'s dtype: bit for bit a round trip
+    through a quantized cache. Its gradient is autograd's through
+    ``quantize_kv``, as ``jax.grad``'s is in ``repro``: none through int8
+    codes (an integer cast), the e4m3 cast's through fp8 codes, and the row
+    scale's through its ``amax``."""
+    q = quantize_kv(x, kv_dtype)
+    return dequantize_kv(q.codes, q.scale, kv_dtype).to(x.dtype)

@@ -19,26 +19,30 @@ def make_train_state(params, optimizer):
     return {"params": params, "opt": optimizer.init(params)}
 
 
-def value_and_grad(params, batch, cfg):
+def value_and_grad(params, batch, cfg, *, moe_impl="scatter"):
     """(loss, grads): the loss of ``loss_fn`` and its gradient with respect
     to every leaf of ``params``, as a tree of the same structure."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss = loss_fn(tree_unflatten_like(params, leaves), batch, cfg)
+    loss = loss_fn(tree_unflatten_like(params, leaves), batch, cfg,
+                   moe_impl=moe_impl)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten_like(params, grads)
 
 
 def build_train_step(cfg, optimizer, *, microbatches: int = 1,
-                     clip_norm: float = 1.0, grad_transform=None):
+                     clip_norm: float = 1.0, moe_impl: str = "scatter",
+                     grad_transform=None):
     """grad_transform: an optional fn(grads) -> grads applied before the
-    clip. With ``microbatches`` > 1 the batch is split along its first axis
-    and the loss and the gradients accumulate ``x / microbatches`` in
-    float32, in order."""
+    clip (the launcher's ``--compress-grads``); ``moe_impl``: an MoE
+    config's dispatch (``layers/moe.py``). With ``microbatches`` > 1 the
+    batch is split along its first axis and the loss and the gradients
+    accumulate ``x / microbatches`` in float32, in order."""
 
     def train_step(state, batch):
         params = state["params"]
         if microbatches == 1:
-            loss, grads = value_and_grad(params, batch, cfg)
+            loss, grads = value_and_grad(params, batch, cfg,
+                                         moe_impl=moe_impl)
         else:
             parts = {k: torch.chunk(v, microbatches, dim=0)
                      for k, v in batch.items()}
@@ -53,7 +57,8 @@ def build_train_step(cfg, optimizer, *, microbatches: int = 1,
                 p.shape, dtype=torch.float32, device=p.device), params)
             for i in range(microbatches):
                 l_i, g_i = value_and_grad(
-                    params, {k: p[i] for k, p in parts.items()}, cfg)
+                    params, {k: p[i] for k, p in parts.items()}, cfg,
+                    moe_impl=moe_impl)
                 loss = loss + l_i / microbatches
                 grads = tree_map(lambda a, g: a + g / microbatches, grads,
                                  g_i)

@@ -33,7 +33,9 @@ The encoder-decoder and frontend archs: flash non-causal at Sq != Sk (an
 encoder-decoder's cross-attention), the cross-attention decode's one-pass
 plain route on the card against the CPU, and the smoke configs of
 llava-next-34b and seamless-m4t-medium through the kernels against the
-plain versions.
+plain versions. Training: flash at head dims 96, 112 and 256, and one
+train step of every arch's smoke config through the kernel against one
+through the plain version.
 """
 import sys
 from pathlib import Path
@@ -410,7 +412,7 @@ def test_contiguous_prefill_ragged_chunks_match_plain(cuda, C, kv, variant,
 # the training path's full-sequence forward
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 96, 112, 128, 256])
 @pytest.mark.parametrize("mask", ["causal", "window", "cross"])
 @pytest.mark.parametrize("block_k", [32, 128, 512])
 @pytest.mark.parametrize("variant", ["exact", "expmul"])
@@ -419,7 +421,9 @@ def test_contiguous_prefill_ragged_chunks_match_plain(cuda, C, kv, variant,
 def test_flash_kernel_matches_plain(cuda, D, mask, block_k, variant, dtype):
     """Sq = Sk = 200 (ragged against every tile width: K padded, the last
     tile partly masked), causal, causal with a 48-token window, and
-    non-causal with 120 queries over 200 keys; GQA 6/2."""
+    non-causal with 120 queries over 200 keys; GQA 6/2; head dims 96 and
+    112 on the value side's padding to 128, 256 on the staging at the
+    step."""
     rng = np.random.default_rng(D + block_k)
     Sq, causal, window = {"causal": (200, True, None),
                           "window": (200, True, 48),
@@ -439,7 +443,7 @@ def test_flash_kernel_matches_plain(cuda, D, mask, block_k, variant, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 31, 33, 65, 1000])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 112, 128, 256])
 @pytest.mark.parametrize("group", [1, 7])
 @pytest.mark.parametrize("variant", ["exact", "expmul"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -466,7 +470,8 @@ def test_flash_kernel_layout_edges_match_plain(cuda, S, D, group, variant,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,group", [(64, 1), (128, 7)])
+@pytest.mark.parametrize("D,group", [(64, 1), (128, 7), (96, 1), (112, 8),
+                                     (256, 1)])
 @pytest.mark.parametrize("variant", ["exact", "expmul"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -475,7 +480,8 @@ def test_flash_kernel_cross_attention_shapes_match_plain(cuda, D, group,
     """Non-causal at Sq != Sk (``checks.flash_cross_cases``): 1, 7 and 33
     queries (off the 32-row query block) over 16 and 1,024 keys, at
     seamless-m4t-medium's D 64 group 1 and llava-next-34b's D 128 group
-    7, dyadic and random."""
+    7, and at the head dims of minicpm3-4b (96), kimi-k2-1t-a32b (112,
+    group 8) and gemma-7b (256), dyadic and random."""
     rng = np.random.default_rng(D + group)
     for dyadic in (True, False):
         for label, case in flash_cross_cases(rng, D=D, group=group,
@@ -578,6 +584,9 @@ def test_flash_kernel_checks_shared_memory_before_launch(cuda, monkeypatch):
     from repro_torch.kernels.flash import flash
     need = flash.smem_bytes(128, 512)
     assert need == 124928 and flash.smem_bytes(64, 512) == 100352
+    # 96 and 112 stage V rows at 128 features; 256 fits one block an SM
+    assert [flash.smem_bytes(d, 512) for d in (96, 112, 256)] == \
+        [120832, 122880, 174080]
     assert need <= flash.card_smem_limit(cuda)
     monkeypatch.setattr(flash, "card_smem_limit", lambda device: need - 1)
     case = flash_case(np.random.default_rng(0), B=1, H=2, Hkv=1, Sq=600,
@@ -823,6 +832,20 @@ def test_serving_kernels_check_shared_memory_before_launch(cuda, kernel,
     run, case = cases[32][kernel]
     run(case, "expmul")
     assert build.COUNTS[kernel] == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_an_unbuilt_head_dim(cuda):
+    """A head dim the kernel is not built for (80; 96, 112 and 256 are
+    built since they train) raises a ValueError before any launch."""
+    from repro_torch.kernels.flash import flash
+    assert 80 not in flash.HEAD_DIMS
+    case = flash_case(np.random.default_rng(0), B=1, H=2, Hkv=1, Sq=64,
+                      Sk=64, D=80, block_k=64, device=cuda)
+    before = build.COUNTS["flash"]
+    with pytest.raises(ValueError, match="head dims"):
+        run_flash(case, "expmul")
+    assert build.COUNTS["flash"] == before
 
 
 @pytest.mark.cuda
@@ -1430,3 +1453,52 @@ def test_failed_capture_raises(cuda):
         eng.tick()
     assert eng.ticks == 0 and eng._prefill_graph.graph is None
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# training every arch on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen1.5-0.5b", "gemma-7b",
+                                  "minicpm3-4b", "arctic-480b",
+                                  "kimi-k2-1t-a32b", "recurrentgemma-2b",
+                                  "xlstm-1.3b", "llava-next-34b",
+                                  "seamless-m4t-medium"])
+def test_train_step_kernel_matches_plain(cuda, arch):
+    """One train step of each arch's smoke config in float32 through the
+    flash kernel against one through its plain version, from the same
+    weights and batch (a frontend config with seeded frontend embeddings):
+    the loss within 1e-5 and the grad norm within 1e-4 of their values;
+    the kernel run launches flash twice an attention call (the forward and
+    its recompute) and no plain version."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import build_train_step, make_train_state
+
+    cfg = get_config(arch, smoke=True, dtype="float32", param_dtype="float32")
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(3),
+                        device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 80),
+                                     generator=g, device=cuda)}
+    if cfg.frontend:
+        batch["frontend_embeds"] = torch.randn(
+            (2, cfg.frontend_tokens, cfg.frontend_dim), generator=g,
+            device=cuda)
+    calls = (cfg.pattern_for(cfg.encoder_layers).count("attn")
+             + 2 * cfg.decoder_layers if cfg.encoder_layers
+             else cfg.pattern_for().count("attn"))
+    opt = adamw(1e-3, moment_dtype=cfg.opt_state_dtype)
+    out = {}
+    for impl in ("kernel", "plain"):
+        build.reset_counts()
+        step = build_train_step(cfg.replace(attention_impl=impl), opt)
+        _, m = step(make_train_state(params, opt), batch)
+        out[impl] = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        if impl == "kernel":
+            assert {k: n for k, n in build.COUNTS.items() if n} == (
+                {"flash": 2 * calls} if calls else {})
+    assert abs(out["kernel"]["loss"] - out["plain"]["loss"]) <= \
+        1e-5 * abs(out["plain"]["loss"])
+    assert abs(out["kernel"]["grad_norm"] - out["plain"]["grad_norm"]) <= \
+        1e-4 * abs(out["plain"]["grad_norm"])

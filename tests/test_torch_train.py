@@ -50,6 +50,7 @@ from repro_torch.train.step import (  # noqa: E402
     value_and_grad,
 )
 from repro_torch.tree import tree_leaves_with_path  # noqa: E402
+from torch_training import assert_grads_match  # noqa: E402
 
 SEQ, BATCH = 80, 2
 
@@ -280,10 +281,21 @@ def test_training_entry_points_default_to_cuda():
 
 
 def test_quantized_kv_training_raises():
-    cfg = get_config("qwen2-0.5b", smoke=True, dtype="float32",
-                     param_dtype="float32", kv_dtype="int8")
-    params = tapi.init_model(cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
-    x = torch.zeros(1, 8, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="kv_dtype"):
-        attn_apply(params["layers"][0]["mix"], x, cfg)
+    """Full-sequence attention at ``kv_dtype="int8"`` no longer raises: it
+    fake-quantizes K and V with the cache's codec, as ``repro``'s
+    ``pallas_q`` impl does, and the loss and every gradient leaf match
+    ``repro``'s at the bounds of ``test_loss_and_grads_match_repro``, a
+    leaf that a flipped int8 code reaches within 1e-6 of the largest
+    gradient (``tests/torch_training.py:assert_grads_match``; fp8 and MLA:
+    ``tests/test_torch_train_kvquant.py``)."""
+    jcfg, params, tcfg, tparams = _models("expmul")
+    jcfg, tcfg = (c.replace(kv_dtype="int8") for c in (jcfg, tcfg))
+    toks = _batch(0)
+    jl, jg = jax.value_and_grad(japi.loss_fn)(
+        params, {"tokens": jnp.asarray(toks)}, jcfg)
+    tl, tg = value_and_grad(tparams, {"tokens": torch.from_numpy(toks)},
+                            tcfg)
+    assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+    assert_grads_match(tg, _convert(jg, tcfg), tcfg)
+    x = torch.zeros(1, 8, tcfg.d_model)
+    assert attn_apply(tparams["layers"][0]["mix"], x, tcfg).shape == x.shape
