@@ -283,7 +283,8 @@ ones alone, in this order, and prints no kernels line and no result):
    ExpMul, 512-wide tiles) and, for ExpMul, at the flash recurrence's
    state of the training shapes ((114688, 64) float32 and bfloat16,
    (114688, 65) float32): the median of 25 runs timed with CUDA events
-   after warm-up, L2 flushed before each, beside the plain version's time,
+   after warm-up, L2 flushed before each, beside the plain version's time
+   (a median of 5),
    the least time the card could take and each kernel's time at commits
    d4109f5 (before the contiguous kernels' redesign), 35522df (before
    the paged kernels') and 1f2c920 (before the flash kernel's); flash's
@@ -293,7 +294,7 @@ ones alone, in this order, and prints no kernels line and no result):
    a CTA of each is given, as the kernel's source reports it (the paged
    decode's at 1,024 and 32,768 tokens of context, gated equal); then the
    four serving kernels at gemma-7b's serving shapes (16 / 16 heads of
-   256, the rest as above, the plain versions' median of 5 runs), with
+   256, the rest as above, the plain versions' median of 3 runs), with
    the registers, spills and shared memory of every KV dtype's head-dim
    256 instantiation;
 5c. the contiguous decode and prefill at minicpm3-4b's serving shapes
@@ -350,6 +351,23 @@ ones alone, in this order, and prints no kernels line and no result):
    a step and nothing else (xlstm-1.3b none), bfloat16 moments for
    arctic-480b and kimi-k2-1t-a32b, zero frontend embeddings for the
    frontend archs, and qwen2-0.5b once more with ``--compress-grads``;
+6d. the multi-device plan ("plan"): ``repro_torch.launch.dryrun``'s
+   ``lower_cell`` on this host over a fake process group, for qwen2-0.5b
+   train_4k on the 16 x 16 mesh and kimi-k2-1t-a32b decode_32k on
+   2 x 16 x 16: each cell's compute, memory and collective seconds under
+   the H100 roofline, its bottleneck and its GiB a device, gated on the
+   attention calls it counts, on the plan itself (the ops it resharded
+   for, the three terms and the GiB a device equal to the plan that
+   ``python -m repro_torch.launch.dryrun`` counted for the cell on
+   another torch, ``PLAN_CELLS``: a torch whose DTensor lays the cell
+   out otherwise fails here) and no process group left behind;
+6e. "counted step": one phase-6 qwen2-0.5b train step inside the op
+   counter (``launch/op_costs.py``): its loss and grad norm bit for bit
+   those of the same step uncounted, its counted flash calls the flash
+   launches, its counted FLOPs 1-2x the model's 6ND, and the measured
+   step p50 no faster than the roofline's step time (each FLOP type at
+   its own peak: the float32 products and attention at 67 TFLOP/s),
+   whose share is printed beside the card's name and power limit;
 7. ``python -m repro_torch.launch.quickstart`` and then ``python -m
    repro_torch.launch.fidelity`` on the card, the launch counts set to 0
    just before each and read just after: the quickstart must launch the
@@ -361,8 +379,9 @@ ones alone, in this order, and prints no kernels line and no result):
    ``d128``, ``d112``, ``llava_d128``, ``rg_w2048`` and, for the
    contiguous pair, ``mla_96_64`` entries; flash with ``llava_frontend``,
    ``seamless_encoder``, ``seamless_cross``, and ``d256``, ``d112`` and
-   ``d96`` with phase 6b's training runs; the contiguous decode
-   with ``seamless_d64_g1``), the card line, and as the last line
+   ``d96`` with phase 6b's training runs, and the counted step's
+   launches; the contiguous decode with ``seamless_d64_g1``), the card
+   line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -371,6 +390,7 @@ or when the package is not beside it.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2787,6 +2807,170 @@ def phase_train_archs(torch, cfg_mod, build):
     return out
 
 
+# the multi-device plan's two cells (``repro_torch.launch.dryrun``), each
+# dry-run over a fake process group on this host, with the attention calls
+# each must count: qwen2-0.5b's train step (24 layers: the forward twice
+# under remat, the backward priced once a layer) and kimi-k2-1t-a32b's
+# decode step (61 layers)
+# (arch, shape, multi-pod, its attention calls, its plan: the ops the
+# fixed layouts resharded for, compute / memory / collective seconds and
+# the peak estimate in bytes, as the dry run counted them on torch 2.13)
+PLAN_CELLS = (("qwen2-0.5b", "train_4k", False,
+               {"flash": 48, "flash_backward": 24},
+               (1052, (0.14395425262069222, 0.2620576644358209,
+                       0.1325365951), 7810209228)),
+              ("kimi-k2-1t-a32b", "decode_32k", True, {"decode": 61},
+               (427, (0.0006351476583287808, 0.23988354341253731,
+                      0.2861890491733333), 7586367520)))
+PLAN_RTOL = 1e-6
+
+
+def phase_plan():
+    """The dry run of ``PLAN_CELLS`` on the card's host: each cell's
+    compute, memory and collective seconds under the H100 roofline, its
+    bottleneck and its GiB a device; gated on a positive count of each
+    term's inputs, the attention calls, the plan against the one pinned
+    in ``PLAN_CELLS`` (within ``PLAN_RTOL``), and no process group
+    left."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import lower_cell
+
+    out = {}
+    for arch, shape, multi_pod, calls, plan in PLAN_CELLS:
+        counts, meta = lower_cell(arch, shape, multi_pod=multi_pod)
+        rf, bpd = meta["roofline"], meta["bytes_per_device"]
+        log(f"[plan] {arch} {shape} on {meta['mesh']} ({meta['n_devices']} "
+            f"ranks, moe {meta['moe_impl']}): compute {rf['compute_s']:.6f} "
+            f"s, memory {rf['memory_s']:.6f} s, collective "
+            f"{rf['collective_s']:.6f} s, bottleneck {rf['bottleneck']}, "
+            f"{bpd['peak_estimate'] / 2**30:.2f} GiB a device (estimate), "
+            f"model/counted FLOPs {rf['useful_flops_ratio']:.3f}, attention "
+            f"calls {json.dumps(counts['attention_calls'])}, "
+            f"{len(counts['collectives'])} collectives, "
+            f"{counts['resharded_ops']} ops resharded for "
+            f"({meta['lower_s']} s)")
+        if not (rf["flops"] > 0 and rf["hbm_bytes"] > 0
+                and rf["coll_bytes"] > 0):
+            raise AssertionError(f"{arch} {shape}: an empty roofline term")
+        if counts["attention_calls"] != calls:
+            raise AssertionError(f"{arch} {shape}: attention calls "
+                                 f"{counts['attention_calls']}, not {calls}")
+        got = (counts["resharded_ops"], tuple(rf[k] for k in (
+            "compute_s", "memory_s", "collective_s")), bpd["peak_estimate"])
+        want = plan
+        if not (got[0] == want[0] and all(
+                math.isclose(g, w, rel_tol=PLAN_RTOL)
+                for g, w in zip(got[1] + (got[2],), want[1] + (want[2],)))):
+            raise AssertionError(f"{arch} {shape}: the plan (ops resharded "
+                                 f"for, terms, peak bytes) {got} is not the "
+                                 f"pinned {want}")
+        if dist.is_initialized():
+            raise AssertionError("the dry run left its process group")
+        out[f"{arch} {shape}"] = {k: rf[k] for k in (
+            "compute_s", "memory_s", "collective_s", "bottleneck")}
+    return out
+
+
+def phase_counted_step(torch, cfg_mod, api, build):
+    """One full-width qwen2-0.5b train step (phase 6's: float32, TF32 off,
+    ExpMul, 8 x 1,024 tokens) inside ``launch/op_costs.py``'s counter,
+    gated on (a) its loss and grad norm bit for bit those of the same step
+    uncounted, (b) the counted flash calls equal to the launches the
+    dispatch counter records for it (2 x 24), (c) the counted FLOPs between
+    1 and 2 times ``model_flops_per_device`` (the recompute and attention
+    on top of 6ND), and (d) the measured step p50 (4 uncounted steps) no
+    faster than the roofline's ``step_s`` under the H100 model (each FLOP
+    type at its peak: with TF32 off the products are float32 ones), the
+    share printed beside the card's name and power limit."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.launch.op_costs import OpCounter
+    from repro_torch.launch.roofline import analyze, model_flops_per_device
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import build_train_step, make_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = cfg_mod.get_config("qwen2-0.5b").replace(
+        dtype="float32", param_dtype="float32", attention_variant="expmul")
+    data = SyntheticLMDataset(base.vocab_size, TRAIN_SEQ, seed=0)
+    batch = {"tokens": torch.from_numpy(data.batch(0, B)).cuda()}
+    params = api.init_model(
+        base, torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    opt = adamw(3e-4)
+    step = build_train_step(base, opt)
+
+    def run(counter=None):
+        build.reset_counts()
+        if counter is None:
+            _, m = step(make_train_state(params, opt), batch)
+        else:
+            with counter:
+                _, m = step(make_train_state(params, opt), batch)
+        torch.cuda.synchronize()
+        return m["loss"], m["grad_norm"], dict(build.COUNTS)
+
+    loss0, gn0, _ = run()
+    counter = OpCounter()
+    loss1, gn1, launches = run(counter)
+    counts = counter.totals()
+    log(f"[counted step] loss {float(loss1):.7f} / {float(loss0):.7f} "
+        f"uncounted, grad norm {float(gn1):.7f} / {float(gn0):.7f}; flash "
+        f"counted {counts['attention_calls'].get('flash', 0)}, launched "
+        f"{launches.get('flash', 0)}")
+    if not (torch.equal(loss0, loss1) and torch.equal(gn0, gn1)):
+        raise AssertionError("the counter moved the step's loss or grad norm")
+    per_step = 2 * _attention_calls(base)
+    if not (counts["attention_calls"].get("flash") == launches.get("flash")
+            == per_step):
+        raise AssertionError(f"counted flash calls "
+                             f"{counts['attention_calls']} vs launches "
+                             f"{launches}, not {per_step} each")
+    shape = ShapeSpec("counted_step", TRAIN_SEQ, B, "train")
+    model = model_flops_per_device(base, shape, 1)
+    rf = analyze(counts, model_flops_per_device=model)
+    ratio = counts["flops"] / model
+    by_type = {k: round(v / 1e12, 3)
+               for k, v in counts["flops_by_type"].items()}
+    log(f"[counted step] counted {counts['flops'] / 1e12:.3f} TFLOP, "
+        f"6ND {model / 1e12:.3f} TFLOP: counted/model {ratio:.4f}; "
+        f"{counts['bytes'] / 1e9:.1f} GB read and written, "
+        f"{counts['transcendental_elems'] / 1e9:.3f} G transcendentals; "
+        f"TFLOP by type {json.dumps(by_type)}")
+    if not 1.0 <= ratio <= 2.0:
+        raise AssertionError(f"counted/model FLOPs {ratio:.4f} outside [1, 2]")
+
+    state = make_train_state(params, opt)
+    del params
+    state, _ = step(state, batch)                    # warm-up
+    times = []
+    for i in range(4):
+        tb = {"tokens": torch.from_numpy(data.batch(i + 1, B)).cuda()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, tb)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    p50 = statistics.median(times)
+    del state
+    torch.cuda.empty_cache()
+    share = rf.step_s / p50
+    log(f"[counted step] step p50 {p50 * 1e3:.1f} ms against the H100 "
+        f"roofline's {rf.step_s * 1e3:.1f} ms ({rf.bottleneck}-bound: compute "
+        f"{rf.compute_s * 1e3:.1f} ms, memory {rf.memory_s * 1e3:.1f} ms): "
+        f"{share:.1%} of the roofline, on {card_line()}")
+    if not p50 >= rf.step_s > 0:
+        raise AssertionError(f"a step of {p50:.4f} s beat its roofline "
+                             f"{rf.step_s:.4f} s")
+    return {"flash_counted": counts["attention_calls"]["flash"],
+            "flash_launches": launches["flash"], "flops": counts["flops"],
+            "model_flops": model, "counted_over_model": ratio,
+            "bytes": counts["bytes"], "step_p50_s": p50,
+            "roofline": rf.to_dict(), "roofline_share": share}
+
+
 def _bounds(name, lengths, n_valid=None, h=H, hkv=HKV, d=D):
     """(bytes, flops) the function needs at these lengths: each input read
     once (q, the resident codes and scale rows, the chunk, the block
@@ -3390,8 +3574,11 @@ def phase_frontend_times(torch, checks, F, build, flash, decode):
 def phase_times(torch, checks, F):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rng = np.random.default_rng(4)
-    out = _time_serving(torch, checks, F, flush, rng)
-    out["flash"] = _time_flash(torch, checks, F, flush, rng)
+    # the plain versions a median of 5 runs (25 until the script outgrew
+    # its time)
+    out = _time_serving(torch, checks, F, flush, rng, plain_n=5,
+                        plain_warmup=1)
+    out["flash"] = _time_flash(torch, checks, F, flush, rng, plain_n=5)
     out["expmul"] = _time_expmul(torch, checks, flush, rng)
     for name, r in out.items():
         log(f"[time] {name}: {r['ms']:.4f} ms; " + ", ".join(
@@ -3402,30 +3589,30 @@ def phase_times(torch, checks, F):
 
 def phase_gemma_times(torch, checks, F):
     """The four serving kernels at gemma-7b's serving shapes: 16 / 16 heads
-    of 256, the rest as phase 5 (the plain versions' median of 5 runs)."""
+    of 256, the rest as phase 5 (the plain versions' median of 3 runs)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     return _time_serving(torch, checks, F, flush, np.random.default_rng(5),
-                         h=GEMMA_H, hkv=GEMMA_H, d=GEMMA_D, plain_n=5,
+                         h=GEMMA_H, hkv=GEMMA_H, d=GEMMA_D, plain_n=3,
                          plain_warmup=1)
 
 
 def phase_arctic_times(torch, checks, F):
     """The four serving kernels at arctic-480b's serving shapes: 56 / 8
-    heads of 128, the rest as phase 5 (the plain versions' median of 5
+    heads of 128, the rest as phase 5 (the plain versions' median of 3
     runs)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     return _time_serving(torch, checks, F, flush, np.random.default_rng(7),
-                         h=ARCTIC_H, hkv=ARCTIC_HKV, d=ARCTIC_D, plain_n=5,
+                         h=ARCTIC_H, hkv=ARCTIC_HKV, d=ARCTIC_D, plain_n=3,
                          plain_warmup=1)
 
 
 def phase_kimi_times(torch, checks, F):
     """The four serving kernels at kimi-k2-1t-a32b's serving shapes: 64 / 8
-    heads of 112, the rest as phase 5 (the plain versions' median of 5
+    heads of 112, the rest as phase 5 (the plain versions' median of 3
     runs)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     return _time_serving(torch, checks, F, flush, np.random.default_rng(17),
-                         h=KIMI_H, hkv=KIMI_HKV, d=KIMI_D, plain_n=5,
+                         h=KIMI_H, hkv=KIMI_HKV, d=KIMI_D, plain_n=3,
                          plain_warmup=1)
 
 
@@ -3435,7 +3622,7 @@ def phase_rg_times(torch, checks, F, decode, prefill):
     keys a query; the contiguous cache a wrapped rolling buffer of span
     2,048), CHUNK-token chunks, 10 / 1 heads of 256, bf16 values and q,
     ExpMul: device time, time with the launch, the plain version's time
-    (median of 5 runs), the least time the card could take for this run's
+    (median of 3 runs), the least time the card could take for this run's
     work, the exact-variant yardstick against SDPA over a dense bf16 copy
     under the same windowed mask, and the shared memory a CTA takes at
     group 10."""
@@ -3479,7 +3666,7 @@ def phase_rg_times(torch, checks, F, decode, prefill):
         host_ms = median_ms(torch, lambda: run(case, "expmul"), flush,
                             hide_host=False)
         plain_ms = median_ms(torch, lambda: run(case, "expmul", plain=True),
-                             flush, n=5, warmup=1)
+                             flush, n=3, warmup=1)
         exact_ms = median_ms(torch, lambda: run(case, "exact"), flush)
         # this run's work: every query sees W keys; the K/V read once are
         # the window's (the history's last W - 1 tokens and the chunk for
@@ -3553,7 +3740,7 @@ def phase_mla_times(torch, checks, F, build, decode, prefill):
     """The contiguous decode and prefill at minicpm3-4b's serving shapes:
     bf16 expanded K (96) and V (64), ExpMul, bf16 q, 8 sequences of 1,024
     resident tokens, 40 / 40 heads, 256-token chunks; device time, time
-    with the launch, the plain version's (median of 5), the bound (each
+    with the launch, the plain version's (median of 3), the bound (each
     input and output byte once at the HBM rate; 2 (D + Dv) operations a
     (query, key) pair at the bf16 peak), the exact-bf16 yardstick against
     SDPA over the same dense bf16 operands under each backend that takes
@@ -3586,7 +3773,7 @@ def phase_mla_times(torch, checks, F, build, decode, prefill):
         host_ms = median_ms(torch, lambda: run(case, "expmul"), flush,
                             hide_host=False)
         plain_ms = median_ms(torch, lambda: run(case, "expmul", plain=True),
-                             flush, n=5, warmup=1)
+                             flush, n=3, warmup=1)
         # bytes: q and the output, the resident K/V rows and the chunk's,
         # the lengths (and n_valid); pairs: every resident key, and the
         # chunk's causal triangle
@@ -4030,6 +4217,9 @@ def main(argv=None) -> int:
             torch, cfg_mod, api, build, arch=MLA, num_layers=MLA_TRAIN_LAYERS,
             steps=TRAIN_CUT_STEPS)),
         ("train archs", lambda: phase_train_archs(torch, cfg_mod, build)),
+        ("plan", phase_plan),
+        ("counted step", lambda: phase_counted_step(torch, cfg_mod, api,
+                                                    build)),
         ("quickstart", lambda: phase_quickstart(torch, build)),
         ("fidelity", lambda: phase_fidelity(torch, build)),
     )
@@ -4056,7 +4246,8 @@ def main(argv=None) -> int:
         launches_fidelity=results["fidelity"]["flash"],
         launches_gemma_train=results["gemma train"]["flash"]["launches"],
         launches_mla_train=results["mla train"]["flash"]["launches"],
-        launches_train_archs=results["train archs"])
+        launches_train_archs=results["train archs"],
+        launches_counted_step=results["counted step"]["flash_launches"])
     launches["expmul"] = dict(launches=results["quickstart"]["expmul"])
     # the serving kernels at gemma-7b's head dim: its serving run's
     # launches, its times, each KV dtype's resources

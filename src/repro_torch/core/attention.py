@@ -15,6 +15,17 @@ KV tiles of ``flash_ref``, the largest divisor of Sk not above
 ``block_k``, which differ from the forward's padded tiles when
 ``block_k`` does not divide Sk, as in the reference.
 
+On a mesh (DTensor operands, ``launch/dryrun.py``) the call runs per
+shard (``sharding/regions.py:sharded_attention``), and ``flash_ref`` pins
+its queries and online-softmax carries as the reference's ``flash_jnp``
+does (``sharding/constraints.py``; off a mesh those are the identity). On
+``meta`` operands the forward is the kernel wrapper's meta route and the
+backward is priced, not run: it records the reference's recompute, the
+forward's products once more plus the four of the gradient (dV = P^T dO,
+dP = dO V^T, dQ = dS K, dK = dS^T Q), 3x the forward's analytic FLOPs,
+and it reads q, k and v twice and dO once and writes dQ, dK and dV
+(``_price_backward``); the tile loop of ``flash_ref`` never runs there.
+
 ``decode_one_pass`` is the reference's "xla" decode route
 (``_decode_xla`` and ``_masked_decode_xla``), which its cross-attention
 decode takes: plain PyTorch ops on any device, the reference's own route
@@ -26,8 +37,11 @@ import math
 
 import torch
 
+from repro_torch.kernels import costs
 from repro_torch.kernels.flash.ops import flash_attention_fwd
 from repro_torch.numerics.log2exp import log2exp_lhat, pow2_neg, qexp_ste
+from repro_torch.sharding.constraints import constrain, model_axis_size
+from repro_torch.sharding.regions import sharded_attention
 
 MASK_VALUE = -1e30
 
@@ -98,9 +112,18 @@ def flash_ref(q, k, v, *, causal=True, scale=None, window=None,
                 break
     Sq_c = Sq // n_chunks
     dev = q.device
+    # the 'model' dim of the activations on a mesh: kv-heads if they divide
+    # the axis, else the head group, else the (chunked) queries
+    msize = model_axis_size()
+    tp = [None, None, None]
+    for i, dim in enumerate((Hkv, group, Sq_c)):
+        if msize and dim % msize == 0:
+            tp[i] = "model"
+            break
+    dims5 = ("batch", tp[0], tp[1], tp[2], None)
 
     def run_chunk(q_chunk, row0, nk_c):
-        qf = q_chunk.reshape(B, Hkv, group, Sq_c, D)
+        qf = constrain(q_chunk.reshape(B, Hkv, group, Sq_c, D), *dims5)
         rows = row0 + torch.arange(Sq_c, device=dev)[:, None]
         m = torch.full((B, Hkv, group, Sq_c, 1), MASK_VALUE,
                        dtype=torch.float32, device=dev)
@@ -114,6 +137,7 @@ def flash_ref(q, k, v, *, causal=True, scale=None, window=None,
         else:
             n_interior = 0
         for ci in range(nk_c):
+            m, l, acc = (constrain(t, *dims5) for t in (m, l, acc))
             sl = slice(ci * bk, (ci + 1) * bk)
             s = _scores(qf, k[:, :, sl], scale)
             mask = None
@@ -167,6 +191,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         causal, scale, window, variant, block_k = ctx.spec
+        if g.device.type == "meta":
+            return _price_backward(*ctx.saved_tensors, g) + (None,) * 6
         with torch.enable_grad():
             q, k, v = (t.detach().requires_grad_(True)
                        for t in ctx.saved_tensors)
@@ -177,6 +203,20 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+def _price_backward(q, k, v, g):
+    """The backward on ``meta`` operands: empty gradients, and the
+    recompute's cost reported to the op counters (see the module
+    docstring)."""
+    if costs.counting():
+        B, H, Sq, D = q.shape
+        flops, _ = costs.attention_call_cost(
+            g, (), batch=B * H, heads=1, q_tokens=Sq, kv_tokens=k.shape[2],
+            d_qk=D, d_v=v.shape[-1])
+        nbytes = costs.tensor_bytes(q, k, v) * 3 + costs.tensor_bytes(g)
+        costs.record_call("flash_backward", flops=3 * flops, bytes=nbytes)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def attention(q, k, v, cfg, *, causal=True, window=None, scale=None):
     """q (B, H, Sq, D), k and v (B, Hkv, Sk, D) -> (B, H, Sq, D), the
     twin of the reference's "pallas" backend: ``cfg.attention_variant``
@@ -185,10 +225,14 @@ def attention(q, k, v, cfg, *, causal=True, window=None, scale=None):
     CPU tensors) or "plain" (the plain version on any device)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return FlashAttention.apply(
-        q, k, v, causal, float(scale), window, cfg.attention_variant,
-        min(cfg.attention_block_k, k.shape[2]),
-        cfg.attention_impl == "plain")
+
+    def run(q, k, v):
+        return FlashAttention.apply(
+            q, k, v, causal, float(scale), window, cfg.attention_variant,
+            min(cfg.attention_block_k, k.shape[2]),
+            cfg.attention_impl == "plain")
+
+    return sharded_attention(q, k, v, run, causal=causal)
 
 
 def decode_one_pass(q, k, v, lengths, *, variant="exact", scale=None):

@@ -140,3 +140,56 @@ def attn_kv_geometry(cfg) -> dict:
     return {"Hkv": cfg.num_kv_heads, "D": d, "Dv": d,
             "heads": cfg.num_heads, "layers": layers, "d_qk": d,
             "d_v": d}
+
+
+# ---- the attention calls' costs, reported to an op counter ------------
+#
+# An op counter (``launch/op_costs.py``) sees every PyTorch op, but not a
+# CUDA kernel launched through ``ctypes`` nor the work a ``meta`` operand
+# stands for. The five attention wrappers report such a call here, once,
+# with its analytic cost; the active counters add it up. A wrapper checks
+# ``counting()`` before it works out a report, so a launch with no counter
+# active does no cost arithmetic.
+
+COST_SINKS: list = []
+
+
+def counting() -> bool:
+    """Whether an op counter is active."""
+    return bool(COST_SINKS)
+
+
+def record_call(name: str, *, flops: float, bytes: float) -> None:
+    """Report one attention call (``name`` its kernel's) to every active
+    counter. Its FLOPs are float32 ones on the CUDA cores: the attention
+    kernels run fmaf chains, and the flash backward's recompute
+    (``flash_ref``) computes in float32."""
+    for sink in COST_SINKS:
+        sink(name, flops=float(flops), bytes=float(bytes),
+             flop_type="float32")
+
+
+def tensor_bytes(*tensors) -> int:
+    """Bytes of the given tensors (None skipped), each in its dtype."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def attention_call_cost(out, operands, *, batch, heads, q_tokens, kv_tokens,
+                        d_qk, d_v, kv_bytes=0):
+    """(flops, bytes) of one attention call: ``analytic_attention_flops``
+    over ``batch`` rows (masking ignored: an upper bound within 2x for a
+    causal call), and each operand read once and the output written once,
+    each in its own dtype; a contiguous cache at its whole span (a
+    ``meta`` call has no lengths to read), a paged pool as the
+    ``kv_bytes`` of its tables' span."""
+    flops = batch * analytic_attention_flops(q_tokens, kv_tokens,
+                                             heads=heads, d_qk=d_qk, d_v=d_v)
+    return flops, tensor_bytes(out, *operands) + kv_bytes
+
+
+def report_call(name, out, operands, **shape):
+    """``record_call`` of ``attention_call_cost``; returns ``out``."""
+    flops, nbytes = attention_call_cost(out, operands, **shape)
+    record_call(name, flops=flops, bytes=nbytes)
+    return out

@@ -21,7 +21,11 @@ layouts:
 
 ``*_fwd`` launches the CUDA kernel for CUDA tensors and runs the plain
 version only for CPU tensors. ``*_fwd_plain`` walks the same tiles in the
-same order on any device, through the shared tile step.
+same order on any device, through the shared tile step. A ``meta`` operand
+(the dry run's) gets ``torch.empty`` of the output's shape and dtype after
+the shape checks, and no tile loop runs. A launch and a ``meta`` call
+each report their analytic cost to the active op counters
+(``kernels/costs.py:report_call``).
 
 The kernels are built for head dims ``HEAD_DIMS`` with Dv == D; the
 contiguous kernels (this decode and ``kernels/flash/prefill.py``'s) also
@@ -41,7 +45,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 from repro_torch.kernels.flash.tile import (
     finalize_tiles,
     init_state,
@@ -205,6 +209,10 @@ def paged_decode_fwd(bt, len1, q3, k4, v4, ks3=None, vs3=None, *, scale,
         return paged_decode_fwd_plain(
             bt, len1, q3, k4, v4, ks3, vs3, scale=scale, variant=variant,
             page_size=page_size, window=window, num_kv_heads=num_kv_heads)
+    if q3.device.type == "meta":
+        _check(bt, len1, q3, k4, v4, ks3, vs3, page_size, num_kv_heads)
+        return _report_paged(torch.empty_like(q3), bt, len1, q3, k4, v4, ks3,
+                             vs3, page_size)
     if q3.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q3.device}")
     if variant not in ("exact", "expmul"):
@@ -229,7 +237,23 @@ def paged_decode_fwd(bt, len1, q3, k4, v4, ks3=None, vs3=None, *, scale,
         ACT_DTYPES[q3.dtype], KV_DTYPES[k4.dtype], stream)
     build.check(err, NAME)
     build.COUNTS[NAME] += 1
-    return out
+    return _report_paged(out, bt, len1, q3, k4, v4, ks3, vs3, page_size)
+
+
+def _report_paged(out, bt, len1, q3, k4, v4, ks3, vs3, page_size):
+    """Report the call to the op counters: the pages of the tables' span
+    (every row's, at the table's width) read once."""
+    if not costs.counting():
+        return out
+    BHkv, group, D = q3.shape
+    span = bt.shape[1] * page_size
+    rows = bt.shape[0] * span * k4.shape[2]   # (sequence, token, KV head)
+    kv = rows * (k4.shape[-1] * k4.element_size()
+                 + v4.shape[-1] * v4.element_size()
+                 + (8 if ks3 is not None else 0))
+    return costs.report_call(NAME, out, (q3, bt, len1), batch=BHkv,
+                             heads=group, q_tokens=1, kv_tokens=span, d_qk=D,
+                             d_v=v4.shape[-1], kv_bytes=kv)
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +336,10 @@ def decode_fwd(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
     if q3.device.type == "cpu":
         return decode_fwd_plain(q3, k3, v3, lengths, ks2, vs2, scale=scale,
                                 variant=variant, num_kv_heads=num_kv_heads)
+    if q3.device.type == "meta":
+        _check_contiguous(q3, k3, v3, lengths, ks2, vs2, num_kv_heads)
+        return _report_contiguous(q3.new_empty(q3.shape[:2] + v3.shape[-1:]),
+                                  q3, k3, v3, lengths, ks2, vs2)
     if q3.device.type != "cuda":
         raise ValueError(f"{CONTIGUOUS}: no kernel for device {q3.device}")
     if variant not in ("exact", "expmul"):
@@ -337,4 +365,15 @@ def decode_fwd(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
         ACT_DTYPES[q3.dtype], KV_DTYPES[k3.dtype], stream)
     build.check(err, CONTIGUOUS)
     build.COUNTS[CONTIGUOUS] += 1
-    return out
+    return _report_contiguous(out, q3, k3, v3, lengths, ks2, vs2)
+
+
+def _report_contiguous(out, q3, k3, v3, lengths, ks2, vs2):
+    """Report the call to the op counters (the whole cache read once)."""
+    if not costs.counting():
+        return out
+    BHkv, group, D = q3.shape
+    return costs.report_call(CONTIGUOUS, out, (q3, k3, v3, lengths, ks2, vs2),
+                             batch=BHkv, heads=group, q_tokens=1,
+                             kv_tokens=k3.shape[1], d_qk=D,
+                             d_v=v3.shape[-1])

@@ -1,7 +1,8 @@
 """Public wrappers of the flash-decode kernels (the port of
 ``repro/kernels/decode/ops.py``): fold q to (B*Hkv, group, D), view
 per-slot caches as (B*Hkv, S, D) and flat pools as pages; no copy is
-made."""
+made. On a mesh (DTensor operands) the contiguous decode runs per shard
+(``sharding/regions.py:sharded_decode``)."""
 from __future__ import annotations
 
 import math
@@ -15,6 +16,7 @@ from repro_torch.kernels.decode.decode import (
     paged_decode_fwd,
     paged_decode_fwd_plain,
 )
+from repro_torch.sharding.regions import sharded_decode
 
 
 def _run_contiguous(q, k_cache, v_cache, k_scale, v_scale, lengths, *, scale,
@@ -46,8 +48,9 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None,
     (B, Hkv, S, Dv) of values;
     ``lengths`` (B,) <= S counts the tokens to attend, the current one
     included. ``plain`` runs the plain version on any device."""
-    return _run_contiguous(q, k_cache, v_cache, None, None, lengths,
-                           scale=scale, variant=variant, plain=plain)
+    return sharded_decode(q, (k_cache, v_cache), lengths, lambda q, k, v, n: (
+        _run_contiguous(q, k, v, None, None, n, scale=scale, variant=variant,
+                        plain=plain)))
 
 
 def quant_decode_attention(q, k_codes, v_codes, k_scale, v_scale, lengths, *,
@@ -55,9 +58,11 @@ def quant_decode_attention(q, k_codes, v_codes, k_scale, v_scale, lengths, *,
     """As ``decode_attention`` over int8/fp8 code caches and their float32
     scale rows (B, Hkv, S), dequantized in the tile."""
     f32 = torch.float32
-    return _run_contiguous(q, k_codes, v_codes, k_scale.to(f32),
-                           v_scale.to(f32), lengths, scale=scale,
-                           variant=variant, plain=plain)
+    return sharded_decode(
+        q, (k_codes, v_codes, k_scale, v_scale), lengths,
+        lambda q, kc, vc, ks, vs, n: _run_contiguous(
+            q, kc, vc, ks.to(f32), vs.to(f32), n, scale=scale,
+            variant=variant, plain=plain))
 
 
 def _run(q, k_pool, v_pool, ks_pool, vs_pool, block_tables, lengths, *,

@@ -35,7 +35,11 @@ stores the first D (``csrc/tile_sm90.cuh:value_width``); each stored
 feature keeps the plain version's chain.
 
 ``flash_fwd`` launches the CUDA kernel for CUDA tensors and runs the plain
-version only for CPU tensors.
+version only for CPU tensors. A ``meta`` operand (the dry run's) has
+nothing to launch: it gets ``torch.empty`` of the output's shape and
+dtype, and the plain tile loop never runs. A launch and a ``meta`` call
+each report their analytic cost to the active op counters
+(``kernels/costs.py:report_call``).
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 from repro_torch.kernels.decode.decode import ACT_DTYPES, card_smem_limit
 from repro_torch.kernels.flash.tile import (
     finalize_tiles,
@@ -146,6 +150,10 @@ def flash_fwd(q3, k3, v3, *, causal, scale, window, variant, block_k,
               num_kv_heads=num_kv_heads, kv_len=kv_len)
     if q3.device.type == "cpu":
         return flash_fwd_plain(q3, k3, v3, **kw)
+    if q3.device.type == "meta":
+        _check(q3, k3, v3, block_k=block_k, num_q_heads=num_q_heads,
+               num_kv_heads=num_kv_heads, kv_len=kv_len)
+        return _report(torch.empty_like(q3), q3, k3, v3, kv_len)
     if q3.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q3.device}")
     if variant not in ("exact", "expmul"):
@@ -175,4 +183,13 @@ def flash_fwd(q3, k3, v3, *, causal, scale, window, variant, block_k,
         int(variant == "expmul"), ACT_DTYPES[q3.dtype], stream)
     build.check(err, NAME)
     build.COUNTS[NAME] += 1
-    return out
+    return _report(out, q3, k3, v3, kv_len)
+
+
+def _report(out, q3, k3, v3, kv_len):
+    """Report the call to the op counters (``kernels/costs.py``)."""
+    if not costs.counting():
+        return out
+    BH, Sq, D = q3.shape
+    return costs.report_call(NAME, out, (q3, k3, v3), batch=BH, heads=1,
+                             q_tokens=Sq, kv_tokens=kv_len, d_qk=D, d_v=D)

@@ -31,6 +31,12 @@ The plain versions also reproduce the Pallas kernels' query blocks of
 ``min(BLOCK_Q, C)`` rows and the tiles they skip per block, so they equal
 the Pallas kernels tile for tile; the CUDA kernels use smaller query
 blocks, which changes only which fully masked tiles they skip.
+
+``*_fwd`` launches the CUDA kernel for CUDA tensors and runs the plain
+version only for CPU tensors. A ``meta`` operand (the dry run's) gets
+``torch.empty`` of the output's shape and dtype after the shape checks,
+and no tile loop runs. A launch and a ``meta`` call each report their
+analytic cost to the active op counters (``kernels/costs.py:report_call``).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 from repro_torch.kernels.decode.decode import (
     ACT_DTYPES,
     CODE_DTYPES,
@@ -212,6 +218,11 @@ def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
             bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, vs3, ksn2, vsn2,
             scale=scale, variant=variant, window=window, page_size=page_size,
             num_q_heads=num_q_heads, num_kv_heads=num_kv_heads)
+    if q3.device.type == "meta":
+        _check(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, vs3, ksn2,
+               vsn2, page_size, num_q_heads, num_kv_heads)
+        return _report_paged(torch.empty_like(q3), bt, lengths, n_valid, q3,
+                             k4, v4, kn3, vn3, ks3, ksn2, vsn2, page_size)
     if q3.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q3.device}")
     if variant not in ("exact", "expmul"):
@@ -235,7 +246,26 @@ def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
         ACT_DTYPES[q3.dtype], KV_DTYPES[k4.dtype], stream)
     build.check(err, NAME)
     build.COUNTS[NAME] += 1
-    return out
+    return _report_paged(out, bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3,
+                         ksn2, vsn2, page_size)
+
+
+def _report_paged(out, bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, ksn2,
+                  vsn2, page_size):
+    """Report the call to the op counters: the chunk's operands and the
+    pages of the tables' span (every row's, at the table's width) read
+    once."""
+    if not costs.counting():
+        return out
+    BH, C, D = q3.shape
+    span = bt.shape[1] * page_size
+    kv = bt.shape[0] * span * k4.shape[2] * (
+        k4.shape[-1] * k4.element_size() + v4.shape[-1] * v4.element_size()
+        + (8 if ks3 is not None else 0))
+    return costs.report_call(
+        NAME, out, (q3, kn3, vn3, ksn2, vsn2, bt, lengths, n_valid),
+        batch=BH, heads=1, q_tokens=C, kv_tokens=span + C, d_qk=D,
+        d_v=v4.shape[-1], kv_bytes=kv)
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +420,12 @@ def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
             q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2, vsc2, ksn2, vsn2,
             scale=scale, variant=variant, window=window, rolling=rolling,
             num_q_heads=num_q_heads, num_kv_heads=num_kv_heads)
+    if q3.device.type == "meta":
+        _check_contiguous(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2,
+                          vsc2, ksn2, vsn2, num_q_heads, num_kv_heads)
+        return _report_contiguous(
+            q3.new_empty(q3.shape[:2] + vc3.shape[-1:]), q3, kc3, vc3, kn3,
+            vn3, lengths, n_valid, ksc2, vsc2, ksn2, vsn2)
     if q3.device.type != "cuda":
         raise ValueError(f"{CONTIGUOUS}: no kernel for device {q3.device}")
     if variant not in ("exact", "expmul"):
@@ -417,4 +453,16 @@ def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
         KV_DTYPES[kc3.dtype], stream)
     build.check(err, CONTIGUOUS)
     build.COUNTS[CONTIGUOUS] += 1
-    return out
+    return _report_contiguous(out, q3, kc3, vc3, kn3, vn3, lengths, n_valid,
+                              ksc2, vsc2, ksn2, vsn2)
+
+
+def _report_contiguous(out, q3, kc3, *operands):
+    """Report the call to the op counters (the whole cache read once)."""
+    if not costs.counting():
+        return out
+    BH, C, D = q3.shape
+    return costs.report_call(CONTIGUOUS, out, (q3, kc3) + operands,
+                             batch=BH, heads=1, q_tokens=C,
+                             kv_tokens=kc3.shape[1] + C, d_qk=D,
+                             d_v=operands[0].shape[-1])

@@ -60,6 +60,7 @@ from repro_torch.kernels.paged import (
 )
 from repro_torch.layers.common import dense_init
 from repro_torch.layers.rotary import apply_rope
+from repro_torch.sharding.regions import write_slot
 from repro_torch.numerics.quant import (
     QUANT_KV_DTYPES,
     fake_quant_kv,
@@ -220,16 +221,14 @@ def attn_decode_step(params, cache, x1, cfg, lengths, *, write_pos=None,
     ``attn_len`` slots (default ``lengths + 1``). A slot index past the
     cache is clamped to its last slot, as JAX's dynamic_update_slice does.
     """
-    B = x1.shape[0]
     S = cache["k"].shape[2]
     write_pos = lengths if write_pos is None else write_pos
     attn_len = lengths + 1 if attn_len is None else attn_len
     q, k, v = _project_token(params, x1, cfg, lengths)
     new = _quantized(cfg, k, v)
-    b = torch.arange(B, device=x1.device)
     slot = torch.clamp(write_pos.to(torch.int64), 0, S - 1)
     for name, val in new.items():
-        cache[name][b, :, slot] = val.to(cache[name].dtype)
+        write_slot(cache[name], val, slot, seq_dim=2)
     kw = dict(variant=cfg.attention_variant,
               plain=cfg.attention_impl == "plain")
     if kv_quantized(cfg):

@@ -20,10 +20,15 @@ def dense_init(shape, dtype, generator, device, scale=None):
     ``DRAW_ELEMENTS`` float32 elements (one slab if a slab is larger),
     straight into ``dtype``, so the float32 temporaries stay bounded (an
     arctic-480b expert stack is 17.8 GB in float32) and a weight of many
-    small slabs takes a few draws, not one a slab."""
+    small slabs takes a few draws, not one a slab. On the ``meta`` device
+    nothing is drawn: the weight is ``torch.empty`` of its shape and dtype
+    (a shape-only model, ``init_model(cfg, device="meta")``), and
+    ``generator`` may be None."""
     fan_in = math.prod(shape[:-1]) if len(shape) >= 2 else (shape[0] if shape
                                                             else 1)
     std = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
 
     def draw(block_shape):
         w = torch.empty(block_shape, dtype=torch.float32, device=device)

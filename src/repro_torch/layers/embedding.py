@@ -9,6 +9,7 @@ import math
 import torch
 
 from repro_torch.layers.common import dense_init
+from repro_torch.sharding.regions import vocab_lookup
 
 
 def embed_init(cfg, dtype, generator, device):
@@ -26,8 +27,11 @@ def embed_apply(params, tokens, cfg):
     """The table's rows of ``tokens``; with ``cfg.scale_embeddings`` times
     sqrt(d_model) as a float32 product (``repro`` multiplies by a numpy
     float32 scalar, which promotes a bfloat16 row to float32; the caller
-    casts to the compute dtype)."""
-    x = params["table"][tokens.to(torch.int64)]
+    casts to the compute dtype). On a mesh (a DTensor table) each rank
+    looks its vocab shard up (``sharding/regions.py:vocab_lookup``; the
+    index-put gradient of ``table[tokens]`` on DTensors fails in torch
+    2.11)."""
+    x = vocab_lookup(params["table"], tokens)
     if cfg.scale_embeddings:
         x = x.to(torch.float32) * torch.tensor(math.sqrt(cfg.d_model),
                                                dtype=torch.float32)

@@ -27,7 +27,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.attention import attention
 from repro_torch.kernels.decode.ops import decode_attention
@@ -41,6 +40,7 @@ from repro_torch.kernels.paged import (
 )
 from repro_torch.layers.common import dense_init, rmsnorm, rmsnorm_init
 from repro_torch.layers.rotary import apply_rope
+from repro_torch.sharding.regions import pad, write_slot
 from repro_torch.numerics.quant import (
     QUANT_KV_DTYPES,
     dequantize_kv,
@@ -135,7 +135,7 @@ def mla_apply(params, x, cfg, *, positions=None, causal=True, window=None):
     if Dv > D:
         raise NotImplementedError(f"MLA forward at v_head_dim {Dv} > qk "
                                   f"dim {D}")
-    o = attention(q, k, F.pad(v, (0, D - Dv)), cfg, causal=causal,
+    o = attention(q, k, pad(v, (0, D - Dv)), cfg, causal=causal,
                   window=window, scale=_scale(cfg))[..., :Dv]
     return torch.einsum("bhsk,hkd->bsd", o, params["wo"])
 
@@ -223,7 +223,13 @@ def mla_decode_step(params, cache, x1, cfg, lengths, index):
     expanded and the first ``lengths + 1`` slots attended."""
     kv_lat, k_rope = _mla_latents(params, x1[:, None, :], cfg,
                                   lengths[:, None])
-    _write(cache, index, kv_lat, k_rope, cfg, flat=_rows)
+    if _quantized(cfg):
+        _write(cache, index, kv_lat, k_rope, cfg, flat=_rows)
+    else:      # slot ``lengths`` of each row (``index``'s rows)
+        slot = torch.clamp(lengths.to(torch.int64), 0,
+                           cache["kv_lat"].shape[1] - 1)
+        for name, val in (("kv_lat", kv_lat), ("k_rope", k_rope)):
+            write_slot(cache[name], val[:, 0], slot, seq_dim=1)
     k, v = _expand_latents(params, *_read(cache, cfg), cfg)
     return cache, _decode(params, x1, cfg, lengths, k, v)
 

@@ -7,10 +7,13 @@ Two dispatches, as the reference has them:
   choice) order, copies at or past the capacity ``C`` dropped, the kept
   ones scattered into an (E, C, d) buffer, the expert GEMMs over it, then
   the kept outputs gathered back and combined with the routing weights.
-* ``balanced``, the reference's dry-run dispatch without its mesh: copy i
-  goes to slot i // E of expert i % E whatever the router says, combined
-  with the router's weights. Its expert-parallel form waits for a later
-  slice.
+* ``balanced``, the reference's dry-run dispatch: copy i goes to slot
+  i // E of expert i % E whatever the router says, combined with the
+  router's weights. On a mesh its dispatch buffer and outputs are pinned
+  as the reference pins them (``sharding/constraints.py``) and DTensor
+  propagates the expert GEMMs over the expert-sharded weights; the
+  reference's expert-parallel ``shard_map`` (``_expert_ffn_ep``) is not
+  ported yet.
 
 ``moe_ref`` is the dense oracle: every expert on every token, a masked
 combine.
@@ -34,6 +37,8 @@ import torch.nn.functional as F
 
 from repro_torch.layers.common import activation_fn, dense_init
 from repro_torch.layers.mlp import GATED, mlp_apply, mlp_init
+from repro_torch.sharding.constraints import constrain
+from repro_torch.sharding.regions import pad_rows, scatter_rows, take_rows
 
 IMPLS = ("scatter", "balanced")
 
@@ -61,7 +66,8 @@ def moe_init(cfg, dtype, generator, device):
 
 def router_logits(params, x2):
     """(T, d) -> (T, E) float32 router logits."""
-    return x2.to(torch.float32) @ params["router"].to(torch.float32)
+    return constrain(x2.to(torch.float32) @ params["router"].to(
+        torch.float32), "batch", None)
 
 
 def top_k(logits, k):
@@ -118,9 +124,10 @@ def moe_apply(params, x, cfg, *, impl="scatter"):
         # to slot (e, C - 1) for it, which leaves that slot as it is)
         slot = torch.where(keep, flat_ids * C + pos, E * C)
         buf = x2.new_zeros((E * C + 1, D))
-        buf[slot] = x2[tok]
+        scatter_rows(buf, slot, take_rows(x2, tok))
         ye = _expert_ffn(params, buf[:E * C].view(E, C, D), cfg.activation)
-        g = ye.reshape(E * C, D)[flat_ids * C + torch.where(keep, pos, 0)]
+        rows = flat_ids * C + torch.where(keep, pos, 0)
+        g = take_rows(ye.reshape(E * C, D), rows)
         # where, not a product with the mask: a NaN in an expert's slot
         # must not reach a copy that was dropped from it
         g = torch.where(keep[:, None], g, torch.zeros((), dtype=g.dtype,
@@ -130,11 +137,14 @@ def moe_apply(params, x, cfg, *, impl="scatter"):
     elif impl == "balanced":
         C = -(-T * k // E)
         C = -(-C // 512) * 512
-        xr = F.pad(x2[:, None, :].expand(T, k, D).reshape(T * k, D),
-                   (0, 0, 0, E * C - T * k))
-        xe = xr.reshape(C, E, D).transpose(0, 1)              # (E, C, d)
-        ye = _expert_ffn(params, xe, cfg.activation).transpose(0, 1)
-        yr = ye.reshape(C * E, D)[:T * k].reshape(T, k, D)
+        xr = x2[:, None, :].expand(T, k, D).reshape(T * k, D)
+        xr = pad_rows(xr, E * C)      # on a mesh each rank its own rows
+        xe = constrain(xr.reshape(C, E, D), "batch", "model", None)
+        ye = _expert_ffn(params, xe.transpose(0, 1),          # (E, C, d)
+                         cfg.activation).transpose(0, 1)
+        ye = constrain(ye, "batch", "model", None)
+        yr = constrain(ye.reshape(C * E, D), "batch", None)[:T * k]
+        yr = constrain(yr, "batch", None).reshape(T, k, D)
         # combined into the model dtype with the weights in it, as the
         # reference's einsum does (float32 sums, one rounding)
         w = top_w.to(x2.dtype).to(torch.float32)

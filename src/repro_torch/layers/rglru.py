@@ -41,6 +41,8 @@ import math
 import torch
 
 from repro_torch.layers.common import dense_init
+from repro_torch.sharding import regions
+from repro_torch.sharding.constraints import constrain
 
 _C = 8.0
 _CONV_W = 4
@@ -96,8 +98,7 @@ def _conv(params, u, state=None):
     (B, 3, W) or zeros: (output in u's dtype, the float32 padded input)."""
     w = params["conv"].to(torch.float32)
     if state is None:
-        pad = torch.nn.functional.pad(u.to(torch.float32),
-                                      (0, 0, _CONV_W - 1, 0))
+        pad = regions.pad(u.to(torch.float32), (0, 0, _CONV_W - 1, 0))
     else:
         pad = torch.cat([state.to(torch.float32), u.to(torch.float32)], 1)
     S = u.shape[1]
@@ -110,9 +111,8 @@ def _scan(a, b):
     1, in log2(S) doubling steps."""
     S, off = a.shape[1], 1
     while off < S:
-        a_prev = torch.nn.functional.pad(a[:, :S - off], (0, 0, off, 0),
-                                         value=1.0)
-        b_prev = torch.nn.functional.pad(b[:, :S - off], (0, 0, off, 0))
+        a_prev = regions.pad(a[:, :S - off], (0, 0, off, 0), value=1.0)
+        b_prev = regions.pad(b[:, :S - off], (0, 0, off, 0))
         a, b = a * a_prev, a * b_prev + b
         off *= 2
     return b
@@ -121,7 +121,8 @@ def _scan(a, b):
 def rglru_apply(params, x, cfg):
     """x (B, S, d) -> (B, S, d) over the full sequence."""
     del cfg
-    u = x @ params["w_in_rec"]
+    # on a mesh the recurrence gathers its sequence once (per shard below)
+    u = constrain(x @ params["w_in_rec"], "batch", None, "model")
     g = _gelu((x @ params["w_in_gate"]).to(torch.float32))
     u, _ = _conv(params, u)
     a, b = _gates(params, u)

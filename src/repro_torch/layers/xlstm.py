@@ -50,7 +50,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.op_costs import looped
 from repro_torch.layers.common import activation_fn, dense_init
+from repro_torch.sharding import regions
+from repro_torch.sharding.constraints import constrain
 
 _PROJ = 1.5      # mLSTM up-projection factor
 _FFN_PF = 4 / 3  # sLSTM post-FFN factor
@@ -106,6 +109,16 @@ def scale_k(k, dh):
                      .to(k.dtype))
 
 
+def _log_sigmoid(x):
+    """``F.logsigmoid``; on ``meta`` tensors (the dry run, no values) the
+    same function as ``-softplus(-x)``: DTensor propagates log-sigmoid's
+    saved buffer at a CUDA tensor's empty shape, which its backward then
+    cannot redistribute on a mesh."""
+    if x.device.type == "meta":
+        return -F.softplus(-x)
+    return F.logsigmoid(x)
+
+
 def _mlstm_proj(params, x, cfg):
     """x (B, S, d) -> q, k, v (B, nh, S, dh) in float32, the input gate's
     pre-activation and log f (B, nh, S) in float32, the output gate g
@@ -122,7 +135,7 @@ def _mlstm_proj(params, x, cfg):
     i_pre = (u @ params["w_i"]).to(f32) + params["b_i"].to(f32)
     f_pre = (u @ params["w_f"]).to(f32) + params["b_f"].to(f32)
     return (q.to(f32), k.to(f32), v.to(f32), i_pre.transpose(1, 2),
-            F.logsigmoid(f_pre).transpose(1, 2), g)
+            _log_sigmoid(f_pre).transpose(1, 2), g)
 
 
 def _mlstm_out(params, h, g, x):
@@ -138,6 +151,9 @@ def mlstm_apply(params, x, cfg, *, chunk=256):
     B, S, _ = x.shape
     inner, nh, dh = _dims(cfg)
     q, k, v, i_pre, logf, g = _mlstm_proj(params, x, cfg)
+    # on a mesh the chunks walk the sequence gathered whole once
+    q, k, v = (constrain(t, "batch", None, None, None) for t in (q, k, v))
+    i_pre, logf = (constrain(t, "batch", None, None) for t in (i_pre, logf))
     L = min(chunk, S)
     if S % L:
         L = next(n for n in range(L, 0, -1) if S % n == 0)
@@ -154,7 +170,7 @@ def mlstm_apply(params, x, cfg, *, chunk=256):
         qc, kc, vc = (t[:, :, c0:c0 + L] for t in (q, k, v))
         ic, lfc = i_pre[..., c0:c0 + L], logf[..., c0:c0 + L]
         cum = torch.cumsum(lfc, dim=-1)
-        bmax = torch.cummax(ic - cum, dim=-1).values
+        bmax = regions.cummax(ic - cum, -1)
         mmax = torch.maximum(m[..., None], bmax)
         inter_w = torch.exp(m[..., None] - mmax)
         # pair weight (t, s <= t): exp(i_s - cum_s - mmax_t), exponents <= 0
@@ -302,7 +318,7 @@ def _slstm_step(params, state, wx, cfg):
 
     z = torch.tanh(pre("z"))
     i_pre, f_pre, o = pre("i"), pre("f"), torch.sigmoid(pre("o"))
-    logf = F.logsigmoid(f_pre)
+    logf = _log_sigmoid(f_pre)
     m_new = torch.maximum(logf + m, i_pre)
     iw = torch.exp(i_pre - m_new)
     fw = torch.exp(logf + m - m_new)
@@ -321,8 +337,22 @@ def _slstm_ffn(params, h):
 def _slstm_scan(params, state, x, cfg, valid=None):
     """Steps over x (B, S, d): (the final state, the outputs h (B, S, d)
     in x's dtype); ``valid`` (B, S) holds the state where a token is not
-    valid."""
+    valid. On ``meta`` tensors (the dry run) one step stands for the S
+    (``launch/op_costs.py:looped``), on the sequence gathered whole on a
+    mesh."""
     wx = _slstm_inputs(params, x, cfg)
+    if x.device.type == "meta" and valid is None:
+        names = [f"{k}_{g}" for k in "rb" for g in _GATES]
+
+        def step(*a):
+            return _slstm_step(dict(zip(names, a[8:])), a[:4],
+                               dict(zip(_GATES, a[4:8])), cfg)
+
+        new = looped(step, x.shape[1], *state,
+                     *(constrain(wx[g], "batch", None, None)[:, 0]
+                       for g in _GATES), *(params[k] for k in names))
+        return new, new[2][:, None].expand(
+            (-1, x.shape[1], -1)).to(x.dtype)
     hs = []
     for t in range(x.shape[1]):
         new = _slstm_step(params, state, {g: w[:, t] for g, w in wx.items()},

@@ -72,6 +72,12 @@ from repro_torch.models.blocks import (
     ffn,
     norm_fn,
 )
+from repro_torch.sharding.constraints import (
+    constrain,
+    gather_fsdp,
+    model_axis_size,
+)
+from repro_torch.sharding.regions import gather_last
 
 
 def resolve_device(device) -> torch.device:
@@ -92,9 +98,14 @@ def _dtype(name: str) -> torch.dtype:
 def init_model(cfg, generator: torch.Generator | None = None, *,
                device="cuda"):
     """Random parameters drawn from ``generator`` (a fresh generator seeded
-    with 0 on ``device`` when None), in ``cfg.param_dtype``."""
+    with 0 on ``device`` when None), in ``cfg.param_dtype``. On the
+    ``meta`` device the full tree is built with nothing drawn (every leaf
+    ``torch.empty`` of its shape and dtype, no generator): the dry run's
+    shape-only model."""
     device = resolve_device(device)
-    if generator is None:
+    if device.type == "meta":
+        generator = None
+    elif generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     pd = _dtype(cfg.param_dtype)
     norm_init = make_norm(cfg.norm)[0]
@@ -127,13 +138,43 @@ def _run(fn, cfg, *args, **kw):
     return fn(*args, **kw)
 
 
+def _boundary(x, cfg):
+    """The block-boundary layout of the activations x (B, S, d) on a mesh,
+    as ``repro``'s ``_run_stack`` pins it: the batch over the DP axes and,
+    when the attention heads cannot use the 'model' axis, the sequence
+    over it (the stack runs sequence-parallel; never for MoE). Off a mesh
+    and on plain tensors ``constrain`` returns x itself."""
+    msize = model_axis_size()
+    seq_par = (msize > 0 and cfg.num_heads % msize != 0
+               and x.shape[1] % msize == 0 and cfg.moe is None)
+    return constrain(x, "batch", "model" if seq_par else None, None)
+
+
+def _gathered(fn):
+    """``fn(p, ...)`` on the layer's weights gathered over the DP axes
+    (``gather_fsdp``; the weights themselves off a mesh)."""
+    return lambda p, *args, **kw: fn(gather_fsdp(p), *args, **kw)
+
+
+_block_apply = _gathered(block_apply)
+
+
+def _run_stack(layers, kinds, x, cfg, moe_impl, causal=True):
+    """The blocks of ``layers`` (of ``kinds``) over x, each between two
+    block-boundary constraints."""
+    for p, kind in zip(layers, kinds):
+        x = _boundary(x, cfg)
+        x = _run(_block_apply, cfg, p, x, cfg, kind, moe_impl, causal=causal)
+        x = _boundary(x, cfg)
+    return x
+
+
 def encode(params, frontend_embeds, cfg, moe_impl="scatter"):
     """The encoder over the projected frames, every frame (padding too, as
     ``repro`` runs it), non-causal, then its final norm: (B, Se, d)."""
     x = frontend_embeds.to(_dtype(cfg.dtype)) @ params["frontend_proj"]
-    for p, kind in zip(params["enc_layers"],
-                       cfg.pattern_for(cfg.encoder_layers)):
-        x = _run(block_apply, cfg, p, x, cfg, kind, moe_impl, causal=False)
+    x = _run_stack(params["enc_layers"], cfg.pattern_for(cfg.encoder_layers),
+                   x, cfg, moe_impl, causal=False)
     return norm_fn(cfg)(params["enc_final_norm"], x)
 
 
@@ -163,14 +204,15 @@ def forward(params, batch, cfg, *, moe_impl="scatter"):
     if cfg.encoder_layers:
         enc_out = encode(params, batch["frontend_embeds"], cfg, moe_impl)
         for p in params["dec_layers"]:
-            x = _run(_dec_block_apply, cfg, p, x, enc_out, cfg, moe_impl)
+            x = _run(_gathered(_dec_block_apply), cfg, p, x, enc_out, cfg,
+                     moe_impl)
     else:
         if cfg.frontend and "frontend_embeds" in batch:
             fe = (batch["frontend_embeds"].to(_dtype(cfg.dtype))
                   @ params["frontend_proj"])
             x = torch.cat([fe, x], dim=1)
-        for p, kind in zip(params["layers"], cfg.pattern_for()):
-            x = _run(block_apply, cfg, p, x, cfg, kind, moe_impl)
+        x = _run_stack(params["layers"], cfg.pattern_for(), x, cfg,
+                       moe_impl)
     x = norm_fn(cfg)(params["final_norm"], x)
     return logits_apply(params["embed"], x, cfg)
 
@@ -194,7 +236,7 @@ def loss_fn(params, batch, cfg, *, moe_impl="scatter"):
     m = torch.amax(logits, dim=-1, keepdim=True)
     lse = m[..., 0].to(torch.float32) + torch.log(
         torch.sum(torch.exp((logits - m).to(torch.float32)), dim=-1))
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    tgt = gather_last(logits, targets[..., None])[..., 0]
     nll = lse - tgt.to(torch.float32)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
@@ -304,6 +346,7 @@ def _decode_step_encdec(params, state, x, lengths, cfg):
     norm = norm_fn(cfg)
     for p, cache, kv in zip(params["dec_layers"], state["caches"],
                             state["cross_kv"]):
+        p = gather_fsdp(p)
         _, h = attn_decode_step(p["mix"], cache, norm(p["norm_mix"], x), cfg,
                                 lengths)
         x = x + h
@@ -328,7 +371,8 @@ def decode_step(params, state, tokens1, lengths, cfg):
         index = b * S + torch.clamp(lengths.to(torch.int64), 0, S - 1)
     for p, cache, kind in zip(params["layers"], state["caches"],
                               cfg.pattern_for()):
-        _, x = block_decode_step(p, cache, x, cfg, kind, lengths, index)
+        _, x = block_decode_step(gather_fsdp(p), cache, x, cfg, kind,
+                                 lengths, index)
     x = norm_fn(cfg)(params["final_norm"], x)
     return logits_apply(params["embed"], x, cfg), state
 

@@ -10,13 +10,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.api import loss_fn
+from repro_torch.models.api import init_model, loss_fn
 from repro_torch.optim.clip import clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
 def make_train_state(params, optimizer):
     return {"params": params, "opt": optimizer.init(params)}
+
+
+def make_train_state_specs(cfg, optimizer):
+    """The train state on the ``meta`` device, as ``repro``'s
+    ``make_train_state_specs`` gives it through ``jax.eval_shape``: the
+    full parameter tree and the optimizer's state (AdamW's moments in its
+    ``moment_dtype``, a config's ``opt_state_dtype`` where the caller
+    passes it), nothing allocated."""
+    return make_train_state(init_model(cfg, device="meta"), optimizer)
 
 
 def value_and_grad(params, batch, cfg, *, moe_impl="scatter"):
