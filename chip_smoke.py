@@ -18,7 +18,8 @@ attention layer, so no kernel: per-slot matrix memory on both layouts)
 and llava-next-34b (576 projected image patches before the text; GQA
 group 7 at head dim 128); it runs seamless-m4t-medium (an
 encoder-decoder: LayerNorm, a GELU FFN, cross-attention over 1,024 stub
-frames) through its encoder and decode steps, the training path, and
+frames) through its encoder and decode steps, the training path (on one
+device and through the train launcher's mesh path at world 1), and
 the paper's demonstrations (the quickstart and the Table I study).
 Phases (a failing check raises, and the script exits non-zero; the
 ``[phase]`` lines print each one's seconds; ``--phases`` runs the named
@@ -140,7 +141,7 @@ ones alone, in this order, and prints no kernels line and no result):
 3b. gemma-7b at full width (head dim 256, GeGLU, scaled embeddings),
    depth cut to 4 layers for the plain runs, float32: the same ticks on a
    paged int8 pool and on contiguous fp32 caches, gated as in 3;
-3c. minicpm3-4b at full width, depth 16 of 62 (bf16, ExpMul): the
+3c. minicpm3-4b at full width, depth 8 of 62 (bf16, ExpMul): the
    ticks of phase 3 on a paged int8-latent pool and on contiguous fp32
    caches, kernels against plain versions, ExpMul logits gated at 1e-3;
 3d. arctic-480b at full width, depth 2 (bf16, ExpMul; run with its
@@ -180,8 +181,8 @@ ones alone, in this order, and prints no kernels line and no result):
    capture and warm-up ms, the graph pool's bytes and the peak memory,
    graphs beside eager. The eager runs' tokens/s and TTFT are printed
    beside their values before the paged kernels' redesign. The paged
-   graph run is served twice more, with the engine's dispatch counters off
-   and then on again (streams gated equal), their tick p50s side by side;
+   graph run is served once more, with the engine's dispatch counters off
+   (streams gated equal), its tick p50s beside the first run's (on);
 4b. the shared-prefix cache at full width, every tick replaying a CUDA
    graph (bf16, ExpMul, the same seed-2 weights), paged int8, pages of
    16, 8 slots, ``max_len`` 2048,
@@ -223,7 +224,7 @@ ones alone, in this order, and prints no kernels line and no result):
    contiguous fp32 caches, each with graph ticks and eager ticks: streams
    gated equal, launches gated as in 4; tokens/s, TTFT p50, tick p50s and
    peak memory printed;
-4e. minicpm3-4b served the same way (16 of 62 layers, bf16, ExpMul, seed-2
+4e. minicpm3-4b served the same way (8 of 62 layers, bf16, ExpMul, seed-2
    weights), paged int8 latents and contiguous fp32: streams gated
    equal, and each run on the contiguous decode and prefill alone (an
    MLA pool holds latents, gathered and expanded each tick), neither
@@ -247,16 +248,16 @@ ones alone, in this order, and prints no kernels line and no result):
    tokens (every rolling buffer wraps), 32 new each, ``max_len`` 4096,
    graph ticks on both layouts: every request finishes, launches gated,
    the layouts' stream agreement printed;
-4h. xlstm-1.3b at full width, depth 16 of 48 (14 mLSTM, 2 sLSTM;
+4h. xlstm-1.3b at full width, depth 8 of 48 (7 mLSTM, 1 sLSTM;
    bf16, seed-0 weights): two prefill ticks of 32-token chunks and a
    decode tick on a paged state and on contiguous caches, logits and
    every state leaf bit for bit equal; 8 requests served by a graph
    engine and an eager engine in lockstep on each layout, every tick's
    logits and recurrent state bit for bit, written in place; ``forward``
-   against a ``decode_step`` loop over 288 tokens, float32 at depth 16
+   against a ``decode_step`` loop over 288 tokens, float32 at depth 8
    gated at 1e-3 of the logits' magnitude, bf16 at depth 8 gated at 0.1
    (``phase_xlstm_ticks`` says why);
-4i. xlstm-1.3b served at full width, depth 16 (bf16, seed-2 weights), 16
+4i. xlstm-1.3b served at full width, depth 8 (bf16, seed-2 weights), 16
    requests of 32-128 prompt tokens, 32 new each, 8 slots, chunk 32, on a
    paged state and on contiguous caches under graphs: no kernel launched,
    the layouts' streams gated equal; tokens/s, TTFT, tick p50s, peak
@@ -282,7 +283,7 @@ ones alone, in this order, and prints no kernels line and no result):
    forward, at the training shapes (8 x 1024 tokens, float32, causal,
    ExpMul, 512-wide tiles) and, for ExpMul, at the flash recurrence's
    state of the training shapes ((114688, 64) float32 and bfloat16,
-   (114688, 65) float32): the median of 25 runs timed with CUDA events
+   (114688, 65) float32): the median of 11 runs timed with CUDA events
    after warm-up, L2 flushed before each, beside the plain version's time
    (a median of 5),
    the least time the card could take and each kernel's time at commits
@@ -333,7 +334,7 @@ ones alone, in this order, and prints no kernels line and no result):
    weights, ExpMul, synthetic batches of 8 x 1024 tokens, AdamW on a
    cosine schedule. One train step through the flash kernel and one
    through its plain version from the same weights: the loss within 1e-5
-   and the grad norm within 1e-4 of their values. Then 6 steps through
+   and the grad norm within 1e-4 of their values. Then 3 steps through
    ``repro_torch.launch.train.main`` with the launch counts set to 0 just
    before and read just after: every loss finite, the flash kernel
    launched 48 times a step (24 layers, twice under remat), and no other
@@ -342,7 +343,7 @@ ones alone, in this order, and prints no kernels line and no result):
    and share of the step's busy time;
 6b. gemma-7b (flash at head dim 256) and minicpm3-4b (MLA, flash at 96,
    V zero-padded to it) trained as phase 6 at full width, their depth cut
-   to 2 of 28 and 8 of 62 layers (the functional step holds the old and
+   to 2 of 28 and 4 of 62 layers (the functional step holds the old and
    the new state side by side), 3 launcher steps each gated on 2 x layers
    flash launches a step; the allocator's expandable segments on for
    these two phases only;
@@ -368,6 +369,25 @@ ones alone, in this order, and prints no kernels line and no result):
    step p50 no faster than the roofline's step time (each FLOP type at
    its own peak: the float32 products and attention at 67 TFLOP/s),
    whose share is printed beside the card's name and power limit;
+6f. "flash offset": the flash kernel at a query offset, as each rank of
+   a query-split causal call runs it: at qwen2-0.5b's training shape
+   (8 x 1,024, 14 / 2 heads of 64, causal, 512-wide tiles), exact and
+   ExpMul, float32 and bfloat16, and at gemma-7b's head dim 256, the
+   call on ``q[:, :, a:]`` at ``q_offset=a`` bit for bit rows a: of the
+   whole call for a in 256, 512, 768, and at a = 100 within
+   ``checks.kernel_tol`` of the plain version; the call at a = 512 timed
+   beside the whole call, its plain version, its bound and SDPA;
+6g. "mesh train": the train launcher's mesh path at world 1 over NCCL
+   on a (1, 1) mesh (DTensor state, ``ShardedLoader``, the flash kernel
+   per shard): qwen2-0.5b at full width and depth, float32, 3 steps of
+   8 x 1,024 tokens with a checkpoint at step 2, then a resume from it on
+   a fresh process group; the losses gated bit for bit against the
+   one-device launcher's (phase 6's) and the resumed step against the
+   uninterrupted one, the launches 48 flash a step and nothing else, no
+   process group left; the resumed launcher runs on for 4 more steps
+   with no checkpoint: the p50 of its steps 2-4 beside phase 6's and its
+   step 5 profiled (device busy time and idle share beside phase 6's
+   profiled step), and the peak memory printed;
 7. ``python -m repro_torch.launch.quickstart`` and then ``python -m
    repro_torch.launch.fidelity`` on the card, the launch counts set to 0
    just before each and read just after: the quickstart must launch the
@@ -379,8 +399,9 @@ ones alone, in this order, and prints no kernels line and no result):
    ``d128``, ``d112``, ``llava_d128``, ``rg_w2048`` and, for the
    contiguous pair, ``mla_96_64`` entries; flash with ``llava_frontend``,
    ``seamless_encoder``, ``seamless_cross``, and ``d256``, ``d112`` and
-   ``d96`` with phase 6b's training runs, and the counted step's
-   launches; the contiguous decode with ``seamless_d64_g1``), the card
+   ``d96`` with phase 6b's training runs, the counted step's and the
+   mesh launcher's launches, and ``q_offset`` with phases 6f and 6g; the
+   contiguous decode with ``seamless_d64_g1``), the card
    line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -435,8 +456,8 @@ KIMI, KIMI_H, KIMI_HKV, KIMI_D = "kimi-k2-1t-a32b", 64, 8, 112
 KIMI_GROUP, KIMI_LAYERS = KIMI_H // KIMI_HKV, 2
 # minicpm3-4b: MLA, 40 / 40 heads, expanded K rows of 96 and V rows of 64;
 # its ticks and serving at depth MLA_LAYERS of 62 (a cut that keeps the
-# script inside its time limit)
-MLA, MLA_H, MLA_LAYERS = "minicpm3-4b", 40, 16
+# script inside its time limit; 16 until the multi-device phases came)
+MLA, MLA_H, MLA_LAYERS = "minicpm3-4b", 40, 8
 # recurrentgemma-2b: 18 RG-LRU blocks beside 8 local-attention blocks of
 # 10 / 1 heads of 256 (GQA group 10), a 2,048-token window, a logit
 # softcap; its ticks and phase 4's traffic at full width, depth RG_LAYERS
@@ -448,11 +469,12 @@ RG_LAYERS = 13
 RG_TICK_CHUNK, RG_CTX, RG_MAX_LEN = 1152, 3072, 4096
 # xlstm-1.3b: 42 mLSTM and 6 sLSTM blocks, no attention layer, 4 heads
 # (mLSTM heads of 768); ticked and served at full width, depth XLSTM_LAYERS
-# of 48 (two units of 7 mLSTM + 1 sLSTM; a cut for the script's time).
+# of 48 (one unit of 7 mLSTM + 1 sLSTM; a cut for the script's time, two
+# units until the multi-device phases came).
 # Its ticks' and serving chunk, serving max_len, and the forward check's
 # length (two chunkwise chunks of 144) and bf16 depth
 XLSTM, XLSTM_CHUNK, XLSTM_MAX_LEN = "xlstm-1.3b", 32, 256
-XLSTM_LAYERS = 16
+XLSTM_LAYERS = 8
 XLSTM_FWD_SEQ, XLSTM_BF16_LAYERS = 288, 8
 # llava-next-34b: a Yi-34B-class decoder, 56 / 8 heads of 128 (GQA group
 # 7), an untied head, RoPE base 5e6, 576 projected patches prepended to the
@@ -467,13 +489,14 @@ LLAVA_SERVE_LAYERS = 8
 # prompts of 4-16 tokens, SEAMLESS_NEW greedy tokens each, and a
 # teacher-forced forward of SEAMLESS_TEXT tokens
 SEAMLESS, SEAMLESS_NEW, SEAMLESS_TEXT = "seamless-m4t-medium", 32, 16
-TRAIN_SEQ, TRAIN_STEPS = 1024, 6
+TRAIN_SEQ, TRAIN_STEPS = 1024, 3   # 6 until the multi-device phases came
 # training at full width, depth cut to keep a step's peak memory (weights,
 # gradients, AdamW moments, the old and the new state side by side, and
 # the float32 logits of 8 x 1,024 tokens) under ~70 GiB: gemma-7b at
-# GEMMA_TRAIN_LAYERS of 28, minicpm3-4b at MLA_TRAIN_LAYERS of 62; the
-# launcher runs TRAIN_CUT_STEPS steps of each
-GEMMA_TRAIN_LAYERS, MLA_TRAIN_LAYERS, TRAIN_CUT_STEPS = 2, 8, 3
+# GEMMA_TRAIN_LAYERS of 28, minicpm3-4b at MLA_TRAIN_LAYERS of 62 (8 until
+# the multi-device phases came); the launcher runs TRAIN_CUT_STEPS steps
+# of each
+GEMMA_TRAIN_LAYERS, MLA_TRAIN_LAYERS, TRAIN_CUT_STEPS = 2, 4, 3
 FLASH_EDGE_SEQS = (1, 31, 33, 65, 1000)
 # the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
 # rows at the training shapes (8 sequences x 14 heads x 1024 rows)
@@ -512,7 +535,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, flush, n=25, warmup=3, hide_host=True):
+def median_ms(torch, fn, flush, n=11, warmup=2, hide_host=True):
     """Median over ``n`` runs of ``fn`` between two CUDA events, the L2
     flushed before each. With ``hide_host`` a ~3 ms spin kernel runs
     first, so the host has enqueued ``fn``'s launches before the start
@@ -1707,8 +1730,8 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
 def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     """Each layout served with its ticks replaying CUDA graphs (the main
     path) and, as a witness, with eager ticks: the temp-0 streams must be
-    equal; both profiled. The paged graph run is served twice more, with
-    the dispatch counters off, then on."""
+    equal; both profiled. The paged graph run is served once more, with
+    the dispatch counters off, beside its first run (counters on)."""
     cfg = cfg_mod.get_config("qwen2-0.5b")          # bf16, ExpMul
     assert cfg.attention_variant == "expmul" and cfg.dtype == "bfloat16"
     params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
@@ -1724,7 +1747,7 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     layouts = (("paged/int8", kw, PAGED),
                ("contiguous/fp32", dict(ckw, kv_dtype="fp32"), CONTIGUOUS),
                ("contiguous/int8", ckw, CONTIGUOUS))
-    launches, streams = {}, {}
+    launches, streams, sink_on = {}, {}, None
     for label, lkw, pair in layouts:
         runs, idle = {}, {}
         for mode in ("graphs", "eager"):
@@ -1743,6 +1766,7 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
             raise AssertionError(f"{label}: the graph engine's streams differ "
                                  f"from the eager engine's")
         streams[label] = out
+        sink_on = g if label == "paged/int8" else sink_on
         gg = g["graphs"]
         log(f"[serve] {label}, graphs / eager: tokens/s "
             f"{g['tokens_per_s']:.1f} / {e['tokens_per_s']:.1f}; TTFT p50 "
@@ -1768,14 +1792,13 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
             if key == "launches":
                 launches[name]["launches_per_step"] = per_step[name]
     # the engine's dispatch counters cost host time on every replay: the
-    # paged graph run without them, then with them again, in this call
-    sink_runs = []
-    for sink in (False, True):
-        *_, out, st = _serve_run(torch, build, ServeEngine, params, cfg,
-                                 prompts, kw, PAGED, sink=sink)
-        if out != streams["paged/int8"]:
-            raise AssertionError("the dispatch sink changed the streams")
-        sink_runs.append(st)
+    # paged graph run without them, beside its first run with them (a
+    # second run with them was cut for the script's time)
+    *_, out, st = _serve_run(torch, build, ServeEngine, params, cfg,
+                             prompts, kw, PAGED, sink=False)
+    if out != streams["paged/int8"]:
+        raise AssertionError("the dispatch sink changed the streams")
+    sink_runs = [st, sink_on]
     log("[serve] paged/int8 graphs tick wall time p50 ms, sink off / on: "
         + "; ".join(f"{kind} " + " / ".join(
             f"{st[f'{kind}_p50_ms']:.2f}" for st in sink_runs)
@@ -1972,7 +1995,7 @@ def _xlstm_lockstep(torch, ServeEngine, params, cfg, kw, prompts):
 
 
 def phase_xlstm_ticks(torch, cfg_mod, api, ServeEngine):
-    """xlstm-1.3b at full width, depth ``XLSTM_LAYERS`` (14 mLSTM, 2 sLSTM;
+    """xlstm-1.3b at full width, depth ``XLSTM_LAYERS`` (7 mLSTM, 1 sLSTM;
     bf16, random weights from seed 0; no attention layer, so no kernel):
     (a) two prefill ticks of ``XLSTM_CHUNK``-token chunks (rows idle,
     ragged and full) and a decode tick on a paged state and on contiguous
@@ -2514,16 +2537,19 @@ def phase_faults(torch, cfg_mod, api, build, ServeEngine):
     torch.cuda.empty_cache()
 
 
-def _profile_window(torch, fn, label):
+def _profile_window(torch, fn, label, host=True):
     """Wall time, device busy time, idle share and the top six device
-    kernels of one call of ``fn``, from torch.profiler. Returns the busy
-    time, {kernel name: (us, launches)} and the idle share, all empty or
-    None when the profiler reported no device time."""
+    kernels of one call of ``fn``, from torch.profiler, which traces the
+    host's ops too unless ``host`` is false (then only the device's
+    kernels: a DTensor step's host ops cost the profiler ~20 s to
+    collect). Returns the busy time, {kernel name: (us, launches)} and the
+    idle share, all empty or None when the profiler reported no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if host else [])
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2738,9 +2764,10 @@ def _train(torch, cfg_mod, api, build, arch, full, layers, steps):
     torch.cuda.empty_cache()
     return {"flash": dict(launches=counts["flash"],
                           launches_per_step=per_step),
+            "launcher_losses": losses,
             "step_p50_ms": p50, "tokens_per_s": B * TRAIN_SEQ / p50 * 1e3,
             "peak_gib": peak / 2**30, "flash_share": share, "idle": idle,
-            "layers": layers}
+            "busy_ms": busy / 1e3, "layers": layers}
 
 
 def phase_train_archs(torch, cfg_mod, build):
@@ -2817,11 +2844,11 @@ def phase_train_archs(torch, cfg_mod, build):
 # the peak estimate in bytes, as the dry run counted them on torch 2.13)
 PLAN_CELLS = (("qwen2-0.5b", "train_4k", False,
                {"flash": 48, "flash_backward": 24},
-               (1052, (0.14395425262069222, 0.2620576644358209,
-                       0.1325365951), 7810209228)),
+               (1173, (0.14395425262069222, 0.26477786816597015,
+                       0.1512057791), 7810209228)),
               ("kimi-k2-1t-a32b", "decode_32k", True, {"decode": 61},
                (427, (0.0006351476583287808, 0.23988354341253731,
-                      0.2861890491733333), 7586367520)))
+                      0.2861890491733333), 7586551968)))
 PLAN_RTOL = 1e-6
 
 
@@ -2969,6 +2996,285 @@ def phase_counted_step(torch, cfg_mod, api, build):
             "model_flops": model, "counted_over_model": ratio,
             "bytes": counts["bytes"], "step_p50_s": p50,
             "roofline": rf.to_dict(), "roofline_share": share}
+
+
+OFFSETS, ODD_OFFSET = (256, 512, 768), 100
+
+
+def phase_flash_offset(torch, checks, F):
+    """The flash kernel at a query offset, as each rank of a query-split
+    causal call runs it (``sharding/regions.py:sharded_attention``): at
+    qwen2-0.5b's training shape (8 x 1,024 tokens, 14 / 2 heads of 64,
+    causal, 512-wide tiles), exact and ExpMul, float32 and bfloat16, and
+    once at gemma-7b's head dim 256 (16 / 16 heads, float32, ExpMul): the
+    call on ``q[:, :, a:]`` at ``q_offset=a`` equal bit for bit to rows
+    a: of the whole call for a in ``OFFSETS`` (multiples of the reference's
+    128-row query block), and at ``ODD_OFFSET`` within
+    ``checks.kernel_tol`` of the plain version at that offset. Then the
+    call at offset 512 (a rank's half of the queries over a 'model' axis
+    of 2) timed beside the whole call, with its bound (its rows' causal
+    pairs) and SDPA on the same rows as the library yardstick (a
+    bottom-right-aligned causal mask over the whole keys)."""
+    from repro_torch.kernels.flash.ops import flash_attention_fwd
+
+    rng = np.random.default_rng(31)
+    S = TRAIN_SEQ
+    worst = 0.0
+    shapes = [(H, HKV, D, dt, v) for dt in (torch.float32, torch.bfloat16)
+              for v in ("exact", "expmul")]
+    shapes.append((GEMMA_H, GEMMA_H, GEMMA_D, torch.float32, "expmul"))
+    for h, hkv, d, dtype, variant in shapes:
+        case = checks.flash_case(rng, B=B, H=h, Hkv=hkv, Sq=S, Sk=S, D=d,
+                                 dtype=dtype, dyadic=False, causal=True,
+                                 block_k=512, device="cuda")
+        q, k, v = case["q"], case["k"], case["v"]
+
+        def call(a, plain=False):
+            return flash_attention_fwd(q[:, :, a:].contiguous(), k, v,
+                                       causal=True, variant=variant,
+                                       block_k=512, q_offset=a, plain=plain)
+
+        whole = call(0)
+        tag = (f"D={d} {h} / {hkv} heads {str(dtype).split('.')[-1]} "
+               f"{variant}")
+        for a in OFFSETS:
+            if not torch.equal(call(a), whole[:, :, a:]):
+                raise AssertionError(f"flash at q_offset={a} ({tag}) is not "
+                                     f"rows {a}: of the whole call")
+        got, ref = call(ODD_OFFSET), call(ODD_OFFSET, plain=True)
+        torch.cuda.synchronize()
+        err = checks.rel_err(got, ref)
+        tol = checks.kernel_tol(variant, dtype)
+        worst = max(worst, err)
+        log(f"[flash offset] {tag}: offsets {list(OFFSETS)} equal to the "
+            f"whole call's rows bit for bit; q_offset={ODD_OFFSET} vs the "
+            f"plain version rel err {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"flash at q_offset={ODD_OFFSET} ({tag}) "
+                                 f"disagrees with its plain version")
+        del case, q, k, v, whole, got, ref
+
+    # the offset call's time at the training shape, float32 ExpMul
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    a = 512
+    case = checks.flash_case(rng, B=B, H=H, Hkv=HKV, Sq=S, Sk=S, D=D,
+                             dtype=torch.float32, dyadic=False, causal=True,
+                             block_k=512, device="cuda")
+    q, k, v = case["q"], case["k"], case["v"]
+    qa = q[:, :, a:].contiguous()
+
+    def run(qq, off, plain=False):
+        return flash_attention_fwd(qq, k, v, causal=True, variant="expmul",
+                                   block_k=512, q_offset=off, plain=plain)
+
+    ms = median_ms(torch, lambda: run(qa, a), flush)
+    host_ms = median_ms(torch, lambda: run(qa, a), flush, hide_host=False)
+    whole_ms = median_ms(torch, lambda: run(q, 0), flush)
+    plain_ms = median_ms(torch, lambda: run(qa, a, plain=True), flush, n=3,
+                         warmup=1)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= torch.arange(a, S, device="cuda")[:, None])
+    sdpa_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qa, k, v, attn_mask=mask, enable_gqa=True), flush)
+    rows = S - a
+    pairs = B * H * ((S * (S + 1) - a * (a + 1)) // 2)
+    nbytes = 4 * (2 * B * H * rows * D + 2 * B * HKV * S * D)
+    flops = 4 * D * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS_PER_S
+    share = pairs / (B * H * S * (S + 1) // 2)
+    out = dict(q_offset=a, ms=ms, ms_with_launch=host_ms,
+               whole_call_ms=whole_ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=sdpa_ms, pair_share=share,
+               worst_rel_err_at_odd_offset=worst)
+    log(f"[time] flash at q_offset={a} (float32, ExpMul, B={B}, rows "
+        f"{a}-{S - 1} of {S}, {H} / {HKV} heads of {D}, causal, 512-wide "
+        f"tiles): kernel {ms:.4f} ms on the device, {host_ms:.4f} ms with "
+        f"its launch; the whole call {whole_ms:.4f} ms ({ms / whole_ms:.3f} "
+        f"of it; its rows hold {share:.3f} of the causal pairs); plain "
+        f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}: {nbytes} B, {flops} flop at the TF32 rate), "
+        f"library SDPA on the same rows {sdpa_ms:.4f} ms")
+    return out
+
+
+MESH_TRAIN_STEPS = 3
+# the resumed mesh launcher's steps: the resumed one (gated; the warm-up),
+# MESH_RESUME_STEPS - 2 timed, then one profiled; no checkpoint
+MESH_RESUME_STEPS = 5
+
+
+def phase_mesh_train(torch, cfg_mod, build, trained=None):
+    """The train launcher's mesh path (``launch/train.py`` under a process
+    group) at world 1 over NCCL on a (1, 1) mesh of this card: qwen2-0.5b
+    at full width and depth, float32 (TF32 off), ExpMul, 8 x 1,024 tokens,
+    DTensor state, ``ShardedLoader`` batches, the flash kernel per shard.
+    The one-device launcher's losses for ``MESH_TRAIN_STEPS`` steps from the
+    same seed (``trained``, phase 6's result, ran the same command; without
+    it a run of its own), then the mesh launcher for as many with a
+    checkpoint at step 2 (each rank's shards), then the mesh launcher
+    again on a fresh process group, resuming from it for the last step.
+    Gated: the mesh losses equal the one-device losses bit for bit; the
+    resumed step's loss equal to the uninterrupted one bit for bit; flash
+    launched 48 times a step (24 layers, twice under remat) and no other
+    kernel or plain version; no process group left. The resumed launcher
+    runs ``MESH_RESUME_STEPS`` steps with no checkpoint: the p50 of the
+    steps between the first (the resumed one, a warm-up) and the last (run
+    under the profiler, device kernels only: busy time, idle share). Prints
+    that p50 beside the one-device one (phase 6's, 4 steps after a
+    warm-up, or the own run's), the two profiled steps' device busy times
+    and idle shares, and the peak memory of the gated run."""
+    import os
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = cfg_mod.get_config("qwen2-0.5b")
+    per_step = 2 * full.pattern_for().count("attn")
+    ckpt = tempfile.mkdtemp(prefix="mesh_train_")
+    argv = ["--steps", str(MESH_TRAIN_STEPS), "--batch", str(B), "--seq",
+            str(TRAIN_SEQ), "--variant", "expmul", "--log-every", "1"]
+    times = []
+    profiled = {"at": None}          # the step to profile, by its index
+    build_step = launch.build_train_step
+
+    def timed(*args, **kw):
+        step = build_step(*args, **kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            if len(times) == profiled["at"]:
+                out = []
+                profiled.update(zip(("busy_us", "kernels", "idle"),
+                                    _profile_window(
+                                        torch, lambda: out.append(
+                                            step(state, batch)),
+                                        "mesh train step x1, world 1",
+                                        host=False)), at=None)
+                return out[0]
+            t = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    def world1(args):
+        """``launch.main(args)`` as rank 0 of a world of 1."""
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                   WORLD_SIZE="1", LOCAL_RANK="0")
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            return launch.main(args, cfg_override=full)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    launch.build_train_step = timed
+    try:
+        torch.cuda.empty_cache()
+        if trained is not None and TRAIN_STEPS == MESH_TRAIN_STEPS:
+            one = trained["launcher_losses"]
+        else:
+            one = launch.main(argv, cfg_override=full)
+        one_times, times[:] = list(times), []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        mesh = world1(argv + ["--ckpt-dir", ckpt, "--ckpt-every", "2"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        mesh_times, times[:] = list(times), []
+        if dist.is_initialized():
+            raise AssertionError("the mesh launcher left its process group")
+        saved = sorted(os.listdir(ckpt))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, d, f))
+                         for d in saved for f in os.listdir(
+                             os.path.join(ckpt, d)))
+        torch.cuda.empty_cache()
+        build.reset_counts()
+        times[:] = []
+        profiled["at"] = MESH_RESUME_STEPS - 1
+        last = MESH_TRAIN_STEPS - 1 + MESH_RESUME_STEPS
+        t0 = time.perf_counter()
+        resumed = world1(["--steps", str(last)] + argv[2:] + [
+            "--ckpt-dir", ckpt, "--ckpt-every", str(last + 1)])
+        resume_wall = time.perf_counter() - t0
+        resume_counts = dict(build.COUNTS)
+        if dist.is_initialized():
+            raise AssertionError("the resumed launcher left its process "
+                                 "group")
+        timing = times[1:]
+    finally:
+        launch.build_train_step = build_step
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if len(timing) != MESH_RESUME_STEPS - 2 or profiled["at"] is not None:
+        raise AssertionError(f"the resumed run timed {len(timing)} steps")
+    p50 = statistics.median(timing)
+    p50_one = (trained["step_p50_ms"] if trained is not None
+               else statistics.median(one_times[1:]))
+    busy_ms = profiled["busy_us"] / 1e3
+    one_busy = (f"{trained['busy_ms']:.1f} ms (its window traced host ops "
+                f"too), idle share {trained['idle']}, of its p50 "
+                f"{1 - trained['busy_ms'] / p50_one:.3f}"
+                if trained is not None else "not profiled")
+    diffs = [abs(a - b) for a, b in zip(mesh, one)]
+    log(f"[mesh train] world 1 over NCCL, a (1, 1) mesh, qwen2-0.5b full "
+        f"width and depth, {B} x {TRAIN_SEQ} tokens: losses "
+        f"{json.dumps(mesh)} against the one-device launcher's "
+        f"{json.dumps(one)} (differences {json.dumps(diffs)}); resumed from "
+        f"{saved} ({ckpt_bytes} bytes) on a fresh process group: "
+        f"{json.dumps(resumed)}; launches {json.dumps(counts)}, resumed "
+        f"{json.dumps(resume_counts)}")
+    log(f"[mesh train] step wall ms: mesh p50 {p50:.1f} (resumed run, "
+        f"steps 2-{MESH_RESUME_STEPS - 1}: "
+        f"{', '.join(f'{x:.1f}' for x in timing)}; the gated run's steps "
+        f"{', '.join(f'{x:.1f}' for x in mesh_times)}, the first a warm-up, "
+        f"the last beside the checkpoint's write), one device p50 "
+        f"{p50_one:.1f} ({'phase 6' if trained is not None else 'steps '}"
+        f"{', '.join(f'{x:.1f}' for x in one_times)}), "
+        f"{p50 / p50_one:.3f}x; profiled step (device kernels only): "
+        f"mesh device busy {busy_ms:.1f} ms, idle share {profiled['idle']}, "
+        f"of the p50 {1 - busy_ms / p50:.3f}; one device busy "
+        f"{one_busy}; mesh run "
+        f"{wall:.1f} s with its checkpoint, resumed run {resume_wall:.1f} s; "
+        f"peak memory {peak / 2**30:.2f} GiB; {card_line()}")
+    if len(mesh) != MESH_TRAIN_STEPS or mesh != one:
+        raise AssertionError(f"the mesh launcher's losses {mesh} are not the "
+                             f"one-device launcher's {one}")
+    if saved != ["step_00000002"] or resumed[:1] != mesh[2:] \
+            or len(resumed) != MESH_RESUME_STEPS:
+        raise AssertionError(f"the resumed run {resumed} from {saved} is not "
+                             f"the uninterrupted step {mesh[2:]}")
+    for c, n in ((counts, MESH_TRAIN_STEPS),
+                 (resume_counts, MESH_RESUME_STEPS)):
+        if c.get("flash", 0) != per_step * n or any(
+                v for name, v in c.items() if name != "flash"):
+            raise AssertionError(f"launches {c}, not {per_step} flash a step "
+                                 f"and nothing else")
+    return {"flash": dict(launches=counts["flash"],
+                          launches_per_step=per_step),
+            "losses": mesh, "step_p50_ms": p50, "one_device_p50_ms": p50_one,
+            "busy_ms": busy_ms, "idle": profiled["idle"],
+            "peak_gib": peak / 2**30, "checkpoint_bytes": ckpt_bytes}
 
 
 def _bounds(name, lengths, n_valid=None, h=H, hkv=HKV, d=D):
@@ -4220,6 +4526,9 @@ def main(argv=None) -> int:
         ("plan", phase_plan),
         ("counted step", lambda: phase_counted_step(torch, cfg_mod, api,
                                                     build)),
+        ("flash offset", lambda: phase_flash_offset(torch, checks, F)),
+        ("mesh train", lambda: phase_mesh_train(torch, cfg_mod, build,
+                                                results.get("train"))),
         ("quickstart", lambda: phase_quickstart(torch, build)),
         ("fidelity", lambda: phase_fidelity(torch, build)),
     )
@@ -4247,7 +4556,8 @@ def main(argv=None) -> int:
         launches_gemma_train=results["gemma train"]["flash"]["launches"],
         launches_mla_train=results["mla train"]["flash"]["launches"],
         launches_train_archs=results["train archs"],
-        launches_counted_step=results["counted step"]["flash_launches"])
+        launches_counted_step=results["counted step"]["flash_launches"],
+        launches_mesh_train=results["mesh train"]["flash"]["launches"])
     launches["expmul"] = dict(launches=results["quickstart"]["expmul"])
     # the serving kernels at gemma-7b's head dim: its serving run's
     # launches, its times, each KV dtype's resources
@@ -4316,6 +4626,11 @@ def main(argv=None) -> int:
     for key, phase in (("d256", "gemma train"), ("d96", "mla train")):
         results["resources"]["flash"][key]["training"] = {
             k: v for k, v in results[phase].items() if k != "flash"}
+    # flash at a query offset (a rank's rows of a query-split call), and the
+    # mesh launcher's steps through it
+    results["resources"]["flash"]["q_offset"] = dict(
+        **results["flash offset"], mesh_train={
+            k: v for k, v in results["mesh train"].items() if k != "flash"})
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **launches[name],

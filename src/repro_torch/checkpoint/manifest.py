@@ -1,8 +1,8 @@
 """Checkpoint manifest, the on-disk layout of ``repro.checkpoint``: one
 ``.npy`` per leaf (per shard, keyed by its global offsets) named after the
 leaf's path, and ``manifest.json`` with the step and each leaf's shape,
-dtype and shard files. The port writes one shard per leaf, at offset 0.
-A bfloat16 leaf is stored as numpy stores ml_dtypes' bfloat16: its 16-bit
+dtype and shard files: one shard at offset 0 for a leaf on one device,
+each rank's own shards on a mesh (``save.py``). A bfloat16 leaf is stored as numpy stores ml_dtypes' bfloat16: its 16-bit
 patterns as two-byte voids (``'<V2'``), with ``"bfloat16"`` in the
 manifest."""
 from __future__ import annotations

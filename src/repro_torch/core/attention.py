@@ -87,14 +87,19 @@ def attention_ref(q, k, v, *, causal=True, scale=None, window=None,
 
 def flash_ref(q, k, v, *, causal=True, scale=None, window=None,
               variant="exact", use_ste=False, block_k=512,
-              causal_q_chunks=4):
+              causal_q_chunks=4, q_offset=0):
     """FlashAttention-2 over KV blocks in differentiable PyTorch ops, the
     port of ``flash_jnp``: the block width is the largest divisor of Sk not
     above ``block_k``; a causal self-attention splits the queries into up
     to ``causal_q_chunks`` chunks that each walk only the blocks up to
     their diagonal, and blocks wholly below a chunk's diagonal skip the
     mask, as the reference does (both change no number: a block past the
-    diagonal is wholly masked and leaves (m, l, acc) as they were)."""
+    diagonal is wholly masked and leaves (m, l, acc) as they were).
+
+    ``q_offset``: q holds rows ``q_offset:q_offset + Sq`` of a sequence
+    whose keys are k and v (a rank's share of a query-split call), and the
+    masks take those global rows. Such a call runs the pieces of the whole
+    call's chunks that its rows cover, each as the whole call runs it."""
     B, H, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     Dv = v.shape[-1]
@@ -104,13 +109,16 @@ def flash_ref(q, k, v, *, causal=True, scale=None, window=None,
     if Sk % bk:  # the largest divisor <= block_k
         bk = next(b for b in range(bk, 0, -1) if Sk % b == 0)
     nk = Sk // bk
+    whole = q_offset + Sq if q_offset else Sq   # the whole call's rows
     n_chunks = 1
-    if causal and window is None and causal_q_chunks > 1 and Sq == Sk:
+    if causal and window is None and causal_q_chunks > 1 and (
+            whole == Sk or (q_offset and whole <= Sk)):
+        whole = Sk
         for c in range(min(causal_q_chunks, nk), 0, -1):
-            if Sq % c == 0 and (Sq // c) % bk == 0:
+            if Sk % c == 0 and (Sk // c) % bk == 0:
                 n_chunks = c
                 break
-    Sq_c = Sq // n_chunks
+    Sq_c = whole // n_chunks
     dev = q.device
     # the 'model' dim of the activations on a mesh: kv-heads if they divide
     # the axis, else the head group, else the (chunked) queries
@@ -123,12 +131,13 @@ def flash_ref(q, k, v, *, causal=True, scale=None, window=None,
     dims5 = ("batch", tp[0], tp[1], tp[2], None)
 
     def run_chunk(q_chunk, row0, nk_c):
-        qf = constrain(q_chunk.reshape(B, Hkv, group, Sq_c, D), *dims5)
-        rows = row0 + torch.arange(Sq_c, device=dev)[:, None]
-        m = torch.full((B, Hkv, group, Sq_c, 1), MASK_VALUE,
+        n = q_chunk.shape[2]
+        qf = constrain(q_chunk.reshape(B, Hkv, group, n, D), *dims5)
+        rows = row0 + torch.arange(n, device=dev)[:, None]
+        m = torch.full((B, Hkv, group, n, 1), MASK_VALUE,
                        dtype=torch.float32, device=dev)
         l = torch.zeros_like(m)
-        acc = torch.zeros((B, Hkv, group, Sq_c, Dv), dtype=torch.float32,
+        acc = torch.zeros((B, Hkv, group, n, Dv), dtype=torch.float32,
                           device=dev)
         if causal and window is None:
             n_interior = max(0, row0 // bk)
@@ -143,7 +152,7 @@ def flash_ref(q, k, v, *, causal=True, scale=None, window=None,
             mask = None
             if ci >= n_interior:
                 cols = ci * bk + torch.arange(bk, device=dev)[None, :]
-                mask = torch.ones((Sq_c, bk), dtype=torch.bool, device=dev)
+                mask = torch.ones((n, bk), dtype=torch.bool, device=dev)
                 if causal:
                     mask = mask & (rows >= cols)
                 if window is not None:
@@ -164,43 +173,49 @@ def flash_ref(q, k, v, *, causal=True, scale=None, window=None,
                 pv, v[:, :, sl].to(torch.float32)[:, :, None])
             m = m_new
         l = torch.where(l == 0.0, torch.ones_like(l), l)
-        return (acc / l).reshape(B, H, Sq_c, Dv)
+        return (acc / l).reshape(B, H, n, Dv)
 
     if n_chunks == 1:
-        return run_chunk(q, 0, nk).to(q.dtype)
-    outs = [run_chunk(q[:, :, ci * Sq_c:(ci + 1) * Sq_c], ci * Sq_c,
-                      ((ci + 1) * Sq_c) // bk)
-            for ci in range(n_chunks)]
+        return run_chunk(q, q_offset, nk).to(q.dtype)
+    outs = []
+    for ci in range(n_chunks):   # the pieces of q's rows in each chunk
+        lo = max(ci * Sq_c, q_offset)
+        hi = min((ci + 1) * Sq_c, q_offset + Sq)
+        if lo < hi:
+            outs.append(run_chunk(q[:, :, lo - q_offset:hi - q_offset], lo,
+                                  ((ci + 1) * Sq_c) // bk))
     return torch.cat(outs, dim=2).to(q.dtype)
 
 
 class FlashAttention(torch.autograd.Function):
     """The flash forward (CUDA kernel or plain version) with the
     reference's recompute backward: ``flash_ref`` in exact arithmetic, or
-    through ``qexp_ste`` for ExpMul, over ``block_k``-wide blocks."""
+    through ``qexp_ste`` for ExpMul, over ``block_k``-wide blocks; both at
+    the query offset ``q_offset``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, variant, block_k,
-                plain):
+                plain, q_offset=0):
         ctx.save_for_backward(q, k, v)
-        ctx.spec = (causal, scale, window, variant, block_k)
+        ctx.spec = (causal, scale, window, variant, block_k, q_offset)
         return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
                                    window=window, variant=variant,
-                                   block_k=block_k, plain=plain)
+                                   block_k=block_k, plain=plain,
+                                   q_offset=q_offset)
 
     @staticmethod
     def backward(ctx, g):
-        causal, scale, window, variant, block_k = ctx.spec
+        causal, scale, window, variant, block_k, q_offset = ctx.spec
         if g.device.type == "meta":
-            return _price_backward(*ctx.saved_tensors, g) + (None,) * 6
+            return _price_backward(*ctx.saved_tensors, g) + (None,) * 7
         with torch.enable_grad():
             q, k, v = (t.detach().requires_grad_(True)
                        for t in ctx.saved_tensors)
             o = flash_ref(q, k, v, causal=causal, scale=scale, window=window,
                           variant=variant, use_ste=variant == "expmul",
-                          block_k=block_k)
+                          block_k=block_k, q_offset=q_offset)
             dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _price_backward(q, k, v, g):
@@ -226,13 +241,13 @@ def attention(q, k, v, cfg, *, causal=True, window=None, scale=None):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
 
-    def run(q, k, v):
+    def run(q, k, v, q_offset=0):
         return FlashAttention.apply(
             q, k, v, causal, float(scale), window, cfg.attention_variant,
             min(cfg.attention_block_k, k.shape[2]),
-            cfg.attention_impl == "plain")
+            cfg.attention_impl == "plain", q_offset)
 
-    return sharded_attention(q, k, v, run, causal=causal)
+    return sharded_attention(q, k, v, run)
 
 
 def decode_one_pass(q, k, v, lengths, *, variant="exact", scale=None):

@@ -39,9 +39,12 @@
 // row: every later column is masked for every row of the block. Tiles
 // wholly below the window of the block's first row are skipped, which is
 // exact: such a tile leaves (m, l, acc) as they were. Masks, per row:
-// col < kv_len, and col <= row when causal, and row - col < window. The
-// reference's query blocks are min(128, Sq) rows; the row blocking changes
-// only which wholly masked tiles are skipped.
+// col < kv_len, and col <= row when causal, and row - col < window, where
+// row is the query's global row: its index in q plus q_offset (a call on
+// rows q_offset.. of a sequence, as a rank of a query-split call holds
+// them; the keys are the whole sequence's). The reference's query blocks
+// are min(128, Sq) rows; the row blocking changes only which wholly masked
+// tiles are skipped.
 //
 // Head dims 16, 32, 64, 96, 112, 128 and 256. At 96 (minicpm3-4b's qk
 // width, V zero-padded to it by the caller) and 112 (kimi-k2-1t-a32b) the
@@ -74,7 +77,7 @@ template <typename T, int D, bool EXPMUL>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ out, int H, int Hkv, int Sq, int Sk, int bk, int kv_len,
-             int causal, int window, float scale, int vec16) {
+             int q_offset, int causal, int window, float scale, int vec16) {
   constexpr int kAct = sizeof(T) == sizeof(float) ? kF32 : kBF16;
   constexpr int DS = staged_width(D, D);
   extern __shared__ __align__(16) float smem[];
@@ -90,9 +93,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int r0 = qb * kRows;
   const int rows = min(kRows, Sq - r0);
+  const int g0 = q_offset + r0;  // the block's first global row
   // the last column any row of the block may read; tiles [t_lo, t_hi)
-  const int col_end = causal ? min(kv_len, r0 + rows) : kv_len;
-  const int t_lo = window > 0 && r0 > window ? (r0 - window) / bk : 0;
+  const int col_end = causal ? min(kv_len, g0 + rows) : kv_len;
+  const int t_lo = window > 0 && g0 > window ? (g0 - window) / bk : 0;
   const int t_hi = (col_end + bk - 1) / bk;
   const int steps_full = 2 * ((bk + kSub - 1) / kSub);  // staging steps of a whole tile
   const int64_t kv0 = static_cast<int64_t>(kvh) * Sk;
@@ -157,7 +161,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     chunk_tile_step<D, EXPMUL, false>(
         st, q_s, p_s, x_s, sc_s, nullptr, r_s, nullptr, min(bk, col_end - c0), scale, dense,
         advance, [&](int r, int j) {
-          const int row = r0 + r, col = c0 + j;
+          const int row = g0 + r, col = c0 + j;
           return (!causal || col <= row) && (window <= 0 || row - col < window);
         });
   }
@@ -166,8 +170,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T, int D, bool EXPMUL>
 int launch(const void* q, const void* k, const void* v, void* out, int BH, int H, int Hkv,
-           int Sq, int Sk, int bk, int kv_len, int causal, int window, float scale,
-           cudaStream_t stream) {
+           int Sq, int Sk, int bk, int kv_len, int q_offset, int causal, int window,
+           float scale, cudaStream_t stream) {
   auto kernel = flash_kernel<T, D, EXPMUL>;
   const int smem = static_cast<int>(smem_bytes<D>(bk));
   static int granted = 48 * 1024;  // per instantiation
@@ -181,20 +185,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int H
   const dim3 grid(BH, (Sq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, Hkv, Sq, Sk, bk, kv_len, causal, window, scale,
+      static_cast<T*>(out), H, Hkv, Sq, Sk, bk, kv_len, q_offset, causal, window, scale,
       (any & 15) == 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int by_dim(int D, int expmul, const void* q, const void* k, const void* v, void* out, int BH,
-           int H, int Hkv, int Sq, int Sk, int bk, int kv_len, int causal, int window,
-           float scale, cudaStream_t s) {
+           int H, int Hkv, int Sq, int Sk, int bk, int kv_len, int q_offset, int causal,
+           int window, float scale, cudaStream_t s) {
 #define REPRO_LAUNCH(DIM)                                                                  \
   return expmul ? launch<T, DIM, true>(q, k, v, out, BH, H, Hkv, Sq, Sk, bk, kv_len,      \
-                                       causal, window, scale, s)                          \
+                                       q_offset, causal, window, scale, s)                \
                 : launch<T, DIM, false>(q, k, v, out, BH, H, Hkv, Sq, Sk, bk, kv_len,     \
-                                        causal, window, scale, s)
+                                        q_offset, causal, window, scale, s)
   switch (D) {
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
@@ -212,23 +216,24 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, void*
 
 // q (BH = B*H, Sq, D), k and v (B*Hkv, Sk, D), out (BH, Sq, D), all of
 // `dtype` (kF32 or kBF16) and contiguous; bk the KV tile width (<= kMaxTile);
-// kv_len <= Sk the valid keys; window <= 0: none. Returns the cudaError_t of
-// the launch.
+// kv_len <= Sk the valid keys; q_offset >= 0 the global row of q's first
+// row (the causal and window masks' row); window <= 0: none. Returns the
+// cudaError_t of the launch.
 extern "C" int flash_forward(const void* q, const void* k, const void* v, void* out, int BH,
                              int H, int Hkv, int Sq, int Sk, int D, int bk, int kv_len,
-                             int causal, int window, float scale, int expmul, int dtype,
-                             void* stream) {
+                             int q_offset, int causal, int window, float scale, int expmul,
+                             int dtype, void* stream) {
   if (BH <= 0 || Sq <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || BH % H != 0 || bk <= 0 ||
-      bk > kMaxTile || kv_len < 0 || kv_len > Sk)
+      bk > kMaxTile || kv_len < 0 || kv_len > Sk || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return by_dim<float>(D, expmul, q, k, v, out, BH, H, Hkv, Sq, Sk, bk, kv_len, causal,
-                           window, scale, s);
+      return by_dim<float>(D, expmul, q, k, v, out, BH, H, Hkv, Sq, Sk, bk, kv_len, q_offset,
+                           causal, window, scale, s);
     case kBF16:
       return by_dim<__nv_bfloat16>(D, expmul, q, k, v, out, BH, H, Hkv, Sq, Sk, bk, kv_len,
-                                   causal, window, scale, s);
+                                   q_offset, causal, window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -8,8 +8,11 @@ Layout, the reference's folded one: q3 (B*H, Sq, D), k3 and v3
 output is (B*H, Sq, D) in that dtype. The KV tiles are ``block_k``
 columns wide, counted from column 0 of the padded K (ExpMul results depend
 on the width), and each row's mask is ``col < kv_len``, ``row >= col``
-when ``causal`` and ``row - col < window`` when a window is set; query
-head h reads KV head ``h // (H / Hkv)``.
+when ``causal`` and ``row - col < window`` when a window is set, where
+``row`` is the query's index plus ``q_offset``: a call on rows
+``q_offset:`` of a sequence (a rank's share of a query-split call, the
+keys the whole sequence's) masks as the whole call does those rows, so
+its output is theirs. Query head h reads KV head ``h // (H / Hkv)``.
 
 ``flash_fwd_plain`` walks those tiles vectorized over every row and
 reproduces the Pallas kernel's ``min(block_q, Sq)``-row query blocks
@@ -63,7 +66,7 @@ MAX_BLOCK_K = 512  # the widest KV tile the kernel stages (tile.cuh kMaxTile)
 BLOCK_Q = 128      # the reference's query block (cfg.attention_block_q)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURE = {"flash_forward": (ctypes.c_int, [_P] * 4 + [_I] * 10 + [_F]
+_SIGNATURE = {"flash_forward": (ctypes.c_int, [_P] * 4 + [_I] * 11 + [_F]
                                 + [_I] * 2 + [_P]),
               "flash_smem": (ctypes.c_longlong, [_I] * 2)}
 
@@ -76,7 +79,8 @@ def smem_bytes(D, block_k) -> int:
     return int(build.load(NAME, _SIGNATURE).flash_smem(D, block_k))
 
 
-def _check(q3, k3, v3, *, block_k, num_q_heads, num_kv_heads, kv_len):
+def _check(q3, k3, v3, *, block_k, num_q_heads, num_kv_heads, kv_len,
+           q_offset=0):
     """Raise on operands neither version takes."""
     BH, Sq, D = q3.shape
     BHkv, Sk, _ = k3.shape
@@ -98,24 +102,28 @@ def _check(q3, k3, v3, *, block_k, num_q_heads, num_kv_heads, kv_len):
                          f"divide the padded Sk={Sk}, got {block_k}")
     if not 0 <= kv_len <= Sk:
         raise ValueError(f"{NAME}: kv_len {kv_len} outside [0, {Sk}]")
+    if q_offset < 0:
+        raise ValueError(f"{NAME}: q_offset {q_offset} is negative")
 
 
 def flash_fwd_plain(q3, k3, v3, *, causal, scale, window, variant, block_k,
-                    num_q_heads, num_kv_heads, kv_len, block_q=BLOCK_Q):
+                    num_q_heads, num_kv_heads, kv_len, q_offset=0,
+                    block_q=BLOCK_Q):
     """The plain PyTorch version on any device: the Pallas kernel's tile
     walk, vectorized over (batch x head, row). ``block_q`` is the Pallas
-    kernel's query block, whose wholly masked tiles it skips. Returns
+    kernel's query block, whose wholly masked tiles it skips (blocks of
+    global rows, counted from row 0 of the sequence). Returns
     (B*H, Sq, D) in q's dtype."""
     _check(q3, k3, v3, block_k=block_k, num_q_heads=num_q_heads,
-           num_kv_heads=num_kv_heads, kv_len=kv_len)
+           num_kv_heads=num_kv_heads, kv_len=kv_len, q_offset=q_offset)
     build.COUNTS[f"{NAME}_plain"] += 1
     BH, Sq, _ = q3.shape
     H, Hkv = num_q_heads, num_kv_heads
     dev = q3.device
     bh = torch.arange(BH, device=dev)
     kvh = bh // H * Hkv + (bh % H) // (H // Hkv)
-    rows = torch.arange(Sq, device=dev)[:, None]               # (Sq, 1)
-    bq = min(block_q, Sq)
+    rows = q_offset + torch.arange(Sq, device=dev)[:, None]    # (Sq, 1)
+    bq = min(block_q, q_offset + Sq)
     r0 = rows // bq * bq                                       # block start
     cols = torch.arange(block_k, device=dev)[None, :]
     q = q3.to(torch.float32)
@@ -142,24 +150,25 @@ def flash_fwd_plain(q3, k3, v3, *, causal, scale, window, variant, block_k,
 
 
 def flash_fwd(q3, k3, v3, *, causal, scale, window, variant, block_k,
-              num_q_heads, num_kv_heads, kv_len):
+              num_q_heads, num_kv_heads, kv_len, q_offset=0):
     """The forward on the CUDA kernel (CUDA tensors) or its plain version
-    (CPU tensors). Returns (B*H, Sq, D) in q's dtype."""
+    (CPU tensors). Returns (B*H, Sq, D) in q's dtype. A ``meta`` call's
+    price ignores the mask, so ``q_offset`` too."""
     kw = dict(causal=causal, scale=scale, window=window, variant=variant,
               block_k=block_k, num_q_heads=num_q_heads,
-              num_kv_heads=num_kv_heads, kv_len=kv_len)
+              num_kv_heads=num_kv_heads, kv_len=kv_len, q_offset=q_offset)
     if q3.device.type == "cpu":
         return flash_fwd_plain(q3, k3, v3, **kw)
     if q3.device.type == "meta":
         _check(q3, k3, v3, block_k=block_k, num_q_heads=num_q_heads,
-               num_kv_heads=num_kv_heads, kv_len=kv_len)
+               num_kv_heads=num_kv_heads, kv_len=kv_len, q_offset=q_offset)
         return _report(torch.empty_like(q3), q3, k3, v3, kv_len)
     if q3.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q3.device}")
     if variant not in ("exact", "expmul"):
         raise ValueError(f"unknown attention variant {variant!r}")
     _check(q3, k3, v3, block_k=block_k, num_q_heads=num_q_heads,
-           num_kv_heads=num_kv_heads, kv_len=kv_len)
+           num_kv_heads=num_kv_heads, kv_len=kv_len, q_offset=q_offset)
     if not all(t.is_contiguous() for t in (q3, k3, v3)):
         raise ValueError(f"{NAME}: operands must be contiguous")
     BH, Sq, D = q3.shape
@@ -179,7 +188,7 @@ def flash_fwd(q3, k3, v3, *, causal, scale, window, variant, block_k,
     err = lib.flash_forward(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), BH,
         num_q_heads, num_kv_heads, Sq, k3.shape[1], D, block_k, kv_len,
-        int(bool(causal)), window or 0, float(scale),
+        int(q_offset), int(bool(causal)), window or 0, float(scale),
         int(variant == "expmul"), ACT_DTYPES[q3.dtype], stream)
     build.check(err, NAME)
     build.COUNTS[NAME] += 1

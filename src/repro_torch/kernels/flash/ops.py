@@ -21,14 +21,16 @@ from repro_torch.kernels.flash.prefill import (
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, scale=None, window=None,
-                        variant="exact", block_k=128, plain=False):
+                        variant="exact", block_k=128, plain=False,
+                        q_offset=0):
     """Full-sequence attention forward: q (B, H, Sq, D), k and v
     (B, Hkv, Sk, D) -> (B, H, Sq, D) in q's dtype, as
     ``repro.kernels.flash.ops.flash_attention_fwd``: the key axis is
     zero-padded to a multiple of ``min(block_k, Sk)``, the padded keys
     masked by ``kv_len = Sk``. The reference's query padding to whole
     ``block_q`` blocks changes no number and is not done. ``plain`` runs
-    the plain version on any device."""
+    the plain version on any device. ``q_offset``: the global row of q's
+    first row, for the causal and window masks (``flash.py``)."""
     B, H, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     if v.shape[-1] != D:
@@ -49,7 +51,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None, window=None,
     fn = flash_fwd_plain if plain else flash_fwd
     o3 = fn(fold(q, Sq, 0), fold(k, Sk, -Sk % bk), fold(v, Sk, -Sk % bk),
             causal=causal, scale=scale, window=window, variant=variant,
-            block_k=bk, num_q_heads=H, num_kv_heads=Hkv, kv_len=Sk)
+            block_k=bk, num_q_heads=H, num_kv_heads=Hkv, kv_len=Sk,
+            q_offset=q_offset)
     return o3.reshape(B, H, Sq, D)
 
 

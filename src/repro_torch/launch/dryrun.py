@@ -15,10 +15,9 @@ routes, which report their analytic cost. Nothing needs a card, and
 importing this module initialises nothing.
 
 An MoE cell dispatches ``balanced`` for train and prefill and ``scatter``
-for decode, as the reference's does; ``balanced`` here is the port's
-dispatch as DTensor propagates it over the expert-sharded weights, not
-the reference's expert-parallel ``shard_map`` (not ported yet), and the
-JSON's ``moe_impl`` says so.
+for decode, as the reference's does; ``balanced`` runs the expert GEMMs in
+the expert-parallel region (``layers/moe.py:_expert_ffn_ep``), the
+reference's ``shard_map``.
 
 The JSON has the reference's keys. ``compile_s`` is 0: nothing compiles.
 ``lower_s`` is the seconds the cell took to build and run. Its
@@ -191,9 +190,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "mesh": mesh_name,
         "n_devices": n_dev,
         "variant": cfg.attention_variant,
-        "moe_impl": (moe_impl + " (DTensor-propagated, no expert-parallel "
-                     "shard_map)" if cfg.moe and moe_impl == "balanced"
-                     else moe_impl),
+        "moe_impl": moe_impl,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "lower_s": round(lower_s, 1),

@@ -22,11 +22,31 @@ checkpoint in ``--ckpt-dir`` is resumed. ``--device`` defaults to ``cuda``
 and fails without a card; ``--device cpu`` runs the attention kernels'
 plain versions (use ``--smoke`` there). ``main`` returns the loss of
 every step run.
+
+On a mesh: run under torchrun (``WORLD_SIZE`` set), as the reference
+runs per host,
+
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+      --smoke --device cpu
+
+and the launcher initialises the process group (NCCL for ``--device
+cuda`` on ``cuda:{LOCAL_RANK}``, one card a rank; gloo for ``--device
+cpu``), builds ``make_mesh_for_host()`` ((world / 2, 2) from 4 ranks up,
+else (world, 1)), draws the same weights on every rank and keeps each
+rank's shards of the state by ``sharding/rules.py:state_shardings``,
+loads each step's rows through ``ShardedLoader``, runs each step under
+the mesh (``set_mesh``: the activation constraints and FSDP's gather on
+use; ``sharding/layouts.py``'s fixed layouts, as the dry run counts
+them), checkpoints each rank's shards and resumes onto the mesh it runs
+on, whatever mesh wrote the step. Rank 0 logs. The process group is
+destroyed on exit. Without ``WORLD_SIZE`` it is the one-device launcher.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
+import os
 
 import numpy as np
 import torch
@@ -34,11 +54,13 @@ import torch
 from repro_torch.checkpoint.restore import latest_step, restore_checkpoint
 from repro_torch.checkpoint.save import AsyncCheckpointer
 from repro_torch.configs import get_config
+from repro_torch.data.sharded_loader import ShardedLoader
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.distributed.compression import (
     error_feedback_int8,
     init_residuals,
 )
+from repro_torch.launch.mesh import make_mesh_for_host, set_mesh
 from repro_torch.models.api import init_model, resolve_device
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.schedule import cosine_schedule
@@ -47,9 +69,61 @@ from repro_torch.reliability import (
     RestartSupervisor,
     StragglerWatchdog,
 )
+from repro_torch.sharding.regions import is_dtensor
+from repro_torch.sharding.rules import (
+    batch_shardings,
+    shard_local,
+    state_shardings,
+)
 from repro_torch.train.step import build_train_step, make_train_state
+from repro_torch.tree import tree_leaves, tree_unflatten_like
 
 log = logging.getLogger("repro_torch.train")
+
+
+def init_distributed(device):
+    """Under torchrun: initialise the process group (NCCL on
+    ``cuda:{LOCAL_RANK}``, gloo on the CPU) and return (this rank's
+    device, ``make_mesh_for_host()``); without ``WORLD_SIZE``, (device,
+    None)."""
+    if "WORLD_SIZE" not in os.environ:
+        return device, None
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return device, make_mesh_for_host(device_type=device.type)
+
+
+def _shard(tree, shardings, mesh):
+    """Each rank's shards of ``tree`` (whole on every rank) by the
+    ``Sharding`` tree ``shardings``."""
+    return tree_unflatten_like(tree, [
+        shard_local(leaf, sh.spec, mesh)
+        for leaf, sh in zip(tree_leaves(tree), tree_leaves(shardings))])
+
+
+def _value(t) -> float:
+    return float(t.full_tensor() if is_dtensor(t) else t)
+
+
+def _on_mesh(mesh):
+    """The context a step runs in on ``mesh``: the current mesh, plain
+    tensors taken as replicated, the fixed layouts; nothing off a mesh."""
+    stack = contextlib.ExitStack()
+    if mesh is not None:
+        from torch.distributed.tensor.experimental import (
+            implicit_replication,
+        )
+
+        from repro_torch.sharding.layouts import FixedLayouts
+
+        stack.enter_context(set_mesh(mesh))
+        stack.enter_context(implicit_replication())
+        stack.enter_context(FixedLayouts())
+    return stack
 
 
 def main(argv=None, cfg_override=None):
@@ -71,12 +145,30 @@ def main(argv=None, cfg_override=None):
                     help="torch device (default cuda; 'cpu' runs the "
                          "attention kernels' plain versions)")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(f"{e} (--device cpu)")
+    try:
+        device, mesh = init_distributed(device)
+        return _main(args, cfg_override, device, mesh)
+    finally:
+        import torch.distributed as dist
+
+        if "WORLD_SIZE" in os.environ and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, cfg_override, device, mesh):
+    import torch.distributed as dist
+
+    lead = mesh is None or dist.get_rank() == 0
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    if not lead:     # rank 0 logs
+        log.setLevel(logging.WARNING)
+        logging.getLogger("repro_torch.reliability").setLevel(
+            logging.WARNING)
     overrides = {"dtype": "float32", "param_dtype": "float32"}
     if args.variant:
         overrides["attention_variant"] = args.variant
@@ -86,7 +178,8 @@ def main(argv=None, cfg_override=None):
         cfg = get_config(args.arch, smoke=args.smoke, **overrides)
     opt = adamw(cosine_schedule(args.lr, 20, args.steps),
                 moment_dtype=cfg.opt_state_dtype)
-    data = SyntheticLMDataset(cfg.vocab_size, args.seq, seed=0)
+    data = ShardedLoader(SyntheticLMDataset(cfg.vocab_size, args.seq,
+                                            seed=0), mesh, device=device)
     residuals = {}
 
     def grad_transform(grads):
@@ -101,9 +194,11 @@ def main(argv=None, cfg_override=None):
     params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
                         device=device)
     state = make_train_state(params, opt)
-    if args.compress_grads:
-        residuals["res"] = init_residuals(params)
     del params
+    if mesh is not None:
+        state = _shard(state, state_shardings(state, mesh), mesh)
+    if args.compress_grads:
+        residuals["res"] = init_residuals(state["params"])
     start = 0
     ckpt = AsyncCheckpointer(args.ckpt_dir, keep=3) if args.ckpt_dir else None
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
@@ -113,18 +208,22 @@ def main(argv=None, cfg_override=None):
     losses = []
 
     def step_fn(state, step):
-        batch = {"tokens": torch.from_numpy(
-            data.batch(step, args.batch)).to(device)}
+        batch = {"tokens": data.load(step, args.batch)}
         if cfg.frontend:
             batch["frontend_embeds"] = torch.zeros(
                 (args.batch, cfg.frontend_tokens, cfg.frontend_dim),
                 dtype=getattr(torch, cfg.dtype), device=device)
-        state, metrics = train_step(state, batch)
-        loss = float(metrics["loss"])
+            if mesh is not None:
+                fe = {"fe": batch["frontend_embeds"]}
+                batch["frontend_embeds"] = _shard(
+                    fe, batch_shardings(fe, mesh), mesh)["fe"]
+        with _on_mesh(mesh):
+            state, metrics = train_step(state, batch)
+        loss = _value(metrics["loss"])
         losses.append(loss)
         if step % args.log_every == 0:
             log.info("step %d loss %.4f grad_norm %.3f", step, loss,
-                     float(metrics["grad_norm"]))
+                     _value(metrics["grad_norm"]))
         return state, {"loss": loss}
 
     if ckpt:

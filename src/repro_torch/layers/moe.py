@@ -10,10 +10,19 @@ Two dispatches, as the reference has them:
 * ``balanced``, the reference's dry-run dispatch: copy i goes to slot
   i // E of expert i % E whatever the router says, combined with the
   router's weights. On a mesh its dispatch buffer and outputs are pinned
-  as the reference pins them (``sharding/constraints.py``) and DTensor
-  propagates the expert GEMMs over the expert-sharded weights; the
-  reference's expert-parallel ``shard_map`` (``_expert_ffn_ep``) is not
-  ported yet.
+  as the reference pins them (``sharding/constraints.py``), each rank
+  padding its own copies so that each meets the expert it meets off a
+  mesh (``sharding/regions.py:pad_rows``), and the expert GEMMs run
+  expert-parallel (``_expert_ffn_ep``, the reference's ``shard_map``):
+  the (C, E, d) buffer enters with C over the DP axes and E over 'model',
+  each rank's experts' weights are gathered over the DP axes inside the
+  region, and their gradients leave it as a reduce-scatter.
+
+On a mesh ``moe_apply`` gathers its own weights over the DP axes
+(``gather_fsdp``; a block leaves its MoE FFN to it,
+``models/blocks.py:gather_block``): the router and the dense residual
+before routing, the expert stacks at use, after it (``scatter``) or inside
+the expert-parallel region (``balanced``).
 
 ``moe_ref`` is the dense oracle: every expert on every token, a masked
 combine.
@@ -37,10 +46,18 @@ import torch.nn.functional as F
 
 from repro_torch.layers.common import activation_fn, dense_init
 from repro_torch.layers.mlp import GATED, mlp_apply, mlp_init
-from repro_torch.sharding.constraints import constrain
-from repro_torch.sharding.regions import pad_rows, scatter_rows, take_rows
+from repro_torch.sharding.constraints import constrain, gather_fsdp
+from repro_torch.sharding.regions import (
+    is_dtensor,
+    pad_rows,
+    run_local,
+    scatter_rows,
+    take_rows,
+    unpad_rows,
+)
 
 IMPLS = ("scatter", "balanced")
+STACKS = ("w_up", "w_gate", "w_down")
 
 
 def moe_init(cfg, dtype, generator, device):
@@ -107,14 +124,69 @@ def _expert_ffn(params, xe, activation):
     return torch.bmm(up, params["w_down"])
 
 
+def _gather(t, mesh, axes, dim):
+    """A rank's local ``t`` gathered over the mesh ``axes`` along ``dim``
+    (tiled, major axis first); its gradient a reduce-scatter back."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    sub = mesh[axes]
+    d = DTensor.from_local(t, sub, [Shard(dim)] * len(axes),
+                           run_check=False)
+    return d.redistribute(sub, [Replicate()] * len(axes)).to_local(
+        grad_placements=[Partial()] * len(axes))
+
+
+def _expert_ffn_ep(params, xe, activation):
+    """xe (C, E, d) -> (C, E, d), expert-parallel (the reference's
+    ``_expert_ffn_ep``): over a DTensor the (C, E, d) buffer enters a
+    per-shard region with C over the DP axes and E over 'model', and the
+    expert weights with their experts over 'model' and d over the DP axes
+    (FSDP), gathered over the DP axes inside the region: the gradient of
+    that gather is the reduce-scatter of the weight gradients. Off a mesh
+    the plain expert GEMMs."""
+    if not is_dtensor(xe):
+        return _expert_ffn(params, xe.transpose(0, 1),
+                           activation).transpose(0, 1)
+    mesh = xe.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    n_dp = 1
+    for a in dp:
+        n_dp *= sizes[a]
+    C, E, d = xe.shape
+    ep = "model" if "model" in sizes and E % sizes["model"] == 0 else None
+    cd = dp if dp and C % n_dp == 0 else None
+    fs = dp if dp and d % n_dp == 0 else None
+    act = activation_fn(activation)
+
+    def local(wu, wg, wd, xl):
+        if fs:
+            wu, wg = _gather(wu, mesh, fs, 1), _gather(wg, mesh, fs, 1)
+            wd = _gather(wd, mesh, fs, 2)
+        xt = xl.transpose(0, 1)                    # (E_l, C_l, d)
+        up = act(torch.bmm(xt, wg)) * torch.bmm(xt, wu)
+        return torch.bmm(up, wd).transpose(0, 1)
+
+    x_spec = (cd, ep, None)
+    return run_local(local, (params["w_up"], params["w_gate"],
+                             params["w_down"], xe),
+                     ((ep, fs, None), (ep, fs, None), (ep, None, fs),
+                      x_spec), x_spec, mesh)
+
+
 def moe_apply(params, x, cfg, *, impl="scatter"):
     """x (B, S, d) -> (B, S, d)."""
     m = cfg.moe
     B, S, D = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
     x2 = x.reshape(T, D)
+    # the router and dense weights gathered now, the expert stacks at use
+    params = {**gather_fsdp({k: v for k, v in params.items()
+                             if k not in STACKS}),
+              **{k: params[k] for k in STACKS}}
     top_w, top_ids = route(params, x2, m)
     if impl == "scatter":
+        params = gather_fsdp(params)
         C = capacity(T, m)
         flat_ids = top_ids.reshape(-1)
         pos, keep = dispatch(top_ids, E, C)
@@ -124,7 +196,7 @@ def moe_apply(params, x, cfg, *, impl="scatter"):
         # to slot (e, C - 1) for it, which leaves that slot as it is)
         slot = torch.where(keep, flat_ids * C + pos, E * C)
         buf = x2.new_zeros((E * C + 1, D))
-        scatter_rows(buf, slot, take_rows(x2, tok))
+        buf = scatter_rows(buf, slot, take_rows(x2, tok))
         ye = _expert_ffn(params, buf[:E * C].view(E, C, D), cfg.activation)
         rows = flat_ids * C + torch.where(keep, pos, 0)
         g = take_rows(ye.reshape(E * C, D), rows)
@@ -138,12 +210,12 @@ def moe_apply(params, x, cfg, *, impl="scatter"):
         C = -(-T * k // E)
         C = -(-C // 512) * 512
         xr = x2[:, None, :].expand(T, k, D).reshape(T * k, D)
-        xr = pad_rows(xr, E * C)      # on a mesh each rank its own rows
+        xr = pad_rows(xr, E * C, E)   # on a mesh each rank its own rows
         xe = constrain(xr.reshape(C, E, D), "batch", "model", None)
-        ye = _expert_ffn(params, xe.transpose(0, 1),          # (E, C, d)
-                         cfg.activation).transpose(0, 1)
+        ye = _expert_ffn_ep(params, xe, cfg.activation)
         ye = constrain(ye, "batch", "model", None)
-        yr = constrain(ye.reshape(C * E, D), "batch", None)[:T * k]
+        yr = unpad_rows(constrain(ye.reshape(C * E, D), "batch", None),
+                        T * k, E)
         yr = constrain(yr, "batch", None).reshape(T, k, D)
         # combined into the model dtype with the weights in it, as the
         # reference's einsum does (float32 sums, one rounding)

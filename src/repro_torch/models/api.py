@@ -70,13 +70,10 @@ from repro_torch.models.blocks import (
     block_paged_prefill,
     block_prefill,
     ffn,
+    gather_block,
     norm_fn,
 )
-from repro_torch.sharding.constraints import (
-    constrain,
-    gather_fsdp,
-    model_axis_size,
-)
+from repro_torch.sharding.constraints import constrain, model_axis_size
 from repro_torch.sharding.regions import gather_last
 
 
@@ -150,13 +147,10 @@ def _boundary(x, cfg):
     return constrain(x, "batch", "model" if seq_par else None, None)
 
 
-def _gathered(fn):
+def _gathered(fn, cfg):
     """``fn(p, ...)`` on the layer's weights gathered over the DP axes
-    (``gather_fsdp``; the weights themselves off a mesh)."""
-    return lambda p, *args, **kw: fn(gather_fsdp(p), *args, **kw)
-
-
-_block_apply = _gathered(block_apply)
+    (``gather_block``; the weights themselves off a mesh)."""
+    return lambda p, *args, **kw: fn(gather_block(p, cfg), *args, **kw)
 
 
 def _run_stack(layers, kinds, x, cfg, moe_impl, causal=True):
@@ -164,7 +158,8 @@ def _run_stack(layers, kinds, x, cfg, moe_impl, causal=True):
     block-boundary constraints."""
     for p, kind in zip(layers, kinds):
         x = _boundary(x, cfg)
-        x = _run(_block_apply, cfg, p, x, cfg, kind, moe_impl, causal=causal)
+        x = _run(_gathered(block_apply, cfg), cfg, p, x, cfg, kind,
+                 moe_impl, causal=causal)
         x = _boundary(x, cfg)
     return x
 
@@ -204,8 +199,8 @@ def forward(params, batch, cfg, *, moe_impl="scatter"):
     if cfg.encoder_layers:
         enc_out = encode(params, batch["frontend_embeds"], cfg, moe_impl)
         for p in params["dec_layers"]:
-            x = _run(_gathered(_dec_block_apply), cfg, p, x, enc_out, cfg,
-                     moe_impl)
+            x = _run(_gathered(_dec_block_apply, cfg), cfg, p, x, enc_out,
+                     cfg, moe_impl)
     else:
         if cfg.frontend and "frontend_embeds" in batch:
             fe = (batch["frontend_embeds"].to(_dtype(cfg.dtype))
@@ -346,7 +341,7 @@ def _decode_step_encdec(params, state, x, lengths, cfg):
     norm = norm_fn(cfg)
     for p, cache, kv in zip(params["dec_layers"], state["caches"],
                             state["cross_kv"]):
-        p = gather_fsdp(p)
+        p = gather_block(p, cfg)
         _, h = attn_decode_step(p["mix"], cache, norm(p["norm_mix"], x), cfg,
                                 lengths)
         x = x + h
@@ -371,7 +366,7 @@ def decode_step(params, state, tokens1, lengths, cfg):
         index = b * S + torch.clamp(lengths.to(torch.int64), 0, S - 1)
     for p, cache, kind in zip(params["layers"], state["caches"],
                               cfg.pattern_for()):
-        _, x = block_decode_step(gather_fsdp(p), cache, x, cfg, kind,
+        _, x = block_decode_step(gather_block(p, cfg), cache, x, cfg, kind,
                                  lengths, index)
     x = norm_fn(cfg)(params["final_norm"], x)
     return logits_apply(params["embed"], x, cfg), state

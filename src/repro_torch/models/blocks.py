@@ -59,6 +59,7 @@ from repro_torch.layers.xlstm import (
     slstm_init_cache,
     slstm_prefill_step,
 )
+from repro_torch.sharding.constraints import gather_fsdp
 
 KINDS = ("attn", "rglru", "mlstm", "slstm")
 
@@ -113,6 +114,16 @@ def block_init(cfg, kind, dtype, generator, device):
                     mlp_init(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
                              generator, device))
     return p
+
+
+def gather_block(params, cfg):
+    """A block's weights gathered over the DP axes on a mesh
+    (``gather_fsdp``), but for an MoE FFN's, which ``moe_apply`` gathers
+    itself."""
+    if not (cfg.moe and "ffn" in params):
+        return gather_fsdp(params)
+    rest = gather_fsdp({k: v for k, v in params.items() if k != "ffn"})
+    return {**rest, "ffn": params["ffn"]}
 
 
 def ffn(params, x, cfg, moe_impl="scatter"):

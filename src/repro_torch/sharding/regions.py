@@ -6,17 +6,21 @@ An attention kernel takes plain tensors, so over DTensors each call runs
 per shard: ``run_local`` redistributes its operands to the placements the
 call needs (the collective the op counter sees), runs the wrapper on each
 rank's local tensors and wraps the outputs back; both conversions are
-differentiable, so a train step's backward runs per shard too.
+differentiable, so a train step's backward runs per shard too. An operand
+replicated over a mesh axis on which the outputs are split is used
+differently by each rank there, so its gradient leaves the region as a
+partial sum over that axis (``to_local(grad_placements=...)``), which
+the redistribution's backward reduces: the reference's ``shard_map``
+transposes an unmapped input so.
 
 * ``sharded_attention`` (the full-sequence flash call) shards the batch
   over the DP axes and, as the reference's ``flash_jnp`` does, the first
   of (kv-heads, head group, queries) that the 'model' axis divides: with
   the kv-heads q and K/V split together; with the group q's heads split
   and each rank reads the one KV head its heads share; with the queries
-  q's rows split against the whole K/V. A causal call split on its
-  queries needs a query offset the flash kernel does not take, so it runs
-  on ``meta`` only (the dry run), where the analytic cost ignores the mask
-  anyway.
+  q's rows split against the whole K/V, each rank's call at the query
+  offset of its first row (``q_offset``), so a causal mask is the whole
+  call's.
 * ``sharded_decode`` (the contiguous decode call) follows the cache's
   layout (``sharding/rules.py:decode_state_shardings``): kv-heads over
   'model' split q's heads with them; a sequence-split (SP) cache runs the
@@ -29,10 +33,11 @@ differentiable, so a train step's backward runs per shard too.
   writes its rows' slot, clamped into its shard (on an SP cache only the
   owner's write is the token's; on ``meta`` each rank's write is priced).
 * ``pad_rows`` pads a DTensor's rows (dim 0) with zeros to a total, each
-  rank its own shard to its share (the MoE ``balanced`` dispatch buffer:
-  its padding copies go to other slots than one pad at the end gives, at
-  the same cost; DTensor would gather the rows whole to pad them, and
-  torch 2.11 cannot pad a DTensor at all), and ``scatter_rows`` is
+  rank its own shard to its share, its rows kept at their global index
+  modulo a period (the MoE ``balanced`` dispatch buffer: each copy meets
+  the expert it meets off a mesh; DTensor would gather the rows whole to
+  pad them, and torch 2.11 cannot pad a DTensor at all), ``unpad_rows``
+  takes them back, and ``scatter_rows`` is
   ``buf[index] = rows`` on DTensors, the small operands gathered and each
   rank writing its copy (torch 2.11 has no strategy for the index-put).
 * ``pad``, ``take_rows`` and ``cummax`` run ``F.pad``, ``src[index]``
@@ -53,7 +58,8 @@ operands), so the layers call them on any tensor and a CPU or card path
 is unchanged bit for bit.
 
 Under the fake process group every rank is rank 0: its shard is the one
-simulated.
+simulated; over a real process group (``launch/train.py`` on a mesh) each
+rank runs its own.
 """
 from __future__ import annotations
 
@@ -86,19 +92,41 @@ def _coord(mesh, axis) -> int:
     return mesh.get_local_rank(axis)
 
 
+def to_local(x, varying):
+    """The DTensor ``x``'s local tensor inside a region whose outputs are
+    split over the mesh dims ``varying``: its gradient is a partial sum
+    over those of them it is replicated on."""
+    from torch.distributed.tensor import Partial
+
+    grad = tuple(Partial() if m in varying and p.is_replicate() else p
+                 for m, p in enumerate(x.placements))
+    return x.to_local(grad_placements=grad)
+
+
+def _axis_names(spec):
+    """Every axis name in a spec, or in a tuple of specs."""
+    if isinstance(spec, str):
+        yield spec
+    elif isinstance(spec, tuple):
+        for s in spec:
+            yield from _axis_names(s)
+
+
 def run_local(fn, args, in_specs, out_specs, mesh):
     """``fn`` on each rank's shards of ``args`` (each DTensor redistributed
     to its spec, a plain tensor passed as it is) -> DTensors of
     ``out_specs`` (one spec, or a tuple of them for a tuple of outputs)."""
     from torch.distributed.tensor import DTensor
 
+    names = list(mesh.mesh_dim_names)
+    varying = {names.index(a) for a in _axis_names(out_specs)}
     local = []
     for a, spec in zip(args, in_specs):
         if is_dtensor(a):
             want = placements(spec, mesh)
             if tuple(a.placements) != want:
                 a = a.redistribute(mesh, want)
-            a = a.to_local()
+            a = to_local(a, varying)
         local.append(a)
     out = fn(*local)
 
@@ -111,7 +139,7 @@ def run_local(fn, args, in_specs, out_specs, mesh):
     return wrap(out, out_specs)
 
 
-def sharded_attention(q, k, v, run, *, causal):
+def sharded_attention(q, k, v, run):
     """``run(q, k, v)`` (the flash call on plain tensors) over DTensors q
     (B, H, Sq, D), k and v (B, Hkv, Sk, D)."""
     if not is_dtensor(q):
@@ -133,10 +161,9 @@ def sharded_attention(q, k, v, run, *, causal):
         if tp == "group":     # this rank's heads share one KV head
             kv0 = _coord(mesh, "model") * ql.shape[1] // G
             kl, vl = kl[:, kv0:kv0 + 1], vl[:, kv0:kv0 + 1]
-        if tp == "queries" and causal and ql.device.type != "meta":
-            raise NotImplementedError(
-                "a causal flash call split on its queries needs a query "
-                "offset the kernel does not take; it runs on meta only")
+        if tp == "queries":   # this rank's rows start at its offset
+            return run(ql, kl, vl,
+                       q_offset=_coord(mesh, "model") * ql.shape[2])
         return run(ql, kl, vl)
 
     return run_local(local, (q, k, v), (q_spec, kv_spec, kv_spec), q_spec,
@@ -236,8 +263,10 @@ def gather_last(x, index):
 
 
 def vocab_lookup(table, tokens):
-    """``F.embedding(tokens, table)`` over a DTensor ``table`` (V, d)
-    whose vocab may be split over mesh axes, summed over them."""
+    """``table[tokens]`` over a DTensor ``table`` (V, d) whose vocab may
+    be split over mesh axes, summed over them; each rank indexes its shard
+    as a plain table is indexed, so the gradient accumulates in the same
+    order (``F.embedding``'s backward sums its rows in another)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     if not is_dtensor(table):
@@ -246,15 +275,14 @@ def vocab_lookup(table, tokens):
     names = list(mesh.mesh_dim_names)
     split = [i for i, p in enumerate(table.placements)
              if p.is_shard() and p.dim == 0]
-    tl = table.to_local()
     tok_pl = tuple(Replicate() if i in split else p
                    for i, p in enumerate(tokens.placements))
+    tl = to_local(table, {i for i, p in enumerate(tok_pl) if p.is_shard()})
     j = tokens.redistribute(mesh, tok_pl).to_local().to(torch.int64)
     for i in split:     # this rank's first vocab id (one split axis)
         j = j - _coord(mesh, names[i]) * tl.shape[0]
     inside = (j >= 0) & (j < tl.shape[0])
-    rows = torch.nn.functional.embedding(
-        torch.clamp(j, 0, tl.shape[0] - 1), tl)
+    rows = tl[torch.clamp(j, 0, tl.shape[0] - 1)]
     rows = torch.where(inside[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
     out = DTensor.from_local(rows, mesh, tuple(
@@ -263,32 +291,75 @@ def vocab_lookup(table, tokens):
     return out.redistribute(mesh, tok_pl)
 
 
-def pad_rows(x, total):
-    """Zero rows after each rank's shard of the DTensor ``x`` (R, ...),
-    so that the rows number ``total``, split as x's are."""
+def _row_split(x):
+    """(shards, this rank's index among them) of a DTensor's dim 0, the
+    split's mesh dims major first."""
+    mesh = x.device_mesh
+    sizes = mesh_axes(mesh)
+    n, i = 1, 0
+    for name, p in zip(mesh.mesh_dim_names, x.placements):
+        if p.is_shard() and p.dim == 0:
+            n, i = n * sizes[name], i * sizes[name] + _coord(mesh, name)
+    return n, i
+
+
+def _shift(i, rows, per, period):
+    """The zero rows before shard ``i``'s ``rows`` rows in its padded
+    share of ``per`` rows, so that its row j, global row ``i * rows + j``
+    unpadded, lands on global row ``i * per + shift + j`` of the same
+    residue modulo ``period``."""
+    return i * (rows - per) % period
+
+
+def pad_rows(x, total, period=1):
+    """``x`` (R, ...) with zero rows after it, so that the rows number
+    ``total``. On a DTensor split on its rows each rank pads its own shard
+    to its share of ``total``, with zero rows before its rows too where
+    that keeps every row's global index modulo ``period`` (the MoE
+    ``balanced`` dispatch: copy i goes to expert i % E, as off a mesh),
+    whether or not a share is a multiple of ``period``; no rank moves a
+    row (DTensor would gather them whole, and torch 2.11 cannot pad a
+    DTensor at all)."""
     from torch.distributed.tensor import DTensor
 
     if not is_dtensor(x):
         return torch.nn.functional.pad(
             x, (0, 0) * (x.dim() - 1) + (0, total - x.shape[0]))
-    mesh = x.device_mesh
-    names = list(mesh.mesh_dim_names)
-    n = 1
-    for i, p in enumerate(x.placements):
-        if p.is_shard() and p.dim == 0:
-            n *= mesh_axes(mesh)[names[i]]
-    if total % n:
-        raise ValueError(f"{total} rows do not split over {n} shards")
-    xl = x.to_local()
-    pad = total // n - xl.shape[0]
-    xl = torch.nn.functional.pad(xl, (0, 0) * (xl.dim() - 1) + (0, pad))
-    return DTensor.from_local(xl, mesh, x.placements, run_check=False)
+    n, i = _row_split(x)
+    if total % n or x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} or {total} rows do not split over "
+                         f"{n} shards")
+    rows, per = x.shape[0] // n, total // n
+    shift = _shift(i, rows, per, period)
+    if shift + rows > per:
+        raise ValueError(f"a shard of {per} rows cannot hold {rows} rows "
+                         f"after {shift} zero rows")
+    xl = torch.nn.functional.pad(x.to_local(), (0, 0) * (x.dim() - 1)
+                                 + (shift, per - shift - rows))
+    return DTensor.from_local(xl, x.device_mesh, x.placements,
+                              run_check=False)
+
+
+def unpad_rows(y, rows, period=1):
+    """The inverse of ``pad_rows``: the ``rows`` rows of ``y`` that
+    ``pad_rows(x, y.shape[0], period)`` took from an ``x`` of ``rows``
+    rows split as ``y`` is."""
+    from torch.distributed.tensor import DTensor
+
+    if not is_dtensor(y):
+        return y[:rows]
+    n, i = _row_split(y)
+    shift = _shift(i, rows // n, y.shape[0] // n, period)
+    return DTensor.from_local(y.to_local()[shift:shift + rows // n],
+                              y.device_mesh, y.placements, run_check=False)
 
 
 def scatter_rows(buf, index, rows):
-    """``buf[index] = rows`` in place on a DTensor ``buf``: ``index`` and
-    ``rows`` gathered whole, each rank writing its copy. Returns buf."""
-    from torch.distributed.tensor import Replicate
+    """``buf[index] = rows``, returning the written buffer: ``buf`` itself
+    on a plain tensor; on a DTensor ``buf`` a new one, ``index`` and
+    ``rows`` gathered whole and each rank writing its copy out of place,
+    so that the rows' gradient flows through it."""
+    from torch.distributed.tensor import DTensor, Replicate
 
     if not is_dtensor(buf):
         buf[index] = rows
@@ -298,8 +369,8 @@ def scatter_rows(buf, index, rows):
     if tuple(buf.placements) != whole:
         raise ValueError("scatter_rows writes a replicated buffer")
     il, rl = (t.redistribute(mesh, whole).to_local() for t in (index, rows))
-    buf.to_local()[il] = rl.to(buf.dtype)
-    return buf
+    out = buf.to_local().index_put((il,), rl.to(buf.dtype))
+    return DTensor.from_local(out, mesh, whole, run_check=False)
 
 
 def _whole(x, dims):
@@ -351,7 +422,8 @@ def take_rows(src, index):
     if not is_dtensor(index):
         index = DTensor.from_local(index, src.device_mesh, whole,
                                    run_check=False)
-    rows = src.to_local()[index.to_local()]
+    rows = to_local(src, {i for i, p in enumerate(index.placements)
+                          if p.is_shard()})[index.to_local()]
     return DTensor.from_local(rows, src.device_mesh, index.placements,
                               run_check=False)
 

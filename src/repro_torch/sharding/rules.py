@@ -178,6 +178,38 @@ def local_shape(shape, spec, mesh) -> tuple:
                  for d, axes in zip(shape, spec))
 
 
+def local_slices(shape, placements, mesh) -> tuple:
+    """This rank's slice of each dim of a ``shape`` tensor laid out by the
+    DTensor ``placements`` on ``mesh``: DTensor's even split, a dim split
+    over several mesh dims split major first."""
+    n, i = [1] * len(shape), [0] * len(shape)
+    for m, p in enumerate(placements):
+        if p.is_shard():
+            size = mesh.size(m)
+            n[p.dim] *= size
+            i[p.dim] = i[p.dim] * size + mesh.get_local_rank(m)
+    out = []
+    for d, size in enumerate(shape):
+        if size % n[d]:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"evenly over {n[d]} shards")
+        k = size // n[d]
+        out.append(slice(i[d] * k, (i[d] + 1) * k))
+    return tuple(out)
+
+
+def shard_local(t, spec, mesh):
+    """The DTensor of ``t``, a tensor every rank holds whole, laid out by
+    ``spec`` on ``mesh``: each rank keeps its slice, nothing is sent."""
+    from torch.distributed.tensor import DTensor
+
+    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+    pl = placements(spec, mesh)
+    return DTensor.from_local(t[local_slices(t.shape, pl, mesh)].contiguous(),
+                              mesh, pl, run_check=False, shape=t.shape,
+                              stride=_contiguous_stride(t.shape))
+
+
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """One leaf's spec, as the ``*_shardings`` trees hold it (a spec is a

@@ -35,7 +35,8 @@ plain route on the card against the CPU, and the smoke configs of
 llava-next-34b and seamless-m4t-medium through the kernels against the
 plain versions. Training: flash at head dims 96, 112 and 256, and one
 train step of every arch's smoke config through the kernel against one
-through the plain version.
+through the plain version; flash at a query offset (a rank's rows of a
+query-split call) against the whole call's rows and the plain version.
 """
 import sys
 from pathlib import Path
@@ -76,6 +77,7 @@ from repro_torch.kernels.checks import (  # noqa: E402
 )
 from repro_torch.core.attention import decode_one_pass  # noqa: E402
 from repro_torch.kernels.expmul.ops import merged_output_update  # noqa: E402
+from repro_torch.kernels.flash.ops import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash.tile import fma_chain  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models.api import init_model  # noqa: E402
@@ -467,6 +469,44 @@ def test_flash_kernel_layout_edges_match_plain(cuda, S, D, group, variant,
             assert got.dtype == dtype and got.shape == ref.shape
             assert rel_err(got, ref) <= kernel_tol(variant, dtype), \
                 (label, dyadic)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 112, 256])
+@pytest.mark.parametrize("window", [None, 48], ids=["causal", "window"])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_query_offset(cuda, D, window, variant, dtype):
+    """The flash kernel on rows a: of a causal call at ``q_offset=a``
+    (a rank's rows of a query-split call): equal bit for bit to rows a:
+    of the whole call at a = 128 and 256 (multiples of the 128-row query
+    block), and within ``kernel_tol`` of the plain version at the same
+    offset at a = 100 and 200, Sq = Sk = 384, GQA 6 / 2, tiles of 128."""
+    rng = np.random.default_rng(D + 7)
+    case = flash_case(rng, B=2, H=6, Hkv=2, Sq=384, Sk=384, D=D, dtype=dtype,
+                      dyadic=False, causal=True, window=window, block_k=128,
+                      device=cuda)
+    q, k, v = case["q"], case["k"], case["v"]
+
+    def call(a, plain=False):
+        return flash_attention_fwd(q[:, :, a:].contiguous(), k, v,
+                                   causal=True, window=window,
+                                   variant=variant, block_k=128, q_offset=a,
+                                   plain=plain)
+
+    whole = call(0)
+    for a in (128, 256):
+        before = build.COUNTS["flash"]
+        got = call(a)
+        torch.cuda.synchronize()
+        assert build.COUNTS["flash"] == before + 1
+        assert torch.equal(got, whole[:, :, a:]), a
+    for a in (100, 200):
+        got, ref = call(a), call(a, plain=True)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert rel_err(got, ref) <= kernel_tol(variant, dtype), a
 
 
 @pytest.mark.cuda
