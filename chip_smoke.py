@@ -183,6 +183,25 @@ ones alone, in this order, and prints no kernels line and no result):
    beside their values before the paged kernels' redesign. The paged
    graph run is served once more, with the engine's dispatch counters off
    (streams gated equal), its tick p50s beside the first run's (on);
+4m. "registry": the attention registry's gather-then-kernel paged routes
+   (``gather_pallas``: the history gathered into logical order, then the
+   contiguous kernels #3 and #4) at the serving shapes (8 x 1,024, 14 / 2
+   heads of 64, page 16, chunk 256, bf16 q; bf16 and int8 pools, dyadic
+   and random, exact and ExpMul): prefill at ``block_k`` 16 and decode at
+   ``decode_block_k`` 16 and 256 against the plain versions of their
+   routes, the fused paged kernels (#1, #2) against theirs, and the two
+   routes against each other at the same tiles, all at
+   ``checks.kernel_tol`` (a random int8 pool under ExpMul, where the route
+   dequantizes before the score product and the fused kernels after it:
+   the kernels' gap less the plain versions' gap, at twice the tol, both
+   printed), only the contiguous kernels launched; each route's device ms
+   beside the fused kernel's;
+   phase 4's paged int8 traffic under graphs at ``attention_paged_impl=
+   "gather_pallas"`` (the contiguous pair alone, one launch a tick in each
+   layer) and at ``attention_impl="flash_jnp"`` (the one-pass routes, no
+   kernel), tokens/s, tick p50s and ``stream_match_rate`` against phase
+   4's fused streams (not gated); the resolved backends of the
+   ``kernel``, ``pallas``, ``flash_jnp`` and ``gather_pallas`` configs;
 4b. the shared-prefix cache at full width, every tick replaying a CUDA
    graph (bf16, ExpMul, the same seed-2 weights), paged int8, pages of
    16, 8 slots, ``max_len`` 2048,
@@ -522,6 +541,10 @@ BEFORE_MS = {
 # final tree's run, TTFT p50 (ms) of an earlier run of that change
 BEFORE_SERVE = {"paged/int8": (254.2, 988.6), "contiguous/fp32": (273.4, 1089.4),
                 "contiguous/int8": (227.3, 1202.2)}
+
+
+# phase 4's temp-0 streams by layout (graph runs), for phase "registry"
+SERVE_STREAMS = {}
 
 
 def log(msg):
@@ -1765,7 +1788,7 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
         if out != eager_out:
             raise AssertionError(f"{label}: the graph engine's streams differ "
                                  f"from the eager engine's")
-        streams[label] = out
+        streams[label] = SERVE_STREAMS[label] = out
         sink_on = g if label == "paged/int8" else sink_on
         gg = g["graphs"]
         log(f"[serve] {label}, graphs / eager: tokens/s "
@@ -1815,6 +1838,244 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def _registry_gates(torch, checks, build, flush):
+    """The gather-then-kernel paged routes (``gather_pallas``: the history
+    gathered into logical order, then the contiguous kernels) at qwen2-0.5b's
+    serving shapes: each route's kernels against the plain version of the
+    same route on the same inputs (prefill ``block_k`` = decode
+    ``decode_block_k`` = the page, and the decode at the default 256-wide
+    tiles), the fused paged kernels against their plain versions, and the
+    two routes against each other at the same tiles; then each route's
+    device ms beside the fused kernel's.
+
+    A random int8 pool under ExpMul is the one case where the two routes
+    take different arithmetic: the gather route dequantizes the codes
+    before the score product, the fused kernels after it, so a score may
+    move by an ulp across a Log2Exp step. There the pair is held through
+    the plain versions: the kernels' difference must be the plain
+    versions' difference, within twice ``checks.kernel_tol``, and both
+    are printed (the witness that the gap is the arithmetic order)."""
+    from repro_torch.kernels.decode.ops import paged_decode_attention
+    from repro_torch.kernels.flash.ops import paged_prefill_attention
+    from repro_torch.kernels.paged import slot_rows
+    from repro_torch.kernels.registry import (
+        AttentionSpec,
+        dispatch_paged_decode,
+        dispatch_paged_prefill,
+    )
+    from repro_torch.numerics.quant import QuantKV
+
+    common = dict(B=B, H=H, Hkv=HKV, D=D, page_size=PS,
+                  max_blocks=MAX_LEN // PS, q_dtype=torch.bfloat16,
+                  device="cuda")
+    lens, nv = [CTX] * B, [CHUNK] * B
+
+    def kv_ops(case, k, v, ks, vs):
+        if case["quant"]:
+            return QuantKV(case[k], case[ks]), QuantKV(case[v], case[vs])
+        return case[k], case[v]
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    out, times = {}, {}
+    for kv, dyadic in (("bf16", True), ("int8", True), ("bf16", False),
+                       ("int8", False)):
+        rng = np.random.default_rng(31)
+        dec = checks.paged_case(rng, kv=kv, lengths=lens, dyadic=dyadic,
+                                **common)
+        pre = checks.paged_case(rng, kv=kv, lengths=lens, n_valid=nv,
+                                chunk=CHUNK, dyadic=dyadic, **common)
+        kv_dtype = "int8" if kv == "int8" else "fp32"
+        data = "dyadic" if dyadic else "random"
+        pre_ops = (kv_ops(pre, "kn", "vn", "ksn", "vsn")
+                   + kv_ops(pre, "k_pool", "v_pool", "ks_pool", "vs_pool"))
+        dec_ops = kv_ops(dec, "k_pool", "v_pool", "ks_pool", "vs_pool")
+        for variant in ("exact", "expmul"):
+            spec = AttentionSpec(paged_impl="gather_pallas", variant=variant,
+                                 kv_dtype=kv_dtype, decode_block_k=PS)
+
+            def g_pre():
+                return dispatch_paged_prefill(
+                    spec, pre["q"], *pre_ops, None, lengths=pre["lengths"],
+                    n_valid=pre["n_valid"], block_tables=pre["block_tables"],
+                    page_size=PS)
+
+            def g_dec(bk=PS):
+                return dispatch_paged_decode(
+                    spec.replace(decode_block_k=bk), dec["q"], *dec_ops,
+                    None, dec["lengths"], block_tables=dec["block_tables"],
+                    page_size=PS)
+
+            def p_pre():    # the route's plain version, the same operands
+                return paged_prefill_attention(
+                    pre["q"], *pre_ops, slot_rows(pre["block_tables"], PS),
+                    pre["lengths"], pre["n_valid"], variant=variant,
+                    block_k=PS, plain=True, kv_dtype=kv_dtype)
+
+            def p_dec(bk=PS):
+                return paged_decode_attention(
+                    dec["q"], *dec_ops, slot_rows(dec["block_tables"], PS),
+                    dec["lengths"], variant=variant, block_k=bk, plain=True,
+                    kv_dtype=kv_dtype)
+
+            build.reset_counts()
+            got = {"paged_prefill": g_pre(), "paged_decode": g_dec(),
+                   "decode_256": g_dec(256)}
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in build.COUNTS.items() if n}
+            if counts != {"prefill": 1, "decode": 2}:
+                raise AssertionError(f"gather_pallas launched {counts}, not "
+                                     f"the contiguous kernels alone")
+            plain = {"paged_prefill": p_pre(), "paged_decode": p_dec(),
+                     "decode_256": p_dec(256)}
+            fused = {"paged_prefill": checks.run_prefill(pre, variant),
+                     "paged_decode": checks.run_decode(dec, variant)}
+            fused_plain = {
+                "paged_prefill": checks.run_prefill(pre, variant, plain=True),
+                "paged_decode": checks.run_decode(dec, variant, plain=True)}
+            torch.cuda.synchronize()
+            tol = checks.kernel_tol(variant, torch.bfloat16)
+            order = kv == "int8" and not dyadic and variant == "expmul"
+            label = f"({kv}, {data}, {variant})"
+
+            def gate(what, rel, limit):
+                if not rel <= limit:
+                    raise AssertionError(f"{what} {label}: rel {rel:.3e} over "
+                                         f"{limit:g}")
+
+            for name in got:
+                err = diff(got[name], plain[name])
+                rel = checks.rel_err(got[name], plain[name])
+                log(f"[registry] gather_pallas {name} {label} vs its plain "
+                    f"version: max abs diff {err:.3e}, rel {rel:.3e} (tol "
+                    f"{tol:g})")
+                gate(f"gather_pallas {name} vs its plain version", rel, tol)
+                rec = out[f"{name} {kv} {data} {variant}"] = dict(
+                    vs_plain=err)
+                if name not in fused:
+                    continue
+                rel_f = checks.rel_err(fused[name], fused_plain[name])
+                gate(f"the fused {name} kernel vs its plain version", rel_f,
+                     tol)
+                err = diff(got[name], fused[name])
+                rel = checks.rel_err(got[name], fused[name])
+                err_p = diff(plain[name], fused_plain[name])
+                rel_p = checks.rel_err(plain[name], fused_plain[name])
+                # the kernels' gap less the plain versions' gap
+                rel_gap = float(
+                    ((got[name].double() - fused[name].double())
+                     - (plain[name].double() - fused_plain[name].double()))
+                    .abs().max() / fused_plain[name].double().abs().max())
+                log(f"[registry] gather_pallas {name} {label} vs the fused "
+                    f"kernel: max abs diff {err:.3e}, rel {rel:.3e}; their "
+                    f"plain versions {err_p:.3e}, rel {rel_p:.3e}; kernels' "
+                    f"gap less plain gap rel {rel_gap:.3e}; fused kernel vs "
+                    f"its plain rel {rel_f:.3e} (tol {tol:g}"
+                    + (", the pair held through the plain versions at 2 x "
+                       "tol: the arithmetic order differs)" if order
+                       else ")"))
+                if order:
+                    gate(f"gather_pallas {name} vs the fused kernel, less "
+                         f"their plain versions' gap,", rel_gap, 2 * tol)
+                else:
+                    gate(f"gather_pallas {name} vs the fused kernel", rel,
+                         tol)
+                rec.update(vs_fused=err, plain_vs_fused_plain=err_p)
+            del got, plain, fused, fused_plain
+            if dyadic or variant != "expmul":
+                continue
+            routes = {"gather_pallas prefill (block_k 16)": g_pre,
+                      "fused paged_prefill": lambda: checks.run_prefill(
+                          pre, variant),
+                      "gather_pallas decode (block_k 16)": g_dec,
+                      "gather_pallas decode (block_k 256)":
+                          lambda: g_dec(256),
+                      "fused paged_decode": lambda: checks.run_decode(
+                          dec, variant)}
+            times[kv] = {r: median_ms(torch, fn, flush)
+                         for r, fn in routes.items()}
+            log(f"[registry] device ms ({kv}, ExpMul, bf16 q, {B} x {CTX} "
+                f"tokens, chunk {CHUNK}): " + "; ".join(
+                    f"{r} {ms:.4f}" for r, ms in times[kv].items()))
+        del dec, pre, pre_ops, dec_ops
+    return out, times
+
+
+def phase_registry(torch, cfg_mod, api, build, checks, ServeEngine):
+    """The registry's routes on the card: the gather-then-kernel gates
+    (``_registry_gates``); qwen2-0.5b at full width and depth served from
+    a paged int8 pool under CUDA graphs at ``attention_paged_impl=
+    "gather_pallas"`` (phase 4's 16 prompts; the contiguous decode and
+    prefill kernels must launch, once a tick in each layer, and nothing
+    else), its streams' match rate against phase 4's fused streams (not
+    gated: another kernel can flip a near-tie); the same at
+    ``attention_impl="flash_jnp"`` (the one-pass routes: no kernel); and
+    the resolved backends of four configs."""
+    from repro_torch.kernels.registry import AttentionSpec, resolved_backends
+    from repro_torch.serve.engine import stream_match_rate
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int8, device="cuda")
+    gates, times = _registry_gates(torch, checks, build, flush)
+    del flush
+    cfg = cfg_mod.get_config("qwen2-0.5b")          # bf16, ExpMul
+    for label, over in (("kernel", {}), ("pallas", dict(attention_impl=
+                                                        "pallas")),
+                        ("flash_jnp", dict(attention_impl="flash_jnp")),
+                        ("gather_pallas", dict(attention_paged_impl=
+                                               "gather_pallas"))):
+        rows = resolved_backends(AttentionSpec.from_config(
+            cfg.replace(kv_dtype="int8", **over)), paged=True)
+        log(f"[registry] resolved backends, {label} (int8): " + "; ".join(
+            f"{r['kind']}: {r['requested']} -> {r['resolved']}"
+            + (f" [{r['note']}]" if r["note"] else "") for r in rows))
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(2),
+                            device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(128, 1025, size=16)]
+    kw = dict(kv_layout="paged", page_size=PS, kv_dtype="int8", slots=B,
+              max_len=MAX_LEN, chunk_size=CHUNK, temperature=0.0,
+              device="cuda")
+    fused = SERVE_STREAMS.get("paged/int8")
+    if fused is None:     # phase 4 did not run: its fused run, once
+        *_, fused, _ = _serve_run(torch, build, ServeEngine, params, cfg,
+                                  prompts, kw, PAGED, tag="fused ")
+    counts, per_step, out, st = _serve_run(
+        torch, build, ServeEngine, params,
+        cfg.replace(attention_paged_impl="gather_pallas"), prompts, kw,
+        CONTIGUOUS, tag="gather_pallas ")
+    rate = stream_match_rate(fused, out)
+    log(f"[registry] gather_pallas paged/int8 graphs: tokens/s "
+        f"{st['tokens_per_s']:.1f}, TTFT p50 {st['ttft_p50_ms']:.1f} ms, "
+        f"tick p50 prefill {st['prefill_p50_ms']:.2f} / decode "
+        f"{st['decode_p50_ms']:.2f} ms; stream_match_rate vs the fused "
+        f"streams {rate:.4f} (not gated)")
+    # the one-pass routes read no host value: captured, or the phase fails
+    *_, fout, fst = _serve_run(torch, build, ServeEngine, params,
+                               cfg.replace(attention_impl="flash_jnp"),
+                               prompts, kw, (), tag="flash_jnp ")
+    frate = stream_match_rate(fused, fout)
+    log(f"[registry] flash_jnp paged/int8 graphs: tokens/s "
+        f"{fst['tokens_per_s']:.1f}, TTFT p50 {fst['ttft_p50_ms']:.1f} ms, "
+        f"tick p50 prefill {fst['prefill_p50_ms']:.2f} / decode "
+        f"{fst['decode_p50_ms']:.2f} ms; stream_match_rate vs the fused "
+        f"streams {frate:.4f} (not gated)")
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches={name: counts[name] for name in CONTIGUOUS},
+                launches_per_step=per_step, max_abs_diff=gates,
+                route_ms=times, gather_pallas=dict(
+                    tokens_per_s=st["tokens_per_s"],
+                    prefill_p50_ms=st["prefill_p50_ms"],
+                    decode_p50_ms=st["decode_p50_ms"],
+                    stream_match_rate=rate),
+                flash_jnp=dict(tokens_per_s=fst["tokens_per_s"],
+                               prefill_p50_ms=fst["prefill_p50_ms"],
+                               decode_p50_ms=fst["decode_p50_ms"],
+                               stream_match_rate=frate))
 
 
 def phase_gemma_serve(torch, cfg_mod, api, build, ServeEngine, arch=GEMMA,
@@ -4475,6 +4736,8 @@ def main(argv=None) -> int:
         ("llava ticks", lambda: phase_llava_ticks(torch, cfg_mod, api, build)),
         ("serve", lambda: phase_serve(torch, cfg_mod, api, build,
                                       ServeEngine)),
+        ("registry", lambda: phase_registry(torch, cfg_mod, api, build,
+                                            checks, ServeEngine)),
         ("prefix", lambda: phase_prefix(torch, cfg_mod, api, build,
                                         ServeEngine)),
         ("faults", lambda: phase_faults(torch, cfg_mod, api, build,
@@ -4559,6 +4822,14 @@ def main(argv=None) -> int:
         launches_counted_step=results["counted step"]["flash_launches"],
         launches_mesh_train=results["mesh train"]["flash"]["launches"])
     launches["expmul"] = dict(launches=results["quickstart"]["expmul"])
+    # the contiguous kernels under the gather_pallas paged routes (phase
+    # "registry"): their launches in its serving run, the routes' device ms
+    reg = results["registry"]
+    for name in CONTIGUOUS:
+        launches[name].update(
+            launches_gather_pallas=reg["launches"][name],
+            gather_pallas_per_step=reg["launches_per_step"][name],
+            gather_vs_fused_ms=reg["route_ms"])
     # the serving kernels at gemma-7b's head dim: its serving run's
     # launches, its times, each KV dtype's resources
     for name in PAGED + CONTIGUOUS:

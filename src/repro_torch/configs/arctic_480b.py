@@ -5,6 +5,8 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(
     name="arctic-480b",
+    family="moe",
+    max_seq_len=32768,
     num_layers=35,
     d_model=7168,
     num_heads=56,
@@ -20,6 +22,7 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = CONFIG.replace(
+    max_seq_len=256,
     num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
     vocab_size=256,
     moe=MoEConfig(num_experts=4, top_k=2, d_ff=32,

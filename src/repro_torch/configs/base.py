@@ -15,8 +15,14 @@ frontend's embeddings are a model input, projected to ``d_model``
 (llava-next-34b prepends them to the text, seamless-m4t-medium encodes
 them).
 
-``family`` and ``max_seq_len`` are left out: nothing of the port reads
-them. ``opt_state_dtype`` is the AdamW moments' dtype the training
+``family`` and ``max_seq_len`` carry ``repro``'s values (``zoo_table``
+reads the family). ``scan_layers`` is left out: it is XLA's ``lax.scan``
+over the layers, which changes no number. The ``attention_*`` fields feed
+``kernels.registry.AttentionSpec.from_config``: ``attention_impl`` names
+the full-sequence entry (and, at "kernel", "plain" or "pallas", the whole
+family); ``attention_decode_impl``, ``attention_prefill_impl`` and
+``attention_paged_impl`` (None: follow ``attention_impl``) name a serving
+table's entry. ``opt_state_dtype`` is the AdamW moments' dtype the training
 launcher asks for (``bfloat16`` for arctic-480b and kimi-k2-1t-a32b, as in
 ``repro``). An MLA config's attention reads its head dims from ``mla``
 alone: ``resolved_head_dim()`` (``d_model // num_heads``) is neither its
@@ -28,7 +34,9 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-ATTENTION_IMPLS = ("kernel", "plain")
+# the full-sequence names of the registry (``kernels.registry.
+# attention_impls()`` without the ``_q`` twins a quantized kv_dtype picks)
+ATTENTION_IMPLS = ("flash_jnp", "kernel", "pallas", "plain", "ref")
 
 
 @dataclass(frozen=True)
@@ -55,6 +63,7 @@ class MLAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
+    family: str = "dense"          # dense|moe|hybrid|ssm|encdec|vlm|audio
     num_layers: int = 2
     d_model: int = 256
     num_heads: int = 4
@@ -68,6 +77,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     scale_embeddings: bool = False  # gemma: embed * sqrt(d_model)
     rope_base: float = 10000.0
+    max_seq_len: int = 8192
     # hybrid patterns: the unit repeats to fill num_layers
     block_pattern: tuple[str, ...] = ("attn",)   # attn|rglru|mlstm|slstm
     window: int | None = None      # local attention window
@@ -84,14 +94,26 @@ class ModelConfig:
     frontend_tokens: int = 0
     frontend_dim: int = 0
 
-    # "kernel": the attention ticks run the hand-written CUDA kernels (their
+    # "kernel": every table runs the hand-written CUDA kernels (their
     # plain versions for CPU tensors); "plain": the plain PyTorch versions
-    # on any device, the reference the kernels are held against.
+    # on any device, the reference the kernels are held against; "pallas"
+    # runs "kernel"; "flash_jnp" and "ref": the reference's XLA routes
+    # (masked_xla / xla / gather_xla when serving), no kernel.
     attention_impl: str = "kernel"
     attention_variant: str = "expmul"      # exact | expmul  (paper default on)
-    # the full-sequence forward's KV tile width (part of an ExpMul result;
-    # the backward's blocks are the largest divisor of Sk not above it)
+    # the plain versions' query block (the CUDA kernels keep their own;
+    # neither changes a number)
+    attention_block_q: int = 128
+    # the full-sequence forward's and the contiguous prefill's KV tile
+    # width (part of an ExpMul result; the backward's blocks are the
+    # largest divisor of Sk not above it)
     attention_block_k: int = 512
+    attention_q_chunks: int = 4            # flash_jnp's causal query chunks
+    attention_decode_impl: str | None = None   # None: follows impl
+    attention_prefill_impl: str | None = None  # None: follows impl
+    # None: follows impl ("kernel" runs the fused paged kernels, the
+    # reference's names their own routes, gather_xla by default)
+    attention_paged_impl: str | None = None
 
     page_size: int = 16            # tokens per KV block
     pool_blocks: int = 0           # 0: engine fully provisions slots*max_len

@@ -4,6 +4,8 @@ from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
     name="gemma-7b",
+    family="dense",
+    max_seq_len=32768,
     num_layers=28,
     d_model=3072,
     num_heads=16,
@@ -17,6 +19,7 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = CONFIG.replace(
+    max_seq_len=256,
     num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=32,
     d_ff=128, vocab_size=256,
 )

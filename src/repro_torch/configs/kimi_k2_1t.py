@@ -12,6 +12,8 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(
     name="kimi-k2-1t-a32b",
+    family="moe",
+    max_seq_len=32768,
     num_layers=61,
     d_model=7168,
     num_heads=64,
@@ -25,6 +27,7 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = CONFIG.replace(
+    max_seq_len=256,
     num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, vocab_size=256,
     moe=MoEConfig(num_experts=8, top_k=2, d_ff=32),
 )

@@ -10,6 +10,8 @@ FRONTEND_TOKENS = 576
 
 CONFIG = ModelConfig(
     name="llava-next-34b",
+    family="vlm",
+    max_seq_len=32768,
     num_layers=60,
     d_model=7168,
     num_heads=56,
@@ -26,6 +28,7 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = CONFIG.replace(
+    max_seq_len=256,
     num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
     d_ff=128, vocab_size=256, frontend_tokens=8, frontend_dim=16,
 )

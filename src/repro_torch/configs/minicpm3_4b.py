@@ -4,6 +4,8 @@ from repro_torch.configs.base import MLAConfig, ModelConfig
 
 CONFIG = ModelConfig(
     name="minicpm3-4b",
+    family="dense",
+    max_seq_len=32768,
     num_layers=62,
     d_model=2560,
     num_heads=40,
@@ -22,6 +24,7 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = CONFIG.replace(
+    max_seq_len=256,
     num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
     vocab_size=256,
     # v_head_dim != qk dims on purpose: exercises the Dq != Dv paths

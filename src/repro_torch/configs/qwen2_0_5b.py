@@ -4,6 +4,8 @@ from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
     name="qwen2-0.5b",
+    family="dense",
+    max_seq_len=32768,
     num_layers=24,
     d_model=896,
     num_heads=14,
@@ -17,6 +19,7 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = CONFIG.replace(
+    max_seq_len=256,
     num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
     vocab_size=256,
 )

@@ -11,6 +11,8 @@ _UNIT = ("rglru", "rglru", "attn") * 4 + ("rglru",)   # 13 blocks
 
 CONFIG = ModelConfig(
     name="recurrentgemma-2b",
+    family="hybrid",
+    max_seq_len=1_048_576,
     num_layers=26,
     d_model=2560,
     num_heads=10,
@@ -28,6 +30,7 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = CONFIG.replace(
+    max_seq_len=256,
     num_layers=3, d_model=64, num_heads=4, num_kv_heads=1, head_dim=16,
     d_ff=128, vocab_size=256, lru_width=64, window=32,
     block_pattern=("rglru", "rglru", "attn"),

@@ -7,6 +7,8 @@ from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
     name="seamless-m4t-medium",
+    family="audio",
+    max_seq_len=32768,
     num_layers=12,               # per side
     encoder_layers=12,
     decoder_layers=12,
@@ -25,6 +27,7 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = CONFIG.replace(
+    max_seq_len=256,
     num_layers=2, encoder_layers=2, decoder_layers=2, d_model=64,
     num_heads=4, num_kv_heads=4, d_ff=128, vocab_size=256,
     frontend_tokens=16, frontend_dim=16,

@@ -11,6 +11,8 @@ _UNIT = ("mlstm",) * 7 + ("slstm",)   # 8-block unit x 6 = 48 layers
 
 CONFIG = ModelConfig(
     name="xlstm-1.3b",
+    family="ssm",
+    max_seq_len=1_048_576,
     num_layers=48,
     d_model=2048,
     num_heads=4,
@@ -22,5 +24,6 @@ CONFIG = ModelConfig(
 )
 
 SMOKE = CONFIG.replace(
+    max_seq_len=256,
     num_layers=8, d_model=64, num_heads=2, num_kv_heads=2, vocab_size=256,
 )

@@ -1,45 +1,89 @@
-"""Full-sequence attention of the training path, with the reference's
-recompute-and-STE backward (the port of ``repro/core/attention.py``'s
-``attention_ref``, ``flash_jnp`` and ``_pallas_attn_vjp``).
+"""Core attention of the port (``repro/core/attention.py``): the
+full-sequence path with the reference's recompute-and-STE backward
+(``attention_ref``, ``flash_ref`` = ``flash_jnp``, ``FlashAttention`` =
+``_pallas_attn_vjp``), the one-pass serving math of the reference's XLA
+routes (``prefill_attention``, ``prefill_positions``, ``decode_one_pass``),
+and the built-in entries of the backend registry
+(``kernels/registry.py``), which register on import:
 
-``attention`` runs the forward on the hand-written flash kernel
-(``kernels/flash/flash.py``; its plain version for CPU tensors) when
-``cfg.attention_impl`` is "kernel", or on the plain version on any device
-when it is "plain". Both go through ``FlashAttention``, a
-``torch.autograd.Function`` that keeps only q, k and v for the backward
-and there recomputes the output with ``flash_ref`` in differentiable
-PyTorch ops: exact arithmetic for the exact variant, and for ExpMul the
-quantized weights of ``qexp_ste`` whose gradient is that of the exact
-``e^x`` (the paper's operator is forward-only). The backward walks the
-KV tiles of ``flash_ref``, the largest divisor of Sk not above
+  full sequence   ref, flash_jnp, kernel (pallas), plain
+  prefill         masked_xla, kernel (pallas), plain
+  decode          xla, kernel (pallas), plain
+  paged prefill   gather_xla, gather_pallas, kernel (pallas), plain
+  paged decode    gather_xla, gather_pallas, kernel (pallas), plain
+
+The quantized ``_q`` twins are in ``kernels/kvquant.py``; the XLA and
+gather entries serve both, dequantizing a ``QuantKV`` operand themselves.
+
+``kernel`` runs the forward on the hand-written flash kernel
+(``kernels/flash/flash.py``; its plain version for CPU tensors), and
+``plain`` on the plain version on any device. Both go through
+``FlashAttention``, a ``torch.autograd.Function`` that keeps only q, k and
+v for the backward and there recomputes the output with ``flash_ref`` in
+differentiable PyTorch ops: exact arithmetic for the exact variant, and
+for ExpMul the quantized weights of ``qexp_ste`` whose gradient is that of
+the exact ``e^x`` (the paper's operator is forward-only). The backward
+walks the KV tiles of ``flash_ref``, the largest divisor of Sk not above
 ``block_k``, which differ from the forward's padded tiles when
-``block_k`` does not divide Sk, as in the reference.
+``block_k`` does not divide Sk, as in the reference. ``flash_jnp`` is
+``flash_ref`` itself, differentiated by autograd, with the spec's
+``use_ste`` and ``q_chunks``; ``ref`` the full softmax.
 
-On a mesh (DTensor operands, ``launch/dryrun.py``) the call runs per
-shard (``sharding/regions.py:sharded_attention``), and ``flash_ref`` pins
-its queries and online-softmax carries as the reference's ``flash_jnp``
-does (``sharding/constraints.py``; off a mesh those are the identity). On
-``meta`` operands the forward is the kernel wrapper's meta route and the
-backward is priced, not run: it records the reference's recompute, the
-forward's products once more plus the four of the gradient (dV = P^T dO,
-dP = dO V^T, dQ = dS K, dK = dS^T Q), 3x the forward's analytic FLOPs,
-and it reads q, k and v twice and dO once and writes dQ, dK and dV
-(``_price_backward``); the tile loop of ``flash_ref`` never runs there.
+On a mesh (DTensor operands, ``launch/dryrun.py``) the kernel call runs
+per shard (``sharding/regions.py:sharded_attention``), and ``flash_ref``
+pins its queries and online-softmax carries as the reference's
+``flash_jnp`` does (``sharding/constraints.py``; off a mesh those are the
+identity). On ``meta`` operands the forward is the kernel wrapper's meta
+route and the backward is priced, not run: it records the reference's
+recompute, the forward's products once more plus the four of the
+gradient (dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q), 3x the
+forward's analytic FLOPs, and it reads q, k and v twice and dO once and
+writes dQ, dK and dV (``_price_backward``); the tile loop of ``flash_ref``
+never runs there.
 
-``decode_one_pass`` is the reference's "xla" decode route
-(``_decode_xla`` and ``_masked_decode_xla``), which its cross-attention
-decode takes: plain PyTorch ops on any device, the reference's own route
-there (``repro`` reaches no ``pallas_call`` for it).
+The serving kernels' entries call the wrappers of ``kernels/flash/ops.py``
+and ``kernels/decode/ops.py``: the fused paged kernels given the block
+tables, the gather-then-kernel form (``gather_pallas``: the paged history
+copied into logical order, then the contiguous kernel) given only
+``rows``, as the reference's ``pallas`` entries do. ``gather_pallas``
+decode with a window runs ``gather_xla``: the contiguous decode kernel
+masks by length only. The XLA routes are plain PyTorch ops on any device
+(``repro`` reaches no ``pallas_call`` for them), and none reads a value
+back to the host, so a serving tick on them is capturable.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
 
 from repro_torch.kernels import costs
-from repro_torch.kernels.flash.ops import flash_attention_fwd
+from repro_torch.kernels.decode.ops import (
+    decode_attention,
+    fused_paged_decode_attention,
+    paged_decode_attention,
+)
+from repro_torch.kernels.flash.flash import BLOCK_Q
+from repro_torch.kernels.flash.ops import (
+    flash_attention_fwd,
+    fused_paged_prefill_attention,
+    paged_prefill_attention,
+    prefill_attention as _prefill_kernel,
+)
+from repro_torch.kernels.paged import gather_history, slot_rows
+from repro_torch.kernels.registry import (
+    AttentionSpec,
+    dispatch_attention,
+    register_kernel_family,
+    register_attention,
+    register_decode,
+    register_paged_decode,
+    register_paged_prefill,
+    register_prefill,
+)
 from repro_torch.numerics.log2exp import log2exp_lhat, pow2_neg, qexp_ste
+from repro_torch.numerics.quant import kv_values
 from repro_torch.sharding.constraints import constrain, model_axis_size
 from repro_torch.sharding.regions import sharded_attention
 
@@ -187,11 +231,17 @@ def flash_ref(q, k, v, *, causal=True, scale=None, window=None,
     return torch.cat(outs, dim=2).to(q.dtype)
 
 
+# the plain flash walk's query block (``spec.block_q``; it changes no
+# number), bound by the full-sequence entry around its call
+_PLAIN_BLOCK_Q = contextvars.ContextVar("plain_block_q", default=BLOCK_Q)
+
+
 class FlashAttention(torch.autograd.Function):
     """The flash forward (CUDA kernel or plain version) with the
     reference's recompute backward: ``flash_ref`` in exact arithmetic, or
     through ``qexp_ste`` for ExpMul, over ``block_k``-wide blocks; both at
-    the query offset ``q_offset``."""
+    the query offset ``q_offset``. The plain version walks query blocks of
+    the bound ``_PLAIN_BLOCK_Q``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, variant, block_k,
@@ -201,7 +251,8 @@ class FlashAttention(torch.autograd.Function):
         return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
                                    window=window, variant=variant,
                                    block_k=block_k, plain=plain,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset,
+                                   block_q=_PLAIN_BLOCK_Q.get())
 
     @staticmethod
     def backward(ctx, g):
@@ -233,38 +284,27 @@ def _price_backward(q, k, v, g):
 
 
 def attention(q, k, v, cfg, *, causal=True, window=None, scale=None):
-    """q (B, H, Sq, D), k and v (B, Hkv, Sk, D) -> (B, H, Sq, D), the
-    twin of the reference's "pallas" backend: ``cfg.attention_variant``
-    and KV tiles of ``min(cfg.attention_block_k, Sk)`` columns;
-    ``cfg.attention_impl`` "kernel" (the CUDA kernel; its plain version for
-    CPU tensors) or "plain" (the plain version on any device)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-
-    def run(q, k, v, q_offset=0):
-        return FlashAttention.apply(
-            q, k, v, causal, float(scale), window, cfg.attention_variant,
-            min(cfg.attention_block_k, k.shape[2]),
-            cfg.attention_impl == "plain", q_offset)
-
-    return sharded_attention(q, k, v, run)
+    """q (B, H, Sq, D), k and v (B, Hkv, Sk, D) -> (B, H, Sq, D) through
+    the registry's full-sequence table at ``cfg.attention_impl`` ("kernel"
+    by default: the flash kernel, its plain version for CPU tensors),
+    ``cfg.attention_variant`` and KV tiles of
+    ``min(cfg.attention_block_k, Sk)`` columns. K and V are taken as given
+    (``kv_dtype="fp32"``): a layer that stores quantized K/V dispatches
+    with its own spec, whose ``_q`` entry fake-quantizes them."""
+    spec = AttentionSpec.from_config(cfg, window=window, kv_dtype="fp32")
+    return dispatch_attention(spec, q, k, v, causal=causal, scale=scale)
 
 
-def decode_one_pass(q, k, v, lengths, *, variant="exact", scale=None):
-    """One query a row over a cache: q (B, H, D), k (B, Hkv, S, D) and v
-    (B, Hkv, S, Dv), the first ``lengths`` (B,) rows valid -> (B, H, Dv)
-    in q's dtype. One masked softmax over all S columns, in float32, as
-    the reference's "xla" decode route computes it: the ExpMul weights are
-    ``pow2_neg(log2exp_lhat(s - m))`` with m the whole row's max, so they
-    differ from a tiled walk's, whose m is a running max. A row of length
-    0 gives zeros."""
+def _masked_decode(q, k, v, mask, *, variant, scale):
+    """The one-pass decode core: q (B, H, D), k (B, Hkv, S, D), v
+    (B, Hkv, S, Dv), mask (B, S) bool over cache rows -> (B, H, Dv) in q's
+    dtype (the reference's ``_masked_decode_xla``)."""
     B, H, D = q.shape
-    _, Hkv, S, _ = k.shape
+    Hkv = k.shape[1]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     qf = q.to(torch.float32).reshape(B, Hkv, H // Hkv, D)
     s = torch.einsum("bhgd,bhkd->bhgk", qf, k.to(torch.float32)) * scale
-    mask = (torch.arange(S, device=q.device)[None, :]
-            < lengths.to(q.device)[:, None])[:, None, None, :]
+    mask = mask[:, None, None, :]
     s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
     m = torch.amax(s, dim=-1, keepdim=True)
     p = (pow2_neg(log2exp_lhat(s - m)) if variant == "expmul"
@@ -275,3 +315,329 @@ def decode_one_pass(q, k, v, lengths, *, variant="exact", scale=None):
                      p / torch.where(l == 0.0, torch.ones_like(l), l),
                      v.to(torch.float32))
     return o.reshape(B, H, v.shape[-1]).to(q.dtype)
+
+
+def decode_one_pass(q, k, v, lengths, *, variant="exact", scale=None):
+    """One query a row over a cache: q (B, H, D), k (B, Hkv, S, D) and v
+    (B, Hkv, S, Dv), the first ``lengths`` (B,) rows valid -> (B, H, Dv)
+    in q's dtype. One masked softmax over all S columns, in float32, as
+    the reference's "xla" decode route computes it: the ExpMul weights are
+    ``pow2_neg(log2exp_lhat(s - m))`` with m the whole row's max, so they
+    differ from a tiled walk's, whose m is a running max. A row of length
+    0 gives zeros."""
+    return _masked_decode(q, k, v, decode_mask(lengths, k.shape[2], None,
+                                               q.device),
+                          variant=variant, scale=scale)
+
+
+def prefill_attention(q, k, v, *, q_positions, kv_positions, kv_valid,
+                      scale=None, window=None, variant="exact", use_ste=False):
+    """Masked one-pass attention of a prompt chunk against gathered KV
+    (the reference's ``prefill_attention``): q (B, H, C, D), k and v
+    (B, Hkv, T, .), typically [cache ++ chunk]. Query i sees KV j iff
+    ``kv_valid[b, j]`` and ``kv_positions[b, j] <= q_positions[b, i]``
+    (and inside ``window``), which is exact for fresh caches, rolling
+    caches and partly filled chunks alike."""
+    B, H, C, D = q.shape
+    Hkv = k.shape[1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    s = _scores(q.reshape(B, Hkv, H // Hkv, C, D), k, scale)
+    delta = q_positions[:, :, None] - kv_positions[:, None, :]   # (B, C, T)
+    mask = kv_valid[:, None, :] & (delta >= 0)
+    if window is not None:
+        mask = mask & (delta < window)
+    mask = mask[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = _qexp(s - m, use_ste) if variant == "expmul" else torch.exp(s - m)
+    p = torch.where(mask, p, torch.zeros_like(p))
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.matmul(p / torch.where(l == 0.0, torch.ones_like(l), l),
+                     v.to(torch.float32)[:, :, None])
+    return o.reshape(B, H, C, v.shape[-1]).to(q.dtype)
+
+
+def prefill_positions(lengths, n_valid, span, C, *, rolling):
+    """The positional tensors implied by the prefill convention: lengths
+    and n_valid (B,), ``span`` cache slots, a chunk of C. Returns
+    (q_positions (B, C), kv_positions (B, span + C), kv_valid
+    (B, span + C)) in [cache ++ chunk] order; ``rolling`` gives slot j the
+    newest written position congruent to j modulo the span."""
+    dev = lengths.device
+    lengths = lengths.to(torch.int64)
+    idx = torch.arange(C, device=dev)[None, :]
+    q_positions = lengths[:, None] + idx
+    chunk_valid = idx < n_valid.to(dev)[:, None]
+    slot = torch.arange(span, device=dev)[None, :]
+    if rolling:
+        last = lengths[:, None] - 1
+        cache_pos = last - torch.remainder(last - slot, span)
+    else:
+        cache_pos = slot.expand(lengths.shape[0], span)
+    cache_valid = (cache_pos >= 0) & (cache_pos < lengths[:, None])
+    return (q_positions, torch.cat([cache_pos, q_positions], dim=1),
+            torch.cat([cache_valid, chunk_valid], dim=1))
+
+
+def _f32(*ts):
+    return tuple(t.to(torch.float32) for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# the registry's built-in entries
+# ---------------------------------------------------------------------------
+@register_attention("ref")
+def _attention_ref_impl(q, k, v, *, spec, causal, scale):
+    return attention_ref(q, k, v, causal=causal, scale=scale,
+                         window=spec.window, variant=spec.variant,
+                         use_ste=spec.use_ste)
+
+
+@register_attention("flash_jnp")
+def _flash_jnp_impl(q, k, v, *, spec, causal, scale):
+    return flash_ref(q, k, v, causal=causal, scale=scale, window=spec.window,
+                     variant=spec.variant, use_ste=spec.use_ste,
+                     block_k=spec.block_k, causal_q_chunks=spec.q_chunks)
+
+
+def _flash_entry(plain):
+    def entry(q, k, v, *, spec, causal, scale):
+        scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+        bk = min(spec.block_k, k.shape[2])
+
+        def run(q, k, v, q_offset=0):
+            return FlashAttention.apply(q, k, v, causal, float(scale),
+                                        spec.window, spec.variant, bk, plain,
+                                        q_offset)
+
+        bound = _PLAIN_BLOCK_Q.set(spec.block_q)
+        try:
+            return sharded_attention(q, k, v, run)
+        finally:
+            _PLAIN_BLOCK_Q.reset(bound)
+    return entry
+
+
+register_kernel_family(register_attention, _flash_entry)
+
+
+@register_prefill("masked_xla")
+def _prefill_masked_xla(q, k_cache, v_cache, k_chunk, v_chunk, *, spec,
+                        scale, lengths, n_valid, rolling):
+    """[cache ++ chunk], its positional tensors rebuilt, one masked
+    softmax: the reference's XLA prefill. At a quantized ``spec.kv_dtype``
+    (``masked_xla_q``: cache and chunk quantized on write, so the chunk's
+    queries see the values decode reads later) both are dequantized
+    first."""
+    k_cache, v_cache, k_chunk, v_chunk = (
+        kv_values(t, spec.kv_dtype) for t in (k_cache, v_cache, k_chunk,
+                                              v_chunk))
+    q_positions, kv_positions, kv_valid = prefill_positions(
+        lengths, n_valid, k_cache.shape[2], q.shape[2], rolling=rolling)
+    return prefill_attention(
+        q, torch.cat(_f32(k_cache, k_chunk), dim=2),
+        torch.cat(_f32(v_cache, v_chunk), dim=2), q_positions=q_positions,
+        kv_positions=kv_positions, kv_valid=kv_valid, scale=scale,
+        window=spec.window, variant=spec.variant, use_ste=spec.use_ste)
+
+
+def _prefill_entry(plain):
+    def entry(q, k_cache, v_cache, k_chunk, v_chunk, *, spec, scale, lengths,
+              n_valid, rolling):
+        return _prefill_kernel(q, k_cache, v_cache, k_chunk, v_chunk,
+                               lengths, n_valid, scale=scale,
+                               variant=spec.variant, window=spec.window,
+                               rolling=rolling, plain=plain,
+                               block_q=spec.block_q, block_k=spec.block_k)
+    return entry
+
+
+register_kernel_family(register_prefill, _prefill_entry)
+
+
+@register_decode("xla")
+def _decode_xla(q, k_cache, v_cache, lengths, *, spec, scale):
+    """``decode_one_pass``; at a quantized ``spec.kv_dtype`` (``xla_q``)
+    over the dequantized caches."""
+    return decode_one_pass(q, kv_values(k_cache, spec.kv_dtype),
+                           kv_values(v_cache, spec.kv_dtype), lengths,
+                           variant=spec.variant, scale=scale)
+
+
+def _decode_entry(plain):
+    def entry(q, k_cache, v_cache, lengths, *, spec, scale):
+        return decode_attention(q, k_cache, v_cache, lengths, scale=scale,
+                                variant=spec.variant, plain=plain,
+                                block_k=spec.decode_block_k)
+    return entry
+
+
+register_kernel_family(register_decode, _decode_entry)
+
+
+# ---------------------------------------------------------------------------
+# paged entries
+# ---------------------------------------------------------------------------
+def paged_rows(rows, block_tables, page_size):
+    """``rows`` (B, L), or the block tables' ``slot_rows``: on the device,
+    no host read."""
+    return rows if rows is not None else slot_rows(block_tables, page_size)
+
+
+def chunk_operands(q, lengths, q_positions, chunk_valid, n_valid):
+    """The paged prefill's (q_positions, chunk_valid, n_valid), each
+    derived from the others where it was not given."""
+    C = q.shape[2]
+    idx = torch.arange(C, device=q.device)[None, :]
+    if n_valid is None:
+        n_valid = torch.sum(chunk_valid.to(torch.int32), dim=1)
+    if chunk_valid is None:
+        chunk_valid = idx < n_valid.to(q.device)[:, None]
+    if q_positions is None:
+        q_positions = lengths.to(torch.int64)[:, None] + idx
+    return q_positions, chunk_valid, n_valid
+
+
+def paged_prefill_xla(q, k_hist, v_hist, k_chunk, v_chunk, *, spec, scale,
+                      q_positions, chunk_valid, lengths):
+    """[gathered history ++ chunk] with history position j at j: the
+    masking of a fresh contiguous cache, for every variant and window."""
+    B, L = k_hist.shape[0], k_hist.shape[2]
+    hist_pos = torch.arange(L, device=q.device)[None, :].expand(B, L)
+    kv_positions = torch.cat([hist_pos, q_positions.to(torch.int64)], dim=1)
+    kv_valid = torch.cat(
+        [hist_pos < lengths.to(q.device)[:, None], chunk_valid], dim=1)
+    return prefill_attention(
+        q, torch.cat(_f32(k_hist, k_chunk), dim=2),
+        torch.cat(_f32(v_hist, v_chunk), dim=2), q_positions=q_positions,
+        kv_positions=kv_positions, kv_valid=kv_valid, scale=scale,
+        window=spec.window, variant=spec.variant, use_ste=spec.use_ste)
+
+
+def decode_mask(lengths, L, window, device):
+    """(B, L) bool: positions below ``lengths`` and, with a window, at or
+    above ``lengths - window`` (absolute positions, as the paged pool keeps
+    them)."""
+    pos = torch.arange(L, device=device)[None, :]
+    lengths = lengths.to(device)[:, None]
+    mask = pos < lengths
+    if window is not None:
+        mask = mask & (pos >= lengths - window)
+    return mask
+
+
+@register_paged_prefill("gather_xla")
+def _paged_prefill_gather_xla(q, k_chunk, v_chunk, k_pool, v_pool, rows, *,
+                              spec, scale, q_positions, chunk_valid, lengths,
+                              n_valid=None, block_tables=None, page_size=0):
+    """[gathered history ++ chunk], one masked softmax; at a quantized
+    ``spec.kv_dtype`` (``gather_xla_q``) the history and the chunk are
+    dequantized first."""
+    rows = paged_rows(rows, block_tables, page_size)
+    q_positions, chunk_valid, _ = chunk_operands(
+        q, lengths, q_positions, chunk_valid, n_valid)
+    kv = spec.kv_dtype
+    return paged_prefill_xla(
+        q, gather_history(k_pool, rows, kv), gather_history(v_pool, rows, kv),
+        kv_values(k_chunk, kv), kv_values(v_chunk, kv), spec=spec,
+        scale=scale, q_positions=q_positions, chunk_valid=chunk_valid,
+        lengths=lengths)
+
+
+@register_paged_prefill("gather_pallas")
+def _paged_prefill_gather_pallas(q, k_chunk, v_chunk, k_pool, v_pool, rows,
+                                 *, spec, scale, q_positions=None,
+                                 chunk_valid=None, lengths, n_valid=None,
+                                 block_tables=None, page_size=0, plain=False):
+    """Gather-then-kernel paged prefill: the history copied into logical
+    order, then the contiguous prefill kernel (``plain``: its plain
+    version) at ``block_k = page_size`` (``spec.block_k`` without a page
+    size): the fused kernel's tiles, so the same-tile ExpMul oracle of the
+    fused paged prefill. At a quantized ``spec.kv_dtype``
+    (``gather_pallas_q``) the copy and the chunk are dequantized to
+    float32 first."""
+    rows = paged_rows(rows, block_tables, page_size)
+    _, _, n_valid = chunk_operands(q, lengths, q_positions, chunk_valid,
+                                   n_valid)
+    return paged_prefill_attention(
+        q, k_chunk, v_chunk, k_pool, v_pool, rows, lengths, n_valid,
+        scale=scale, variant=spec.variant, window=spec.window,
+        block_q=spec.block_q,
+        block_k=page_size if page_size else spec.block_k, plain=plain,
+        kv_dtype=spec.kv_dtype)
+
+
+def _paged_prefill_entry(plain):
+    def entry(q, k_chunk, v_chunk, k_pool, v_pool, rows, *, spec, scale,
+              q_positions=None, chunk_valid=None, lengths, n_valid=None,
+              block_tables=None, page_size=0):
+        """The fused paged prefill, the block tables read in the kernel;
+        a call with ``rows`` only takes the gather-then-kernel form."""
+        if block_tables is None:
+            return _paged_prefill_gather_pallas(
+                q, k_chunk, v_chunk, k_pool, v_pool, rows, spec=spec,
+                scale=scale, q_positions=q_positions,
+                chunk_valid=chunk_valid, lengths=lengths, n_valid=n_valid,
+                plain=plain)
+        _, _, n_valid = chunk_operands(q, lengths, q_positions, chunk_valid,
+                                       n_valid)
+        return fused_paged_prefill_attention(
+            q, k_chunk, v_chunk, k_pool, v_pool, block_tables, lengths,
+            n_valid, page_size=page_size, scale=scale, variant=spec.variant,
+            window=spec.window, plain=plain, block_q=spec.block_q)
+    return entry
+
+
+register_kernel_family(register_paged_prefill, _paged_prefill_entry)
+
+
+@register_paged_decode("gather_xla")
+def _paged_decode_gather_xla(q, k_pool, v_pool, rows, lengths, *, spec,
+                             scale, block_tables=None, page_size=0):
+    """The gathered history (current token included; dequantized at a
+    quantized ``spec.kv_dtype``, ``gather_xla_q``), one masked softmax; a
+    window masks positions below ``lengths - window``."""
+    rows = paged_rows(rows, block_tables, page_size)
+    return _masked_decode(
+        q, gather_history(k_pool, rows, spec.kv_dtype),
+        gather_history(v_pool, rows, spec.kv_dtype),
+        decode_mask(lengths, rows.shape[1], spec.window, q.device),
+        variant=spec.variant, scale=scale)
+
+
+@register_paged_decode("gather_pallas")
+def _paged_decode_gather_pallas(q, k_pool, v_pool, rows, lengths, *, spec,
+                                scale, block_tables=None, page_size=0,
+                                plain=False):
+    """Gather-then-kernel paged decode in ``spec.decode_block_k``-wide
+    tiles (``plain``: the kernel's plain version) over the copy, dequantized
+    to float32 at a quantized ``spec.kv_dtype`` (``gather_pallas_q``); with
+    a window, ``gather_xla`` (the contiguous decode kernel masks by length
+    only)."""
+    if spec.window is not None:
+        return _paged_decode_gather_xla(
+            q, k_pool, v_pool, rows, lengths, spec=spec, scale=scale,
+            block_tables=block_tables, page_size=page_size)
+    return paged_decode_attention(
+        q, k_pool, v_pool, paged_rows(rows, block_tables, page_size),
+        lengths, scale=scale, variant=spec.variant,
+        block_k=spec.decode_block_k, plain=plain, kv_dtype=spec.kv_dtype)
+
+
+def _paged_decode_entry(plain):
+    def entry(q, k_pool, v_pool, rows, lengths, *, spec, scale,
+              block_tables=None, page_size=0):
+        """The fused paged decode, the block tables read in the kernel; a
+        call with ``rows`` only takes the gather-then-kernel form."""
+        if block_tables is None:
+            return _paged_decode_gather_pallas(
+                q, k_pool, v_pool, rows, lengths, spec=spec, scale=scale,
+                plain=plain)
+        return fused_paged_decode_attention(
+            q, k_pool, v_pool, block_tables, lengths, page_size=page_size,
+            scale=scale, variant=spec.variant, window=spec.window,
+            plain=plain)
+    return entry
+
+
+register_kernel_family(register_paged_decode, _paged_decode_entry)

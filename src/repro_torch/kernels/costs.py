@@ -26,12 +26,17 @@ def kv_code_bytes(kv_dtype: str) -> int:
 
 
 def impl_path(impl: str) -> str:
-    """Map an attention impl onto the cost model's two datapaths. Both of
-    the port's ("kernel", and "plain", the kernel's arithmetic in PyTorch
-    ops) are ``"fused"``: in-kernel block tables and in-register dequant,
-    no materialized copy, like the reference's Pallas kernels. Anything
-    else is ``"gather"``."""
-    return "fused" if impl in ("kernel", "plain") else "gather"
+    """Map a registry name (a resolved impl, with or without ``_q``) onto
+    the cost model's two datapaths. ``"fused"``: in-kernel block tables
+    and in-register dequant, no materialized copy: the port's "kernel"
+    and "plain" (the kernel's arithmetic in PyTorch ops) and the
+    reference's "pallas", which runs "kernel". ``"gather"``: everything
+    else, which gathers, concatenates or dequantizes into a contiguous
+    copy first ("gather_pallas", "gather_xla", "masked_xla", "xla",
+    "flash_jnp", "ref"; the contiguous float ``xla`` / ``masked_xla``
+    forms read in place, which the helpers price as no copy)."""
+    base = impl.removesuffix("_q")
+    return "fused" if base in ("kernel", "plain", "pallas") else "gather"
 
 
 def analytic_bytes_per_ctx_token(layout, kv_dtype, path, *, Hkv, D, Dv,

@@ -13,8 +13,8 @@ layouts:
   q (B*Hkv, group, D), per-slot caches K (B*Hkv, S, D) and V
   (B*Hkv, S, Dv) of values or codes, scale rows (B*Hkv, S) float32 for
   codes, lengths (B,) int32 with ``length <= S``. The tiles are
-  ``bk = min(BLOCK_K, S)`` columns wide, the reference's width (ExpMul
-  results depend on it), masked ``col < length``; rows past the length
+  ``bk = min(block_k, S)`` columns wide, ``block_k`` the reference's
+  ``decode_block_k`` (``BLOCK_K``, 256; ExpMul results depend on it), masked ``col < length``; rows past the length
   (a previous occupant's) are masked and weighed 0 into the value
   product, by the kernel too, so a NaN there reaches the output as it
   does the reference's.
@@ -330,12 +330,14 @@ def _check_contiguous(q3, k3, v3, lengths, ks2, vs2, num_kv_heads):
 
 
 def decode_fwd(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
-               num_kv_heads):
+               num_kv_heads, block_k=BLOCK_K):
     """Contiguous decode on the CUDA kernel (CUDA tensors) or its plain
-    version (CPU tensors). Returns (B*Hkv, group, Dv) in q's dtype."""
+    version (CPU tensors), in tiles of ``min(block_k, S)`` columns.
+    Returns (B*Hkv, group, Dv) in q's dtype."""
     if q3.device.type == "cpu":
         return decode_fwd_plain(q3, k3, v3, lengths, ks2, vs2, scale=scale,
-                                variant=variant, num_kv_heads=num_kv_heads)
+                                variant=variant, num_kv_heads=num_kv_heads,
+                                block_k=block_k)
     if q3.device.type == "meta":
         _check_contiguous(q3, k3, v3, lengths, ks2, vs2, num_kv_heads)
         return _report_contiguous(q3.new_empty(q3.shape[:2] + v3.shape[-1:]),
@@ -347,7 +349,7 @@ def decode_fwd(q3, k3, v3, lengths, ks2=None, vs2=None, *, scale, variant,
     _check_contiguous(q3, k3, v3, lengths, ks2, vs2, num_kv_heads)
     BHkv, group, D = q3.shape
     S, Dv = k3.shape[1], v3.shape[-1]
-    bk = min(BLOCK_K, S)
+    bk = min(block_k, S)
     check_smem(CONTIGUOUS, contiguous_decode_smem(group, D, bk, k3.dtype, Dv),
                q3.device, f"group {group} at head dims {D}/{Dv} over "
                f"{k3.dtype} in {bk}-wide tiles")

@@ -16,7 +16,8 @@ its output is theirs. Query head h reads KV head ``h // (H / Hkv)``.
 
 ``flash_fwd_plain`` walks those tiles vectorized over every row and
 reproduces the Pallas kernel's ``min(block_q, Sq)``-row query blocks
-(``BLOCK_Q``, Pallas' default) and the tiles each block skips, so it equals
+(``BLOCK_Q``, Pallas' default, or ``cfg.attention_block_q``) and the
+tiles each block skips, so it equals
 the Pallas kernel tile for tile. It sums both products as ``fma_chain``s,
 the scores in depth order and the values in column order.
 
@@ -150,15 +151,17 @@ def flash_fwd_plain(q3, k3, v3, *, causal, scale, window, variant, block_k,
 
 
 def flash_fwd(q3, k3, v3, *, causal, scale, window, variant, block_k,
-              num_q_heads, num_kv_heads, kv_len, q_offset=0):
+              num_q_heads, num_kv_heads, kv_len, q_offset=0, block_q=BLOCK_Q):
     """The forward on the CUDA kernel (CUDA tensors) or its plain version
     (CPU tensors). Returns (B*H, Sq, D) in q's dtype. A ``meta`` call's
-    price ignores the mask, so ``q_offset`` too."""
+    price ignores the mask, so ``q_offset`` too. ``block_q`` is the plain
+    version's query block (the kernel keeps its own; neither changes a
+    number)."""
     kw = dict(causal=causal, scale=scale, window=window, variant=variant,
               block_k=block_k, num_q_heads=num_q_heads,
               num_kv_heads=num_kv_heads, kv_len=kv_len, q_offset=q_offset)
     if q3.device.type == "cpu":
-        return flash_fwd_plain(q3, k3, v3, **kw)
+        return flash_fwd_plain(q3, k3, v3, block_q=block_q, **kw)
     if q3.device.type == "meta":
         _check(q3, k3, v3, block_k=block_k, num_q_heads=num_q_heads,
                num_kv_heads=num_kv_heads, kv_len=kv_len, q_offset=q_offset)

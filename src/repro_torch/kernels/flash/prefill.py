@@ -18,8 +18,9 @@ concatenation.
   ``prefill_fwd_pallas``): per-slot caches K (B*Hkv, S, D) and V
   (B*Hkv, S, Dv) with (B*Hkv, S) scale rows for codes, the chunk as above
   (its V rows Dv wide). The KV tiles are
-  ``bk = min(BLOCK_K, max(S, C, 1))`` columns wide, the reference's width
-  (ExpMul results depend on it): cache tiles [0, bk), ... below
+  ``bk = min(block_k, max(S, C, 1))`` columns wide, ``block_k`` the
+  reference's width (``BLOCK_K``; the ``gather_pallas`` route passes the
+  page size; ExpMul results depend on it): cache tiles [0, bk), ... below
   ``min(length, S)``, then chunk tiles from the chunk start. With
   ``rolling=False`` slot j holds position j (``length <= S``); with
   ``rolling=True`` the cache is a rolling buffer of span S and slot j
@@ -28,7 +29,7 @@ concatenation.
   never ``torch.fmod``) and by the window.
 
 The plain versions also reproduce the Pallas kernels' query blocks of
-``min(BLOCK_Q, C)`` rows and the tiles they skip per block, so they equal
+``min(block_q, C)`` rows (``BLOCK_Q``, or ``cfg.attention_block_q``) and the tiles they skip per block, so they equal
 the Pallas kernels tile for tile; the CUDA kernels use smaller query
 blocks, which changes only which fully masked tiles they skip.
 
@@ -210,14 +211,17 @@ def _check(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, vs3, ksn2, vsn2,
 
 def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
                       vs3=None, ksn2=None, vsn2=None, *, scale, variant,
-                      window, page_size, num_q_heads, num_kv_heads):
+                      window, page_size, num_q_heads, num_kv_heads,
+                      block_q=BLOCK_Q):
     """Paged prefill on the CUDA kernel (CUDA tensors) or its plain version
-    (CPU tensors). Returns (B*H, C, D) in q's dtype."""
+    (CPU tensors, in query blocks of ``block_q``). Returns (B*H, C, D) in
+    q's dtype."""
     if q3.device.type == "cpu":
         return paged_prefill_fwd_plain(
             bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, vs3, ksn2, vsn2,
             scale=scale, variant=variant, window=window, page_size=page_size,
-            num_q_heads=num_q_heads, num_kv_heads=num_kv_heads)
+            num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+            block_q=block_q)
     if q3.device.type == "meta":
         _check(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, vs3, ksn2,
                vsn2, page_size, num_q_heads, num_kv_heads)
@@ -412,14 +416,18 @@ def _check_contiguous(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2, vsc2,
 
 def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
                 vsc2=None, ksn2=None, vsn2=None, *, scale, variant, window,
-                rolling, num_q_heads, num_kv_heads):
+                rolling, num_q_heads, num_kv_heads, block_q=BLOCK_Q,
+                block_k=BLOCK_K):
     """Contiguous prefill on the CUDA kernel (CUDA tensors) or its plain
-    version (CPU tensors). Returns (B*H, C, Dv) in q's dtype."""
+    version (CPU tensors), in KV tiles of ``prefill_blocks``' width at
+    ``block_k`` (the plain version's query blocks of ``block_q`` change no
+    number). Returns (B*H, C, Dv) in q's dtype."""
     if q3.device.type == "cpu":
         return prefill_fwd_plain(
             q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2, vsc2, ksn2, vsn2,
             scale=scale, variant=variant, window=window, rolling=rolling,
-            num_q_heads=num_q_heads, num_kv_heads=num_kv_heads)
+            num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+            block_q=block_q, block_k=block_k)
     if q3.device.type == "meta":
         _check_contiguous(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2,
                           vsc2, ksn2, vsn2, num_q_heads, num_kv_heads)
@@ -434,7 +442,7 @@ def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
                       ksn2, vsn2, num_q_heads, num_kv_heads)
     BH, C, D = q3.shape
     S, Dv = kc3.shape[1], vc3.shape[-1]
-    bk = prefill_blocks(S, C)[1]
+    bk = prefill_blocks(S, C, block_q, block_k)[1]
     check_smem(CONTIGUOUS, contiguous_prefill_smem(D, bk, Dv), q3.device,
                f"head dims {D}/{Dv} in {bk}-wide tiles")
     out = q3.new_empty((BH, C, Dv))

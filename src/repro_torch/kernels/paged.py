@@ -146,6 +146,19 @@ def gather_dequant_rows(code_pool: torch.Tensor, scale_pool: torch.Tensor,
                          gather_rows(scale_pool, rows), kv_dtype)
 
 
+def gather_history(pool, rows: torch.Tensor,
+                   kv_dtype: str = "fp32") -> torch.Tensor:
+    """The paged history in logical order, as every gather route reads it:
+    the rows ``rows`` (B, L) of a value pool (pool_tokens, Hkv, .), or of a
+    ``QuantKV`` pool dequantized to float32 at ``kv_dtype``
+    (``gather_dequant_rows``) -> (B, Hkv, L, .); sentinel rows read 0."""
+    if isinstance(pool, QuantKV):
+        out = gather_dequant_rows(pool.codes, pool.scale, rows, kv_dtype)
+    else:
+        out = gather_rows(pool, rows)
+    return out.transpose(1, 2)
+
+
 def quant_scatter_fixed(code_pool: torch.Tensor, scale_pool: torch.Tensor,
                         index: torch.Tensor, values: torch.Tensor,
                         kv_dtype: str) -> QuantKV:

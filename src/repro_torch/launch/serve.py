@@ -3,7 +3,8 @@
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \
       --requests 8 --max-new 32 --chunk 32 [--variant expmul] \
       [--kv-layout paged --page-size 16 --pool-blocks 0] [--kv-dtype int8] \
-      [--attention-impl kernel|plain] [--device cuda|cpu] \
+      [--attention-impl kernel|plain|pallas|flash_jnp|ref] \
+      [--device cuda|cpu] \
       [--prefix-cache|--no-prefix-cache] [--metrics-json PATH] \
       [--trace-out PATH] [--log-metrics-every N] \
       [--deadline-steps N] [--deadline-s S] \
@@ -32,7 +33,8 @@ shape then comes from the snapshot, not from the flags).
 ticks on the CUDA kernels, each tick captured in a CUDA graph on the card
 (``serve/graphs.py``), ``plain`` on their plain PyTorch versions, in eager
 ticks (the plain versions read lengths on the host, which a graph cannot
-capture).
+capture), ``flash_jnp`` on the reference's one-pass routes (masked_xla,
+xla, gather_xla: no kernel, captured too); see ``kernels/registry.py``.
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device
 cpu`` runs the plain versions on the CPU (use ``--smoke`` there).
 """
@@ -81,9 +83,12 @@ def main(argv=None):
                          "write, dequantize inside the kernels)")
     ap.add_argument("--attention-impl", default=None,
                     choices=list(ATTENTION_IMPLS),
-                    help="attention ticks on the CUDA kernels ('kernel', "
-                         "the config's default) or on their plain PyTorch "
-                         "versions ('plain')")
+                    help="the registry's full-sequence name, which picks "
+                         "every table's route: the CUDA kernels "
+                         "('kernel', the config's default; 'pallas' runs "
+                         "them too), their plain PyTorch versions "
+                         "('plain'), or the reference's one-pass XLA "
+                         "routes ('flash_jnp', 'ref')")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")

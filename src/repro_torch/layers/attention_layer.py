@@ -2,14 +2,16 @@
 training (``attn_apply``) and the serving paths over per-slot or paged KV
 caches.
 
-``repro/layers/attention_layer.py`` with its order of operations.
-``attn_apply`` attends over the sequence's own K/V through
-``core.attention.attention`` (the flash kernel forward and the reference's
-recompute backward); at a quantized ``cfg.kv_dtype`` it first
-fake-quantizes K (after RoPE) and V with the cache's codec
-(``numerics.quant.fake_quant_kv``) and attends over those at full
-precision, as the reference's ``*_q`` full-sequence impls do, so that
-``forward`` matches a round trip through a quantized cache. On the
+``repro/layers/attention_layer.py`` with its order of operations. Every
+attention call goes through the backend registry
+(``kernels/registry.py``): ``AttentionSpec.from_config(cfg, window=...)``
+and one ``dispatch_*`` call, so ``cfg.attention_impl`` and the serving
+tables' ``attention_{decode,prefill,paged}_impl`` pick the route.
+``attn_apply`` attends over the sequence's own K/V through the
+full-sequence table; at a quantized ``cfg.kv_dtype`` its ``_q`` entry
+fake-quantizes K (after RoPE) and V with the cache's codec and attends
+over those at full precision, so that ``forward`` matches a round trip
+through a quantized cache. On the
 serving paths, decode quantizes and writes the new token's K/V, then
 attends; chunked prefill quantizes
 the chunk once, attends over [cache ++ chunk codes], then writes the
@@ -24,15 +26,16 @@ be captured in a CUDA graph: every cache's storage holds one token's row
 of scratch past its end (``kernels.paged.zeros_with_scratch``), where the
 writes a tick drops land.
 
+The paged steps pass the block tables and the page size and no
+``rows``: the fused kernels read the tables, a gather route computes the
+rows from them on the device.
+
 Cross-attention of an encoder-decoder's decoder has no RoPE and float
 K/V from the encoder output: ``cross_attn_apply`` runs the full-sequence
-``attention`` non-causally (the flash kernel), ``cross_attn_decode`` the
-reference's one-pass "xla" route (``core.attention.decode_one_pass``),
-which no kernel replaces: ``repro`` forces it, and its ExpMul weights
-differ from a tiled kernel's.
-
-``cfg.attention_impl`` "kernel" runs the CUDA kernels (their plain
-versions for CPU tensors); "plain" runs the plain versions on any device.
+``attention`` non-causally, ``cross_attn_decode`` the decode table's
+one-pass "xla" route (``core.attention.decode_one_pass``) whatever the
+config names, as ``repro`` forces it: its ExpMul weights differ from a
+tiled kernel's.
 """
 from __future__ import annotations
 
@@ -40,30 +43,26 @@ import math
 
 import torch
 
-from repro_torch.core.attention import attention, decode_one_pass
-from repro_torch.kernels.decode.ops import (
-    decode_attention,
-    fused_paged_decode_attention,
-    quant_decode_attention,
-    quant_fused_paged_decode_attention,
-)
-from repro_torch.kernels.flash.ops import (
-    fused_paged_prefill_attention,
-    prefill_attention,
-    quant_fused_paged_prefill_attention,
-    quant_prefill_attention,
-)
+from repro_torch.core.attention import attention
 from repro_torch.kernels.paged import (
     rows_with_scratch,
     scatter_fixed,
     zeros_with_scratch,
+)
+from repro_torch.kernels.registry import (
+    AttentionSpec,
+    dispatch_attention,
+    dispatch_decode,
+    dispatch_paged_decode,
+    dispatch_paged_prefill,
+    dispatch_prefill,
 )
 from repro_torch.layers.common import dense_init
 from repro_torch.layers.rotary import apply_rope
 from repro_torch.sharding.regions import write_slot
 from repro_torch.numerics.quant import (
     QUANT_KV_DTYPES,
-    fake_quant_kv,
+    QuantKV,
     kv_code_dtype,
     quantize_kv,
 )
@@ -73,9 +72,13 @@ def kv_quantized(cfg) -> bool:
     return cfg.kv_dtype in QUANT_KV_DTYPES
 
 
-def _kernel_kw(cfg, window, page_size):
-    return dict(page_size=page_size, variant=cfg.attention_variant,
-                window=window, plain=cfg.attention_impl == "plain")
+def _kv(cfg, store):
+    """The (K, V) operands of a cache, pool or chunk ``store``: its values,
+    or ``QuantKV`` codes and scales."""
+    if kv_quantized(cfg):
+        return (QuantKV(store["k"], store["k_scale"]),
+                QuantKV(store["v"], store["v_scale"]))
+    return store["k"], store["v"]
 
 
 def attn_init(cfg, dtype, generator, device):
@@ -115,10 +118,8 @@ def attn_apply(params, x, cfg, *, positions=None, causal=True, window=None):
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    if kv_quantized(cfg):
-        k = fake_quant_kv(k, cfg.kv_dtype)
-        v = fake_quant_kv(v, cfg.kv_dtype)
-    o = attention(q, k, v, cfg, causal=causal, window=window)
+    o = dispatch_attention(AttentionSpec.from_config(cfg, window=window),
+                           q, k, v, causal=causal)
     return torch.einsum("bhsk,hkd->bsd", o, params["wo"])
 
 
@@ -158,7 +159,9 @@ def cross_attn_decode(params, x1, kv, enc_len, cfg):
     device, as ``repro`` forces it for cross K/V."""
     q = torch.einsum("bd,dhk->bhk", x1, params["wq"])
     k, v = kv
-    o = decode_one_pass(q, k, v, enc_len, variant=cfg.attention_variant)
+    spec = AttentionSpec.from_config(cfg, kv_dtype="fp32").replace(
+        decode_impl="xla")
+    o = dispatch_decode(spec, q, k, v, enc_len)
     return torch.einsum("bhk,hkd->bd", o, params["wo"])
 
 
@@ -229,14 +232,8 @@ def attn_decode_step(params, cache, x1, cfg, lengths, *, write_pos=None,
     slot = torch.clamp(write_pos.to(torch.int64), 0, S - 1)
     for name, val in new.items():
         write_slot(cache[name], val, slot, seq_dim=2)
-    kw = dict(variant=cfg.attention_variant,
-              plain=cfg.attention_impl == "plain")
-    if kv_quantized(cfg):
-        o = quant_decode_attention(q, cache["k"], cache["v"],
-                                   cache["k_scale"], cache["v_scale"],
-                                   attn_len, **kw)
-    else:
-        o = decode_attention(q, cache["k"], cache["v"], attn_len, **kw)
+    o = dispatch_decode(AttentionSpec.from_config(cfg), q, *_kv(cfg, cache),
+                        attn_len)
     return cache, torch.einsum("bhk,hkd->bd", o, params["wo"])
 
 
@@ -295,19 +292,12 @@ def attn_prefill_step(params, cache, x, cfg, lengths, n_valid, index, *,
     C = x.shape[1]
     positions = lengths[:, None] + torch.arange(C, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)
-    kw = dict(variant=cfg.attention_variant, window=window,
-              rolling=window is not None,
-              plain=cfg.attention_impl == "plain")
     new = _quantized(cfg, k, v)
-    if kv_quantized(cfg):
-        o = quant_prefill_attention(
-            q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
-            new["k"], new["v"], new["k_scale"], new["v_scale"], lengths,
-            n_valid, **kw)
-    else:
+    if not kv_quantized(cfg):
         new = {name: t.to(cache[name].dtype) for name, t in new.items()}
-        o = prefill_attention(q, cache["k"], cache["v"], new["k"], new["v"],
-                              lengths, n_valid, **kw)
+    o = dispatch_prefill(AttentionSpec.from_config(cfg, window=window), q,
+                         *_kv(cfg, cache), *_kv(cfg, new), lengths=lengths,
+                         n_valid=n_valid, rolling=window is not None)
     for name, val in new.items():
         chunk_write(cache[name], val, index)
     return cache, torch.einsum("bhsk,hkd->bsd", o, params["wo"])
@@ -325,16 +315,11 @@ def attn_paged_decode_step(params, pool, x1, cfg, lengths, write_index, *,
     (``token_rows``). Idle slots carry sentinel rows, so their writes go
     to the scratch row and their scores are fully masked."""
     q, k, v = _project_token(params, x1, cfg, lengths)
-    kw = _kernel_kw(cfg, window, page_size)
     for name, val in _quantized(cfg, k, v).items():
         scatter_fixed(pool[name], write_index, val)
-    if kv_quantized(cfg):
-        o = quant_fused_paged_decode_attention(
-            q, pool["k"], pool["v"], pool["k_scale"], pool["v_scale"],
-            block_tables, lengths + 1, **kw)
-    else:
-        o = fused_paged_decode_attention(q, pool["k"], pool["v"],
-                                         block_tables, lengths + 1, **kw)
+    o = dispatch_paged_decode(AttentionSpec.from_config(cfg, window=window),
+                              q, *_kv(cfg, pool), None, lengths + 1,
+                              block_tables=block_tables, page_size=page_size)
     return pool, torch.einsum("bhk,hkd->bd", o, params["wo"])
 
 
@@ -348,22 +333,17 @@ def attn_paged_prefill_step(params, pool, x, cfg, lengths, n_valid,
     B, C, _ = x.shape
     positions = lengths[:, None] + torch.arange(C, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)
-    kw = _kernel_kw(cfg, window, page_size)
 
     def flat(t):  # (B, Hkv, C, ...) -> (B*C, Hkv, ...) token-major
         return t.transpose(1, 2).reshape((B * C, t.shape[1]) + t.shape[3:])
 
     new = _quantized(cfg, k, v)
-    if kv_quantized(cfg):
-        o = quant_fused_paged_prefill_attention(
-            q, new["k"], new["v"], new["k_scale"], new["v_scale"], pool["k"],
-            pool["v"], pool["k_scale"], pool["v_scale"], block_tables,
-            lengths, n_valid, **kw)
-    else:
+    if not kv_quantized(cfg):
         new = {name: t.to(pool[name].dtype) for name, t in new.items()}
-        o = fused_paged_prefill_attention(
-            q, new["k"], new["v"], pool["k"], pool["v"], block_tables,
-            lengths, n_valid, **kw)
+    o = dispatch_paged_prefill(
+        AttentionSpec.from_config(cfg, window=window), q, *_kv(cfg, new),
+        *_kv(cfg, pool), None, lengths=lengths, n_valid=n_valid,
+        block_tables=block_tables, page_size=page_size)
     for name, val in new.items():
         scatter_fixed(pool[name], write_index, flat(val))
     return pool, torch.einsum("bhsk,hkd->bsd", o, params["wo"])

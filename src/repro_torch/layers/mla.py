@@ -6,10 +6,13 @@ store only the KV latent and the shared RoPE key (``kv_lora_rank +
 qk_rope_dim`` features a token instead of ``2 * H * hd``). Each serving
 tick expands the history's latents to full K (``qk_nope_dim +
 qk_rope_dim``) and V (``v_head_dim``) for every head (``_expand_latents``)
-and hands them to the **contiguous** decode and prefill kernels at Dq !=
-Dv, on either layout: the paged pool holds the latents, which a tick
-gathers through its block tables, so an MLA layer never launches a paged
-kernel. The absorbed-matmul decode is not part of ``repro`` and not ported.
+and hands them to the registry's **contiguous** decode and prefill
+tables (``cfg.attention_impl`` "kernel": the contiguous kernels at Dq !=
+Dv) on either layout, at ``kv_dtype="fp32"``, as the reference's MLA
+dispatches: the paged pool holds the latents, which a tick gathers
+through its block tables, so an MLA layer never launches a paged kernel
+and ``attention_paged_impl`` does not reach it. The absorbed-matmul
+decode is not part of ``repro`` and not ported.
 
 With a quantized ``cfg.kv_dtype`` the latents are what is quantized: codes
 plus one float32 scale per token for each of ``kv_lat`` and ``k_rope``,
@@ -29,14 +32,17 @@ import math
 import torch
 
 from repro_torch.core.attention import attention
-from repro_torch.kernels.decode.ops import decode_attention
-from repro_torch.kernels.flash.ops import prefill_attention
 from repro_torch.kernels.paged import (
     gather_dequant_rows,
     gather_rows,
     quant_scatter_fixed,
     scatter_fixed,
     zeros_with_scratch,
+)
+from repro_torch.kernels.registry import (
+    AttentionSpec,
+    dispatch_decode,
+    dispatch_prefill,
 )
 from repro_torch.layers.common import dense_init, rmsnorm, rmsnorm_init
 from repro_torch.layers.rotary import apply_rope
@@ -56,6 +62,12 @@ def _quantized(cfg) -> bool:
 def _scale(cfg) -> float:
     m = cfg.mla
     return 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+
+
+def _spec(cfg):
+    """The serving spec: the contiguous decode and prefill tables on both
+    layouts, over expanded K/V that are never quantized themselves."""
+    return AttentionSpec.from_config(cfg, kv_dtype="fp32")
 
 
 def mla_init(cfg, dtype, generator, device):
@@ -209,9 +221,7 @@ def _read(cache, cfg, read=lambda t: t):
 
 def _decode(params, x1, cfg, lengths, k, v):
     q = _mla_q(params, x1[:, None, :], cfg, lengths[:, None])[:, :, 0]
-    o = decode_attention(q, k, v, lengths + 1, scale=_scale(cfg),
-                         variant=cfg.attention_variant,
-                         plain=cfg.attention_impl == "plain")
+    o = dispatch_decode(_spec(cfg), q, k, v, lengths + 1, scale=_scale(cfg))
     return torch.einsum("bhk,hkd->bd", o, params["wo"])
 
 
@@ -251,10 +261,8 @@ def _prefill(params, x, cfg, lengths, n_valid, history, write):
     kv_lat, k_rope = _mla_latents(params, x, cfg, positions)
     k_cache, v_cache = _expand_latents(params, *history, cfg)
     k_chunk, v_chunk = _expand_latents(params, *write(kv_lat, k_rope), cfg)
-    o = prefill_attention(q, k_cache, v_cache, k_chunk, v_chunk, lengths,
-                          n_valid, scale=_scale(cfg),
-                          variant=cfg.attention_variant,
-                          plain=cfg.attention_impl == "plain")
+    o = dispatch_prefill(_spec(cfg), q, k_cache, v_cache, k_chunk, v_chunk,
+                         lengths=lengths, n_valid=n_valid, scale=_scale(cfg))
     return torch.einsum("bhsk,hkd->bsd", o, params["wo"])
 
 

@@ -69,6 +69,14 @@ def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,
     return codes.to(torch.float32) * scale[..., None].to(torch.float32)
 
 
+def kv_values(kv, kv_dtype: str) -> torch.Tensor:
+    """A ``QuantKV`` dequantized to float32 at ``kv_dtype``; a tensor of
+    values as it is."""
+    if isinstance(kv, QuantKV):
+        return dequantize_kv(kv.codes, kv.scale, kv_dtype)
+    return kv
+
+
 def fake_quant_kv(x: torch.Tensor, kv_dtype: str) -> torch.Tensor:
     """Quantize then dequantize ``x`` (the full-sequence attention's K and V
     at a quantized ``kv_dtype``), in ``x``'s dtype: bit for bit a round trip

@@ -1,10 +1,20 @@
-"""The cosine learning-rate schedule of ``repro.optim.schedule``, of a
-step (an int32 tensor), returning a float32 tensor."""
+"""The learning-rate schedules of ``repro.optim.schedule`` (linear warmup,
+and warmup then cosine decay), of a step (an int32 tensor), returning a
+float32 tensor."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def linear_warmup(peak, warmup_steps):
+    """``peak * min(1, step / warmup_steps)``."""
+    def f(step):
+        s = step.to(torch.float32)
+        return peak * torch.clamp(s / max(1, warmup_steps), max=1.0)
+
+    return f
 
 
 def cosine_schedule(peak, warmup_steps, total_steps, final_frac=0.1):

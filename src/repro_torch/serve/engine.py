@@ -87,8 +87,20 @@ NaN sentinel, admission, reservation, preemption, copies on write and the
 prefix index stay on the host, outside the graphs, as they stay outside
 ``repro``'s ``jit``. ``eager_ticks=True`` runs the ticks eagerly on the
 same buffers (the counterpart of ``jax.disable_jit()``); the CPU always
-does. ``attention_impl="plain"`` reads the longest length on the host,
-which a capture cannot take, so on the card it needs ``eager_ticks``.
+does. The ``plain`` route reads the longest length on the host, which a
+capture cannot take, so an engine whose ticks run it needs
+``eager_ticks`` on the card; every other route (the kernels, the gather
+routes, the reference's one-pass XLA routes) reads no host value and is
+captured.
+
+Attention routes: the engine resolves its ``kernels.registry.
+AttentionSpec`` once, checks every name it will dispatch, and logs the
+non-obvious rows of ``resolved_backends`` once at start (a declared
+fallback, ``pallas`` -> ``kernel``, or the plain versions a kernel route
+runs without a card). The ``attention_exec_*`` ledger is keyed by the
+route of each tick kind (the paged table's on the paged layout, else the
+prefill and decode tables'), labelled as the dispatch counters label it:
+"kernel" or "plain" for the port's own routes.
 Every path keeps the addresses the graphs hold: the state is updated in
 place, and a restore copies into it.
 """
@@ -109,6 +121,12 @@ from repro_torch.kernels.costs import (
     analytic_bytes_per_ctx_token,
     attn_kv_geometry,
     impl_path,
+)
+from repro_torch.kernels.registry import (
+    AttentionSpec,
+    check_spec,
+    resolved_backends,
+    route_label,
 )
 from repro_torch.models.api import (
     copy_paged_block,
@@ -150,6 +168,39 @@ NAN_GUARDS = ("quarantine", "strict", "off")
 class NonFiniteLogitsError(RuntimeError):
     """Raised by ``nan_guard="strict"`` when a tick produces non-finite
     logits (or an out-of-range sampled token) for an active request."""
+
+
+# the backend-resolution lines logged in this process (once a distinct
+# line, not once an engine)
+_LOGGED_BACKENDS: set[str] = set()
+
+
+def _log_resolved_backends(spec, paged: bool):
+    """One line at start for each table whose route is not what it says:
+    a declared fallback (``pallas`` runs ``kernel``) or a note (no card:
+    a kernel route runs its plain version on CPU tensors)."""
+    for row in resolved_backends(spec, paged=paged):
+        if not (row["fallback"] or row["note"]):
+            continue
+        msg = f"attention {row['kind']}: requested {row['requested']!r}"
+        if row["fallback"]:
+            msg += f" -> runs {row['resolved']!r}"
+        if row["note"]:
+            msg += f" [{row['note']}]"
+        if msg not in _LOGGED_BACKENDS:
+            _LOGGED_BACKENDS.add(msg)
+            logger.info(msg)
+
+
+def stream_match_rate(ref_streams, streams) -> float:
+    """Token-level exact-match rate across paired temp-0 streams (the
+    quantized-KV fidelity metric, DESIGN.md §8): the mean over pairs of
+    the share of positions where the two agree (1.0 for an empty
+    stream), as ``repro``'s."""
+    return float(np.mean([
+        np.mean([a == b for a, b in zip(x, y)]) if len(x) else 1.0
+        for x, y in zip(ref_streams, streams)
+    ]))
 
 
 def analytic_prefill_flops(cfg, start: int, end: int) -> int:
@@ -298,13 +349,21 @@ class ServeEngine:
             raise ValueError(f"attention_impl must be one of "
                              f"{ATTENTION_IMPLS}, got {cfg.attention_impl!r}")
         self.attention_impl = cfg.attention_impl
+        paged = kv_layout == "paged"
+        spec = AttentionSpec.from_config(cfg)
+        check_spec(spec, paged=paged)
+        _log_resolved_backends(spec, paged)
         self.device = resolve_device(device)
         self.eager_ticks = bool(eager_ticks) or self.device.type != "cuda"
-        if not self.eager_ticks and cfg.attention_impl == "plain":
+        plain = [row["kind"] for row in resolved_backends(spec, paged=paged)
+                 if row["kind"] != "full-sequence"
+                 and row["resolved"].removesuffix("_q") == "plain"]
+        if not self.eager_ticks and plain:
             raise ValueError(
-                "attention_impl='plain' reads the longest length on the "
-                "host, which a CUDA graph cannot capture: pass "
-                "eager_ticks=True to serve it on the card")
+                f"attention_impl='plain' reads the longest length on the "
+                f"host, which a CUDA graph cannot capture (the {plain} "
+                f"tables run it): pass eager_ticks=True to serve it on the "
+                f"card")
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -425,12 +484,17 @@ class ServeEngine:
         self._now = 0.0  # host timestamp taken once per tick
         m.name_track(PID_ENGINE, 0, "engine steps")
         # executed-cost ledger: each step priced at its actual host-side
-        # lengths, keyed by the impl the engine's attention runs
+        # lengths, keyed by the route each tick kind dispatches
         self._geom = g = attn_kv_geometry(cfg)
         layout = "paged" if self.paged else "contiguous"
-        impl = cfg.attention_impl
         self._exec = {}
         for kind in ("prefill", "decode"):
+            if self.paged:
+                table, name = f"paged {kind}", spec.resolved_paged_impl()
+            else:
+                table = kind
+                name = getattr(spec, f"resolved_{kind}_impl")()
+            impl = route_label(table, name)
             labels = {"kind": kind, "impl": impl,
                       "variant": cfg.attention_variant,
                       "kv_dtype": self.kv_dtype, "layout": layout}
