@@ -25,13 +25,20 @@ Phases (a failing check raises, and the script exits non-zero; the
 ``[phase]`` lines print each one's seconds; ``--phases`` runs the named
 ones alone, in this order, and prints no kernels line and no result):
 
-1. print the card's name and power limit; build the kernels from
-   ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
+1. print the card's name and power limit; start the build of the kernels
+   from ``src/repro_torch/csrc`` (one nvcc per source, all at once) and,
+   while the serving kernels compile, run the phases that need no kernel
+   or only the ExpMul and flash libraries, which build first: the dry run
+   ("plan", 6d), the ExpMul checks, 2's flash part ("flash checks"), 2g
+   and 2i, each ``build.load`` waiting for its own library; then
+   ("built") wait for the rest and print each nvcc's seconds (the build's
+   wall time is the longest), instantiations, registers and spills;
 2. hold each CUDA kernel against its plain PyTorch version on the card:
    {exact, expmul} x {bf16 values, int8 codes} x {float32, bfloat16 q} x
-   head dims {16, 64}, with dyadic inputs (exact scores) and random
-   N(0,1) inputs. Paged: shuffled, fragmented block tables with NaN in
-   every unreferenced page, ragged lengths and an idle row. Contiguous:
+   head dims {16, 64} (64 also in pages of 64 over int8 codes, phase
+   4n's), with dyadic inputs (exact scores) and random N(0,1) inputs.
+   Paged: shuffled, fragmented block tables with NaN in every unreferenced
+   page, ragged lengths and an idle row. Contiguous:
    ragged lengths, an idle row, a length of exactly S and large finite
    stale rows past each length; prefill on fresh caches and on rolling
    buffers (wrapped, shorter than the span, a chunk longer than the span,
@@ -46,10 +53,11 @@ ones alone, in this order, and prints no kernels line and no result):
    one row. And the edges of the redesigned paged kernels: decode over
    lengths 0, 1, ps - 1, ps, ps + 1 and the table's full width, and a row
    with a sentinel inside its length, for GQA groups 1, 7 and 32 at pages
-   of 16 and 32 over float32 values and int8 codes, and over a
-   32,768-token context (2,048 pages of 16) for group 7; prefill chunks of
-   C in {1, 15, 100, 256} over 0, 1 page and 1,000 tokens of history,
-   float32 and bfloat16 q. Kernel and plain version walk the same tiles
+   of 16, 32 and 64 over float32 values and int8 codes, float32 and
+   bfloat16 q (bfloat16 at 64), and over a 32,768-token context (2,048
+   pages of 16) for group 7; prefill chunks of C in {1, 15, 100, 256} over
+   0, 1 page and 1,000 tokens of history at pages of 16 (float32 and
+   bfloat16 q) and 64 (bfloat16 q). Kernel and plain version walk the same tiles
    and sum both products in the same order
    (``kernels/flash/tile.py:fma_chain``), so each is held at
    ``checks.kernel_tol``: 1e-5 of the output's magnitude, or one bf16 ulp
@@ -59,7 +67,7 @@ ones alone, in this order, and prints no kernels line and no result):
    1,000-token sequence, or in its rows past the length; exact and
    ExpMul, f32 and int8): the kernel's non-finite output rows exactly its
    plain version's, its finite rows within ``kernel_tol``.
-   The full-sequence flash forward likewise, over {exact, expmul} x
+   The full-sequence flash forward likewise ("flash checks"), over {exact, expmul} x
    {float32, bfloat16} x D {64, 128} x block_k {128, 512} x {dyadic,
    random}, B 2, 14 / 2 heads: Sq = Sk in {1024, 1000} causal, with and
    without a 256-token window, and non-causal 200 queries over 1000 keys;
@@ -81,25 +89,26 @@ ones alone, in this order, and prints no kernels line and no result):
    (``checks.head_dim_cases``: 16 / 16 heads, B 4, lengths across the
    256-wide decode tiles and the 512-wide prefill tiles, a length 0, a
    chunk with n_valid 0) over float32, bfloat16, int8 and fp8 KV, exact
-   and ExpMul, float32 and bfloat16 q, and GQA group 4 at 256; the largest
-   group each decode kernel takes at 256 by KV dtype, from its shared
-   memory, and a float32 launch one group past it refused with a
-   ValueError before any launch;
+   and ExpMul, float32 and bfloat16 q, and GQA group 4 at 256; the largest group each
+   decode kernel's block takes at 256 by KV dtype, from its shared
+   memory, and a float32 launch one group past it, split into parts of
+   one launch, against its plain version;
 2c. the contiguous decode and prefill at minicpm3-4b's head dims (K rows
    of 96, V rows of 64) against their plain versions
    (``checks.mla_cases``: 4 / 4 heads, lengths 0, 1, 300 and S, a
    partial chunk and n_valid 0, stale rows past every length) over
    float32 and bfloat16 KV, exact and ExpMul, float32 and bfloat16 q; a
    NaN row inside or past a length (non-finite rows the plain version's);
-   int8 codes at 96/64 and a pair not built refused before any launch;
+   int8 codes at 96/64 and a pair off the builds (64/32) against their
+   plain versions, V rows of 257 refused before any launch;
 2d. the four serving kernels at arctic-480b's head dim 128 (in phase
    2b's function): ``checks.head_dim_cases`` over every KV dtype, exact
    and ExpMul, GQA groups 1 (8 / 8 heads, float32 q), 7 (56 / 8,
-   arctic's, bfloat16 q) and 32 (32 / 1, float32 q); a paged decode whose
-   shared memory is over the card's limit (group 32 over float32 and
-   bfloat16 pools) refused before its launch; each kernel on a poisoned
-   page at 128; the largest group each decode kernel takes at 128 by KV
-   dtype, and a float32 launch one group past it refused;
+   arctic's, bfloat16 q) and 32 (32 / 1, float32 q; the paged decode's
+   group split into parts over float32 and bfloat16 pools); each kernel
+   on a poisoned page at 128; the largest group each decode kernel's
+   block takes at 128 by KV dtype, and a float32 launch one group past
+   it, in parts;
 2e. the MoE router's top-k (a stable descending sort) on the card against
    the CPU's and ``jax.lax.top_k``'s known ids: ties, an all-NaN row,
    +-inf, and 2,048 x 128 logits on a 0.25 grid, top-2 and top-8, and
@@ -119,12 +128,11 @@ ones alone, in this order, and prints no kernels line and no result):
    plain route on the card against the CPU;
 2h. the four serving kernels at kimi-k2-1t-a32b's head dim 112
    (``checks.head_dim_cases``) over float32, bfloat16, int8 and fp8 KV,
-   exact and ExpMul, dyadic and random inputs, at ``checks.kernel_tol``:
-   GQA group 8 (64 / 8 heads, kimi's) with float32 and bfloat16 q, group
-   1 and the largest group every decode kernel takes; each kernel on a
-   poisoned page at 112; the largest group each decode kernel takes at
-   112 by KV dtype, and a float32 launch one group past it refused before
-   any launch;
+   exact and ExpMul, dyadic and random, at ``checks.kernel_tol``: GQA
+   group 8 (64 / 8 heads, kimi's) with float32 and bfloat16 q, group 1 and
+   the largest group every decode kernel's block takes; each kernel on a poisoned page at 112; the largest group each
+   decode kernel's block takes at 112 by KV dtype, and a float32 launch
+   one group past it, in parts;
 2i. flash at head dims 96, 112 and 256 (``phase_flash_head_dim_checks``):
    causal 1,024 and windowed 1,000 at each arch's heads, recurrentgemma-2b's
    10 / 1 heads windowed at 2,048 over 3,000 tokens, the layout's edges
@@ -132,6 +140,16 @@ ones alone, in this order, and prints no kernels line and no result):
    7) and the cross shapes
    (``checks.flash_cross_cases``, groups 1 and 8), float32 and bfloat16,
    dyadic and random, exact and ExpMul, at ``checks.kernel_tol``;
+2j. "contracts": the five attention kernels at the inputs their Pallas
+   kernels take past the widths they are built for
+   (``checks.CONTRACT_SHAPES``): head dim 80 over every KV dtype, (D, Dv)
+   = (192, 128) and (48, 32) over int8 and fp8 codes, GQA group 40 at
+   D 64 and 20 at D 256, pages of 64, 128, 256 and of 48 and 200 (which
+   the staging rows do not divide; #1, #2), rows off a 16-byte boundary (D 20 in bfloat16, D 40 in int8), flash at D 80
+   and 20; each against its plain version at ``checks.kernel_tol``,
+   exact and ExpMul, bfloat16 q, its device ms beside its bound; D 257,
+   Dv 257 and a 257-token page refused before any launch, the launch
+   counts unmoved;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -183,6 +201,11 @@ ones alone, in this order, and prints no kernels line and no result):
    beside their values before the paged kernels' redesign. The paged
    graph run is served once more, with the engine's dispatch counters off
    (streams gated equal), its tick p50s beside the first run's (on);
+4n. the paged int8 pool once more at 64-token pages (the config's
+   ``page_size``, the CLI's ``--page-size 64``): graphs and eager, gated
+   as the page-16 runs (streams equal, #1 and #2 alone, 24 launches a
+   tick), tokens/s, TTFT p50 and tick p50s beside the page-16 graph run
+   (no gate between the two: the ExpMul tile is the page);
 4m. "registry": the attention registry's gather-then-kernel paged routes
    (``gather_pallas``: the history gathered into logical order, then the
    contiguous kernels #3 and #4) at the serving shapes (8 x 1,024, 14 / 2
@@ -420,8 +443,9 @@ ones alone, in this order, and prints no kernels line and no result):
    ``seamless_encoder``, ``seamless_cross``, and ``d256``, ``d112`` and
    ``d96`` with phase 6b's training runs, the counted step's and the
    mesh launcher's launches, and ``q_offset`` with phases 6f and 6g; the
-   contiguous decode with ``seamless_d64_g1``), the card
-   line, and as the last line
+   contiguous decode with ``seamless_d64_g1``; the paged pair with their
+   page-64 launches; every attention kernel with its ``contracts``), the
+   card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -460,6 +484,7 @@ KERNELS = {
 }
 PAGED, CONTIGUOUS = ("paged_decode", "paged_prefill"), ("decode", "prefill")
 B, H, HKV, D, PS, MAX_LEN, CHUNK, CTX = 8, 14, 2, 64, 16, 2048, 256, 1024
+PS_WIDE = 64   # phase 4's paged int8 pool served once more at 64-token pages
 # gemma-7b: 16 / 16 heads of 256 (the paper's largest head dim), and 32 in
 # its smoke config
 GEMMA, GEMMA_H, GEMMA_D, GEMMA_TICK_LAYERS = "gemma-7b", 16, 256, 4
@@ -517,6 +542,7 @@ TRAIN_SEQ, TRAIN_STEPS = 1024, 3   # 6 until the multi-device phases came
 # of each
 GEMMA_TRAIN_LAYERS, MLA_TRAIN_LAYERS, TRAIN_CUT_STEPS = 2, 4, 3
 FLASH_EDGE_SEQS = (1, 31, 33, 65, 1000)
+FLASH_WIDTHS = (16, 32, 64, 96, 112, 128, 256)  # csrc/flash.cu's builds
 # the reference's ExpMul sweep, and the flash recurrence's merged [l, o]
 # rows at the training shapes (8 sequences x 14 heads x 1024 rows)
 EXPMUL_SHAPES = [(1, 1), (3, 7), (8, 16), (32, 64), (128, 256), (257, 130),
@@ -582,16 +608,27 @@ def median_ms(torch, fn, flush, n=11, warmup=2, hide_host=True):
 
 
 def phase_build(build):
-    t0 = time.perf_counter()
-    secs = build.build_all()
+    """Start one nvcc a source, all at once, and return: the phases up to
+    "built" (the dry run on the host, the ExpMul and flash checks) run
+    while the serving kernels compile, each ``build.load`` waiting for its
+    own library."""
+    build.start_all()
+    log(f"[build] started: {', '.join(build.SOURCES)}")
+
+
+def phase_built(build):
+    """Wait for every library; print each nvcc's seconds from its start
+    (the build's wall time is the longest), and each library's
+    instantiations, registers and spilling instantiations."""
+    secs = build.wait()
     log(f"[build] {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
-        f"wall {time.perf_counter() - t0:.1f} s")
+        f"wall {max(secs.values()):.1f} s")
     for name in build.SOURCES:
         lines = build.build_log(name).splitlines()
         regs = [int(l.split("Used ")[1].split()[0]) for l in lines
                 if "Used " in l and "registers" in l]
         spills = [l.strip() for l in lines if "spill stores" in l
-                  and not l.strip().startswith("0 bytes stack frame, 0 bytes")]
+                  and int(l.split("bytes spill stores")[0].split(",")[-1]) > 0]
         log(f"[build] {name}: {len(regs)} instantiations, registers "
             f"{min(regs)}-{max(regs)}, spilling instantiations {len(spills)}")
 
@@ -626,16 +663,25 @@ def phase_kernel_checks(torch, checks):
              lengths=[1024, 0, 517, 1, 800, 96, 1023, 333],
              pf_lengths=[768, 0, 0, 1000, 17, 512, 64, 250],
              n_valid=[256, 0, 100, 256, 17, 256, 1, 200], chunk=CHUNK),
+        # phase 4n's serving shape: 64-token pages (int8, as 4n serves
+        # them), a 32-page table walked over two cluster rounds at the
+        # longest length
+        dict(D=64, H=H, Hkv=HKV, B=B, ps=PS_WIDE, kvs=("int8",),
+             max_blocks=MAX_LEN // PS_WIDE,
+             lengths=[MAX_LEN, 0, 517, 1, 800, 96, 1023, 333],
+             pf_lengths=[768, 0, 0, 1000, 17, 512, 64, 1792],
+             n_valid=[256, 0, 100, 256, 17, 256, 1, 200], chunk=CHUNK),
     ]
     worst = {}
     rng = np.random.default_rng(0)
     for sh in shapes:
         for q_dtype in (torch.float32, torch.bfloat16):
             common = dict(B=sh["B"], H=sh["H"], Hkv=sh["Hkv"], D=sh["D"],
-                          page_size=PS, max_blocks=sh["max_blocks"],
+                          page_size=sh.get("ps", PS),
+                          max_blocks=sh["max_blocks"],
                           window=sh.get("window"), q_dtype=q_dtype,
                           device="cuda")
-            for kv in ("bf16", "int8"):
+            for kv in sh.get("kvs", ("bf16", "int8")):
                 for dyadic in (True, False):
                     dec = checks.paged_case(rng, lengths=sh["lengths"],
                                             kv=kv, dyadic=dyadic, **common)
@@ -644,8 +690,8 @@ def phase_kernel_checks(torch, checks):
                                             chunk=sh["chunk"], kv=kv,
                                             dyadic=dyadic, **common)
                     kind = "dyadic" if dyadic else "random"
-                    label = (f"D={sh['D']} {kv} window={sh.get('window')} "
-                             f"{kind}")
+                    label = (f"D={sh['D']} ps={sh.get('ps', PS)} {kv} "
+                             f"window={sh.get('window')} {kind}")
                     for variant in ("exact", "expmul"):
                         for name, run, case in (
                                 ("paged_decode", checks.run_decode, dec),
@@ -747,6 +793,16 @@ def phase_kernel_checks(torch, checks):
                           f"n_valid={nv} {kv} random", worst)
     _paged_edges(torch, checks, rng, worst)
     _poisoned_pages(torch, checks, worst)
+    log(f"[check] worst rel err: {json.dumps(worst)}")
+
+
+def phase_flash_checks(torch, checks):
+    """Phase 2's flash part (the training path's full-sequence forward):
+    flash against its plain version at ``checks.kernel_tol``, with its
+    own inputs (seed 23); it needs only the flash library, so it runs
+    while the serving kernels compile."""
+    worst = {}
+    rng = np.random.default_rng(23)
     # the training path's full-sequence forward
     flash = [dict(Sq=1024, Sk=1024, causal=True, window=None),
              dict(Sq=1024, Sk=1024, causal=True, window=256),
@@ -799,15 +855,16 @@ def phase_kernel_checks(torch, checks):
                                       case, variant, dtype, [],
                                       f"D={hd} S={S} group={group} {label} "
                                       f"{kind}", worst)
-    log(f"[check] worst rel err: {json.dumps(worst)}")
+    log(f"[check] flash worst rel err: {json.dumps(worst)}")
 
 
 def _largest_groups(torch, checks, build, decode, rng, hd):
-    """The largest GQA group each decode kernel takes at head dim ``hd``
-    by KV dtype (its shared memory, from its own C query, within the
-    card's limit; gated monotone in the group), and a float32 launch one
-    group past it raising ``ValueError`` before any launch (past 32, the
-    kernels' group bound refuses it)."""
+    """The largest GQA group one CTA of each decode kernel takes at head
+    dim ``hd`` by KV dtype, from its shared memory (its own C query, which
+    past that group reports the smaller part the launch splits the group
+    into; every part within the card's limit), and a float32 launch one
+    group past it, split into parts of one launch, held against its plain
+    version, exact and ExpMul."""
     limit = decode.card_smem_limit(torch.device("cuda"))
     largest = {}
     for kv, dt in checks.KV_KINDS.items():
@@ -816,13 +873,17 @@ def _largest_groups(torch, checks, build, decode, rng, hd):
                     g, hd, decode.BLOCK_K, dt)),
                 ("paged_decode", lambda g: decode.paged_decode_smem(
                     g, hd, PS, MAX_LEN // PS, dt))):
-            fits = [g for g in range(1, 33) if 0 < smem(g) <= limit]
-            largest[f"{name} {kv}"] = max(fits)
-            if fits != list(range(1, max(fits) + 1)):
-                raise AssertionError(f"{name} {kv}: shared memory not "
-                                     f"monotone in the group")
+            sizes = [smem(g) for g in range(1, 34)]
+            if not all(0 < x <= limit for x in sizes):
+                raise AssertionError(f"{name} {kv}: a part over the card's "
+                                     f"limit: {sizes}")
+            top = 1
+            while top < 33 and sizes[top] > sizes[top - 1]:
+                top += 1
+            largest[f"{name} {kv}"] = top
     log(f"[check] the largest GQA group a CTA takes at head dim {hd} "
         f"(limit {limit} B): {json.dumps(largest)}")
+    worst = {}
     for name, run in (("paged_decode", checks.run_decode),
                       ("decode", checks.run_contiguous_decode)):
         group = largest[f"{name} f32"] + 1
@@ -830,8 +891,10 @@ def _largest_groups(torch, checks, build, decode, rng, hd):
         case = (checks.paged_case(rng, page_size=PS, max_blocks=4, **kw)
                 if name == "paged_decode" else
                 checks.contiguous_case(rng, S=2 * decode.BLOCK_K, **kw))
-        _refused(build, name, run, case,
-                 f"group {group} float32 at head dim {hd}")
+        for variant in ("exact", "expmul"):
+            _hold(torch, checks, name, run, case, variant, torch.float32, [],
+                  f"group {group} float32 at head dim {hd}, in parts",
+                  worst)
     return largest
 
 
@@ -855,12 +918,11 @@ def phase_head_dim_checks(torch, checks, build, decode):
     decode tiles and the 512-wide prefill tiles, a length 0, a chunk with
     n_valid 0) over float32, bfloat16, int8 and fp8 KV, exact and ExpMul,
     at ``checks.kernel_tol``: at 32 and 256, 16 / 16 heads, float32 and
-    bfloat16 q, and GQA group 4 at 256; at 128, GQA groups 1 (8 / 8
-    heads), 7 (56 / 8, arctic's, bfloat16 q) and 32 (32 / 1), where a
-    paged decode whose shared memory is over the card's limit must be
-    refused before its launch; then each serving kernel on a poisoned
-    page at 128 (``_poisoned_pages``), and the largest group each decode
-    kernel takes at 256 and at 128 (``_largest_groups``). Returns the
+    bfloat16 q, and GQA group 4 at 256; at 128, GQA groups 1 (8 / 8 heads), 7 (56 / 8, arctic's,
+    bfloat16 q) and 32 (32 / 1, in parts where a block's shared memory
+    binds); then each serving kernel on a poisoned page at 128
+    (``_poisoned_pages``), and the largest group each decode kernel's
+    block takes at 256 and at 128 (``_largest_groups``). Returns the
     largest groups by head dim."""
     rng = np.random.default_rng(12)
     worst, n = {}, 0
@@ -881,19 +943,13 @@ def phase_head_dim_checks(torch, checks, build, decode):
                                         GEMMA_D)}
     # arctic-480b's head dim: groups 1, 7 (its own) and 32
     worst, n = {}, 0
-    limit = decode.card_smem_limit(torch.device("cuda"))
     for group, q_dtype in ((1, torch.float32), (ARCTIC_GROUP, torch.bfloat16),
                            (32, torch.float32)):
         heads = ARCTIC_HKV * group if group < 32 else 32
-        for kv, dt in checks.KV_KINDS.items():
+        for kv in checks.KV_KINDS:
             for name, run, case, idle, label in checks.head_dim_cases(
                     rng, ARCTIC_D, kv=kv, q_dtype=q_dtype, group=group,
                     H=heads):
-                if (name == "paged_decode" and decode.paged_decode_smem(
-                        group, ARCTIC_D, 16, case["block_tables"].shape[1],
-                        dt) > limit):
-                    _refused(build, name, run, case, label)
-                    continue
                 for variant in ("exact", "expmul"):
                     _hold(torch, checks, name, run, case, variant, q_dtype,
                           idle, label, worst)
@@ -913,11 +969,11 @@ def phase_kimi_checks(torch, checks, build, decode):
     (``checks.head_dim_cases``) over float32, bfloat16, int8 and fp8 KV,
     exact and ExpMul, dyadic and random inputs, at ``checks.kernel_tol``:
     GQA group 8 (64 / 8 heads, kimi's) with float32 and bfloat16 q, group
-    1 (8 / 8 heads, float32 q) and the largest group every decode kernel
-    takes over every KV dtype (one KV head, bfloat16 q); each kernel on a
-    poisoned page at 112; the largest group each decode kernel takes at
-    112 by KV dtype, and a float32 launch one group past it refused before
-    its launch. Returns the largest groups."""
+    1 (8 / 8 heads, float32 q) and the largest group every decode kernel's
+    block takes over every KV dtype (one KV head, bfloat16 q); each kernel on a poisoned page at 112; the
+    largest group each decode kernel's block takes at 112 by KV dtype,
+    and a float32 launch one group past it, in parts, against its plain
+    version. Returns the largest groups."""
     rng = np.random.default_rng(16)
     largest = _largest_groups(torch, checks, build, decode, rng, KIMI_D)
     top = min(largest.values())
@@ -978,8 +1034,9 @@ def phase_mla_checks(torch, checks, build):
     ``checks.kernel_tol``; a NaN row in the first, a middle or the last 16
     rows of a 1,000-token sequence or past its length, the kernel's
     non-finite output rows exactly its plain version's (0 * NaN reaches
-    the output); then int8 codes at (96, 64) and a pair not built
-    (64, 32), each refused with a ``ValueError`` before any launch."""
+    the output); then int8 codes at (96, 64) and a pair off the built
+    widths (64, 32), each against its plain version, and V rows of 257
+    refused with a ``ValueError`` before any launch."""
     rng = np.random.default_rng(13)
     worst, n = {}, 0
     for kv in ("f32", "bf16"):
@@ -1019,21 +1076,22 @@ def phase_mla_checks(torch, checks, build):
             f"non-finite rows equal to the plain version's, finite rows' "
             f"worst rel err {max(errs):.3e}")
     for what, kv, (dk, dv) in (("int8 codes at 96/64", "int8", (D, Dv)),
-                               ("a pair not built, 64/32", "f32", (64, 32))):
+                               ("a pair off the builds, 64/32", "f32",
+                                (64, 32)),
+                               ("V rows of 257", "f32", (64, 257))):
         for name, run in (("decode", checks.run_contiguous_decode),
                           ("prefill", checks.run_contiguous_prefill)):
             pf = dict(n_valid=[5, 5], chunk=5) if name == "prefill" else {}
             case = checks.contiguous_case(rng, B=2, H=4, Hkv=4, D=dk, Dv=dv,
-                                          S=64, lengths=[40, 7], kv=kv, **pf)
-            before = dict(build.COUNTS)
-            try:
-                run(case, "expmul")
-            except ValueError as e:
-                log(f"[check] {name}: {what} refused before its launch: {e}")
-            else:
-                raise AssertionError(f"{name}: {what} was not refused")
-            if dict(build.COUNTS) != before:
-                raise AssertionError(f"{name}: a refused call launched")
+                                          S=64, lengths=[40, 7], kv=kv,
+                                          dyadic=False, **pf)
+            if dv > 256:
+                _refused(build, name, run, case, what)
+                continue
+            for variant in ("exact", "expmul"):
+                _hold(torch, checks, name, run, case, variant, torch.float32,
+                      [], what, worst)
+                n += 1
     log(f"[check] MLA head dims {D}/{Dv}: {n} cases, worst rel err "
         f"{json.dumps(worst)}")
 
@@ -1079,18 +1137,21 @@ def _paged_edges(torch, checks, rng, worst):
     """The paged redesign's edges: decode over lengths 0, 1, ps - 1, ps,
     ps + 1 and the table's full width (2,048 tokens), and a row whose table
     holds a sentinel inside its length (clamped to the last pool block),
-    for GQA groups 1, 7 and 32 at pages of 16 and 32 (one round of a
-    cluster to 2,048 / (8 x 128) = 2 rounds, idle ranks), over float32
-    values and int8 codes; a 32,768-token context (2,048 pages of 16: 32
-    rounds) for group 7 over both; prefill chunks of C in {1, 15, 100,
-    256} rows over 0, 1 page and 1,000 tokens of history, float32 and
-    bfloat16 q, one row idle."""
-    for ps in (PS, 2 * PS):
+    for GQA groups 1, 7 and 32 at pages of 16, 32 and PS_WIDE (phase 4n's:
+    one round of a cluster to 2,048 / (8 x 128) = 2 rounds, idle ranks;
+    at 64, two pages a rank over float32 rows), over float32 values and
+    int8 codes, float32 and bfloat16 q (bfloat16, the serving q, at
+    PS_WIDE); a 32,768-token context (2,048 pages of 16: 32 rounds) for
+    group 7 over both; prefill chunks of C in {1, 15, 100, 256} rows over
+    0, 1 page and 1,000 tokens of history at pages of 16 (float32 and
+    bfloat16 q) and PS_WIDE (bfloat16 q), one row idle."""
+    for ps in (PS, 2 * PS, PS_WIDE):
         mb = MAX_LEN // ps
         lengths = [0, 1, ps - 1, ps, ps + 1, mb * ps, 5 * ps + 3]
         for group in (1, 7, 32):
             for kv in ("f32", "int8"):
-                for q_dtype in (torch.float32, torch.bfloat16):
+                for q_dtype in ((torch.float32, torch.bfloat16) if ps < PS_WIDE
+                                else (torch.bfloat16,)):
                     dec = checks.paged_case(
                         rng, B=len(lengths), H=HKV * group, Hkv=HKV, D=D,
                         page_size=ps, max_blocks=mb, lengths=lengths, kv=kv,
@@ -1114,20 +1175,22 @@ def _paged_edges(torch, checks, rng, worst):
                   variant, torch.bfloat16, [3], f"D={D} ps={PS} group=7 "
                   f"lengths {lengths} {kv} random", worst)
         del dec
-    for C in (1, 15, 100, CHUNK):
-        nv = [C, C, max(1, C // 3), 0]
-        for kv in ("f32", "int8"):
-            for q_dtype in (torch.float32, torch.bfloat16):
-                pre = checks.paged_case(
-                    rng, B=4, H=H, Hkv=HKV, D=D, page_size=PS,
-                    max_blocks=MAX_LEN // PS, lengths=[0, PS, 1000, 0],
-                    n_valid=nv, chunk=C, kv=kv, q_dtype=q_dtype,
-                    dyadic=False, device="cuda")
-                for variant in ("exact", "expmul"):
-                    _hold(torch, checks, "paged_prefill", checks.run_prefill,
-                          pre, variant, q_dtype, [3], f"D={D} C={C} history "
-                          f"[0, {PS}, 1000, 0] n_valid={nv} {kv} random",
-                          worst)
+    for ps in (PS, PS_WIDE):
+        for C in (1, 15, 100, CHUNK):
+            nv = [C, C, max(1, C // 3), 0]
+            for kv in ("f32", "int8"):
+                for q_dtype in ((torch.float32, torch.bfloat16) if ps < PS_WIDE
+                                else (torch.bfloat16,)):
+                    pre = checks.paged_case(
+                        rng, B=4, H=H, Hkv=HKV, D=D, page_size=ps,
+                        max_blocks=MAX_LEN // ps, lengths=[0, ps, 1000, 0],
+                        n_valid=nv, chunk=C, kv=kv, q_dtype=q_dtype,
+                        dyadic=False, device="cuda")
+                    for variant in ("exact", "expmul"):
+                        _hold(torch, checks, "paged_prefill",
+                              checks.run_prefill, pre, variant, q_dtype, [3],
+                              f"D={D} ps={ps} C={C} history [0, {ps}, 1000, "
+                              f"0] n_valid={nv} {kv} random", worst)
 
 
 def _bits_repr(torch, t):
@@ -1835,6 +1898,34 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
         f"results depend on the tile width, so no gate): {same} of "
         f"{sum(map(len, streams['paged/int8']))} tokens at the same "
         f"position, first tokens {first} of {len(prompts)}")
+    # the paged int8 pool at pages of PS_WIDE tokens (the paged kernels'
+    # ExpMul tile is a page, so its streams are its own): graphs against
+    # eager, gated as the page-16 runs, beside the page-16
+    # graph run; the page size is the config's field (the CLI's
+    # --page-size), not the engine's argument
+    cfg_wide = cfg_mod.get_config("qwen2-0.5b", page_size=PS_WIDE)
+    kw_wide = {k: v for k, v in kw.items() if k != "page_size"}
+    runs = {mode: _serve_run(torch, build, ServeEngine, params, cfg_wide,
+                             prompts, dict(kw_wide, eager_ticks=mode == "eager"),
+                             PAGED, tag=f"page {PS_WIDE} ")
+            for mode in ("graphs", "eager")}
+    (counts, per_step, out, g), (_, _, eager_out, e) = (runs["graphs"],
+                                                        runs["eager"])
+    if out != eager_out:
+        raise AssertionError(f"paged/int8 at pages of {PS_WIDE}: the graph "
+                             f"engine's streams differ from the eager "
+                             f"engine's")
+    log(f"[serve] paged/int8 graphs, pages of {PS_WIDE} / {PS}: tokens/s "
+        f"{g['tokens_per_s']:.1f} / {sink_on['tokens_per_s']:.1f}; TTFT p50 "
+        f"{g['ttft_p50_ms']:.1f} / {sink_on['ttft_p50_ms']:.1f} ms; prefill "
+        f"tick p50 {g['prefill_p50_ms']:.2f} / "
+        f"{sink_on['prefill_p50_ms']:.2f} ms; decode tick p50 "
+        f"{g['decode_p50_ms']:.2f} / {sink_on['decode_p50_ms']:.2f} ms; "
+        f"eager at {PS_WIDE}: {e['tokens_per_s']:.1f} tokens/s; graph and "
+        f"eager streams equal; launches a tick {json.dumps(per_step)}")
+    for name in PAGED:
+        launches[name].update({f"launches_page{PS_WIDE}": counts[name],
+                               f"page{PS_WIDE}_per_step": per_step[name]})
     del params
     torch.cuda.empty_cache()
     return launches
@@ -3565,7 +3656,8 @@ def _time_serving(torch, checks, F, flush, rng, h=H, hkv=HKV, d=D,
     """The four serving kernels at the serving shapes (int8 codes, ExpMul,
     bf16 q, B sequences of CTX tokens, CHUNK-token chunks) with h / hkv
     heads of d: device time, time with the launch, the plain version's time
-    (the median of ``plain_n`` runs), the bound, and the yardstick."""
+    (the median of ``plain_n`` runs, after ``plain_warmup`` more; the
+    check against it runs it once first), the bound, and the yardstick."""
     common = dict(B=B, H=h, Hkv=hkv, D=d, q_dtype=torch.bfloat16,
                   dyadic=False, device="cuda")
     paged = dict(common, page_size=PS, max_blocks=MAX_LEN // PS)
@@ -3703,8 +3795,8 @@ def phase_flash_head_dim_checks(torch, checks):
     (``checks.flash_edge_cases`` at 1, 33 and 1,000 tokens, GQA groups 1
     and 7) and the non-causal
     cross shapes (``checks.flash_cross_cases``, groups 1 and 8); float32
-    and bfloat16, dyadic and random, exact and ExpMul. Returns the worst
-    relative error by head dim."""
+    and bfloat16, dyadic and random, exact and ExpMul (phase "contracts"
+    holds flash at widths off its builds). Returns the worst relative error by head dim."""
     rng = np.random.default_rng(18)
     worst, n = {}, 0
 
@@ -3756,6 +3848,155 @@ def phase_flash_head_dim_checks(torch, checks):
     log(f"[check] flash at head dims 96, 112, 256: {n} cases within "
         f"kernel_tol; worst rel err {json.dumps(worst)}")
     return worst
+
+
+def _case_bound(name, case):
+    """(bytes, flops) a serving kernel's call needs on this case: q, the
+    output, each valid K and V row (codes and scale rows) and the tables
+    read or written once; 2 (D + Dv) flops a (query, key) pair, counted
+    over the valid pairs (the masks of this case's lengths)."""
+    q = case["q"]
+    H, D = q.shape[1], q.shape[-1]
+    Dv = case["v_pool" if "v_pool" in case else "v"].shape[-1]
+    k = case["k_pool" if "k_pool" in case else "k"]
+    Hkv = k.shape[-2] if "k_pool" in case else k.shape[1]
+    row = (D + Dv) * k.element_size() + (8 if case["quant"] else 0)
+    L = case["lengths"].cpu().numpy().astype(np.int64)
+    C = q.shape[2] if q.dim() == 4 else 1
+    nv = (case["n_valid"].cpu().numpy().astype(np.int64) if C > 1
+          else np.zeros_like(L))
+    pairs = H * (C * L + nv * (nv + 1) // 2) if C > 1 else H * L
+    nbytes = (q.numel() * q.element_size() * (D + Dv) // D
+              + int((Hkv * (L + nv) * row).sum()) + 8 * len(L))
+    if "block_tables" in case:
+        nbytes += case["block_tables"].numel() * 4
+    return nbytes, 2 * (D + Dv) * int(pairs.sum())
+
+
+def _sdpa_yardstick(torch, case):
+    """One ``scaled_dot_product_attention`` call on dense bfloat16 operands
+    of a contract case's shapes (its queries over its longest history and
+    chunk, GQA through ``enable_gqa``, a prefill's or a causal flash's
+    chunk rows masked causally): the library's time for the same work."""
+    import torch.nn.functional as F
+    q = case["q"]
+    B, H = q.shape[:2]
+    D = q.shape[-1]
+    v_name = "v_pool" if "v_pool" in case else "v"
+    Dv = case[v_name].shape[-1]
+    if "lengths" in case:
+        Hkv = (case["k_pool"].shape[-2] if "k_pool" in case
+               else case["k"].shape[1])
+        C = q.shape[2] if q.dim() == 4 else 1
+        hist = int(case["lengths"].max())
+        T = hist + (C if C > 1 else 0)
+    else:                                         # a causal flash case
+        Hkv, C, T, hist = case["k"].shape[1], q.shape[2], case["k"].shape[2], 0
+    q4 = torch.randn(B, H, C, D, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(B, Hkv, T, D, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn(B, Hkv, T, Dv, device="cuda", dtype=torch.bfloat16)
+    mask = None
+    if C > 1:         # row i sees the history and the rows up to i
+        mask = (torch.arange(T, device="cuda")[None, :]
+                <= hist + torch.arange(C, device="cuda")[:, None])
+    return lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def phase_contracts(torch, checks, build):
+    """The five attention kernels at the inputs their Pallas kernels take
+    beyond the widths they are built for (``checks.CONTRACT_SHAPES``):
+    head dim 80 over every KV dtype; (D, Dv) = (192, 128) and (48, 32)
+    over int8 and fp8 codes; GQA group 40 at D 64 and 20 at D 256 (split
+    into parts of one launch where a block's shared memory binds); pages
+    of 64 to 256 tokens for the paged pair, 48 and 200 among them; rows off a 16-byte boundary
+    (D 20 in bfloat16, D 40 in int8); flash at D 80 and 20 in bfloat16.
+    Each against its plain version at ``checks.kernel_tol``, exact and
+    ExpMul, bfloat16 q, random inputs (``checks.contract_case``: ragged
+    lengths, an idle row), its device ms (ExpMul, a median of 5) beside
+    its bound; at the first KV dtype and page size of each shape, also its
+    time with the launch, its plain version's (a median of 3) and SDPA's
+    on a dense bfloat16 copy of the shapes (``_sdpa_yardstick``). Then
+    D 257, Dv 257 and a page of 257 tokens, each refused with a ValueError
+    before any launch, the launch counts unmoved. Returns each kernel's
+    cases, worst error and times."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(22)
+    out = {name: dict(cases=0, worst_rel_err=0.0, times={})
+           for name in PAGED + CONTIGUOUS + ("flash",)}
+    worst = {}
+
+    def record(name, label, case, run, bound, full):
+        ms = median_ms(torch, lambda: run(case, "expmul"), flush, n=5)
+        nbytes, flops = bound
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        out[name]["cases"] += 2
+        res = out[name]["times"][label] = dict(
+            ms=ms, bound_ms=max(t_b, t_o) * 1e3,
+            bound_by="bytes" if t_b >= t_o else "operations")
+        more = ""
+        if full:
+            res.update(
+                ms_with_launch=median_ms(torch, lambda: run(case, "expmul"),
+                                         flush, n=5, hide_host=False),
+                plain_ms=median_ms(torch, lambda: run(case, "expmul",
+                                                      plain=True),
+                                   flush, n=3, warmup=1),
+                sdpa_ms=median_ms(torch, _sdpa_yardstick(torch, case),
+                                  flush, n=5))
+            more = (f", {res['ms_with_launch']:.4f} ms with its launch, plain "
+                    f"{res['plain_ms']:.4f} ms, SDPA on a dense bf16 copy "
+                    f"{res['sdpa_ms']:.4f} ms")
+        log(f"[contract] {name} {label}: {ms:.4f} ms on the device{more}, "
+            f"bound {max(t_b, t_o) * 1e3:.5f} ms ({res['bound_by']}: "
+            f"{nbytes} B, {flops} flop)")
+
+    for D, Dv, kvs, group, pages, kernels in checks.CONTRACT_SHAPES:
+        for kv in kvs:
+            for ps in pages:
+                full = kv == kvs[0] and ps == pages[0]
+                for name in kernels:
+                    run, case, idle = checks.contract_case(
+                        rng, name, D=D, Dv=Dv, kv=kv, group=group,
+                        page_size=ps)
+                    label = (f"D={D} Dv={Dv} group={group} {kv}"
+                             + (f" ps={ps}" if name in PAGED else ""))
+                    for variant in ("exact", "expmul"):
+                        _hold(torch, checks, name, run, case, variant,
+                              torch.bfloat16, idle, label, worst)
+                    record(name, label, case, run, _case_bound(name, case),
+                           full)
+                    del case
+    for D in checks.CONTRACT_FLASH_DIMS:
+        case = checks.flash_case(rng, B=2, H=4, Hkv=2, Sq=200, Sk=256, D=D,
+                                 dtype=torch.bfloat16, dyadic=False,
+                                 block_k=128, device="cuda")
+        label = f"D={D} bf16 causal S 200 over 256"
+        for variant in ("exact", "expmul"):
+            _hold(torch, checks, "flash", checks.run_flash, case, variant,
+                  torch.bfloat16, [], label, worst)
+        pairs = 2 * 4 * sum(range(1, 201))            # causal, per (b, h)
+        nbytes = 2 * (2 * 4 * 200 * D) * 2 + 2 * (2 * 2 * 256 * D) * 2
+        record("flash", label, case, checks.run_flash,
+               (nbytes, 4 * D * pairs), True)
+    for key, err in worst.items():
+        name = key.split()[0]
+        out[name]["worst_rel_err"] = max(out[name]["worst_rel_err"], err)
+    # past the limits: nothing launches
+    refusals = [(name, dict(D=257, Dv=None), 16) for name in PAGED + CONTIGUOUS]
+    refusals += [(name, dict(D=64, Dv=257), 16) for name in PAGED + CONTIGUOUS]
+    refusals += [(name, dict(D=64, Dv=None), 257) for name in PAGED]
+    for name, dims, ps in refusals:
+        run, case, _ = checks.contract_case(rng, name, kv="int8",
+                                            page_size=ps, **dims)
+        _refused(build, name, run, case, f"{dims} page {ps}")
+    case = checks.flash_case(rng, B=1, H=2, Hkv=1, Sq=64, Sk=64, D=257,
+                             dtype=torch.bfloat16, block_k=64, device="cuda")
+    _refused(build, "flash", checks.run_flash, case, "D 257")
+    log(f"[check] contracts: {sum(o['cases'] for o in out.values())} cases "
+        f"within kernel_tol, {len(refusals) + 1} refusals before any launch; "
+        f"worst rel err {json.dumps(worst)}")
+    return out
 
 
 def phase_flash_head_dim_times(torch, checks, F):
@@ -4144,7 +4385,7 @@ def phase_times(torch, checks, F):
     # the plain versions a median of 5 runs (25 until the script outgrew
     # its time)
     out = _time_serving(torch, checks, F, flush, rng, plain_n=5,
-                        plain_warmup=1)
+                        plain_warmup=0)
     out["flash"] = _time_flash(torch, checks, F, flush, rng, plain_n=5)
     out["expmul"] = _time_expmul(torch, checks, flush, rng)
     for name, r in out.items():
@@ -4160,7 +4401,7 @@ def phase_gemma_times(torch, checks, F):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     return _time_serving(torch, checks, F, flush, np.random.default_rng(5),
                          h=GEMMA_H, hkv=GEMMA_H, d=GEMMA_D, plain_n=3,
-                         plain_warmup=1)
+                         plain_warmup=0)
 
 
 def phase_arctic_times(torch, checks, F):
@@ -4170,7 +4411,7 @@ def phase_arctic_times(torch, checks, F):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     return _time_serving(torch, checks, F, flush, np.random.default_rng(7),
                          h=ARCTIC_H, hkv=ARCTIC_HKV, d=ARCTIC_D, plain_n=3,
-                         plain_warmup=1)
+                         plain_warmup=0)
 
 
 def phase_kimi_times(torch, checks, F):
@@ -4180,7 +4421,7 @@ def phase_kimi_times(torch, checks, F):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     return _time_serving(torch, checks, F, flush, np.random.default_rng(17),
                          h=KIMI_H, hkv=KIMI_HKV, d=KIMI_D, plain_n=3,
-                         plain_warmup=1)
+                         plain_warmup=0)
 
 
 def phase_rg_times(torch, checks, F, decode, prefill):
@@ -4425,7 +4666,7 @@ def phase_resources(build, decode, prefill, flash):
         smem[f"paged_decode group {group} {dtype} (ctx {CTX} and 32768)"] = \
             at[CTX]
     smem["paged_prefill"] = prefill.paged_prefill_smem(D)
-    for hd in flash.HEAD_DIMS:
+    for hd in FLASH_WIDTHS:
         smem[f"flash D {hd} bk 512"] = flash.smem_bytes(hd, 512)
     info = {}
     for name, entry in MAIN_ENTRY.items():
@@ -4715,6 +4956,17 @@ def main(argv=None) -> int:
     log(card)
     phases = (
         ("build", lambda: phase_build(build)),
+        # while the serving kernels compile: work on the host and on the
+        # ExpMul and flash libraries, which build first
+        ("plan", phase_plan),
+        ("expmul checks", lambda: phase_expmul_checks(torch, checks, build,
+                                                      expmul_ops)),
+        ("flash checks", lambda: phase_flash_checks(torch, checks)),
+        ("flash cross checks", lambda: phase_flash_cross_checks(torch,
+                                                                checks)),
+        ("flash head dim checks", lambda: phase_flash_head_dim_checks(
+            torch, checks)),
+        ("built", lambda: phase_built(build)),
         ("kernel checks", lambda: phase_kernel_checks(torch, checks)),
         ("head dim checks", lambda: phase_head_dim_checks(torch, checks,
                                                           build, decode)),
@@ -4723,12 +4975,7 @@ def main(argv=None) -> int:
         ("mla checks", lambda: phase_mla_checks(torch, checks, build)),
         ("rg checks", lambda: phase_rg_checks(torch, checks)),
         ("moe routing", lambda: phase_moe_routing(torch)),
-        ("expmul checks", lambda: phase_expmul_checks(torch, checks, build,
-                                                      expmul_ops)),
-        ("flash cross checks", lambda: phase_flash_cross_checks(torch,
-                                                                checks)),
-        ("flash head dim checks", lambda: phase_flash_head_dim_checks(
-            torch, checks)),
+        ("contracts", lambda: phase_contracts(torch, checks, build)),
         ("model ticks", lambda: phase_model_ticks(torch, cfg_mod, api)),
         ("gemma ticks", lambda: phase_gemma_ticks(torch, cfg_mod, api)),
         ("mla ticks", lambda: phase_mla_ticks(torch, cfg_mod, api)),
@@ -4786,7 +5033,6 @@ def main(argv=None) -> int:
             torch, cfg_mod, api, build, arch=MLA, num_layers=MLA_TRAIN_LAYERS,
             steps=TRAIN_CUT_STEPS)),
         ("train archs", lambda: phase_train_archs(torch, cfg_mod, build)),
-        ("plan", phase_plan),
         ("counted step", lambda: phase_counted_step(torch, cfg_mod, api,
                                                     build)),
         ("flash offset", lambda: phase_flash_offset(torch, checks, F)),
@@ -4902,6 +5148,10 @@ def main(argv=None) -> int:
     results["resources"]["flash"]["q_offset"] = dict(
         **results["flash offset"], mesh_train={
             k: v for k, v in results["mesh train"].items() if k != "flash"})
+    # the contract past the built widths (phase "contracts"): each
+    # kernel's cases, worst error, device ms and bounds
+    for name, res in results["contracts"].items():
+        results["resources"].setdefault(name, {})["contracts"] = res
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, **launches[name],

@@ -3,10 +3,10 @@ MoE 384 experts top-8, per-expert d_ff=2048, untied head — trillion-param
 MoE (paper-table). [arXiv:2501.kimi2; unverified]
 
 Its head dim is 7168 / 64 = 112 (GQA group 8): the four serving kernels
-are built for it (``kernels/decode/decode.py:HEAD_DIMS``). One layer's
-384 experts are ~34 GB in bf16, so on one card it is served at full width
-and depth 2 (``chip_smoke.py``); the flash forward of training is built
-for 112 too (``kernels/flash/flash.py:HEAD_DIMS``).
+and the flash forward of training take any head dim up to 256
+(``kernels/decode/decode.py:MAX_HEAD_DIM``) and have a build at 112
+(``csrc/*.cu``). One layer's 384 experts are ~34 GB in bf16, so on one
+card it is served at full width and depth 2 (``chip_smoke.py``).
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
 

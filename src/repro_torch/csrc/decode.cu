@@ -59,11 +59,20 @@
 //
 // K rows may be wider than V rows (MLA's expanded latents: DK 96, DV 64, as
 // the reference's kernel takes them): q and the scores walk DK features, the
-// partials, the running state and the output DV. Built for (D, D) with D in
-// {16, 32, 64, 112, 128, 256} over every KV dtype, and for (96, 64) over float32 and
-// bfloat16 KV only (MLA's expanded K/V are never codes). At (96, 64) a tile
-// fits a CTA unsplit: 256 rows of K and V are 53,248 + 32,768 B in bfloat16
-// and 102,400 + 65,536 B in float32, under the 232,448 a CTA can use.
+// partials, the running state and the output DV. Built for (W, W) with W in
+// {16, 32, 64, 112, 128, 256} over every KV dtype, and for (96, 64) over
+// float32 and bfloat16 KV. At (96, 64) a tile fits a CTA unsplit: 256 rows
+// of K and V are 53,248 + 32,768 B in bfloat16 and 102,400 + 65,536 B in
+// float32, under the 232,448 a CTA can use.
+//
+// The contract is the Pallas kernel's: any head dims D, Dv <= 256, codes
+// too, and any GQA group. A call runs the narrowest build that holds (D, Dv)
+// (built_dims), reads D K and Dv V features a row, zero-fills the rest of
+// each staged K row (q's too) and stores Dv outputs; fmaf(0, 0, acc) = acc,
+// so every score is the call's. A group wider than a CTA takes (32 rows, or
+// fewer where shared memory binds: 21 at W 256 over float32) is split into
+// parts along the grid's y axis; query rows are independent, and each part
+// re-reads the KV.
 #include <cooperative_groups.h>
 
 #include "tile_sm90.cuh"
@@ -76,7 +85,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kMaxCluster = 8;     // the portable cluster size
-constexpr int kMaxGroup = 32;      // query heads per KV head
+constexpr int kMaxGroup = 32;      // query heads per KV head a part
 constexpr int kMaxSmem = 232448;   // bytes of shared memory a CTA can use
 
 struct Layout {
@@ -100,7 +109,7 @@ template <int DK, int DV>
 __host__ __device__ constexpr bool split_tile() { return DK + DV > 160; }
 // K features a step (split tiles): 64, or 56 at head dim 112. Its rows are 56
 // bytes of int8 or fp8 codes there, so those chunks are copied in 4-byte
-// pieces (kVecDepth).
+// pieces (piece_of).
 template <int DK>
 __host__ __device__ constexpr int split_depth() { return DK % 64 == 0 ? 64 : 56; }
 constexpr int kSubRows = 64;  // V rows a step (split tiles)
@@ -143,18 +152,21 @@ template <typename KV, int DK, int DV, bool EXPMUL>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
               const float* __restrict__ ks, const float* __restrict__ vs,
-              const int* __restrict__ lens, void* __restrict__ out, int Hkv, int group, int S,
-              int bk, int CL, float scale, int act_dtype, int vec16) {
+              const int* __restrict__ lens, void* __restrict__ out, int Hkv, int n_group,
+              int gpart, int S, int bk, int CL, float scale, int act_dtype, int dq, int dv,
+              RowBytes rb) {
   constexpr bool QUANT = IsCode<KV>::value;
   constexpr bool SPLIT = split_tile<DK, DV>();
   static_assert(!SPLIT || DK == DV, "split tiles at DK == DV only");
   constexpr int kDepth = split_depth<DK>();  // K features a step (split tiles)
   static_assert(DK % kDepth == 0 || !SPLIT, "the split depth steps skip K features");
-  constexpr bool kVecDepth = kDepth * sizeof(KV) % 16 == 0;  // 16-byte pieces
-  constexpr int kKRow = DK * static_cast<int>(sizeof(KV));  // bytes of a K row
-  constexpr int kVRow = DV * static_cast<int>(sizeof(KV));  // bytes of a V row
+  constexpr int kKRow = DK * static_cast<int>(sizeof(KV));  // bytes of a staged K row
+  constexpr int kVRow = DV * static_cast<int>(sizeof(KV));  // bytes of a staged V row
+  constexpr int kDepthBytes = kDepth * static_cast<int>(sizeof(KV));
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout<KV, DK, DV>(group, bk);
+  const Layout L = layout<KV, DK, DV>(gpart, bk);
+  const int g0 = blockIdx.y * gpart;          // this part's first query row
+  const int group = min(gpart, n_group - g0);  // and its rows
   unsigned char* k_s = smem + L.k;
   const KV* v_s = reinterpret_cast<const KV*>(smem + L.v);
   float* ks_s = reinterpret_cast<float*>(smem + L.ks);
@@ -185,8 +197,8 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     if (t < n_act) {
       const int c0 = t * bk, nr = min(bk, S - c0);
       const int64_t r = row0 + c0;
-      copy_rows_async(k_s, L.k_stride, reinterpret_cast<const unsigned char*>(k + r * DK), nr,
-                      kKRow, vec16);
+      copy_rows_async(k_s, L.k_stride, reinterpret_cast<const unsigned char*>(k) + r * rb.k,
+                      nr, rb.k, kKRow, rb.piece);
       if (QUANT) {
         for (int j = tid; j < nr; j += kThreads) cp_async4(ks_s + j, ks + r + j);
       }
@@ -197,8 +209,8 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     if (t < n_act) {
       const int c0 = t * bk, nr = min(bk, S - c0);
       const int64_t r = row0 + c0;
-      copy_rows_async(smem + L.v, kVRow, reinterpret_cast<const unsigned char*>(v + r * DV),
-                      nr, kVRow, vec16);
+      copy_rows_async(smem + L.v, kVRow, reinterpret_cast<const unsigned char*>(v) + r * rb.v,
+                      nr, rb.v, rb.v, rb.piece);
       if (QUANT) {
         for (int j = tid; j < nr; j += kThreads) cp_async4(vs_s + j, vs + r + j);
       }
@@ -217,10 +229,14 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
       const int c0 = t * bk, nr = min(bk, S - c0);
       const int64_t r = row0 + c0;
       if (st < kChunks) {
-        const unsigned char* src = reinterpret_cast<const unsigned char*>(k) + r * kKRow;
-        const int d0 = st * kDepth * static_cast<int>(sizeof(KV));
-        copy_rows_async_at(step_buf(g), L.k_stride, nr, kDepth * static_cast<int>(sizeof(KV)),
-                           vec16 && kVecDepth, [=](int j) { return src + j * kKRow + d0; });
+        // the chunk's features below D, zeros to its end
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(k) + r * rb.k;
+        const int d0 = st * kDepthBytes;
+        const int kb = max(0, min(kDepthBytes, rb.k - d0));
+        const int64_t row = rb.k;
+        copy_rows_async_at(step_buf(g), L.k_stride, nr, kb, kDepthBytes,
+                           piece_of(rb.piece | d0 | L.k_stride | kb),
+                           [=](int j) { return src + j * row + d0; });
         if (QUANT && st == 0) {
           for (int j = tid; j < nr; j += kThreads) {
             cp_async4(ks_s + j, ks + r + j);
@@ -228,11 +244,11 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
           }
         }
       } else {
-        const unsigned char* src = reinterpret_cast<const unsigned char*>(v) + r * kVRow;
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(v) + r * rb.v;
         const int j0 = (st - kChunks) * kSubRows;
         if (j0 < nr)
-          copy_rows_async(step_buf(g), kVRow, src + j0 * kVRow, min(kSubRows, nr - j0), kVRow,
-                          vec16);
+          copy_rows_async(step_buf(g), kVRow, src + static_cast<int64_t>(j0) * rb.v,
+                          min(kSubRows, nr - j0), rb.v, rb.v, rb.piece);
       }
     }
     cp_async_commit();
@@ -246,8 +262,12 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
     copy_k(rank);
     copy_v(rank);
   }
-  for (int i = tid; i < group * DK; i += kThreads)
-    q_s[i] = load_act(q, static_cast<int64_t>(bh) * group * DK + i, act_dtype);
+  for (int e = tid; e < group * DK; e += kThreads) {
+    const int i = e / DK, d = e - i * DK;
+    q_s[e] = d < dq ? load_act(q, (static_cast<int64_t>(bh) * n_group + g0 + i) * dq + d,
+                               act_dtype)
+                    : 0.0f;
+  }
   for (int i = tid; i < group; i += kThreads) {
     carry_s[i] = kMaskValue;
     m_s[i] = kMaskValue;
@@ -387,8 +407,8 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
         __syncthreads();
         const int c0 = sub * kSubRows, nc = min(kSubRows, nr - c0);
         const KV* vb = reinterpret_cast<const KV*>(step_buf(g));
-        for (int e = tid; nc > 0 && e < group * DV; e += kThreads) {
-          const int i = e / DV, d = e - i * DV;
+        for (int e = tid; nc > 0 && e < group * dv; e += kThreads) {
+          const int i = e / dv, d = e - i * dv;
           const float* wr = s_s + i * bk + c0;
           float ds = c0 == 0 ? 0.0f : part_s[i * (DV + 1) + d];
 #pragma unroll 8
@@ -398,9 +418,11 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
         __syncthreads();  // the step's readers are done
       }
     } else if (nr > 0) {
-      // one thread a (row, 4 features): fmaf chains over the columns in order
-      for (int e = tid; e < group * (DV / 4); e += kThreads) {
-        const int i = e / (DV / 4), d4 = (e - i * (DV / 4)) * 4;
+      // one thread a (row, 4 features): fmaf chains over the columns in
+      // order, for the features below dv
+      const int dv4 = (dv + 3) / 4;
+      for (int e = tid; e < group * dv4; e += kThreads) {
+        const int i = e / dv4, d4 = (e - i * dv4) * 4;
         const float* wr = s_s + i * bk;
         const KV* vc = v_s + d4;
         float ds[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -434,8 +456,8 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
       const int n_here = min(CL, n_act - round * CL);
       const float* m_in = m_s + (round & 1) * group;
       float* m_out = m_s + ((round + 1) & 1) * group;
-      for (int e = tid; e < group * DV; e += kThreads) {
-        const int i = e / DV, d = e - i * DV;
+      for (int e = tid; e < group * dv; e += kThreads) {
+        const int i = e / dv, d = e - i * dv;
         float ds[kMaxCluster], ps[kMaxCluster];
 #pragma unroll
         for (int r = 0; r < kMaxCluster; ++r) {
@@ -445,7 +467,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
             if (d == 0) ps[r] = pr[DV];
           }
         }
-        float m = m_in[i], l = l_s[i], acc = acc_s[e];
+        float m = m_in[i], l = l_s[i], acc = acc_s[i * DV + d];
 #pragma unroll
         for (int r = 0; r < kMaxCluster; ++r) {
           if (r < n_here) {
@@ -456,7 +478,7 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
             m = m_new;
           }
         }
-        acc_s[e] = acc;
+        acc_s[i * DV + d] = acc;
         if (d == 0) {
           l_s[i] = l;
           m_out[i] = m;
@@ -467,10 +489,11 @@ decode_kernel(const void* __restrict__ q, const KV* __restrict__ k, const KV* __
 
   if (rank == 0) {
     __syncthreads();  // every row's l is in place
-    for (int e = tid; e < group * DV; e += kThreads) {
-      const float l = l_s[e / DV];
-      store_act(out, static_cast<int64_t>(bh) * group * DV + e,
-                acc_s[e] / (l == 0.0f ? 1.0f : l), act_dtype);
+    for (int e = tid; e < group * dv; e += kThreads) {
+      const int i = e / dv, d = e - i * dv;
+      const float l = l_s[i];
+      store_act(out, (static_cast<int64_t>(bh) * n_group + g0 + i) * dv + d,
+                acc_s[i * DV + d] / (l == 0.0f ? 1.0f : l), act_dtype);
     }
   }
   cluster.sync();  // no CTA leaves while rank 0 may still read its partials
@@ -481,14 +504,33 @@ int smem_bytes(int group, int bk) {
   return layout<KV, DK, DV>(group, bk).total;
 }
 
+// query rows a CTA takes: the most (<= kMaxGroup) whose layout fits a CTA,
+// shared out evenly over the fewest parts; 0 if none fits
+template <typename KV, int DK, int DV>
+int part_rows(int group, int bk) {
+  int most = group < kMaxGroup ? group : kMaxGroup;
+  while (most > 0 && smem_bytes<KV, DK, DV>(most, bk) > kMaxSmem) --most;
+  if (most == 0) return 0;
+  const int parts = (group + most - 1) / most;
+  return (group + parts - 1) / parts;
+}
+
+// the shared memory a CTA takes at a group's part; -1 where none fits
+template <typename KV, int DK, int DV>
+int part_smem(int group, int bk) {
+  const int gpart = part_rows<KV, DK, DV>(group, bk);
+  return gpart > 0 ? smem_bytes<KV, DK, DV>(gpart, bk) : -1;
+}
+
 template <typename KV, int DK, int DV, bool EXPMUL>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* lens, void* out, int B, int Hkv, int group, int S, int bk, float scale,
-           int act_dtype, cudaStream_t stream) {
+           int act_dtype, int dq, int dv, cudaStream_t stream) {
   const int T = (S + bk - 1) / bk;  // the walk's tiles at a length of S
   const int CL = T < kMaxCluster ? T : kMaxCluster;
-  const int smem = smem_bytes<KV, DK, DV>(group, bk);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int gpart = part_rows<KV, DK, DV>(group, bk);
+  if (gpart == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes<KV, DK, DV>(gpart, bk);
   auto kernel = decode_kernel<KV, DK, DV, EXPMUL>;
   static int granted = 48 * 1024;  // per instantiation
   if (smem > granted) {
@@ -497,9 +539,12 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     if (e != cudaSuccess) return static_cast<int>(e);
     granted = smem;
   }
-  const int vec16 = ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  const int kb = dq * static_cast<int>(sizeof(KV)), vb = dv * static_cast<int>(sizeof(KV));
+  const RowBytes rb{kb, vb,
+                    piece_of(reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                             static_cast<uintptr_t>(kb) | static_cast<uintptr_t>(vb))};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * Hkv * CL);
+  cfg.gridDim = dim3(B * Hkv * CL, (group + gpart - 1) / gpart);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -512,56 +557,65 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, q, static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs, lens, out,
-      Hkv, group, S, bk, CL, scale, act_dtype, vec16);
+      Hkv, group, gpart, S, bk, CL, scale, act_dtype, dq, dv, rb);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// (DK, DV): (D, D) for D in {16, 32, 64, 112, 128, 256}, and (96, 64) for float KV
+// The build a call at (D, Dv) runs: (96, 64) for float KV at 64 < D <= 96
+// and Dv <= 64 (MLA's expanded latents), else the narrowest square width
+// holding both; {0, 0} past kMaxHeadDim.
+template <typename KV>
+Dims built_dims(int D, int Dv) {
+  if (!IsCode<KV>::value && D > 64 && D <= 96 && Dv <= 64) return Dims{96, 64};
+  const int w = square_width(D > Dv ? D : Dv);
+  return Dims{w, w};
+}
+
 template <typename KV>
 int by_dims(int D, int Dv, int expmul, const void* q, const void* k, const void* v,
             const float* ks, const float* vs, const int* lens, void* out, int B, int Hkv,
             int group, int S, int bk, float scale, int act_dtype, cudaStream_t s) {
 #define REPRO_LAUNCH(DK, DV)                                                              \
   return expmul ? launch<KV, DK, DV, true>(q, k, v, ks, vs, lens, out, B, Hkv, group, S, \
-                                           bk, scale, act_dtype, s)                      \
+                                           bk, scale, act_dtype, D, Dv, s)               \
                 : launch<KV, DK, DV, false>(q, k, v, ks, vs, lens, out, B, Hkv, group, S, \
-                                            bk, scale, act_dtype, s)
-  if (D == Dv) {
-    switch (D) {
-      case 16: REPRO_LAUNCH(16, 16);
-      case 32: REPRO_LAUNCH(32, 32);
-      case 64: REPRO_LAUNCH(64, 64);
-      case 112: REPRO_LAUNCH(112, 112);
-      case 128: REPRO_LAUNCH(128, 128);
-      case 256: REPRO_LAUNCH(256, 256);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
+                                            bk, scale, act_dtype, D, Dv, s)
+  const Dims w = built_dims<KV>(D, Dv);
   if constexpr (!IsCode<KV>::value) {
-    if (D == 96 && Dv == 64) REPRO_LAUNCH(96, 64);
+    if (w.k == 96 && w.v == 64) REPRO_LAUNCH(96, 64);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (w.k) {
+    case 16: REPRO_LAUNCH(16, 16);
+    case 32: REPRO_LAUNCH(32, 32);
+    case 64: REPRO_LAUNCH(64, 64);
+    case 112: REPRO_LAUNCH(112, 112);
+    case 128: REPRO_LAUNCH(128, 128);
+    case 256: REPRO_LAUNCH(256, 256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 #undef REPRO_LAUNCH
 }
 
 template <typename KV>
 long long smem_by_dims(int D, int Dv, int group, int bk) {
-  if (D == Dv) {
-    switch (D) {
-      case 16: return static_cast<long long>(smem_bytes<KV, 16, 16>(group, bk));
-      case 32: return static_cast<long long>(smem_bytes<KV, 32, 32>(group, bk));
-      case 64: return static_cast<long long>(smem_bytes<KV, 64, 64>(group, bk));
-      case 112: return static_cast<long long>(smem_bytes<KV, 112, 112>(group, bk));
-      case 128: return static_cast<long long>(smem_bytes<KV, 128, 128>(group, bk));
-      case 256: return static_cast<long long>(smem_bytes<KV, 256, 256>(group, bk));
-      default: return -1;
-    }
-  }
+  const Dims w = built_dims<KV>(D, Dv);
   if constexpr (!IsCode<KV>::value) {
-    if (D == 96 && Dv == 64) return static_cast<long long>(smem_bytes<KV, 96, 64>(group, bk));
+    if (w.k == 96 && w.v == 64) return static_cast<long long>(part_smem<KV, 96, 64>(group, bk));
   }
-  return -1;
+  switch (w.k) {
+    case 16: return static_cast<long long>(part_smem<KV, 16, 16>(group, bk));
+    case 32: return static_cast<long long>(part_smem<KV, 32, 32>(group, bk));
+    case 64: return static_cast<long long>(part_smem<KV, 64, 64>(group, bk));
+    case 112: return static_cast<long long>(part_smem<KV, 112, 112>(group, bk));
+    case 128: return static_cast<long long>(part_smem<KV, 128, 128>(group, bk));
+    case 256: return static_cast<long long>(part_smem<KV, 256, 256>(group, bk));
+    default: return -1;
+  }
+}
+
+bool dims_ok(int D, int Dv, int group) {
+  return D > 0 && D <= kMaxHeadDim && Dv > 0 && Dv <= kMaxHeadDim && group > 0;
 }
 
 }  // namespace
@@ -569,16 +623,16 @@ long long smem_by_dims(int D, int Dv, int group, int bk) {
 // q (B*Hkv, group, D) f32/bf16; caches k (B*Hkv, S, D) and v (B*Hkv, S, Dv)
 // of kv_dtype; scale rows ks/vs (B*Hkv, S) f32 for codes (else unused); lens
 // (B,) i32, the tokens to attend (columns >= min(len, S) are masked); bk the
-// KV tile width (<= kMaxTile); out (B*Hkv, group, Dv) in q's dtype. Returns
-// the cudaError_t of the launch (cudaErrorInvalidValue for a (D, Dv) pair or
-// KV dtype not built, or where one tile would not fit in a CTA's shared
-// memory: float32 caches at bk = 512; never at the wrapper's bk <= 256).
+// KV tile width (<= kMaxTile); out (B*Hkv, group, Dv) in q's dtype. D and Dv
+// in [1, 256], any group >= 1. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue past those limits, for an unknown KV dtype, or
+// where one tile would not fit in a CTA's shared memory: float32 caches at
+// bk = 512; never at the wrapper's bk <= 256).
 extern "C" int contiguous_decode(const void* q, const void* k, const void* v, const float* ks,
                                  const float* vs, const int* lens, void* out, int B, int Hkv,
                                  int group, int D, int Dv, int S, int bk, float scale,
                                  int expmul, int act_dtype, int kv_dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || group <= 0 || group > kMaxGroup || S <= 0 || bk <= 0 ||
-      bk > kMaxTile)
+  if (B <= 0 || Hkv <= 0 || !dims_ok(D, Dv, group) || S <= 0 || bk <= 0 || bk > kMaxTile)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_DTYPE(KV)                                                                   \
@@ -595,9 +649,10 @@ extern "C" int contiguous_decode(const void* q, const void* k, const void* v, co
 }
 
 // The dynamic shared memory, in bytes, that contiguous_decode gives each CTA
-// at these arguments (independent of S); -1 for a (D, Dv) pair or dtype not
-// built.
+// at these arguments (independent of S; a group split into parts counts one
+// part); -1 where it launches nothing.
 extern "C" long long contiguous_decode_smem(int group, int D, int Dv, int bk, int kv_dtype) {
+  if (!dims_ok(D, Dv, group) || bk <= 0 || bk > kMaxTile) return -1;
   switch (kv_dtype) {
     case kF32: return smem_by_dims<float>(D, Dv, group, bk);
     case kBF16: return smem_by_dims<__nv_bfloat16>(D, Dv, group, bk);

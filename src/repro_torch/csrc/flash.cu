@@ -46,7 +46,11 @@
 // are min(128, Sq) rows; the row blocking changes only which wholly masked
 // tiles are skipped.
 //
-// Head dims 16, 32, 64, 96, 112, 128 and 256. At 96 (minicpm3-4b's qk
+// Built for head dims 16, 32, 64, 96, 112, 128 and 256; a call at any head
+// dim D <= 256 runs the narrowest build W >= D (flash_width), reading D
+// features a row and staging zeros in the rest (tile_sm90.cuh: Stage,
+// RowBytes), so every chain is the plain version's at D, and it stores D
+// output features. At 96 (minicpm3-4b's qk
 // width, V zero-padded to it by the caller) and 112 (kimi-k2-1t-a32b) the
 // 24 or 28 float4 feature groups do not share out over 128 threads: the
 // staged rows are 128 floats wide, the padding zeroed once
@@ -59,6 +63,10 @@
 using namespace repro;
 
 namespace {
+
+// the build a call at head dim D runs: the narrowest built width >= D (96
+// between 64 and 112); 0 past kMaxHeadDim
+constexpr int flash_width(int D) { return D > 64 && D <= 96 ? 96 : square_width(D); }
 
 constexpr int kThreads = kChunkThreads;
 constexpr int kRows = kChunkRows;  // query rows per CTA
@@ -77,7 +85,7 @@ template <typename T, int D, bool EXPMUL>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ out, int H, int Hkv, int Sq, int Sk, int bk, int kv_len,
-             int q_offset, int causal, int window, float scale, int vec16) {
+             int q_offset, int causal, int window, float scale, int dq, RowBytes rb) {
   constexpr int kAct = sizeof(T) == sizeof(float) ? kF32 : kBF16;
   constexpr int DS = staged_width(D, D);
   extern __shared__ __align__(16) float smem[];
@@ -112,7 +120,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     if (w >= 2 * ns) return false;
     const bool is_v = w >= ns;
     const int sub = is_v ? w - ns : w;
-    src = (is_v ? v : k) + (kv0 + t * bk + sub * kSub) * D;
+    src = (is_v ? v : k) + (kv0 + t * bk + sub * kSub) * dq;
     nrows = min(kSub, nr - sub * kSub);
     return true;
   };
@@ -126,9 +134,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     int nrows;
     if (!step_at(i, src, nrows)) return;
     if constexpr (St::kSync) {
-      stage.load(x_s, sc_s, src, nullptr, nrows, vec16);
+      stage.load(x_s, sc_s, src, nullptr, nrows, rb);
     } else {
-      stage.fetch(src, nullptr, nrows, vec16);
+      stage.fetch(src, nullptr, nrows, rb);
     }
   };
   if constexpr (!St::kSync) stage_step(0);
@@ -150,7 +158,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     q_s[r * (D + kPad) + d] =
-        r < rows ? to_f32(q[(static_cast<int64_t>(bh) * Sq + r0 + r) * D + d]) : 0.0f;
+        r < rows && d < dq ? to_f32(q[(static_cast<int64_t>(bh) * Sq + r0 + r) * dq + d]) : 0.0f;
   }
   zero_value_pad<D, D>(x_s);
 
@@ -165,13 +173,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
           return (!causal || col <= row) && (window <= 0 || row - col < window);
         });
   }
-  st.store(out, (static_cast<int64_t>(bh) * Sq + r0) * D, l_s, rows, kAct);
+  st.store(out, (static_cast<int64_t>(bh) * Sq + r0) * dq, l_s, rows, kAct, dq);
 }
 
 template <typename T, int D, bool EXPMUL>
 int launch(const void* q, const void* k, const void* v, void* out, int BH, int H, int Hkv,
            int Sq, int Sk, int bk, int kv_len, int q_offset, int causal, int window,
-           float scale, cudaStream_t stream) {
+           float scale, int dq, cudaStream_t stream) {
   auto kernel = flash_kernel<T, D, EXPMUL>;
   const int smem = static_cast<int>(smem_bytes<D>(bk));
   static int granted = 48 * 1024;  // per instantiation
@@ -181,12 +189,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int H
     if (e != cudaSuccess) return static_cast<int>(e);
     granted = smem;
   }
-  const uintptr_t any = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  const int row = dq * static_cast<int>(sizeof(T));
+  const RowBytes rb{row, row,
+                    piece_of(reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                             static_cast<uintptr_t>(row))};
   const dim3 grid(BH, (Sq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, Hkv, Sq, Sk, bk, kv_len, q_offset, causal, window, scale,
-      (any & 15) == 0);
+      static_cast<T*>(out), H, Hkv, Sq, Sk, bk, kv_len, q_offset, causal, window, scale, dq,
+      rb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -196,10 +207,10 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, void*
            int window, float scale, cudaStream_t s) {
 #define REPRO_LAUNCH(DIM)                                                                  \
   return expmul ? launch<T, DIM, true>(q, k, v, out, BH, H, Hkv, Sq, Sk, bk, kv_len,      \
-                                       q_offset, causal, window, scale, s)                \
+                                       q_offset, causal, window, scale, D, s)             \
                 : launch<T, DIM, false>(q, k, v, out, BH, H, Hkv, Sq, Sk, bk, kv_len,     \
-                                        q_offset, causal, window, scale, s)
-  switch (D) {
+                                        q_offset, causal, window, scale, D, s)
+  switch (flash_width(D)) {
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
@@ -224,7 +235,7 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v, void* 
                              int q_offset, int causal, int window, float scale, int expmul,
                              int dtype, void* stream) {
   if (BH <= 0 || Sq <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || BH % H != 0 || bk <= 0 ||
-      bk > kMaxTile || kv_len < 0 || kv_len > Sk || q_offset < 0)
+      bk > kMaxTile || kv_len < 0 || kv_len > Sk || q_offset < 0 || D <= 0 || D > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -241,9 +252,10 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v, void* 
 
 // The dynamic shared memory, in bytes, that flash_forward gives each CTA at
 // head dim D and tile width bk (independent of the sequence lengths); -1
-// for an unsupported D.
+// past kMaxHeadDim.
 extern "C" long long flash_smem(int D, int bk) {
-  switch (D) {
+  if (D <= 0) return -1;
+  switch (flash_width(D)) {
     case 16: return static_cast<long long>(smem_bytes<16>(bk));
     case 32: return static_cast<long long>(smem_bytes<32>(bk));
     case 64: return static_cast<long long>(smem_bytes<64>(bk));

@@ -59,6 +59,19 @@
 // every rank reaches once it has folded round k, the chunk maxima alternate
 // between two buffers, and a last barrier keeps every CTA alive until the
 // others have read its partials.
+//
+// The contract is the Pallas kernel's: any head dims D, Dv <= 256 (codes
+// too), any GQA group, pages of 1 to 256 tokens. Built for W in {16, 32, 64,
+// 112, 128, 256}: a call runs the narrowest W >= max(D, Dv), reads D K and Dv
+// V features a row, zero-fills the rest of each staged K row (q's too), and
+// stores Dv outputs; fmaf(0, 0, acc) = acc, so every score is the call's.
+// A group wider than a CTA takes (32 rows, or fewer where shared memory
+// binds) is split into parts along the grid's y axis (query rows are
+// independent; each part re-reads the KV). A page wider than a rank's rows
+// (R: 128, fewer for rows over 256 bytes) is a rank's only page of the
+// round, staged in pieces of R rows: its scores are kept whole, so its row
+// max, weights and rescale are taken once for the page, and its value chains
+// are carried from piece to piece.
 #include <cooperative_groups.h>
 
 #include "tile_sm90.cuh"
@@ -71,27 +84,34 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kMaxCluster = 8;     // the portable cluster size
-constexpr int kMaxGroup = 32;      // query heads per KV head
-constexpr int kMaxRankRows = 128;  // pool rows a rank stages a round
+constexpr int kMaxGroup = 32;      // query heads per KV head a part
+constexpr int kMaxRankRows = 128;  // pool rows a rank stages at once
 constexpr int kRankBytes = 32768;  // at most this many bytes of K rows
 constexpr int kMaxRankPages = 8;   // pages a rank takes a round
 constexpr int kMaxSmem = 232448;   // bytes of shared memory a CTA can use
 
-// pool rows a rank stages a round: 128 rows, or fewer where a row of D
-// elements of KV is over 256 bytes (head dim 112: 73 float32 rows, four pages
-// of 16; head dim 128: 64 float32 rows; head dim 256: 32 float32 rows, 64
-// bfloat16), so the staged K and V rows stay within ~64 KB at every D
-template <typename KV, int D>
+// pool rows a rank stages at once: 128 rows, or fewer where a row of W
+// elements of KV is over 256 bytes (W 112: 73 float32 rows, four pages of
+// 16; W 128: 64 float32 rows; W 256: 32 float32 rows, 64 bfloat16), so the
+// staged K and V rows stay within ~64 KB at every W
+template <typename KV, int W>
 __host__ __device__ constexpr int rank_rows() {
-  constexpr int row = D * static_cast<int>(sizeof(KV));
+  constexpr int row = W * static_cast<int>(sizeof(KV));
   return kRankBytes / row < kMaxRankRows ? kRankBytes / row : kMaxRankRows;
 }
 
-// pages a rank takes a round at page size ps (<= kMaxPage)
-template <typename KV, int D>
+// pages a rank takes a round at page size ps: one for a page wider than the
+// rank's rows (staged in pieces)
+template <typename KV, int W>
 __host__ __device__ constexpr int rank_pages(int ps) {
-  constexpr int rows = rank_rows<KV, D>();
-  return rows / ps < kMaxRankPages ? rows / ps : kMaxRankPages;
+  constexpr int rows = rank_rows<KV, W>();
+  return ps > rows ? 1 : (rows / ps < kMaxRankPages ? rows / ps : kMaxRankPages);
+}
+
+// score columns a rank holds a round: its rows, or a whole wide page
+template <typename KV, int W>
+__host__ __device__ constexpr int rank_cols(int ps) {
+  return ps > rank_rows<KV, W>() ? ps : rank_rows<KV, W>();
 }
 
 struct Layout {
@@ -101,43 +121,55 @@ struct Layout {
 
 __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 
-template <typename KV, int D>
-__host__ __device__ Layout layout(int group) {
+// the layout of a CTA of `group` query rows at page size ps
+template <typename KV, int W>
+__host__ __device__ Layout layout(int group, int ps) {
   constexpr int F = sizeof(float);
-  constexpr int P = kMaxRankPages;
-  constexpr int kRankRows = rank_rows<KV, D>();
+  constexpr int kRankRows = rank_rows<KV, W>();
+  const int P = rank_pages<KV, W>(ps), SC = rank_cols<KV, W>(ps);
   Layout L;
-  const int row = D * static_cast<int>(sizeof(KV));
+  const int row = W * static_cast<int>(sizeof(KV));
   L.k_stride = row + 16;
   L.k = 0;
   L.v = align16(L.k + kRankRows * L.k_stride);
   L.ks = align16(L.v + kRankRows * row);
-  L.vs = align16(L.ks + F * kRankRows);
-  L.q = align16(L.vs + F * kRankRows);
-  L.s = align16(L.q + F * group * D);                       // [group][kRankRows]
-  L.pmax = align16(L.s + F * group * kRankRows);            // [P][group]: page maxima
+  L.vs = align16(L.ks + F * SC);
+  L.q = align16(L.vs + F * SC);
+  L.s = align16(L.q + F * group * W);                       // [group][SC]
+  L.pmax = align16(L.s + F * group * SC);                   // [P][group]: page maxima
   L.tmax = align16(L.pmax + F * P * group);                 // [2][kMaxCluster][group]
   L.carry = align16(L.tmax + F * 2 * kMaxCluster * group);  // [group]
   L.f = align16(L.carry + F * group);                       // [P][group]: rescale factors
-  L.part = align16(L.f + F * P * group);                    // [P][group][D + 1]
-  L.st = align16(L.part + F * P * group * (D + 1));         // [group][D + 1]: acc, l
-  L.total = L.st + F * group * (D + 1);
+  L.part = align16(L.f + F * P * group);                    // [P][group][W + 1]
+  L.st = align16(L.part + F * P * group * (W + 1));         // [group][W + 1]: acc, l
+  L.total = L.st + F * group * (W + 1);
   return L;
 }
 
-template <typename KV, int D, bool EXPMUL>
+// query rows a CTA takes at page size ps: the most (<= kMaxGroup) whose
+// layout fits a CTA, shared out evenly over the fewest parts; 0 if none fits
+template <typename KV, int W>
+int part_rows(int group, int ps) {
+  int most = group < kMaxGroup ? group : kMaxGroup;
+  while (most > 0 && layout<KV, W>(most, ps).total > kMaxSmem) --most;
+  if (most == 0) return 0;
+  const int parts = (group + most - 1) / most;
+  return (group + parts - 1) / parts;
+}
+
+template <typename KV, int W, bool EXPMUL>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
                     const KV* __restrict__ vpool, const float* __restrict__ kspool,
                     const float* __restrict__ vspool, const int* __restrict__ bt,
                     const int* __restrict__ lens, void* __restrict__ out, int Hkv, int group,
-                    int nblk, int ps, int MB, int CL, int window, float scale,
-                    int act_dtype, int vec16) {
+                    int gpart, int nblk, int ps, int MB, int CL, int window, float scale,
+                    int act_dtype, int dq, int dv, RowBytes rb) {
   constexpr bool QUANT = IsCode<KV>::value;
-  constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
-  constexpr int kRankRows = rank_rows<KV, D>();
+  constexpr int kRowBytes = W * static_cast<int>(sizeof(KV));  // a staged row's
+  constexpr int R = rank_rows<KV, W>();
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout<KV, D>(group);
+  const Layout L = layout<KV, W>(gpart, ps);
   unsigned char* k_s = smem + L.k;
   const KV* v_s = reinterpret_cast<const KV*>(smem + L.v);
   float* ks_s = reinterpret_cast<float*>(smem + L.ks);
@@ -155,9 +187,14 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   const int rank = static_cast<int>(cluster.block_rank());
   const int bh = blockIdx.x / CL;
   const int b = bh / Hkv, h = bh - b * Hkv;
+  const int g0 = blockIdx.y * gpart;           // this part's first query row
+  const int G = min(gpart, group - g0);        // and its rows
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int length = lens[b];
-  const int P = rank_pages<KV, D>(ps);
+  const int P = rank_pages<KV, W>(ps);
+  const int SC = rank_cols<KV, W>(ps);         // s_s's row stride
+  const bool wide = ps > R;                    // one page a rank, staged in pieces
+  const int n_pieces = wide ? (ps + R - 1) / R : 1;
   // the walk: pages [first, n_pages), stopping at the length and at the
   // table's width; pages wholly below the window's floor are skipped
   const int n_pages = min((length + ps - 1) / ps, MB);
@@ -172,61 +209,57 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     p0 = first + c * P;
     np = c < n_chunks ? min(P, n_pages - p0) : 0;
   };
-  // one commit group each, empty past the walk, so every thread counts alike:
-  // every row of the chunk's pages, page by page through the block table
-  // (the rows past the length too: the plain version weighs them 0 into
-  // its value product, so a NaN there reaches the output, as it must)
-  const auto copy_chunk = [&](int c, unsigned char* dst, int dst_stride, const KV* pool,
-                              float* sc_dst, const float* sc_pool) {
+  // pool row of the chunk's row r
+  const auto pool_row = [&](int p0, int r) {
+    const int pp = r / ps;
+    const int blk = min(__ldg(bt_row + p0 + pp), nblk - 1);
+    return (static_cast<int64_t>(blk) * ps + (r - pp * ps)) * Hkv + h;
+  };
+  // rows [off, off + n) of chunk c's pages (the rows past the length too:
+  // the plain version weighs them 0 into its value product, so a NaN there
+  // reaches the output, as it must), `bytes` of each, zero to `fill`; no
+  // commit
+  const auto copy_rows = [&](int c, int off, int n, unsigned char* dst, int dst_stride,
+                             const KV* pool, int bytes, int fill) {
     int p0, np;
     chunk(c, p0, np);
-    if (np > 0) {
-      const int nr = np * ps;
-      const auto pool_row = [&](int r) {  // pool row of staged row r
-        const int pp = r / ps;
-        const int blk = min(__ldg(bt_row + p0 + pp), nblk - 1);
-        return (static_cast<int64_t>(blk) * ps + (r - pp * ps)) * Hkv + h;
-      };
-      copy_rows_async_at(dst, dst_stride, nr, kRowBytes, vec16, [&](int r) {
-        return reinterpret_cast<const unsigned char*>(pool) + pool_row(r) * kRowBytes;
-      });
-      if (QUANT) {
-        for (int j = tid; j < nr; j += kThreads) cp_async4(sc_dst + j, sc_pool + pool_row(j));
-      }
+    n = min(n, np * ps - off);
+    const auto src = [&](int r) {
+      return reinterpret_cast<const unsigned char*>(pool) + pool_row(p0, off + r) * bytes;
+    };
+    if (n > 0 && bytes == kRowBytes && rb.piece == 16) {  // whole rows: constant pieces
+      copy_rows_async_at(dst, dst_stride, n, kRowBytes, kRowBytes, 16, src);
+    } else if (n > 0) {
+      copy_rows_async_at(dst, dst_stride, n, bytes, fill, rb.piece, src);
     }
+  };
+  const auto copy_scales = [&](int c, float* dst, const float* spool) {
+    int p0, np;
+    chunk(c, p0, np);
+    for (int j = tid; j < np * ps; j += kThreads) cp_async4(dst + j, spool + pool_row(p0, j));
+  };
+  // one commit group each, empty past the walk, so every thread counts alike:
+  // every row of the chunk (its K rows zero-filled to W)
+  const auto copy_k = [&](int c) {
+    copy_rows(c, 0, R, k_s, L.k_stride, kpool, rb.k, kRowBytes);
+    if (QUANT) copy_scales(c, ks_s, kspool);
     cp_async_commit();
   };
-
-  // the first round's K and V in flight while q is read
-  copy_chunk(rank, k_s, L.k_stride, kpool, ks_s, kspool);
-  copy_chunk(rank, smem + L.v, kRowBytes, vpool, vs_s, vspool);
-  for (int i = tid; i < group * D; i += kThreads)
-    q_s[i] = load_act(q, static_cast<int64_t>(bh) * group * D + i, act_dtype);
-  for (int i = tid; i < group; i += kThreads) carry_s[i] = kMaskValue;
-  // this rank's rows of the running state: i = rank, rank + CL, ...
-  const int my_rows = rank < group ? (group - rank + CL - 1) / CL : 0;
-  for (int e = tid; e < my_rows * (D + 1); e += kThreads) st_s[e] = 0.0f;
-
-  for (int round = 0; round < rounds; ++round) {
-    const int c = round * CL + rank;
-    int p0, np;
-    chunk(c, p0, np);
-    const int col0 = p0 * ps;                            // the chunk's first column
-    const int nr = np * ps;                                // its rows staged
-    const int nv = np > 0 ? min(nr, length - col0) : 0;    // those below the length
-    float* tmax_s = reinterpret_cast<float*>(smem + L.tmax) + (round & 1) * kMaxCluster * group;
-
-    // 1. the scores of this rank's pages, their row maxima, the chunk's to
-    // every rank
-    cp_async_wait<1>();  // K landed; V may still be in flight
-    __syncthreads();
-    for (int e = tid; e < group * nr; e += kThreads) {
-      const int i = e / nr, j = e - i * nr;
+  const auto copy_v = [&](int c) {
+    copy_rows(c, 0, R, smem + L.v, kRowBytes, vpool, rb.v, rb.v);
+    if (QUANT) copy_scales(c, vs_s, vspool);
+    cp_async_commit();
+  };
+  // the scores of the chunk's rows [off, off + n) (staged in k_s) for this
+  // part's rows: one (row, column) a thread, the fmaf order of tile.cuh
+  const auto scores = [&](int off, int n, int col0, int nv) {
+    for (int e = tid; e < G * n; e += kThreads) {
+      const int i = e / n, j = e - i * n, col = off + j;
       const KV* krow = reinterpret_cast<const KV*>(k_s + j * L.k_stride);
-      const float4* qr = reinterpret_cast<const float4*>(q_s + i * D);
+      const float4* qr = reinterpret_cast<const float4*>(q_s + i * W);
       float dot = 0.0f;
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
+      for (int d = 0; d < W; d += 4) {
         const float4 qd = qr[d / 4];
         const float4 kd = load4<KV>(krow + d);
         dot = fmaf(qd.x, kd.x, dot);
@@ -235,85 +268,152 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
         dot = fmaf(qd.w, kd.w, dot);
       }
       float sc = dot * scale;
-      if (QUANT) sc *= ks_s[j];
-      s_s[i * kRankRows + j] = j < nv && col0 + j >= floor_col ? sc : kMaskValue;
+      if (QUANT) sc *= ks_s[col];
+      s_s[i * SC + col] = col < nv && col0 + col >= floor_col ? sc : kMaskValue;
     }
-    __syncthreads();  // the K readers are done
-    copy_chunk(c + CL, k_s, L.k_stride, kpool, ks_s, kspool);  // the next round's K
-    if (round == 0) cluster_wait();
-    for (int x = warp; x < np * group; x += kWarps) {  // a warp a (page, row)
-      const int pp = x / group, i = x - pp * group;
-      const int j = pp * ps + lane;
-      const float mx = warp_max(lane < ps && j < nr ? s_s[i * kRankRows + j] : kMaskValue);
-      if (lane == 0) pmax_s[pp * group + i] = mx;
-    }
-    __syncthreads();
-    for (int i = tid; i < group; i += kThreads) {
-      float mx = kMaskValue;  // an idle rank's: the mask value
-      for (int pp = 0; pp < np; ++pp) mx = max_nan(mx, pmax_s[pp * group + i]);
-      for (int r = 0; r < CL; ++r) *cluster.map_shared_rank(tmax_s + rank * group + i, r) = mx;
-    }
-    cluster.sync();
-
-    // 2. each page's prefix maximum m_t, rescale factor (m_{t-1} -> m_t),
-    // weights, psum and dsum into f_s and part_s
-    cp_async_wait<1>();  // V landed; the next K may still be in flight
-    __syncthreads();
-    for (int x = warp; x < np * group; x += kWarps) {
-      const int pp = x / group, i = x - pp * group;
-      float m_prev = carry_s[i];
-      for (int u = 0; u < rank; ++u) m_prev = max_nan(m_prev, tmax_s[u * group + i]);
-      for (int u = 0; u < pp; ++u) m_prev = max_nan(m_prev, pmax_s[u * group + i]);
-      const float m = max_nan(m_prev, pmax_s[pp * group + i]);
-      const int j = pp * ps + lane;
-      const bool in = lane < ps && j < nr;
-      const float p =
-          in && j < nv && col0 + j >= floor_col ? softmax_weight<EXPMUL>(s_s[i * kRankRows + j], m)
-                                                : 0.0f;
-      const float psum = warp_sum(p);
-      if (in) s_s[i * kRankRows + j] = QUANT ? p * vs_s[j] : p;  // the weight the values take
-      if (lane == 0) {
-        f_s[pp * group + i] = rescale_factor<EXPMUL>(m_prev, m);
-        part_s[(pp * group + i) * (D + 1) + D] = psum;
-      }
-    }
-    __syncthreads();  // the weights are in place
-    // one thread a (page, row, 4 features): an fmaf chain over the page's
-    // columns in order
-    for (int e = tid; e < np * group * (D / 4); e += kThreads) {
-      const int pi = e / (D / 4), d4 = (e - pi * (D / 4)) * 4;
-      const int pp = pi / group, i = pi - pp * group;
-      const int j0 = pp * ps, nc = min(ps, nr - j0);
-      const float* wr = s_s + i * kRankRows + j0;
-      const KV* vc = v_s + j0 * D + d4;
+  };
+  // each page's value product over the chunk's rows [off, off + n) (staged
+  // in v_s): one thread a (page, row, 4 features), an fmaf chain over the
+  // page's columns in order, carried in part_s from piece to piece; every
+  // feature of the built width W (those past dv are never stored)
+  const auto values = [&](int off, int n, int np, int nr) {
+    for (int e = tid; e < np * G * (W / 4); e += kThreads) {
+      const int pi = e / (W / 4), d4 = (e - pi * (W / 4)) * 4;
+      const int pp = pi / G, i = pi - pp * G;
+      const int j0 = pp * ps;
+      const int lo = max(j0, off), hi = min(min(j0 + ps, nr), off + n);
+      if (lo >= hi) continue;
+      const float* wr = s_s + i * SC + lo;
+      const KV* vc = v_s + (lo - off) * W + d4;
+      float* dst = part_s + pi * (W + 1) + d4;
       float ds[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int j = 0; j < nc; ++j) {
-        const float4 vv = load4<KV>(vc + j * D);
+      if (lo > j0) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) ds[u] = dst[u];
+      }
+      for (int j = 0; j < hi - lo; ++j) {
+        const float4 vv = load4<KV>(vc + j * W);
         const float w = wr[j];
         ds[0] = fmaf(w, vv.x, ds[0]);
         ds[1] = fmaf(w, vv.y, ds[1]);
         ds[2] = fmaf(w, vv.z, ds[2]);
         ds[3] = fmaf(w, vv.w, ds[3]);
       }
-      float* dst = part_s + pi * (D + 1) + d4;
 #pragma unroll
       for (int u = 0; u < 4; ++u) dst[u] = ds[u];
     }
-    __syncthreads();  // the V and carry readers are done
-    for (int i = tid; i < group; i += kThreads) {
+  };
+
+  // the first round's K and V in flight while q is read
+  if (!wide) {
+    copy_k(rank);
+    copy_v(rank);
+  }
+  for (int e = tid; e < G * W; e += kThreads) {
+    const int i = e / W, d = e - i * W;
+    q_s[e] = d < dq ? load_act(q, (static_cast<int64_t>(bh) * group + g0 + i) * dq + d, act_dtype)
+                    : 0.0f;
+  }
+  for (int i = tid; i < G; i += kThreads) carry_s[i] = kMaskValue;
+  // this rank's rows of the running state: i = rank, rank + CL, ...
+  const int my_rows = rank < G ? (G - rank + CL - 1) / CL : 0;
+  for (int e = tid; e < my_rows * (W + 1); e += kThreads) st_s[e] = 0.0f;
+
+  for (int round = 0; round < rounds; ++round) {
+    const int c = round * CL + rank;
+    int p0, np;
+    chunk(c, p0, np);
+    const int col0 = p0 * ps;                            // the chunk's first column
+    const int nr = np * ps;                                // its rows staged
+    const int nv = np > 0 ? min(nr, length - col0) : 0;    // those below the length
+    float* tmax_s = reinterpret_cast<float*>(smem + L.tmax) + (round & 1) * kMaxCluster * G;
+
+    // 1. the scores of this rank's pages, their row maxima, the chunk's to
+    // every rank; a wide page's scale rows, then its K rows R at a time
+    if (wide && QUANT) {
+      copy_scales(c, ks_s, kspool);
+      copy_scales(c, vs_s, vspool);
+    }
+    for (int pc = 0; pc < n_pieces; ++pc) {
+      if (wide) {
+        copy_rows(c, pc * R, R, k_s, L.k_stride, kpool, rb.k, kRowBytes);
+        cp_async_commit();
+        cp_async_wait<0>();
+      } else {
+        cp_async_wait<1>();  // K landed; V may still be in flight
+      }
+      __syncthreads();
+      scores(pc * R, wide ? max(0, min(R, nr - pc * R)) : nr, col0, nv);
+      __syncthreads();  // the K readers are done
+    }
+    if (!wide) copy_k(c + CL);  // the next round's K
+    if (round == 0) cluster_wait();
+    for (int x = warp; x < np * G; x += kWarps) {  // a warp a (page, row)
+      const int pp = x / G, i = x - pp * G;
+      const int j0 = pp * ps, end = min(j0 + ps, nr);
+      float mx = lane < end - j0 ? s_s[i * SC + j0 + lane] : kMaskValue;
+      for (int j = j0 + kWarp + lane; j < end; j += kWarp) mx = max_nan(mx, s_s[i * SC + j]);
+      mx = warp_max(mx);
+      if (lane == 0) pmax_s[pp * G + i] = mx;
+    }
+    __syncthreads();
+    for (int i = tid; i < G; i += kThreads) {
+      float mx = kMaskValue;  // an idle rank's: the mask value
+      for (int pp = 0; pp < np; ++pp) mx = max_nan(mx, pmax_s[pp * G + i]);
+      for (int r = 0; r < CL; ++r) *cluster.map_shared_rank(tmax_s + rank * G + i, r) = mx;
+    }
+    cluster.sync();
+
+    // 2. each page's prefix maximum m_t, rescale factor (m_{t-1} -> m_t),
+    // weights, psum and dsum into f_s and part_s
+    if (!wide) cp_async_wait<1>();  // V landed; the next K may still be in flight
+    __syncthreads();
+    for (int x = warp; x < np * G; x += kWarps) {
+      const int pp = x / G, i = x - pp * G;
+      float m_prev = carry_s[i];
+      for (int u = 0; u < rank; ++u) m_prev = max_nan(m_prev, tmax_s[u * G + i]);
+      for (int u = 0; u < pp; ++u) m_prev = max_nan(m_prev, pmax_s[u * G + i]);
+      const float m = max_nan(m_prev, pmax_s[pp * G + i]);
+      const int end = min(pp * ps + ps, nr);
+      float psum = 0.0f;
+      for (int j = pp * ps + lane; j < end; j += kWarp) {
+        const float p =
+            j < nv && col0 + j >= floor_col ? softmax_weight<EXPMUL>(s_s[i * SC + j], m) : 0.0f;
+        psum += p;
+        s_s[i * SC + j] = QUANT ? p * vs_s[j] : p;  // the weight the values take
+      }
+      psum = warp_sum(psum);
+      if (lane == 0) {
+        f_s[pp * G + i] = rescale_factor<EXPMUL>(m_prev, m);
+        part_s[(pp * G + i) * (W + 1) + W] = psum;
+      }
+    }
+    __syncthreads();  // the weights are in place
+    for (int pc = 0; pc < n_pieces; ++pc) {
+      if (wide) {  // the wide page's V rows R at a time
+        copy_rows(c, pc * R, R, smem + L.v, kRowBytes, vpool, rb.v, rb.v);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      values(pc * R, wide ? max(0, min(R, nr - pc * R)) : nr, np, nr);
+      __syncthreads();  // the V and carry readers are done
+    }
+    for (int i = tid; i < G; i += kThreads) {
       float cm = carry_s[i];
-      for (int u = 0; u < CL; ++u) cm = max_nan(cm, tmax_s[u * group + i]);
+      for (int u = 0; u < CL; ++u) cm = max_nan(cm, tmax_s[u * G + i]);
       carry_s[i] = cm;
     }
-    copy_chunk(c + CL, smem + L.v, kRowBytes, vpool, vs_s, vspool);  // the next round's V
+    if (!wide) copy_v(c + CL);  // the next round's V
     cluster.sync();  // every partial of the round is in place
 
     // 3. every rank folds its rows over the round's pages, rank by rank and
     // page by page in order: one thread an entry (i, d) of (acc, l), l as
-    // d = D (psum in part_s's last column)
+    // d = W (psum in part_s's last column); features past dv are never
+    // stored
     const int n_here = min(CL, n_chunks - round * CL);  // ranks with a chunk
-    for (int e = tid; e < my_rows * (D + 1); e += kThreads) {
-      const int i = rank + CL * (e / (D + 1)), d = e % (D + 1);
+    for (int e = tid; e < my_rows * (W + 1); e += kThreads) {
+      const int i = rank + CL * (e / (W + 1)), d = e % (W + 1);
       float x = st_s[e];
       for (int u = 0; u < n_here; ++u) {
         int up0, unp;
@@ -324,8 +424,8 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
 #pragma unroll
         for (int pp = 0; pp < kMaxRankPages; ++pp) {
           if (pp < unp) {
-            ds[pp] = pr[(pp * group + i) * (D + 1) + d];
-            ff[pp] = fr[pp * group + i];
+            ds[pp] = pr[(pp * G + i) * (W + 1) + d];
+            ff[pp] = fr[pp * G + i];
           }
         }
 #pragma unroll
@@ -337,33 +437,36 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   }
 
   __syncthreads();  // every row's l is in place
-  for (int e = tid; e < my_rows * D; e += kThreads) {
-    const int k = e / D, d = e - k * D, i = rank + CL * k;
-    const float l = st_s[k * (D + 1) + D];
-    store_act(out, (static_cast<int64_t>(bh) * group + i) * D + d,
-              st_s[k * (D + 1) + d] / (l == 0.0f ? 1.0f : l), act_dtype);
+  for (int e = tid; e < my_rows * dv; e += kThreads) {
+    const int k = e / dv, d = e - k * dv, i = rank + CL * k;
+    const float l = st_s[k * (W + 1) + W];
+    store_act(out, (static_cast<int64_t>(bh) * group + g0 + i) * dv + d,
+              st_s[k * (W + 1) + d] / (l == 0.0f ? 1.0f : l), act_dtype);
   }
   cluster.sync();  // no CTA leaves while another may still read its partials
 }
 
-// The cluster size and the dynamic shared memory of a launch at page size
-// ps over a table MB pages wide; the memory depends on neither.
-template <typename KV, int D>
-int launch_shape(int group, int ps, int MB, int& CL) {
-  const int P = rank_pages<KV, D>(ps);
+// The query rows a CTA takes, its cluster size and its dynamic shared
+// memory at page size ps over a table MB pages wide (the memory depends on
+// no length or width); a memory of -1 where no part fits a CTA.
+template <typename KV, int W>
+int launch_shape(int group, int ps, int MB, int& gpart, int& CL) {
+  const int P = rank_pages<KV, W>(ps);
   const int T = (MB + P - 1) / P;  // chunks of the table's width
   CL = T < 1 ? 1 : (T < kMaxCluster ? T : kMaxCluster);
-  return layout<KV, D>(group).total;
+  gpart = part_rows<KV, W>(group, ps);
+  return gpart > 0 ? layout<KV, W>(gpart, ps).total : -1;
 }
 
-template <typename KV, int D, bool EXPMUL>
+template <typename KV, int W, bool EXPMUL>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* bt, const int* lens, void* out, int B, int Hkv, int group, int nblk,
-           int ps, int MB, int window, float scale, int act_dtype, cudaStream_t stream) {
-  int CL;
-  const int smem = launch_shape<KV, D>(group, ps, MB, CL);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = paged_decode_kernel<KV, D, EXPMUL>;
+           int ps, int MB, int window, float scale, int act_dtype, int dq, int dv,
+           cudaStream_t stream) {
+  int gpart, CL;
+  const int smem = launch_shape<KV, W>(group, ps, MB, gpart, CL);
+  if (smem < 0 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = paged_decode_kernel<KV, W, EXPMUL>;
   static int granted = 48 * 1024;  // per instantiation
   if (smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -371,9 +474,12 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     if (e != cudaSuccess) return static_cast<int>(e);
     granted = smem;
   }
-  const int vec16 = ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  const int kb = dq * static_cast<int>(sizeof(KV)), vb = dv * static_cast<int>(sizeof(KV));
+  const RowBytes rb{kb, vb,
+                    piece_of(reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                             static_cast<uintptr_t>(kb) | static_cast<uintptr_t>(vb))};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * Hkv * CL);
+  cfg.gridDim = dim3(B * Hkv * CL, (group + gpart - 1) / gpart);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -386,22 +492,22 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, q, static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs, bt, lens,
-      out, Hkv, group, nblk, ps, MB, CL, window, scale, act_dtype, vec16);
+      out, Hkv, group, gpart, nblk, ps, MB, CL, window, scale, act_dtype, dq, dv, rb);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename KV>
-int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const float* ks,
-           const float* vs, const int* bt, const int* lens, void* out, int B, int Hkv,
-           int group, int nblk, int ps, int MB, int window, float scale, int act_dtype,
-           cudaStream_t s) {
+int by_dim(int D, int Dv, int expmul, const void* q, const void* k, const void* v,
+           const float* ks, const float* vs, const int* bt, const int* lens, void* out, int B,
+           int Hkv, int group, int nblk, int ps, int MB, int window, float scale,
+           int act_dtype, cudaStream_t s) {
 #define REPRO_LAUNCH(DIM)                                                                  \
   return expmul ? launch<KV, DIM, true>(q, k, v, ks, vs, bt, lens, out, B, Hkv, group,    \
-                                        nblk, ps, MB, window, scale, act_dtype, s)        \
+                                        nblk, ps, MB, window, scale, act_dtype, D, Dv, s) \
                 : launch<KV, DIM, false>(q, k, v, ks, vs, bt, lens, out, B, Hkv, group,   \
-                                         nblk, ps, MB, window, scale, act_dtype, s)
-  switch (D) {
+                                         nblk, ps, MB, window, scale, act_dtype, D, Dv, s)
+  switch (square_width(D > Dv ? D : Dv)) {
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
@@ -414,61 +520,62 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const
 }
 
 template <typename KV>
-long long smem_by_dim(int D, int group, int ps, int MB) {
-  int CL;
-  switch (D) {
-    case 16: return static_cast<long long>(launch_shape<KV, 16>(group, ps, MB, CL));
-    case 32: return static_cast<long long>(launch_shape<KV, 32>(group, ps, MB, CL));
-    case 64: return static_cast<long long>(launch_shape<KV, 64>(group, ps, MB, CL));
-    case 112: return static_cast<long long>(launch_shape<KV, 112>(group, ps, MB, CL));
-    case 128: return static_cast<long long>(launch_shape<KV, 128>(group, ps, MB, CL));
-    case 256: return static_cast<long long>(launch_shape<KV, 256>(group, ps, MB, CL));
+long long smem_by_dim(int D, int Dv, int group, int ps, int MB) {
+  int gpart, CL;
+  switch (square_width(D > Dv ? D : Dv)) {
+    case 16: return static_cast<long long>(launch_shape<KV, 16>(group, ps, MB, gpart, CL));
+    case 32: return static_cast<long long>(launch_shape<KV, 32>(group, ps, MB, gpart, CL));
+    case 64: return static_cast<long long>(launch_shape<KV, 64>(group, ps, MB, gpart, CL));
+    case 112: return static_cast<long long>(launch_shape<KV, 112>(group, ps, MB, gpart, CL));
+    case 128: return static_cast<long long>(launch_shape<KV, 128>(group, ps, MB, gpart, CL));
+    case 256: return static_cast<long long>(launch_shape<KV, 256>(group, ps, MB, gpart, CL));
     default: return -1;
   }
 }
 
+bool dims_ok(int D, int Dv, int group, int ps) {
+  return D > 0 && D <= kMaxHeadDim && Dv > 0 && Dv <= kMaxHeadDim && group > 0 && ps > 0 &&
+         ps <= kMaxPage;
+}
+
 }  // namespace
 
-// q (B*Hkv, group, D) f32/bf16; pools (nblk, ps, Hkv, D) of kv_dtype; scale
-// pools (nblk, ps, Hkv) f32 for codes (else unused); bt (B, MB) i32;
-// lens (B,) i32; out (B*Hkv, group, D) in q's dtype. window <= 0: none.
+// q (B*Hkv, group, D) f32/bf16; pools (nblk, ps, Hkv, D) and (nblk, ps,
+// Hkv, Dv) of kv_dtype; scale pools (nblk, ps, Hkv) f32 for codes (else
+// unused); bt (B, MB) i32; lens (B,) i32; out (B*Hkv, group, Dv) in q's
+// dtype. D, Dv and ps in [1, 256], any group >= 1; window <= 0: none.
 // Returns the cudaError_t of the launch.
 extern "C" int paged_decode(const void* q, const void* k, const void* v, const float* ks,
                             const float* vs, const int* bt, const int* lens, void* out, int B,
-                            int Hkv, int group, int D, int nblk, int ps, int MB, int window,
-                            float scale, int expmul, int act_dtype, int kv_dtype,
+                            int Hkv, int group, int D, int Dv, int nblk, int ps, int MB,
+                            int window, float scale, int expmul, int act_dtype, int kv_dtype,
                             void* stream) {
-  if (B <= 0 || Hkv <= 0 || group <= 0 || group > kMaxGroup || ps <= 0 || ps > kMaxPage ||
-      nblk <= 0 || MB < 0)
+  if (B <= 0 || Hkv <= 0 || !dims_ok(D, Dv, group, ps) || nblk <= 0 || MB < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_DTYPE(KV)                                                                    \
+  return by_dim<KV>(D, Dv, expmul, q, k, v, ks, vs, bt, lens, out, B, Hkv, group, nblk, ps, \
+                    MB, window, scale, act_dtype, s)
   switch (kv_dtype) {
-    case kF32:
-      return by_dim<float>(D, expmul, q, k, v, ks, vs, bt, lens, out, B, Hkv, group, nblk, ps,
-                           MB, window, scale, act_dtype, s);
-    case kBF16:
-      return by_dim<__nv_bfloat16>(D, expmul, q, k, v, ks, vs, bt, lens, out, B, Hkv, group,
-                                   nblk, ps, MB, window, scale, act_dtype, s);
-    case kI8:
-      return by_dim<int8_t>(D, expmul, q, k, v, ks, vs, bt, lens, out, B, Hkv, group, nblk,
-                            ps, MB, window, scale, act_dtype, s);
-    case kFP8:
-      return by_dim<__nv_fp8_e4m3>(D, expmul, q, k, v, ks, vs, bt, lens, out, B, Hkv, group,
-                                   nblk, ps, MB, window, scale, act_dtype, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kF32: REPRO_DTYPE(float);
+    case kBF16: REPRO_DTYPE(__nv_bfloat16);
+    case kI8: REPRO_DTYPE(int8_t);
+    case kFP8: REPRO_DTYPE(__nv_fp8_e4m3);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_DTYPE
 }
 
 // The dynamic shared memory, in bytes, that paged_decode gives each CTA at
-// these arguments (the same at any length and any table width MB); -1 for an
-// unsupported D or dtype.
-extern "C" long long paged_decode_smem(int group, int D, int ps, int MB, int kv_dtype) {
+// these arguments (the same at any length and any table width MB; a group
+// split into parts counts one part); -1 where it launches nothing.
+extern "C" long long paged_decode_smem(int group, int D, int Dv, int ps, int MB, int kv_dtype) {
+  if (!dims_ok(D, Dv, group, ps)) return -1;
   switch (kv_dtype) {
-    case kF32: return smem_by_dim<float>(D, group, ps, MB);
-    case kBF16: return smem_by_dim<__nv_bfloat16>(D, group, ps, MB);
-    case kI8: return smem_by_dim<int8_t>(D, group, ps, MB);
-    case kFP8: return smem_by_dim<__nv_fp8_e4m3>(D, group, ps, MB);
+    case kF32: return smem_by_dim<float>(D, Dv, group, ps, MB);
+    case kBF16: return smem_by_dim<__nv_bfloat16>(D, Dv, group, ps, MB);
+    case kI8: return smem_by_dim<int8_t>(D, Dv, group, ps, MB);
+    case kFP8: return smem_by_dim<__nv_fp8_e4m3>(D, Dv, group, ps, MB);
     default: return -1;
   }
 }

@@ -26,7 +26,12 @@
 // below the window of the block's lowest row are skipped. Pages are staged
 // several at once, G = min(16, 64 / ps) of them (64 rows at ps = 16), each
 // resolved through the block table (a page's rows for KV head h lie
-// Hkv * D elements apart in the (nblk, ps, Hkv, D) pool): every row of a
+// Hkv * D elements apart in the (nblk, ps, Hkv, D) pool); a page wider than
+// 64 rows (up to 256) is a group of its own, staged in NS = ceil(ps / 64)
+// sub-tiles of 64 rows, its scores kept whole in shared memory, so its row
+// max, weights and rescale are still taken once for the page and its value
+// product is one chain over its columns, carried from sub-tile to sub-tile
+// (the p buffer is max(64, 64 NS) columns wide, sized at the launch): every row of a
 // history page (past the length too, weighed 0 into the value product as
 // the plain version does, so a NaN row there reaches the output), a chunk
 // tile's rows below the chunk's end: K for the scores, then V for the
@@ -44,8 +49,12 @@
 //   chunk:    col < n_valid (the columns read), col <= row, row - col < window
 // The query block (32 rows, not the reference's min(128, C)) changes only
 // which wholly masked tiles are skipped.
-// Built for D in {16, 32, 64, 112, 128, 256}; at 112 (kimi-k2-1t-a32b) the
-// staged rows are 128 floats wide and the value side runs D 128's layout,
+// Built for W in {16, 32, 64, 112, 128, 256}; a call at head dims D, Dv <=
+// 256 runs the narrowest W >= max(D, Dv), reading D K and Dv V features a
+// row, staging zeros in the rest (tile_sm90.cuh: Stage, RowBytes: the zeros
+// add fmaf(0, 0, acc) = acc to every chain, so the result is the plain
+// version's at (D, Dv)) and storing Dv features. At W 112 (kimi-k2-1t-a32b)
+// the staged rows are 128 floats wide and the value side runs W 128's layout,
 // storing the first 112 features (tile_sm90.cuh:value_width, as in
 // csrc/prefill.cu).
 #include "tile_sm90.cuh"
@@ -61,21 +70,32 @@ constexpr int kPad = kStagePad;
 constexpr int kPLd = kScoreLd;
 constexpr int kMaxGroupPages = 16;  // pages staged at once
 
-// pages staged at once at page size ps (<= kMaxPage)
+// pages staged at once at page size ps (<= kMaxPage): one above kSub
 __host__ __device__ constexpr int group_pages(int ps) {
-  return kSub / ps < kMaxGroupPages ? kSub / ps : kMaxGroupPages;
+  return ps > kSub ? 1 : (kSub / ps < kMaxGroupPages ? kSub / ps : kMaxGroupPages);
+}
+
+// staging sub-tiles a group's K (and its V) takes at page size ps
+__host__ __device__ constexpr int group_subs(int ps) {
+  return ps > kSub ? (ps + kSub - 1) / kSub : 1;
 }
 
 template <int D>
 struct Smem {
   static constexpr int XLD = staged_width(D, D) + kPad;  // staged rows' stride
   float q[kRows * (D + kPad)];         // the CTA's query rows
-  float p[kSub * kPLd];                // the group's scores, then weights
   float x[kSub * XLD];                 // the staged K or V rows
   float sc[kSub];                      // their scale rows
-  float vt[kSub];                      // the group's v scales
   float r[kMaxGroupPages * kRows];     // each page's rescale of each row
   float l[kRows];
+  // then, 16-byte aligned at kTail, a group's columns (group_subs(ps) * kSub):
+  // p[cols * kPLd], the scores, then weights; vt[cols], their v scales
+  static constexpr int kTail = (static_cast<int>(sizeof(float)) *
+                                    (kRows * (D + kPad) + kSub * XLD + kSub +
+                                     kMaxGroupPages * kRows + kRows) + 15) & ~15;
+  static constexpr int bytes(int ps) {
+    return kTail + static_cast<int>(sizeof(float)) * group_subs(ps) * kSub * (kPLd + 1);
+  }
 };
 
 // One staging group of the walk: its first page (history) or tile (chunk),
@@ -103,15 +123,17 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
                      const float* __restrict__ vsn, const int* __restrict__ bt,
                      const int* __restrict__ lens, const int* __restrict__ nvalid,
                      void* __restrict__ out, int H, int Hkv, int C, int nblk, int ps, int MB,
-                     int window, float scale, int act_dtype, int vec16) {
+                     int window, float scale, int act_dtype, int dq, int dv, RowBytes rb) {
   constexpr bool QUANT = IsCode<KV>::value;
-  constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
   constexpr int DG = ChunkRows<D>::kGroups;      // 4-feature groups (padded)
   constexpr int RPT = ChunkRows<D>::RPT;         // value rows a thread
   constexpr int XLD = Smem<D>::XLD;
   static_assert(kRows * 4 == kThreads, "four weight threads a row");
   extern __shared__ __align__(16) unsigned char smem[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem);
+  const int NS = group_subs(ps);
+  float* p_s = reinterpret_cast<float*>(smem + Smem<D>::kTail);  // [NS * kSub][kPLd]
+  float* vt_s = p_s + NS * kSub * kPLd;                           // [NS * kSub]
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = (bh % H) / (H / Hkv);
@@ -147,34 +169,36 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     return (static_cast<int64_t>(blk) * ps + (r - pp * ps)) * Hkv + h;
   };
 
-  // staging step i: the K rows of group i / 2, or its V rows for odd i; in
-  // flight in registers, or (St::kSync) straight into sm.x
+  // staging step i: sub-tile i % NS of group i / (2 NS)'s K rows, then of
+  // its V rows; in flight in registers, or (St::kSync) straight into sm.x
   using St = Stage<KV, D>;
   static_assert(St::DS + kPad == XLD, "staged at the stride the blocks read");
   St stage;
   const auto stage_step = [&](int i) {
     Group t;
-    if (i / 2 >= n_groups) return;
-    group_at(i / 2, t);
-    const bool is_v = i % 2;
+    if (i / (2 * NS) >= n_groups) return;
+    group_at(i / (2 * NS), t);
+    const bool is_v = i % (2 * NS) >= NS;
+    const int j0 = (i % NS) * kSub, nrows = max(0, min(kSub, t.nrows - j0));
     if (t.hist) {
       const unsigned char* pool = reinterpret_cast<const unsigned char*>(is_v ? vpool : kpool);
       const float* spool = is_v ? vspool : kspool;
-      const auto src_row = [&](int r) { return pool + pool_row(t, r) * kRowBytes; };
-      const auto sc_row = [&](int r) { return spool + pool_row(t, r); };
+      const int64_t row = is_v ? rb.v : rb.k;
+      const auto src_row = [&](int r) { return pool + pool_row(t, j0 + r) * row; };
+      const auto sc_row = [&](int r) { return spool + pool_row(t, j0 + r); };
       if constexpr (St::kSync) {
-        stage.load_at(sm.x, sm.sc, src_row, sc_row, t.nrows, vec16);
+        stage.load_at(sm.x, sm.sc, src_row, sc_row, nrows, rb, is_v);
       } else {
-        stage.fetch_at(src_row, sc_row, t.nrows, vec16);
+        stage.fetch_at(src_row, sc_row, nrows, rb, is_v);
       }
     } else {
-      const int64_t r = chunk0 + t.col0;
-      const KV* src = (is_v ? vn : kn) + r * D;
+      const int64_t r = chunk0 + t.col0 + j0;
+      const KV* src = is_v ? vn + r * dv : kn + r * dq;
       const float* sc = QUANT ? (is_v ? vsn : ksn) + r : nullptr;
       if constexpr (St::kSync) {
-        stage.load(sm.x, sm.sc, src, sc, t.nrows, vec16);
+        stage.load(sm.x, sm.sc, src, sc, nrows, rb, is_v);
       } else {
-        stage.fetch(src, sc, t.nrows, vec16);
+        stage.fetch(src, sc, nrows, rb, is_v);
       }
     }
   };
@@ -196,8 +220,9 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     sm.q[r * (D + kPad) + d] =
-        r < rows ? load_act(q, (static_cast<int64_t>(bh) * C + r0 + r) * D + d, act_dtype)
-                 : 0.0f;
+        r < rows && d < dq
+            ? load_act(q, (static_cast<int64_t>(bh) * C + r0 + r) * dq + d, act_dtype)
+            : 0.0f;
   }
   zero_value_pad<D, D>(sm.x);
 
@@ -216,11 +241,17 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   for (int g = 0; g < n_groups; ++g) {
     Group t;
     group_at(g, t);
-    advance();  // the group's K rows (its first barrier also publishes q)
-    score_block<D, QUANT, XLD>(sm.q, sm.x, sm.sc, sm.p, t.nrows, scale);
+    // the group's K rows, a sub-tile a step (the first barrier also
+    // publishes q)
+    for (int sub = 0; sub < NS; ++sub) {
+      advance();
+      const int nc = min(kSub, t.nrows - sub * kSub);
+      if (nc > 0)
+        score_block<D, QUANT, XLD>(sm.q, sm.x, sm.sc, p_s + sub * kSub * kPLd, nc, scale);
+    }
     if constexpr (QUANT) {
       for (int j = tid; j < t.nrows; j += kThreads)
-        sm.vt[j] = t.hist ? vspool[pool_row(t, j)] : vsn[chunk0 + t.col0 + j];
+        vt_s[j] = t.hist ? vspool[pool_row(t, j)] : vsn[chunk0 + t.col0 + j];
     }
     __syncthreads();
     // page by page, in order: the row max, the weights, their sum, the
@@ -238,16 +269,16 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
       };
       float mx = kMaskValue;
       for (int j = wpart; j < nc; j += 4)
-        if (valid(j)) mx = max_nan(mx, sm.p[(j0 + j) * kPLd + wrow]);
+        if (valid(j)) mx = max_nan(mx, p_s[(j0 + j) * kPLd + wrow]);
       mx = max_nan(mx, __shfl_xor_sync(kFull, mx, 1));
       mx = max_nan(mx, __shfl_xor_sync(kFull, mx, 2));
       const float m_new = max_nan(m_run, mx);
       float ps_sum = 0.0f;
       for (int j = wpart; j < nc; j += 4) {
-        float* pj = sm.p + (j0 + j) * kPLd + wrow;
+        float* pj = p_s + (j0 + j) * kPLd + wrow;
         const float p = valid(j) ? softmax_weight<EXPMUL>(*pj, m_new) : 0.0f;
         ps_sum += p;
-        *pj = QUANT ? p * sm.vt[j0 + j] : p;  // the weight the value product takes
+        *pj = QUANT ? p * vt_s[j0 + j] : p;  // the weight the value product takes
       }
       ps_sum += __shfl_xor_sync(kFull, ps_sum, 1);
       ps_sum += __shfl_xor_sync(kFull, ps_sum, 2);
@@ -256,22 +287,33 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
       m_run = m_new;
       if (wpart == 0) sm.r[pp * kRows + wrow] = r;
     }
-    advance();  // the group's V rows (the barrier publishes the weights)
-    // page by page, in order: a fresh value product, folded into acc
-    for (int pp = 0; pp < t.np; ++pp) {
-      const int j0 = pp * ps, nc = min(ps, t.nrows - j0);
-      float dsum[RPT][4];
+    // page by page, in order: a fresh value product, folded into acc; a
+    // page wider than a sub-tile (the group's only page) carries its chain
+    // from sub-tile to sub-tile
+    float dsum[RPT][4];
+    for (int sub = 0; sub < NS; ++sub) {
+      advance();  // a V sub-tile (the first barrier publishes the weights)
+      const int s0 = sub * kSub, s1 = min(t.nrows, s0 + kSub);
+      for (int pp = 0; pp < t.np; ++pp) {
+        const int j0 = pp * ps, j1 = min(j0 + ps, t.nrows);
+        const int lo = max(j0, s0), hi = min(j1, s1);  // its columns staged
+        if (lo >= hi) continue;
+        if (lo == j0) {
 #pragma unroll
-      for (int r = 0; r < RPT; ++r)
+          for (int r = 0; r < RPT; ++r)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dsum[r][e] = 0.0f;
-      value_block<D, RPT, XLD>(dsum, sm.p + j0 * kPLd + RPT * vrg,
-                               sm.x + j0 * XLD + 4 * vdg, nc);
+            for (int e = 0; e < 4; ++e) dsum[r][e] = 0.0f;
+        }
+        value_block<D, RPT, XLD>(dsum, p_s + lo * kPLd + RPT * vrg,
+                                 sm.x + (lo - s0) * XLD + 4 * vdg, hi - lo);
+        if (hi == j1) {
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float f = sm.r[pp * kRows + RPT * vrg + r];
+          for (int r = 0; r < RPT; ++r) {
+            const float f = sm.r[pp * kRows + RPT * vrg + r];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][e] = rescale<EXPMUL>(acc[r][e], f) + dsum[r][e];
+            for (int e = 0; e < 4; ++e) acc[r][e] = rescale<EXPMUL>(acc[r][e], f) + dsum[r][e];
+          }
+        }
       }
     }
   }
@@ -281,12 +323,13 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int vrow = RPT * vrg + r;
-    if (vrow >= rows || 4 * vdg >= D) continue;  // a padded feature: not stored
+    if (vrow >= rows || 4 * vdg >= dv) continue;  // a padded feature: not stored
     const float l = sm.l[vrow];
     const float den = l == 0.0f ? 1.0f : l;
-    const int64_t o = (static_cast<int64_t>(bh) * C + r0 + vrow) * D + 4 * vdg;
+    const int64_t o = (static_cast<int64_t>(bh) * C + r0 + vrow) * dv + 4 * vdg;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) store_act(out, o + e, acc[r][e] / den, act_dtype);
+    for (int e = 0; e < 4; ++e)
+      if (4 * vdg + e < dv) store_act(out, o + e, acc[r][e] / den, act_dtype);
   }
 }
 
@@ -294,29 +337,32 @@ template <typename KV, int D, bool EXPMUL>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const void* kn, const void* vn, const float* ksn, const float* vsn, const int* bt,
            const int* lens, const int* nvalid, void* out, int B, int H, int Hkv, int C,
-           int nblk, int ps, int MB, int window, float scale, int act_dtype,
+           int nblk, int ps, int MB, int window, float scale, int act_dtype, int dq, int dv,
            cudaStream_t stream) {
   auto kernel = paged_prefill_kernel<KV, D, EXPMUL>;
-  constexpr int smem = static_cast<int>(sizeof(Smem<D>));
-  static bool wide_smem = smem <= 48 * 1024;  // once per instantiation
+  const int smem = Smem<D>::bytes(ps);
+  static bool wide_smem = false;  // once per instantiation: room for the widest page
   if (!wide_smem) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::bytes(kMaxPage));
     if (e != cudaSuccess) return static_cast<int>(e);
     wide_smem = true;
   }
-  const uintptr_t any = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
-                        reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn);
+  const int kb = dq * static_cast<int>(sizeof(KV)), vb = dv * static_cast<int>(sizeof(KV));
+  const RowBytes rb{kb, vb,
+                    piece_of(reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                             reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn) |
+                             static_cast<uintptr_t>(kb) | static_cast<uintptr_t>(vb))};
   const dim3 grid(B * H, (C + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       q, static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs,
       static_cast<const KV*>(kn), static_cast<const KV*>(vn), ksn, vsn, bt, lens, nvalid, out,
-      H, Hkv, C, nblk, ps, MB, window, scale, act_dtype, (any & 15) == 0);
+      H, Hkv, C, nblk, ps, MB, window, scale, act_dtype, dq, dv, rb);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename KV>
-int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const float* ks,
+int by_dim(int D, int Dv, int expmul, const void* q, const void* k, const void* v, const float* ks,
            const float* vs, const void* kn, const void* vn, const float* ksn, const float* vsn,
            const int* bt, const int* lens, const int* nvalid, void* out, int B, int H, int Hkv,
            int C, int nblk, int ps, int MB, int window, float scale, int act_dtype,
@@ -324,11 +370,11 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const
 #define REPRO_LAUNCH(DIM)                                                                    \
   return expmul ? launch<KV, DIM, true>(q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens, nvalid, \
                                         out, B, H, Hkv, C, nblk, ps, MB, window, scale,     \
-                                        act_dtype, s)                                       \
+                                        act_dtype, D, Dv, s)                                \
                 : launch<KV, DIM, false>(q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens,       \
                                          nvalid, out, B, H, Hkv, C, nblk, ps, MB, window,   \
-                                         scale, act_dtype, s)
-  switch (D) {
+                                         scale, act_dtype, D, Dv, s)
+  switch (square_width(D > Dv ? D : Dv)) {
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
@@ -342,34 +388,35 @@ int by_dim(int D, int expmul, const void* q, const void* k, const void* v, const
 
 }  // namespace
 
-// q (B*H, C, D) f32/bf16; pools (nblk, ps, Hkv, D) of kv_dtype and their
-// scale pools (nblk, ps, Hkv) f32 for codes; chunk kn/vn (B*Hkv, C, D) of
-// kv_dtype and ksn/vsn (B*Hkv, C) f32 for codes; bt (B, MB) i32;
-// lens / nvalid (B,) i32; out (B*H, C, D) in q's dtype. window <= 0: none.
-// Returns the cudaError_t of the launch.
+// q (B*H, C, D) f32/bf16; pools (nblk, ps, Hkv, D) and (nblk, ps, Hkv, Dv)
+// of kv_dtype and their scale pools (nblk, ps, Hkv) f32 for codes; chunk kn
+// (B*Hkv, C, D) and vn (B*Hkv, C, Dv) of kv_dtype and ksn/vsn (B*Hkv, C) f32
+// for codes; bt (B, MB) i32; lens / nvalid (B,) i32; out (B*H, C, Dv) in q's
+// dtype. D, Dv and ps in [1, 256]; window <= 0: none. Returns the
+// cudaError_t of the launch.
 extern "C" int paged_prefill(const void* q, const void* k, const void* v, const float* ks,
                              const float* vs, const void* kn, const void* vn, const float* ksn,
                              const float* vsn, const int* bt, const int* lens,
                              const int* nvalid, void* out, int B, int H, int Hkv, int C, int D,
-                             int nblk, int ps, int MB, int window, float scale, int expmul,
-                             int act_dtype, int kv_dtype, void* stream) {
+                             int Dv, int nblk, int ps, int MB, int window, float scale,
+                             int expmul, int act_dtype, int kv_dtype, void* stream) {
   if (B <= 0 || C <= 0 || Hkv <= 0 || H % Hkv != 0 || ps <= 0 || ps > kMaxPage || nblk <= 0 ||
-      MB < 0)
+      MB < 0 || D <= 0 || D > kMaxHeadDim || Dv <= 0 || Dv > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
     case kF32:
-      return by_dim<float>(D, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens, nvalid, out,
+      return by_dim<float>(D, Dv, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens, nvalid, out,
                            B, H, Hkv, C, nblk, ps, MB, window, scale, act_dtype, s);
     case kBF16:
-      return by_dim<__nv_bfloat16>(D, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens,
+      return by_dim<__nv_bfloat16>(D, Dv, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens,
                                    nvalid, out, B, H, Hkv, C, nblk, ps, MB, window, scale,
                                    act_dtype, s);
     case kI8:
-      return by_dim<int8_t>(D, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens, nvalid,
+      return by_dim<int8_t>(D, Dv, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens, nvalid,
                             out, B, H, Hkv, C, nblk, ps, MB, window, scale, act_dtype, s);
     case kFP8:
-      return by_dim<__nv_fp8_e4m3>(D, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens,
+      return by_dim<__nv_fp8_e4m3>(D, Dv, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens,
                                    nvalid, out, B, H, Hkv, C, nblk, ps, MB, window, scale,
                                    act_dtype, s);
     default:
@@ -377,17 +424,18 @@ extern "C" int paged_prefill(const void* q, const void* k, const void* v, const 
   }
 }
 
-// The dynamic shared memory, in bytes, that paged_prefill gives each CTA
-// (independent of every length and of the page size); -1 for an
-// unsupported D.
-extern "C" long long paged_prefill_smem(int D) {
-  switch (D) {
-    case 16: return static_cast<long long>(sizeof(Smem<16>));
-    case 32: return static_cast<long long>(sizeof(Smem<32>));
-    case 64: return static_cast<long long>(sizeof(Smem<64>));
-    case 112: return static_cast<long long>(sizeof(Smem<112>));
-    case 128: return static_cast<long long>(sizeof(Smem<128>));
-    case 256: return static_cast<long long>(sizeof(Smem<256>));
+// The dynamic shared memory, in bytes, that paged_prefill gives each CTA at
+// head dims (D, Dv) and page size ps (independent of every length); -1 past
+// kMaxHeadDim or kMaxPage.
+extern "C" long long paged_prefill_smem(int D, int Dv, int ps) {
+  if (D <= 0 || Dv <= 0 || ps <= 0 || ps > kMaxPage) return -1;
+  switch (square_width(D > Dv ? D : Dv)) {
+    case 16: return static_cast<long long>(Smem<16>::bytes(ps));
+    case 32: return static_cast<long long>(Smem<32>::bytes(ps));
+    case 64: return static_cast<long long>(Smem<64>::bytes(ps));
+    case 112: return static_cast<long long>(Smem<112>::bytes(ps));
+    case 128: return static_cast<long long>(Smem<128>::bytes(ps));
+    case 256: return static_cast<long long>(Smem<256>::bytes(ps));
     default: return -1;
   }
 }

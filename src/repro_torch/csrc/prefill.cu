@@ -56,9 +56,13 @@
 // the reference's kernel takes them): q is staged at DK, both K and V
 // sub-tiles at one stride of staged_width(DK, DV) + 4 floats (the x_s
 // buffer holds either), the scores walk DK features, the values and the output DV.
-// Built for (D, D) with D in {16, 32, 64, 112, 128, 256} over every KV dtype,
-// and for (96, 64) over float32 and bfloat16 KV only (MLA's expanded K/V are
-// never codes). At D 112 (kimi-k2-1t-a32b: 28 feature groups, which do not
+// Built for (W, W) with W in {16, 32, 64, 112, 128, 256} over every KV dtype,
+// and for (96, 64) over float32 and bfloat16 KV only. A call at any head dims
+// D, Dv <= 256 runs the narrowest build that holds them (by_dims): it reads D
+// K and Dv V features a row, stages zeros in the rest of the built width
+// (Stage, RowBytes), and stores Dv output features; the zeros add fmaf(0, 0,
+// acc) = acc to every chain, so the result is the plain version's at (D, Dv).
+// At D 112 (kimi-k2-1t-a32b: 28 feature groups, which do not
 // share out over 128 threads) the staged rows are 128 floats wide, the 16
 // past D zero, and the value side runs D 128's layout, storing only the
 // first 112 features (tile_sm90.cuh:value_width): 14% more value fmafs and
@@ -99,7 +103,7 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
                const float* __restrict__ ksn, const float* __restrict__ vsn,
                const int* __restrict__ lens, const int* __restrict__ nvalid,
                void* __restrict__ out, int H, int Hkv, int C, int S, int bk, int window,
-               int rolling, float scale, int act_dtype, int vec16) {
+               int rolling, float scale, int act_dtype, int dq, int dv, RowBytes rb) {
   constexpr bool QUANT = IsCode<KV>::value;
   constexpr int DS = staged_width(DK, DV);
   extern __shared__ __align__(16) float smem[];
@@ -163,7 +167,7 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
         is_v = i >= ns;
         const int sub = is_v ? i - ns : i;
         const int64_t r = (t.chunk ? chunk0 : cache0) + t.c0 + sub * kSub;
-        src = (t.chunk ? (is_v ? vn : kn) : (is_v ? vc : kc)) + r * (is_v ? DV : DK);
+        src = (t.chunk ? (is_v ? vn : kn) : (is_v ? vc : kc)) + r * (is_v ? dv : dq);
         sc = QUANT ? (t.chunk ? (is_v ? vsn : ksn) : (is_v ? vsc : ksc)) + r : nullptr;
         nrows = min(kSub, t.nr - sub * kSub);
         return true;
@@ -184,9 +188,9 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
     bool is_v;
     if (!step_at(i, src, sc, nrows, is_v)) return;
     if constexpr (St::kSync) {
-      stage.load(x_s, sc_s, src, sc, nrows, vec16, is_v);
+      stage.load(x_s, sc_s, src, sc, nrows, rb, is_v);
     } else {
-      stage.fetch(src, sc, nrows, vec16, is_v);
+      stage.fetch(src, sc, nrows, rb, is_v);
     }
   };
   if constexpr (!St::kSync) stage_step(0);
@@ -206,8 +210,9 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
   for (int i = tid; i < kRows * DK; i += kThreads) {
     const int r = i / DK, d = i - r * DK;
     q_s[r * (DK + kPad) + d] =
-        r < rows ? load_act(q, (static_cast<int64_t>(bh) * C + r0 + r) * DK + d, act_dtype)
-                 : 0.0f;
+        r < rows && d < dq
+            ? load_act(q, (static_cast<int64_t>(bh) * C + r0 + r) * dq + d, act_dtype)
+            : 0.0f;
   }
   zero_value_pad<DK, DV>(x_s);
   __syncthreads();
@@ -224,14 +229,15 @@ prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kc, const KV* 
                                       dense, advance,
                                       [&](int r, int j) { return valid(t, r, j); });
   }
-  st.store(out, (static_cast<int64_t>(bh) * C + r0) * DV, l_s, rows, act_dtype);
+  st.store(out, (static_cast<int64_t>(bh) * C + r0) * dv, l_s, rows, act_dtype, dv);
 }
 
 template <typename KV, int DK, int DV, bool EXPMUL>
 int launch(const void* q, const void* kc, const void* vc, const float* ksc, const float* vsc,
            const void* kn, const void* vn, const float* ksn, const float* vsn, const int* lens,
            const int* nvalid, void* out, int B, int H, int Hkv, int C, int S, int bk,
-           int window, int rolling, float scale, int act_dtype, cudaStream_t stream) {
+           int window, int rolling, float scale, int act_dtype, int dq, int dv,
+           cudaStream_t stream) {
   auto kernel = prefill_kernel<KV, DK, DV, EXPMUL>;
   static bool wide_smem = false;  // once per instantiation: room for the widest tile
   if (!wide_smem) {
@@ -241,17 +247,29 @@ int launch(const void* q, const void* kc, const void* vc, const float* ksc, cons
     if (e != cudaSuccess) return static_cast<int>(e);
     wide_smem = true;
   }
-  const uintptr_t any = reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc) |
-                        reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn);
+  const RowBytes rb{dq * static_cast<int>(sizeof(KV)), dv * static_cast<int>(sizeof(KV)), 0};
+  const RowBytes rbp{rb.k, rb.v,
+                     piece_of(reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc) |
+                              reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn) |
+                              static_cast<uintptr_t>(rb.k) | static_cast<uintptr_t>(rb.v))};
   const dim3 grid(B * H, (C + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem_bytes<DK, DV>(bk), stream>>>(
       q, static_cast<const KV*>(kc), static_cast<const KV*>(vc), ksc, vsc,
       static_cast<const KV*>(kn), static_cast<const KV*>(vn), ksn, vsn, lens, nvalid, out, H,
-      Hkv, C, S, bk, window, rolling, scale, act_dtype, (any & 15) == 0);
+      Hkv, C, S, bk, window, rolling, scale, act_dtype, dq, dv, rbp);
   return static_cast<int>(cudaGetLastError());
 }
 
-// (DK, DV): (D, D) for D in {16, 32, 64, 112, 128, 256}, and (96, 64) for float KV
+// The build a call at (D, Dv) runs: (96, 64) for float KV at 64 < D <= 96
+// and Dv <= 64 (MLA's expanded latents), else the narrowest square width
+// holding both; {0, 0} past kMaxHeadDim.
+template <typename KV>
+Dims built_dims(int D, int Dv) {
+  if (!IsCode<KV>::value && D > 64 && D <= 96 && Dv <= 64) return Dims{96, 64};
+  const int w = square_width(D > Dv ? D : Dv);
+  return Dims{w, w};
+}
+
 template <typename KV>
 int by_dims(int D, int Dv, int expmul, const void* q, const void* kc, const void* vc,
             const float* ksc, const float* vsc, const void* kn, const void* vn,
@@ -261,25 +279,23 @@ int by_dims(int D, int Dv, int expmul, const void* q, const void* kc, const void
 #define REPRO_LAUNCH(DK, DV)                                                                  \
   return expmul ? launch<KV, DK, DV, true>(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens,       \
                                            nvalid, out, B, H, Hkv, C, S, bk, window, rolling, \
-                                           scale, act_dtype, s)                               \
+                                           scale, act_dtype, D, Dv, s)                        \
                 : launch<KV, DK, DV, false>(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens,      \
                                             nvalid, out, B, H, Hkv, C, S, bk, window,         \
-                                            rolling, scale, act_dtype, s)
-  if (D == Dv) {
-    switch (D) {
-      case 16: REPRO_LAUNCH(16, 16);
-      case 32: REPRO_LAUNCH(32, 32);
-      case 64: REPRO_LAUNCH(64, 64);
-      case 112: REPRO_LAUNCH(112, 112);
-      case 128: REPRO_LAUNCH(128, 128);
-      case 256: REPRO_LAUNCH(256, 256);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
+                                            rolling, scale, act_dtype, D, Dv, s)
+  const Dims w = built_dims<KV>(D, Dv);
   if constexpr (!IsCode<KV>::value) {
-    if (D == 96 && Dv == 64) REPRO_LAUNCH(96, 64);
+    if (w.k == 96 && w.v == 64) REPRO_LAUNCH(96, 64);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (w.k) {
+    case 16: REPRO_LAUNCH(16, 16);
+    case 32: REPRO_LAUNCH(32, 32);
+    case 64: REPRO_LAUNCH(64, 64);
+    case 112: REPRO_LAUNCH(112, 112);
+    case 128: REPRO_LAUNCH(128, 128);
+    case 256: REPRO_LAUNCH(256, 256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 #undef REPRO_LAUNCH
 }
 
@@ -300,7 +316,8 @@ extern "C" int contiguous_prefill(const void* q, const void* kc, const void* vc,
                                   int Hkv, int C, int D, int Dv, int S, int bk, int window,
                                   int rolling, float scale, int expmul, int act_dtype,
                                   int kv_dtype, void* stream) {
-  if (B <= 0 || C <= 0 || S < 0 || Hkv <= 0 || H % Hkv != 0 || bk <= 0 || bk > kMaxTile)
+  if (B <= 0 || C <= 0 || S < 0 || Hkv <= 0 || H % Hkv != 0 || bk <= 0 || bk > kMaxTile ||
+      D <= 0 || D > kMaxHeadDim || Dv <= 0 || Dv > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_DTYPE(KV)                                                                       \
@@ -317,12 +334,15 @@ extern "C" int contiguous_prefill(const void* q, const void* kc, const void* vc,
 }
 
 // The dynamic shared memory, in bytes, that contiguous_prefill gives each CTA
-// at tile width bk (independent of S and C); -1 for a (D, Dv) pair not built
-// (its KV dtypes are contiguous_prefill's).
-extern "C" long long contiguous_prefill_smem(int D, int Dv, int bk) {
-  if (D == 96 && Dv == 64) return static_cast<long long>(smem_bytes<96, 64>(bk));
-  if (D != Dv) return -1;
-  switch (D) {
+// at tile width bk (independent of S and C) for head dims (D, Dv) over
+// kv_dtype; -1 past kMaxHeadDim or for an unknown dtype.
+extern "C" long long contiguous_prefill_smem(int D, int Dv, int bk, int kv_dtype) {
+  if (D <= 0 || D > kMaxHeadDim || Dv <= 0 || Dv > kMaxHeadDim || kv_dtype < kF32 ||
+      kv_dtype > kFP8)
+    return -1;
+  const Dims w = kv_dtype <= kBF16 ? built_dims<float>(D, Dv) : built_dims<int8_t>(D, Dv);
+  if (w.k == 96) return static_cast<long long>(smem_bytes<96, 64>(bk));
+  switch (w.k) {
     case 16: return static_cast<long long>(smem_bytes<16, 16>(bk));
     case 32: return static_cast<long long>(smem_bytes<32, 32>(bk));
     case 64: return static_cast<long long>(smem_bytes<64, 64>(bk));

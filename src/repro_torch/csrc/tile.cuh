@@ -32,8 +32,22 @@ namespace repro {
 
 constexpr float kMaskValue = -1e30f;
 constexpr int kWarp = 32;
-constexpr int kMaxPage = 32;  // a KV tile (one page) is at most one warp wide
+constexpr int kMaxPage = 256;  // widest page (a paged kernel's KV tile)
 constexpr int kMaxTile = 512;  // widest contiguous KV tile (the prefill's)
+constexpr int kMaxHeadDim = 256;  // widest q / K / V row a kernel takes
+
+// the built widths of a kernel's K and V rows
+struct Dims {
+  int k, v;
+};
+
+// The serving kernels' built square widths: a call at head dims (D, Dv)
+// runs the narrowest W >= max(D, Dv), reading D and Dv features and staging
+// zeros in the rest (0 past kMaxHeadDim: no kernel).
+__host__ __device__ constexpr int square_width(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 112 ? 112 : d <= 128 ? 128
+       : d <= kMaxHeadDim ? 256 : 0;
+}
 constexpr unsigned kFull = 0xffffffffu;
 
 // dtype codes shared with the Python wrappers (kernels/build.py users)

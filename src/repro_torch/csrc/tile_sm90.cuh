@@ -44,33 +44,65 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy `rows` rows of `row_bytes` bytes (a multiple of 4) from global memory,
-// row r starting at src_row(r), to shared dst (rows `dst_stride` bytes
-// apart), in 16-byte pieces when both sides allow it, else in 4-byte
-// pieces. Called by every thread of the CTA; the caller commits and waits.
+// The rows as they lie in device memory: the bytes of a K row and of a V
+// row (the call's true head dims, at most the built widths') and the widest
+// piece, 16, 4 or 1 bytes, that every row start and row length allows. A row
+// of D 20 in bfloat16 (40 bytes) or of D 40 in int8 puts every row after the
+// first off a 16-byte boundary, so such rows are read in narrower pieces.
+struct RowBytes {
+  int k, v, piece;
+};
+
+// the widest piece (16, 4 or 1 bytes) that divides every address or length
+// or-ed into `bits`
+__host__ __device__ constexpr int piece_of(uintptr_t bits) {
+  return bits % 16 == 0 ? 16 : (bits % 4 == 0 ? 4 : 1);
+}
+
+// Copy `rows` rows of `row_bytes` bytes from global memory, row r starting at
+// src_row(r), to shared dst (rows `dst_stride` bytes apart), in pieces of
+// `piece` bytes (16 or 4 by cp.async; 1 by plain loads and stores, which the
+// caller's barrier publishes), then zero bytes [row_bytes, fill_bytes) of each
+// row: the features past the call's head dim that the fmaf chains walk at the
+// built width. `piece` divides row_bytes, dst_stride and every src_row(r).
+// Called by every thread of the CTA; the caller commits and waits.
 template <typename SrcRow>
 __device__ __forceinline__ void copy_rows_async_at(unsigned char* dst, int dst_stride, int rows,
-                                                   int row_bytes, bool vec16, SrcRow src_row) {
-  const int piece = vec16 ? 16 : 4;
+                                                   int row_bytes, int fill_bytes, int piece,
+                                                   SrcRow src_row) {
   const int per_row = row_bytes / piece;
   const int n = rows * per_row;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int r = i / per_row, c = (i - r * per_row) * piece;
     unsigned char* d = dst + r * dst_stride + c;
     const unsigned char* s = src_row(r) + c;
-    if (vec16) {
+    if (piece == 16) {
       cp_async16(d, s);
-    } else {
+    } else if (piece == 4) {
       cp_async4(d, s);
+    } else {
+      *d = __ldg(s);
     }
+  }
+  // the zero tail: up to three bytes to a word boundary, then words
+  const int z0 = (row_bytes + 3) & ~3;
+  const int nb = z0 < fill_bytes ? z0 - row_bytes : fill_bytes - row_bytes;
+  for (int i = threadIdx.x; i < rows * nb; i += blockDim.x) {
+    const int r = i / nb;
+    dst[r * dst_stride + row_bytes + (i - r * nb)] = 0;
+  }
+  const int nw = (fill_bytes - z0) / 4;
+  for (int i = threadIdx.x; i < rows * nw; i += blockDim.x) {
+    const int r = i / nw;
+    *reinterpret_cast<unsigned*>(dst + r * dst_stride + z0 + 4 * (i - r * nw)) = 0u;
   }
 }
 
-// The same for rows contiguous in global memory from src.
+// The same for rows contiguous in global memory from src, `row_bytes` apart.
 __device__ __forceinline__ void copy_rows_async(unsigned char* dst, int dst_stride,
                                                 const unsigned char* src, int rows,
-                                                int row_bytes, bool vec16) {
-  copy_rows_async_at(dst, dst_stride, rows, row_bytes, vec16,
+                                                int row_bytes, int fill_bytes, int piece) {
+  copy_rows_async_at(dst, dst_stride, rows, row_bytes, fill_bytes, piece,
                      [=](int r) { return src + static_cast<int64_t>(r) * row_bytes; });
 }
 
@@ -212,7 +244,10 @@ __device__ __forceinline__ void zero_value_pad(float* x_s) {
 // Raw bytes of one staged sub-tile (kStageRows rows of DK elements of KV, or
 // of DV for V rows: the `v` argument of fetch and load) in flight in
 // registers: 16-byte pieces, kPer a thread, and one scale row. Rows land at
-// a stride of DS + kStagePad floats, DS = staged_width(DK, DV).
+// a stride of DS + kStagePad floats, DS = staged_width(DK, DV). A call at
+// narrower head dims (RowBytes: the rows' true bytes in device memory) reads
+// only those bytes and stages zeros in the rest of the built width, so every
+// fmaf chain over the padding adds fmaf(0, 0, acc) = acc: the call's bits.
 // At D 256 a thread's value accumulators take 128 registers (ChunkRows<256>
 // has RPT 16): there rows of more than 8 pieces a thread (float32 and
 // bfloat16) are not held in flight (kSync): load() reads and converts them
@@ -235,11 +270,31 @@ struct Stage {
     return DV != DK && v ? kVPerRow : kPerRow;
   }
 
-  // the 16 bytes at p (16-byte aligned with vec16, else 4-byte aligned)
-  __device__ __forceinline__ static uint4 piece(const unsigned char* p, bool vec16) {
-    if (vec16) return __ldg(reinterpret_cast<const uint4*>(p));
-    const unsigned* w = reinterpret_cast<const unsigned*>(p);
-    return make_uint4(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3));
+  // the 16 bytes at p of which the first n (<= 0: none) lie in the row,
+  // zeros past them, read in pieces of `piece` bytes (RowBytes::piece):
+  // one 16-byte load, up to four 4-byte ones, or (a row off a 4-byte
+  // boundary: D 20 in bfloat16, D 40 in int8) a byte loop kept rolled, so
+  // the unrolled staging loops stay small
+  __device__ __forceinline__ static uint4 piece(const unsigned char* p, int n, int piece) {
+    if (n <= 0) return make_uint4(0u, 0u, 0u, 0u);
+    if (piece == 16) return __ldg(reinterpret_cast<const uint4*>(p));
+    if (piece == 4) {
+      const unsigned* w = reinterpret_cast<const unsigned*>(p);
+      return make_uint4(__ldg(w), n > 4 ? __ldg(w + 1) : 0u, n > 8 ? __ldg(w + 2) : 0u,
+                        n > 12 ? __ldg(w + 3) : 0u);
+    }
+    unsigned long long lo = 0ull, hi = 0ull;
+#pragma unroll 1
+    for (int b = 0; b < n && b < 16; ++b) {
+      const unsigned long long x = __ldg(p + b);
+      if (b < 8) {
+        lo |= x << (8 * b);
+      } else {
+        hi |= x << (8 * (b - 8));
+      }
+    }
+    return make_uint4(static_cast<unsigned>(lo), static_cast<unsigned>(lo >> 32),
+                      static_cast<unsigned>(hi), static_cast<unsigned>(hi >> 32));
   }
 
   // piece i of the sub-tile (its raw bytes raw_i, rows of pr pieces) as
@@ -265,33 +320,46 @@ struct Stage {
     }
   }
 
-  // rows r < nrows, row r from src_row(r) (its first byte) and, for codes,
-  // its scale from sc_row(r); zeros past nrows
+  // rows r < nrows, row r from src_row(r) (its first byte; rb.k or rb.v
+  // bytes of it read) and, for codes, its scale from sc_row(r); zeros past
+  // nrows and past the row's bytes
   template <typename SrcRow, typename ScRow>
   __device__ __forceinline__ void fetch_at(SrcRow src_row, ScRow sc_row, int nrows,
-                                           bool vec16, bool v = false) {
+                                           const RowBytes& rb, bool v = false) {
     static_assert(!kSync, "loaded at the step, not fetched ahead");
     v_rows = v;
-    const int pr = per_row(v), pieces = kStageRows * pr;
+    const int pr = per_row(v), pieces = kStageRows * pr, bytes = v ? rb.v : rb.k;
+    if (rb.piece == 16 && bytes == pr * 16) {  // rows of whole 16-byte pieces
 #pragma unroll
-    for (int c = 0; c < kPer; ++c) {
-      const int i = threadIdx.x + c * kChunkThreads;
-      const int r = i / pr;
-      raw[c] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < pieces && r < nrows) raw[c] = piece(src_row(r) + (i - r * pr) * 16, vec16);
+      for (int c = 0; c < kPer; ++c) {
+        const int i = threadIdx.x + c * kChunkThreads;
+        const int r = i / pr;
+        raw[c] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < pieces && r < nrows)
+          raw[c] = __ldg(reinterpret_cast<const uint4*>(src_row(r) + (i - r * pr) * 16));
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) {
+        const int i = threadIdx.x + c * kChunkThreads;
+        const int r = i / pr, b0 = (i - r * pr) * 16;
+        raw[c] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < pieces && r < nrows) raw[c] = piece(src_row(r) + b0, bytes - b0, rb.piece);
+      }
     }
     sc = 0.0f;
     if (IsCode<KV>::value && static_cast<int>(threadIdx.x) < nrows)
       sc = __ldg(sc_row(static_cast<int>(threadIdx.x)));
   }
 
-  // the same for rows contiguous from src, scales from scale (codes only)
+  // the same for rows contiguous from src (rb.k or rb.v bytes apart),
+  // scales from scale (codes only)
   __device__ __forceinline__ void fetch(const KV* src, const float* scale, int nrows,
-                                        bool vec16, bool v = false) {
+                                        const RowBytes& rb, bool v = false) {
     const unsigned char* base = reinterpret_cast<const unsigned char*>(src);
-    const int64_t row = DV != DK && v ? kVRowBytes : kRowBytes;
+    const int64_t row = v ? rb.v : rb.k;
     fetch_at([=](int r) { return base + static_cast<int64_t>(r) * row; },
-             [=](int r) { return scale + r; }, nrows, vec16, v);
+             [=](int r) { return scale + r; }, nrows, rb, v);
   }
 
   // the sub-tile as float32 rows x_s[r * (DS + kStagePad) + d], zeros past nrows
@@ -310,14 +378,14 @@ struct Stage {
   // them (the caller's barriers fence x_s)
   template <typename SrcRow, typename ScRow>
   __device__ __forceinline__ void load_at(float* x_s, float* sc_s, SrcRow src_row,
-                                          ScRow sc_row, int nrows, bool vec16,
+                                          ScRow sc_row, int nrows, const RowBytes& rb,
                                           bool v = false) const {
-    const int pr = per_row(v), pieces = kStageRows * pr;
+    const int pr = per_row(v), pieces = kStageRows * pr, bytes = v ? rb.v : rb.k;
 #pragma unroll 4
     for (int i = threadIdx.x; i < pieces; i += kChunkThreads) {
-      const int r = i / pr;
+      const int r = i / pr, b0 = (i - r * pr) * 16;
       put(x_s, i,
-          r < nrows ? piece(src_row(r) + (i - r * pr) * 16, vec16)
+          r < nrows ? piece(src_row(r) + b0, bytes - b0, rb.piece)
                     : make_uint4(0u, 0u, 0u, 0u),
           pr);
     }
@@ -328,12 +396,12 @@ struct Stage {
   }
 
   __device__ __forceinline__ void load(float* x_s, float* sc_s, const KV* src,
-                                       const float* scale, int nrows, bool vec16,
+                                       const float* scale, int nrows, const RowBytes& rb,
                                        bool v = false) const {
     const unsigned char* base = reinterpret_cast<const unsigned char*>(src);
-    const int64_t row = DV != DK && v ? kVRowBytes : kRowBytes;
+    const int64_t row = v ? rb.v : rb.k;
     load_at(x_s, sc_s, [=](int r) { return base + static_cast<int64_t>(r) * row; },
-            [=](int r) { return scale + r; }, nrows, vec16, v);
+            [=](int r) { return scale + r; }, nrows, rb, v);
   }
 };
 
@@ -439,11 +507,12 @@ struct ChunkRows {
   static_assert(kChunkRows * 4 == kChunkThreads, "four weight threads a row");
   float m = kMaskValue, l = 0.0f, acc[RPT][4] = {};
 
-  // acc / l of the rows below `rows` into out[base + row * D + feature] as
+  // acc / l of the rows below `rows` and the features below dv (the call's
+  // value head dim, at most D) into out[base + row * dv + feature] as
   // act_dtype; a row with no valid column (l == 0) gives 0. l_s holds
   // kChunkRows floats.
   __device__ __forceinline__ void store(void* out, int64_t base, float* l_s, int rows,
-                                        int act_dtype) const {
+                                        int act_dtype, int dv = D) const {
     const int tid = threadIdx.x;
     if (tid % 4 == 0) l_s[tid / 4] = l;
     __syncthreads();
@@ -451,12 +520,13 @@ struct ChunkRows {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int row = RPT * vrg + r;
-      if (row >= rows || 4 * vdg >= D) continue;
+      if (row >= rows || 4 * vdg >= dv) continue;
       const float ls = l_s[row];
       const float den = ls == 0.0f ? 1.0f : ls;
-      const int64_t o = base + static_cast<int64_t>(row) * D + 4 * vdg;
+      const int64_t o = base + static_cast<int64_t>(row) * dv + 4 * vdg;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store_act(out, o + e, acc[r][e] / den, act_dtype);
+      for (int e = 0; e < 4; ++e)
+        if (4 * vdg + e < dv) store_act(out, o + e, acc[r][e] / den, act_dtype);
     }
   }
 };

@@ -5,7 +5,8 @@ a shared library with a plain C interface, loaded with ``ctypes``. The
 libraries go to ``build/`` beside this package (listed in ``.gitignore``)
 under a name that carries a hash of the sources, so an edited source is
 never served by a stale build. ``build_all()`` starts one ``nvcc`` per
-source at once and waits for all of them.
+source at once and waits for all of them; ``start_all()`` starts them and
+returns, and ``load()`` of a library then waits for its build alone.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine without ``nvcc``.
@@ -51,6 +52,8 @@ COUNTS: collections.Counter = collections.Counter()
 DISPATCH_SINK = None
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_PENDING: dict = {}   # name -> (nvcc process, tmp path, lib path, log, start)
+_SECONDS: dict = {}   # name -> its nvcc's seconds, once collected
 
 
 def reset_counts():
@@ -122,38 +125,56 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every missing library in parallel; returns {name: seconds}
-    (0.0 for a library that was already built)."""
+def start_all(names=SOURCES) -> None:
+    """Start one nvcc for every missing library of ``names``, all at once,
+    and return without waiting: ``load`` of a library waits for its own
+    build only, so work on a library that is ready runs while the others
+    compile. ``wait`` collects them."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, seconds = {}, {}
-    t0 = time.perf_counter()
     for name in names:
         out = _lib_path(name)
-        if out.exists():
-            seconds[name] = 0.0
+        if name in _PENDING or out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=log,
-                                        stderr=subprocess.STDOUT),
-                       tmp, out, log)
+        _PENDING[name] = (subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT),
+                          tmp, out, log, time.perf_counter())
+
+
+def wait(names=SOURCES) -> dict:
+    """Wait for the builds of ``names`` that ``start_all`` started; returns
+    {name: seconds}, each its own nvcc's from its start (0.0 for a library
+    built by an earlier process); raises if an nvcc failed."""
+    procs = {name: _PENDING[name] for name in names if name in _PENDING}
     failed = []
-    for name, (proc, tmp, out, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        seconds[name] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append(name)
-            continue
-        os.replace(tmp, out)
+    while procs:
+        for name, (proc, tmp, out, log, t0) in list(procs.items()):
+            rc = proc.poll()
+            if rc is None:
+                continue
+            log.close()
+            _SECONDS[name] = time.perf_counter() - t0
+            del procs[name], _PENDING[name]
+            if rc != 0:
+                failed.append(name)
+                continue
+            os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         msgs = "\n".join(
             f"--- {n} ---\n{_lib_path(n).with_suffix('.log').read_text()}"
             for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{msgs}")
-    return seconds
+    return {name: _SECONDS.get(name, 0.0) for name in names}
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every missing library in parallel and wait for them;
+    returns {name: seconds} (0.0 for a library that was already built)."""
+    start_all(names)
+    return wait(names)
 
 
 def build_log(name: str) -> str:
@@ -168,7 +189,7 @@ def load(name: str, signature: dict) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         path = _lib_path(name)
-        if not path.exists():
+        if not path.exists():   # waits for a build start_all began
             build_all((name,))
         lib = ctypes.CDLL(str(path))
         for fn, (restype, argtypes) in signature.items():

@@ -98,10 +98,12 @@ def _kv_operand(rng, shape, kv, dyadic, device):
 
 def paged_case(rng, *, B, H, Hkv, D, page_size, max_blocks, lengths,
                n_valid=None, chunk=0, kv="int8", q_dtype=torch.float32,
-               dyadic=True, window=None, device="cuda"):
+               dyadic=True, window=None, Dv=None, device="cuda"):
     """Decode operands (``chunk == 0``) or prefill operands (``n_valid``
-    valid tokens of a ``chunk``-token chunk after ``lengths`` resident)."""
+    valid tokens of a ``chunk``-token chunk after ``lengths`` resident); K
+    rows D wide, V rows ``Dv`` (default D)."""
     ps = page_size
+    Dv = D if Dv is None else Dv
     n_valid = [0] * B if n_valid is None else list(n_valid)
     need = [-(-(n + m) // ps) for n, m in zip(lengths, n_valid)]
     nblk = sum(need) + 3                  # spare blocks stay unreferenced
@@ -119,12 +121,11 @@ def paged_case(rng, *, B, H, Hkv, D, page_size, max_blocks, lengths,
             if quant:
                 scale.view(nblk, ps, Hkv)[unused] = float("nan")
             else:
-                vals.view(nblk, ps, Hkv, D)[unused] = float("nan")
+                vals.view(nblk, ps, Hkv, shape[-1])[unused] = float("nan")
         return vals.to(device), None if scale is None else scale.to(device)
 
-    pool = (nblk * ps, Hkv, D)
-    k, ks = kv_operand(pool, True)
-    v, vs = kv_operand(pool, True)
+    k, ks = kv_operand((nblk * ps, Hkv, D), True)
+    v, vs = kv_operand((nblk * ps, Hkv, Dv), True)
     case = dict(k_pool=k, v_pool=v, ks_pool=ks, vs_pool=vs,
                 block_tables=torch.from_numpy(bt).to(device),
                 lengths=torch.tensor(lengths, dtype=torch.int32,
@@ -134,7 +135,7 @@ def paged_case(rng, *, B, H, Hkv, D, page_size, max_blocks, lengths,
         case["q"] = torch.from_numpy(_act(rng, (B, H, chunk, D), dyadic)).to(
             q_dtype).to(device)
         case["kn"], case["ksn"] = kv_operand((B, Hkv, chunk, D), False)
-        case["vn"], case["vsn"] = kv_operand((B, Hkv, chunk, D), False)
+        case["vn"], case["vsn"] = kv_operand((B, Hkv, chunk, Dv), False)
         case["n_valid"] = torch.tensor(n_valid, dtype=torch.int32,
                                        device=device)
     else:
@@ -548,6 +549,61 @@ def poisoned_case(rng, kernel, spot, *, kv="int8", length=1000, chunk=100,
         poison_contiguous(case, 0, lo, hi)
     return {k: v.to(device) if torch.is_tensor(v) else v
             for k, v in case.items()}, run
+
+
+PAGED_KERNELS = ("paged_decode", "paged_prefill")
+# The serving kernels' contract past the widths they are built for, as
+# their Pallas kernels take it: (D, Dv, KV kinds, GQA group, page sizes,
+# kernels). Head dim 80 (phi-2) over every KV dtype; DeepSeek-style MLA
+# widths (192, 128) and a narrow pair (48, 32) over codes; groups past a
+# block's 32 rows (MQA's) and past what shared memory allows at 256; pages
+# of 64 to 256 tokens (256 over int8 and 64-200 over float32 rows at 256 are
+# wider than a decode rank stages at once); pages that the staging rows do
+# not divide: 48 (two pages of a rank's 128 int8 rows, one of the prefill's
+# 64-row sub-tiles) and 200 over float32 at 256 (seven pieces of a rank's 32
+# rows and four sub-tiles, the last of each partial); rows of 40 bytes
+# (D 20 in bfloat16, D 40 in int8) off a 16-byte boundary.
+CONTRACT_SHAPES = (
+    (80, 80, ("f32", "bf16", "int8", "fp8"), 2, (16,), SERVING_KERNELS),
+    (192, 128, ("int8", "fp8"), 2, (16,), SERVING_KERNELS),
+    (48, 32, ("int8", "fp8"), 2, (16,), SERVING_KERNELS),
+    (64, 64, ("int8",), 40, (16,), SERVING_KERNELS),
+    (256, 256, ("f32",), 20, (16,), SERVING_KERNELS),
+    (64, 64, ("int8",), 2, (64, 128, 256, 48), PAGED_KERNELS),
+    (256, 256, ("f32",), 2, (64, 128, 200), PAGED_KERNELS),
+    (20, 20, ("bf16",), 2, (16,), SERVING_KERNELS),
+    (40, 40, ("int8",), 2, (16,), SERVING_KERNELS),
+)
+# flash's (Dv == D): head dims off its built widths, a row off 16 bytes
+CONTRACT_FLASH_DIMS = (80, 20)
+
+
+def contract_case(rng, kernel, *, D, Dv=None, kv, group=2, Hkv=2,
+                  page_size=16, q_dtype=torch.bfloat16, dyadic=False,
+                  device="cuda"):
+    """One input of a serving ``kernel`` at head dims (D, Dv), GQA
+    ``group`` over ``Hkv`` KV heads and pages of ``page_size``: 4
+    sequences, decode lengths 300, 0, 77 and 17 (two 256-wide tiles), or
+    130, 0, 17 and 64 resident before a 40-token chunk of which 40, 0, 33
+    and 0 are valid. Returns (run, case, idle rows): row 1 attends to
+    nothing."""
+    kw = dict(B=4, H=group * Hkv, Hkv=Hkv, D=D, Dv=Dv, kv=kv,
+              q_dtype=q_dtype, dyadic=dyadic, device=device)
+    dec, pf, nv, C = [300, 0, 77, 17], [130, 0, 17, 64], [40, 0, 33, 0], 40
+    if kernel == "paged_decode":
+        mb = -(-max(dec) // page_size) + 1
+        return run_decode, paged_case(rng, page_size=page_size,
+                                      max_blocks=mb, lengths=dec, **kw), [1]
+    if kernel == "paged_prefill":
+        mb = -(-(max(pf) + C) // page_size) + 1
+        return run_prefill, paged_case(
+            rng, page_size=page_size, max_blocks=mb, lengths=pf, n_valid=nv,
+            chunk=C, **kw), [1]
+    if kernel == "decode":
+        return run_contiguous_decode, contiguous_case(
+            rng, S=320, lengths=dec, **kw), [1]
+    return run_contiguous_prefill, contiguous_case(
+        rng, S=192, lengths=pf, n_valid=nv, chunk=C, **kw), [1]
 
 
 def expmul_case(rng, rows, d, dtype=torch.float32, device="cuda"):

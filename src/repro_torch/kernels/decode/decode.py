@@ -4,8 +4,8 @@ layouts:
 
 * **paged** (``csrc/paged_decode.cu``, the port of
   ``repro/kernels/decode/decode.py:paged_decode_fwd_pallas``): q
-  (B*Hkv, group, D), pools (pool_blocks, page_size, Hkv, D) of values or
-  int8/fp8 codes, scale pools (pool_blocks, page_size, Hkv) float32 for
+  (B*Hkv, group, D), pools K (pool_blocks, page_size, Hkv, D) and V
+  (pool_blocks, page_size, Hkv, Dv) of values or int8/fp8 codes, scale pools (pool_blocks, page_size, Hkv) float32 for
   codes, block tables (B, max_blocks) int32 (sentinel = pool_blocks) and
   lengths (B,) int32 counting the current token. The tiles are pages
   0, 1, ... of the block table, masked ``col < length`` (and the window).
@@ -27,15 +27,17 @@ the shape checks, and no tile loop runs. A launch and a ``meta`` call
 each report their analytic cost to the active op counters
 (``kernels/costs.py:report_call``).
 
-The kernels are built for head dims ``HEAD_DIMS`` with Dv == D; the
-contiguous kernels (this decode and ``kernels/flash/prefill.py``'s) also
-for the (D, Dv) pairs of ``FLOAT_HEAD_DIMS`` (MLA's expanded latents, qk
-96 and v 64) over float32 and bfloat16 KV, never codes
-(``check_head_dims``). Their shared memory a block grows with the head
-dims, the GQA group and the KV dtype (``paged_decode_smem``,
-``contiguous_decode_smem``, the kernels' own C queries); each wrapper
-checks it against the card's limit before the launch (``check_smem``) and
-raises a ``ValueError`` naming both.
+The kernels take what their Pallas kernels take: any head dims D and Dv
+up to ``MAX_HEAD_DIM`` (Dv != D over codes too), any GQA group, pages of
+up to ``MAX_PAGE`` tokens (``check_head_dims``, ``check_page``; the C
+side checks the same). A call runs the narrowest built width that holds
+(D, Dv), reading D and Dv features and staging zeros in the rest, so its
+numbers are the plain version's at the call's dims; a group wider than a
+block takes is split into parts of one launch. Their shared memory a
+block grows with the head dims, the part's rows, the page size and the KV
+dtype (``paged_decode_smem``, ``contiguous_decode_smem``, the kernels'
+own C queries); each wrapper checks it against the card's limit before
+the launch (``check_smem``) and raises a ``ValueError`` naming both.
 """
 from __future__ import annotations
 
@@ -56,18 +58,17 @@ from repro_torch.kernels.flash.tile import (
 NAME = "paged_decode"
 CONTIGUOUS = "decode"
 BLOCK_K = 256      # the reference's decode tile (spec.decode_block_k)
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)
-FLOAT_HEAD_DIMS = ((96, 64),)   # (D, Dv) of the contiguous kernels, float KV
+MAX_HEAD_DIM = 256  # the widest q / K / V row (csrc/tile.cuh kMaxHeadDim)
+MAX_PAGE = 256      # the widest page (csrc/tile.cuh kMaxPage)
 ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
-MAX_PAGE = 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURE = {NAME: (ctypes.c_int, [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3
+_SIGNATURE = {NAME: (ctypes.c_int, [_P] * 8 + [_I] * 9 + [_F] + [_I] * 3
                      + [_P]),
-              "paged_decode_smem": (ctypes.c_longlong, [_I] * 5)}
+              "paged_decode_smem": (ctypes.c_longlong, [_I] * 6)}
 _CONTIGUOUS_SIGNATURE = {
     "contiguous_decode": (ctypes.c_int, [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3
                           + [_P]),
@@ -82,46 +83,53 @@ def card_smem_limit(device) -> int:
 
 def check_smem(name, need, device, what):
     """Raise before a launch whose ``need`` bytes of shared memory a block
-    (-1: no instantiation) the card would refuse."""
+    (-1: none fits a block) the card would refuse."""
     if need < 0:
-        raise ValueError(f"{name}: no kernel is built for {what}")
+        raise ValueError(f"{name}: no launch fits {what} in shared memory")
     limit = card_smem_limit(device)
     if need > limit:
         raise ValueError(f"{name}: {what} needs {need} B of shared memory a "
                          f"block, the card allows {limit}")
 
 
-def check_head_dims(name, D, Dv, kv_dtype):
-    """Raise before a launch of a contiguous kernel at a (D, Dv) pair or a
-    KV dtype it is not built for: (D, D) for D in ``HEAD_DIMS`` over any
-    KV dtype, ``FLOAT_HEAD_DIMS`` over float32 and bfloat16 only."""
-    if D == Dv and D in HEAD_DIMS:
-        return
-    if (D, Dv) not in FLOAT_HEAD_DIMS:
-        raise ValueError(f"{name}: no kernel is built for head dims D={D}, "
-                         f"Dv={Dv}; built: Dv == D in {HEAD_DIMS}, and "
-                         f"(D, Dv) in {FLOAT_HEAD_DIMS} for float KV")
-    if kv_dtype in CODE_DTYPES:
-        raise ValueError(f"{name}: no kernel is built for {kv_dtype} codes "
-                         f"at Dv != D ({D}, {Dv}): MLA's expanded K/V are "
-                         f"float32 or bfloat16 values")
+def check_head_dims(name, D, Dv):
+    """Raise before a launch (or a ``meta`` call) at head dims a kernel
+    does not take: each of D and Dv in [1, ``MAX_HEAD_DIM``]."""
+    for what, d in (("D", D), ("Dv", Dv)):
+        if not 0 < d <= MAX_HEAD_DIM:
+            raise ValueError(f"{name}: head dim {what}={d} is outside "
+                             f"[1, {MAX_HEAD_DIM}], the kernels' limit")
+
+
+def check_page(name, page_size, pool_shape):
+    """Raise on a page size outside [1, ``MAX_PAGE``] or other than the
+    pool's (pool_blocks, page_size, ...)."""
+    if not 0 < page_size <= MAX_PAGE:
+        raise ValueError(f"{name}: page_size {page_size} is outside "
+                         f"[1, {MAX_PAGE}], the kernels' limit")
+    if pool_shape[1] != page_size:
+        raise ValueError(f"{name}: page_size {page_size} does not match "
+                         f"the pool's {tuple(pool_shape)}")
 
 
 @functools.lru_cache(maxsize=None)
-def paged_decode_smem(group, D, page_size, max_blocks, kv_dtype) -> int:
-    """The shared memory, in bytes, the paged decode gives a block
-    (``csrc/paged_decode.cu:paged_decode_smem``; the same at any length and
-    table width)."""
+def paged_decode_smem(group, D, page_size, max_blocks, kv_dtype,
+                      Dv=None) -> int:
+    """The shared memory, in bytes, the paged decode gives a block at head
+    dims D, Dv (default D) (``csrc/paged_decode.cu:paged_decode_smem``; the
+    same at any length and table width; one part of a split group; -1
+    where nothing launches)."""
     return int(build.load(NAME, _SIGNATURE).paged_decode_smem(
-        group, D, page_size, max_blocks, KV_DTYPES[kv_dtype]))
+        group, D, D if Dv is None else Dv, page_size, max_blocks,
+        KV_DTYPES[kv_dtype]))
 
 
 @functools.lru_cache(maxsize=None)
 def contiguous_decode_smem(group, D, block_k, kv_dtype, Dv=None) -> int:
     """The shared memory, in bytes, the contiguous decode gives a block at
     tile width ``block_k`` and head dims D, Dv (default D)
-    (``csrc/decode.cu:contiguous_decode_smem``; -1 for a pair or dtype not
-    built)."""
+    (``csrc/decode.cu:contiguous_decode_smem``; one part of a split group;
+    -1 where nothing launches)."""
     return int(build.load(CONTIGUOUS, _CONTIGUOUS_SIGNATURE)
                .contiguous_decode_smem(group, D, D if Dv is None else Dv,
                                        block_k, KV_DTYPES[kv_dtype]))
@@ -181,16 +189,14 @@ def _check(bt, len1, q3, k4, v4, ks3, vs3, page_size, num_kv_heads):
         raise ValueError(f"{NAME}: scale pools go with int8/fp8 code pools "
                          f"and only with them")
     BHkv, group, D = q3.shape
-    if D not in HEAD_DIMS or k4.shape[-1] != D or v4.shape[-1] != D:
-        raise ValueError(f"{NAME}: the kernel is built for head dims "
-                         f"{HEAD_DIMS} with Dv == D, got q {tuple(q3.shape)}, "
-                         f"v {tuple(v4.shape)}")
-    if not 0 < page_size <= MAX_PAGE or k4.shape[1] != page_size:
-        raise ValueError(f"{NAME}: page_size must be in [1, {MAX_PAGE}] and "
-                         f"match the pool's, got {page_size}, {tuple(k4.shape)}")
-    if not 0 < group <= 32 or k4.shape[2] != num_kv_heads:
-        raise ValueError(f"{NAME}: group {group} / Hkv {num_kv_heads} not "
-                         f"supported by the kernel")
+    if k4.shape[-1] != D or v4.shape[:3] != k4.shape[:3]:
+        raise ValueError(f"{NAME}: pools k {tuple(k4.shape)} / v "
+                         f"{tuple(v4.shape)} do not match q {tuple(q3.shape)}")
+    check_head_dims(NAME, D, v4.shape[-1])
+    check_page(NAME, page_size, k4.shape)
+    if group < 1 or k4.shape[2] != num_kv_heads:
+        raise ValueError(f"{NAME}: group {group} / Hkv {num_kv_heads} do not "
+                         f"match the pool {tuple(k4.shape)}")
     if bt.dtype != torch.int32 or len1.dtype != torch.int32:
         raise ValueError(f"{NAME}: block tables and lengths must be int32")
     for t in tensors:
@@ -204,25 +210,27 @@ def _check(bt, len1, q3, k4, v4, ks3, vs3, page_size, num_kv_heads):
 def paged_decode_fwd(bt, len1, q3, k4, v4, ks3=None, vs3=None, *, scale,
                      variant, page_size, window, num_kv_heads):
     """Paged decode on the CUDA kernel (CUDA tensors) or its plain version
-    (CPU tensors). Returns (B*Hkv, group, D) in q's dtype."""
+    (CPU tensors). Returns (B*Hkv, group, Dv) in q's dtype."""
     if q3.device.type == "cpu":
         return paged_decode_fwd_plain(
             bt, len1, q3, k4, v4, ks3, vs3, scale=scale, variant=variant,
             page_size=page_size, window=window, num_kv_heads=num_kv_heads)
     if q3.device.type == "meta":
         _check(bt, len1, q3, k4, v4, ks3, vs3, page_size, num_kv_heads)
-        return _report_paged(torch.empty_like(q3), bt, len1, q3, k4, v4, ks3,
-                             vs3, page_size)
+        return _report_paged(q3.new_empty(q3.shape[:2] + v4.shape[-1:]), bt,
+                             len1, q3, k4, v4, ks3, vs3, page_size)
     if q3.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q3.device}")
     if variant not in ("exact", "expmul"):
         raise ValueError(f"unknown attention variant {variant!r}")
     _check(bt, len1, q3, k4, v4, ks3, vs3, page_size, num_kv_heads)
     BHkv, group, D = q3.shape
+    Dv = v4.shape[-1]
     check_smem(NAME, paged_decode_smem(group, D, page_size, bt.shape[1],
-                                       k4.dtype), q3.device,
-               f"group {group} at head dim {D} over {k4.dtype}")
-    out = torch.empty_like(q3)
+                                       k4.dtype, Dv), q3.device,
+               f"group {group} at head dims {D}/{Dv} over {k4.dtype} in "
+               f"pages of {page_size}")
+    out = q3.new_empty((BHkv, group, Dv))
     if BHkv == 0:
         return out
     lib = build.load(NAME, _SIGNATURE)
@@ -232,7 +240,7 @@ def paged_decode_fwd(bt, len1, q3, k4, v4, ks3=None, vs3=None, *, scale,
         ks3.data_ptr() if ks3 is not None else None,
         vs3.data_ptr() if vs3 is not None else None,
         bt.data_ptr(), len1.data_ptr(), out.data_ptr(),
-        bt.shape[0], num_kv_heads, group, D, k4.shape[0], page_size,
+        bt.shape[0], num_kv_heads, group, D, Dv, k4.shape[0], page_size,
         bt.shape[1], window or 0, float(scale), int(variant == "expmul"),
         ACT_DTYPES[q3.dtype], KV_DTYPES[k4.dtype], stream)
     build.check(err, NAME)
@@ -316,8 +324,8 @@ def _check_contiguous(q3, k3, v3, lengths, ks2, vs2, num_kv_heads):
     if k3.shape[-1] != D:
         raise ValueError(f"{name}: k {tuple(k3.shape)} does not match q "
                          f"{tuple(q3.shape)}")
-    check_head_dims(name, D, v3.shape[-1], k3.dtype)
-    if not 0 < group <= 32 or BHkv != B * num_kv_heads or S == 0:
+    check_head_dims(name, D, v3.shape[-1])
+    if group < 1 or BHkv != B * num_kv_heads or S == 0:
         raise ValueError(f"{name}: q {tuple(q3.shape)} with {B} lengths and "
                          f"Hkv={num_kv_heads} over {S} slots is not supported")
     if (tuple(k3.shape[:2]) != (BHkv, S) or tuple(v3.shape[:2]) != (BHkv, S)

@@ -33,10 +33,14 @@ row. The row blocking changes no number (a wholly masked tile leaves a
 row's (m, l, acc) as it was), so neither version needs Sq padded. Its shared
 memory grows with the head dim and the tile width (``flash_smem``: 100,352
 bytes at D 64 and 512-wide tiles, two blocks an SM; 174,080 at D 256); the
-wrapper checks it against the card's limit before the launch. At head dims
-96 and 112 the kernel stages V at 128 features, the padding zero, and
-stores the first D (``csrc/tile_sm90.cuh:value_width``); each stored
-feature keeps the plain version's chain.
+wrapper checks it against the card's limit before the launch. The kernel
+takes any head dim D up to 256 with Dv == D, as its Pallas
+kernel does: it is built for widths 16, 32, 64, 96, 112, 128 and 256, and a
+call runs the narrowest one at or above D, reading D features a row and
+staging zeros in the rest, so each score and each stored feature keeps the
+plain version's chain at D. At widths 96 and 112 it stages V at 128
+features, the padding zero, and stores the first D
+(``csrc/tile_sm90.cuh:value_width``).
 
 ``flash_fwd`` launches the CUDA kernel for CUDA tensors and runs the plain
 version only for CPU tensors. A ``meta`` operand (the dry run's) has
@@ -53,7 +57,11 @@ import functools
 import torch
 
 from repro_torch.kernels import build, costs
-from repro_torch.kernels.decode.decode import ACT_DTYPES, card_smem_limit
+from repro_torch.kernels.decode.decode import (
+    ACT_DTYPES,
+    card_smem_limit,
+    check_head_dims,
+)
 from repro_torch.kernels.flash.tile import (
     finalize_tiles,
     init_state,
@@ -62,7 +70,6 @@ from repro_torch.kernels.flash.tile import (
 )
 
 NAME = "flash"
-HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
 MAX_BLOCK_K = 512  # the widest KV tile the kernel stages (tile.cuh kMaxTile)
 BLOCK_Q = 128      # the reference's query block (cfg.attention_block_q)
 
@@ -75,8 +82,9 @@ _SIGNATURE = {"flash_forward": (ctypes.c_int, [_P] * 4 + [_I] * 11 + [_F]
 @functools.lru_cache(maxsize=None)
 def smem_bytes(D, block_k) -> int:
     """The shared memory, in bytes, the kernel gives a block at head dim
-    ``D`` and tile width ``block_k`` (``csrc/flash.cu:flash_smem``; the
-    launch asks the card for exactly this much)."""
+    ``D`` and tile width ``block_k`` (``csrc/flash.cu:flash_smem``: that of
+    the narrowest built width at or above D; the launch asks the card for
+    exactly this much)."""
     return int(build.load(NAME, _SIGNATURE).flash_smem(D, block_k))
 
 
@@ -165,6 +173,7 @@ def flash_fwd(q3, k3, v3, *, causal, scale, window, variant, block_k,
     if q3.device.type == "meta":
         _check(q3, k3, v3, block_k=block_k, num_q_heads=num_q_heads,
                num_kv_heads=num_kv_heads, kv_len=kv_len, q_offset=q_offset)
+        check_head_dims(NAME, q3.shape[-1], v3.shape[-1])
         return _report(torch.empty_like(q3), q3, k3, v3, kv_len)
     if q3.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q3.device}")
@@ -175,9 +184,7 @@ def flash_fwd(q3, k3, v3, *, causal, scale, window, variant, block_k,
     if not all(t.is_contiguous() for t in (q3, k3, v3)):
         raise ValueError(f"{NAME}: operands must be contiguous")
     BH, Sq, D = q3.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: the kernel is built for head dims "
-                         f"{HEAD_DIMS}, got {D}")
+    check_head_dims(NAME, D, D)
     need, limit = smem_bytes(D, block_k), card_smem_limit(q3.device)
     if need > limit:
         raise ValueError(f"{NAME}: head dim {D} at block_k {block_k} needs "

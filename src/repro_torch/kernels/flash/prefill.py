@@ -5,10 +5,10 @@ concatenation.
 
 * **paged** (``csrc/paged_prefill.cu``, the port of
   ``repro/kernels/flash/prefill.py:paged_prefill_fwd_pallas``): q
-  (B*H, C, D); pools (pool_blocks, page_size, Hkv, D) of values or
-  int8/fp8 codes with (pool_blocks, page_size, Hkv) float32 scale pools;
-  the chunk's KV (B*Hkv, C, D) in the pool's dtype with (B*Hkv, C)
-  float32 scales for codes; block tables (B, max_blocks) int32; lengths
+  (B*H, C, D); pools K (pool_blocks, page_size, Hkv, D) and V (...,
+  Dv) of values or int8/fp8 codes with (pool_blocks, page_size, Hkv)
+  float32 scale pools; the chunk's K (B*Hkv, C, D) and V (B*Hkv, C, Dv)
+  in the pool's dtype with (B*Hkv, C) float32 scales for codes; block tables (B, max_blocks) int32; lengths
   (tokens already resident) and n_valid (valid chunk tokens), each (B,)
   int32. The KV tiles are one page wide: history pages 0, 1, ... up to
   ``length`` (masked ``col < length`` and the window), then chunk tiles
@@ -38,6 +38,12 @@ version only for CPU tensors. A ``meta`` operand (the dry run's) gets
 ``torch.empty`` of the output's shape and dtype after the shape checks,
 and no tile loop runs. A launch and a ``meta`` call each report their
 analytic cost to the active op counters (``kernels/costs.py:report_call``).
+
+Both kernels take their Pallas kernels' inputs: any head dims D, Dv up to
+256 (codes too), any GQA group, pages of up to 256 tokens
+(``decode.check_head_dims``, ``decode.check_page``); a call runs the
+narrowest built width that holds (D, Dv), its numbers the plain
+version's at the call's dims.
 """
 from __future__ import annotations
 
@@ -51,10 +57,9 @@ from repro_torch.kernels import build, costs
 from repro_torch.kernels.decode.decode import (
     ACT_DTYPES,
     CODE_DTYPES,
-    HEAD_DIMS,
     KV_DTYPES,
-    MAX_PAGE,
     check_head_dims,
+    check_page,
     check_smem,
 )
 from repro_torch.kernels.flash.tile import (
@@ -70,31 +75,34 @@ BLOCK_Q = 128      # the reference's query block (cfg.attention_block_q)
 BLOCK_K = 512      # the reference's contiguous KV tile (cfg.attention_block_k)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURE = {NAME: (ctypes.c_int, [_P] * 13 + [_I] * 9 + [_F] + [_I] * 3
+_SIGNATURE = {NAME: (ctypes.c_int, [_P] * 13 + [_I] * 10 + [_F] + [_I] * 3
                      + [_P]),
-              "paged_prefill_smem": (ctypes.c_longlong, [_I])}
+              "paged_prefill_smem": (ctypes.c_longlong, [_I] * 3)}
 _CONTIGUOUS_SIGNATURE = {
     "contiguous_prefill": (ctypes.c_int, [_P] * 12 + [_I] * 10 + [_F]
                            + [_I] * 3 + [_P]),
-    "contiguous_prefill_smem": (ctypes.c_longlong, [_I] * 3)}
+    "contiguous_prefill_smem": (ctypes.c_longlong, [_I] * 4)}
 
 
 @functools.lru_cache(maxsize=None)
-def paged_prefill_smem(D) -> int:
-    """The shared memory, in bytes, the paged prefill gives a block
-    (``csrc/paged_prefill.cu:paged_prefill_smem``; the same at any length
-    and page size)."""
-    return int(build.load(NAME, _SIGNATURE).paged_prefill_smem(D))
+def paged_prefill_smem(D, page_size=16, Dv=None) -> int:
+    """The shared memory, in bytes, the paged prefill gives a block at head
+    dims D, Dv (default D) and page size ``page_size``
+    (``csrc/paged_prefill.cu:paged_prefill_smem``; the same at any length;
+    it grows with pages over 64 tokens, whose scores it holds whole)."""
+    return int(build.load(NAME, _SIGNATURE).paged_prefill_smem(
+        D, D if Dv is None else Dv, page_size))
 
 
 @functools.lru_cache(maxsize=None)
-def contiguous_prefill_smem(D, block_k, Dv=None) -> int:
+def contiguous_prefill_smem(D, block_k, Dv=None, kv_dtype=torch.float32) -> int:
     """The shared memory, in bytes, the contiguous prefill gives a block at
-    tile width ``block_k`` and head dims D, Dv (default D)
-    (``csrc/prefill.cu:contiguous_prefill_smem``; -1 for a pair not
-    built)."""
+    tile width ``block_k``, head dims D, Dv (default D) and KV dtype
+    ``kv_dtype`` (``csrc/prefill.cu:contiguous_prefill_smem``: float KV at
+    64 < D <= 96, Dv <= 64 runs the (96, 64) build)."""
     return int(build.load(CONTIGUOUS, _CONTIGUOUS_SIGNATURE)
-               .contiguous_prefill_smem(D, D if Dv is None else Dv, block_k))
+               .contiguous_prefill_smem(D, D if Dv is None else Dv, block_k,
+                                        KV_DTYPES[kv_dtype]))
 
 
 def paged_prefill_fwd_plain(bt, lengths, n_valid, q3, k4, v4, kn3, vn3,
@@ -191,16 +199,19 @@ def _check(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, vs3, ksn2, vsn2,
                          f"and only with them")
     BH, C, D = q3.shape
     B = bt.shape[0]
-    if D not in HEAD_DIMS or {k4.shape[-1], v4.shape[-1], kn3.shape[-1],
-                              vn3.shape[-1]} != {D}:
-        raise ValueError(f"{NAME}: the kernel is built for head dims "
-                         f"{HEAD_DIMS} with Dv == D, got q {tuple(q3.shape)}")
-    if not 0 < page_size <= MAX_PAGE or k4.shape[1] != page_size:
-        raise ValueError(f"{NAME}: page_size must be in [1, {MAX_PAGE}] and "
-                         f"match the pool's, got {page_size}, {tuple(k4.shape)}")
+    Dv = v4.shape[-1]
+    if ({k4.shape[-1], kn3.shape[-1]} != {D} or vn3.shape[-1] != Dv
+            or v4.shape[:3] != k4.shape[:3]):
+        raise ValueError(f"{NAME}: K rows must be q's D={D} wide and V rows "
+                         f"one width, got pools {tuple(k4.shape)} / "
+                         f"{tuple(v4.shape)}, chunk {tuple(kn3.shape)} / "
+                         f"{tuple(vn3.shape)}")
+    check_head_dims(NAME, D, Dv)
+    check_page(NAME, page_size, k4.shape)
     if (num_q_heads % num_kv_heads or BH != B * num_q_heads
             or k4.shape[2] != num_kv_heads
-            or tuple(kn3.shape[:2]) != (B * num_kv_heads, C)):
+            or tuple(kn3.shape[:2]) != (B * num_kv_heads, C)
+            or tuple(vn3.shape[:2]) != (B * num_kv_heads, C)):
         raise ValueError(f"{NAME}: shapes q {tuple(q3.shape)}, chunk "
                          f"{tuple(kn3.shape)} do not match B={B}, "
                          f"H={num_q_heads}, Hkv={num_kv_heads}")
@@ -214,7 +225,7 @@ def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
                       window, page_size, num_q_heads, num_kv_heads,
                       block_q=BLOCK_Q):
     """Paged prefill on the CUDA kernel (CUDA tensors) or its plain version
-    (CPU tensors, in query blocks of ``block_q``). Returns (B*H, C, D) in
+    (CPU tensors, in query blocks of ``block_q``). Returns (B*H, C, Dv) in
     q's dtype."""
     if q3.device.type == "cpu":
         return paged_prefill_fwd_plain(
@@ -225,8 +236,9 @@ def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
     if q3.device.type == "meta":
         _check(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, vs3, ksn2,
                vsn2, page_size, num_q_heads, num_kv_heads)
-        return _report_paged(torch.empty_like(q3), bt, lengths, n_valid, q3,
-                             k4, v4, kn3, vn3, ks3, ksn2, vsn2, page_size)
+        return _report_paged(q3.new_empty(q3.shape[:2] + v4.shape[-1:]), bt,
+                             lengths, n_valid, q3, k4, v4, kn3, vn3, ks3,
+                             ksn2, vsn2, page_size)
     if q3.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q3.device}")
     if variant not in ("exact", "expmul"):
@@ -234,8 +246,10 @@ def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
     _check(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3, vs3, ksn2, vsn2,
            page_size, num_q_heads, num_kv_heads)
     BH, C, D = q3.shape
-    check_smem(NAME, paged_prefill_smem(D), q3.device, f"head dim {D}")
-    out = torch.empty_like(q3)
+    Dv = v4.shape[-1]
+    check_smem(NAME, paged_prefill_smem(D, page_size, Dv), q3.device,
+               f"head dims {D}/{Dv} in pages of {page_size}")
+    out = q3.new_empty((BH, C, Dv))
     if BH == 0 or C == 0:
         return out
     lib = build.load(NAME, _SIGNATURE)
@@ -245,7 +259,8 @@ def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
         q3.data_ptr(), k4.data_ptr(), v4.data_ptr(), ptr(ks3), ptr(vs3),
         kn3.data_ptr(), vn3.data_ptr(), ptr(ksn2), ptr(vsn2), bt.data_ptr(),
         lengths.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-        bt.shape[0], num_q_heads, num_kv_heads, C, D, k4.shape[0], page_size,
+        bt.shape[0], num_q_heads, num_kv_heads, C, D, Dv, k4.shape[0],
+        page_size,
         bt.shape[1], window or 0, float(scale), int(variant == "expmul"),
         ACT_DTYPES[q3.dtype], KV_DTYPES[k4.dtype], stream)
     build.check(err, NAME)
@@ -398,7 +413,7 @@ def _check_contiguous(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2, vsc2,
                          f"one width, got cache {tuple(kc3.shape)} / "
                          f"{tuple(vc3.shape)}, chunk {tuple(kn3.shape)} / "
                          f"{tuple(vn3.shape)}")
-    check_head_dims(name, D, Dv, kc3.dtype)
+    check_head_dims(name, D, Dv)
     if (H % Hkv or BH != B * H or n_valid.shape != (B,)
             or {tuple(kc3.shape[:2]), tuple(vc3.shape[:2])} != {(B * Hkv, S)}
             or {tuple(kn3.shape[:2]), tuple(vn3.shape[:2])}
@@ -443,8 +458,8 @@ def prefill_fwd(q3, kc3, vc3, kn3, vn3, lengths, n_valid, ksc2=None,
     BH, C, D = q3.shape
     S, Dv = kc3.shape[1], vc3.shape[-1]
     bk = prefill_blocks(S, C, block_q, block_k)[1]
-    check_smem(CONTIGUOUS, contiguous_prefill_smem(D, bk, Dv), q3.device,
-               f"head dims {D}/{Dv} in {bk}-wide tiles")
+    check_smem(CONTIGUOUS, contiguous_prefill_smem(D, bk, Dv, kc3.dtype),
+               q3.device, f"head dims {D}/{Dv} in {bk}-wide tiles")
     out = q3.new_empty((BH, C, Dv))
     if BH == 0 or C == 0:
         return out

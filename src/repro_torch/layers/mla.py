@@ -40,6 +40,7 @@ from repro_torch.kernels.paged import (
     zeros_with_scratch,
 )
 from repro_torch.kernels.registry import (
+    KERNEL_FAMILY,
     AttentionSpec,
     dispatch_decode,
     dispatch_prefill,
@@ -129,11 +130,14 @@ def mla_apply(params, x, cfg, *, positions=None, causal=True, window=None):
     over the expanded latents. At a quantized ``cfg.kv_dtype`` the latents
     (what a quantized cache stores) are fake-quantized before the
     expansion, as ``repro`` does, so ``forward`` matches a round trip
-    through a latent cache. The flash forward takes Dv == Dq only (as the
-    reference's kernel does), so V is zero-padded to the qk width (96 for
-    minicpm3-4b, a head dim the kernel is built for) and the padding's
-    output columns dropped: each output column is its own value chain over
-    the same weights, so no number changes."""
+    through a latent cache. The flash routes (``KERNEL_FAMILY``) take
+    Dv == Dq only, as the reference's Pallas kernel does: V is zero-padded
+    to the qk width (96 for minicpm3-4b), or q and K to the v width where
+    it is the wider, and the padding's output columns dropped. Each output
+    column is its own value chain over the same weights, and zero features
+    appended to a score's fmaf chain leave it bit for bit, so no number
+    changes; the scale stays the qk width's. Every other route takes K and
+    V as they are, as ``repro``'s ``flash_jnp`` does."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -144,11 +148,17 @@ def mla_apply(params, x, cfg, *, positions=None, causal=True, window=None):
         k_rope = fake_quant_kv(k_rope, cfg.kv_dtype)
     k, v = _expand_latents(params, kv_lat, k_rope, cfg)
     Dv, D = v.shape[-1], k.shape[-1]
-    if Dv > D:
-        raise NotImplementedError(f"MLA forward at v_head_dim {Dv} > qk "
-                                  f"dim {D}")
-    o = attention(q, k, pad(v, (0, D - Dv)), cfg, causal=causal,
-                  window=window, scale=_scale(cfg))[..., :Dv]
+    if cfg.attention_impl in KERNEL_FAMILY and Dv != D:
+        W = max(D, Dv)
+
+        def widen(t):
+            return pad(t, (0, W - t.shape[-1])) if t.shape[-1] < W else t
+
+        o = attention(widen(q), widen(k), widen(v), cfg, causal=causal,
+                      window=window, scale=_scale(cfg))[..., :Dv]
+    else:
+        o = attention(q, k, v, cfg, causal=causal, window=window,
+                      scale=_scale(cfg))
     return torch.einsum("bhsk,hkd->bsd", o, params["wo"])
 
 

@@ -18,8 +18,8 @@ numpy inputs, over {exact, expmul} x {fp32, int8, fp8} x {dyadic, random}:
 * both at Dv != D, MLA's expanded latents (V rows narrower than K rows):
   ``tests/cells.py``'s "mla" shape (D 24, Dv 16) and minicpm3-4b's (96,
   64), float32 values (MLA never hands them codes), one KV head per query
-  head; and the wrappers' refusal of the head dims and KV dtypes the CUDA
-  kernels are not built for (``check_head_dims``).
+  head; and the wrappers' contract: any (D, Dv) up to 256 over every KV
+  dtype, and a refusal past it (``check_head_dims``).
 
 Both sides walk the same tiles in the same order. Dyadic inputs (q and
 values in multiples of 2^-3, integer codes, power-of-two scales) make every
@@ -47,6 +47,7 @@ from repro.kernels.flash.ops import (  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode.decode import (  # noqa: E402
     check_head_dims,
+    decode_fwd,
     decode_fwd_plain,
 )
 from repro_torch.kernels.decode.ops import (  # noqa: E402
@@ -467,11 +468,28 @@ def test_prefill_plain_matches_pallas_at_dv_ne_d(variant, dims, dyadic):
                                            "head dims")])
 def test_contiguous_kernels_refuse_unbuilt_head_dims(D_, Dv, kv_dtype,
                                                      refused):
-    """The CUDA kernels are built for (D, D) over every KV dtype and for
-    (96, 64) over float KV only: anything else raises before a launch.
-    The plain versions take any dims (the CPU runs the smoke config's)."""
-    if refused is None:
-        check_head_dims("decode", D_, Dv, kv_dtype)
-    else:
-        with pytest.raises(ValueError, match=refused):
-            check_head_dims("decode", D_, Dv, kv_dtype)
+    """The contiguous kernels take any (D, Dv) up to 256 over every KV
+    dtype, as their Pallas kernels do: the pairs and codes that were
+    refused before (``refused`` names why) pass ``check_head_dims`` and the
+    ``meta`` route's checks, and the same pair with K or V rows past 256
+    raises before any launch. The plain versions take any dims."""
+    check_head_dims("decode", D_, Dv)
+    B, Hkv, group, S = 2, 2, 3, 8
+    codes = kv_dtype in (torch.int8, torch.float8_e4m3fn)
+
+    def run(d, dv):
+        meta = dict(device="meta")
+        k = torch.empty((B * Hkv, S, d), dtype=kv_dtype, **meta)
+        v = torch.empty((B * Hkv, S, dv), dtype=kv_dtype, **meta)
+        sc = torch.empty((B * Hkv, S), **meta) if codes else None
+        return decode_fwd(
+            torch.empty((B * Hkv, group, d), **meta), k, v,
+            torch.empty((B,), dtype=torch.int32, **meta), sc, sc,
+            scale=0.125, variant="expmul", num_kv_heads=Hkv)
+
+    assert tuple(run(D_, Dv).shape) == (B * Hkv, group, Dv)
+    for d, dv in ((D_ + 256, Dv), (D_, Dv + 256)):
+        with pytest.raises(ValueError, match="outside"):
+            check_head_dims("decode", d, dv)
+        with pytest.raises(ValueError, match="outside"):
+            run(d, dv)

@@ -17,11 +17,11 @@ ones, and the kernel engine's equal the plain engine's on spliced and
 copied-on-write block tables. The compiled ticks: an engine whose ticks
 replay CUDA graphs equals one with eager ticks bit for bit, and counts
 each replay's launches. MLA: the contiguous kernels at minicpm3-4b's head
-dims (K rows of 96, V rows of 64) against their plain versions, their
-refusals, and a narrow MLA config's graph ticks. arctic-480b: the four
+dims (K rows of 96, V rows of 64) against their plain versions, codes and
+pairs off the builds, and a narrow MLA config's graph ticks. arctic-480b: the four
 serving kernels at its head dim 128, GQA groups 1, 7 and 32 (a paged
-decode whose shared memory is over the card's limit refused before its
-launch), on poisoned pages too, and its smoke config's MoE ticks, at head
+decode whose group does not fit a block's shared memory runs in parts),
+on poisoned pages too, and its smoke config's MoE ticks, at head
 dim 128, captured in CUDA graphs. recurrentgemma-2b: the four serving
 kernels at its local attention (10 / 1 heads of 256, a 2,048-token window,
 a wrapped rolling buffer), its smoke config's hybrid ticks captured in
@@ -37,6 +37,11 @@ plain versions. Training: flash at head dims 96, 112 and 256, and one
 train step of every arch's smoke config through the kernel against one
 through the plain version; flash at a query offset (a rank's rows of a
 query-split call) against the whole call's rows and the plain version.
+The contract: every kernel at the inputs its Pallas kernel takes past the
+widths it is built for (``checks.CONTRACT_SHAPES``: head dims off the
+builds, Dv != D over codes, GQA groups split into parts, pages up to 256,
+rows off 16 bytes) against its plain version, and D, Dv or a page past
+256 refused before any launch.
 """
 import sys
 from pathlib import Path
@@ -49,7 +54,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import MLAConfig, MoEConfig, get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.checks import (  # noqa: E402
+    CONTRACT_FLASH_DIMS,
+    CONTRACT_SHAPES,
     contiguous_case,
+    contract_case,
     expmul_case,
     head_dim_cases,
     flash_case,
@@ -686,23 +694,13 @@ def test_serving_kernels_at_head_dim_128_match_plain(cuda, group, kv,
                                                      variant):
     """The four serving kernels at arctic-480b's head dim 128, over GQA
     groups 1 (8 / 8 heads), 7 (56 / 8, arctic's, bfloat16 q) and 32 (32 /
-    1) and ``head_dim_cases``' lengths. A paged decode whose shared memory
-    a block is over the card's limit (group 32 over float32 and bfloat16
-    pools) raises ValueError before any launch."""
-    from repro_torch.kernels.decode import decode
-    from repro_torch.kernels.checks import KV_KINDS
+    1) and ``head_dim_cases``' lengths. A group whose rows do not fit one
+    block's shared memory (32 over float32 and bfloat16 pools in the paged
+    decode) runs split into parts of one launch."""
     q_dtype = torch.bfloat16 if group == 7 else torch.float32
     for name, run, case, idle, label in head_dim_cases(
             np.random.default_rng(group), 128, kv=kv, q_dtype=q_dtype,
             group=group, H=8 * group if group < 32 else 32, device=cuda):
-        if name == "paged_decode" and decode.paged_decode_smem(
-                group, 128, 16, case["block_tables"].shape[1],
-                KV_KINDS[kv]) > decode.card_smem_limit(cuda):
-            before = dict(build.COUNTS)
-            with pytest.raises(ValueError, match="shared memory"):
-                run(case, variant)
-            assert dict(build.COUNTS) == before
-            continue
         got = run(case, variant)
         ref = run(case, variant, plain=True)
         torch.cuda.synchronize()
@@ -827,19 +825,27 @@ def test_contiguous_kernels_at_mla_head_dims_keep_plain_nonfinite_rows(
                                      ("f32", (64, 32)), ("bf16", (96, 96))])
 def test_contiguous_kernels_refuse_unbuilt_pairs_before_launch(cuda, kernel,
                                                                kv, dims):
-    """Codes at Dv != D, and a (D, Dv) pair not built, raise a ValueError
-    before any launch."""
+    """Codes at Dv != D and (D, Dv) pairs off the built widths, once
+    refused, now launch and keep the plain version's numbers; V rows past
+    256 raise a ValueError before any launch."""
     pf = dict(n_valid=[5, 5], chunk=5) if kernel == "prefill" else {}
-    case = contiguous_case(np.random.default_rng(0), B=2, H=4, Hkv=4,
-                           D=dims[0], Dv=dims[1], S=64, lengths=[40, 7],
-                           kv=kv, device=cuda, **pf)
     run = run_contiguous_prefill if kernel == "prefill" else \
         run_contiguous_decode
-    before = dict(build.COUNTS)
-    with pytest.raises(ValueError, match="no kernel is built"):
-        run(case, "expmul")
-    assert dict(build.COUNTS) == before
-    run(case, "expmul", plain=True)           # the plain version takes it
+    for Dv, ok in ((dims[1], True), (257, False)):
+        case = contiguous_case(np.random.default_rng(0), B=2, H=4, Hkv=4,
+                               D=dims[0], Dv=Dv, S=64, lengths=[40, 7],
+                               kv=kv, device=cuda, dyadic=False, **pf)
+        before = dict(build.COUNTS)
+        if not ok:
+            with pytest.raises(ValueError, match="outside"):
+                run(case, "expmul")
+            assert dict(build.COUNTS) == before
+            continue
+        got = run(case, "expmul")
+        assert build.COUNTS[kernel] == before.get(kernel, 0) + 1
+        ref = run(case, "expmul", plain=True)
+        torch.cuda.synchronize()
+        assert rel_err(got, ref) <= kernel_tol("expmul", torch.float32)
 
 
 @pytest.mark.cuda
@@ -876,16 +882,23 @@ def test_serving_kernels_check_shared_memory_before_launch(cuda, kernel,
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_an_unbuilt_head_dim(cuda):
-    """A head dim the kernel is not built for (80; 96, 112 and 256 are
-    built since they train) raises a ValueError before any launch."""
-    from repro_torch.kernels.flash import flash
-    assert 80 not in flash.HEAD_DIMS
-    case = flash_case(np.random.default_rng(0), B=1, H=2, Hkv=1, Sq=64,
-                      Sk=64, D=80, block_k=64, device=cuda)
+    """A head dim past the kernel's limit (257) raises a ValueError before
+    any launch; 80, off its built widths, launches and keeps the plain
+    version's numbers."""
+    rng = np.random.default_rng(0)
+    case = flash_case(rng, B=1, H=2, Hkv=1, Sq=64, Sk=64, D=257, block_k=64,
+                      device=cuda)
     before = build.COUNTS["flash"]
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="outside"):
         run_flash(case, "expmul")
     assert build.COUNTS["flash"] == before
+    case = flash_case(rng, B=1, H=2, Hkv=1, Sq=64, Sk=64, D=80, block_k=64,
+                      dyadic=False, device=cuda)
+    got = run_flash(case, "expmul")
+    assert build.COUNTS["flash"] == before + 1
+    ref = run_flash(case, "expmul", plain=True)
+    torch.cuda.synchronize()
+    assert rel_err(got, ref) <= kernel_tol("expmul", torch.float32)
 
 
 @pytest.mark.cuda
@@ -1542,3 +1555,62 @@ def test_train_step_kernel_matches_plain(cuda, arch):
         1e-5 * abs(out["plain"]["loss"])
     assert abs(out["kernel"]["grad_norm"] - out["plain"]["grad_norm"]) <= \
         1e-4 * abs(out["plain"]["grad_norm"])
+
+
+CONTRACT_CASES = [
+    (name, D, Dv, kv, group, ps) for D, Dv, kvs, group, pages, names
+    in CONTRACT_SHAPES for kv in kvs for ps in pages for name in names]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,D,Dv,kv,group,ps", CONTRACT_CASES,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_serving_kernels_take_the_pallas_contract(cuda, name, D, Dv, kv,
+                                                  group, ps, variant):
+    """A serving kernel at a width off its builds, Dv != D over codes, a
+    group split into parts or a page over 64 tokens: within
+    ``kernel_tol`` of its plain version (bfloat16 q), its idle row 0."""
+    run, case, idle = contract_case(np.random.default_rng(D + group + ps),
+                                    name, D=D, Dv=Dv, kv=kv, group=group,
+                                    page_size=ps, device=cuda)
+    before = build.COUNTS[name]
+    got = run(case, variant)
+    assert build.COUNTS[name] == before + 1
+    ref = run(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert rel_err(got, ref) <= kernel_tol(variant, torch.bfloat16)
+    assert all(float(got[i].abs().max()) == 0.0 for i in idle)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", CONTRACT_FLASH_DIMS)
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_flash_kernel_takes_head_dims_off_its_builds(cuda, D, variant):
+    case = flash_case(np.random.default_rng(D), B=2, H=4, Hkv=2, Sq=200,
+                      Sk=256, D=D, dtype=torch.bfloat16, dyadic=False,
+                      block_k=128, device=cuda)
+    got = run_flash(case, variant)
+    ref = run_flash(case, variant, plain=True)
+    torch.cuda.synchronize()
+    assert rel_err(got, ref) <= kernel_tol(variant, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SERVING_KERNELS)
+@pytest.mark.parametrize("what", ["D", "Dv", "page"])
+def test_serving_kernels_refuse_past_the_contract(cuda, name, what):
+    """D 257, Dv 257 or a page of 257 tokens: a ValueError naming the
+    limit, before any launch (the contiguous kernels have no pages: D 257
+    there once more)."""
+    dims, ps = {"D": (dict(D=257, Dv=None), 16),
+                "Dv": (dict(D=64, Dv=257), 16),
+                "page": (dict(D=64, Dv=None), 257)}[what]
+    if what == "page" and not name.startswith("paged"):
+        dims, ps = dict(D=257, Dv=None), 16
+    run, case, _ = contract_case(np.random.default_rng(0), name, kv="int8",
+                                 page_size=ps, device=cuda, **dims)
+    before = dict(build.COUNTS)
+    with pytest.raises(ValueError, match="outside"):
+        run(case, "expmul")
+    assert dict(build.COUNTS) == before

@@ -21,7 +21,7 @@ from repro.kernels.flash.ops import (  # noqa: E402
     flash_attention_fwd as jax_flash,
 )
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash.flash import HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.decode.decode import check_head_dims  # noqa: E402
 from repro_torch.kernels.flash.ops import flash_attention_fwd  # noqa: E402
 
 BQ, BK, S = 16, 32, 80
@@ -41,7 +41,7 @@ def _act(rng, shape, dyadic):
 @pytest.mark.parametrize("variant", ["exact", "expmul"])
 def test_flash_forward_plain_matches_pallas_new_head_dims(variant, dtype,
                                                           mask, D):
-    assert D in HEAD_DIMS
+    check_head_dims("flash", D, D)        # the kernel takes it too
     H, Hkv = 2, 1
     Sk, causal, window = MASKS[mask]
     rng = np.random.default_rng(D + 7 * H * Hkv)

@@ -285,11 +285,13 @@ def test_kimi_head_dim_112_streams_match_repro_engine(layout, kv_dtype):
 def test_kimi_head_dim_112_passes_the_checks_and_80_is_refused():
     """Kimi's full width, 64 / 8 heads of 112: the contiguous kernels'
     ``check_head_dims`` and the paged kernels' checks pass for every KV
-    dtype, on operands shaped as a tick would give them; a width still
-    unbuilt, 80, raises before any launch."""
+    dtype, on operands shaped as a tick would give them; so do 80 (phi-2's
+    head dim, which the kernels once refused: every head dim up to 256 is
+    taken now), and 257, past the kernels' limit, raises before any
+    launch."""
     cfg = get_config(KIMI)
     D, Hkv, group = cfg.resolved_head_dim(), cfg.num_kv_heads, 8
-    assert D == 112 and D in decode.HEAD_DIMS and 80 not in decode.HEAD_DIMS
+    assert D == 112 and decode.MAX_HEAD_DIM == 256
     B, ps, nblk, C = 2, 16, 8, 4
     bt = torch.zeros((B, 4), dtype=torch.int32)
     lens = torch.tensor([5, 9], dtype=torch.int32)
@@ -301,7 +303,7 @@ def test_kimi_head_dim_112_passes_the_checks_and_80_is_refused():
         chunk = torch.zeros((B * Hkv, C, d)).to(dt)
         schunk = torch.zeros((B * Hkv, C)) if codes else None
         for name in ("decode", "prefill"):
-            decode.check_head_dims(name, d, d, dt)
+            decode.check_head_dims(name, d, d)
         decode._check(bt, lens, torch.zeros((B * Hkv, group, d)), pool, pool,
                       spool, spool, ps, Hkv)
         prefill._check(bt, lens, lens, torch.zeros((B * Hkv * group, C, d)),
@@ -310,5 +312,6 @@ def test_kimi_head_dim_112_passes_the_checks_and_80_is_refused():
 
     for dt in decode.KV_DTYPES:
         checks(D, dt)
-        with pytest.raises(ValueError, match="head dims"):
-            checks(80, dt)
+        checks(80, dt)
+        with pytest.raises(ValueError, match="outside"):
+            checks(257, dt)
