@@ -26,13 +26,17 @@ Phases (a failing check raises, and the script exits non-zero; the
 ones alone, in this order, and prints no kernels line and no result):
 
 1. print the card's name and power limit; start the build of the kernels
-   from ``src/repro_torch/csrc`` (one nvcc per source, all at once) and,
-   while the serving kernels compile, run the phases that need no kernel
-   or only the ExpMul and flash libraries, which build first: the dry run
-   ("plan", 6d), the ExpMul checks, 2's flash part ("flash checks"), 2g
-   and 2i, each ``build.load`` waiting for its own library; then
-   ("built") wait for the rest and print each nvcc's seconds (the build's
-   wall time is the longest), instantiations, registers and spills;
+   from ``src/repro_torch/csrc`` (``kernels/build.py``: each source in
+   parts, the serving kernels one a KV dtype, compiled to objects and
+   linked;
+   as many nvcc processes at once as the host has cores) and, while the
+   serving kernels compile, run the phases that need no kernel or only
+   the ExpMul and flash libraries, which a ``build.load`` moves to the
+   head of the queue: the dry run ("plan", 6d), the ExpMul checks, 2's
+   flash part ("flash checks"), 2g and 2i, each ``build.load`` waiting
+   for its own library; then ("built") wait for the rest and print each
+   library's and each part's nvcc seconds, the build's wall time and the
+   cores, instantiations, registers and spills;
 2. hold each CUDA kernel against its plain PyTorch version on the card:
    {exact, expmul} x {bf16 values, int8 codes} x {float32, bfloat16 q} x
    head dims {16, 64} (64 also in pages of 64 over int8 codes, phase
@@ -61,7 +65,12 @@ ones alone, in this order, and prints no kernels line and no result):
    and sum both products in the same order
    (``kernels/flash/tile.py:fma_chain``), so each is held at
    ``checks.kernel_tol``: 1e-5 of the output's magnitude, or one bf16 ulp
-   for the exact variant's bfloat16 output. Then each serving kernel on
+   for the exact variant's bfloat16 output. The paged pair's two walks
+   at the main shapes (D 64, 14 / 2 heads, 8 sequences, chunk 256,
+   bfloat16 q) over every KV dtype at pages of 16 and 64, exact and
+   ExpMul: each call on the whole-row walk, its output the forced general
+   walk's bit for bit and within ``kernel_tol`` of its plain version.
+   Then each serving kernel on
    a poisoned page (``checks.poisoned_case``: NaN values, or int8 codes
    of -128 with NaN scales, in the first, a middle or the last page of a
    1,000-token sequence, or in its rows past the length; exact and
@@ -147,9 +156,11 @@ ones alone, in this order, and prints no kernels line and no result):
    D 64 and 20 at D 256, pages of 64, 128, 256 and of 48 and 200 (which
    the staging rows do not divide; #1, #2), rows off a 16-byte boundary (D 20 in bfloat16, D 40 in int8), flash at D 80
    and 20; each against its plain version at ``checks.kernel_tol``,
-   exact and ExpMul, bfloat16 q, its device ms beside its bound; D 257,
-   Dv 257 and a 257-token page refused before any launch, the launch
-   counts unmoved;
+   exact and ExpMul, bfloat16 q, its device ms beside its bound, the
+   paged pair on its general walk (a case that also qualifies for the
+   whole-row walk: the two bit for bit); D 257, Dv 257 and a 257-token
+   page refused before any launch, the launch counts unmoved, and a
+   forced whole-row walk at D 80 refused by the kernel;
 3. qwen2-0.5b at full width in float32 (TF32 off), through the kernels and
    through the plain versions: on each layout one prefill tick, a second
    prefill tick over that history and one decode tick; then a windowed
@@ -193,7 +204,9 @@ ones alone, in this order, and prints no kernels line and no result):
    must be equal. The kernel launch counts are set to 0 just before each
    run and read just after: the run's two kernels must have launched, and
    no other kernel or plain version; under graphs the counts must be each
-   graph's replays times its captured launches. Each run and a profiled
+   graph's replays times its captured launches; on the paged int8 pool
+   every launch of #1 and #2 on the whole-row walk (their counts printed
+   beside the launches). Each run and a profiled
    window of each (one prefill and four decode ticks, after the ticks that
    capture) print tokens/s, TTFT p50, the tick p50s, the idle share, the
    capture and warm-up ms, the graph pool's bytes and the peak memory,
@@ -204,7 +217,7 @@ ones alone, in this order, and prints no kernels line and no result):
 4n. the paged int8 pool once more at 64-token pages (the config's
    ``page_size``, the CLI's ``--page-size 64``): graphs and eager, gated
    as the page-16 runs (streams equal, #1 and #2 alone, 24 launches a
-   tick), tokens/s, TTFT p50 and tick p50s beside the page-16 graph run
+   tick, every one on the whole-row walk), tokens/s, TTFT p50 and tick p50s beside the page-16 graph run
    (no gate between the two: the ExpMul tile is the page);
 4m. "registry": the attention registry's gather-then-kernel paged routes
    (``gather_pallas``: the history gathered into logical order, then the
@@ -327,13 +340,15 @@ ones alone, in this order, and prints no kernels line and no result):
    state of the training shapes ((114688, 64) float32 and bfloat16,
    (114688, 65) float32): the median of 11 runs timed with CUDA events
    after warm-up, L2 flushed before each, beside the plain version's time
-   (a median of 5),
+   (a median of 5), the paged pair also on its forced general walk
+   (the main shapes take the whole-row walk),
    the least time the card could take and each kernel's time at commits
    d4109f5 (before the contiguous kernels' redesign), 35522df (before
    the paged kernels') and 1f2c920 (before the flash kernel's); flash's
    achieved rate beside the float32 CUDA-core rate and its TF32 bound;
    with the compiler's registers and spills of the four serving kernels'
-   serving instantiations and flash's training one, and the shared memory
+   serving instantiations (the paged pair's on both walks) and flash's
+   training one, and the shared memory
    a CTA of each is given, as the kernel's source reports it (the paged
    decode's at 1,024 and 32,768 tokens of context, gated equal); then the
    four serving kernels at gemma-7b's serving shapes (16 / 16 heads of
@@ -455,6 +470,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -608,21 +624,30 @@ def median_ms(torch, fn, flush, n=11, warmup=2, hide_host=True):
 
 
 def phase_build(build):
-    """Start one nvcc a source, all at once, and return: the phases up to
-    "built" (the dry run on the host, the ExpMul and flash checks) run
-    while the serving kernels compile, each ``build.load`` waiting for its
-    own library."""
+    """Submit every part of every library (the serving kernels one a KV
+    dtype) to a pool of as many nvcc threads as the host has cores, and
+    return: the phases up to "built" (the dry run on the host, the ExpMul
+    and flash checks) run while the serving kernels compile, each
+    ``build.load`` waiting for its own library."""
     build.start_all()
-    log(f"[build] started: {', '.join(build.SOURCES)}")
+    log(f"[build] started: "
+        + ", ".join(f"{n} ({len(build.parts(n))} parts)"
+                    for n in build.SOURCES)
+        + f"; {build.jobs()} nvcc at once (os.cpu_count() "
+        f"{os.cpu_count()})")
 
 
 def phase_built(build):
-    """Wait for every library; print each nvcc's seconds from its start
-    (the build's wall time is the longest), and each library's
-    instantiations, registers and spilling instantiations."""
+    """Wait for every library; print each library's seconds from its first
+    part's start to its link's end, each part's nvcc seconds, the build's
+    wall time, and each library's instantiations, registers and spilling
+    instantiations."""
     secs = build.wait()
     log(f"[build] {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
-        f"wall {max(secs.values()):.1f} s")
+        f"wall {build.wall_seconds():.1f} s on {build.jobs()} cores")
+    log(f"[build] nvcc seconds by part: " + json.dumps(
+        {n: {p or "all": round(t, 1) for p, t in by.items()}
+         for n, by in build.part_seconds().items()}))
     for name in build.SOURCES:
         lines = build.build_log(name).splitlines()
         regs = [int(l.split("Used ")[1].split()[0]) for l in lines
@@ -652,7 +677,7 @@ def _hold(torch, checks, name, run, case, variant, q_dtype, idle, label,
     worst[key] = max(worst.get(key, 0.0), err)
 
 
-def phase_kernel_checks(torch, checks):
+def phase_kernel_checks(torch, checks, build):
     shapes = [
         dict(D=16, H=4, Hkv=2, B=4, max_blocks=24, lengths=[37, 0, 200, 16],
              pf_lengths=[40, 0, 0, 129], n_valid=[70, 0, 33, 64], chunk=70),
@@ -793,7 +818,62 @@ def phase_kernel_checks(torch, checks):
                           f"n_valid={nv} {kv} random", worst)
     _paged_edges(torch, checks, rng, worst)
     _poisoned_pages(torch, checks, worst)
+    _walks(torch, checks, build, rng, worst)
     log(f"[check] worst rel err: {json.dumps(worst)}")
+
+
+def _walks(torch, checks, build, rng, worst):
+    """The paged pair's two walks at the main shapes (D 64, 14 / 2 heads,
+    8 sequences up to 2,048 tokens, 256-token chunks, bfloat16 q) over
+    every KV dtype at pages of PS and PS_WIDE, exact and ExpMul: the call
+    takes the whole-row walk (its count moves), whose output equals the
+    forced general walk's bit for bit and its plain version's within
+    ``checks.kernel_tol``."""
+    n = 0
+    for kv in checks.KV_KINDS:
+        for ps in (PS, PS_WIDE):
+            common = dict(B=B, H=H, Hkv=HKV, D=D, page_size=ps,
+                          max_blocks=MAX_LEN // ps, kv=kv, dyadic=False,
+                          q_dtype=torch.bfloat16, device="cuda")
+            cases = (
+                ("paged_decode", checks.run_decode, checks.paged_case(
+                    rng, lengths=[CTX, 0, 517, 1, 800, 96, 1023, MAX_LEN],
+                    **common)),
+                ("paged_prefill", checks.run_prefill, checks.paged_case(
+                    rng, lengths=[768, 0, 0, 1000, 17, 512, 64, 1792],
+                    n_valid=[256, 0, 100, 256, 17, 256, 1, 200],
+                    chunk=CHUNK, **common)))
+            for name, run, case in cases:
+                for variant in ("exact", "expmul"):
+                    whole = name + build.WHOLE
+                    before = build.COUNTS[whole]
+                    got = run(case, variant)
+                    took = build.COUNTS[whole] - before
+                    with build.forced_walk("general"):
+                        gen = run(case, variant)
+                    ref = run(case, variant, plain=True)
+                    torch.cuda.synchronize()
+                    err = checks.rel_err(got, ref)
+                    tol = checks.kernel_tol(variant, torch.bfloat16)
+                    same = checks.same_bits(got, gen)
+                    if took != 1 or build.COUNTS[whole] != before + 1:
+                        raise AssertionError(
+                            f"{name} {kv} ps={ps} {variant}: the main shape "
+                            f"did not take the whole-row walk alone")
+                    if not same or not err <= tol:
+                        raise AssertionError(
+                            f"{name} {kv} ps={ps} {variant}: whole-row walk "
+                            f"bit for bit the general walk's {same}, rel err "
+                            f"{err:.3e} against the plain version (tol "
+                            f"{tol:g})")
+                    key = f"{name} walks {kv} q bfloat16 {variant}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    n += 1
+            del cases
+    log(f"[check] walks: {n} main-shape cases (D {D}, every KV dtype, pages "
+        f"{PS} and {PS_WIDE}, exact and ExpMul) on the whole-row walk, bit "
+        f"for bit the forced general walk's and within kernel_tol of the "
+        f"plain versions")
 
 
 def phase_flash_checks(torch, checks):
@@ -1754,7 +1834,8 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
     if not all(counts.get(name, 0) > 0 for name in pair):
         raise AssertionError(f"{label}: the serving run missed a kernel: "
                              f"{counts}")
-    if any(n for name, n in counts.items() if name not in pair):
+    if any(n for name, n in build.launch_counts(counts).items()
+           if name not in pair):
         raise AssertionError(f"{label}: another kernel or a plain version "
                              f"ran while serving: {counts}")
     graphs = eng.graph_stats()
@@ -1810,7 +1891,22 @@ def _serve_run(torch, build, ServeEngine, params, cfg, prompts, kw, pair,
         log(f"[serve] {label}: graphs " + json.dumps(graphs))
     per_step = ({dec: counts[dec] / eng.decode_steps,
                  pre: counts[pre] / eng.prefill_steps} if pair else {})
+    for name, steps in zip(pair, (eng.decode_steps, eng.prefill_steps)):
+        if name in PAGED:   # its launches on the whole-row walk
+            per_step[name + build.WHOLE] = counts.get(name + build.WHOLE,
+                                                      0) / steps
     return counts, per_step, [r.out for r in reqs], stats
+
+
+def _all_whole(build, label, counts):
+    """Gate that every launch of the paged pair in ``counts`` took the
+    whole-row walk (the main path's shapes all qualify)."""
+    for name in PAGED:
+        if counts.get(name + build.WHOLE, 0) != counts[name]:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{counts[name]} times, "
+                                 f"{counts.get(name + build.WHOLE, 0)} on the "
+                                 f"whole-row walk")
 
 
 def phase_serve(torch, cfg_mod, api, build, ServeEngine):
@@ -1851,6 +1947,9 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
         if out != eager_out:
             raise AssertionError(f"{label}: the graph engine's streams differ "
                                  f"from the eager engine's")
+        if pair == PAGED:
+            for mode in ("graphs", "eager"):
+                _all_whole(build, f"{label} {mode}", runs[mode][0])
         streams[label] = SERVE_STREAMS[label] = out
         sink_on = g if label == "paged/int8" else sink_on
         gg = g["graphs"]
@@ -1877,6 +1976,8 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
             launches.setdefault(name, {})[key] = counts[name]
             if key == "launches":
                 launches[name]["launches_per_step"] = per_step[name]
+            if name in PAGED:
+                launches[name]["launches_whole"] = counts[name + build.WHOLE]
     # the engine's dispatch counters cost host time on every replay: the
     # paged graph run without them, beside its first run with them (a
     # second run with them was cut for the script's time)
@@ -1915,6 +2016,8 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
         raise AssertionError(f"paged/int8 at pages of {PS_WIDE}: the graph "
                              f"engine's streams differ from the eager "
                              f"engine's")
+    for mode in ("graphs", "eager"):
+        _all_whole(build, f"paged/int8 page {PS_WIDE} {mode}", runs[mode][0])
     log(f"[serve] paged/int8 graphs, pages of {PS_WIDE} / {PS}: tokens/s "
         f"{g['tokens_per_s']:.1f} / {sink_on['tokens_per_s']:.1f}; TTFT p50 "
         f"{g['ttft_p50_ms']:.1f} / {sink_on['ttft_p50_ms']:.1f} ms; prefill "
@@ -1924,8 +2027,10 @@ def phase_serve(torch, cfg_mod, api, build, ServeEngine):
         f"eager at {PS_WIDE}: {e['tokens_per_s']:.1f} tokens/s; graph and "
         f"eager streams equal; launches a tick {json.dumps(per_step)}")
     for name in PAGED:
-        launches[name].update({f"launches_page{PS_WIDE}": counts[name],
-                               f"page{PS_WIDE}_per_step": per_step[name]})
+        launches[name].update({
+            f"launches_page{PS_WIDE}": counts[name],
+            f"launches_page{PS_WIDE}_whole": counts[name + build.WHOLE],
+            f"page{PS_WIDE}_per_step": per_step[name]})
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2550,7 +2655,8 @@ def _prefix_run(torch, build, ServeEngine, params, cfg, system, tails,
                for r in reqs):
         raise AssertionError(f"prefix {label}: a request did not finish")
     if not all(counts.get(name, 0) > 0 for name in PAGED) or any(
-            n for name, n in counts.items() if name not in PAGED):
+            n for name, n in build.launch_counts(counts).items()
+            if name not in PAGED):
         raise AssertionError(f"prefix {label}: not the two paged kernels "
                              f"alone: {counts}")
     eng.pool.check_consistency()
@@ -2654,7 +2760,8 @@ def _fault_run(torch, build, faults, eng, prompts, label, pair, injector=None,
         faults.install_fault_injector(None)
     counts = dict(build.COUNTS)
     if not all(counts.get(name, 0) > 0 for name in pair) or any(
-            n for name, n in counts.items() if name not in pair):
+            n for name, n in build.launch_counts(counts).items()
+            if name not in pair):
         raise AssertionError(f"faults {label}: not the layout's two kernels "
                              f"alone: {counts}")
     if not all(r.done and r.finish_reason is not None for r in reqs):
@@ -2809,7 +2916,7 @@ def phase_faults(torch, cfg_mod, api, build, ServeEngine):
             build.reset_counts()
             retry = eng.submit(prompts[corrupt], 32)
             eng.run()
-            counts = dict(build.COUNTS)
+            counts = build.launch_counts()
             eng.pool.check_consistency()
             if (retry.finish_reason != "length" or retry.out != base[corrupt]
                     or eng.pool.used_blocks or set(counts) != set(PAGED)):
@@ -3657,7 +3764,10 @@ def _time_serving(torch, checks, F, flush, rng, h=H, hkv=HKV, d=D,
     bf16 q, B sequences of CTX tokens, CHUNK-token chunks) with h / hkv
     heads of d: device time, time with the launch, the plain version's time
     (the median of ``plain_n`` runs, after ``plain_warmup`` more; the
-    check against it runs it once first), the bound, and the yardstick."""
+    check against it runs it once first), the bound, and the yardstick;
+    for the paged pair also the walk the call takes and the device time of
+    the forced general walk."""
+    from repro_torch.kernels import build
     common = dict(B=B, H=h, Hkv=hkv, D=d, q_dtype=torch.bfloat16,
                   dyadic=False, device="cuda")
     paged = dict(common, page_size=PS, max_blocks=MAX_LEN // PS)
@@ -3685,6 +3795,17 @@ def _time_serving(torch, checks, F, flush, rng, h=H, hkv=HKV, d=D,
             raise AssertionError(f"{name} disagrees at the serving shapes "
                                  f"(head dim {d})")
         ms = median_ms(torch, lambda: run(case, "expmul"), flush)
+        walks, walk_note = {}, ""
+        if name in PAGED:
+            before = build.COUNTS[name + build.WHOLE]
+            run(case, "expmul")
+            walks["walk"] = ("whole" if build.COUNTS[name + build.WHOLE]
+                             > before else "general")
+            with build.forced_walk("general"):
+                walks["ms_general"] = median_ms(
+                    torch, lambda: run(case, "expmul"), flush)
+            walk_note = (f" ({walks['walk']} walk; general walk "
+                         f"{walks['ms_general']:.4f} ms)")
         host_ms = median_ms(torch, lambda: run(case, "expmul"), flush,
                             hide_host=False)
         plain_ms = median_ms(torch, lambda: run(case, "expmul", plain=True),
@@ -3708,7 +3829,7 @@ def _time_serving(torch, checks, F, flush, rng, h=H, hkv=HKV, d=D,
             q, k, v, attn_mask=mask, enable_gqa=True), flush)
         del case, case16
         out[name] = dict(
-            max_abs_err=err, ms=ms, ms_with_launch=host_ms,
+            max_abs_err=err, ms=ms, **walks, ms_with_launch=host_ms,
             plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -3718,8 +3839,8 @@ def _time_serving(torch, checks, F, flush, rng, h=H, hkv=HKV, d=D,
                        "library_ms": sdpa_ms})
         log(f"[time] {name} (int8 codes, ExpMul, B={B}, {h} / {hkv} heads "
             f"of {d}, ctx {CTX}{', chunk %d' % CHUNK if C > 1 else ''}): "
-            f"kernel {ms:.4f} ms on the device, {host_ms:.4f} ms with its "
-            f"launch, plain {plain_ms:.4f} ms, bound "
+            f"kernel {ms:.4f} ms on the device{walk_note}, {host_ms:.4f} ms "
+            f"with its launch, plain {plain_ms:.4f} ms, bound "
             f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({out[name]['bound_by']}: "
             f"{nbytes} B, {flops} flop), max abs err {err:.3e} (rel "
             f"{rel:.3e}); yardstick exact bf16 kernel {exact_ms:.4f} ms vs "
@@ -3918,8 +4039,13 @@ def phase_contracts(torch, checks, build):
     time with the launch, its plain version's (a median of 3) and SDPA's
     on a dense bfloat16 copy of the shapes (``_sdpa_yardstick``). Then
     D 257, Dv 257 and a page of 257 tokens, each refused with a ValueError
-    before any launch, the launch counts unmoved. Returns each kernel's
-    cases, worst error and times."""
+    before any launch, the launch counts unmoved. The paged pair runs
+    every case on its general walk (``build.forced_walk``); where a case
+    also qualifies for the whole-row walk (pages of 48-128 at D 64, D 256
+    in pages of 16), that walk's output equals the general walk's bit for
+    bit; a forced whole-row walk on a case off the built widths is refused
+    before any launch. Returns each kernel's cases, worst error and
+    times."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rng = np.random.default_rng(22)
     out = {name: dict(cases=0, worst_rel_err=0.0, times={})
@@ -3951,6 +4077,13 @@ def phase_contracts(torch, checks, build):
             f"bound {max(t_b, t_o) * 1e3:.5f} ms ({res['bound_by']}: "
             f"{nbytes} B, {flops} flop)")
 
+    def general(run):   # the paged pair's general walk, forced
+        def go(case, variant, plain=False):
+            with build.forced_walk("general"):
+                return run(case, variant, plain=plain)
+        return go
+
+    whole_too = 0
     for D, Dv, kvs, group, pages, kernels in checks.CONTRACT_SHAPES:
         for kv in kvs:
             for ps in pages:
@@ -3959,6 +4092,19 @@ def phase_contracts(torch, checks, build):
                     run, case, idle = checks.contract_case(
                         rng, name, D=D, Dv=Dv, kv=kv, group=group,
                         page_size=ps)
+                    if name in PAGED:
+                        auto = build.COUNTS[name + build.WHOLE]
+                        out_auto = run(case, "expmul")
+                        if build.COUNTS[name + build.WHOLE] > auto:
+                            same = checks.same_bits(
+                                out_auto, general(run)(case, "expmul"))
+                            whole_too += 1
+                            if not same:
+                                raise AssertionError(
+                                    f"{name} D={D} Dv={Dv} {kv} ps={ps}: "
+                                    f"the whole-row walk differs from the "
+                                    f"general walk")
+                        run = general(run)
                     label = (f"D={D} Dv={Dv} group={group} {kv}"
                              + (f" ps={ps}" if name in PAGED else ""))
                     for variant in ("exact", "expmul"):
@@ -3993,9 +4139,25 @@ def phase_contracts(torch, checks, build):
     case = checks.flash_case(rng, B=1, H=2, Hkv=1, Sq=64, Sk=64, D=257,
                              dtype=torch.bfloat16, block_k=64, device="cuda")
     _refused(build, "flash", checks.run_flash, case, "D 257")
+    # a forced whole-row walk off the built widths: the kernel refuses it
+    for name in PAGED:
+        run, case, _ = checks.contract_case(rng, name, D=80, kv="int8")
+        before = dict(build.COUNTS)
+        try:
+            with build.forced_walk("whole"):
+                run(case, "expmul")
+        except RuntimeError as e:
+            log(f"[check] {name} forced whole-row walk at D 80 refused: {e}")
+        else:
+            raise AssertionError(f"{name}: a forced whole-row walk at D 80 "
+                                 f"launched")
+        if dict(build.COUNTS) != before:
+            raise AssertionError(f"{name}: the refused walk moved the counts")
     log(f"[check] contracts: {sum(o['cases'] for o in out.values())} cases "
-        f"within kernel_tol, {len(refusals) + 1} refusals before any launch; "
-        f"worst rel err {json.dumps(worst)}")
+        f"within kernel_tol (the paged pair on its general walk; {whole_too} "
+        f"of them also on the whole-row walk, bit for bit), "
+        f"{len(refusals) + 1} refusals before any launch; worst rel err "
+        f"{json.dumps(worst)}")
     return out
 
 
@@ -4636,11 +4798,9 @@ def phase_mla_times(torch, checks, F, build, decode, prefill):
 # the main-path instantiations of the kernels, as the compiler names them:
 # the serving kernels' (int8 codes, D 64, ExpMul) and flash's training one
 # (float32, D 64, ExpMul)
-MAIN_ENTRY = {"decode": "decode_kernelIaLi64ELi64ELb1EE",
-              "prefill": "prefill_kernelIaLi64ELi64ELb1EE",
-              "paged_decode": "paged_decode_kernelIaLi64ELb1EE",
-              "paged_prefill": "paged_prefill_kernelIaLi64ELb1EE",
-              "flash": "flash_kernelIfLi64ELb1EE"}
+MAIN_ENTRY = {"decode": ("a", "Li64ELi64E"), "prefill": ("a", "Li64ELi64E"),
+              "paged_decode": ("a", "Li64E"), "paged_prefill": ("a", "Li64E"),
+              "flash": ("f", "Li64E")}
 
 
 def phase_resources(build, decode, prefill, flash):
@@ -4669,17 +4829,18 @@ def phase_resources(build, decode, prefill, flash):
     for hd in FLASH_WIDTHS:
         smem[f"flash D {hd} bk 512"] = flash.smem_bytes(hd, 512)
     info = {}
-    for name, entry in MAIN_ENTRY.items():
-        info[name] = _ptxas(build, name, entry)
-        log(f"[resources] {name} ({entry}): {info[name]}")
+    for name, (mangled, dims) in MAIN_ENTRY.items():
+        info[name] = _kernel_ptxas(build, name, mangled, dims)
+        log(f"[resources] {name} ({mangled} {dims} ExpMul"
+            f"{', by walk' if name in PAGED else ''}): {info[name]}")
     log(f"[resources] shared memory a CTA, B (any S or context): "
         f"{json.dumps(smem)}")
     out = {"flash": {"ptxas": info["flash"],
                      "smem_bytes": smem[f"flash D {D} bk 512"]}}
     # flash at head dims 256, 112 and 96, float32 and bfloat16, ExpMul
     for hd, _, _ in FLASH_NEW_DIMS:
-        res = {"ptxas": {dt: _ptxas(build, "flash",
-                                    f"flash_kernelI{mangled}Li{hd}ELb1EE")
+        res = {"ptxas": {dt: _kernel_ptxas(build, "flash", mangled,
+                                           f"Li{hd}E")
                          for dt, mangled in (("f32", "f"),
                                              ("bf16", "13__nv_bfloat16"))},
                "smem_bytes": smem[f"flash D {hd} bk 512"]}
@@ -4698,8 +4859,7 @@ def phase_resources(build, decode, prefill, flash):
         d256 = {"ptxas": {}, "smem_bytes": {}}
         dims = f"Li{GEMMA_D}E" * (2 if name in CONTIGUOUS else 1)
         for kv, (mangled, dtype) in KV_MANGLED.items():
-            d256["ptxas"][kv] = _ptxas(
-                build, name, f"{name}_kernelI{mangled}{dims}Lb1EE")
+            d256["ptxas"][kv] = _kernel_ptxas(build, name, mangled, dims)
             d256["smem_bytes"][kv] = smem_256[name](getattr(torch, dtype))
         log(f"[resources] {name} at head dim {GEMMA_D}, ExpMul, by KV "
             f"dtype: {json.dumps(d256)}")
@@ -4720,8 +4880,7 @@ def phase_resources(build, decode, prefill, flash):
             res = {"ptxas": {}, "smem_bytes": {}}
             dims = f"Li{hd}E" * (2 if name in CONTIGUOUS else 1)
             for kv, (mangled, dtype) in KV_MANGLED.items():
-                res["ptxas"][kv] = _ptxas(
-                    build, name, f"{name}_kernelI{mangled}{dims}Lb1EE")
+                res["ptxas"][kv] = _kernel_ptxas(build, name, mangled, dims)
                 res["smem_bytes"][kv] = smem_at[name](getattr(torch, dtype))
             log(f"[resources] {name} at head dim {hd}, ExpMul, by KV dtype "
                 f"(group {group}): {json.dumps(res)}")
@@ -4733,6 +4892,17 @@ def phase_resources(build, decode, prefill, flash):
 KV_MANGLED = {"f32": ("f", "float32"), "bf16": ("13__nv_bfloat16", "bfloat16"),
               "int8": ("a", "int8"), "fp8": ("13__nv_fp8_e4m3",
                                               "float8_e4m3fn")}
+
+
+def _kernel_ptxas(build, name, mangled, dims):
+    """The registers and spills line of the ExpMul instantiation of
+    ``name`` over KV (or activations) ``mangled`` at widths ``dims``, as
+    the compiler spells them; the paged pair's by walk."""
+    stem = f"{name}_kernelI{mangled}{dims}Lb1E"
+    if name in PAGED:
+        return {walk: _ptxas(build, name, f"{stem}Lb{int(walk == 'whole')}EE")
+                for walk in ("whole", "general")}
+    return _ptxas(build, name, stem + "E")
 
 
 def _ptxas(build, name, entry) -> str:
@@ -4967,7 +5137,7 @@ def main(argv=None) -> int:
         ("flash head dim checks", lambda: phase_flash_head_dim_checks(
             torch, checks)),
         ("built", lambda: phase_built(build)),
-        ("kernel checks", lambda: phase_kernel_checks(torch, checks)),
+        ("kernel checks", lambda: phase_kernel_checks(torch, checks, build)),
         ("head dim checks", lambda: phase_head_dim_checks(torch, checks,
                                                           build, decode)),
         ("kimi checks", lambda: phase_kimi_checks(torch, checks, build,

@@ -572,16 +572,44 @@ Dims built_dims(int D, int Dv) {
   return Dims{w, w};
 }
 
+}  // namespace
+
+namespace decode_part {
+
+// one call of the C entry contiguous_decode, as the parts pass it on
+struct Call {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  const int* lens;
+  void* out;
+  int B, Hkv, group, D, Dv, S, bk;
+  float scale;
+  int expmul, act_dtype;
+  cudaStream_t stream;
+};
+
+// each KV dtype's launches, defined in that dtype's part of the build
+int run_f32(const Call& c);
+int run_bf16(const Call& c);
+int run_i8(const Call& c);
+int run_fp8(const Call& c);
+
+}  // namespace decode_part
+
+namespace {
+
+using decode_part::Call;
+
 template <typename KV>
-int by_dims(int D, int Dv, int expmul, const void* q, const void* k, const void* v,
-            const float* ks, const float* vs, const int* lens, void* out, int B, int Hkv,
-            int group, int S, int bk, float scale, int act_dtype, cudaStream_t s) {
-#define REPRO_LAUNCH(DK, DV)                                                              \
-  return expmul ? launch<KV, DK, DV, true>(q, k, v, ks, vs, lens, out, B, Hkv, group, S, \
-                                           bk, scale, act_dtype, D, Dv, s)               \
-                : launch<KV, DK, DV, false>(q, k, v, ks, vs, lens, out, B, Hkv, group, S, \
-                                            bk, scale, act_dtype, D, Dv, s)
-  const Dims w = built_dims<KV>(D, Dv);
+int by_dims(const Call& c) {
+#define REPRO_LAUNCH(DK, DV)                                                                  \
+  return c.expmul ? launch<KV, DK, DV, true>(c.q, c.k, c.v, c.ks, c.vs, c.lens, c.out, c.B,  \
+                                             c.Hkv, c.group, c.S, c.bk, c.scale,             \
+                                             c.act_dtype, c.D, c.Dv, c.stream)               \
+                  : launch<KV, DK, DV, false>(c.q, c.k, c.v, c.ks, c.vs, c.lens, c.out, c.B, \
+                                              c.Hkv, c.group, c.S, c.bk, c.scale,            \
+                                              c.act_dtype, c.D, c.Dv, c.stream)
+  const Dims w = built_dims<KV>(c.D, c.Dv);
   if constexpr (!IsCode<KV>::value) {
     if (w.k == 96 && w.v == 64) REPRO_LAUNCH(96, 64);
   }
@@ -620,6 +648,20 @@ bool dims_ok(int D, int Dv, int group) {
 
 }  // namespace
 
+#if REPRO_IN_PART(REPRO_PART_F32)
+int decode_part::run_f32(const Call& c) { return by_dims<float>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_BF16)
+int decode_part::run_bf16(const Call& c) { return by_dims<__nv_bfloat16>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_I8)
+int decode_part::run_i8(const Call& c) { return by_dims<int8_t>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_FP8)
+int decode_part::run_fp8(const Call& c) { return by_dims<__nv_fp8_e4m3>(c); }
+#endif
+
+#if REPRO_IN_PART(REPRO_PART_F32)
 // q (B*Hkv, group, D) f32/bf16; caches k (B*Hkv, S, D) and v (B*Hkv, S, Dv)
 // of kv_dtype; scale rows ks/vs (B*Hkv, S) f32 for codes (else unused); lens
 // (B,) i32, the tokens to attend (columns >= min(len, S) are masked); bk the
@@ -634,18 +676,15 @@ extern "C" int contiguous_decode(const void* q, const void* k, const void* v, co
                                  int expmul, int act_dtype, int kv_dtype, void* stream) {
   if (B <= 0 || Hkv <= 0 || !dims_ok(D, Dv, group) || S <= 0 || bk <= 0 || bk > kMaxTile)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DTYPE(KV)                                                                   \
-  return by_dims<KV>(D, Dv, expmul, q, k, v, ks, vs, lens, out, B, Hkv, group, S, bk, \
-                     scale, act_dtype, s)
+  const Call c{q, k,     v,  ks, vs, lens,  out,    B,         Hkv,
+               group, D, Dv, S, bk, scale, expmul, act_dtype, static_cast<cudaStream_t>(stream)};
   switch (kv_dtype) {
-    case kF32: REPRO_DTYPE(float);
-    case kBF16: REPRO_DTYPE(__nv_bfloat16);
-    case kI8: REPRO_DTYPE(int8_t);
-    case kFP8: REPRO_DTYPE(__nv_fp8_e4m3);
+    case kF32: return decode_part::run_f32(c);
+    case kBF16: return decode_part::run_bf16(c);
+    case kI8: return decode_part::run_i8(c);
+    case kFP8: return decode_part::run_fp8(c);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef REPRO_DTYPE
 }
 
 // The dynamic shared memory, in bytes, that contiguous_decode gives each CTA
@@ -661,3 +700,4 @@ extern "C" long long contiguous_decode_smem(int group, int D, int Dv, int bk, in
     default: return -1;
   }
 }
+#endif

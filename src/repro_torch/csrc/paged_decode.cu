@@ -157,17 +157,24 @@ int part_rows(int group, int ps) {
   return (group + parts - 1) / parts;
 }
 
-template <typename KV, int W, bool EXPMUL>
+// The whole-row walk (WHOLE; whole_fits) is this kernel with every test of
+// the contract a constant: D == Dv == W, rows of whole 16-byte pieces, pages
+// of at most R rows (never wide) and the group in one part. Its float
+// operations and their order are the general walk's, so its output is the
+// general walk's bit for bit wherever both run.
+template <typename KV, int W, bool EXPMUL, bool WHOLE>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
                     const KV* __restrict__ vpool, const float* __restrict__ kspool,
                     const float* __restrict__ vspool, const int* __restrict__ bt,
                     const int* __restrict__ lens, void* __restrict__ out, int Hkv, int group,
                     int gpart, int nblk, int ps, int MB, int CL, int window, float scale,
-                    int act_dtype, int dq, int dv, RowBytes rb) {
+                    int act_dtype, int dq_call, int dv_call, RowBytes rb_call) {
   constexpr bool QUANT = IsCode<KV>::value;
   constexpr int kRowBytes = W * static_cast<int>(sizeof(KV));  // a staged row's
   constexpr int R = rank_rows<KV, W>();
+  const int dq = WHOLE ? W : dq_call, dv = WHOLE ? W : dv_call;
+  const RowBytes rb = WHOLE ? RowBytes{kRowBytes, kRowBytes, 16} : rb_call;
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout<KV, W>(gpart, ps);
   unsigned char* k_s = smem + L.k;
@@ -187,13 +194,13 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   const int rank = static_cast<int>(cluster.block_rank());
   const int bh = blockIdx.x / CL;
   const int b = bh / Hkv, h = bh - b * Hkv;
-  const int g0 = blockIdx.y * gpart;           // this part's first query row
-  const int G = min(gpart, group - g0);        // and its rows
+  const int g0 = WHOLE ? 0 : blockIdx.y * gpart;       // this part's first query row
+  const int G = WHOLE ? group : min(gpart, group - g0);  // and its rows
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int length = lens[b];
   const int P = rank_pages<KV, W>(ps);
   const int SC = rank_cols<KV, W>(ps);         // s_s's row stride
-  const bool wide = ps > R;                    // one page a rank, staged in pieces
+  const bool wide = !WHOLE && ps > R;          // one page a rank, staged in pieces
   const int n_pieces = wide ? (ps + R - 1) / R : 1;
   // the walk: pages [first, n_pages), stopping at the length and at the
   // table's width; pages wholly below the window's floor are skipped
@@ -227,9 +234,9 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
     const auto src = [&](int r) {
       return reinterpret_cast<const unsigned char*>(pool) + pool_row(p0, off + r) * bytes;
     };
-    if (n > 0 && bytes == kRowBytes && rb.piece == 16) {  // whole rows: constant pieces
+    if (n > 0 && (WHOLE || (bytes == kRowBytes && rb.piece == 16))) {  // whole rows
       copy_rows_async_at(dst, dst_stride, n, kRowBytes, kRowBytes, 16, src);
-    } else if (n > 0) {
+    } else if (!WHOLE && n > 0) {
       copy_rows_async_at(dst, dst_stride, n, bytes, fill, rb.piece, src);
     }
   };
@@ -281,13 +288,15 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
       const int pi = e / (W / 4), d4 = (e - pi * (W / 4)) * 4;
       const int pp = pi / G, i = pi - pp * G;
       const int j0 = pp * ps;
-      const int lo = max(j0, off), hi = min(min(j0 + ps, nr), off + n);
+      // (the whole-row walk: one piece, off 0 and n nr)
+      const int lo = WHOLE ? j0 : max(j0, off);
+      const int hi = WHOLE ? min(j0 + ps, nr) : min(min(j0 + ps, nr), off + n);
       if (lo >= hi) continue;
       const float* wr = s_s + i * SC + lo;
       const KV* vc = v_s + (lo - off) * W + d4;
       float* dst = part_s + pi * (W + 1) + d4;
       float ds[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (lo > j0) {
+      if (!WHOLE && lo > j0) {
 #pragma unroll
         for (int u = 0; u < 4; ++u) ds[u] = dst[u];
       }
@@ -311,8 +320,9 @@ paged_decode_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   }
   for (int e = tid; e < G * W; e += kThreads) {
     const int i = e / W, d = e - i * W;
-    q_s[e] = d < dq ? load_act(q, (static_cast<int64_t>(bh) * group + g0 + i) * dq + d, act_dtype)
-                    : 0.0f;
+    q_s[e] = WHOLE || d < dq
+                 ? load_act(q, (static_cast<int64_t>(bh) * group + g0 + i) * dq + d, act_dtype)
+                 : 0.0f;
   }
   for (int i = tid; i < G; i += kThreads) carry_s[i] = kMaskValue;
   // this rank's rows of the running state: i = rank, rank + CL, ...
@@ -458,15 +468,57 @@ int launch_shape(int group, int ps, int MB, int& gpart, int& CL) {
   return gpart > 0 ? layout<KV, W>(gpart, ps).total : -1;
 }
 
-template <typename KV, int W, bool EXPMUL>
-int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-           const int* bt, const int* lens, void* out, int B, int Hkv, int group, int nblk,
-           int ps, int MB, int window, float scale, int act_dtype, int dq, int dv,
-           cudaStream_t stream) {
-  int gpart, CL;
-  const int smem = launch_shape<KV, W>(group, ps, MB, gpart, CL);
-  if (smem < 0 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = paged_decode_kernel<KV, W, EXPMUL>;
+// the rows as they lie in the pools: D and Dv elements of KV, in the widest
+// piece every pool address and row length allows
+template <typename KV>
+RowBytes row_bytes(const void* k, const void* v, int D, int Dv) {
+  const int kb = D * static_cast<int>(sizeof(KV)), vb = Dv * static_cast<int>(sizeof(KV));
+  return RowBytes{kb, vb,
+                  piece_of(reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                           static_cast<uintptr_t>(kb) | static_cast<uintptr_t>(vb))};
+}
+
+// whether a call may take the whole-row walk of the W build: D == Dv == W
+// (so each row is kRowBytes), rows in 16-byte pieces, pages of at most R
+// rows (no wide page) and the group in one part
+template <typename KV, int W>
+bool whole_fits(int group, int D, int Dv, int ps, const RowBytes& rb) {
+  return D == W && Dv == W && rb.piece == 16 && ps <= rank_rows<KV, W>() &&
+         part_rows<KV, W>(group, ps) == group;
+}
+
+}  // namespace
+
+namespace paged_decode_part {
+
+// one call of the C entry paged_decode, as the parts pass it on
+struct Call {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  const int *bt, *lens;
+  void* out;
+  int B, Hkv, group, D, Dv, nblk, ps, MB, window;
+  float scale;
+  int expmul, act_dtype, walk;
+  int* taken;  // the walk the launch takes, written before it (may be null)
+  cudaStream_t stream;
+};
+
+// each KV dtype's launches, defined in that dtype's part of the build
+int run_f32(const Call& c);
+int run_bf16(const Call& c);
+int run_i8(const Call& c);
+int run_fp8(const Call& c);
+
+}  // namespace paged_decode_part
+
+namespace {
+
+using paged_decode_part::Call;
+
+template <typename KV, int W, bool EXPMUL, bool WHOLE>
+int launch_walk(const Call& c, int gpart, int CL, int smem, const RowBytes& rb) {
+  auto kernel = paged_decode_kernel<KV, W, EXPMUL, WHOLE>;
   static int granted = 48 * 1024;  // per instantiation
   if (smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -474,15 +526,11 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     if (e != cudaSuccess) return static_cast<int>(e);
     granted = smem;
   }
-  const int kb = dq * static_cast<int>(sizeof(KV)), vb = dv * static_cast<int>(sizeof(KV));
-  const RowBytes rb{kb, vb,
-                    piece_of(reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
-                             static_cast<uintptr_t>(kb) | static_cast<uintptr_t>(vb))};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * Hkv * CL, (group + gpart - 1) / gpart);
+  cfg.gridDim = dim3(c.B * c.Hkv * CL, (c.group + gpart - 1) / gpart);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
+  cfg.stream = c.stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CL;
@@ -491,23 +539,32 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, q, static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs, bt, lens,
-      out, Hkv, group, gpart, nblk, ps, MB, CL, window, scale, act_dtype, dq, dv, rb);
+      &cfg, kernel, c.q, static_cast<const KV*>(c.k), static_cast<const KV*>(c.v), c.ks, c.vs,
+      c.bt, c.lens, c.out, c.Hkv, c.group, gpart, c.nblk, c.ps, c.MB, CL, c.window, c.scale,
+      c.act_dtype, c.D, c.Dv, rb);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename KV, int W, bool EXPMUL>
+int launch(const Call& c) {
+  int gpart, CL;
+  const int smem = launch_shape<KV, W>(c.group, c.ps, c.MB, gpart, CL);
+  if (smem < 0 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const RowBytes rb = row_bytes<KV>(c.k, c.v, c.D, c.Dv);
+  const int walk = choose_walk(c.walk, whole_fits<KV, W>(c.group, c.D, c.Dv, c.ps, rb));
+  if (c.taken) *c.taken = walk;
+  switch (walk) {
+    case kWalkWhole: return launch_walk<KV, W, EXPMUL, true>(c, gpart, CL, smem, rb);
+    case kWalkGeneral: return launch_walk<KV, W, EXPMUL, false>(c, gpart, CL, smem, rb);
+    default: return static_cast<int>(cudaErrorInvalidValue);  // a forced whole walk refused
+  }
+}
+
 template <typename KV>
-int by_dim(int D, int Dv, int expmul, const void* q, const void* k, const void* v,
-           const float* ks, const float* vs, const int* bt, const int* lens, void* out, int B,
-           int Hkv, int group, int nblk, int ps, int MB, int window, float scale,
-           int act_dtype, cudaStream_t s) {
-#define REPRO_LAUNCH(DIM)                                                                  \
-  return expmul ? launch<KV, DIM, true>(q, k, v, ks, vs, bt, lens, out, B, Hkv, group,    \
-                                        nblk, ps, MB, window, scale, act_dtype, D, Dv, s) \
-                : launch<KV, DIM, false>(q, k, v, ks, vs, bt, lens, out, B, Hkv, group,   \
-                                         nblk, ps, MB, window, scale, act_dtype, D, Dv, s)
-  switch (square_width(D > Dv ? D : Dv)) {
+int by_dim(const Call& c) {
+#define REPRO_LAUNCH(DIM) return c.expmul ? launch<KV, DIM, true>(c) : launch<KV, DIM, false>(c)
+  switch (square_width(c.D > c.Dv ? c.D : c.Dv)) {
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
@@ -540,35 +597,52 @@ bool dims_ok(int D, int Dv, int group, int ps) {
 
 }  // namespace
 
+#if REPRO_IN_PART(REPRO_PART_F32)
+int paged_decode_part::run_f32(const Call& c) { return by_dim<float>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_BF16)
+int paged_decode_part::run_bf16(const Call& c) { return by_dim<__nv_bfloat16>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_I8)
+int paged_decode_part::run_i8(const Call& c) { return by_dim<int8_t>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_FP8)
+int paged_decode_part::run_fp8(const Call& c) { return by_dim<__nv_fp8_e4m3>(c); }
+#endif
+
+#if REPRO_IN_PART(REPRO_PART_F32)
 // q (B*Hkv, group, D) f32/bf16; pools (nblk, ps, Hkv, D) and (nblk, ps,
 // Hkv, Dv) of kv_dtype; scale pools (nblk, ps, Hkv) f32 for codes (else
 // unused); bt (B, MB) i32; lens (B,) i32; out (B*Hkv, group, Dv) in q's
-// dtype. D, Dv and ps in [1, 256], any group >= 1; window <= 0: none.
-// Returns the cudaError_t of the launch.
+// dtype. D, Dv and ps in [1, 256], any group >= 1; window <= 0: none; walk
+// kWalkAuto, kWalkGeneral or kWalkWhole; *taken (unless null) gets the walk
+// the call takes (-1: none). Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a forced whole-row walk on a call that does
+// not qualify).
 extern "C" int paged_decode(const void* q, const void* k, const void* v, const float* ks,
                             const float* vs, const int* bt, const int* lens, void* out, int B,
                             int Hkv, int group, int D, int Dv, int nblk, int ps, int MB,
                             int window, float scale, int expmul, int act_dtype, int kv_dtype,
-                            void* stream) {
+                            int walk, int* taken, void* stream) {
+  if (taken) *taken = -1;
   if (B <= 0 || Hkv <= 0 || !dims_ok(D, Dv, group, ps) || nblk <= 0 || MB < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DTYPE(KV)                                                                    \
-  return by_dim<KV>(D, Dv, expmul, q, k, v, ks, vs, bt, lens, out, B, Hkv, group, nblk, ps, \
-                    MB, window, scale, act_dtype, s)
+  const Call c{q,     k,  v,  ks,   vs, bt, lens,   out,   B,      Hkv,       group,
+               D,     Dv, nblk, ps, MB, window, scale, expmul, act_dtype, walk,
+               taken, static_cast<cudaStream_t>(stream)};
   switch (kv_dtype) {
-    case kF32: REPRO_DTYPE(float);
-    case kBF16: REPRO_DTYPE(__nv_bfloat16);
-    case kI8: REPRO_DTYPE(int8_t);
-    case kFP8: REPRO_DTYPE(__nv_fp8_e4m3);
+    case kF32: return paged_decode_part::run_f32(c);
+    case kBF16: return paged_decode_part::run_bf16(c);
+    case kI8: return paged_decode_part::run_i8(c);
+    case kFP8: return paged_decode_part::run_fp8(c);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef REPRO_DTYPE
 }
 
 // The dynamic shared memory, in bytes, that paged_decode gives each CTA at
-// these arguments (the same at any length and any table width MB; a group
-// split into parts counts one part); -1 where it launches nothing.
+// these arguments (the same at any length and any table width MB, and on
+// either walk; a group split into parts counts one part); -1 where it
+// launches nothing.
 extern "C" long long paged_decode_smem(int group, int D, int Dv, int ps, int MB, int kv_dtype) {
   if (!dims_ok(D, Dv, group, ps)) return -1;
   switch (kv_dtype) {
@@ -579,3 +653,4 @@ extern "C" long long paged_decode_smem(int group, int D, int Dv, int ps, int MB,
     default: return -1;
   }
 }
+#endif

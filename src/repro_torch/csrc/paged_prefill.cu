@@ -114,7 +114,12 @@ constexpr int min_ctas() {
   return D >= 256 || (D >= 112 && sizeof(KV) == 4) ? 2 : 3;
 }
 
-template <typename KV, int D, bool EXPMUL>
+// The whole-row walk (WHOLE; whole_fits) is this kernel with every test of
+// the contract a constant: D == Dv == the built width, rows of whole 16-byte
+// pieces, pages of at most kSub rows (one sub-tile a group: NS == 1). Its
+// float operations and their order are the general walk's, so its output is
+// the general walk's bit for bit wherever both run.
+template <typename KV, int D, bool EXPMUL, bool WHOLE>
 __global__ void __launch_bounds__(kThreads, min_ctas<KV, D>())
 paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
                      const KV* __restrict__ vpool, const float* __restrict__ kspool,
@@ -123,15 +128,19 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
                      const float* __restrict__ vsn, const int* __restrict__ bt,
                      const int* __restrict__ lens, const int* __restrict__ nvalid,
                      void* __restrict__ out, int H, int Hkv, int C, int nblk, int ps, int MB,
-                     int window, float scale, int act_dtype, int dq, int dv, RowBytes rb) {
+                     int window, float scale, int act_dtype, int dq_call, int dv_call,
+                     RowBytes rb_call) {
   constexpr bool QUANT = IsCode<KV>::value;
+  constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
+  const int dq = WHOLE ? D : dq_call, dv = WHOLE ? D : dv_call;
+  const RowBytes rb = WHOLE ? RowBytes{kRowBytes, kRowBytes, 16} : rb_call;
   constexpr int DG = ChunkRows<D>::kGroups;      // 4-feature groups (padded)
   constexpr int RPT = ChunkRows<D>::RPT;         // value rows a thread
   constexpr int XLD = Smem<D>::XLD;
   static_assert(kRows * 4 == kThreads, "four weight threads a row");
   extern __shared__ __align__(16) unsigned char smem[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem);
-  const int NS = group_subs(ps);
+  const int NS = WHOLE ? 1 : group_subs(ps);
   float* p_s = reinterpret_cast<float*>(smem + Smem<D>::kTail);  // [NS * kSub][kPLd]
   float* vt_s = p_s + NS * kSub * kPLd;                           // [NS * kSub]
 
@@ -220,7 +229,7 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     sm.q[r * (D + kPad) + d] =
-        r < rows && d < dq
+        r < rows && (WHOLE || d < dq)
             ? load_act(q, (static_cast<int64_t>(bh) * C + r0 + r) * dq + d, act_dtype)
             : 0.0f;
   }
@@ -296,9 +305,10 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
       const int s0 = sub * kSub, s1 = min(t.nrows, s0 + kSub);
       for (int pp = 0; pp < t.np; ++pp) {
         const int j0 = pp * ps, j1 = min(j0 + ps, t.nrows);
-        const int lo = max(j0, s0), hi = min(j1, s1);  // its columns staged
+        // its columns staged (the whole-row walk: the group's one sub-tile)
+        const int lo = WHOLE ? j0 : max(j0, s0), hi = WHOLE ? j1 : min(j1, s1);
         if (lo >= hi) continue;
-        if (lo == j0) {
+        if (WHOLE || lo == j0) {
 #pragma unroll
           for (int r = 0; r < RPT; ++r)
 #pragma unroll
@@ -306,7 +316,7 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
         }
         value_block<D, RPT, XLD>(dsum, p_s + lo * kPLd + RPT * vrg,
                                  sm.x + (lo - s0) * XLD + 4 * vdg, hi - lo);
-        if (hi == j1) {
+        if (WHOLE || hi == j1) {
 #pragma unroll
           for (int r = 0; r < RPT; ++r) {
             const float f = sm.r[pp * kRows + RPT * vrg + r];
@@ -333,14 +343,58 @@ paged_prefill_kernel(const void* __restrict__ q, const KV* __restrict__ kpool,
   }
 }
 
-template <typename KV, int D, bool EXPMUL>
-int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-           const void* kn, const void* vn, const float* ksn, const float* vsn, const int* bt,
-           const int* lens, const int* nvalid, void* out, int B, int H, int Hkv, int C,
-           int nblk, int ps, int MB, int window, float scale, int act_dtype, int dq, int dv,
-           cudaStream_t stream) {
-  auto kernel = paged_prefill_kernel<KV, D, EXPMUL>;
-  const int smem = Smem<D>::bytes(ps);
+// the rows as they lie in the pools and the chunk: D and Dv elements of KV,
+// in the widest piece every address and row length allows
+template <typename KV>
+RowBytes row_bytes(const void* k, const void* v, const void* kn, const void* vn, int D, int Dv) {
+  const int kb = D * static_cast<int>(sizeof(KV)), vb = Dv * static_cast<int>(sizeof(KV));
+  return RowBytes{kb, vb,
+                  piece_of(reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                           reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn) |
+                           static_cast<uintptr_t>(kb) | static_cast<uintptr_t>(vb))};
+}
+
+// whether a call may take the whole-row walk of the W build: D == Dv == W,
+// rows in 16-byte pieces, pages of at most one staging sub-tile
+template <int W>
+bool whole_fits(int D, int Dv, int ps, const RowBytes& rb) {
+  return D == W && Dv == W && rb.piece == 16 && group_subs(ps) == 1;
+}
+
+}  // namespace
+
+namespace paged_prefill_part {
+
+// one call of the C entry paged_prefill, as the parts pass it on
+struct Call {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  const void *kn, *vn;
+  const float *ksn, *vsn;
+  const int *bt, *lens, *nvalid;
+  void* out;
+  int B, H, Hkv, C, D, Dv, nblk, ps, MB, window;
+  float scale;
+  int expmul, act_dtype, walk;
+  int* taken;  // the walk the launch takes, written before it (may be null)
+  cudaStream_t stream;
+};
+
+// each KV dtype's launches, defined in that dtype's part of the build
+int run_f32(const Call& c);
+int run_bf16(const Call& c);
+int run_i8(const Call& c);
+int run_fp8(const Call& c);
+
+}  // namespace paged_prefill_part
+
+namespace {
+
+using paged_prefill_part::Call;
+
+template <typename KV, int D, bool EXPMUL, bool WHOLE>
+int launch_walk(const Call& c, const RowBytes& rb) {
+  auto kernel = paged_prefill_kernel<KV, D, EXPMUL, WHOLE>;
   static bool wide_smem = false;  // once per instantiation: room for the widest page
   if (!wide_smem) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -348,33 +402,31 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     if (e != cudaSuccess) return static_cast<int>(e);
     wide_smem = true;
   }
-  const int kb = dq * static_cast<int>(sizeof(KV)), vb = dv * static_cast<int>(sizeof(KV));
-  const RowBytes rb{kb, vb,
-                    piece_of(reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
-                             reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn) |
-                             static_cast<uintptr_t>(kb) | static_cast<uintptr_t>(vb))};
-  const dim3 grid(B * H, (C + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs,
-      static_cast<const KV*>(kn), static_cast<const KV*>(vn), ksn, vsn, bt, lens, nvalid, out,
-      H, Hkv, C, nblk, ps, MB, window, scale, act_dtype, dq, dv, rb);
+  const dim3 grid(c.B * c.H, (c.C + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, Smem<D>::bytes(c.ps), c.stream>>>(
+      c.q, static_cast<const KV*>(c.k), static_cast<const KV*>(c.v), c.ks, c.vs,
+      static_cast<const KV*>(c.kn), static_cast<const KV*>(c.vn), c.ksn, c.vsn, c.bt, c.lens,
+      c.nvalid, c.out, c.H, c.Hkv, c.C, c.nblk, c.ps, c.MB, c.window, c.scale, c.act_dtype,
+      c.D, c.Dv, rb);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename KV, int D, bool EXPMUL>
+int launch(const Call& c) {
+  const RowBytes rb = row_bytes<KV>(c.k, c.v, c.kn, c.vn, c.D, c.Dv);
+  const int walk = choose_walk(c.walk, whole_fits<D>(c.D, c.Dv, c.ps, rb));
+  if (c.taken) *c.taken = walk;
+  switch (walk) {
+    case kWalkWhole: return launch_walk<KV, D, EXPMUL, true>(c, rb);
+    case kWalkGeneral: return launch_walk<KV, D, EXPMUL, false>(c, rb);
+    default: return static_cast<int>(cudaErrorInvalidValue);  // a forced whole walk refused
+  }
+}
+
 template <typename KV>
-int by_dim(int D, int Dv, int expmul, const void* q, const void* k, const void* v, const float* ks,
-           const float* vs, const void* kn, const void* vn, const float* ksn, const float* vsn,
-           const int* bt, const int* lens, const int* nvalid, void* out, int B, int H, int Hkv,
-           int C, int nblk, int ps, int MB, int window, float scale, int act_dtype,
-           cudaStream_t s) {
-#define REPRO_LAUNCH(DIM)                                                                    \
-  return expmul ? launch<KV, DIM, true>(q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens, nvalid, \
-                                        out, B, H, Hkv, C, nblk, ps, MB, window, scale,     \
-                                        act_dtype, D, Dv, s)                                \
-                : launch<KV, DIM, false>(q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens,       \
-                                         nvalid, out, B, H, Hkv, C, nblk, ps, MB, window,   \
-                                         scale, act_dtype, D, Dv, s)
-  switch (square_width(D > Dv ? D : Dv)) {
+int by_dim(const Call& c) {
+#define REPRO_LAUNCH(DIM) return c.expmul ? launch<KV, DIM, true>(c) : launch<KV, DIM, false>(c)
+  switch (square_width(c.D > c.Dv ? c.D : c.Dv)) {
     case 16: REPRO_LAUNCH(16);
     case 32: REPRO_LAUNCH(32);
     case 64: REPRO_LAUNCH(64);
@@ -386,49 +438,62 @@ int by_dim(int D, int Dv, int expmul, const void* q, const void* k, const void* 
 #undef REPRO_LAUNCH
 }
 
+bool dims_ok(int D, int Dv, int ps) {
+  return ps > 0 && ps <= kMaxPage && D > 0 && D <= kMaxHeadDim && Dv > 0 && Dv <= kMaxHeadDim;
+}
+
 }  // namespace
 
+#if REPRO_IN_PART(REPRO_PART_F32)
+int paged_prefill_part::run_f32(const Call& c) { return by_dim<float>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_BF16)
+int paged_prefill_part::run_bf16(const Call& c) { return by_dim<__nv_bfloat16>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_I8)
+int paged_prefill_part::run_i8(const Call& c) { return by_dim<int8_t>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_FP8)
+int paged_prefill_part::run_fp8(const Call& c) { return by_dim<__nv_fp8_e4m3>(c); }
+#endif
+
+#if REPRO_IN_PART(REPRO_PART_F32)
 // q (B*H, C, D) f32/bf16; pools (nblk, ps, Hkv, D) and (nblk, ps, Hkv, Dv)
 // of kv_dtype and their scale pools (nblk, ps, Hkv) f32 for codes; chunk kn
 // (B*Hkv, C, D) and vn (B*Hkv, C, Dv) of kv_dtype and ksn/vsn (B*Hkv, C) f32
 // for codes; bt (B, MB) i32; lens / nvalid (B,) i32; out (B*H, C, Dv) in q's
-// dtype. D, Dv and ps in [1, 256]; window <= 0: none. Returns the
-// cudaError_t of the launch.
+// dtype. D, Dv and ps in [1, 256]; window <= 0: none; walk kWalkAuto,
+// kWalkGeneral or kWalkWhole; *taken (unless null) gets the walk the call
+// takes (-1: none). Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a forced whole-row walk on a call that does
+// not qualify).
 extern "C" int paged_prefill(const void* q, const void* k, const void* v, const float* ks,
                              const float* vs, const void* kn, const void* vn, const float* ksn,
                              const float* vsn, const int* bt, const int* lens,
                              const int* nvalid, void* out, int B, int H, int Hkv, int C, int D,
                              int Dv, int nblk, int ps, int MB, int window, float scale,
-                             int expmul, int act_dtype, int kv_dtype, void* stream) {
-  if (B <= 0 || C <= 0 || Hkv <= 0 || H % Hkv != 0 || ps <= 0 || ps > kMaxPage || nblk <= 0 ||
-      MB < 0 || D <= 0 || D > kMaxHeadDim || Dv <= 0 || Dv > kMaxHeadDim)
+                             int expmul, int act_dtype, int kv_dtype, int walk, int* taken,
+                             void* stream) {
+  if (taken) *taken = -1;
+  if (B <= 0 || C <= 0 || Hkv <= 0 || H % Hkv != 0 || nblk <= 0 || MB < 0 || !dims_ok(D, Dv, ps))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Call c{q,  k,  v,    ks,    vs, kn, vn,     ksn,   vsn,    bt,        lens, nvalid,
+               out, B, H,    Hkv,   C,  D,  Dv,     nblk,  ps,     MB,        window,
+               scale, expmul, act_dtype, walk, taken, static_cast<cudaStream_t>(stream)};
   switch (kv_dtype) {
-    case kF32:
-      return by_dim<float>(D, Dv, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens, nvalid, out,
-                           B, H, Hkv, C, nblk, ps, MB, window, scale, act_dtype, s);
-    case kBF16:
-      return by_dim<__nv_bfloat16>(D, Dv, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens,
-                                   nvalid, out, B, H, Hkv, C, nblk, ps, MB, window, scale,
-                                   act_dtype, s);
-    case kI8:
-      return by_dim<int8_t>(D, Dv, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens, nvalid,
-                            out, B, H, Hkv, C, nblk, ps, MB, window, scale, act_dtype, s);
-    case kFP8:
-      return by_dim<__nv_fp8_e4m3>(D, Dv, expmul, q, k, v, ks, vs, kn, vn, ksn, vsn, bt, lens,
-                                   nvalid, out, B, H, Hkv, C, nblk, ps, MB, window, scale,
-                                   act_dtype, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kF32: return paged_prefill_part::run_f32(c);
+    case kBF16: return paged_prefill_part::run_bf16(c);
+    case kI8: return paged_prefill_part::run_i8(c);
+    case kFP8: return paged_prefill_part::run_fp8(c);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The dynamic shared memory, in bytes, that paged_prefill gives each CTA at
-// head dims (D, Dv) and page size ps (independent of every length); -1 past
-// kMaxHeadDim or kMaxPage.
+// head dims (D, Dv) and page size ps (independent of every length, and the
+// same on either walk); -1 past kMaxHeadDim or kMaxPage.
 extern "C" long long paged_prefill_smem(int D, int Dv, int ps) {
-  if (D <= 0 || Dv <= 0 || ps <= 0 || ps > kMaxPage) return -1;
+  if (!dims_ok(D, Dv, ps)) return -1;
   switch (square_width(D > Dv ? D : Dv)) {
     case 16: return static_cast<long long>(Smem<16>::bytes(ps));
     case 32: return static_cast<long long>(Smem<32>::bytes(ps));
@@ -439,3 +504,4 @@ extern "C" long long paged_prefill_smem(int D, int Dv, int ps) {
     default: return -1;
   }
 }
+#endif

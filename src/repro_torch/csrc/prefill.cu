@@ -270,20 +270,49 @@ Dims built_dims(int D, int Dv) {
   return Dims{w, w};
 }
 
+}  // namespace
+
+namespace prefill_part {
+
+// one call of the C entry contiguous_prefill, as the parts pass it on
+struct Call {
+  const void *q, *kc, *vc;
+  const float *ksc, *vsc;
+  const void *kn, *vn;
+  const float *ksn, *vsn;
+  const int *lens, *nvalid;
+  void* out;
+  int B, H, Hkv, C, D, Dv, S, bk, window, rolling;
+  float scale;
+  int expmul, act_dtype;
+  cudaStream_t stream;
+};
+
+// each KV dtype's launches, defined in that dtype's part of the build
+int run_f32(const Call& c);
+int run_bf16(const Call& c);
+int run_i8(const Call& c);
+int run_fp8(const Call& c);
+
+}  // namespace prefill_part
+
+namespace {
+
+using prefill_part::Call;
+
 template <typename KV>
-int by_dims(int D, int Dv, int expmul, const void* q, const void* kc, const void* vc,
-            const float* ksc, const float* vsc, const void* kn, const void* vn,
-            const float* ksn, const float* vsn, const int* lens, const int* nvalid, void* out,
-            int B, int H, int Hkv, int C, int S, int bk, int window, int rolling, float scale,
-            int act_dtype, cudaStream_t s) {
+int by_dims(const Call& c) {
 #define REPRO_LAUNCH(DK, DV)                                                                  \
-  return expmul ? launch<KV, DK, DV, true>(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens,       \
-                                           nvalid, out, B, H, Hkv, C, S, bk, window, rolling, \
-                                           scale, act_dtype, D, Dv, s)                        \
-                : launch<KV, DK, DV, false>(q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens,      \
-                                            nvalid, out, B, H, Hkv, C, S, bk, window,         \
-                                            rolling, scale, act_dtype, D, Dv, s)
-  const Dims w = built_dims<KV>(D, Dv);
+  return c.expmul                                                                            \
+             ? launch<KV, DK, DV, true>(c.q, c.kc, c.vc, c.ksc, c.vsc, c.kn, c.vn, c.ksn,    \
+                                        c.vsn, c.lens, c.nvalid, c.out, c.B, c.H, c.Hkv,     \
+                                        c.C, c.S, c.bk, c.window, c.rolling, c.scale,        \
+                                        c.act_dtype, c.D, c.Dv, c.stream)                    \
+             : launch<KV, DK, DV, false>(c.q, c.kc, c.vc, c.ksc, c.vsc, c.kn, c.vn, c.ksn,   \
+                                         c.vsn, c.lens, c.nvalid, c.out, c.B, c.H, c.Hkv,    \
+                                         c.C, c.S, c.bk, c.window, c.rolling, c.scale,       \
+                                         c.act_dtype, c.D, c.Dv, c.stream)
+  const Dims w = built_dims<KV>(c.D, c.Dv);
   if constexpr (!IsCode<KV>::value) {
     if (w.k == 96 && w.v == 64) REPRO_LAUNCH(96, 64);
   }
@@ -301,6 +330,20 @@ int by_dims(int D, int Dv, int expmul, const void* q, const void* kc, const void
 
 }  // namespace
 
+#if REPRO_IN_PART(REPRO_PART_F32)
+int prefill_part::run_f32(const Call& c) { return by_dims<float>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_BF16)
+int prefill_part::run_bf16(const Call& c) { return by_dims<__nv_bfloat16>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_I8)
+int prefill_part::run_i8(const Call& c) { return by_dims<int8_t>(c); }
+#endif
+#if REPRO_IN_PART(REPRO_PART_FP8)
+int prefill_part::run_fp8(const Call& c) { return by_dims<__nv_fp8_e4m3>(c); }
+#endif
+
+#if REPRO_IN_PART(REPRO_PART_F32)
 // q (B*H, C, D) f32/bf16; cache kc (B*Hkv, S, D) and vc (B*Hkv, S, Dv) of
 // kv_dtype and its scale rows ksc/vsc (B*Hkv, S) f32 for codes; chunk kn
 // (B*Hkv, C, D) and vn (B*Hkv, C, Dv) of kv_dtype and ksn/vsn (B*Hkv, C) f32
@@ -319,18 +362,16 @@ extern "C" int contiguous_prefill(const void* q, const void* kc, const void* vc,
   if (B <= 0 || C <= 0 || S < 0 || Hkv <= 0 || H % Hkv != 0 || bk <= 0 || bk > kMaxTile ||
       D <= 0 || D > kMaxHeadDim || Dv <= 0 || Dv > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DTYPE(KV)                                                                       \
-  return by_dims<KV>(D, Dv, expmul, q, kc, vc, ksc, vsc, kn, vn, ksn, vsn, lens, nvalid, out, \
-                     B, H, Hkv, C, S, bk, window, rolling, scale, act_dtype, s)
+  const Call c{q, kc, vc, ksc, vsc,    kn,   vn,    ksn,    vsn,       lens,
+               nvalid, out, B, H, Hkv, C, D, Dv, S, bk, window, rolling, scale, expmul,
+               act_dtype, static_cast<cudaStream_t>(stream)};
   switch (kv_dtype) {
-    case kF32: REPRO_DTYPE(float);
-    case kBF16: REPRO_DTYPE(__nv_bfloat16);
-    case kI8: REPRO_DTYPE(int8_t);
-    case kFP8: REPRO_DTYPE(__nv_fp8_e4m3);
+    case kF32: return prefill_part::run_f32(c);
+    case kBF16: return prefill_part::run_bf16(c);
+    case kI8: return prefill_part::run_i8(c);
+    case kFP8: return prefill_part::run_fp8(c);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef REPRO_DTYPE
 }
 
 // The dynamic shared memory, in bytes, that contiguous_prefill gives each CTA
@@ -352,3 +393,4 @@ extern "C" long long contiguous_prefill_smem(int D, int Dv, int bk, int kv_dtype
     default: return -1;
   }
 }
+#endif

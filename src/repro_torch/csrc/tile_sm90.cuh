@@ -59,6 +59,40 @@ __host__ __device__ constexpr int piece_of(uintptr_t bits) {
   return bits % 16 == 0 ? 16 : (bits % 4 == 0 ? 4 : 1);
 }
 
+// ---- the paged kernels' two walks (csrc/paged_decode.cu, paged_prefill.cu) --
+// Each paged kernel is instantiated twice a (KV dtype, width, variant): the
+// general walk takes every call of the contract; the whole-row walk takes
+// only calls at D == Dv == the built width, rows in 16-byte pieces and pages
+// the kernel stages at once, every test of the contract a constant. The host
+// chooses, never the kernel: `walk` is kWalkAuto (the whole-row walk where
+// the call qualifies), kWalkGeneral or kWalkWhole. Returns the walk taken,
+// or -1 for a forced whole-row walk on a call that does not qualify.
+enum : int { kWalkAuto = -1, kWalkGeneral = 0, kWalkWhole = 1 };
+
+inline int choose_walk(int walk, bool whole_fits) {
+  if (walk == kWalkAuto) return whole_fits ? kWalkWhole : kWalkGeneral;
+  if (walk == kWalkGeneral) return kWalkGeneral;
+  return walk == kWalkWhole && whole_fits ? kWalkWhole : -1;
+}
+
+// A source built in parts, one a KV dtype (kernels/build.py compiles it with
+// -DREPRO_PART=<the dtype's code>, the REPRO_PART_* below), keeps only its
+// part's kernels; the float32 part also holds the C entries, which reach
+// the other parts through declared functions. Without REPRO_PART one object
+// holds them all.
+#define REPRO_PART_F32 0
+#define REPRO_PART_BF16 1
+#define REPRO_PART_I8 2
+#define REPRO_PART_FP8 3
+static_assert(REPRO_PART_F32 == kF32 && REPRO_PART_BF16 == kBF16 && REPRO_PART_I8 == kI8 &&
+                  REPRO_PART_FP8 == kFP8,
+              "a part's number is its dtype's code");
+#ifdef REPRO_PART
+#define REPRO_IN_PART(P) (REPRO_PART == (P))
+#else
+#define REPRO_IN_PART(P) 1
+#endif
+
 // Copy `rows` rows of `row_bytes` bytes from global memory, row r starting at
 // src_row(r), to shared dst (rows `dst_stride` bytes apart), in pieces of
 // `piece` bytes (16 or 4 by cp.async; 1 by plain loads and stores, which the

@@ -1,20 +1,34 @@
 """Build and load the hand-written Hopper kernels of ``csrc/``.
 
-Each ``csrc/*.cu`` compiles on its own, with ``nvcc`` for ``sm_90a``, into
-a shared library with a plain C interface, loaded with ``ctypes``. The
-libraries go to ``build/`` beside this package (listed in ``.gitignore``)
-under a name that carries a hash of the sources, so an edited source is
-never served by a stale build. ``build_all()`` starts one ``nvcc`` per
-source at once and waits for all of them; ``start_all()`` starts them and
-returns, and ``load()`` of a library then waits for its build alone.
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C
+interface, loaded with ``ctypes``. A library is compiled in parts, each
+with ``nvcc -c`` for ``sm_90a`` into an object: one a KV dtype for the
+four serving kernels (``PARTS``: the same source with
+``-DREPRO_PART=<the dtype's code>``, keeping only that dtype's
+instantiations), one for flash and ExpMul, and linked by one
+``nvcc -shared``. The libraries go to
+``build/`` beside this package (listed in ``.gitignore``) under a name that
+carries a hash of the sources, the headers and every part's flags, so an
+edited source is never served by a stale build.
+
+``start_all()`` submits every part of every missing library to a pool
+of ``jobs()`` threads (the host's cores), each running one nvcc at a time,
+and returns; the thread that ends a library's last part links it.
+``load()`` of a library waits for its build alone, ``wait()`` for the
+named ones, and ``build_all()`` is both. A failed part fails its
+library's build with that part's log; no kernel falls back to its plain
+version. A process that exits while parts compile waits for them (the
+pool's threads are joined at exit), so no nvcc outlives it.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine without ``nvcc``.
 
 ``COUNTS`` records, per kernel, the launches of the CUDA kernel
 (``"<name>"``) and the calls of its plain PyTorch version
-(``"<name>_plain"``); ``chip_smoke.py`` reads it to show that the serving
-and training paths went through the kernels.
+(``"<name>_plain"``); the paged kernels also count their launches on the
+whole-row walk (``"<name>_whole"``, a part of ``"<name>"``; ``WALKS``).
+``chip_smoke.py`` reads it to show that the serving and training paths
+went through the kernels.
 
 ``DISPATCH_SINK`` is the one process-global observer of the attention
 wrappers (``kernels/flash/ops.py``, ``kernels/decode/ops.py``): when set
@@ -36,28 +50,72 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("paged_decode", "paged_prefill", "decode", "prefill", "flash",
-           "expmul")
+# in the order their builds start: ExpMul and flash first (the first
+# phases of chip_smoke.py load them), then the serving kernels' parts
+SOURCES = ("expmul", "flash", "paged_prefill", "paged_decode", "prefill",
+           "decode")
 HEADERS = ("tile.cuh", "tile_sm90.cuh")
+# the parts of a library compiled apart: one a KV dtype, numbered by
+# csrc/tile.cuh's dtype codes (tile_sm90.cuh: REPRO_PART); a source not
+# named here is one part
+KV_PARTS = ("f32", "bf16", "int8", "fp8")
+PARTS = {name: KV_PARTS for name in ("paged_decode", "paged_prefill",
+                                     "decode", "prefill")}
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
+
+# the paged kernels' walks (csrc/tile_sm90.cuh: kWalkAuto, kWalkGeneral,
+# kWalkWhole) and the suffix of a kernel's whole-row launch count
+WALKS = {"auto": -1, "general": 0, "whole": 1}
+WHOLE = "_whole"
 
 COUNTS: collections.Counter = collections.Counter()
 DISPATCH_SINK = None
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_PENDING: dict = {}   # name -> (nvcc process, tmp path, lib path, log, start)
-_SECONDS: dict = {}   # name -> its nvcc's seconds, once collected
+_BUILDS: dict = {}    # name -> _Build, while it builds and after
+_POOL: ThreadPoolExecutor | None = None
+_WALK = WALKS["auto"]
 
 
 def reset_counts():
     COUNTS.clear()
+
+
+def launch_counts(counts=None) -> dict:
+    """``counts`` (default ``COUNTS``) without the walk counts: each
+    kernel's launches and each plain version's calls."""
+    counts = COUNTS if counts is None else counts
+    return {k: n for k, n in counts.items() if not k.endswith(WHOLE)}
+
+
+def walk_code() -> int:
+    """The walk the paged kernels' wrappers ask for now (``forced_walk``)."""
+    return _WALK
+
+
+@contextlib.contextmanager
+def forced_walk(walk: str):
+    """Inside the block, every paged kernel launch asks for ``walk``
+    ("general", "whole" or "auto", as outside any block). A forced
+    "whole" on a call that does not qualify raises in the wrapper: the
+    kernel refuses it and nothing launches."""
+    global _WALK
+    before, _WALK = _WALK, WALKS[walk]
+    try:
+        yield
+    finally:
+        _WALK = before
 
 
 def set_dispatch_sink(sink) -> None:
@@ -108,6 +166,11 @@ def kv_label(codes, scale) -> str:
     return "int8" if str(codes.dtype) == "torch.int8" else "fp8"
 
 
+def jobs() -> int:
+    """How many nvcc processes run at once: the host's cores."""
+    return os.cpu_count() or 1
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     found = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
@@ -117,70 +180,156 @@ def _nvcc() -> str:
     return found
 
 
+def parts(name: str) -> tuple:
+    """The parts of library ``name``: its KV dtypes, or ("",), the whole
+    source."""
+    return PARTS.get(name, ("",))
+
+
+def part_flags(name: str, part: str) -> tuple:
+    """The flags that make ``part`` of ``name`` (none for a whole source)."""
+    return (f"-DREPRO_PART={KV_PARTS.index(part)}",) if part else ()
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for f in (f"{name}.cu",) + HEADERS:
         h.update((CSRC / f).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for part in parts(name):
+        h.update(f"|{part}:{' '.join(part_flags(name, part))}".encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _log_path(name: str, part: str) -> Path:
+    out = _lib_path(name)
+    return out.with_name(f"{out.stem}.{part or 'all'}.log")
+
+
+class _Build:
+    """One library's build: its parts' objects, then the link."""
+
+    def __init__(self, name):
+        self.name, self.out = name, _lib_path(name)
+        tag = f"{os.getpid()}"
+        self.tmp = self.out.with_suffix(f".{tag}.tmp")
+        self.objs = {p: self.out.with_name(f"{self.out.stem}.{p or 'all'}"
+                                           f".{tag}.o") for p in parts(name)}
+        self.left = len(self.objs)        # parts not yet ended
+        self.seconds: dict = {}            # part (or "link") -> seconds
+        self.start = self.end = None
+        self.errors: list = []
+        self.futures: list = []
+        self.lock = threading.Lock()
+
+    def run(self, part, cmd) -> bool:
+        """Run one nvcc (a part's compile, or the link) into its log; False,
+        with the error noted, if it failed."""
+        log = _log_path(self.name, part)
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            rc = subprocess.run(cmd, stdout=f,
+                                stderr=subprocess.STDOUT).returncode
+        self.seconds[part] = time.perf_counter() - t0
+        if rc != 0:
+            self.errors.append(
+                f"nvcc failed for {self.name}"
+                + (f" part {part}" if part else "")
+                + f" (log {log}):\n{log.read_text()}")
+        return rc == 0
+
+    def compile(self, part, cmd):
+        """A pool thread's job: compile ``part``; the thread that ends the
+        last part links the library, or with a failed part drops it."""
+        with self.lock:
+            if self.start is None:
+                self.start = time.perf_counter()
+        try:
+            self.run(part, cmd)
+        finally:
+            with self.lock:
+                self.left -= 1
+                last = self.left == 0
+        if not last:
+            return
+        if not self.errors and self.run("link", [
+                _nvcc(), *LINK_FLAGS, "-o", str(self.tmp),
+                *map(str, self.objs.values())]):
+            os.replace(self.tmp, self.out)
+        for path in [*self.objs.values(), self.tmp]:
+            path.unlink(missing_ok=True)
+        self.end = time.perf_counter()
+
+
 def start_all(names=SOURCES) -> None:
-    """Start one nvcc for every missing library of ``names``, all at once,
-    and return without waiting: ``load`` of a library waits for its own
-    build only, so work on a library that is ready runs while the others
-    compile. ``wait`` collects them."""
+    """Submit every part of every missing library of ``names``, in order,
+    to the pool and return without waiting. ``load`` of a library waits
+    for its own build only, so work on a library that is ready runs while
+    others compile; ``wait`` collects them."""
+    global _POOL
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if _POOL is None:
+        _POOL = ThreadPoolExecutor(jobs(), thread_name_prefix="nvcc")
     for name in names:
-        out = _lib_path(name)
-        if name in _PENDING or out.exists():
+        b = _BUILDS.get(name)
+        if (b is not None and not all(f.done() for f in b.futures)) or (
+                _lib_path(name).exists()):
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(out.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        _PENDING[name] = (subprocess.Popen(cmd, stdout=log,
-                                           stderr=subprocess.STDOUT),
-                          tmp, out, log, time.perf_counter())
+        b = _BUILDS[name] = _Build(name)
+        src = str(CSRC / f"{name}.cu")
+        b.futures = [_POOL.submit(b.compile, p, [
+            _nvcc(), *NVCC_FLAGS, *part_flags(name, p), "-c", "-o", str(o),
+            src]) for p, o in b.objs.items()]
 
 
 def wait(names=SOURCES) -> dict:
     """Wait for the builds of ``names`` that ``start_all`` started; returns
-    {name: seconds}, each its own nvcc's from its start (0.0 for a library
-    built by an earlier process); raises if an nvcc failed."""
-    procs = {name: _PENDING[name] for name in names if name in _PENDING}
+    {name: seconds}, each its build's from its first part's start to its
+    link's end (0.0 for a library built by an earlier process); raises if
+    a part failed, naming it, with its log."""
     failed = []
-    while procs:
-        for name, (proc, tmp, out, log, t0) in list(procs.items()):
-            rc = proc.poll()
-            if rc is None:
-                continue
-            log.close()
-            _SECONDS[name] = time.perf_counter() - t0
-            del procs[name], _PENDING[name]
-            if rc != 0:
-                failed.append(name)
-                continue
-            os.replace(tmp, out)
-        time.sleep(0.05)
+    for name in names:
+        b = _BUILDS.get(name)
+        if b is None:
+            continue
+        for f in b.futures:
+            f.result()          # an nvcc that could not start raises here
+        failed += b.errors
     if failed:
-        msgs = "\n".join(
-            f"--- {n} ---\n{_lib_path(n).with_suffix('.log').read_text()}"
-            for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{msgs}")
-    return {name: _SECONDS.get(name, 0.0) for name in names}
+        raise RuntimeError("\n".join(failed))
+    return {name: (b.end - b.start if (b := _BUILDS.get(name)) else 0.0)
+            for name in names}
+
+
+def part_seconds(names=SOURCES) -> dict:
+    """{name: {part: seconds}}: each nvcc process's seconds ("" the whole
+    source, "link" the link) of the builds this process ran."""
+    return {name: dict(_BUILDS[name].seconds) for name in names
+            if name in _BUILDS}
+
+
+def wall_seconds(names=SOURCES) -> float:
+    """Seconds from the first part's start to the last link's end of the
+    builds of ``names`` this process ran (0.0 if none)."""
+    runs = [_BUILDS[n] for n in names if n in _BUILDS and _BUILDS[n].end]
+    if not runs:
+        return 0.0
+    return max(b.end for b in runs) - min(b.start for b in runs)
 
 
 def build_all(names=SOURCES) -> dict:
-    """Compile every missing library in parallel and wait for them;
-    returns {name: seconds} (0.0 for a library that was already built)."""
+    """Compile every missing library, its parts in parallel, and wait for
+    them; returns {name: seconds} (0.0 for a library already built)."""
     start_all(names)
     return wait(names)
 
 
 def build_log(name: str) -> str:
-    """The compiler's output for ``name`` (registers, spills, smem)."""
-    path = _lib_path(name).with_suffix(".log")
-    return path.read_text() if path.exists() else ""
+    """The compiler's output for ``name``, part by part (registers,
+    spills, shared memory), then the link's."""
+    logs = [(p, _log_path(name, p)) for p in (*parts(name), "link")]
+    return "".join(f"# part {p or 'all'}\n{path.read_text()}"
+                   for p, path in logs if path.exists())
 
 
 def load(name: str, signature: dict) -> ctypes.CDLL:
@@ -190,7 +339,8 @@ def load(name: str, signature: dict) -> ctypes.CDLL:
     if lib is None:
         path = _lib_path(name)
         if not path.exists():   # waits for a build start_all began
-            build_all((name,))
+            start_all((name,))
+            wait((name,))
         lib = ctypes.CDLL(str(path))
         for fn, (restype, argtypes) in signature.items():
             getattr(lib, fn).restype = restype

@@ -38,6 +38,16 @@ block grows with the head dims, the part's rows, the page size and the KV
 dtype (``paged_decode_smem``, ``contiguous_decode_smem``, the kernels'
 own C queries); each wrapper checks it against the card's limit before
 the launch (``check_smem``) and raises a ``ValueError`` naming both.
+
+The paged pair (here and ``kernels/flash/prefill.py``) is built twice a
+width: a whole-row walk for calls at D == Dv == the built width over
+16-byte rows, pages they stage at once and (the decode) a group in one
+part, the main path's calls, and the general walk for the rest of the
+contract. A launch reports the walk it took through its C entry's
+``taken`` argument; the wrappers count the whole-row launches
+(``build.COUNTS["<name>_whole"]``) beside all of them, and
+``build.forced_walk`` forces either, a whole-row walk on a call that does
+not qualify raising.
 """
 from __future__ import annotations
 
@@ -66,8 +76,8 @@ KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURE = {NAME: (ctypes.c_int, [_P] * 8 + [_I] * 9 + [_F] + [_I] * 3
-                     + [_P]),
+_SIGNATURE = {NAME: (ctypes.c_int, [_P] * 8 + [_I] * 9 + [_F] + [_I] * 4
+                     + [ctypes.POINTER(_I), _P]),
               "paged_decode_smem": (ctypes.c_longlong, [_I] * 6)}
 _CONTIGUOUS_SIGNATURE = {
     "contiguous_decode": (ctypes.c_int, [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3
@@ -235,6 +245,7 @@ def paged_decode_fwd(bt, len1, q3, k4, v4, ks3=None, vs3=None, *, scale,
         return out
     lib = build.load(NAME, _SIGNATURE)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
+    taken = ctypes.c_int(-1)
     err = lib.paged_decode(
         q3.data_ptr(), k4.data_ptr(), v4.data_ptr(),
         ks3.data_ptr() if ks3 is not None else None,
@@ -242,9 +253,12 @@ def paged_decode_fwd(bt, len1, q3, k4, v4, ks3=None, vs3=None, *, scale,
         bt.data_ptr(), len1.data_ptr(), out.data_ptr(),
         bt.shape[0], num_kv_heads, group, D, Dv, k4.shape[0], page_size,
         bt.shape[1], window or 0, float(scale), int(variant == "expmul"),
-        ACT_DTYPES[q3.dtype], KV_DTYPES[k4.dtype], stream)
+        ACT_DTYPES[q3.dtype], KV_DTYPES[k4.dtype], build.walk_code(),
+        ctypes.byref(taken), stream)
     build.check(err, NAME)
     build.COUNTS[NAME] += 1
+    if taken.value == build.WALKS["whole"]:
+        build.COUNTS[NAME + build.WHOLE] += 1
     return _report_paged(out, bt, len1, q3, k4, v4, ks3, vs3, page_size)
 
 

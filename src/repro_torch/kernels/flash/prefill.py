@@ -43,7 +43,8 @@ Both kernels take their Pallas kernels' inputs: any head dims D, Dv up to
 256 (codes too), any GQA group, pages of up to 256 tokens
 (``decode.check_head_dims``, ``decode.check_page``); a call runs the
 narrowest built width that holds (D, Dv), its numbers the plain
-version's at the call's dims.
+version's at the call's dims. The paged kernel takes a whole-row walk or
+the general one, as the paged decode does (``kernels/decode/decode.py``).
 """
 from __future__ import annotations
 
@@ -75,8 +76,8 @@ BLOCK_Q = 128      # the reference's query block (cfg.attention_block_q)
 BLOCK_K = 512      # the reference's contiguous KV tile (cfg.attention_block_k)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURE = {NAME: (ctypes.c_int, [_P] * 13 + [_I] * 10 + [_F] + [_I] * 3
-                     + [_P]),
+_SIGNATURE = {NAME: (ctypes.c_int, [_P] * 13 + [_I] * 10 + [_F] + [_I] * 4
+                     + [ctypes.POINTER(_I), _P]),
               "paged_prefill_smem": (ctypes.c_longlong, [_I] * 3)}
 _CONTIGUOUS_SIGNATURE = {
     "contiguous_prefill": (ctypes.c_int, [_P] * 12 + [_I] * 10 + [_F]
@@ -255,6 +256,7 @@ def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
     lib = build.load(NAME, _SIGNATURE)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     ptr = (lambda t: None if t is None else t.data_ptr())
+    taken = ctypes.c_int(-1)
     err = lib.paged_prefill(
         q3.data_ptr(), k4.data_ptr(), v4.data_ptr(), ptr(ks3), ptr(vs3),
         kn3.data_ptr(), vn3.data_ptr(), ptr(ksn2), ptr(vsn2), bt.data_ptr(),
@@ -262,9 +264,12 @@ def paged_prefill_fwd(bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3=None,
         bt.shape[0], num_q_heads, num_kv_heads, C, D, Dv, k4.shape[0],
         page_size,
         bt.shape[1], window or 0, float(scale), int(variant == "expmul"),
-        ACT_DTYPES[q3.dtype], KV_DTYPES[k4.dtype], stream)
+        ACT_DTYPES[q3.dtype], KV_DTYPES[k4.dtype], build.walk_code(),
+        ctypes.byref(taken), stream)
     build.check(err, NAME)
     build.COUNTS[NAME] += 1
+    if taken.value == build.WALKS["whole"]:
+        build.COUNTS[NAME + build.WHOLE] += 1
     return _report_paged(out, bt, lengths, n_valid, q3, k4, v4, kn3, vn3, ks3,
                          ksn2, vsn2, page_size)
 

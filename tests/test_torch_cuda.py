@@ -1038,7 +1038,7 @@ def test_prefix_cache_warm_equals_cold_on_kernels(cuda, variant, kv_dtype):
         build.reset_counts()
         reqs = [eng.submit(p, 6, rid=i) for i, p in enumerate(prompts)]
         eng.run()
-        counts = dict(build.COUNTS)
+        counts = build.launch_counts()
         assert counts.get("paged_prefill") and counts.get("paged_decode")
         assert set(counts) == {"paged_prefill", "paged_decode"}, counts
         eng.pool.check_consistency()
@@ -1099,7 +1099,7 @@ def test_chaos_quarantines_only_the_victims_on_kernels(cuda, variant):
             eng.run(max_steps=500)
         finally:
             install_fault_injector(None)
-        counts = dict(build.COUNTS)
+        counts = build.launch_counts()
         eng.pool.check_consistency()
         assert eng.pool.used_blocks == 0
         for cache in eng.state["caches"]:
@@ -1194,7 +1194,7 @@ def _graph_run(cuda, cell, eager, prompts, fn_wrap=None, arch="qwen2-0.5b",
     reqs = [eng.submit(p, 8, rid=i) for i, p in enumerate(prompts)]
     eng.run()
     torch.cuda.synchronize()
-    return eng, [r.out for r in reqs], ticks, dict(build.COUNTS)
+    return eng, [r.out for r in reqs], ticks, build.launch_counts()
 
 
 @pytest.mark.cuda
@@ -1267,8 +1267,10 @@ def test_arctic_smoke_graph_ticks_equal_eager_ticks(cuda, cell):
     assert st["decode"]["replays"] == eng.decode_steps > 0
     assert st["prefill"]["replays"] == eng.prefill_steps > 0
     dec, pre = sorted(pair)
-    assert st["decode"]["launches_per_replay"] == {dec: cfg.num_layers}
-    assert st["prefill"]["launches_per_replay"] == {pre: cfg.num_layers}
+    assert build.launch_counts(
+        st["decode"]["launches_per_replay"]) == {dec: cfg.num_layers}
+    assert build.launch_counts(
+        st["prefill"]["launches_per_replay"]) == {pre: cfg.num_layers}
 
 
 @pytest.mark.cuda
@@ -1301,8 +1303,10 @@ def test_kimi_narrow_kernels_match_plain(cuda, cell):
                                                     for n in pair}
     st = eng.graph_stats()
     dec, pre = sorted(pair)
-    assert st["decode"]["launches_per_replay"] == {dec: cfg.num_layers}
-    assert st["prefill"]["launches_per_replay"] == {pre: cfg.num_layers}
+    assert build.launch_counts(
+        st["decode"]["launches_per_replay"]) == {dec: cfg.num_layers}
+    assert build.launch_counts(
+        st["prefill"]["launches_per_replay"]) == {pre: cfg.num_layers}
 
 
 @pytest.mark.cuda
@@ -1328,8 +1332,10 @@ def test_recurrentgemma_smoke_graph_ticks_equal_eager_ticks(cuda, cell):
     st = eng.graph_stats()
     assert st["decode"]["replays"] == eng.decode_steps > 0
     dec, pre = sorted(pair)
-    assert st["decode"]["launches_per_replay"] == {dec: 1}
-    assert st["prefill"]["launches_per_replay"] == {pre: 1}
+    assert build.launch_counts(
+        st["decode"]["launches_per_replay"]) == {dec: 1}
+    assert build.launch_counts(
+        st["prefill"]["launches_per_replay"]) == {pre: 1}
 
 
 @pytest.mark.cuda
@@ -1461,13 +1467,16 @@ def test_graph_ticks_equal_eager_ticks(cuda, cell):
     for kind in ("prefill", "decode"):
         assert st[kind]["captured"] and st[kind]["replays"] > 0
         assert st[kind]["replays"] == getattr(eng, f"{kind}_steps")
-        for name, n in st[kind]["launches_per_replay"].items():
+        for name, n in build.launch_counts(
+                st[kind]["launches_per_replay"]).items():
             want[name] = want.get(name, 0) + n * st[kind]["replays"]
     assert gcounts == want and set(gcounts) == pair
     dec, pre = sorted(pair)
     layers = eng.cfg.num_layers
-    assert st["prefill"]["launches_per_replay"] == {pre: layers}
-    assert st["decode"]["launches_per_replay"] == {dec: layers}
+    assert build.launch_counts(
+        st["prefill"]["launches_per_replay"]) == {pre: layers}
+    assert build.launch_counts(
+        st["decode"]["launches_per_replay"]) == {dec: layers}
 
 
 @pytest.mark.cuda
@@ -1570,13 +1579,18 @@ def test_serving_kernels_take_the_pallas_contract(cuda, name, D, Dv, kv,
                                                   group, ps, variant):
     """A serving kernel at a width off its builds, Dv != D over codes, a
     group split into parts or a page over 64 tokens: within
-    ``kernel_tol`` of its plain version (bfloat16 q), its idle row 0."""
+    ``kernel_tol`` of its plain version (bfloat16 q), its idle row 0. The
+    paged pair on its general walk (some cases also qualify for the
+    whole-row walk, which ``test_paged_whole_row_walk_*`` holds)."""
     run, case, idle = contract_case(np.random.default_rng(D + group + ps),
                                     name, D=D, Dv=Dv, kv=kv, group=group,
                                     page_size=ps, device=cuda)
-    before = build.COUNTS[name]
-    got = run(case, variant)
-    assert build.COUNTS[name] == before + 1
+    before = dict(build.COUNTS)
+    with build.forced_walk("general"):
+        got = run(case, variant)
+    assert build.COUNTS[name] == before.get(name, 0) + 1
+    assert build.COUNTS[name + build.WHOLE] == before.get(
+        name + build.WHOLE, 0)
     ref = run(case, variant, plain=True)
     torch.cuda.synchronize()
     assert rel_err(got, ref) <= kernel_tol(variant, torch.bfloat16)
@@ -1614,3 +1628,54 @@ def test_serving_kernels_refuse_past_the_contract(cuda, name, what):
     with pytest.raises(ValueError, match="outside"):
         run(case, "expmul")
     assert dict(build.COUNTS) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["paged_decode", "paged_prefill"])
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("variant", ["exact", "expmul"])
+def test_paged_whole_row_walk_is_the_general_walk_bit_for_bit(cuda, name, ps,
+                                                              variant):
+    """At the main shapes (D 64, int8 codes, 14 / 2 heads, bfloat16 q) a
+    call takes the whole-row walk (its count moves), and its output is the
+    forced general walk's bit for bit."""
+    rng = np.random.default_rng(ps)
+    common = dict(B=4, H=14, Hkv=2, D=64, page_size=ps,
+                  max_blocks=2048 // ps, kv="int8", q_dtype=torch.bfloat16,
+                  dyadic=False, device=cuda)
+    if name == "paged_decode":
+        run, case = run_decode, paged_case(rng, lengths=[1000, 0, 517, 1],
+                                           **common)
+    else:
+        run, case = run_prefill, paged_case(
+            rng, lengths=[700, 0, 0, 300], n_valid=[256, 0, 100, 17],
+            chunk=256, **common)
+    whole = name + build.WHOLE
+    before = dict(build.COUNTS)
+    got = run(case, variant)
+    with build.forced_walk("general"):
+        gen = run(case, variant)
+    torch.cuda.synchronize()
+    assert build.COUNTS[name] == before.get(name, 0) + 2
+    assert build.COUNTS[whole] == before.get(whole, 0) + 1
+    assert same_bits(got, gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["paged_decode", "paged_prefill"])
+def test_paged_forced_whole_row_walk_off_the_builds_raises(cuda, name):
+    """A forced whole-row walk at a contract shape off the built widths
+    (D 80) is refused by the kernel before any launch and raises; the same
+    call unforced launches on the general walk."""
+    run, case, _ = contract_case(np.random.default_rng(0), name, D=80,
+                                 kv="int8", device=cuda)
+    before = dict(build.COUNTS)
+    with build.forced_walk("whole"), pytest.raises(RuntimeError,
+                                                   match="cudaError"):
+        run(case, "expmul")
+    assert dict(build.COUNTS) == before
+    run(case, "expmul")
+    torch.cuda.synchronize()
+    assert build.COUNTS[name] == before.get(name, 0) + 1
+    assert build.COUNTS[name + build.WHOLE] == before.get(
+        name + build.WHOLE, 0)

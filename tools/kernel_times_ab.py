@@ -11,9 +11,12 @@ alternating (parent, change, change, parent). A run builds the checkout's
 kernels from its ``src/repro_torch/csrc`` and times them through its own
 ``chip_smoke.py`` phase 5 (the serving kernels at the serving shapes,
 flash at the training shapes, ExpMul at the flash recurrence's; the median
-of 25 runs between CUDA events, L2 flushed before each). It prints the
-card's name and power limit first, then every run's times and each
-checkout's median over its runs, in ms.
+of 25 runs between CUDA events, L2 flushed before each; a checkout whose
+paged kernels have two walks also gives their forced general walk's, as
+"<name> general"). It prints the card's name and power limit first, then
+each build's nvcc seconds (by library, and by part where a checkout's
+build has parts), every run's times and each checkout's median over its
+runs, in ms.
 """
 from __future__ import annotations
 
@@ -24,15 +27,23 @@ import sys
 from pathlib import Path
 
 ONE = """
-import json, sys
+import json, os, sys
 sys.path[:0] = [{src!r}, {root!r}]
 import torch
 import torch.nn.functional as F
 import chip_smoke
 from repro_torch.kernels import build, checks
-build.build_all()
+secs = build.build_all()
+if any(secs.values()):
+    print("BUILD " + json.dumps(dict(
+        seconds=secs, cores=os.cpu_count(),
+        parts=getattr(build, "part_seconds", dict)(),
+        wall=getattr(build, "wall_seconds", lambda: max(secs.values()))())))
 times = chip_smoke.phase_times(torch, checks, F)
-print("AB " + json.dumps({{k: v["ms"] for k, v in times.items()}}))
+ms = {{k: v["ms"] for k, v in times.items()}}
+ms.update({{k + " general": v["ms_general"] for k, v in times.items()
+           if "ms_general" in v}})
+print("AB " + json.dumps(ms))
 """
 
 
@@ -55,6 +66,9 @@ def main(argv=None) -> int:
         if out.returncode or not line:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
             return 1
+        for l in out.stdout.splitlines():
+            if l.startswith("BUILD "):
+                print(f"{d.name}: build, nvcc seconds {l[6:]}", flush=True)
         runs.append((d, json.loads(line[0][3:])))
         print(f"{d.name}: " + json.dumps(runs[-1][1]), flush=True)
     for d in dict.fromkeys(d for d, _ in runs):
